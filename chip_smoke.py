@@ -1,0 +1,438 @@
+#!/usr/bin/env python3
+"""Smoke test of the PyTorch/CUDA port (`pipeedge_tpu_torch`) on one GPU.
+
+    python3 chip_smoke.py
+
+Phases, each of which raises on failure (nothing is caught):
+  1. card and toolchain: `nvidia-smi` name and power limit, torch and CUDA;
+  2. build: compile the kernels of `pipeedge_tpu_torch/csrc/` for sm_90a;
+  3. kernels against their plain PyTorch versions on the card, and their
+     times beside the plain version's, a library call's and the bound:
+     - edge codec encode/decode, bits 4 and 8, at ViT-Base's edge
+       [8, 197, 768], an odd tail [3, 37] and with a zero-range item:
+       words, scale, shift and decoded values bit-identical;
+     - attention at [96, 197, 64] f32, [128, 257, 80] f32 (ViT-H), causal
+       [8, 1024, 64] f32, [96, 197, 64] bf16, and the main path's strided
+       [8, 197, 12, 64] f32, within the tolerances stated below;
+  4. the main path: ViT-Base at full width (seeded random weights in the
+     Google npz format) through `parallel.pipeline.build_pipeline`, two
+     stages cut at `-pt 1,21,22,48` (a (ctx, residual) 2-tuple edge),
+     batch 64 in microbatches of 8, f32, at edge bits 0, 8 and 4:
+     - bit 0: the logits equal the single-shard forward on the card;
+     - bits 8 and 4: the logits lie within the stated bound;
+     - launch counts: 12 attention launches per microbatch, and 2 encode
+       plus 2 decode launches per quantized microbatch;
+     then one more pass with an 8-bit edge under torch.profiler: device
+     time by kernel and the device's busy share.
+Then one `{"kernels": [...]}` JSON line and, last, the device line
+`{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}`.
+
+Exits nonzero, and prints no result, without a CUDA device.
+"""
+from __future__ import annotations
+
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+ROOT = Path(__file__).resolve().parent
+MODEL = "google/vit-base-patch16-224"
+PARTITION = [(1, 21), (22, 48)]
+BATCH, UBATCH = 64, 8
+
+# Published peaks of one H100 SXM (NVIDIA data sheet, dense, 700 W)
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {torch.float32: 67e12,     # f32 outside the tensor cores
+              torch.bfloat16: 989e12}   # bf16 tensor cores
+
+# Kernel vs plain version on the card. Codec: bit-identical (same IEEE
+# ops, no contraction, round half to even). Attention: online vs dense
+# softmax sum in different orders; the plain version's f32 matmuls run in
+# full f32 (TF32 off, set below). bf16: both round the same f32 result to
+# bf16, which may land one bf16 ulp (2^-8 relative) apart.
+ATTN_TOL = {torch.float32: dict(rtol=2e-4, atol=2e-5),
+            torch.bfloat16: dict(rtol=1e-2, atol=1e-2)}
+
+# Quantized-edge logits against the exact single-shard logits, as a share
+# of max |exact logit|. The JAX package's own pipeline test bounds 8-bit
+# edge logits at 0.5 of that scale (tests/test_pipeline.py); here 8 bits
+# must stay within 0.1 and 4 bits (16x coarser steps) within 0.5, and the
+# 4-bit error must exceed the 8-bit one, which must exceed zero.
+LOGIT_BOUND = {8: 0.1, 4: 0.5}
+
+REPLACES = {
+    "fused_encode": "pipeedge_tpu/ops/fused_quant.py:115",
+    "fused_decode": "pipeedge_tpu/ops/fused_quant.py:153",
+    "fused_attention": "pipeedge_tpu/ops/attention.py:92",
+}
+SOURCES = {
+    "fused_encode": "pipeedge_tpu_torch/csrc/fused_quant.cu",
+    "fused_decode": "pipeedge_tpu_torch/csrc/fused_quant.cu",
+    "fused_attention": "pipeedge_tpu_torch/csrc/attention.cu",
+}
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def time_ms(fn, iters: int = 20, reps: int = 7) -> float:
+    """Device time of one `fn()` call: a CUDA graph of `iters` calls,
+    replayed `reps` times between CUDA events; the median per call.
+    Inputs stay in L2 between calls, as they are on the main path, where
+    the producer has just written them."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / iters)
+    return statistics.median(times)
+
+
+# --- phase 3: kernels against their plain versions ------------------------
+
+def codec_bytes(shape, bit: int) -> int:
+    """Bytes the encode (or decode) must move: the f32 activation once,
+    the packed words once, the per-item scale and shift once."""
+    from pipeedge_tpu_torch.ops.quant import packed_words
+    b, n = shape[0], int(np.prod(shape[1:]))
+    return b * n * 4 + b * packed_words(n, bit) * 4 + b * 8
+
+
+def check_codec(dev, gen):
+    from pipeedge_tpu_torch.ops import fused_quant, quant
+    rows = {}
+    for shape, zero_item in (((8, 197, 768), True), ((3, 37), True),
+                             ((8, 197, 768), False)):
+        for bit in (8, 4):
+            x = torch.randn(shape, generator=gen, device=dev) * 3.0
+            if zero_item:
+                x[1] = 0.75
+            enc = fused_quant.fused_encode_outerdim(x, bit)
+            ref = quant.tensor_encode_outerdim(x, bit)
+            torch.cuda.synchronize()
+            for name in ("data", "scale", "shift"):
+                got, want = getattr(enc, name), getattr(ref, name)
+                if not torch.equal(got, want):
+                    bad = int((got != want).sum())
+                    raise AssertionError(
+                        f"encode {shape} bit {bit}: {name} differs in "
+                        f"{bad} of {want.numel()} entries")
+            dec = fused_quant.fused_decode_outerdim(enc)
+            dref = quant.tensor_decode_outerdim(ref)
+            torch.cuda.synchronize()
+            dec_err = float((dec - dref).abs().max())
+            if not torch.equal(dec, dref):
+                raise AssertionError(f"decode {shape} bit {bit}: max "
+                                     f"|diff| {dec_err}")
+            enc_err = max(float((enc.scale - ref.scale).abs().max()),
+                          float((enc.shift - ref.shift).abs().max()))
+            log(f"codec {shape} bit {bit} zero_item={zero_item}: "
+                f"bit-identical")
+            if shape == (8, 197, 768) and not zero_item:
+                nbytes = codec_bytes(shape, bit)
+                rows[("fused_encode", bit)] = dict(
+                    shape=list(shape), bit=bit, max_abs_err=enc_err,
+                    ms=time_ms(lambda: fused_quant.fused_encode_outerdim(x, bit)),
+                    plain_ms=time_ms(lambda: quant.tensor_encode_outerdim(x, bit)),
+                    bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+                    library_ms=None)
+                rows[("fused_decode", bit)] = dict(
+                    shape=list(shape), bit=bit, max_abs_err=dec_err,
+                    ms=time_ms(lambda: fused_quant.fused_decode_outerdim(enc)),
+                    plain_ms=time_ms(lambda: quant.tensor_decode_outerdim(ref)),
+                    bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+                    library_ms=None)
+    return rows
+
+
+def attention_bound_ms(b, h, s, d, dtype, causal):
+    elem = torch.tensor([], dtype=dtype).element_size()
+    nbytes = 4 * b * h * s * d * elem          # q, k, v read; o written
+    pairs = s * (s + 1) // 2 if causal else s * s
+    flops = 4 * b * h * pairs * d              # q k^T and p v
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = flops / PEAK_FLOPS[dtype]
+    return max(t_bytes, t_ops) * 1e3, ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def check_attention(dev, gen):
+    import torch.nn.functional as F
+    from pipeedge_tpu_torch.ops import attention
+    rows = []
+    cases = [("bhsd", (96, 197, 64), torch.float32, False),
+             ("bhsd", (128, 257, 80), torch.float32, False),
+             ("bhsd", (8, 1024, 64), torch.float32, True),
+             ("bhsd", (96, 197, 64), torch.bfloat16, False),
+             ("bshd", (8, 197, 12, 64), torch.float32, False)]
+    for layout, shape, dtype, causal in cases:
+        q, k, v = (torch.randn(shape, generator=gen, device=dev).to(dtype)
+                   for _ in range(3))
+        if layout == "bhsd":
+            def kern():
+                return attention.fused_attention_bhsd(q, k, v, causal=causal)
+
+            def plain():
+                return attention.attention_reference(q, k, v, causal)
+
+            def library():
+                return F.scaled_dot_product_attention(
+                    q[:, None], k[:, None], v[:, None], is_causal=causal)
+            b, h, s, d = shape[0], 1, shape[1], shape[2]
+        else:
+            flip = (0, 2, 1, 3)
+
+            def kern():
+                return attention.fused_attention(q, k, v, causal=causal)
+
+            def plain():
+                return attention.attention_reference(
+                    q.permute(flip), k.permute(flip), v.permute(flip),
+                    causal).permute(flip)
+
+            def library():
+                return F.scaled_dot_product_attention(
+                    q.permute(flip), k.permute(flip), v.permute(flip),
+                    is_causal=causal)
+            b, s, h, d = shape
+        got, want = kern(), plain()
+        torch.cuda.synchronize()
+        err = float((got.float() - want.float()).abs().max())
+        tol = ATTN_TOL[dtype]
+        torch.testing.assert_close(got.float(), want.float(), **tol)
+        bound, bound_by = attention_bound_ms(b, h, s, d, dtype, causal)
+        row = dict(layout=layout, shape=list(shape),
+                   dtype=str(dtype).replace("torch.", ""), causal=causal,
+                   max_abs_err=err, ms=time_ms(kern), plain_ms=time_ms(plain),
+                   library_ms=time_ms(library), bound_ms=bound,
+                   bound_by=bound_by)
+        log("attention " + json.dumps(row))
+        rows.append(row)
+    return rows
+
+
+# --- phase 4: the main path ------------------------------------------------
+
+def main_path(device: str, model: str = MODEL, partition=PARTITION,
+              batch: int = BATCH, ubatch: int = UBATCH,
+              weights_dir: Path = ROOT / "pipeedge_tpu_torch" / "_build",
+              profile: bool = False):
+    """Drive the port's pipeline at bits 0, 8 and 4; returns a dict of
+    per-bit results with the kernel launch counts of each run. With
+    `profile`, one more pass with an 8-bit edge runs under torch.profiler
+    and its device-time breakdown is printed (the CPU rehearsal of this
+    function leaves it off: the profile reads CUDA kernels)."""
+    from pipeedge_tpu_torch.models import edge_arity, registry, vit
+    from pipeedge_tpu_torch.ops import _build
+    from pipeedge_tpu_torch.parallel.pipeline import build_pipeline
+    from pipeedge_tpu_torch.utils import data as data_utils
+
+    cfg = registry.get_model_config(model)
+    weights_dir.mkdir(parents=True, exist_ok=True)
+    weights_file = weights_dir / f"{model.replace('/', '_')}-random-seed0.npz"
+    t0 = time.monotonic()
+    np.savez(weights_file, **vit.random_npz_weights(cfg, seed=0))
+    log(f"weights: {weights_file.name} "
+        f"({weights_file.stat().st_size / 2**20:.1f} MiB) in "
+        f"{time.monotonic() - t0:.1f} s")
+    dataset = data_utils.synthetic_image_dataset(
+        batch, shape=(cfg.num_channels, cfg.image_size, cfg.image_size))
+    inputs = [torch.from_numpy(x).to(device)
+              for x, _ in data_utils.batch_dataset(dataset, ubatch)]
+    n_mb = len(inputs)
+
+    fn, params, _ = registry.module_shard_factory(
+        model, str(weights_file), 1, registry.get_model_layers(model),
+        device=device)
+    exact = [fn(params, x) for x in inputs]
+    del params
+
+    pipe = build_pipeline(model, partition, model_file=str(weights_file),
+                          device=device, quant_bits=[0] * len(partition))
+    blocks = cfg.num_hidden_layers
+    results = {}
+    for bit in (0, 8, 4):
+        for stage in pipe.stages[:-1]:
+            stage.quant_bit = bit
+        pipe.run(inputs)                  # warm-up (not counted)
+        _build.reset_launch_counts()
+        outs, stats = pipe.run(inputs)
+        counts = dict(_build.launch_counts)
+        scale = max(float(e.abs().max()) for e in exact)
+        err = max(float((o - e).abs().max()) for o, e in zip(outs, exact))
+        equal = all(torch.equal(o, e) for o, e in zip(outs, exact))
+        results[bit] = dict(
+            counts=counts, rel_err=err / scale, max_abs_err=err,
+            equal=equal, items_per_s=stats["throughput_items_sec"],
+            steady_items_per_s=stats.get("steady_state_throughput_items_sec"),
+            p50_ms=stats["latency_breakdown"]["steady_p50_ms"],
+            host_dispatch_ms=stats["host_dispatch_s_per_ubatch"] * 1e3,
+            finite=all(bool(torch.isfinite(o).all()) for o in outs),
+            shape=list(outs[0].shape))
+        # one codec launch per tensor of each quantized edge: the cut
+        # after sublayer 21 leaves a (ctx, residual) 2-tuple
+        edge_tensors = sum(edge_arity(r) for _, r in partition[:-1])
+        want = {"fused_attention": blocks * n_mb,
+                "fused_encode": edge_tensors * n_mb if bit else 0,
+                "fused_decode": edge_tensors * n_mb if bit else 0}
+        results[bit]["expected_counts"] = want
+        results[bit]["expected_shape"] = [ubatch, cfg.num_labels]
+    if profile:
+        profile_pass(pipe, inputs)
+    return results
+
+
+def profile_pass(pipe, inputs) -> None:
+    """Device time by kernel over one warm pass of the pipeline with an
+    8-bit edge, and the device's busy share of the pass's wall time
+    (kernel time summed over both stage streams, so overlap between the
+    stages can lift it above what one stream shows)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for stage in pipe.stages[:-1]:
+        stage.quant_bit = 8
+    pipe.run(inputs)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        pipe.run(inputs)
+        torch.cuda.synchronize()
+        wall_ms = (time.monotonic() - t0) * 1e3
+    # device-side events only: CPU ops (aten::addmm...) carry the device
+    # time of the kernels they launch as well
+    kernels = [(e.key, e.self_device_time_total / 1e3, e.count)
+               for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA
+               and e.self_device_time_total > 0]
+    kernels.sort(key=lambda k: -k[1])
+    total = sum(ms for _, ms, _ in kernels)
+    log("profile " + json.dumps({
+        "wall_ms": wall_ms, "device_ms": total,
+        "device_busy_share": total / wall_ms,
+        "top": [dict(kernel=name[:90], ms=ms, calls=calls,
+                     share=ms / total) for name, ms, calls in kernels[:15]],
+    }))
+
+
+def check_main_path(results, device_name: str):
+    for bit, r in results.items():
+        log(f"main path bit {bit}: " + json.dumps(
+            {**r, "card": device_name}, sort_keys=True))
+        if r["shape"] != r["expected_shape"] or not r["finite"]:
+            raise AssertionError(f"bit {bit}: logits of shape {r['shape']}, "
+                                 f"finite={r['finite']}")
+        if r["counts"] != r["expected_counts"]:
+            raise AssertionError(f"bit {bit}: launch counts {r['counts']} "
+                                 f"!= {r['expected_counts']}")
+        if bit == 0 and not r["equal"]:
+            raise AssertionError(f"bit 0: pipeline logits differ from the "
+                                 f"single-shard forward by "
+                                 f"{r['max_abs_err']}")
+        if bit and r["rel_err"] > LOGIT_BOUND[bit]:
+            raise AssertionError(f"bit {bit}: logit error {r['rel_err']} of "
+                                 f"the logit scale > {LOGIT_BOUND[bit]}")
+    if not results[4]["rel_err"] > results[8]["rel_err"] > 0:
+        raise AssertionError("quantized logit errors not ordered 4 > 8 > 0 "
+                             "bits")
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
+              "False)", file=sys.stderr)
+        return 2
+    from pipeedge_tpu_torch.ops import _build
+
+    # phase 1: card and toolchain
+    card = card_line()
+    device_name = torch.cuda.get_device_name(0)
+    log(card)
+    log(f"torch {torch.__version__} cuda {torch.version.cuda} "
+        f"python {sys.version.split()[0]}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+
+    # phase 2: build
+    t0 = time.monotonic()
+    _build.library()
+    log(f"build: {time.monotonic() - t0:.1f} s (nvcc "
+        f"{_build.build_seconds:.1f} s)")
+    for line in _build.ptxas_log.splitlines():
+        if "registers" in line or "spill" in line or line.startswith("=="):
+            log("ptxas " + line.strip())
+
+    # phase 3: kernels against their plain versions
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    codec_rows = check_codec(dev, gen)
+    for (name, bit), row in codec_rows.items():
+        log(f"{name} " + json.dumps(row))
+    attn_rows = check_attention(dev, gen)
+
+    # phase 4: the main path
+    results = main_path("cuda", profile=True)
+    check_main_path(results, device_name)
+
+    main_attn = attn_rows[-1]
+    kernels = []
+    for name in ("fused_encode", "fused_decode"):
+        row = codec_rows[(name, 8)]
+        kernels.append(dict(
+            name=name, route="cuda", source=SOURCES[name],
+            replaces=REPLACES[name], launches=results[8]["counts"][name],
+            max_abs_err=row["max_abs_err"], ms=row["ms"],
+            plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
+            bound_by=row["bound_by"], library_ms=None,
+            shape=row["shape"], bit=8))
+    kernels.append(dict(
+        name="fused_attention", route="cuda",
+        source=SOURCES["fused_attention"],
+        replaces=REPLACES["fused_attention"],
+        launches=results[8]["counts"]["fused_attention"],
+        max_abs_err=main_attn["max_abs_err"], ms=main_attn["ms"],
+        plain_ms=main_attn["plain_ms"], bound_ms=main_attn["bound_ms"],
+        bound_by=main_attn["bound_by"], library_ms=main_attn["library_ms"],
+        shape=main_attn["shape"], dtype=main_attn["dtype"]))
+    log(card)
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": device_name,
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,125 @@
+"""Transformer building blocks as plain functions on tensors.
+
+Port of `pipeedge_tpu/models/layers.py`. Parameters are nested dicts of
+tensors; dense kernels are stored [in, out] as in the JAX package (torch
+state dicts store [out, in] and are transposed at load time).
+
+An unmasked self-attention always goes through `ops.attention
+.fused_attention`: the hand-written kernel for CUDA tensors, the plain
+version for CPU tensors. (The JAX package routes its Pallas kernel only on
+a TPU at S >= 1024, a TPU measurement that does not carry over.)
+"""
+from __future__ import annotations
+
+import dataclasses
+import os
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from ..ops.attention import fused_attention
+
+
+@dataclasses.dataclass(frozen=True)
+class TransformerConfig:
+    """Static model hyperparameters (local constants: no network fetch)."""
+    model_type: str              # 'vit'
+    hidden_size: int
+    num_hidden_layers: int       # transformer blocks (sublayers = 4x this)
+    num_attention_heads: int
+    intermediate_size: int
+    layer_norm_eps: float = 1e-12
+    num_labels: int = 0
+    # vision
+    image_size: int = 224
+    patch_size: int = 16
+    num_channels: int = 3
+
+    @property
+    def head_dim(self) -> int:
+        return self.hidden_size // self.num_attention_heads
+
+    @property
+    def num_patches(self) -> int:
+        return (self.image_size // self.patch_size) ** 2
+
+
+_FAST_NUMERICS = None      # None = unset (consult the env var)
+
+
+def set_fast_numerics(enabled) -> None:
+    """Opt-in fast-numerics mode (also env PIPEEDGE_FAST_NUMERICS=1 when
+    this setter was never called or was reset; the programmatic toggle
+    wins): LayerNorm statistics run in the model dtype instead of float32,
+    and exact-erf GeLU becomes the tanh approximation. `None` resets to
+    the env. PyTorch runs eagerly, so the flag applies from the next call."""
+    global _FAST_NUMERICS
+    _FAST_NUMERICS = None if enabled is None else bool(enabled)
+
+
+def fast_numerics_enabled() -> bool:
+    if _FAST_NUMERICS is not None:
+        return _FAST_NUMERICS
+    env = os.getenv("PIPEEDGE_FAST_NUMERICS")
+    if env is not None:
+        return env.strip().lower() not in ("", "0", "false", "no", "off")
+    return False
+
+
+def layer_norm(p, x: torch.Tensor, eps: float) -> torch.Tensor:
+    """LayerNorm with scale/bias, statistics in float32 (model dtype under
+    fast numerics); population variance, as `jnp.var`."""
+    if fast_numerics_enabled():
+        mean = x.mean(dim=-1, keepdim=True)
+        var = x.var(dim=-1, keepdim=True, correction=0)
+        normed = (x - mean) * torch.rsqrt(var + eps)
+        return normed * p["scale"].to(x.dtype) + p["bias"].to(x.dtype)
+    xf = x.float()
+    mean = xf.mean(dim=-1, keepdim=True)
+    var = xf.var(dim=-1, keepdim=True, correction=0)
+    normed = (xf - mean) * torch.rsqrt(var + eps)
+    return (normed * p["scale"] + p["bias"]).to(x.dtype)
+
+
+def dense(p, x: torch.Tensor, tag: Optional[str] = None) -> torch.Tensor:
+    """x @ w + b with the kernel stored [in, out].
+
+    `tag` names the call site for the int8 compute path of the JAX
+    package; that path is not ported yet, so the tag is accepted and
+    ignored and every dense is exact."""
+    del tag
+    w = p["w"].to(x.dtype)
+    y = torch.addmm(p["b"].to(x.dtype), x.reshape(-1, x.shape[-1]), w)
+    return y.reshape(*x.shape[:-1], w.shape[-1])
+
+
+def self_attention(p, x: torch.Tensor, num_heads: int,
+                   causal: bool = False) -> torch.Tensor:
+    """Multi-head self-attention context (pre-projection) over [B, S, D].
+
+    Matches HF `ViTSelfAttention`: returns the concatenated per-head
+    context; the output projection lives in the next sublayer. The
+    softmax(QK^T)V core is `fused_attention` (module docstring)."""
+    b, s, d = x.shape
+    hd = d // num_heads
+    q = dense(p["q"], x).reshape(b, s, num_heads, hd)
+    k = dense(p["k"], x).reshape(b, s, num_heads, hd)
+    v = dense(p["v"], x).reshape(b, s, num_heads, hd)
+    return fused_attention(q, k, v, causal=causal).reshape(b, s, d)
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """Exact (erf) GeLU, as torch `nn.GELU()` (tanh under fast numerics)."""
+    return F.gelu(x, approximate="tanh" if fast_numerics_enabled() else "none")
+
+
+def patchify(x: torch.Tensor, patch: int) -> torch.Tensor:
+    """[B, H, W, C] -> [B, N, patch*patch*C] with (ph, pw, c) flattening
+    order, matching Google's ViT npz `embedding/kernel` [ph, pw, C, D]
+    reshaped to [ph*pw*C, D]."""
+    b, h, w, c = x.shape
+    nh, nw = h // patch, w // patch
+    x = x.reshape(b, nh, patch, nw, patch, c)
+    x = x.permute(0, 1, 3, 2, 4, 5)
+    return x.reshape(b, nh * nw, patch * patch * c)

@@ -1,0 +1,160 @@
+"""Build and load the port's CUDA kernels; count their launches.
+
+At first use, every `csrc/*.cu` is compiled for Hopper (`sm_90a`) with
+`nvcc`, one process per source started together, and the objects are
+linked into one shared library with a plain C interface, loaded through
+`ctypes`. The library's name carries a hash of the sources and flags, so
+an edit rebuilds and a stale build is never loaded. The build directory
+(`pipeedge_tpu_torch/_build/`) is listed in `.gitignore`.
+
+Every C entry point takes its pointers and the CUDA stream as `void *`
+and returns `cudaGetLastError()` after its launches; `check` raises on a
+nonzero code, so a refused launch never passes silently. There is no
+fallback: a failed build or launch raises.
+
+`launch_counts` holds one plain integer per kernel wrapper. A wrapper
+adds one where it launches its kernel (CUDA tensors only), so a run can
+show that its main path went through the kernels.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+from typing import Dict, List, Optional
+
+_PKG = Path(__file__).resolve().parents[1]
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-Xcompiler", "-fPIC"]
+
+KERNELS = ("fused_encode", "fused_decode", "fused_attention")
+launch_counts: Dict[str, int] = {name: 0 for name in KERNELS}
+
+_lib: Optional[ctypes.CDLL] = None
+_lock = threading.Lock()
+build_seconds: Optional[float] = None
+ptxas_log: str = ""
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_L = ctypes.c_int64
+# C signatures (csrc/*.cu, `extern "C"`); every entry returns cudaError_t
+_SIGNATURES = {
+    # x, data, scale, shift, partial, B, n, bit, chunk, vec, stream
+    "pe_fused_encode": [_P, _P, _P, _P, _P, _L, _L, _I, _L, _I, _P],
+    # data, scale, shift, out, B, n, bit, vec, stream
+    "pe_fused_decode": [_P, _P, _P, _P, _L, _L, _I, _I, _P],
+    # q, k, v, o, dtype, B, H, S, D, stride_b, stride_h, stride_s,
+    # causal, stream
+    "pe_fused_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I,
+                           _L, _L, _L, _I, _P],
+}
+
+
+def count_launch(name: str) -> None:
+    launch_counts[name] += 1
+
+
+def reset_launch_counts() -> None:
+    for name in launch_counts:
+        launch_counts[name] = 0
+
+
+def _sources() -> List[Path]:
+    return sorted(CSRC.glob("*.cu"))
+
+
+def _nvcc() -> str:
+    nvcc = shutil.which("nvcc")
+    if nvcc is None and Path("/usr/local/cuda/bin/nvcc").exists():
+        nvcc = "/usr/local/cuda/bin/nvcc"
+    if nvcc is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels of "
+                           "pipeedge_tpu_torch are built on a host with "
+                           "the CUDA toolkit")
+    return nvcc
+
+
+def _build() -> Path:
+    """Compile every csrc/*.cu in parallel and link one .so; returns it."""
+    global build_seconds, ptxas_log
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources():
+        digest.update(src.name.encode())
+        digest.update(src.read_bytes())
+    tag = digest.hexdigest()[:16]
+    lib_path = BUILD_DIR / f"libpipeedge_kernels_{tag}.so"
+    if lib_path.exists():
+        build_seconds = 0.0
+        return lib_path
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    t0 = time.monotonic()
+    work = BUILD_DIR / f"obj_{tag}_{os.getpid()}"
+    work.mkdir(exist_ok=True)
+    procs = []
+    for src in _sources():
+        obj = work / (src.stem + ".o")
+        cmd = [nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-c", str(src),
+               "-o", str(obj)]
+        procs.append((src, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    logs, failed = [], []
+    for src, _, proc in procs:
+        out, _ = proc.communicate()
+        logs.append(f"== {src.name}\n{out}")
+        if proc.returncode != 0:
+            failed.append(src.name)
+    ptxas_log = "\n".join(logs)
+    if failed:
+        raise RuntimeError(f"nvcc failed for {failed}:\n{ptxas_log}")
+    tmp = work / lib_path.name
+    link = subprocess.run(
+        [nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp),
+         *(str(obj) for _, obj, _ in procs)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    if link.returncode != 0:
+        raise RuntimeError(f"nvcc link failed:\n{link.stdout}")
+    os.replace(tmp, lib_path)
+    shutil.rmtree(work, ignore_errors=True)
+    build_seconds = time.monotonic() - t0
+    return lib_path
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built on first call."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(str(_build()))
+            for name, argtypes in _SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            lib.pe_error_string.argtypes = [ctypes.c_int]
+            lib.pe_error_string.restype = ctypes.c_char_p
+            _lib = lib
+    return _lib
+
+
+def check(code: int, what: str) -> None:
+    """Raise on a nonzero cudaError_t from a C entry point."""
+    if code != 0:
+        msg = library().pe_error_string(code).decode()
+        raise RuntimeError(f"CUDA launch of {what} failed: cudaError_t "
+                           f"{code} ({msg})")
+
+
+def stream_handle(device) -> int:
+    """Raw handle of PyTorch's current stream on `device`."""
+    import torch
+    return torch.cuda.current_stream(device).cuda_stream

@@ -1,0 +1,113 @@
+"""Edge-codec kernels: QuantPipe encode and decode on the H100.
+
+Port of `pipeedge_tpu/ops/fused_quant.py`. `fused_encode_outerdim` and
+`fused_decode_outerdim` launch the hand-written CUDA kernels of
+`csrc/fused_quant.cu` for a CUDA tensor and run the plain PyTorch ops of
+`ops/quant.py` for a CPU tensor. There is no mode switch and no probe: on
+the card the kernel runs or the call raises.
+
+Bit-identity contract: for bits 4 and 8, the kernels give the same packed
+words, scale, shift and decoded values as the plain ops on the same input
+on the card (`chip_smoke.py` holds them to it), and the plain encode gives
+the same words as the JAX package's `tensor_encode_outerdim`
+(tests/test_torch_quant.py).
+
+`encode_outerdim`/`decode_outerdim` are the one dispatch seam the pipeline
+uses; bitwidths other than 4 and 8 have no kernel, in the JAX package
+either (`FUSED_BITS`), and take the plain ops on every device.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from . import _build
+from . import quant as quant_ops
+
+# bitwidths with a kernel: int8 bytes and int4 nibbles, the wire workhorses
+FUSED_BITS = (4, 8)
+
+# elements per block of the encode kernel's min/max pass; the kernel reads
+# the value from its argument list (csrc/fused_quant.cu)
+ENCODE_CHUNK = 8192
+
+
+def _check_bit(bit: int) -> None:
+    if bit not in FUSED_BITS:
+        raise ValueError(f"fused codec supports bits {FUSED_BITS}, got {bit}")
+
+
+def fused_encode_outerdim(x: torch.Tensor, bit: int) -> quant_ops.QuantizedTensor:
+    """Per-item encode, bits 4 and 8: the CUDA kernel for a CUDA tensor,
+    the plain ops for a CPU tensor."""
+    _check_bit(bit)
+    if x.device.type == "cpu":
+        return quant_ops.tensor_encode_outerdim(x, bit)
+    if x.device.type != "cuda":
+        raise ValueError(f"fused encode runs on cuda or cpu, not {x.device}")
+    shape = tuple(x.shape)
+    b = shape[0]
+    n = math.prod(shape[1:])
+    flat = x.reshape(b, n).to(torch.float32).contiguous()
+    words = quant_ops.packed_words(n, bit)
+    chunks = -(-n // ENCODE_CHUNK)
+    data = torch.empty((b, words), dtype=torch.int32, device=x.device)
+    scale = torch.empty((b,), dtype=torch.float32, device=x.device)
+    shift = torch.empty((b,), dtype=torch.float32, device=x.device)
+    partial = torch.empty((b, 2 * chunks), dtype=torch.float32,
+                          device=x.device)
+    vec = int(n % 4 == 0 and flat.data_ptr() % 16 == 0)
+    lib = _build.library()
+    _build.check(lib.pe_fused_encode(
+        flat.data_ptr(), data.data_ptr(), scale.data_ptr(), shift.data_ptr(),
+        partial.data_ptr(), b, n, bit, ENCODE_CHUNK, vec,
+        _build.stream_handle(x.device)), "fused_encode")
+    _build.count_launch("fused_encode")
+    return quant_ops.QuantizedTensor(data=data, scale=scale, shift=shift,
+                                     shape=shape, bit=bit)
+
+
+def fused_decode_outerdim(enc: quant_ops.QuantizedTensor) -> torch.Tensor:
+    """Per-item decode, bits 4 and 8: the CUDA kernel for CUDA words, the
+    plain ops for CPU words."""
+    bit = enc.bit
+    _check_bit(bit)
+    dev = enc.data.device
+    if dev.type == "cpu":
+        return quant_ops.tensor_decode_outerdim(enc)
+    if dev.type != "cuda":
+        raise ValueError(f"fused decode runs on cuda or cpu, not {dev}")
+    shape = tuple(enc.shape)
+    b = shape[0]
+    n = math.prod(shape[1:])
+    if tuple(enc.data.shape) != (b, quant_ops.packed_words(n, bit)):
+        raise ValueError(f"packed words {tuple(enc.data.shape)} do not fit "
+                         f"shape {shape} at {bit} bits")
+    data = enc.data.contiguous()
+    scale = enc.scale.to(torch.float32).contiguous()
+    shift = enc.shift.to(torch.float32).contiguous()
+    out = torch.empty(shape, dtype=torch.float32, device=dev)
+    vec = int(n % 4 == 0)
+    lib = _build.library()
+    _build.check(lib.pe_fused_decode(
+        data.data_ptr(), scale.data_ptr(), shift.data_ptr(), out.data_ptr(),
+        b, n, bit, vec, _build.stream_handle(dev)), "fused_decode")
+    _build.count_launch("fused_decode")
+    return out
+
+
+def encode_outerdim(x: torch.Tensor, bit: int,
+                    mode: str = "original") -> quant_ops.QuantizedTensor:
+    """Per-outer-item encode: the codec kernel for bits 4 and 8 in
+    'original' mode, else the plain ops; bit-identical either way."""
+    if bit in FUSED_BITS and mode == "original":
+        return fused_encode_outerdim(x, bit)
+    return quant_ops.tensor_encode_outerdim(x, bit, mode)
+
+
+def decode_outerdim(enc: quant_ops.QuantizedTensor) -> torch.Tensor:
+    """Inverse of `encode_outerdim` (same dispatch rule)."""
+    if enc.bit in FUSED_BITS:
+        return fused_decode_outerdim(enc)
+    return quant_ops.tensor_decode_outerdim(enc)

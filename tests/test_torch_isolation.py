@@ -1,0 +1,97 @@
+"""The port stands alone: no JAX, no `pipeedge_tpu`, no silent CPU runs.
+
+- No import anywhere under `pipeedge_tpu_torch/` or in `chip_smoke.py`
+  names `jax`, `jaxlib` or `pipeedge_tpu` as its top-level module.
+- Every module of the port imports in a process where `jax` and
+  `pipeedge_tpu` cannot be imported.
+- Entry points default to `cuda` and raise on a host without a GPU.
+"""
+import ast
+import pathlib
+import pkgutil
+import subprocess
+import sys
+
+import pytest
+import torch
+
+import pipeedge_tpu_torch
+from pipeedge_tpu_torch import runtime
+from pipeedge_tpu_torch.parallel.pipeline import build_pipeline
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+FORBIDDEN = {"jax", "jaxlib", "pipeedge_tpu"}
+
+
+def _port_files():
+    pkg = ROOT / "pipeedge_tpu_torch"
+    # _build/ holds kernel builds (and whatever a caller unpacks there to
+    # run beside them); it is not part of the package
+    files = sorted(f for f in pkg.rglob("*.py")
+                   if "_build" not in f.relative_to(pkg).parts)
+    return files + [ROOT / "chip_smoke.py"]
+
+
+def _imported_tops(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module.split(".")[0]
+
+
+def test_no_jax_or_reference_imports():
+    files = _port_files()
+    assert len(files) > 10 and files[-1].exists()
+    bad = {(str(f.relative_to(ROOT)), top) for f in files
+           for top in _imported_tops(f) if top in FORBIDDEN}
+    assert not bad
+
+
+def test_port_imports_with_jax_blocked():
+    names = [m.name for m in pkgutil.walk_packages(
+        pipeedge_tpu_torch.__path__, "pipeedge_tpu_torch.")]
+    assert "pipeedge_tpu_torch.parallel.pipeline" in names
+    code = ("import importlib, sys\n"
+            "for blocked in ('jax', 'jaxlib', 'pipeedge_tpu'):\n"
+            "    sys.modules[blocked] = None\n"
+            f"for name in {names!r}:\n"
+            "    importlib.import_module(name)\n"
+            "assert 'jax' not in [m for m in sys.modules if sys.modules[m]]\n"
+            "print('ok')\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
+def test_build_pipeline_without_device_raises_without_gpu():
+    if torch.cuda.is_available():
+        pytest.skip("this host has a GPU: the default device is valid")
+    with pytest.raises(RuntimeError, match="cuda"):
+        build_pipeline("pipeedge/test-tiny-vit", [(1, 4), (5, 8)])
+    with pytest.raises(RuntimeError, match="cuda"):
+        pipeedge_tpu_torch.resolve_device(None)
+
+
+def test_runtime_cpu_prints_report(capsys):
+    runtime.main(["0", "2", "-m", "pipeedge/test-tiny-vit", "-pt", "1,5,6,8",
+                  "-q", "8,0", "-b", "4", "-u", "2", "--device", "cpu",
+                  "--measure-rounds", "2"])
+    lines = capsys.readouterr().out.splitlines()
+    report = [ln for ln in lines if ln.startswith("latency_sec=")]
+    assert len(report) == 1 and "throughput_items_sec=" in report[0]
+    assert any(ln.startswith("steady_state_throughput_items_sec=")
+               for ln in lines)
+    # plain versions on the CPU: no kernel launched
+    launches = [ln for ln in lines if ln.startswith("kernel_launches=")]
+    assert launches == ['kernel_launches={"fused_attention": 0, '
+                        '"fused_decode": 0, "fused_encode": 0}']
+
+
+def test_runtime_rejects_bad_partition():
+    with pytest.raises(ValueError):
+        runtime.main(["0", "2", "-m", "pipeedge/test-tiny-vit",
+                      "-pt", "1,4,6,8", "--device", "cpu"])
