@@ -14,6 +14,14 @@ Phases, each of which raises on failure (nothing is caught):
      - attention at [96, 197, 64] f32, [128, 257, 80] f32 (ViT-H), causal
        [8, 1024, 64] f32, [96, 197, 64] bf16, and the main path's strided
        [8, 197, 12, 64] f32, within the tolerances stated below;
+     - the block-scaled int8 matmul, bit-identical to its plain version,
+       at the main path's three dense shapes, ragged M and N, K = 100 (a
+       block of all of K), K = 80 (half a k-step of padding), all-zero
+       blocks and channels, a saturating outlier, and the tunnel's input
+       (the wire words' bytes read in place at [8 * 197, 768]); beside
+       its time, the plain activation quantizer's, an f32 `addmm` of the
+       same dense (what the route replaces) and `torch._int_mm` on the
+       same codes (the whole-K int32 product: not the same function);
   4. the main path: ViT-Base at full width (seeded random weights in the
      Google npz format) through `parallel.pipeline.build_pipeline`, two
      stages cut at `-pt 1,21,22,48` (a (ctx, residual) 2-tuple edge),
@@ -23,7 +31,17 @@ Phases, each of which raises on failure (nothing is caught):
      - launch counts: 12 attention launches per microbatch, and 2 encode
        plus 2 decode launches per quantized microbatch;
      then one more pass with an 8-bit edge under torch.profiler: device
-     time by kernel and the device's busy share.
+     time by kernel and the device's busy share;
+  5. the int8 compute path (`QuantizeCompute`) on the same pipeline:
+     (a) int8 denses with exact edges, (b) with an 8-bit edge and clamp
+     alphas calibrated on the first microbatch (utils/calibrate.py), (c)
+     as (b) with the stage-seam tunnel, where stage 1's first dense eats
+     the 8-bit `ctx` payload without a decode:
+     - exactly 72 int8 matmul launches per microbatch (6 tagged denses x
+       12 blocks), 2 encode and 2 decode (b) or 1 decode (c) launches;
+     - the logits within the stated bound of the exact ones, top-1
+       agreement and items/s printed beside the exact runs;
+     then one profiled pass of (c).
 Then one `{"kernels": [...]}` JSON line and, last, the device line
 `{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}`.
 
@@ -66,16 +84,30 @@ ATTN_TOL = {torch.float32: dict(rtol=2e-4, atol=2e-5),
 # 4-bit error must exceed the 8-bit one, which must exceed zero.
 LOGIT_BOUND = {8: 0.1, 4: 0.5}
 
+# Int8-compute logits against the exact single-shard logits, as a share of
+# max |exact logit|. The JAX package gates one int8 dense at 0.05 relative
+# error (tests/test_int8_matmul.py); through the 72 int8 denses of ViT-Base
+# the error grows with depth, roughly as its square root (LayerNorm
+# renormalizes each block's input), not as their sum. Bounds: 0.15 with
+# exact edges (a), 0.2 with an 8-bit edge on top (b, c; the edge alone
+# stays within 0.1, above). Random
+# weights leave the 1000 logits close together, so top-1 agreement with
+# exact is printed, not gated.
+INT8_LOGIT_BOUND = {"a": 0.15, "b": 0.2, "c": 0.2}
+
 REPLACES = {
     "fused_encode": "pipeedge_tpu/ops/fused_quant.py:115",
     "fused_decode": "pipeedge_tpu/ops/fused_quant.py:153",
     "fused_attention": "pipeedge_tpu/ops/attention.py:92",
+    "int8_matmul": "pipeedge_tpu/ops/int8_matmul.py:129",
 }
 SOURCES = {
     "fused_encode": "pipeedge_tpu_torch/csrc/fused_quant.cu",
     "fused_decode": "pipeedge_tpu_torch/csrc/fused_quant.cu",
     "fused_attention": "pipeedge_tpu_torch/csrc/attention.cu",
+    "int8_matmul": "pipeedge_tpu_torch/csrc/int8_matmul.cu",
 }
+INT8_PEAK_OPS = 1979e12                 # dense int8 tensor cores, 700 W
 
 
 def log(msg: str) -> None:
@@ -242,20 +274,125 @@ def check_attention(dev, gen):
     return rows
 
 
+def int8_bound_ms(m, k, n, block_k):
+    """Bytes: codes, scales and the f32 output once; operations: 2MNK at
+    the int8 tensor-core peak."""
+    nbytes = m * k + k * n + m * (k // block_k) * 4 + n * 4 + m * n * 4
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = 2 * m * n * k / INT8_PEAK_OPS
+    return max(t_bytes, t_ops) * 1e3, ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def device_launches(fn) -> int:
+    """Kernels one `fn()` call puts on the device (torch.profiler)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA)
+
+
+def check_int8_matmul(dev, gen):
+    """The int8 matmul kernel against `matmul_reference`: bit-identical
+    at every case; timed at the main path's dense shapes and the tunnel."""
+    from pipeedge_tpu_torch.ops import fused_quant
+    from pipeedge_tpu_torch.ops import int8_matmul as im
+    m_path = UBATCH * 197
+    cases = [  # name, M, K, N, timed
+        ("attn.q/k/v/out", m_path, 768, 768, True),
+        ("mlp.up", m_path, 768, 3072, True),
+        ("mlp.down", m_path, 3072, 768, True),
+        ("ragged", 37, 256, 40, False),
+        ("odd_n", 33, 128, 17, False),
+        ("k100", 64, 100, 48, False),
+        ("k80", 70, 80, 40, False),
+        ("zeros", 256, 384, 96, False),
+        ("outlier", 200, 768, 256, False),
+        ("tunnel", m_path, 768, 768, True),
+    ]
+    rows = []
+    for name, m, k, n, timed in cases:
+        bk = im.pick_block(k)
+        x = torch.randn((m, k), generator=gen, device=dev) * 3.0
+        w = torch.randn((k, n), generator=gen, device=dev) * 0.02
+        if name == "zeros":
+            x[: m // 2, :bk] = 0.0
+            w[:, : n // 3] = 0.0
+        if name == "outlier":
+            x[5, 7] = 1e4
+        folded = im.fold_weight(w)
+        if name == "tunnel":
+            enc = fused_quant.fused_encode_outerdim(
+                x.reshape(UBATCH, 197, k), 8)
+            s_row = (enc.scale / torch.full((), 255.0, device=dev)
+                     ).repeat_interleave(197)
+            xs = s_row[:, None].expand(m, k // bk)
+            xq = im.wire_codes(enc)
+
+            def kern():
+                return im.wire_matmul(enc, xs, folded.w_q, folded.w_scale,
+                                      bk)
+        else:
+            xq, xs = im.quantize_act_blocks(x, bk)
+
+            def kern():
+                return im.matmul_q(xq, xs, folded.w_q, folded.w_scale, bk)
+
+        def plain():
+            return im.matmul_reference(xq, xs, folded.w_q, folded.w_scale,
+                                       bk)
+        got, want = kern(), plain()
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            bad = int((got != want).sum())
+            raise AssertionError(
+                f"int8 matmul {name} [{m},{k}]x[{k},{n}]: {bad} of "
+                f"{want.numel()} outputs differ from the plain version, "
+                f"max |diff| {float((got - want).abs().max())}")
+        row = dict(case=name, shape=[m, k, n], block_k=bk,
+                   max_abs_err=float((got - want).abs().max()))
+        if name == "zeros" and not bool((got[:, : n // 3] == 0).all()):
+            raise AssertionError("int8 matmul: all-zero channels not zero")
+        if timed:
+            bias = torch.zeros(n, device=dev)
+            bound, bound_by = int8_bound_ms(m, k, n, bk)
+            row.update(
+                ms=time_ms(kern), plain_ms=time_ms(plain), bound_ms=bound,
+                bound_by=bound_by, library_ms=None,
+                addmm_f32_ms=time_ms(lambda: torch.addmm(bias, x, w)),
+                int_mm_whole_k_ms=time_ms(
+                    lambda: torch._int_mm(xq, folded.w_q)))
+            if name != "tunnel":
+                row["act_quantizer_ms"] = time_ms(
+                    lambda: im.quantize_act_blocks(x, bk))
+                row["act_quantizer_launches"] = device_launches(
+                    lambda: im.quantize_act_blocks(x, bk))
+        log("int8_matmul " + json.dumps(row))
+        rows.append(row)
+    return rows
+
+
 # --- phase 4: the main path ------------------------------------------------
 
 def main_path(device: str, model: str = MODEL, partition=PARTITION,
               batch: int = BATCH, ubatch: int = UBATCH,
               weights_dir: Path = ROOT / "pipeedge_tpu_torch" / "_build",
               profile: bool = False):
-    """Drive the port's pipeline at bits 0, 8 and 4; returns a dict of
-    per-bit results with the kernel launch counts of each run. With
-    `profile`, one more pass with an 8-bit edge runs under torch.profiler
-    and its device-time breakdown is printed (the CPU rehearsal of this
-    function leaves it off: the profile reads CUDA kernels)."""
-    from pipeedge_tpu_torch.models import edge_arity, registry, vit
-    from pipeedge_tpu_torch.ops import _build
+    """Drive the port's pipeline at bits 0, 8 and 4, then with int8
+    compute in runs (a), (b) and (c) (module docstring); returns a dict of
+    per-run results keyed by bit (0, 8, 4) or run ("a", "b", "c"), with
+    the kernel launch counts of each run set to 0 just before it. With
+    `profile`, one more pass with an 8-bit edge and one of (c) run under
+    torch.profiler and their device-time breakdowns are printed (the CPU
+    rehearsal of this function leaves it off: the profile reads CUDA
+    kernels)."""
+    from pipeedge_tpu_torch.models import edge_arity, layers, registry, vit
     from pipeedge_tpu_torch.parallel.pipeline import build_pipeline
+    from pipeedge_tpu_torch.utils import calibrate
     from pipeedge_tpu_torch.utils import data as data_utils
 
     cfg = registry.get_model_config(model)
@@ -272,56 +409,101 @@ def main_path(device: str, model: str = MODEL, partition=PARTITION,
               for x, _ in data_utils.batch_dataset(dataset, ubatch)]
     n_mb = len(inputs)
 
+    layers.set_quantize_compute(False)    # exact, whatever the env says
     fn, params, _ = registry.module_shard_factory(
         model, str(weights_file), 1, registry.get_model_layers(model),
         device=device)
     exact = [fn(params, x) for x in inputs]
+    # clamp alphas for runs (b) and (c), from the first microbatch
+    alphas = calibrate.compute_alphas(calibrate.collect_activation_stats(
+        fn, params, inputs[:1]), bit=8)
+    log("calibrated alphas: " + json.dumps(alphas, sort_keys=True))
     del params
 
     pipe = build_pipeline(model, partition, model_file=str(weights_file),
                           device=device, quant_bits=[0] * len(partition))
     blocks = cfg.num_hidden_layers
+    # one codec launch per tensor of each quantized edge: the cut after
+    # sublayer 21 leaves a (ctx, residual) 2-tuple
+    edge_tensors = sum(edge_arity(r) for _, r in partition[:-1])
     results = {}
     for bit in (0, 8, 4):
-        for stage in pipe.stages[:-1]:
-            stage.quant_bit = bit
-        pipe.run(inputs)                  # warm-up (not counted)
-        _build.reset_launch_counts()
-        outs, stats = pipe.run(inputs)
-        counts = dict(_build.launch_counts)
-        scale = max(float(e.abs().max()) for e in exact)
-        err = max(float((o - e).abs().max()) for o, e in zip(outs, exact))
-        equal = all(torch.equal(o, e) for o, e in zip(outs, exact))
-        results[bit] = dict(
-            counts=counts, rel_err=err / scale, max_abs_err=err,
-            equal=equal, items_per_s=stats["throughput_items_sec"],
-            steady_items_per_s=stats.get("steady_state_throughput_items_sec"),
-            p50_ms=stats["latency_breakdown"]["steady_p50_ms"],
-            host_dispatch_ms=stats["host_dispatch_s_per_ubatch"] * 1e3,
-            finite=all(bool(torch.isfinite(o).all()) for o in outs),
-            shape=list(outs[0].shape))
-        # one codec launch per tensor of each quantized edge: the cut
-        # after sublayer 21 leaves a (ctx, residual) 2-tuple
-        edge_tensors = sum(edge_arity(r) for _, r in partition[:-1])
-        want = {"fused_attention": blocks * n_mb,
-                "fused_encode": edge_tensors * n_mb if bit else 0,
-                "fused_decode": edge_tensors * n_mb if bit else 0}
-        results[bit]["expected_counts"] = want
-        results[bit]["expected_shape"] = [ubatch, cfg.num_labels]
+        set_edge_bits(pipe, bit)
+        results[bit] = measure(pipe, inputs, exact, expected={
+            "fused_attention": blocks * n_mb,
+            "fused_encode": edge_tensors * n_mb if bit else 0,
+            "fused_decode": edge_tensors * n_mb if bit else 0,
+            "int8_matmul": 0}, expected_shape=[ubatch, cfg.num_labels])
     if profile:
-        profile_pass(pipe, inputs)
+        set_edge_bits(pipe, 8)
+        profile_pass(pipe, inputs, "exact, 8-bit edge")
+
+    # int8 compute: 6 tagged denses per block (q, k, v, attn.out, mlp.up,
+    # mlp.down); the untagged patch embedding and head stay exact
+    runs = {"a": (layers.QuantizeCompute(enabled=True), 0),
+            "b": (layers.QuantizeCompute(enabled=True, clamp_alphas=alphas),
+                  8),
+            "c": (layers.QuantizeCompute(enabled=True, clamp_alphas=alphas,
+                                         tunnel=True), 8)}
+    for run, (qc, bit) in runs.items():
+        layers.set_quantize_compute(qc)
+        if qc.tunnel:   # the tunnel is chosen when the stages are built
+            pipe = build_pipeline(model, partition,
+                                  model_file=str(weights_file),
+                                  device=device, quant_bits=[bit])
+            assert [s.tunnel for s in pipe.stages] == [False, True]
+        set_edge_bits(pipe, bit)
+        # (c): stage 1's first dense consumes the leading `ctx` tensor
+        # encoded, so only the residual is decoded
+        decoded = edge_tensors - 1 if qc.tunnel else edge_tensors
+        results[run] = measure(pipe, inputs, exact, expected={
+            "fused_attention": blocks * n_mb,
+            "fused_encode": edge_tensors * n_mb if bit else 0,
+            "fused_decode": decoded * n_mb if bit else 0,
+            "int8_matmul": 6 * blocks * n_mb},
+            expected_shape=[ubatch, cfg.num_labels])
+    if profile:
+        profile_pass(pipe, inputs, "int8 compute, 8-bit edge, tunnel")
+    layers.set_quantize_compute(None)
     return results
 
 
-def profile_pass(pipe, inputs) -> None:
-    """Device time by kernel over one warm pass of the pipeline with an
-    8-bit edge, and the device's busy share of the pass's wall time
-    (kernel time summed over both stage streams, so overlap between the
-    stages can lift it above what one stream shows)."""
+def set_edge_bits(pipe, bit: int) -> None:
+    for stage in pipe.stages[:-1]:
+        stage.quant_bit = bit
+
+
+def measure(pipe, inputs, exact, expected, expected_shape) -> dict:
+    """One warm-up pass, then one counted pass (launch counts set to 0
+    just before it), held against the exact single-shard logits."""
+    from pipeedge_tpu_torch.ops import _build
+    pipe.run(inputs)                      # warm-up (not counted)
+    _build.reset_launch_counts()
+    outs, stats = pipe.run(inputs)
+    counts = dict(_build.launch_counts)
+    scale = max(float(e.abs().max()) for e in exact)
+    err = max(float((o - e).abs().max()) for o, e in zip(outs, exact))
+    top1 = float(np.mean([float((o.argmax(-1) == e.argmax(-1)).float().mean())
+                          for o, e in zip(outs, exact)]))
+    return dict(
+        counts=counts, rel_err=err / scale, max_abs_err=err,
+        equal=all(torch.equal(o, e) for o, e in zip(outs, exact)),
+        top1_agreement=top1, items_per_s=stats["throughput_items_sec"],
+        steady_items_per_s=stats.get("steady_state_throughput_items_sec"),
+        p50_ms=stats["latency_breakdown"]["steady_p50_ms"],
+        host_dispatch_ms=stats["host_dispatch_s_per_ubatch"] * 1e3,
+        finite=all(bool(torch.isfinite(o).all()) for o in outs),
+        shape=list(outs[0].shape), expected_counts=expected,
+        expected_shape=expected_shape)
+
+
+def profile_pass(pipe, inputs, label: str) -> None:
+    """Device time by kernel over one warm pass of the pipeline as it is
+    set, and the device's busy share of the pass's wall time (kernel time
+    summed over both stage streams, so overlap between the stages can
+    lift it above what one stream shows)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    for stage in pipe.stages[:-1]:
-        stage.quant_bit = 8
     pipe.run(inputs)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -339,33 +521,40 @@ def profile_pass(pipe, inputs) -> None:
     kernels.sort(key=lambda k: -k[1])
     total = sum(ms for _, ms, _ in kernels)
     log("profile " + json.dumps({
-        "wall_ms": wall_ms, "device_ms": total,
+        "pass": label, "wall_ms": wall_ms, "device_ms": total,
         "device_busy_share": total / wall_ms,
+        "kernel_launches": sum(calls for _, _, calls in kernels),
         "top": [dict(kernel=name[:90], ms=ms, calls=calls,
                      share=ms / total) for name, ms, calls in kernels[:15]],
     }))
 
 
 def check_main_path(results, device_name: str):
-    for bit, r in results.items():
-        log(f"main path bit {bit}: " + json.dumps(
+    for run, r in results.items():
+        name = f"bit {run}" if isinstance(run, int) else f"int8 run ({run})"
+        log(f"main path {name}: " + json.dumps(
             {**r, "card": device_name}, sort_keys=True))
         if r["shape"] != r["expected_shape"] or not r["finite"]:
-            raise AssertionError(f"bit {bit}: logits of shape {r['shape']}, "
+            raise AssertionError(f"{name}: logits of shape {r['shape']}, "
                                  f"finite={r['finite']}")
         if r["counts"] != r["expected_counts"]:
-            raise AssertionError(f"bit {bit}: launch counts {r['counts']} "
+            raise AssertionError(f"{name}: launch counts {r['counts']} "
                                  f"!= {r['expected_counts']}")
-        if bit == 0 and not r["equal"]:
+        if run == 0 and not r["equal"]:
             raise AssertionError(f"bit 0: pipeline logits differ from the "
                                  f"single-shard forward by "
                                  f"{r['max_abs_err']}")
-        if bit and r["rel_err"] > LOGIT_BOUND[bit]:
-            raise AssertionError(f"bit {bit}: logit error {r['rel_err']} of "
-                                 f"the logit scale > {LOGIT_BOUND[bit]}")
+        bound = INT8_LOGIT_BOUND[run] if isinstance(run, str) \
+            else LOGIT_BOUND.get(run)
+        if bound is not None and r["rel_err"] > bound:
+            raise AssertionError(f"{name}: logit error {r['rel_err']} of "
+                                 f"the logit scale > {bound}")
     if not results[4]["rel_err"] > results[8]["rel_err"] > 0:
         raise AssertionError("quantized logit errors not ordered 4 > 8 > 0 "
                              "bits")
+    if not all(results[run]["rel_err"] > 0 for run in INT8_LOGIT_BOUND):
+        raise AssertionError("an int8 run gave the exact logits: the int8 "
+                             "path did not run")
 
 
 def main() -> int:
@@ -401,8 +590,9 @@ def main() -> int:
     for (name, bit), row in codec_rows.items():
         log(f"{name} " + json.dumps(row))
     attn_rows = check_attention(dev, gen)
+    int8_rows = check_int8_matmul(dev, gen)
 
-    # phase 4: the main path
+    # phases 4 and 5: the main path, exact and with int8 compute
     results = main_path("cuda", profile=True)
     check_main_path(results, device_name)
 
@@ -426,6 +616,19 @@ def main() -> int:
         plain_ms=main_attn["plain_ms"], bound_ms=main_attn["bound_ms"],
         bound_by=main_attn["bound_by"], library_ms=main_attn["library_ms"],
         shape=main_attn["shape"], dtype=main_attn["dtype"]))
+    # the int8 path's own main path is run (c): every int8 launch of it
+    timed = [r for r in int8_rows if "ms" in r]
+    qkv = timed[0]
+    kernels.append(dict(
+        name="int8_matmul", route="cuda", source=SOURCES["int8_matmul"],
+        replaces=REPLACES["int8_matmul"],
+        launches=results["c"]["counts"]["int8_matmul"],
+        max_abs_err=max(r["max_abs_err"] for r in int8_rows),
+        ms=qkv["ms"], plain_ms=qkv["plain_ms"], bound_ms=qkv["bound_ms"],
+        bound_by=qkv["bound_by"], library_ms=None, shape=qkv["shape"],
+        cases={r["case"]: dict(ms=r["ms"], plain_ms=r["plain_ms"],
+                               bound_ms=r["bound_ms"],
+                               bound_by=r["bound_by"]) for r in timed}))
     log(card)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

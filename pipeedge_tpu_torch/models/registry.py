@@ -56,6 +56,10 @@ def get_model_names() -> List[str]:
     return list(_MODELS.keys())
 
 
+def get_model_entry(model_name: str) -> ModelEntry:
+    return _MODELS[model_name]
+
+
 def get_model_layers(model_name: str) -> int:
     """Total sublayer count."""
     return _MODELS[model_name].layers

@@ -35,6 +35,10 @@ class FamilySpec:
     embed: Callable[[Dict, Any, TransformerConfig], torch.Tensor]
     sublayer: Callable[[Dict, int, ShardData, TransformerConfig], ShardData]
     finalize: Callable[[Dict, torch.Tensor, TransformerConfig], torch.Tensor]
+    # sublayers that LEAD with a dense and accept an 8-bit wire
+    # `QuantizedTensor` as the payload's first tensor (the int8
+    # stage-seam tunnel, parallel/pipeline.py + ops/int8_matmul.py)
+    wire_subs: tuple = ()
 
 
 def _apply_slice(family: FamilySpec, block_params: Dict, data: ShardData,

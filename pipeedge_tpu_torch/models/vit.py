@@ -9,6 +9,12 @@ Port of `pipeedge_tpu/models/vit.py`. Sublayer semantics (reference
 The first shard prepends patch + CLS + position embeddings; the last
 applies the final layernorm and the classifier head on the CLS token.
 
+Stage-seam tunnel: subs 1 and 3 lead with a dense, so when a stage
+boundary lands there the payload's leading tensor may arrive as an 8-bit
+wire `QuantizedTensor` (parallel/pipeline.py leaves it encoded under the
+`QuantizeCompute` tunnel); it feeds the int8 matmul directly through
+`wire_dense`, with no decode.
+
 Weights: Google's ViT `.npz` key scheme (what `save_model_weights.py`
 writes), kernels stored [in, out].
 """
@@ -19,6 +25,8 @@ from typing import Dict, Mapping
 import numpy as np
 import torch
 
+from ..ops.int8_matmul import wire_dense
+from ..ops.quant import QuantizedTensor
 from . import ShardConfig
 from .layers import TransformerConfig, dense, gelu, layer_norm, patchify, self_attention
 from .shard import FamilySpec, build_shard_params
@@ -42,16 +50,21 @@ def sublayer(p: Dict, sub: int, data, cfg: TransformerConfig):
     if sub == 0:
         normed = layer_norm(p["ln_before"], data, cfg.layer_norm_eps)
         ctx = self_attention({"q": p["q"], "k": p["k"], "v": p["v"]},
-                             normed, cfg.num_attention_heads)
+                             normed, cfg.num_attention_heads,
+                             tag_prefix="attn")
         return (ctx, data)
     if sub == 1:
         ctx, skip = data
+        if isinstance(ctx, QuantizedTensor):
+            return wire_dense(p["attn_out"], ctx, out_dtype=skip.dtype) + skip
         return dense(p["attn_out"], ctx, tag="attn.out") + skip
     if sub == 2:
         normed = layer_norm(p["ln_after"], data, cfg.layer_norm_eps)
         return (gelu(dense(p["mlp_up"], normed, tag="mlp.up")), data)
     if sub == 3:
         mlp_h, skip = data
+        if isinstance(mlp_h, QuantizedTensor):
+            return wire_dense(p["mlp_down"], mlp_h, out_dtype=skip.dtype) + skip
         return dense(p["mlp_down"], mlp_h, tag="mlp.down") + skip
     raise ValueError(f"sublayer must be 0..3, got {sub}")
 
@@ -66,7 +79,7 @@ def finalize(p: Dict, hidden: torch.Tensor,
 
 
 FAMILY = FamilySpec(name="vit", embed=embed, sublayer=sublayer,
-                    finalize=finalize)
+                    finalize=finalize, wire_subs=(1, 3))
 
 
 # --- weight loading -------------------------------------------------------

@@ -35,7 +35,7 @@ BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC"]
 
-KERNELS = ("fused_encode", "fused_decode", "fused_attention")
+KERNELS = ("fused_encode", "fused_decode", "fused_attention", "int8_matmul")
 launch_counts: Dict[str, int] = {name: 0 for name in KERNELS}
 
 _lib: Optional[ctypes.CDLL] = None
@@ -56,6 +56,9 @@ _SIGNATURES = {
     # causal, stream
     "pe_fused_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I,
                            _L, _L, _L, _I, _P],
+    # x, xs, wt, ws, out, M, N, K, bk, xs_row_stride, xs_col_stride, flip,
+    # stream
+    "pe_int8_matmul": [_P, _P, _P, _P, _P, _L, _L, _L, _L, _L, _L, _I, _P],
 }
 
 

@@ -18,6 +18,10 @@ microbatches streamed through the stages, results retired in FIFO order.
   next stage decodes its input in its prologue (QuantPipe), through the
   codec kernels for bits 4 and 8 (`ops/fused_quant.py`). `quant_bit` is a
   plain attribute and may change between microbatches.
+- Int8 tunnel: under a `QuantizeCompute` config with `tunnel` set, a stage
+  whose first sublayer leads with a dense and whose incoming edge runs at
+  8 bits leaves that payload's leading tensor encoded; the dense consumes
+  the wire bytes in the int8 matmul (ops/int8_matmul.wire_dense).
 
 On the CPU (`device="cpu"`, the tests) there are no streams: stages run
 in order on the host, with the plain versions of the kernels.
@@ -61,6 +65,21 @@ def _decode_payload(payload):
     return payload
 
 
+def _tunnel_decode_payload(payload):
+    """Tunnel variant of `_decode_payload`: the payload's LEADING tensor
+    stays an 8-bit `QuantizedTensor`, because the stage's first sublayer
+    leads with a dense that consumes the wire bytes directly
+    (ops/int8_matmul.wire_dense). Trailing tensors (the residual skip)
+    decode as usual; payloads of other bitwidths decode whole."""
+    if isinstance(payload, quant_ops.QuantizedTensor):
+        return payload if payload.bit == 8 else _decode_payload(payload)
+    if isinstance(payload, tuple) and payload and isinstance(
+            payload[0], quant_ops.QuantizedTensor) and payload[0].bit == 8:
+        return (payload[0],) + tuple(
+            _decode_payload(t) for t in payload[1:])
+    return _decode_payload(payload)
+
+
 def _tensors(payload) -> Iterator[torch.Tensor]:
     """Every tensor a payload holds (QuantizedTensor fields included)."""
     for t in payload if isinstance(payload, tuple) else (payload,):
@@ -89,13 +108,17 @@ class PipelineStage:
     CUDA, a stream of its own).
 
     `quant_bit` applies to this stage's *output* edge and may be changed
-    between microbatches."""
+    between microbatches. `tunnel` leaves the input payload's leading
+    8-bit wire tensor encoded for the stage's first matmul (set only when
+    that sublayer is in `FamilySpec.wire_subs` and the incoming edge runs
+    at 8 bits)."""
     shard_fn: Callable[[Dict, Any], Any]
     params: Dict
     device: torch.device
     quant_bit: int = 0
     clamp: bool = True
     name: str = ""
+    tunnel: bool = False
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
@@ -105,7 +128,8 @@ class PipelineStage:
 
     def __call__(self, payload):
         """Run the stage on the current stream: decode, shard, encode."""
-        data = _decode_payload(_to_device(payload, self.device))
+        decode = _tunnel_decode_payload if self.tunnel else _decode_payload
+        data = decode(_to_device(payload, self.device))
         return _encode_payload(self.shard_fn(self.params, data),
                                self.quant_bit, self.clamp)
 
@@ -319,14 +343,22 @@ def build_pipeline(model_name: str, partition: Sequence[Tuple[int, int]],
     `partition` is the stage-layers list [[l0, r0], [l1, r1], ...];
     `quant_bits[i]` quantizes the edge leaving stage i (`-q`). Every stage
     runs on `device` (default `cuda`, which raises on a host without a
-    GPU), each on its own stream."""
+    GPU), each on its own stream.
+
+    Int8 tunnel: when the active `QuantizeCompute` config has `tunnel`
+    set, a stage whose first sublayer leads with a dense
+    (`FamilySpec.wire_subs`) and whose incoming edge runs at 8 bits keeps
+    that payload encoded for its first matmul."""
     from ..models import registry
+    from ..models.layers import quantize_compute
 
     dev = resolve_device(device)
     if dtype is None:
         dtype = torch.float32
     if quant_bits is None:
         quant_bits = [0] * len(partition)
+    wire_subs = registry.get_model_entry(model_name).family.FAMILY.wire_subs
+    qc = quantize_compute()
     stages = []
     for i, (layer_start, layer_end) in enumerate(partition):
         fn, params, _ = registry.module_shard_factory(
@@ -336,6 +368,10 @@ def build_pipeline(model_name: str, partition: Sequence[Tuple[int, int]],
         # the final stage's output edge is the result path: never quantized
         if i == len(partition) - 1:
             bit = 0
+        in_bit = quant_bits[i - 1] if 0 < i <= len(quant_bits) else 0
+        tunnel = (qc.tunnel and i > 0 and in_bit == 8
+                  and (layer_start - 1) % 4 in wire_subs)
         stages.append(PipelineStage(shard_fn=fn, params=params, device=dev,
-                                    quant_bit=bit, name=f"stage{i}"))
+                                    quant_bit=bit, name=f"stage{i}",
+                                    tunnel=tunnel))
     return HostPipeline(stages, max_inflight=max_inflight)

@@ -88,7 +88,8 @@ def test_runtime_cpu_prints_report(capsys):
     # plain versions on the CPU: no kernel launched
     launches = [ln for ln in lines if ln.startswith("kernel_launches=")]
     assert launches == ['kernel_launches={"fused_attention": 0, '
-                        '"fused_decode": 0, "fused_encode": 0}']
+                        '"fused_decode": 0, "fused_encode": 0, '
+                        '"int8_matmul": 0}']
 
 
 def test_runtime_rejects_bad_partition():
