@@ -41,7 +41,29 @@ Phases, each of which raises on failure (nothing is caught):
        12 blocks), 2 encode and 2 decode (b) or 1 decode (c) launches;
      - the logits within the stated bound of the exact ones, top-1
        agreement and items/s printed beside the exact runs;
-     then one profiled pass of (c).
+     then one profiled pass of (c);
+  6. the decode main path: GPT-2 at full width and depth (seeded random
+     weights in the HF `GPT2LMHeadModel` npz layout, read by
+     `load_params`), two stages `-pt 1,24,25,48`, batch 16, a 192-token
+     prompt, 128 new tokens, max_len 1024, attend floor 64, f32, through
+     `DecodePipeline.generate`: (i) fp cache, (ii) int8 cache on the
+     decode-attention kernel route, (iii) int8 cache on the dequantize-
+     then-attend route:
+     - (i)'s step logits within the stated bound of the full-sequence
+       forward (`shard_apply`, the causal fused attention) on its tokens;
+     - (ii) and (iii) in lockstep on (ii)'s greedy tokens: every step's
+       logits within the stated bound, and each step's time per attend
+       bucket (256, 512) on both routes;
+     - launch counts: 12 decode-attention launches per decode step in
+       (ii), 127 x 12 = 1524 per generation, none in (i) and (iii);
+     then one profiled decode step of (ii) and of (iii), and the entry
+     `python -m pipeedge_tpu_torch.generate ... --kv-bits 8` once with
+     PIPEEDGE_INT8_DECODE_ATTEND=1.
+Phase 3 also holds kernel 5 (decode attention) against its plain version
+at the main path's shapes (windows of a [16, 1024, 12, 64] stage cache at
+buckets 256 and 512), pos 0 and W-1, W = 100, B = 1, H = 16, Dh = 32, a
+zero-range K row and bf16, timed beside the dequantize-then-attend route
+and SDPA over the dequantized window.
 Then one `{"kernels": [...]}` JSON line and, last, the device line
 `{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}`.
 
@@ -50,6 +72,7 @@ Exits nonzero, and prints no result, without a CUDA device.
 from __future__ import annotations
 
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -100,14 +123,45 @@ REPLACES = {
     "fused_decode": "pipeedge_tpu/ops/fused_quant.py:153",
     "fused_attention": "pipeedge_tpu/ops/attention.py:92",
     "int8_matmul": "pipeedge_tpu/ops/int8_matmul.py:129",
+    "decode_attention": "pipeedge_tpu/ops/decode_attention.py:198",
 }
 SOURCES = {
     "fused_encode": "pipeedge_tpu_torch/csrc/fused_quant.cu",
     "fused_decode": "pipeedge_tpu_torch/csrc/fused_quant.cu",
     "fused_attention": "pipeedge_tpu_torch/csrc/attention.cu",
     "int8_matmul": "pipeedge_tpu_torch/csrc/int8_matmul.cu",
+    "decode_attention": "pipeedge_tpu_torch/csrc/decode_attention.cu",
 }
 INT8_PEAK_OPS = 1979e12                 # dense int8 tensor cores, 700 W
+
+# Phase 6, the decode main path: GPT-2 at full width and depth, two
+# stages, batch 16, a 192-token prompt and 128 new tokens in a 1024-row
+# cache, so the decode steps attend buckets 256 and 512.
+DECODE_MODEL = "gpt2"
+DECODE_PARTITION = [(1, 24), (25, 48)]
+DECODE_BATCH, DECODE_PROMPT, DECODE_NEW = 16, 192, 128
+DECODE_MAX_LEN, DECODE_FLOOR = 1024, 64
+
+# Kernel 5 against its plain version. f32: the JAX package's bound for its
+# TPU kernel (rtol = atol = 2e-5, tests/test_decode_attention.py); the
+# dequantization is bit-identical (separate _rn multiply and add), the
+# online softmax sums in another order. bf16: K, V and the softmax
+# numerators round to bf16 (2^-8 relative) against different running
+# maxima, so outputs may sit a bf16 ulp or two apart.
+DECODE_ATTN_TOL = {torch.float32: dict(rtol=2e-5, atol=2e-5),
+                   torch.bfloat16: dict(rtol=1e-2, atol=1e-2)}
+
+# Decode logits, as a share of max |logit|. (i) fp cache against the
+# full-sequence forward over the same tokens: f32 on both sides, but the
+# attends (an einsum over the cache vs the causal fused kernel) and the
+# matmuls (M = 16 rows per step vs 16 x 319) sum in other orders; a few
+# ulp per op through 12 blocks stays far below 1e-4. (ii) kernel route
+# against (iii) dequantize-then-attend route in lockstep: the same int8
+# cache rows (bit-identical dequantization), softmax sums in another
+# order, and a last-bit difference may flip an int8 code of a later row;
+# held to 1e-3.
+DECODE_FP_BOUND = 1e-4
+DECODE_ROUTE_BOUND = 1e-3
 
 
 def log(msg: str) -> None:
@@ -376,6 +430,111 @@ def check_int8_matmul(dev, gen):
     return rows
 
 
+def decode_bound_ms(b, h, d, pos, dtype):
+    """Bytes the decode step's attend must move: the int8 K and V of the
+    cached live rows [0, pos) and their four f32 scale/shift rows, q,
+    k_new, v_new and the output once; against the two products' flops."""
+    elem = torch.tensor([], dtype=dtype).element_size()
+    nbytes = 2 * b * pos * h * d + 4 * b * pos * h * 4 + 4 * b * h * d * elem
+    flops = 4 * b * h * (pos + 1) * d
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = flops / PEAK_FLOPS[torch.float32]
+    return max(t_bytes, t_ops) * 1e3, ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def check_decode_attention(dev, gen):
+    """Kernel 5 against `decode_attention_reference` at the main path's
+    shapes (windows of a [16, 1024, 12, 64] stage cache at buckets 256 and
+    512) and the edge cases; timed beside the plain version, the
+    dequantize-then-attend route it replaces, and SDPA over the already
+    dequantized window (a yardstick: not the same function)."""
+    import torch.nn.functional as F
+    from pipeedge_tpu_torch.ops import decode_attention as da
+    from pipeedge_tpu_torch.parallel import decode
+    cases = [  # name, B, W, H, D, pos, dtype, window of a T=1024 cache
+        ("main_w256", 16, 256, 12, 64, 200, torch.float32, True),
+        ("main_w512", 16, 512, 12, 64, 300, torch.float32, True),
+        ("pos0", 16, 256, 12, 64, 0, torch.float32, False),
+        ("pos_w_minus_1", 16, 256, 12, 64, 255, torch.float32, False),
+        ("w100", 16, 100, 12, 64, 97, torch.float32, False),
+        ("b1", 1, 256, 12, 64, 200, torch.float32, False),
+        ("h16", 16, 256, 16, 64, 200, torch.float32, True),
+        ("dh32", 16, 256, 12, 32, 200, torch.float32, False),
+        ("zero_range_row", 16, 256, 12, 64, 200, torch.float32, False),
+        ("bf16", 16, 256, 12, 64, 200, torch.bfloat16, True),
+    ]
+    rows = []
+    for name, b, w, h, d, pos, dtype, strided in cases:
+        t = DECODE_MAX_LEN if strided else w
+        k_rows = torch.randn((b, t, h, d), generator=gen, device=dev)
+        v_rows = torch.randn((b, t, h, d), generator=gen, device=dev)
+        if name == "zero_range_row":
+            k_rows[:, 7] = 0.5             # scale clamps to 1e-8/255
+        win = {}
+        for tag, r in (("k", k_rows), ("v", v_rows)):
+            qv, scale, shift = decode._quantize_rows(r)
+            win[tag], win[tag + "_scale"], win[tag + "_shift"] = \
+                qv[:, :w], scale[:, :w], shift[:, :w]
+        if name == "zero_range_row":
+            assert float(win["k_scale"][:, 7].max()) < 1e-9
+        q, k_new, v_new = (torch.randn((b, 1, h, d), generator=gen,
+                                       device=dev).to(dtype)
+                           for _ in range(3))
+        args = (q, win["k"], win["k_scale"], win["k_shift"], win["v"],
+                win["v_scale"], win["v_shift"], k_new, v_new, pos)
+        assert win["k"].is_contiguous() != strided
+
+        def kern():
+            return da.int8_decode_attention(*args)
+
+        def plain():
+            return da.decode_attention_reference(*args)
+
+        got, want = kern(), plain()
+        torch.cuda.synchronize()
+        err = float((got.float() - want.float()).abs().max())
+        torch.testing.assert_close(got.float(), want.float(),
+                                   **DECODE_ATTN_TOL[dtype])
+        row = dict(case=name, shape=[b, w, h, d], pos=pos,
+                   dtype=str(dtype).replace("torch.", ""),
+                   strided_window=strided, max_abs_err=err)
+        if name.startswith("main") or name == "bf16":
+            k_deq = decode._dequantize_rows(win["k"], win["k_scale"],
+                                            win["k_shift"], dtype)
+            v_deq = decode._dequantize_rows(win["v"], win["v_scale"],
+                                            win["v_shift"], dtype)
+            keep = torch.arange(w, device=dev)[None] <= pos
+
+            def dequant_route():
+                k = decode._dequantize_rows(win["k"], win["k_scale"],
+                                            win["k_shift"], dtype)
+                v = decode._dequantize_rows(win["v"], win["v_scale"],
+                                            win["v_shift"], dtype)
+                k[:, pos:pos + 1] = k_new
+                v[:, pos:pos + 1] = v_new
+                return decode._attend(q, k, v, keep)
+
+            flip = (0, 2, 1, 3)
+
+            def sdpa():
+                return F.scaled_dot_product_attention(
+                    q.permute(flip), k_deq.permute(flip),
+                    v_deq.permute(flip), attn_mask=keep)
+
+            route_err = float((dequant_route().float()
+                               - want.float()).abs().max())
+            bound, bound_by = decode_bound_ms(b, h, d, pos, dtype)
+            row.update(ms=time_ms(kern), plain_ms=time_ms(plain),
+                       bound_ms=bound, bound_by=bound_by, library_ms=None,
+                       dequant_route_ms=time_ms(dequant_route),
+                       dequant_route_max_abs_err=route_err,
+                       sdpa_dequantized_ms=time_ms(sdpa))
+        log("decode_attention " + json.dumps(row))
+        rows.append(row)
+    return rows
+
+
 # --- phase 4: the main path ------------------------------------------------
 
 def main_path(device: str, model: str = MODEL, partition=PARTITION,
@@ -433,10 +592,11 @@ def main_path(device: str, model: str = MODEL, partition=PARTITION,
             "fused_attention": blocks * n_mb,
             "fused_encode": edge_tensors * n_mb if bit else 0,
             "fused_decode": edge_tensors * n_mb if bit else 0,
-            "int8_matmul": 0}, expected_shape=[ubatch, cfg.num_labels])
+            "int8_matmul": 0, "decode_attention": 0},
+            expected_shape=[ubatch, cfg.num_labels])
     if profile:
         set_edge_bits(pipe, 8)
-        profile_pass(pipe, inputs, "exact, 8-bit edge")
+        profile_pass(lambda: pipe.run(inputs), "exact, 8-bit edge")
 
     # int8 compute: 6 tagged denses per block (q, k, v, attn.out, mlp.up,
     # mlp.down); the untagged patch embedding and head stay exact
@@ -460,10 +620,11 @@ def main_path(device: str, model: str = MODEL, partition=PARTITION,
             "fused_attention": blocks * n_mb,
             "fused_encode": edge_tensors * n_mb if bit else 0,
             "fused_decode": decoded * n_mb if bit else 0,
-            "int8_matmul": 6 * blocks * n_mb},
+            "int8_matmul": 6 * blocks * n_mb, "decode_attention": 0},
             expected_shape=[ubatch, cfg.num_labels])
     if profile:
-        profile_pass(pipe, inputs, "int8 compute, 8-bit edge, tunnel")
+        profile_pass(lambda: pipe.run(inputs),
+                     "int8 compute, 8-bit edge, tunnel")
     layers.set_quantize_compute(None)
     return results
 
@@ -497,19 +658,19 @@ def measure(pipe, inputs, exact, expected, expected_shape) -> dict:
         expected_shape=expected_shape)
 
 
-def profile_pass(pipe, inputs, label: str) -> None:
-    """Device time by kernel over one warm pass of the pipeline as it is
-    set, and the device's busy share of the pass's wall time (kernel time
-    summed over both stage streams, so overlap between the stages can
-    lift it above what one stream shows)."""
+def profile_pass(run_once, label: str) -> None:
+    """Device time by kernel over one warm `run_once()` (a pass of the
+    pipeline as it is set, or one decode step), and the device's busy
+    share of its wall time (kernel time summed over all streams, so
+    overlap between the stages can lift it above what one stream shows)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    pipe.run(inputs)
+    run_once()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.monotonic()
-        pipe.run(inputs)
+        run_once()
         torch.cuda.synchronize()
         wall_ms = (time.monotonic() - t0) * 1e3
     # device-side events only: CPU ops (aten::addmm...) carry the device
@@ -557,6 +718,222 @@ def check_main_path(results, device_name: str):
                              "path did not run")
 
 
+# --- phase 6: the decode main path -----------------------------------------
+
+def decode_main_path(device: str, model: str = DECODE_MODEL,
+                     partition=DECODE_PARTITION, batch: int = DECODE_BATCH,
+                     prompt_len: int = DECODE_PROMPT,
+                     new_tokens: int = DECODE_NEW,
+                     max_len: int = DECODE_MAX_LEN,
+                     floor: int = DECODE_FLOOR,
+                     weights_dir: Path = ROOT / "pipeedge_tpu_torch" / "_build",
+                     profile: bool = False) -> dict:
+    """Drive `DecodePipeline.generate` with (i) an fp cache, (ii) an int8
+    cache on the kernel route, (iii) an int8 cache on the dequantize-then-
+    attend route (module docstring), the launch counts set to 0 just
+    before each timed generation; then hold (i)'s step logits against the
+    full-sequence forward, run (ii) and (iii) in lockstep on (ii)'s greedy
+    tokens, and run the generate entry once. Returns the numbers;
+    `check_decode_path` gates them. `profile` (the card only) adds one
+    profiled decode step of (ii) and of (iii)."""
+    from pipeedge_tpu_torch.models import gpt2, registry
+    from pipeedge_tpu_torch.models.shard import shard_apply
+    from pipeedge_tpu_torch.ops import _build
+    from pipeedge_tpu_torch.parallel import decode
+
+    on_card = torch.device(device).type == "cuda"
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    cfg = registry.get_model_config(model)
+    weights_dir.mkdir(parents=True, exist_ok=True)
+    weights_file = weights_dir / f"{model.replace('/', '_')}-random-seed0.npz"
+    t0 = time.monotonic()
+    np.savez(weights_file, **gpt2.random_npz_weights(cfg, seed=0))
+    log(f"weights: {weights_file.name} "
+        f"({weights_file.stat().st_size / 2**20:.1f} MiB) in "
+        f"{time.monotonic() - t0:.1f} s")
+    stage_params = [registry.module_shard_factory(
+        model, str(weights_file), l, r, stage=i, device=device)[1]
+        for i, (l, r) in enumerate(partition)]
+    # the generate entry's prompts
+    ids = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, size=(batch, prompt_len))).to(device)
+    steps = new_tokens - 1
+    blocks = cfg.num_hidden_layers
+    pipes = {run: decode.build_decode_pipeline(
+        model, partition, max_len=max_len, cache_bits=bits,
+        attend_floor=floor, stage_params=stage_params, device=device,
+        int8_decode_attend=optin)
+        for run, bits, optin in (("i", 0, 0), ("ii", 8, 1), ("iii", 8, 0))}
+    res = {"expected": dict(
+        decode_attention={"i": 0, "ii": blocks * steps, "iii": 0},
+        launches_per_step={"ii": [blocks], "iii": [0]},
+        shape=[batch, prompt_len + new_tokens])}
+    tokens = {}
+    for run, pipe in pipes.items():
+        pipe.generate(ids, 2)                  # warm-up (not counted)
+        sync()
+        _build.reset_launch_counts()
+        t0 = time.monotonic()
+        tokens[run] = pipe.generate(ids, new_tokens)
+        sync()
+        dt = time.monotonic() - t0
+        res[run] = dict(counts=dict(_build.launch_counts),
+                        tok_per_s=batch * new_tokens / dt, generate_s=dt,
+                        shape=list(tokens[run].shape),
+                        in_vocab=bool((tokens[run] >= 0).all()
+                                      and (tokens[run] < cfg.vocab_size)
+                                      .all()))
+
+    def step(pipe, caches, tok, pos):
+        data = tok[:, None]
+        for i, st in enumerate(pipe.stages):
+            data, caches[i] = pipe._decode_step(st, data, caches[i], pos)
+        return data[:, 0]
+
+    # (i) against the full-sequence forward over its own tokens
+    seq = tokens["i"][:, :prompt_len + steps]
+    full = seq
+    for (l, r), params in zip(partition, stage_params):
+        full = shard_apply(gpt2.FAMILY, cfg,
+                           registry.make_shard_config(model, l, r), params,
+                           full)
+    scale = float(full.abs().max())
+    pipe = pipes["i"]
+    logits, caches = pipe._prefill(ids)
+    err = float((logits - full[:, :prompt_len]).abs().max())
+    replay_equal = True
+    for s in range(1, new_tokens):
+        pos = prompt_len + s - 1
+        out = step(pipe, caches, seq[:, pos], pos)
+        err = max(err, float((out - full[:, pos]).abs().max()))
+        replay_equal &= bool(torch.equal(out.argmax(-1),
+                                         tokens["i"][:, pos + 1]))
+    res["i"].update(rel_err_vs_full=err / scale, max_abs_err=err,
+                    logit_scale=scale, replay_equal=replay_equal,
+                    finite=bool(torch.isfinite(full).all()))
+    del full
+
+    # (ii) and (iii) in lockstep on (ii)'s greedy tokens
+    pk, pd = pipes["ii"], pipes["iii"]
+    prefill_ms, cache, last = {}, {}, {}
+    for run, pipe in (("ii", pk), ("iii", pd)):
+        sync()
+        t0 = time.monotonic()
+        logits, cache[run] = pipe._prefill(ids)
+        sync()
+        prefill_ms[run] = (time.monotonic() - t0) * 1e3
+        last[run] = logits[:, -1]
+    tok = last["ii"].argmax(-1)
+    step_ms = {"ii": {}, "iii": {}}
+    per_step = {"ii": set(), "iii": set()}
+    route_err = float((last["ii"] - last["iii"]).abs().max()
+                      / last["iii"].abs().max())
+    for s in range(1, new_tokens):
+        pos = prompt_len + s - 1
+        bucket = pk._read_len(pos)
+        order = ("ii", "iii") if s % 2 else ("iii", "ii")
+        out = {}
+        for run in order:
+            pipe = pipes[run]
+            _build.reset_launch_counts()
+            sync()
+            t0 = time.monotonic()
+            out[run] = step(pipe, cache[run], tok, pos)
+            sync()
+            step_ms[run].setdefault(bucket, []).append(
+                (time.monotonic() - t0) * 1e3)
+            per_step[run].add(_build.launch_counts["decode_attention"])
+        route_err = max(route_err, float(
+            (out["ii"] - out["iii"]).abs().max() / out["iii"].abs().max()))
+        tok = out["ii"].argmax(-1)
+    res["lockstep"] = dict(
+        rel_err=route_err, prefill_ms=prefill_ms,
+        launches_per_step={r: sorted(v) for r, v in per_step.items()},
+        step_p50_ms={r: {str(b): statistics.median(v)
+                         for b, v in sorted(by.items())}
+                     for r, by in step_ms.items()},
+        steps_per_bucket={str(b): len(v)
+                          for b, v in sorted(step_ms["ii"].items())})
+    if profile:
+        pos = prompt_len + steps
+        for run in ("ii", "iii"):
+            profile_pass(lambda run=run: step(pipes[run], cache[run], tok,
+                                              pos),
+                         f"decode step ({run}), bucket "
+                         f"{pk._read_len(pos)}, pos {pos}")
+
+    # the generate entry, once, with the kernel route chosen by the env
+    pt = ",".join(f"{l},{r}" for l, r in partition)
+    cmd = [sys.executable, "-m", "pipeedge_tpu_torch.generate", "-m", model,
+           "-pt", pt, "-b", str(batch), "--prompt-len", str(prompt_len),
+           "--new-tokens", str(new_tokens), "--max-len", str(max_len),
+           "--attend-floor", str(floor), "--kv-bits", "8",
+           "--device", torch.device(device).type]
+    env = dict(os.environ, PIPEEDGE_INT8_DECODE_ATTEND="1")
+    t0 = time.monotonic()
+    proc = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
+                          text=True, timeout=600)
+    if proc.returncode != 0:
+        raise RuntimeError(f"{' '.join(cmd)} exited {proc.returncode}:\n"
+                           f"{proc.stderr[-4000:]}")
+    lines = proc.stdout.splitlines()
+    for line in lines:
+        log("generate entry: " + line)
+    launches = [json.loads(ln.split("=", 1)[1]) for ln in lines
+                if ln.startswith("kernel_launches=")]
+    res["entry"] = dict(
+        command=" ".join(cmd[1:]), seconds=time.monotonic() - t0,
+        report=[ln for ln in lines if ln.startswith("generated ")],
+        decode_attention=launches[0]["decode_attention"] if launches
+        else None,
+        # warm-up of 2 tokens (1 decode step) + the timed generation
+        expected_decode_attention=blocks * (1 + steps) if on_card else 0)
+    return res
+
+
+def check_decode_path(res, device_name: str) -> None:
+    expected = res["expected"]
+    for run in ("i", "ii", "iii"):
+        r = res[run]
+        log(f"decode main path ({run}): " + json.dumps(
+            {**r, "card": device_name}, sort_keys=True))
+        want = {name: 0 for name in r["counts"]}
+        want["decode_attention"] = expected["decode_attention"][run]
+        if r["counts"] != want:
+            raise AssertionError(f"decode ({run}): launch counts "
+                                 f"{r['counts']} != {want}")
+        if r["shape"] != expected["shape"] or not r["in_vocab"]:
+            raise AssertionError(f"decode ({run}): tokens of shape "
+                                 f"{r['shape']}, in vocab {r['in_vocab']}")
+    i = res["i"]
+    if not i["finite"] or i["rel_err_vs_full"] > DECODE_FP_BOUND:
+        raise AssertionError(f"decode (i): step logits off the full-"
+                             f"sequence forward by {i['rel_err_vs_full']} "
+                             f"of max |logit| > {DECODE_FP_BOUND}")
+    lock = res["lockstep"]
+    log("decode lockstep (ii)/(iii): " + json.dumps(
+        {**lock, "card": device_name}, sort_keys=True))
+    if lock["rel_err"] > DECODE_ROUTE_BOUND:
+        raise AssertionError(f"decode (ii) vs (iii): logits differ by "
+                             f"{lock['rel_err']} of max |logit| > "
+                             f"{DECODE_ROUTE_BOUND}")
+    if lock["launches_per_step"] != expected["launches_per_step"]:
+        raise AssertionError(f"decode lockstep: kernel launches per step "
+                             f"{lock['launches_per_step']}")
+    entry = res["entry"]
+    log("generate entry: " + json.dumps(entry, sort_keys=True))
+    if len(entry["report"]) != 1 or \
+            entry["decode_attention"] != entry["expected_decode_attention"]:
+        raise AssertionError(f"generate entry: report {entry['report']}, "
+                             f"{entry['decode_attention']} decode_attention "
+                             f"launches != "
+                             f"{entry['expected_decode_attention']}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -591,10 +968,15 @@ def main() -> int:
         log(f"{name} " + json.dumps(row))
     attn_rows = check_attention(dev, gen)
     int8_rows = check_int8_matmul(dev, gen)
+    dec_rows = check_decode_attention(dev, gen)
 
     # phases 4 and 5: the main path, exact and with int8 compute
     results = main_path("cuda", profile=True)
     check_main_path(results, device_name)
+
+    # phase 6: the decode main path (GPT-2, int8 KV cache)
+    dec = decode_main_path("cuda", profile=True)
+    check_decode_path(dec, device_name)
 
     main_attn = attn_rows[-1]
     kernels = []
@@ -629,6 +1011,24 @@ def main() -> int:
         cases={r["case"]: dict(ms=r["ms"], plain_ms=r["plain_ms"],
                                bound_ms=r["bound_ms"],
                                bound_by=r["bound_by"]) for r in timed}))
+    # a bucket-256 decode step of the main path; its launches are run (ii)'s
+    timed = {r["case"]: r for r in dec_rows if "ms" in r}
+    step = timed["main_w256"]
+    kernels.append(dict(
+        name="decode_attention", route="cuda",
+        source=SOURCES["decode_attention"],
+        replaces=REPLACES["decode_attention"],
+        launches=dec["ii"]["counts"]["decode_attention"],
+        max_abs_err=max(r["max_abs_err"] for r in dec_rows
+                        if r["dtype"] == "float32"),
+        ms=step["ms"], plain_ms=step["plain_ms"], bound_ms=step["bound_ms"],
+        bound_by=step["bound_by"], library_ms=None, shape=step["shape"],
+        pos=step["pos"], dequant_route_ms=step["dequant_route_ms"],
+        sdpa_dequantized_ms=step["sdpa_dequantized_ms"],
+        cases={name: {k: r[k] for k in (
+            "shape", "pos", "dtype", "ms", "plain_ms", "bound_ms",
+            "bound_by", "dequant_route_ms", "sdpa_dequantized_ms",
+            "max_abs_err")} for name, r in timed.items()}))
     log(card)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

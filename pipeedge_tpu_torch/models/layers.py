@@ -28,7 +28,7 @@ from ..ops.attention import fused_attention
 @dataclasses.dataclass(frozen=True)
 class TransformerConfig:
     """Static model hyperparameters (local constants: no network fetch)."""
-    model_type: str              # 'vit'
+    model_type: str              # 'vit' | 'gpt2'
     hidden_size: int
     num_hidden_layers: int       # transformer blocks (sublayers = 4x this)
     num_attention_heads: int
@@ -39,10 +39,26 @@ class TransformerConfig:
     image_size: int = 224
     patch_size: int = 16
     num_channels: int = 3
+    # text
+    vocab_size: int = 0
+    max_position_embeddings: int = 0
+    # mixture-of-experts (switch-FFN blocks; 0 = dense FFN)
+    n_experts: int = 0
+    capacity_factor: float = 1.25
+    # grouped-query attention: 0 = same as query heads
+    num_kv_heads: int = 0
+    # sliding-window attention: each position attends to the last
+    # `sliding_window` positions (incl. itself); 0 = full causal
+    sliding_window: int = 0
 
     @property
     def head_dim(self) -> int:
         return self.hidden_size // self.num_attention_heads
+
+    @property
+    def kv_heads(self) -> int:
+        """Key/value head count (GQA: fewer than query heads; 0 = equal)."""
+        return self.num_kv_heads or self.num_attention_heads
 
     @property
     def num_patches(self) -> int:
@@ -186,6 +202,11 @@ def self_attention(p, x: torch.Tensor, num_heads: int,
 def gelu(x: torch.Tensor) -> torch.Tensor:
     """Exact (erf) GeLU, as torch `nn.GELU()` (tanh under fast numerics)."""
     return F.gelu(x, approximate="tanh" if fast_numerics_enabled() else "none")
+
+
+def gelu_new(x: torch.Tensor) -> torch.Tensor:
+    """Tanh-approximate GeLU, matching HF `gelu_new` (GPT-2's activation)."""
+    return F.gelu(x, approximate="tanh")
 
 
 def patchify(x: torch.Tensor, patch: int) -> torch.Tensor:

@@ -1,8 +1,9 @@
 """Model registry and shard factories.
 
-Port of `pipeedge_tpu/models/registry.py`, ViT entries only (the families
-this slice of the port carries). Layer counts are in sublayers, 4 per
-transformer block; configs are local constants, so nothing is fetched.
+Port of `pipeedge_tpu/models/registry.py`, the ViT and dense GPT-2
+entries (the families the port carries so far). Layer counts are in
+sublayers, 4 per transformer block; configs are local constants, so
+nothing is fetched.
 """
 from __future__ import annotations
 
@@ -17,6 +18,7 @@ import torch
 
 from .. import DeviceLike, resolve_device
 from . import ShardConfig
+from . import gpt2 as gpt2_mod
 from . import vit as vit_mod
 from .layers import TransformerConfig
 from .shard import params_to, shard_apply
@@ -29,7 +31,7 @@ class ModelEntry:
     name: str
     layers: int                  # sublayer count = 4 * blocks
     weights_file: str            # default npz filename (reference format)
-    family: object               # module: vit_mod
+    family: object               # module: vit_mod | gpt2_mod
     config: TransformerConfig
 
 
@@ -41,14 +43,29 @@ def _vit(name, layers, weights, hidden, blocks, heads, inter, labels,
         image_size=img, patch_size=patch))
 
 
+def _gpt2(name, layers, weights, hidden, blocks, heads, inter,
+          vocab=50257, max_pos=1024):
+    return ModelEntry(name, layers, weights, gpt2_mod, TransformerConfig(
+        model_type="gpt2", hidden_size=hidden, num_hidden_layers=blocks,
+        num_attention_heads=heads, intermediate_size=inter,
+        layer_norm_eps=1e-5, vocab_size=vocab,
+        max_position_embeddings=max_pos))
+
+
 _MODELS: Dict[str, ModelEntry] = {e.name: e for e in [
     _vit("google/vit-base-patch16-224", 48, "ViT-B_16-224.npz", 768, 12, 12, 3072, 1000),
     _vit("google/vit-large-patch16-224", 96, "ViT-L_16-224.npz", 1024, 24, 16, 4096, 1000),
     _vit("google/vit-huge-patch14-224-in21k", 128, "ViT-H_14.npz", 1280, 32, 16, 5120,
          21843, patch=14),
-    # tiny synthetic model for fast tests
+    # causal decoders (dense FFN; the switch-MoE entries wait for
+    # parallel/expert.py)
+    _gpt2("gpt2", 48, "GPT2.npz", 768, 12, 12, 3072),
+    _gpt2("gpt2-medium", 96, "GPT2-M.npz", 1024, 24, 16, 4096),
+    # tiny synthetic models for fast tests
     _vit("pipeedge/test-tiny-vit", 8, "test-tiny-vit.npz", 32, 2, 4, 64, 5,
          patch=4, img=16),
+    _gpt2("pipeedge/test-tiny-gpt2", 8, "test-tiny-gpt2.npz", 32, 2, 4, 64,
+          vocab=100, max_pos=64),
 ]}
 
 

@@ -35,7 +35,8 @@ BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC"]
 
-KERNELS = ("fused_encode", "fused_decode", "fused_attention", "int8_matmul")
+KERNELS = ("fused_encode", "fused_decode", "fused_attention", "int8_matmul",
+           "decode_attention")
 launch_counts: Dict[str, int] = {name: 0 for name in KERNELS}
 
 _lib: Optional[ctypes.CDLL] = None
@@ -46,6 +47,7 @@ ptxas_log: str = ""
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_int64
+_F = ctypes.c_float
 # C signatures (csrc/*.cu, `extern "C"`); every entry returns cudaError_t
 _SIGNATURES = {
     # x, data, scale, shift, partial, B, n, bit, chunk, vec, stream
@@ -59,6 +61,11 @@ _SIGNATURES = {
     # x, xs, wt, ws, out, M, N, K, bk, xs_row_stride, xs_col_stride, flip,
     # stream
     "pe_int8_matmul": [_P, _P, _P, _P, _P, _L, _L, _L, _L, _L, _L, _I, _P],
+    # q, k_new, v_new, k_q, v_q, k_scale, k_shift, v_scale, v_shift, out,
+    # dtype, B, H, D, pos, kv_stride_b, kv_stride_row, scale_stride_b,
+    # scale_stride_row, scale, stream
+    "pe_decode_attention": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                            _I, _I, _L, _L, _L, _L, _L, _F, _P],
 }
 
 

@@ -1,0 +1,257 @@
+"""The port's int8 decode attention (plain version, the CPU path of its
+kernel wrapper) and its routing gate, against the JAX package.
+
+- `decode_attention_reference` against the JAX `int8_decode_attention` in
+  interpret mode (variants 1 and 2) and against the JAX dequantize-then-
+  attend route (`_dequantize_rows` + `_attend`), on the same seeded
+  inputs. f32: rtol = atol = 2e-5, the JAX test's bound
+  (tests/test_decode_attention.py). bf16: rtol = atol = 1e-2; both sides
+  round K, V, the probabilities and the output to bf16 (2^-8 relative),
+  at different points (per-block running max in the TPU kernel, the
+  global max here, normalized probabilities in `_attend`), so outputs may
+  sit a bf16 ulp or two apart.
+- `_quantize_rows` codes, scales and shifts identical to JAX's.
+- The gate's scope and the opt-in's precedence and binding.
+"""
+import dataclasses
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from pipeedge_tpu.models import registry as jreg
+from pipeedge_tpu.ops import decode_attention as jda
+from pipeedge_tpu.parallel import decode as jdec
+from pipeedge_tpu_torch.models import layers as tlayers
+from pipeedge_tpu_torch.models import registry as treg
+from pipeedge_tpu_torch.ops import _build
+from pipeedge_tpu_torch.ops import decode_attention as tda
+from pipeedge_tpu_torch.parallel import decode as tdec
+
+F32_TOL = dict(rtol=2e-5, atol=2e-5)
+BF16_TOL = dict(rtol=1e-2, atol=1e-2)
+B, T, H, D = 2, 24, 4, 16
+MODEL = "pipeedge/test-tiny-gpt2"
+
+
+def _inputs(seed):
+    """Seeded rows quantized by the JAX package, as numpy arrays."""
+    rng = np.random.default_rng(seed)
+    k_rows = rng.normal(size=(B, T, H, D)).astype(np.float32)
+    v_rows = rng.normal(size=(B, T, H, D)).astype(np.float32)
+    q, k_new, v_new = (rng.normal(size=(B, 1, H, D)).astype(np.float32)
+                       for _ in range(3))
+    kq, ks, kz = (np.array(a) for a in jdec._quantize_rows(
+        jnp.asarray(k_rows)))
+    vq, vs, vz = (np.array(a) for a in jdec._quantize_rows(
+        jnp.asarray(v_rows)))
+    return dict(q=q, k_q=kq, k_scale=ks, k_shift=kz, v_q=vq, v_scale=vs,
+                v_shift=vz, k_new=k_new, v_new=v_new)
+
+
+_ORDER = ("q", "k_q", "k_scale", "k_shift", "v_q", "v_scale", "v_shift",
+          "k_new", "v_new")
+_ACT = ("q", "k_new", "v_new")
+
+
+def _jax_args(x, dtype=jnp.float32):
+    return [jnp.asarray(x[n], dtype) if n in _ACT else jnp.asarray(x[n])
+            for n in _ORDER]
+
+
+def _torch_args(x, dtype=torch.float32):
+    return [torch.from_numpy(x[n]).to(dtype) if n in _ACT
+            else torch.from_numpy(x[n]) for n in _ORDER]
+
+
+def _np(t):
+    return t.float().numpy() if isinstance(t, torch.Tensor) \
+        else np.asarray(jnp.asarray(t, jnp.float32))
+
+
+@pytest.mark.parametrize("pos", [0, 13, T - 1])
+@pytest.mark.parametrize("variant", [1, 2])
+def test_reference_matches_pallas_interpret(variant, pos):
+    x = _inputs(seed=pos)
+    want = jda.int8_decode_attention(*_jax_args(x), pos, interpret=True,
+                                     variant=variant)
+    got = tda.int8_decode_attention(*_torch_args(x), pos, variant=variant)
+    assert tuple(got.shape) == (B, 1, H * D) and got.dtype == torch.float32
+    np.testing.assert_allclose(_np(got), _np(want), **F32_TOL)
+
+
+def _jax_attend_route(x, pos, dtype):
+    """The JAX dequantize-then-attend route on the same window."""
+    k = jdec._dequantize_rows(jnp.asarray(x["k_q"]), x["k_scale"],
+                              x["k_shift"], dtype)
+    v = jdec._dequantize_rows(jnp.asarray(x["v_q"]), x["v_scale"],
+                              x["v_shift"], dtype)
+    k = k.at[:, pos:pos + 1].set(jnp.asarray(x["k_new"], dtype))
+    v = v.at[:, pos:pos + 1].set(jnp.asarray(x["v_new"], dtype))
+    keep = (jnp.arange(T) <= pos)[None, :]
+    return jdec._attend(jnp.asarray(x["q"], dtype), k, v, keep,
+                        jreg.get_model_config(MODEL))
+
+
+@pytest.mark.parametrize("pos", [0, 9, T - 1])
+def test_reference_matches_jax_attend_route_f32(pos):
+    x = _inputs(seed=40 + pos)
+    got = tda.decode_attention_reference(*_torch_args(x), pos)
+    np.testing.assert_allclose(_np(got), _np(_jax_attend_route(
+        x, pos, jnp.float32)), **F32_TOL)
+
+
+@pytest.mark.parametrize("pos", [0, 9, T - 1])
+def test_reference_matches_jax_bf16(pos):
+    x = _inputs(seed=60 + pos)
+    got = tda.int8_decode_attention(*_torch_args(x, torch.bfloat16), pos)
+    assert got.dtype == torch.bfloat16
+    want_kernel = jda.int8_decode_attention(
+        *_jax_args(x, jnp.bfloat16), pos, interpret=True, variant=1)
+    want_route = _jax_attend_route(x, pos, jnp.bfloat16)
+    np.testing.assert_allclose(_np(got), _np(want_kernel), **BF16_TOL)
+    np.testing.assert_allclose(_np(got), _np(want_route), **BF16_TOL)
+
+
+def test_strided_window_of_a_stage_cache():
+    """The route passes `cache[:, :w]` of a [L, B, T, H, Dh] stage cache: a
+    view with batch stride T*H*Dh. The reference reads it in place and
+    equals the JAX kernel on the same window."""
+    x = _inputs(seed=7)
+    w, pos = 16, 11
+    cache = {name: torch.zeros((3, B, T + 8) + x[name].shape[2:],
+                               dtype=torch.from_numpy(x[name]).dtype)
+             for name in ("k_q", "k_scale", "k_shift", "v_q", "v_scale",
+                          "v_shift")}
+    for name, c in cache.items():
+        c[1, :, :T] = torch.from_numpy(x[name])
+    views = {name: c[1][:, :w] for name, c in cache.items()}
+    assert not views["k_q"].is_contiguous()
+    args = [torch.from_numpy(x[n]) if n in _ACT else views[n]
+            for n in _ORDER]
+    got = tda.int8_decode_attention(*args, pos)
+    window = {n: (x[n] if n in _ACT else x[n][:, :w]) for n in _ORDER}
+    want = jda.int8_decode_attention(*_jax_args(window), pos,
+                                     interpret=True, variant=1)
+    np.testing.assert_allclose(_np(got), _np(want), **F32_TOL)
+    # rows past pos are not read: garbage there changes nothing
+    for name in ("k_q", "v_q"):
+        views[name][:, pos + 1:] = 127
+    for name in ("k_scale", "v_scale"):
+        views[name][:, pos + 1:] = float("nan")
+    args = [torch.from_numpy(x[n]) if n in _ACT else views[n]
+            for n in _ORDER]
+    assert torch.equal(tda.int8_decode_attention(*args, pos), got)
+
+
+def test_cpu_path_counts_no_launch_and_rejects_bad_inputs():
+    x = _inputs(seed=3)
+    args = _torch_args(x)
+    before = dict(_build.launch_counts)
+    tda.int8_decode_attention(*args, 5)
+    assert _build.launch_counts == before
+    with pytest.raises(ValueError, match="pos"):
+        tda.int8_decode_attention(*args, T)
+    with pytest.raises(ValueError, match="variant"):
+        tda.int8_decode_attention(*args, 5, variant=3)
+    bad = list(args)
+    bad[1] = args[1].float()                       # k_q not int8
+    with pytest.raises(ValueError):
+        tda.int8_decode_attention(*bad, 5)
+    bad = list(args)
+    bad[7] = args[7].to(torch.bfloat16)            # k_new dtype != q's
+    with pytest.raises(ValueError):
+        tda.int8_decode_attention(*bad, 5)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_quantize_rows_identical_to_jax(dtype):
+    rng = np.random.default_rng(11)
+    x = (rng.normal(size=(3, 5, H, D)) * 4).astype(np.float32)
+    x[1, 2, 3] = 0.25                              # a zero-range row
+    jx = jnp.asarray(x, getattr(jnp, dtype))
+    tx = torch.from_numpy(x).to(getattr(torch, dtype))
+    for got, want in zip(tdec._quantize_rows(tx), jdec._quantize_rows(jx)):
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    got = tdec._dequantize_rows(*tdec._quantize_rows(tx), torch.float32)
+    want = jdec._dequantize_rows(*jdec._quantize_rows(jx), jnp.float32)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def test_gate_scope():
+    cfg = treg.get_model_config(MODEL)
+    cache8 = {"k": None, "k_scale": None}
+    gate = tdec._use_int8_decode_kernel
+    # span / fp cache / GQA / window never route, even when opted in
+    assert gate(cache8, 2, cfg, 1) is None
+    assert gate({"k": None}, 1, cfg, 1) is None
+    gqa = dataclasses.replace(cfg, num_kv_heads=2)
+    assert gqa.kv_heads == 2 and gate(cache8, 1, gqa, 1) is None
+    assert gate(cache8, 1, dataclasses.replace(cfg, sliding_window=4),
+                1) is None
+    # off: the dequantize route; on: the kernel, variant passed through;
+    # 'auto' (3) routes every eligible step (no width cap on the card)
+    assert gate(cache8, 1, cfg, 0) is None
+    assert gate(cache8, 1, cfg, 1) == 1
+    assert gate(cache8, 1, cfg, 2) == 2
+    assert gate(cache8, 1, cfg, 3) == 2
+
+
+@pytest.mark.parametrize("value", [None, "", "0", "false", "no", "off", "1",
+                                   "yes", "2", "auto", "AUTO"])
+def test_env_resolution_matches_jax(monkeypatch, value):
+    if value is None:
+        monkeypatch.delenv("PIPEEDGE_INT8_DECODE_ATTEND", raising=False)
+    else:
+        monkeypatch.setenv("PIPEEDGE_INT8_DECODE_ATTEND", value)
+    assert tdec._int8_kernel_env() == jdec._int8_kernel_env()
+    for override in (None, 0, 1, 2, "auto", "off", "2"):
+        assert tdec._resolve_int8_optin(override) == \
+            jdec._resolve_int8_optin(override)
+
+
+def test_optin_precedence_arg_env_config(monkeypatch):
+    monkeypatch.delenv("PIPEEDGE_INT8_DECODE_ATTEND", raising=False)
+    monkeypatch.delenv("PIPEEDGE_QUANTIZE_COMPUTE", raising=False)
+    tlayers.set_quantize_compute(None)
+    try:
+        assert tdec._resolve_int8_optin() == 0          # default: off
+        tlayers.set_quantize_compute(True)
+        assert tdec._resolve_int8_optin() == 3          # config promotes
+        monkeypatch.setenv("PIPEEDGE_INT8_DECODE_ATTEND", "0")
+        assert tdec._resolve_int8_optin() == 0          # env beats config
+        monkeypatch.setenv("PIPEEDGE_INT8_DECODE_ATTEND", "1")
+        assert tdec._resolve_int8_optin() == 1
+        assert tdec._resolve_int8_optin("2") == 2       # arg beats env
+        assert tdec._resolve_int8_optin(0) == 0
+    finally:
+        tlayers.set_quantize_compute(None)
+
+
+def test_optin_bound_at_construction(monkeypatch):
+    monkeypatch.setenv("PIPEEDGE_INT8_DECODE_ATTEND", "1")
+    entry = treg.get_model_entry(MODEL)
+    _, params, _ = treg.module_shard_factory(MODEL, None, 1, 8,
+                                             device="cpu")
+    pipe = tdec.DecodePipeline(entry.family.FAMILY, entry.config, [(1, 8)],
+                               [params], max_len=32, device="cpu",
+                               cache_bits=8)
+    assert pipe.int8_decode_optin == 1
+    monkeypatch.setenv("PIPEEDGE_INT8_DECODE_ATTEND", "0")
+    assert pipe.int8_decode_optin == 1                 # captured
+    routed = []
+    real = tda.int8_decode_attention
+
+    def spy(*args, **kw):
+        routed.append(kw.get("variant"))
+        return real(*args, **kw)
+
+    monkeypatch.setattr(tda, "int8_decode_attention", spy)
+    pipe.generate(np.zeros((1, 3), np.int64), 3)
+    assert routed == [1] * 2 * entry.config.num_hidden_layers
+    monkeypatch.delenv("PIPEEDGE_INT8_DECODE_ATTEND")
+    pipe2 = tdec.DecodePipeline(entry.family.FAMILY, entry.config, [(1, 8)],
+                                [params], max_len=32, device="cpu",
+                                cache_bits=8)
+    assert pipe2.int8_decode_optin == 0

@@ -16,7 +16,7 @@ import pytest
 import torch
 
 import pipeedge_tpu_torch
-from pipeedge_tpu_torch import runtime
+from pipeedge_tpu_torch import generate, runtime
 from pipeedge_tpu_torch.parallel.pipeline import build_pipeline
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -76,6 +76,14 @@ def test_build_pipeline_without_device_raises_without_gpu():
         pipeedge_tpu_torch.resolve_device(None)
 
 
+def test_generate_without_device_raises_without_gpu():
+    if torch.cuda.is_available():
+        pytest.skip("this host has a GPU: the default device is valid")
+    with pytest.raises(RuntimeError, match="cuda"):
+        generate.main(["-m", "pipeedge/test-tiny-gpt2", "-b", "2",
+                       "--prompt-len", "4", "--new-tokens", "2"])
+
+
 def test_runtime_cpu_prints_report(capsys):
     runtime.main(["0", "2", "-m", "pipeedge/test-tiny-vit", "-pt", "1,5,6,8",
                   "-q", "8,0", "-b", "4", "-u", "2", "--device", "cpu",
@@ -87,9 +95,9 @@ def test_runtime_cpu_prints_report(capsys):
                for ln in lines)
     # plain versions on the CPU: no kernel launched
     launches = [ln for ln in lines if ln.startswith("kernel_launches=")]
-    assert launches == ['kernel_launches={"fused_attention": 0, '
-                        '"fused_decode": 0, "fused_encode": 0, '
-                        '"int8_matmul": 0}']
+    assert launches == ['kernel_launches={"decode_attention": 0, '
+                        '"fused_attention": 0, "fused_decode": 0, '
+                        '"fused_encode": 0, "int8_matmul": 0}']
 
 
 def test_runtime_rejects_bad_partition():
