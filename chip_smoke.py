@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port (`pipeedge_tpu_torch`) on one GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--ab-parent DIR]
 
 Phases, each of which raises on failure (nothing is caught):
   1. card and toolchain: `nvidia-smi` name and power limit, torch and CUDA;
@@ -12,16 +12,25 @@ Phases, each of which raises on failure (nothing is caught):
        [8, 197, 768], an odd tail [3, 37] and with a zero-range item:
        words, scale, shift and decoded values bit-identical;
      - attention at [96, 197, 64] f32, [128, 257, 80] f32 (ViT-H), causal
-       [8, 1024, 64] f32, [96, 197, 64] bf16, and the main path's strided
-       [8, 197, 12, 64] f32, within the tolerances stated below;
+       [8, 1024, 64] f32, [96, 197, 64] bf16, S = 1, S = 65 (one row past
+       a tile), causal [96, 197, 64] f32, and the main path's strided
+       [8, 197, 12, 64] in bf16 and f32, within the tolerances stated
+       below, each timed beside SDPA;
      - the block-scaled int8 matmul, bit-identical to its plain version,
        at the main path's three dense shapes, ragged M and N, K = 100 (a
-       block of all of K), K = 80 (half a k-step of padding), all-zero
-       blocks and channels, a saturating outlier, and the tunnel's input
-       (the wire words' bytes read in place at [8 * 197, 768]); beside
-       its time, the plain activation quantizer's, an f32 `addmm` of the
-       same dense (what the route replaces) and `torch._int_mm` on the
-       same codes (the whole-K int32 product: not the same function);
+       block of all of K), K = 80 (half a k-step of padding), K = 192
+       (blocks of 96), K = 320 (blocks of 80), M = 1, all-zero blocks and
+       channels, a saturating outlier, and the tunnel's input (the wire
+       words' bytes read in place at [8 * 197, 768] into N = 768 and
+       3072), each case naming the kernel it ran (the main path's shapes
+       and the tunnel must run the wgmma kernel); beside its time, the
+       plain activation quantizer's, an f32 `addmm` of the same dense
+       (what the route replaces) and `torch._int_mm` on the same codes
+       (the whole-K int32 product: not the same function);
+     - with `--ab-parent DIR` (a `csrc/` of another version, e.g. the
+       parent commit's unpacked under the gitignored `_build/`), that
+       version's attention and int8 kernels are built beside these and
+       timed on the same inputs in the order parent, this, this, parent;
   4. the main path: ViT-Base at full width (seeded random weights in the
      Google npz format) through `parallel.pipeline.build_pipeline`, two
      stages cut at `-pt 1,21,22,48` (a (ctx, residual) 2-tuple edge),
@@ -91,6 +100,13 @@ BATCH, UBATCH = 64, 8
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.float32: 67e12,     # f32 outside the tensor cores
               torch.bfloat16: 989e12}   # bf16 tensor cores
+# f32 attention at f32 accuracy on the tensor cores: 3xTF32 takes three
+# TF32 products (495 TFLOP/s dense) per f32 product, so 165 TFLOP/s; the
+# attention kernel runs it that way, so its bound uses this rate, not the
+# CUDA-core rate (67), which a kernel on the tensor cores can beat
+ATTN_F32_FLOPS = 495e12 / 3
+ATTN_PEAK_FLOPS = {torch.float32: ATTN_F32_FLOPS,
+                   torch.bfloat16: PEAK_FLOPS[torch.bfloat16]}
 
 # Kernel vs plain version on the card. Codec: bit-identical (same IEEE
 # ops, no contraction, round half to even). Attention: online vs dense
@@ -268,7 +284,7 @@ def attention_bound_ms(b, h, s, d, dtype, causal):
     pairs = s * (s + 1) // 2 if causal else s * s
     flops = 4 * b * h * pairs * d              # q k^T and p v
     t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = flops / PEAK_FLOPS[dtype]
+    t_ops = flops / ATTN_PEAK_FLOPS[dtype]
     return max(t_bytes, t_ops) * 1e3, ("operations" if t_ops >= t_bytes
                                        else "bytes")
 
@@ -281,6 +297,10 @@ def check_attention(dev, gen):
              ("bhsd", (128, 257, 80), torch.float32, False),
              ("bhsd", (8, 1024, 64), torch.float32, True),
              ("bhsd", (96, 197, 64), torch.bfloat16, False),
+             ("bhsd", (96, 1, 64), torch.float32, False),
+             ("bhsd", (96, 65, 64), torch.float32, False),
+             ("bhsd", (96, 197, 64), torch.float32, True),
+             ("bshd", (8, 197, 12, 64), torch.bfloat16, False),
              ("bshd", (8, 197, 12, 64), torch.float32, False)]
     for layout, shape, dtype, causal in cases:
         q, k, v = (torch.randn(shape, generator=gen, device=dev).to(dtype)
@@ -364,9 +384,13 @@ def check_int8_matmul(dev, gen):
         ("odd_n", 33, 128, 17, False),
         ("k100", 64, 100, 48, False),
         ("k80", 70, 80, 40, False),
+        ("k192", 64, 192, 96, False),
+        ("k320", 70, 320, 40, False),
+        ("m1", 1, 768, 768, False),
         ("zeros", 256, 384, 96, False),
         ("outlier", 200, 768, 256, False),
         ("tunnel", m_path, 768, 768, True),
+        ("tunnel_up", m_path, 768, 3072, True),
     ]
     rows = []
     for name, m, k, n, timed in cases:
@@ -379,19 +403,21 @@ def check_int8_matmul(dev, gen):
         if name == "outlier":
             x[5, 7] = 1e4
         folded = im.fold_weight(w)
-        if name == "tunnel":
+        if name.startswith("tunnel"):
             enc = fused_quant.fused_encode_outerdim(
                 x.reshape(UBATCH, 197, k), 8)
             s_row = (enc.scale / torch.full((), 255.0, device=dev)
                      ).repeat_interleave(197)
             xs = s_row[:, None].expand(m, k // bk)
             xq = im.wire_codes(enc)
+            x_bytes = enc.data
 
             def kern():
                 return im.wire_matmul(enc, xs, folded.w_q, folded.w_scale,
                                       bk)
         else:
             xq, xs = im.quantize_act_blocks(x, bk)
+            x_bytes = xq
 
             def kern():
                 return im.matmul_q(xq, xs, folded.w_q, folded.w_scale, bk)
@@ -407,7 +433,12 @@ def check_int8_matmul(dev, gen):
                 f"int8 matmul {name} [{m},{k}]x[{k},{n}]: {bad} of "
                 f"{want.numel()} outputs differ from the plain version, "
                 f"max |diff| {float((got - want).abs().max())}")
-        row = dict(case=name, shape=[m, k, n], block_k=bk,
+        kernel = im.kernel_choice(
+            k, bk, (x_bytes.data_ptr() | folded.w_q.data_ptr()) % 16 == 0)
+        if timed and kernel != "wgmma":
+            raise AssertionError(f"int8 matmul {name}: the main path's "
+                                 f"shape ran the {kernel} kernel")
+        row = dict(case=name, shape=[m, k, n], block_k=bk, kernel=kernel,
                    max_abs_err=float((got - want).abs().max()))
         if name == "zeros" and not bool((got[:, : n // 3] == 0).all()):
             raise AssertionError("int8 matmul: all-zero channels not zero")
@@ -420,12 +451,76 @@ def check_int8_matmul(dev, gen):
                 addmm_f32_ms=time_ms(lambda: torch.addmm(bias, x, w)),
                 int_mm_whole_k_ms=time_ms(
                     lambda: torch._int_mm(xq, folded.w_q)))
-            if name != "tunnel":
+            if not name.startswith("tunnel"):
                 row["act_quantizer_ms"] = time_ms(
                     lambda: im.quantize_act_blocks(x, bk))
                 row["act_quantizer_launches"] = device_launches(
                     lambda: im.quantize_act_blocks(x, bk))
         log("int8_matmul " + json.dumps(row))
+        rows.append(row)
+    return rows
+
+
+def ab_parent(parent_csrc: Path, dev, gen):
+    """Time another version's attention and int8 kernels (built from
+    `parent_csrc`) against this one's on the same inputs, in the order
+    parent, this, this, parent; the parent runs through the same wrappers
+    with its library swapped in, its int8 entry for both kernel choices."""
+    from pipeedge_tpu_torch.ops import _build, fused_quant
+    from pipeedge_tpu_torch.ops import attention
+    from pipeedge_tpu_torch.ops import int8_matmul as im
+    t0 = time.monotonic()
+    parent = _build.load(_build.build(parent_csrc))
+    log(f"ab: parent kernels built in {time.monotonic() - t0:.1f} s")
+    ours = _build.library()
+    entries = dict(im._ENTRIES)
+
+    def timed(fn, lib):
+        _build._lib = lib
+        im._ENTRIES.update(entries if lib is ours else
+                           {name: "pe_int8_matmul" for name in entries})
+        try:
+            return time_ms(fn)
+        finally:
+            _build._lib = ours
+            im._ENTRIES.update(entries)
+
+    cases = []
+    for shape, dtype in (((8, 197, 12, 64), torch.float32),
+                         ((96, 197, 64), torch.bfloat16)):
+        q, k, v = (torch.randn(shape, generator=gen, device=dev).to(dtype)
+                   for _ in range(3))
+        fn = (attention.fused_attention if len(shape) == 4
+              else attention.fused_attention_bhsd)
+        cases.append((f"attention {list(shape)} "
+                      f"{str(dtype).replace('torch.', '')}",
+                      lambda fn=fn, q=q, k=k, v=v: fn(q, k, v)))
+    m = UBATCH * 197
+    for name, k, n in (("qkv", 768, 768), ("mlp.up", 768, 3072),
+                       ("mlp.down", 3072, 768), ("tunnel", 768, 768),
+                       ("tunnel_up", 768, 3072)):
+        x = torch.randn((m, k), generator=gen, device=dev) * 3.0
+        folded = im.fold_weight(torch.randn((k, n), generator=gen,
+                                            device=dev) * 0.02)
+        if name.startswith("tunnel"):
+            enc = fused_quant.fused_encode_outerdim(x.reshape(UBATCH, 197, k),
+                                                    8)
+            xs = (enc.scale / torch.full((), 255.0, device=dev)
+                  ).repeat_interleave(197)[:, None].expand(m, k // 128)
+            fn = (lambda enc=enc, xs=xs, f=folded:
+                  im.wire_matmul(enc, xs, f.w_q, f.w_scale, 128))
+        else:
+            xq, xs = im.quantize_act_blocks(x, 128)
+            fn = (lambda xq=xq, xs=xs, f=folded:
+                  im.matmul_q(xq, xs, f.w_q, f.w_scale, 128))
+        cases.append((f"int8_matmul {name} [{m},{k}]x[{k},{n}]", fn))
+    rows = []
+    for name, fn in cases:
+        p1, c1, c2, p2 = (timed(fn, lib)
+                          for lib in (parent, ours, ours, parent))
+        row = dict(case=name, parent_ms=[p1, p2], this_ms=[c1, c2],
+                   speedup=(p1 + p2) / (c1 + c2))
+        log("ab " + json.dumps(row))
         rows.append(row)
     return rows
 
@@ -935,6 +1030,12 @@ def check_decode_path(res, device_name: str) -> None:
 
 
 def main() -> int:
+    import argparse
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--ab-parent", type=Path, default=None,
+                        help="a csrc/ directory of another version to time "
+                             "against this one (phase 3)")
+    args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "False)", file=sys.stderr)
@@ -969,6 +1070,8 @@ def main() -> int:
     attn_rows = check_attention(dev, gen)
     int8_rows = check_int8_matmul(dev, gen)
     dec_rows = check_decode_attention(dev, gen)
+    if args.ab_parent is not None:
+        ab_parent(args.ab_parent, dev, gen)
 
     # phases 4 and 5: the main path, exact and with int8 compute
     results = main_path("cuda", profile=True)
@@ -978,7 +1081,8 @@ def main() -> int:
     dec = decode_main_path("cuda", profile=True)
     check_decode_path(dec, device_name)
 
-    main_attn = attn_rows[-1]
+    main_attn = next(r for r in attn_rows if r["layout"] == "bshd"
+                     and r["dtype"] == "float32")
     kernels = []
     for name in ("fused_encode", "fused_decode"):
         row = codec_rows[(name, 8)]
@@ -997,7 +1101,13 @@ def main() -> int:
         max_abs_err=main_attn["max_abs_err"], ms=main_attn["ms"],
         plain_ms=main_attn["plain_ms"], bound_ms=main_attn["bound_ms"],
         bound_by=main_attn["bound_by"], library_ms=main_attn["library_ms"],
-        shape=main_attn["shape"], dtype=main_attn["dtype"]))
+        shape=main_attn["shape"], dtype=main_attn["dtype"],
+        cases={f"{r['layout']} {r['shape']} {r['dtype']}"
+               f"{' causal' if r['causal'] else ''}": {
+                   key: r[key] for key in ("ms", "plain_ms", "library_ms",
+                                           "bound_ms", "bound_by",
+                                           "max_abs_err")}
+               for r in attn_rows}))
     # the int8 path's own main path is run (c): every int8 launch of it
     timed = [r for r in int8_rows if "ms" in r]
     qkv = timed[0]
@@ -1008,9 +1118,11 @@ def main() -> int:
         max_abs_err=max(r["max_abs_err"] for r in int8_rows),
         ms=qkv["ms"], plain_ms=qkv["plain_ms"], bound_ms=qkv["bound_ms"],
         bound_by=qkv["bound_by"], library_ms=None, shape=qkv["shape"],
+        kernel=qkv["kernel"],
         cases={r["case"]: dict(ms=r["ms"], plain_ms=r["plain_ms"],
                                bound_ms=r["bound_ms"],
-                               bound_by=r["bound_by"]) for r in timed}))
+                               bound_by=r["bound_by"], kernel=r["kernel"])
+               for r in timed}))
     # a bucket-256 decode step of the main path; its launches are run (ii)'s
     timed = {r["case"]: r for r in dec_rows if "ms" in r}
     step = timed["main_w256"]

@@ -61,6 +61,9 @@ _SIGNATURES = {
     # x, xs, wt, ws, out, M, N, K, bk, xs_row_stride, xs_col_stride, flip,
     # stream
     "pe_int8_matmul": [_P, _P, _P, _P, _P, _L, _L, _L, _L, _L, _L, _I, _P],
+    # the same arguments, on the wgmma kernel
+    "pe_int8_matmul_wgmma": [_P, _P, _P, _P, _P, _L, _L, _L, _L, _L, _L, _I,
+                             _P],
     # q, k_new, v_new, k_q, v_q, k_scale, k_shift, v_scale, v_shift, out,
     # dtype, B, H, D, pos, kv_stride_b, kv_stride_row, scale_stride_b,
     # scale_stride_row, scale, stream
@@ -78,8 +81,8 @@ def reset_launch_counts() -> None:
         launch_counts[name] = 0
 
 
-def _sources() -> List[Path]:
-    return sorted(CSRC.glob("*.cu"))
+def _sources(csrc: Path) -> List[Path]:
+    return sorted(csrc.glob("*.cu"))
 
 
 def _nvcc() -> str:
@@ -93,11 +96,13 @@ def _nvcc() -> str:
     return nvcc
 
 
-def _build() -> Path:
-    """Compile every csrc/*.cu in parallel and link one .so; returns it."""
+def build(csrc: Path = CSRC) -> Path:
+    """Compile every `csrc`/*.cu in parallel and link one .so; returns it.
+    `csrc` other than the package's own builds another version of the
+    kernels beside it (an A/B of two versions on one card)."""
     global build_seconds, ptxas_log
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in _sources(csrc):
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
     tag = digest.hexdigest()[:16]
@@ -111,7 +116,7 @@ def _build() -> Path:
     work = BUILD_DIR / f"obj_{tag}_{os.getpid()}"
     work.mkdir(exist_ok=True)
     procs = []
-    for src in _sources():
+    for src in _sources(csrc):
         obj = work / (src.stem + ".o")
         cmd = [nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-c", str(src),
                "-o", str(obj)]
@@ -145,15 +150,21 @@ def library() -> ctypes.CDLL:
     global _lib
     with _lock:
         if _lib is None:
-            lib = ctypes.CDLL(str(_build()))
-            for name, argtypes in _SIGNATURES.items():
-                fn = getattr(lib, name)
-                fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
-            lib.pe_error_string.argtypes = [ctypes.c_int]
-            lib.pe_error_string.restype = ctypes.c_char_p
-            _lib = lib
+            _lib = load(build())
     return _lib
+
+
+def load(path: Path) -> ctypes.CDLL:
+    """Load a built kernel library and declare the C signatures it has."""
+    lib = ctypes.CDLL(str(path))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name, None)
+        if fn is not None:
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+    lib.pe_error_string.argtypes = [ctypes.c_int]
+    lib.pe_error_string.restype = ctypes.c_char_p
+    return lib
 
 
 def check(code: int, what: str) -> None:

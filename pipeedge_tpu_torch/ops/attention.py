@@ -8,6 +8,9 @@ reads both layouts through strides, so neither wrapper transposes, and it
 masks the ragged key tail itself (the TPU wrapper padded S to 8).
 
 f32 or bf16 in, the same dtype out; the softmax runs in f32 either way.
+The kernel's products run on the tensor cores: bf16 as bf16 products, f32
+as 3xTF32 (each operand split into two TF32 parts, three products summed
+in f32), which keeps the f32 tolerance that one TF32 product would miss.
 """
 from __future__ import annotations
 
@@ -35,15 +38,21 @@ def attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.matmul(probs, v.float()).to(q.dtype)
 
 
+def check_kernel_args(dtype: torch.dtype, d: int) -> None:
+    """Raise for what the kernel does not take: a dtype other than f32 or
+    bf16, a head dim above 128."""
+    if dtype not in _DTYPES:
+        raise ValueError(f"fused attention takes float32 or bfloat16, "
+                         f"got {dtype}")
+    if not 0 < d <= MAX_HEAD_DIM:
+        raise ValueError(f"fused attention takes head dim <= "
+                         f"{MAX_HEAD_DIM}, got {d}")
+
+
 def _launch(q, k, v, batch: int, heads: int, seq: int, d: int,
             strides, causal: bool) -> torch.Tensor:
     """Run the kernel on tensors that share one strided layout."""
-    if q.dtype not in _DTYPES:
-        raise ValueError(f"fused attention takes float32 or bfloat16, "
-                         f"got {q.dtype}")
-    if d > MAX_HEAD_DIM:
-        raise ValueError(f"fused attention takes head dim <= "
-                         f"{MAX_HEAD_DIM}, got {d}")
+    check_kernel_args(q.dtype, d)
     out = torch.empty_like(q)
     lib = _build.library()
     _build.check(lib.pe_fused_attention(

@@ -10,13 +10,17 @@ with each k-block's int8 product summed exactly, in int32, and folded into
 an f32 accumulator in k order. One activation outlier saturates only its
 own k-block's scale.
 
-`matmul_q` is the dispatch seam: the hand-written kernel of
-`csrc/int8_matmul.cu` (s8 tensor cores, `mma.sync`) for CUDA tensors,
-`matmul_reference`, the plain PyTorch version of the same function, for
-CPU tensors. There is no mode switch and no probe: on the card the kernel
-runs or the call raises. The kernel equals `matmul_reference` bit for bit
-(`chip_smoke.py` holds it to that): both sum each k-block exactly and fold
-with one rounded multiply and one rounded add per block, in k order.
+`matmul_q` is the dispatch seam: the hand-written kernels of
+`csrc/int8_matmul.cu` for CUDA tensors, `matmul_reference`, the plain
+PyTorch version of the same function, for CPU tensors. Of the two kernels,
+`kernel_choice` picks by shape and alignment alone: the `wgmma` kernel
+(TMA ring, warp-specialised) whenever the k-block is a multiple of 32 bytes
+and both operands are 16-byte aligned, which covers the whole main path,
+and the `mma.sync` kernel for the rest (K = 100 taken whole, K = 320 in
+blocks of 80). There is no mode switch and no probe: on the card a kernel
+runs or the call raises. Both equal `matmul_reference` bit for bit
+(`chip_smoke.py` holds them to that): each sums every k-block exactly and
+folds it with one rounded multiply and one rounded add, in k order.
 
 Weight fold: a weight's int8 codes and scales depend on the weight alone,
 so `int8_dense` and `wire_dense` quantize each weight tensor once, at
@@ -145,6 +149,18 @@ def matmul_reference(x_q: torch.Tensor, x_scale: torch.Tensor,
     return acc * w_scale.to(torch.float32)[None, :]
 
 
+def kernel_choice(k: int, block_k: int, aligned: bool) -> str:
+    """The kernel a CUDA call of this shape runs: "wgmma" for a k-block of
+    whole 32-byte wgmma steps with 16-byte aligned operands (TMA's rule;
+    K is then a multiple of 32 too), else "mma_sync"."""
+    if block_k > 0 and k % block_k == 0 and block_k % 32 == 0 and aligned:
+        return "wgmma"
+    return "mma_sync"
+
+
+_ENTRIES = {"wgmma": "pe_int8_matmul_wgmma", "mma_sync": "pe_int8_matmul"}
+
+
 def _launch(x_bytes: torch.Tensor, x_scale: torch.Tensor,
             w_qt: torch.Tensor, w_scale: torch.Tensor, block_k: int,
             flip: bool) -> torch.Tensor:
@@ -161,8 +177,10 @@ def _launch(x_bytes: torch.Tensor, x_scale: torch.Tensor,
         raise ValueError("int8 matmul scales must be float32")
     w_scale = w_scale.contiguous()
     out = torch.empty((m, n), dtype=torch.float32, device=dev)
-    lib = _build.library()
-    _build.check(lib.pe_int8_matmul(
+    aligned = (x_bytes.data_ptr() | w_qt.data_ptr()) % 16 == 0
+    entry = getattr(_build.library(),
+                    _ENTRIES[kernel_choice(k, block_k, aligned)])
+    _build.check(entry(
         x_bytes.data_ptr(), x_scale.data_ptr(), w_qt.data_ptr(),
         w_scale.data_ptr(), out.data_ptr(), m, n, k, block_k,
         x_scale.stride(0), x_scale.stride(1), int(flip),

@@ -98,6 +98,47 @@ def test_pick_block_matches_jax():
             assert tmm.pick_block(width, pref) == pick_block(width, pref)
 
 
+# -- the choice between the two CUDA kernels -------------------------------
+# ViT-Base's denses (K 768 and 3072) and the tunnel take the wgmma kernel;
+# a k-block that is not whole 32-byte wgmma steps, or an operand that is
+# not 16-byte aligned (TMA's rule), takes the mma.sync kernel.
+@pytest.mark.parametrize("k, want", [
+    (768, "wgmma"),          # q/k/v/attn.out, mlp.up, the tunnel
+    (3072, "wgmma"),         # mlp.down
+    (192, "wgmma"),          # block 96: three k32 steps per block
+    (64, "wgmma"),
+    (100, "mma_sync"),       # no multiple of 8 divides it: one block of 100
+    (80, "mma_sync"),        # block 80
+    (320, "mma_sync"),       # block 80
+])
+def test_kernel_choice_by_shape(k, want):
+    bk = tmm.pick_block(k)
+    assert tmm.kernel_choice(k, bk, aligned=True) == want
+
+
+@pytest.mark.parametrize("k", [768, 3072, 192])
+def test_kernel_choice_needs_aligned_operands(k):
+    assert tmm.kernel_choice(k, tmm.pick_block(k), aligned=False) \
+        == "mma_sync"
+
+
+def test_kernel_choice_takes_explicit_blocks():
+    assert tmm.kernel_choice(768, 256, aligned=True) == "wgmma"
+    assert tmm.kernel_choice(768, 96, aligned=True) == "wgmma"
+    assert tmm.kernel_choice(768, 48, aligned=True) == "mma_sync"
+    assert tmm.kernel_choice(768, 0, aligned=True) == "mma_sync"
+    assert tmm.kernel_choice(700, 64, aligned=True) == "mma_sync"  # K % bk
+
+
+def test_wire_flip_is_the_recentred_code():
+    """The wgmma kernel XORs each wire byte with 0x80 in shared memory (the
+    mma.sync kernel in registers): as int8, q ^ 0x80 == q - 128 for every
+    8-bit code, which is what `wire_codes` computes."""
+    q = torch.arange(256, dtype=torch.int32).to(torch.uint8)
+    flipped = (q ^ 0x80).view(torch.int8)
+    assert torch.equal(flipped.to(torch.int32), q.to(torch.int32) - 128)
+
+
 # -- the plain matmul ----------------------------------------------------
 
 @pytest.mark.parametrize("case", sorted(CASES))
