@@ -9,8 +9,11 @@ Phases, each of which raises on failure (nothing is caught):
   3. kernels against their plain PyTorch versions on the card, and their
      times beside the plain version's, a library call's and the bound:
      - edge codec encode/decode, bits 4 and 8, at ViT-Base's edge
-       [8, 197, 768], an odd tail [3, 37] and with a zero-range item:
-       words, scale, shift and decoded values bit-identical;
+       [8, 197, 768], an odd tail [3, 37], items whose slices outgrow
+       shared memory ([2, 605184], [2, 605189]), items scaled from 1e-30
+       to 1e30 ([64, 151296]) and with a zero-range item: words, scale, shift and decoded values bit-identical; one
+       device kernel per encode call; the encode also timed at the other
+       cluster size (16 blocks per item);
      - attention at [96, 197, 64] f32, [128, 257, 80] f32 (ViT-H), causal
        [8, 1024, 64] f32, [96, 197, 64] bf16, S = 1, S = 65 (one row past
        a tile), causal [96, 197, 64] f32, and the main path's strided
@@ -29,8 +32,10 @@ Phases, each of which raises on failure (nothing is caught):
        (the whole-K int32 product: not the same function);
      - with `--ab-parent DIR` (a `csrc/` of another version, e.g. the
        parent commit's unpacked under the gitignored `_build/`), that
-       version's attention and int8 kernels are built beside these and
-       timed on the same inputs in the order parent, this, this, parent;
+       version's attention, int8, decode-attention (main_w256/512/1024,
+       warm and L2-cold) and encode (bits 8 and 4) kernels are built
+       beside these and timed on the same inputs in the order parent,
+       this, this, parent;
   4. the main path: ViT-Base at full width (seeded random weights in the
      Google npz format) through `parallel.pipeline.build_pipeline`, two
      stages cut at `-pt 1,21,22,48` (a (ctx, residual) 2-tuple edge),
@@ -70,9 +75,12 @@ Phases, each of which raises on failure (nothing is caught):
      PIPEEDGE_INT8_DECODE_ATTEND=1.
 Phase 3 also holds kernel 5 (decode attention) against its plain version
 at the main path's shapes (windows of a [16, 1024, 12, 64] stage cache at
-buckets 256 and 512), pos 0 and W-1, W = 100, B = 1, H = 16, Dh = 32, a
-zero-range K row and bf16, timed beside the dequantize-then-attend route
-and SDPA over the dequantized window.
+buckets 256 and 512, and pos 1000 of the whole cache), pos 0 and W-1,
+W = 100, B = 1, H = 16, Dh = 32, a zero-range K row and bf16, timed beside
+the dequantize-then-attend route and SDPA over the dequantized window; the
+main cases warm and with a cold L2 (the calls rotate over copies of the
+cache that together stream more than the L2), and the host's split rule
+held to the library's.
 Then one `{"kernels": [...]}` JSON line and, last, the device line
 `{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}`.
 
@@ -160,8 +168,9 @@ DECODE_MAX_LEN, DECODE_FLOOR = 1024, 64
 
 # Kernel 5 against its plain version. f32: the JAX package's bound for its
 # TPU kernel (rtol = atol = 2e-5, tests/test_decode_attention.py); the
-# dequantization is bit-identical (separate _rn multiply and add), the
-# online softmax sums in another order. bf16: K, V and the softmax
+# kernel takes the affine dequantization out of its products (s (q . u) +
+# z sum q) and sums the softmax in another order, each a few ulp of f32.
+# bf16: K, V and the softmax
 # numerators round to bf16 (2^-8 relative) against different running
 # maxima, so outputs may sit a bf16 ulp or two apart.
 DECODE_ATTN_TOL = {torch.float32: dict(rtol=2e-5, atol=2e-5),
@@ -196,17 +205,25 @@ def time_ms(fn, iters: int = 20, reps: int = 7) -> float:
     """Device time of one `fn()` call: a CUDA graph of `iters` calls,
     replayed `reps` times between CUDA events; the median per call.
     Inputs stay in L2 between calls, as they are on the main path, where
-    the producer has just written them."""
+    the producer has just written them.
+
+    Cold L2: `fn` may be a list of callables, each over its own copy of
+    the inputs (`cold_copies`); the captured calls then rotate over them
+    (at least one round), so a copy comes back only after the others have
+    streamed more than the L2 through it, as a decode step finds a layer's
+    cache window one full step after it last read it."""
+    fns = fn if isinstance(fn, list) else [fn]
+    iters = max(iters, len(fns))
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
-        for _ in range(3):
-            fn()
+        for f in fns * (3 if len(fns) == 1 else 1):
+            f()
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
-        for _ in range(iters):
-            fn()
+        for i in range(iters):
+            fns[i % len(fns)]()
     graph.replay()
     torch.cuda.synchronize()
     times = []
@@ -219,6 +236,24 @@ def time_ms(fn, iters: int = 20, reps: int = 7) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end) / iters)
     return statistics.median(times)
+
+
+L2_BYTES = 50 * 2**20                   # the H100's L2
+
+
+def cold_copies(touched_bytes: int) -> int:
+    """Input copies a cold-L2 timing rotates over: enough that the calls
+    between two uses of one copy read twice the L2."""
+    return min(64, max(2, -(-2 * L2_BYTES // touched_bytes) + 1))
+
+
+def cold_windows(cache: dict, w: int, touched_bytes: int) -> list:
+    """The windows [:, :w] of a quantized stage cache (a dict of its
+    tensors) and of clones of it, `cold_copies` in all: the inputs of an
+    L2-cold timing of kernel 5; the first is the cache itself."""
+    fulls = [cache] + [{key: val.clone() for key, val in cache.items()}
+                       for _ in range(cold_copies(touched_bytes) - 1)]
+    return [{key: val[:, :w] for key, val in c.items()} for c in fulls]
 
 
 # --- phase 3: kernels against their plain versions ------------------------
@@ -234,12 +269,21 @@ def codec_bytes(shape, bit: int) -> int:
 def check_codec(dev, gen):
     from pipeedge_tpu_torch.ops import fused_quant, quant
     rows = {}
+    # [2, 605184] / [2, 605189]: an item whose slice outgrows shared
+    # memory (the tiled re-read), 16-byte and scalar copies
+    # [64, 151296]: item scales from 1e-30 to 1e30, through the encode's
+    # reciprocal division and its __fdiv_rn fallback (csrc div_rn)
     for shape, zero_item in (((8, 197, 768), True), ((3, 37), True),
+                             ((2, 151296 * 4), True),
+                             ((2, 151296 * 4 + 5), True),
+                             ((64, 197 * 768), False),
                              ((8, 197, 768), False)):
         for bit in (8, 4):
             x = torch.randn(shape, generator=gen, device=dev) * 3.0
             if zero_item:
                 x[1] = 0.75
+            if shape[0] == 64:
+                x *= torch.logspace(-30, 30, 64, device=dev)[:, None]
             enc = fused_quant.fused_encode_outerdim(x, bit)
             ref = quant.tensor_encode_outerdim(x, bit)
             torch.cuda.synchronize()
@@ -263,8 +307,24 @@ def check_codec(dev, gen):
                 f"bit-identical")
             if shape == (8, 197, 768) and not zero_item:
                 nbytes = codec_bytes(shape, bit)
+                kernels = device_launches(
+                    lambda: fused_quant.fused_encode_outerdim(x, bit))
+                if kernels != 1:
+                    raise AssertionError(f"encode bit {bit}: {kernels} "
+                                         f"device kernels per call, not 1")
+                # the other cluster size the design allows (16 blocks per
+                # item, a non-portable cluster), timed beside the chosen one
+                chosen = fused_quant.ENCODE_CLUSTER
+                fused_quant.ENCODE_CLUSTER = 16
+                try:
+                    cluster16_ms = time_ms(
+                        lambda: fused_quant.fused_encode_outerdim(x, bit))
+                finally:
+                    fused_quant.ENCODE_CLUSTER = chosen
                 rows[("fused_encode", bit)] = dict(
                     shape=list(shape), bit=bit, max_abs_err=enc_err,
+                    device_kernels=kernels, cluster=chosen,
+                    cluster16_ms=cluster16_ms,
                     ms=time_ms(lambda: fused_quant.fused_encode_outerdim(x, bit)),
                     plain_ms=time_ms(lambda: quant.tensor_encode_outerdim(x, bit)),
                     bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
@@ -462,23 +522,58 @@ def check_int8_matmul(dev, gen):
 
 
 def ab_parent(parent_csrc: Path, dev, gen):
-    """Time another version's attention and int8 kernels (built from
-    `parent_csrc`) against this one's on the same inputs, in the order
-    parent, this, this, parent; the parent runs through the same wrappers
-    with its library swapped in, its int8 entry for both kernel choices."""
-    from pipeedge_tpu_torch.ops import _build, fused_quant
+    """Time another version's attention, int8, decode-attention and encode
+    kernels (built from `parent_csrc`) against this one's on the same
+    inputs, in the order parent, this, this, parent. The parent runs
+    through the same wrappers with its library swapped in (before the
+    wgmma kernel existed, its int8 entry for both kernel choices). The
+    one exception is the encode of a version whose `pe_fused_encode`
+    still takes the two-pass arguments (a partial-min/max scratch and a
+    chunk; before `pe_decode_attention_splits` existed): it is called
+    with those. Kernel 5 is timed warm and with a cold L2, and each
+    kernel 1 and 5 case first checks that both versions agree."""
+    import ctypes
+    from pipeedge_tpu_torch.ops import _build, fused_quant, quant
     from pipeedge_tpu_torch.ops import attention
+    from pipeedge_tpu_torch.ops import decode_attention as da
     from pipeedge_tpu_torch.ops import int8_matmul as im
+    from pipeedge_tpu_torch.parallel import decode
     t0 = time.monotonic()
     parent = _build.load(_build.build(parent_csrc))
     log(f"ab: parent kernels built in {time.monotonic() - t0:.1f} s")
     ours = _build.library()
     entries = dict(im._ENTRIES)
+    two_pass_encode = not hasattr(parent, "pe_decode_attention_splits")
+    if two_pass_encode:
+        ptr, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+        # x, data, scale, shift, partial, B, n, bit, chunk, vec, stream
+        parent.pe_fused_encode.argtypes = [ptr, ptr, ptr, ptr, ptr, i64, i64,
+                                           i32, i64, i32, ptr]
+
+    def parent_encode(x, bit):
+        b, n = x.shape[0], x[0].numel()
+        flat = x.reshape(b, n)
+        data = torch.empty((b, quant.packed_words(n, bit)),
+                           dtype=torch.int32, device=dev)
+        scale = torch.empty((b,), dtype=torch.float32, device=dev)
+        shift = torch.empty((b,), dtype=torch.float32, device=dev)
+        chunk = 8192
+        partial = torch.empty((b, 2 * -(-n // chunk)), dtype=torch.float32,
+                              device=dev)
+        _build.check(parent.pe_fused_encode(
+            flat.data_ptr(), data.data_ptr(), scale.data_ptr(),
+            shift.data_ptr(), partial.data_ptr(), b, n, bit, chunk,
+            int(n % 4 == 0), _build.stream_handle(dev)), "parent encode")
+        return data, scale, shift
+
+    # a parent from before the wgmma kernel runs its mma.sync entry for
+    # both kernel choices; a later one keeps its own entries
+    parent_entries = (entries if hasattr(parent, "pe_int8_matmul_wgmma")
+                      else {name: "pe_int8_matmul" for name in entries})
 
     def timed(fn, lib):
         _build._lib = lib
-        im._ENTRIES.update(entries if lib is ours else
-                           {name: "pe_int8_matmul" for name in entries})
+        im._ENTRIES.update(entries if lib is ours else parent_entries)
         try:
             return time_ms(fn)
         finally:
@@ -514,9 +609,56 @@ def ab_parent(parent_csrc: Path, dev, gen):
             fn = (lambda xq=xq, xs=xs, f=folded:
                   im.matmul_q(xq, xs, f.w_q, f.w_scale, 128))
         cases.append((f"int8_matmul {name} [{m},{k}]x[{k},{n}]", fn))
+    # kernel 5 at the main path's windows, warm and cold
+    for name, w, pos in (("main_w256", 256, 200), ("main_w512", 512, 300),
+                         ("main_w1024", 1024, 1000)):
+        b, h, d = DECODE_BATCH, 12, 64
+        cache = {}
+        for tag in ("k", "v"):
+            cache[tag], cache[tag + "_scale"], cache[tag + "_shift"] = \
+                decode._quantize_rows(torch.randn(
+                    (b, DECODE_MAX_LEN, h, d), generator=gen, device=dev))
+        q, k_new, v_new = (torch.randn((b, 1, h, d), generator=gen,
+                                       device=dev) for _ in range(3))
+        arg_sets = [(q, wn["k"], wn["k_scale"], wn["k_shift"], wn["v"],
+                     wn["v_scale"], wn["v_shift"], k_new, v_new, pos)
+                    for wn in cold_windows(cache, w, decode_bytes(
+                        b, h, d, pos, torch.float32))]
+        _build._lib = parent
+        try:
+            got = da.int8_decode_attention(*arg_sets[0])
+        finally:
+            _build._lib = ours
+        torch.testing.assert_close(got, da.int8_decode_attention(
+            *arg_sets[0]), **DECODE_ATTN_TOL[torch.float32])
+        fns = [lambda a=a: da.int8_decode_attention(*a) for a in arg_sets]
+        cases.append((f"decode_attention {name}", fns[0]))
+        cases.append((f"decode_attention {name} l2_cold", fns))
+    # kernel 1 at ViT-Base's edge
+    for bit in (8, 4):
+        x = torch.randn((UBATCH, 197, 768), generator=gen, device=dev) * 3.0
+        enc = fused_quant.fused_encode_outerdim(x, bit)
+        if two_pass_encode:
+            got = parent_encode(x, bit)
+        else:
+            _build._lib = parent
+            try:
+                p_enc = fused_quant.fused_encode_outerdim(x, bit)
+            finally:
+                _build._lib = ours
+            got = (p_enc.data, p_enc.scale, p_enc.shift)
+        if not all(torch.equal(a, b) for a, b in
+                   zip(got, (enc.data, enc.scale, enc.shift))):
+            raise AssertionError(f"ab: the parent's encode at bit {bit} "
+                                 f"differs from this one's")
+        fn = (lambda x=x, bit=bit: fused_quant.fused_encode_outerdim(x, bit))
+        cases.append((f"fused_encode [{UBATCH},197,768] bit {bit}", fn,
+                      (lambda x=x, bit=bit: parent_encode(x, bit))
+                      if two_pass_encode else fn))
     rows = []
-    for name, fn in cases:
-        p1, c1, c2, p2 = (timed(fn, lib)
+    for name, fn, *parent_fn in cases:
+        p_fn = parent_fn[0] if parent_fn else fn
+        p1, c1, c2, p2 = (timed(p_fn if lib is parent else fn, lib)
                           for lib in (parent, ours, ours, parent))
         row = dict(case=name, parent_ms=[p1, p2], this_ms=[c1, c2],
                    speedup=(p1 + p2) / (c1 + c2))
@@ -525,12 +667,17 @@ def ab_parent(parent_csrc: Path, dev, gen):
     return rows
 
 
-def decode_bound_ms(b, h, d, pos, dtype):
+def decode_bytes(b, h, d, pos, dtype) -> int:
     """Bytes the decode step's attend must move: the int8 K and V of the
     cached live rows [0, pos) and their four f32 scale/shift rows, q,
-    k_new, v_new and the output once; against the two products' flops."""
+    k_new, v_new and the output once."""
     elem = torch.tensor([], dtype=dtype).element_size()
-    nbytes = 2 * b * pos * h * d + 4 * b * pos * h * 4 + 4 * b * h * d * elem
+    return 2 * b * pos * h * d + 4 * b * pos * h * 4 + 4 * b * h * d * elem
+
+
+def decode_bound_ms(b, h, d, pos, dtype):
+    """`decode_bytes` against the two products' flops."""
+    nbytes = decode_bytes(b, h, d, pos, dtype)
     flops = 4 * b * h * (pos + 1) * d
     t_bytes = nbytes / HBM_BYTES_PER_S
     t_ops = flops / PEAK_FLOPS[torch.float32]
@@ -541,15 +688,27 @@ def decode_bound_ms(b, h, d, pos, dtype):
 def check_decode_attention(dev, gen):
     """Kernel 5 against `decode_attention_reference` at the main path's
     shapes (windows of a [16, 1024, 12, 64] stage cache at buckets 256 and
-    512) and the edge cases; timed beside the plain version, the
-    dequantize-then-attend route it replaces, and SDPA over the already
-    dequantized window (a yardstick: not the same function)."""
+    512, and pos 1000 of the whole cache) and the edge cases; timed beside
+    the plain version, the dequantize-then-attend route it replaces, and
+    SDPA over the already dequantized window (a yardstick: not the same
+    function). The main cases are timed with the window warm in L2 and
+    cold (`time_ms` over `cold_copies` of the cache), the kernel and the
+    dequantize route alike. The host's split rule (`split_count`) is held
+    to the library's for every pos of a 1024-row cache."""
     import torch.nn.functional as F
+    from pipeedge_tpu_torch.ops import _build
     from pipeedge_tpu_torch.ops import decode_attention as da
     from pipeedge_tpu_torch.parallel import decode
+    lib = _build.library()
+    bad = [p for p in range(DECODE_MAX_LEN)
+           if lib.pe_decode_attention_splits(p) != da.split_count(p)]
+    if bad:
+        raise AssertionError(f"decode attention: the library's split count "
+                             f"differs from split_count at pos {bad[:8]}")
     cases = [  # name, B, W, H, D, pos, dtype, window of a T=1024 cache
         ("main_w256", 16, 256, 12, 64, 200, torch.float32, True),
         ("main_w512", 16, 512, 12, 64, 300, torch.float32, True),
+        ("main_w1024", 16, 1024, 12, 64, 1000, torch.float32, False),
         ("pos0", 16, 256, 12, 64, 0, torch.float32, False),
         ("pos_w_minus_1", 16, 256, 12, 64, 255, torch.float32, False),
         ("w100", 16, 100, 12, 64, 97, torch.float32, False),
@@ -566,22 +725,25 @@ def check_decode_attention(dev, gen):
         v_rows = torch.randn((b, t, h, d), generator=gen, device=dev)
         if name == "zero_range_row":
             k_rows[:, 7] = 0.5             # scale clamps to 1e-8/255
-        win = {}
+        cache = {}
         for tag, r in (("k", k_rows), ("v", v_rows)):
-            qv, scale, shift = decode._quantize_rows(r)
-            win[tag], win[tag + "_scale"], win[tag + "_shift"] = \
-                qv[:, :w], scale[:, :w], shift[:, :w]
+            cache[tag], cache[tag + "_scale"], cache[tag + "_shift"] = \
+                decode._quantize_rows(r)
+        del k_rows, v_rows
+        win = {key: val[:, :w] for key, val in cache.items()}
         if name == "zero_range_row":
             assert float(win["k_scale"][:, 7].max()) < 1e-9
         q, k_new, v_new = (torch.randn((b, 1, h, d), generator=gen,
                                        device=dev).to(dtype)
                            for _ in range(3))
-        args = (q, win["k"], win["k_scale"], win["k_shift"], win["v"],
-                win["v_scale"], win["v_shift"], k_new, v_new, pos)
+        def args_of(wn):
+            return (q, wn["k"], wn["k_scale"], wn["k_shift"], wn["v"],
+                    wn["v_scale"], wn["v_shift"], k_new, v_new, pos)
+        args = args_of(win)
         assert win["k"].is_contiguous() != strided
 
-        def kern():
-            return da.int8_decode_attention(*args)
+        def kern(a=args):
+            return da.int8_decode_attention(*a)
 
         def plain():
             return da.decode_attention_reference(*args)
@@ -601,11 +763,11 @@ def check_decode_attention(dev, gen):
                                             win["v_shift"], dtype)
             keep = torch.arange(w, device=dev)[None] <= pos
 
-            def dequant_route():
-                k = decode._dequantize_rows(win["k"], win["k_scale"],
-                                            win["k_shift"], dtype)
-                v = decode._dequantize_rows(win["v"], win["v_scale"],
-                                            win["v_shift"], dtype)
+            def dequant_route(wn=win):
+                k = decode._dequantize_rows(wn["k"], wn["k_scale"],
+                                            wn["k_shift"], dtype)
+                v = decode._dequantize_rows(wn["v"], wn["v_scale"],
+                                            wn["v_shift"], dtype)
                 k[:, pos:pos + 1] = k_new
                 v[:, pos:pos + 1] = v_new
                 return decode._attend(q, k, v, keep)
@@ -625,6 +787,16 @@ def check_decode_attention(dev, gen):
                        dequant_route_ms=time_ms(dequant_route),
                        dequant_route_max_abs_err=route_err,
                        sdpa_dequantized_ms=time_ms(sdpa))
+            if name.startswith("main"):
+                wins = cold_windows(cache, w,
+                                    decode_bytes(b, h, d, pos, dtype))
+                row.update(
+                    l2_cold_copies=len(wins),
+                    ms_l2_cold=time_ms([lambda wn=wn: kern(args_of(wn))
+                                        for wn in wins]),
+                    dequant_route_ms_l2_cold=time_ms(
+                        [lambda wn=wn: dequant_route(wn) for wn in wins]))
+                del wins
         log("decode_attention " + json.dumps(row))
         rows.append(row)
     return rows
@@ -1092,7 +1264,12 @@ def main() -> int:
             max_abs_err=row["max_abs_err"], ms=row["ms"],
             plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
             bound_by=row["bound_by"], library_ms=None,
-            shape=row["shape"], bit=8))
+            shape=row["shape"], bit=8,
+            **({"device_kernels": row["device_kernels"],
+                "cluster": row["cluster"],
+                "cluster16_ms": row["cluster16_ms"],
+                "bit4_ms": codec_rows[(name, 4)]["ms"]}
+               if name == "fused_encode" else {})))
     kernels.append(dict(
         name="fused_attention", route="cuda",
         source=SOURCES["fused_attention"],
@@ -1135,12 +1312,15 @@ def main() -> int:
                         if r["dtype"] == "float32"),
         ms=step["ms"], plain_ms=step["plain_ms"], bound_ms=step["bound_ms"],
         bound_by=step["bound_by"], library_ms=None, shape=step["shape"],
-        pos=step["pos"], dequant_route_ms=step["dequant_route_ms"],
+        pos=step["pos"], ms_l2_cold=step["ms_l2_cold"],
+        dequant_route_ms=step["dequant_route_ms"],
+        dequant_route_ms_l2_cold=step["dequant_route_ms_l2_cold"],
         sdpa_dequantized_ms=step["sdpa_dequantized_ms"],
         cases={name: {k: r[k] for k in (
-            "shape", "pos", "dtype", "ms", "plain_ms", "bound_ms",
-            "bound_by", "dequant_route_ms", "sdpa_dequantized_ms",
-            "max_abs_err")} for name, r in timed.items()}))
+            "shape", "pos", "dtype", "ms", "ms_l2_cold", "plain_ms",
+            "bound_ms", "bound_by", "dequant_route_ms",
+            "dequant_route_ms_l2_cold", "sdpa_dequantized_ms",
+            "max_abs_err") if k in r} for name, r in timed.items()}))
     log(card)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -14,33 +14,75 @@
 // Rows past pos are never read, whatever the window width: they are the
 // rows the TPU kernel masks with -1e30.
 //
-// What bounds it on the card: bytes. One query row per head does ~4 flops
-// per int8 byte of K and V; the live rows' int8 K and V and their f32
-// scale/shift rows are the traffic (16 x 256 rows x 12 heads x 64 at the
-// main path's bucket 256: ~7.3 MB, ~2.2 us at 3.35 TB/s).
+// What bounds it on the card. The bytes (the live rows' int8 K and V and
+// their f32 scale/shift rows: ~5.7 MB at the main path's pos 200, ~1.7 us
+// at 3.35 TB/s) set the bound in chip_smoke.py, but at the main path's
+// shapes the kernel is bound by instruction issue: variants that skipped
+// every K and V load ran nearly as long. One query row per head leaves
+// ~4 flops per byte of K and V and few warps per SM (B 16 x H 12 = 192
+// (head, batch cell) pairs), so each element's unpack, dequantization and
+// products, on dependent chains, are the time.
 //
-// Design: one block of 8 warps per (head, batch cell). A row of one head
-// is D int8 bytes, read as D/16 lanes x 16 bytes, so a warp takes 32/(D/16)
-// consecutive rows per step (8 at D = 64) and the warps stride over rows
-// 0..pos. The window is read in place through its (batch, row) strides, so
-// a view of the stage cache needs no copy. Each lane dequantizes its 16
-// values in registers with separate _rn multiply and add (no contraction:
-// K and V equal the plain dequantization bit for bit), the row's score is
-// reduced across its D/16 lanes by shuffles, and each row group keeps an
-// online softmax (running max, sum, 16 output columns per lane). The row
-// groups of a warp merge by shuffles, the warps through shared memory,
-// into one output row. Split-K across blocks and TMA are later work.
+// What the first design lost: one 8-warp block per (head, batch cell)
+// walked its rows in trips whose loads issued only after the previous
+// trip's were used, and the fresh row's k_new / v_new were two more
+// dependent loads at the end of the last trip.
+//
+// Design. One 4-warp block per (head, batch cell) and row range; the
+// rows [0, pos] split into 1 range up to 256 rows, 2 up to 512, else 4
+// (split_count in ops/decode_attention.py states the same rule), and the
+// blocks of one (head, batch cell) form one thread-block cluster: a grid
+// of (splits, H, B) in clusters of (splits, 1, 1).
+//   - Loads. Warp w takes the row groups w, w + 4, ... of its range, 32 /
+//     (D/16) rows a step, D/16 lanes a row, 16 int8 codes of K and of V
+//     and the row's four scale/shift values per lane, fetched two steps
+//     ahead in registers. The fresh row is staged in shared memory while
+//     the first loads are in flight.
+//   - Compute (f32). The codes become exact floats by a byte permute and
+//     one add (no int-to-float conversion), and the affine dequantization
+//     comes out of the products: score = s (q . u) + z sum(q), and the
+//     value sum is sum (p s) u + sum p z. The running max moves only when
+//     a score passes it by kLazy, so the 16 accumulators are rescaled
+//     rarely. K and V are then not formed element by element, so they
+//     are not bit-equal to the plain dequantization; the output stays
+//     within the f32 tolerance (chip_smoke.py, tests/test_torch_*).
+//   - Compute (bf16). K, V and the numerators round through bf16 as in
+//     the plain version, so each element is dequantized with separate
+//     _rn multiply and add (bit-equal to the plain dequantization) and
+//     the running max moves every row.
+//   - Merge. The lane groups of a warp merge by shuffles; every warp
+//     writes its (m, l, acc[D]) into rank 0's shared memory (distributed
+//     shared memory across the cluster), one barrier, and rank 0 merges by
+//     the log-sum-exp rule and writes the row. The barrier's arrive that
+//     makes peers' shared memory safe to write is issued at the start and
+//     waited for just before the first remote write. One range takes a
+//     plain launch, which costs less than a cluster of one block. One
+//     launch, no workspace, no atomics.
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include <type_traits>
+
+namespace cg = cooperative_groups;
+
 namespace {
 
-constexpr int kWarps = 8;
+constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
-constexpr float kNegInf = -1e30f;  // the TPU kernel's running-max start
+constexpr int kMaxSplits = 4;       // the most ranges splits_for gives
+constexpr float kLazy = 8.f;        // f32: rescale when the max grows by e^8
+constexpr float kNegInf = -1e30f;   // the TPU kernel's running-max start
 constexpr unsigned kFull = 0xffffffffu;
+
+// Row ranges: splits from the live row count n = pos + 1, rows_per =
+// ceil(n / splits); range s is [s * rows_per, min(n, (s + 1) * rows_per)).
+int splits_for(int64_t pos) {
+  const int64_t n = pos + 1;
+  return n <= 256 ? 1 : n <= 512 ? 2 : 4;
+}
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
@@ -66,19 +108,34 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16_rn(x);
 }
 
-// (code + 128) * s + z for the 16 int8 codes of one 16-byte load
-__device__ __forceinline__ void dequant16(const int4 codes, float s, float z,
-                                          float* out) {
-  const uint32_t w[4] = {(uint32_t)codes.x, (uint32_t)codes.y,
-                         (uint32_t)codes.z, (uint32_t)codes.w};
-#pragma unroll
-  for (int j = 0; j < 16; ++j) {
-    const int c = (int)(int8_t)(uint8_t)(w[j >> 2] >> (8 * (j & 3)));
-    out[j] = __fadd_rn(__fmul_rn(__fadd_rn((float)c, 128.f), s), z);
-  }
+// code + 128 as an exact float (see dequant)
+__device__ __forceinline__ float biased(uint32_t flipped, int j) {
+  return __fsub_rn(
+      __uint_as_float(__byte_perm(flipped, 0x4B000000u, 0x7540u | j)),
+      8388608.f);
 }
 
-template <int LPR, typename T>
+// (code + 128) * s + z, separate _rn ops: the plain version's bits. The
+// biased code u = code + 128 (the byte XOR 0x80, an integer in [0, 255])
+// becomes a float exactly as 2^23 + u - 2^23, by one byte permute and one
+// add, in place of a quarter-rate int-to-float conversion. `flipped` is
+// the word of four codes XOR 0x80808080.
+__device__ __forceinline__ float dequant(uint32_t flipped, int j, float s,
+                                         float z) {
+  const float u = __fsub_rn(
+      __uint_as_float(__byte_perm(flipped, 0x4B000000u, 0x7540u | j)),
+      8388608.f);
+  return __fadd_rn(__fmul_rn(u, s), z);
+}
+
+// One lane's share of one row group: 16 int8 codes of K and of V and the
+// row's four scale/shift values.
+struct Frag {
+  int4 k, v;
+  float ks, kz, vs, vz;
+};
+
+template <int D, typename T, bool kCluster>
 __global__ void __launch_bounds__(kThreads)
 pe_decode_attention_kernel(const T* __restrict__ q,
                            const T* __restrict__ k_new,
@@ -89,69 +146,173 @@ pe_decode_attention_kernel(const T* __restrict__ q,
                            const float* __restrict__ kz,
                            const float* __restrict__ vs,
                            const float* __restrict__ vz, T* __restrict__ out,
-                           int H, int64_t pos, int64_t kv_sb, int64_t kv_sw,
-                           int64_t sc_sb, int64_t sc_sw, float scale) {
-  constexpr int D = LPR * 16;
-  constexpr int kGroups = 32 / LPR;             // rows per warp per step
-  constexpr int kRowsPerStep = kWarps * kGroups;
-  __shared__ float sm_m[kWarps];
-  __shared__ float sm_l[kWarps];
-  __shared__ float sm_acc[kWarps][D];
+                           int H, int64_t pos, int64_t rows_per,
+                           int64_t kv_sb, int64_t kv_sw, int64_t sc_sb,
+                           int64_t sc_sw, float scale) {
+  constexpr int LPR = D / 16;           // lanes per row, 16 columns each
+  constexpr int G = 32 / LPR;           // rows per warp step
+  constexpr bool kFactored = std::is_same<T, float>::value;
+  constexpr int kSlots = kCluster ? kMaxSplits * kWarps : kWarps;
+  // rank 0's: every warp's partial (m, l, acc[D]) of the cluster, written
+  // by that warp
+  __shared__ float s_pm[kSlots], s_pl[kSlots];
+  __shared__ float s_pa[kSlots][D];
+  __shared__ float s_new[2][D];           // the fresh row's K and V
 
-  const int h = blockIdx.x, b = blockIdx.y;
+  const int split = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int group = lane / LPR, col = (lane % LPR) * 16;
-  const int64_t row = ((int64_t)b * H + h) * D + col;  // q, k_new, v_new, out
+  const int64_t n = pos + 1;
+  const int64_t r_begin = min(n, (int64_t)split * rows_per);
+  const int64_t r_end = min(n, r_begin + rows_per);
+  const int64_t qbase = ((int64_t)b * H + h) * D;  // q, k_new, v_new, out
+  const int64_t qrow = qbase + col;
+  const int8_t* kb = kq + (int64_t)b * kv_sb + (int64_t)h * D + col;
+  const int8_t* vb = vq + (int64_t)b * kv_sb + (int64_t)h * D + col;
+  const int64_t sc0 = (int64_t)b * sc_sb + h;
 
+  // warp w takes the row groups w, w + kWarps, ... of the block's range;
+  // a lane's row in step i is r_begin + (warp + i * kWarps) * G + group
+  auto row_of = [&](int i) {
+    return r_begin + ((int64_t)(warp + i * kWarps)) * G + group;
+  };
+  auto fetch = [&](int i, Frag& f) {
+    const int64_t r = row_of(i);
+    if (r < r_end && r != pos) {
+      f.k = __ldg(reinterpret_cast<const int4*>(kb + r * kv_sw));
+      f.v = __ldg(reinterpret_cast<const int4*>(vb + r * kv_sw));
+      const int64_t si = sc0 + r * sc_sw;
+      f.ks = __ldg(ks + si);
+      f.kz = __ldg(kz + si);
+      f.vs = __ldg(vs + si);
+      f.vz = __ldg(vz + si);
+    }
+  };
+  // steps are uniform across the warp (the shuffles below)
+  const int64_t groups = (r_end - r_begin + G - 1) / G;
+  const int steps = (int)((groups - warp + kWarps - 1) / kWarps);
+
+  // announce that this block has started (its shared memory may be
+  // written by a peer once every block has): the matching wait comes just
+  // before the first remote write, so neither waits on the other here
+  if constexpr (kCluster)
+    asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+  // the loads of the first two steps go out before anything waits
+  Frag f0 = {}, f1 = {};
+  fetch(0, f0);
+  fetch(1, f1);
   float qv[16], acc[16];
 #pragma unroll
   for (int j = 0; j < 16; ++j) {
-    qv[j] = to_f32(q[row + j]);
+    qv[j] = to_f32(q[qrow + j]);
     acc[j] = 0.f;
   }
-  const int8_t* kb = kq + (int64_t)b * kv_sb + (int64_t)h * D + col;
-  const int8_t* vb = vq + (int64_t)b * kv_sb + (int64_t)h * D + col;
-  const int64_t sc = (int64_t)b * sc_sb + h;
-  float m = kNegInf, l = 0.f;
-
-  // r0 depends on the warp only, so every lane of a warp takes the same
-  // trips and the shuffles below see the whole warp
-  for (int64_t r0 = (int64_t)warp * kGroups; r0 <= pos; r0 += kRowsPerStep) {
-    const int64_t r = r0 + group;
-    const bool live = r <= pos;
-    float kf[16], vf[16];
-    if (r == pos) {  // the fresh row, unquantized
-#pragma unroll
-      for (int j = 0; j < 16; ++j) {
-        kf[j] = to_f32(k_new[row + j]);
-        vf[j] = to_f32(v_new[row + j]);
-      }
-    } else if (live) {
-      const int4 kc = __ldg(reinterpret_cast<const int4*>(kb + r * kv_sw));
-      const int4 vc = __ldg(reinterpret_cast<const int4*>(vb + r * kv_sw));
-      const int64_t si = sc + r * sc_sw;
-      dequant16(kc, __ldg(ks + si), __ldg(kz + si), kf);
-      dequant16(vc, __ldg(vs + si), __ldg(vz + si), vf);
-    } else {
-#pragma unroll
-      for (int j = 0; j < 16; ++j) kf[j] = vf[j] = 0.f;
+  // the fresh row, staged while the first loads are in flight: it is the
+  // last live row, and two dependent loads there would end the kernel late
+  if (pos >= r_begin && pos < r_end) {
+    for (int c = threadIdx.x; c < D; c += kThreads) {
+      s_new[0][c] = round_to<T>(to_f32(k_new[qbase + c]));
+      s_new[1][c] = round_to<T>(to_f32(v_new[qbase + c]));
     }
+  }
+  __syncthreads();
+
+  // f32: the affine dequantization is taken out of the products, and the
+  // running max only moves when a score passes it by kLazy (the sums stay
+  // below e^kLazy times the row count)
+  float qsum = 0.f;
+  if constexpr (kFactored) {
+#pragma unroll
+    for (int j = 0; j < 16; ++j) qsum += qv[j];
+#pragma unroll
+    for (int o = 1; o < LPR; o <<= 1) qsum += __shfl_xor_sync(kFull, qsum, o);
+  }
+  float m = kNegInf, l = 0.f, accz = 0.f;
+  for (int i = 0; i < steps; ++i) {
+    Frag f2 = {};
+    fetch(i + 2, f2);                 // two steps ahead
+    const int64_t r = row_of(i);
+    const bool live = r < r_end;
+    const bool fresh = r == pos;      // the fresh row, unquantized
+    const uint32_t kw[4] = {(uint32_t)f0.k.x ^ 0x80808080u,
+                            (uint32_t)f0.k.y ^ 0x80808080u,
+                            (uint32_t)f0.k.z ^ 0x80808080u,
+                            (uint32_t)f0.k.w ^ 0x80808080u};
+    const uint32_t vw[4] = {(uint32_t)f0.v.x ^ 0x80808080u,
+                            (uint32_t)f0.v.y ^ 0x80808080u,
+                            (uint32_t)f0.v.z ^ 0x80808080u,
+                            (uint32_t)f0.v.w ^ 0x80808080u};
     float dot = 0.f;
-#pragma unroll
-    for (int j = 0; j < 16; ++j) dot = fmaf(qv[j], round_to<T>(kf[j]), dot);
-#pragma unroll
-    for (int o = 1; o < LPR; o <<= 1) dot += __shfl_xor_sync(kFull, dot, o);
-    if (live) {
-      const float s = dot * scale;
-      const float m_new = fmaxf(m, s);
-      const float corr = expf(m - m_new);
-      const float p = round_to<T>(expf(s - m_new));
-      l = l * corr + p;
+    if (fresh) {
 #pragma unroll
       for (int j = 0; j < 16; ++j)
-        acc[j] = acc[j] * corr + p * round_to<T>(vf[j]);
-      m = m_new;
+        dot = fmaf(qv[j], s_new[0][col + j], dot);
+    } else if constexpr (kFactored) {
+      float d4[4] = {0.f, 0.f, 0.f, 0.f};   // four short chains, not one
+#pragma unroll
+      for (int j = 0; j < 16; ++j)
+        d4[j & 3] = fmaf(qv[j], biased(kw[j >> 2], j & 3), d4[j & 3]);
+      dot = (d4[0] + d4[1]) + (d4[2] + d4[3]);
+    } else {
+#pragma unroll
+      for (int j = 0; j < 16; ++j)
+        dot = fmaf(qv[j],
+                   round_to<T>(dequant(kw[j >> 2], j & 3, f0.ks, f0.kz)),
+                   dot);
     }
+#pragma unroll
+    for (int o = 1; o < LPR; o <<= 1) dot += __shfl_xor_sync(kFull, dot, o);
+    if constexpr (kFactored) {
+      if (!fresh) dot = fmaf(dot, f0.ks, f0.kz * qsum);
+    }
+    if (live) {
+      const float s = dot * scale;
+      if constexpr (kFactored) {
+        if (s > m + kLazy) {          // move the reference max
+          const float corr = expf(m - s);
+          l *= corr;
+          accz *= corr;
+#pragma unroll
+          for (int j = 0; j < 16; ++j) acc[j] *= corr;
+          m = s;
+        }
+        const float p = expf(s - m);
+        l += p;
+        if (fresh) {
+#pragma unroll
+          for (int j = 0; j < 16; ++j)
+            acc[j] = fmaf(p, s_new[1][col + j], acc[j]);
+        } else {
+          const float ps = p * f0.vs;
+          accz = fmaf(p, f0.vz, accz);
+#pragma unroll
+          for (int j = 0; j < 16; ++j)
+            acc[j] = fmaf(ps, biased(vw[j >> 2], j & 3), acc[j]);
+        }
+      } else {
+        const float m_new = fmaxf(m, s);
+        const float corr = expf(m - m_new);
+        const float p = round_to<T>(expf(s - m_new));
+        l = l * corr + p;
+        if (fresh) {
+#pragma unroll
+          for (int j = 0; j < 16; ++j)
+            acc[j] = acc[j] * corr + p * s_new[1][col + j];
+        } else {
+#pragma unroll
+          for (int j = 0; j < 16; ++j)
+            acc[j] = acc[j] * corr +
+                     p * round_to<T>(dequant(vw[j >> 2], j & 3, f0.vs, f0.vz));
+        }
+        m = m_new;
+      }
+    }
+    f0 = f1;
+    f1 = f2;
+  }
+  if constexpr (kFactored) {
+#pragma unroll
+    for (int j = 0; j < 16; ++j) acc[j] += accz;
   }
 
   // merge the row groups of the warp (lanes with the same columns)
@@ -167,49 +328,83 @@ pe_decode_attention_kernel(const T* __restrict__ q,
       acc[j] = acc[j] * c + __shfl_xor_sync(kFull, acc[j], o) * c_o;
     m = m_n;
   }
-  if (group == 0) {
-    if (col == 0) {
-      sm_m[warp] = m;
-      sm_l[warp] = l;
-    }
-#pragma unroll
-    for (int j = 0; j < 16; ++j) sm_acc[warp][col + j] = acc[j];
-  }
-  __syncthreads();
 
-  // merge the warps: one thread per output column (row 0 is always live,
-  // so the max is a real score and empty warps weigh exp(-1e30 - M) = 0)
-  const int t = threadIdx.x;
-  if (t < D) {
-    float mx = kNegInf;
+  // every warp hands its partial to rank 0 (an empty warp or range has
+  // m = -1e30, l = 0, acc = 0 and weighs exp(-1e30 - max) = 0; rank 0
+  // holds row 0, so the max is a real score); rank 0 merges by the
+  // log-sum-exp rule after the barrier
+  const int slot = split * kWarps + warp;
+  float* pm = s_pm;
+  float* pl = s_pl;
+  float* pa = &s_pa[0][0];
+  if constexpr (kCluster) {
+    asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+    cg::cluster_group cluster = cg::this_cluster();
+    pm = cluster.map_shared_rank(pm, 0);
+    pl = cluster.map_shared_rank(pl, 0);
+    pa = cluster.map_shared_rank(pa, 0);
+  }
+  if (group == 0) {
 #pragma unroll
-    for (int w = 0; w < kWarps; ++w) mx = fmaxf(mx, sm_m[w]);
-    float den = 0.f, num = 0.f;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) {
-      const float c = expf(sm_m[w] - mx);
-      den += sm_l[w] * c;
-      num += sm_acc[w][t] * c;
+    for (int j = 0; j < 16; j += 4)
+      *reinterpret_cast<float4*>(pa + slot * D + col + j) =
+          make_float4(acc[j], acc[j + 1], acc[j + 2], acc[j + 3]);
+    if (lane == 0) {
+      pm[slot] = m;
+      pl[slot] = l;
     }
-    out[((int64_t)b * H + h) * D + t] = from_f32<T>(num / den);
+  }
+  if constexpr (kCluster) {
+    cg::this_cluster().sync();
+  } else {
+    __syncthreads();
+  }
+  if (split == 0) {
+    const int slots = (int)gridDim.x * kWarps;
+    for (int c = threadIdx.x; c < D; c += kThreads) {
+      float mx = kNegInf;
+      for (int s = 0; s < slots; ++s) mx = fmaxf(mx, s_pm[s]);
+      float den = 0.f, num = 0.f;
+      for (int s = 0; s < slots; ++s) {
+        const float e = expf(s_pm[s] - mx);
+        den += s_pl[s] * e;
+        num += s_pa[s][c] * e;
+      }
+      out[qbase + c] = from_f32<T>(num / den);
+    }
   }
 }
 
-template <int LPR, typename T>
+template <int D, typename T>
 int launch(const void* q, const void* k_new, const void* v_new,
            const void* kq, const void* vq, const void* ks, const void* kz,
            const void* vs, const void* vz, void* out, int B, int H,
            int64_t pos, int64_t kv_sb, int64_t kv_sw, int64_t sc_sb,
            int64_t sc_sw, float scale, cudaStream_t stream) {
-  const dim3 grid((unsigned)H, (unsigned)B);
-  pe_decode_attention_kernel<LPR, T><<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k_new),
+  const int splits = splits_for(pos);
+  const int64_t rows_per = (pos + splits) / splits;  // ceil((pos+1)/splits)
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)splits, (unsigned)H, (unsigned)B);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)splits;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  // one range: a plain launch (cheaper than a cluster of one block)
+  cfg.numAttrs = splits > 1 ? 1 : 0;
+  auto kernel = splits > 1 ? pe_decode_attention_kernel<D, T, true>
+                           : pe_decode_attention_kernel<D, T, false>;
+  return (int)cudaLaunchKernelEx(
+      &cfg, kernel, static_cast<const T*>(q), static_cast<const T*>(k_new),
       static_cast<const T*>(v_new), static_cast<const int8_t*>(kq),
       static_cast<const int8_t*>(vq), static_cast<const float*>(ks),
       static_cast<const float*>(kz), static_cast<const float*>(vs),
-      static_cast<const float*>(vz), static_cast<T*>(out), H, pos, kv_sb,
-      kv_sw, sc_sb, sc_sw, scale);
-  return 0;
+      static_cast<const float*>(vz), static_cast<T*>(out), H, pos, rows_per,
+      kv_sb, kv_sw, sc_sb, sc_sw, scale);
 }
 
 template <typename T>
@@ -218,14 +413,14 @@ int dispatch(const void* q, const void* k_new, const void* v_new,
              const void* vs, const void* vz, void* out, int B, int H, int D,
              int64_t pos, int64_t kv_sb, int64_t kv_sw, int64_t sc_sb,
              int64_t sc_sw, float scale, cudaStream_t s) {
-#define PE_DECODE_CASE(LPR)                                                 \
-  if (D == LPR * 16)                                                        \
-    return launch<LPR, T>(q, k_new, v_new, kq, vq, ks, kz, vs, vz, out, B,  \
+#define PE_DECODE_CASE(DIM)                                                 \
+  if (D == DIM)                                                             \
+    return launch<DIM, T>(q, k_new, v_new, kq, vq, ks, kz, vs, vz, out, B,  \
                           H, pos, kv_sb, kv_sw, sc_sb, sc_sw, scale, s);
-  PE_DECODE_CASE(1)
-  PE_DECODE_CASE(2)
-  PE_DECODE_CASE(4)
-  PE_DECODE_CASE(8)
+  PE_DECODE_CASE(16)
+  PE_DECODE_CASE(32)
+  PE_DECODE_CASE(64)
+  PE_DECODE_CASE(128)
 #undef PE_DECODE_CASE
   return (int)cudaErrorInvalidValue;
 }
@@ -238,7 +433,8 @@ extern "C" {
 // k_q, v_q: int8, element (b, r, h, d) at b*kv_sb + r*kv_sw + h*D + d, the
 // base and both strides 16-byte aligned. k_scale ... v_shift: f32, element
 // (b, r, h) at b*sc_sb + r*sc_sw + h. Rows 0..pos are read. dtype 0 = f32,
-// 1 = bf16. D in {16, 32, 64, 128}.
+// 1 = bf16. D in {16, 32, 64, 128}. One cluster launch; a refused launch
+// returns its error code.
 int pe_decode_attention(const void* q, const void* k_new, const void* v_new,
                         const void* k_q, const void* v_q, const void* k_scale,
                         const void* k_shift, const void* v_scale,
@@ -246,7 +442,7 @@ int pe_decode_attention(const void* q, const void* k_new, const void* v_new,
                         int H, int D, int64_t pos, int64_t kv_sb,
                         int64_t kv_sw, int64_t sc_sb, int64_t sc_sw,
                         float scale, void* stream) {
-  if (B <= 0 || H <= 0 || B > 65535 || pos < 0 ||
+  if (B <= 0 || H <= 0 || B > 65535 || H > 65535 || pos < 0 ||
       (((uintptr_t)k_q | (uintptr_t)v_q | (uintptr_t)kv_sb |
         (uintptr_t)kv_sw) & 15) != 0)
     return (int)cudaErrorInvalidValue;
@@ -266,5 +462,8 @@ int pe_decode_attention(const void* q, const void* k_new, const void* v_new,
   if (rc) return rc;
   return (int)cudaGetLastError();
 }
+
+// The number of row ranges (cluster size) the launch takes at `pos`.
+int pe_decode_attention_splits(int64_t pos) { return splits_for(pos); }
 
 }  // extern "C"

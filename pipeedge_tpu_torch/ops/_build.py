@@ -50,8 +50,8 @@ _L = ctypes.c_int64
 _F = ctypes.c_float
 # C signatures (csrc/*.cu, `extern "C"`); every entry returns cudaError_t
 _SIGNATURES = {
-    # x, data, scale, shift, partial, B, n, bit, chunk, vec, stream
-    "pe_fused_encode": [_P, _P, _P, _P, _P, _L, _L, _I, _L, _I, _P],
+    # x, data, scale, shift, B, n, bit, blocks per item, slice, vec, stream
+    "pe_fused_encode": [_P, _P, _P, _P, _L, _L, _I, _I, _L, _I, _P],
     # data, scale, shift, out, B, n, bit, vec, stream
     "pe_fused_decode": [_P, _P, _P, _P, _L, _L, _I, _I, _P],
     # q, k, v, o, dtype, B, H, S, D, stride_b, stride_h, stride_s,
@@ -69,6 +69,8 @@ _SIGNATURES = {
     # scale_stride_row, scale, stream
     "pe_decode_attention": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                             _I, _I, _L, _L, _L, _L, _L, _F, _P],
+    # pos -> the number of row ranges (cluster size) of the launch
+    "pe_decode_attention_splits": [_L],
 }
 
 

@@ -14,7 +14,8 @@ same function through a full-precision copy of the window.
 `decode_attention_reference`, the plain PyTorch version of the same
 function, for CPU tensors. The window may be a strided view of the stage
 cache ([B, W, H, Dh] with any batch and row strides): the kernel reads it
-in place, and only its live rows [0, pos].
+in place, and only its live rows [0, pos], split over the blocks of one
+thread-block cluster per (head, batch cell) (`split_count`).
 
 The TPU kernel's two `variant`s (per-cell grid, batch-as-sublane grid)
 are two VMEM layouts of one function; both names are accepted and run
@@ -24,6 +25,7 @@ from __future__ import annotations
 
 import math
 import operator
+from typing import List, Tuple
 
 import torch
 
@@ -31,6 +33,23 @@ from . import _build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (16, 32, 64, 128)
+
+
+def split_count(pos: int) -> int:
+    """Into how many row ranges (`split_ranges`) the kernel splits the live
+    rows [0, pos], one block each of one thread-block cluster: 1 up to 256
+    rows, 2 up to 512, else 4 (csrc/decode_attention.cu `splits_for`;
+    `chip_smoke.py` holds the two to one rule)."""
+    n = pos + 1
+    return 1 if n <= 256 else 2 if n <= 512 else 4
+
+
+def split_ranges(pos: int, splits: int) -> List[Tuple[int, int]]:
+    """The row range [start, end) of each of `splits` blocks at `pos`, in
+    rank order; a range past the live rows is empty."""
+    n = pos + 1
+    per = -(-n // splits)
+    return [(min(n, r * per), min(n, (r + 1) * per)) for r in range(splits)]
 
 
 def decode_attention_reference(q, k_q, k_scale, k_shift, v_q, v_scale,

@@ -19,6 +19,7 @@ either (`FUSED_BITS`), and take the plain ops on every device.
 from __future__ import annotations
 
 import math
+from typing import Tuple
 
 import torch
 
@@ -28,9 +29,23 @@ from . import quant as quant_ops
 # bitwidths with a kernel: int8 bytes and int4 nibbles, the wire workhorses
 FUSED_BITS = (4, 8)
 
-# elements per block of the encode kernel's min/max pass; the kernel reads
-# the value from its argument list (csrc/fused_quant.cu)
-ENCODE_CHUNK = 8192
+# the encode kernel's partition of an item (csrc/fused_quant.cu): one
+# thread-block cluster of up to ENCODE_CLUSTER blocks per item, each block
+# a slice of whole ENCODE_GROUP-float groups (16 bytes of output words at 4
+# bits, 32 at 8), so every block starts its words on a 16-byte boundary.
+# 8 blocks timed faster than 16 (a non-portable cluster) on the H100;
+# chip_smoke.py times both.
+ENCODE_CLUSTER = 8
+ENCODE_GROUP = 32
+
+
+def encode_slices(n: int, cluster: int = ENCODE_CLUSTER) -> Tuple[int, int]:
+    """(blocks, slice): the encode kernel's partition of an item of `n`
+    floats. Block r takes [r * slice, min(n, (r + 1) * slice)); slice is a
+    multiple of ENCODE_GROUP, and no block is empty."""
+    groups = -(-n // ENCODE_GROUP)
+    per = -(-groups // min(cluster, groups))
+    return -(-groups // per), per * ENCODE_GROUP
 
 
 def _check_bit(bit: int) -> None:
@@ -51,17 +66,15 @@ def fused_encode_outerdim(x: torch.Tensor, bit: int) -> quant_ops.QuantizedTenso
     n = math.prod(shape[1:])
     flat = x.reshape(b, n).to(torch.float32).contiguous()
     words = quant_ops.packed_words(n, bit)
-    chunks = -(-n // ENCODE_CHUNK)
+    blocks, slice_len = encode_slices(n, ENCODE_CLUSTER)
     data = torch.empty((b, words), dtype=torch.int32, device=x.device)
     scale = torch.empty((b,), dtype=torch.float32, device=x.device)
     shift = torch.empty((b,), dtype=torch.float32, device=x.device)
-    partial = torch.empty((b, 2 * chunks), dtype=torch.float32,
-                          device=x.device)
     vec = int(n % 4 == 0 and flat.data_ptr() % 16 == 0)
     lib = _build.library()
     _build.check(lib.pe_fused_encode(
         flat.data_ptr(), data.data_ptr(), scale.data_ptr(), shift.data_ptr(),
-        partial.data_ptr(), b, n, bit, ENCODE_CHUNK, vec,
+        b, n, bit, blocks, slice_len, vec,
         _build.stream_handle(x.device)), "fused_encode")
     _build.count_launch("fused_encode")
     return quant_ops.QuantizedTensor(data=data, scale=scale, shift=shift,

@@ -255,3 +255,87 @@ def test_optin_bound_at_construction(monkeypatch):
                                 [params], max_len=32, device="cpu",
                                 cache_bits=8)
     assert pipe2.int8_decode_optin == 0
+
+
+# --- kernel 5's split over rows, merged by the log-sum-exp rule ------------
+
+T_SPLIT = 256
+_SPLIT_WANT = {}
+
+
+def _split_inputs():
+    """Seeded inputs with a 256-row window (pos up to 255)."""
+    rng = np.random.default_rng(123)
+    k_rows = rng.normal(size=(B, T_SPLIT, H, D)).astype(np.float32)
+    v_rows = rng.normal(size=(B, T_SPLIT, H, D)).astype(np.float32)
+    q, k_new, v_new = (rng.normal(size=(B, 1, H, D)).astype(np.float32)
+                       for _ in range(3))
+    kq, ks, kz = (np.array(a) for a in jdec._quantize_rows(
+        jnp.asarray(k_rows)))
+    vq, vs, vz = (np.array(a) for a in jdec._quantize_rows(
+        jnp.asarray(v_rows)))
+    return dict(q=q, k_q=kq, k_scale=ks, k_shift=kz, v_q=vq, v_scale=vs,
+                v_shift=vz, k_new=k_new, v_new=v_new)
+
+
+def _split_merge(x, pos, splits):
+    """Kernel 5's order in plain PyTorch: one (max, sum, acc) partial per
+    row range of `split_ranges` (an empty range gives (-1e30, 0, 0)),
+    merged by the log-sum-exp rule as the cluster's rank 0 merges them."""
+    t = {n: torch.from_numpy(x[n]) for n in _ORDER}
+    n = pos + 1
+
+    def rows(codes, scale, shift, new):
+        r = ((codes[:, :n].double() + 128.0) * scale[:, :n, :, None].double()
+             + shift[:, :n, :, None].double())
+        r[:, pos] = new[:, 0].double()
+        return r                                            # [B, n, H, D]
+
+    k = rows(t["k_q"], t["k_scale"], t["k_shift"], t["k_new"])
+    v = rows(t["v_q"], t["v_scale"], t["v_shift"], t["v_new"])
+    scores = torch.einsum("bhd,bnhd->bhn", t["q"][:, 0].double(), k) \
+        / np.sqrt(D)
+    parts = []
+    for r0, r1 in tda.split_ranges(pos, splits):
+        if r0 == r1:
+            parts.append((torch.full((B, H), -1e30, dtype=torch.float64),
+                          torch.zeros((B, H), dtype=torch.float64),
+                          torch.zeros((B, H, D), dtype=torch.float64)))
+            continue
+        s = scores[..., r0:r1]
+        m = s.amax(-1)
+        p = torch.exp(s - m[..., None])
+        parts.append((m, p.sum(-1),
+                      torch.einsum("bhn,bnhd->bhd", p, v[:, r0:r1])))
+    mx = torch.stack([m for m, _, _ in parts]).amax(0)
+    den = sum(l * torch.exp(m - mx) for m, l, _ in parts)
+    num = sum(a * torch.exp(m - mx)[..., None] for m, _, a in parts)
+    return (num / den[..., None]).float().reshape(B, 1, H * D)
+
+
+@pytest.mark.parametrize("pos", [0, 7, 200, 255])
+@pytest.mark.parametrize("splits", [1, 2, 4, 8])
+@pytest.mark.parametrize("variant", [1, 2])
+def test_split_merge_matches_pallas_interpret(variant, splits, pos):
+    x = _split_inputs()
+    if (variant, pos) not in _SPLIT_WANT:
+        _SPLIT_WANT[variant, pos] = _np(jda.int8_decode_attention(
+            *_jax_args(x), pos, interpret=True, variant=variant))
+    got = _split_merge(x, pos, splits)
+    np.testing.assert_allclose(_np(got), _SPLIT_WANT[variant, pos],
+                               rtol=2e-5, atol=2e-5)
+
+
+def test_split_count_covers_rows_once():
+    """For every pos of a 1024-row cache the wrapper's split count is a
+    cluster size the launch takes (1..8), and its ranges cover rows
+    [0, pos] exactly once, in order, none of them empty."""
+    for pos in range(1024):
+        splits = tda.split_count(pos)
+        assert 1 <= splits <= 8
+        ranges = tda.split_ranges(pos, splits)
+        assert len(ranges) == splits
+        assert ranges[0][0] == 0 and ranges[-1][1] == pos + 1
+        for (a0, a1), (b0, _) in zip(ranges, ranges[1:]):
+            assert a1 == b0
+        assert all(r1 > r0 for r0, r1 in ranges)

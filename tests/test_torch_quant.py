@@ -134,3 +134,21 @@ def test_banner_clamps_match(bit):
         np.testing.assert_array_equal(got[inside], want[inside])
     assert tclamp.clamp_factor_laplace(bit) == jclamp.clamp_factor_laplace(bit)
     assert tclamp.clamp_factor_gelu(bit) == jclamp.clamp_factor_gelu(bit)
+
+
+@pytest.mark.parametrize("bit", [4, 8])
+@pytest.mark.parametrize("n", [37, 3 * 37, 151296, 151296 * 4 + 5])
+def test_encode_slices_partition(n, bit):
+    """The encode kernel's partition of an item (one block per slice, one
+    cluster per item): whole 32-float groups, so every block's words start
+    on a 16-byte boundary at both bit widths, covering [0, n) exactly once
+    with no empty block, in at most ENCODE_CLUSTER blocks."""
+    blocks, slice_len = tfused.encode_slices(n)
+    assert 1 <= blocks <= tfused.ENCODE_CLUSTER
+    assert slice_len % tfused.ENCODE_GROUP == 0
+    assert (slice_len // (32 // bit)) % 4 == 0        # 16 bytes of words
+    starts = [r * slice_len for r in range(blocks)]
+    ends = [min(n, s + slice_len) for s in starts]
+    assert starts[0] == 0 and ends[-1] == n
+    assert all(e > s for s, e in zip(starts, ends))
+    assert all(e == s for e, s in zip(ends, starts[1:]))
