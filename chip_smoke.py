@@ -11,8 +11,12 @@ Phases, each of which raises on failure (nothing is caught):
      - edge codec encode/decode, bits 4 and 8, at ViT-Base's edge
        [8, 197, 768], an odd tail [3, 37], items whose slices outgrow
        shared memory ([2, 605184], [2, 605189]), items scaled from 1e-30
-       to 1e30 ([64, 151296]) and with a zero-range item: words, scale, shift and decoded values bit-identical; one
-       device kernel per encode call; the encode also timed at the other
+       to 1e30 ([64, 151296]), a zero-range item, items holding NaN,
+       +inf, -inf, both infinities and a range past the f32 maximum
+       ([6, 151296], [6, 37]) and more items than a grid axis takes
+       ([65537, 37]): words bit-identical, scale, shift and decoded
+       values too (NaN counted equal to NaN); one device kernel per
+       encode and per decode call; the encode also timed at the other
        cluster size (16 blocks per item);
      - attention at [96, 197, 64] f32, [128, 257, 80] f32 (ViT-H), causal
        [8, 1024, 64] f32, [96, 197, 64] bf16, S = 1, S = 65 (one row past
@@ -33,9 +37,10 @@ Phases, each of which raises on failure (nothing is caught):
      - with `--ab-parent DIR` (a `csrc/` of another version, e.g. the
        parent commit's unpacked under the gitignored `_build/`), that
        version's attention, int8, decode-attention (main_w256/512/1024,
-       warm and L2-cold) and encode (bits 8 and 4) kernels are built
-       beside these and timed on the same inputs in the order parent,
-       this, this, parent;
+       warm and L2-cold), encode and decode (bits 8 and 4) kernels are
+       built beside these and timed on the same inputs in the order
+       parent, this, this, parent (the `paired` ratios of the kernels
+       line);
   4. the main path: ViT-Base at full width (seeded random weights in the
      Google npz format) through `parallel.pipeline.build_pipeline`, two
      stages cut at `-pt 1,21,22,48` (a (ctx, residual) 2-tuple edge),
@@ -72,11 +77,18 @@ Phases, each of which raises on failure (nothing is caught):
        (ii), 127 x 12 = 1524 per generation, none in (i) and (iii);
      then one profiled decode step of (ii) and of (iii), and the entry
      `python -m pipeedge_tpu_torch.generate ... --kv-bits 8` once with
-     PIPEEDGE_INT8_DECODE_ATTEND=1.
+     PIPEEDGE_INT8_DECODE_ATTEND=1;
+  7. the tiny GPT-2 (`pipeedge/test-tiny-gpt2`, head dim 8, seeded random
+     weights made in-process), two stages, batch 4, a 16-token prompt, 32
+     new tokens, int8 cache, on the kernel route (ii) and the dequantize
+     route (iii): greedy tokens identical, 2 decode-attention launches
+     per step on (ii) and none on (iii), and the two in lockstep within
+     the (ii)/(iii) bound.
 Phase 3 also holds kernel 5 (decode attention) against its plain version
 at the main path's shapes (windows of a [16, 1024, 12, 64] stage cache at
 buckets 256 and 512, and pos 1000 of the whole cache), pos 0 and W-1,
-W = 100, B = 1, H = 16, Dh = 32, a zero-range K row and bf16, timed beside
+W = 100, B = 1, H = 16, Dh = 32, Dh = 8 (f32 and bf16; B 16, H 4, W 64),
+B = 65537 (W 16, H 1, Dh 16), a zero-range K row and bf16, timed beside
 the dequantize-then-attend route and SDPA over the dequantized window; the
 main cases warm and with a cold L2 (the calls rotate over copies of the
 cache that together stream more than the L2), and the host's split rule
@@ -188,6 +200,13 @@ DECODE_ATTN_TOL = {torch.float32: dict(rtol=2e-5, atol=2e-5),
 DECODE_FP_BOUND = 1e-4
 DECODE_ROUTE_BOUND = 1e-3
 
+# Phase 7, the tiny GPT-2 (hidden 32, 4 heads: head dim 8, the one decoder
+# of the registry whose head dim is not 64) through both int8 routes: two
+# stages of one block each, batch 4, a 16-token prompt, 32 new tokens.
+TINY_DECODE_MODEL = "pipeedge/test-tiny-gpt2"
+TINY_DECODE_PARTITION = [(1, 4), (5, 8)]
+TINY_DECODE_BATCH, TINY_DECODE_PROMPT, TINY_DECODE_NEW = 4, 16, 32
+
 
 def log(msg: str) -> None:
     print(msg, flush=True)
@@ -266,6 +285,38 @@ def codec_bytes(shape, bit: int) -> int:
     return b * n * 4 + b * packed_words(n, bit) * 4 + b * 8
 
 
+def same_values(got, want) -> bool:
+    """torch.equal, with NaN counted equal to NaN (scale, shift and decoded
+    values of an item holding NaN or an infinity)."""
+    nan = want.isnan()
+    return (got.shape == want.shape and torch.equal(got.isnan(), nan)
+            and torch.equal(got.masked_fill(nan, 0.0),
+                            want.masked_fill(nan, 0.0)))
+
+
+def codec_input(shape, kind, gen, dev):
+    """A codec case's input. 'zero_item': item 1 constant (scale 0);
+    'scaled': items scaled from 1e-30 to 1e30; 'nonfinite': item 0 holds a
+    NaN, 1 a +inf, 2 a -inf, 3 alternates +-3e38 (its range overflows
+    f32), 4 both infinities, and item 5 is finite."""
+    x = torch.randn(shape, generator=gen, device=dev) * 3.0
+    if kind == "zero_item":
+        x[1] = 0.75
+    elif kind == "scaled":
+        x *= torch.logspace(-30, 30, shape[0], device=dev)[:, None]
+    elif kind == "nonfinite":
+        flat = x.view(shape[0], -1)
+        n = flat.shape[1]
+        flat[0, n // 3] = float("nan")
+        flat[1, n // 2] = float("inf")
+        flat[2, 0] = float("-inf")
+        flat[3, 0::2] = 3e38
+        flat[3, 1::2] = -3e38
+        flat[4, n - 1] = float("inf")
+        flat[4, n // 4] = float("-inf")
+    return x
+
+
 def check_codec(dev, gen):
     from pipeedge_tpu_torch.ops import fused_quant, quant
     rows = {}
@@ -273,45 +324,49 @@ def check_codec(dev, gen):
     # memory (the tiled re-read), 16-byte and scalar copies
     # [64, 151296]: item scales from 1e-30 to 1e30, through the encode's
     # reciprocal division and its __fdiv_rn fallback (csrc div_rn)
-    for shape, zero_item in (((8, 197, 768), True), ((3, 37), True),
-                             ((2, 151296 * 4), True),
-                             ((2, 151296 * 4 + 5), True),
-                             ((64, 197 * 768), False),
-                             ((8, 197, 768), False)):
+    # [6, 151296] / [6, 37]: NaN, +-inf and an overflowing range
+    # [65537, 37]: more items than one grid axis takes
+    for shape, kind in (((8, 197, 768), "zero_item"), ((3, 37), "zero_item"),
+                        ((2, 151296 * 4), "zero_item"),
+                        ((2, 151296 * 4 + 5), "zero_item"),
+                        ((64, 197 * 768), "scaled"),
+                        ((6, 151296), "nonfinite"), ((6, 37), "nonfinite"),
+                        ((65537, 37), "plain"),
+                        ((8, 197, 768), "plain")):
         for bit in (8, 4):
-            x = torch.randn(shape, generator=gen, device=dev) * 3.0
-            if zero_item:
-                x[1] = 0.75
-            if shape[0] == 64:
-                x *= torch.logspace(-30, 30, 64, device=dev)[:, None]
+            x = codec_input(shape, kind, gen, dev)
             enc = fused_quant.fused_encode_outerdim(x, bit)
             ref = quant.tensor_encode_outerdim(x, bit)
             torch.cuda.synchronize()
             for name in ("data", "scale", "shift"):
                 got, want = getattr(enc, name), getattr(ref, name)
-                if not torch.equal(got, want):
+                if not same_values(got, want):
                     bad = int((got != want).sum())
                     raise AssertionError(
-                        f"encode {shape} bit {bit}: {name} differs in "
-                        f"{bad} of {want.numel()} entries")
+                        f"encode {shape} bit {bit} {kind}: {name} differs "
+                        f"in {bad} of {want.numel()} entries")
             dec = fused_quant.fused_decode_outerdim(enc)
             dref = quant.tensor_decode_outerdim(ref)
             torch.cuda.synchronize()
-            dec_err = float((dec - dref).abs().max())
-            if not torch.equal(dec, dref):
-                raise AssertionError(f"decode {shape} bit {bit}: max "
-                                     f"|diff| {dec_err}")
+            finite = dref.isfinite() & dec.isfinite()
+            dec_err = (float((dec - dref)[finite].abs().max())
+                       if bool(finite.any()) else 0.0)
+            if not same_values(dec, dref):
+                raise AssertionError(f"decode {shape} bit {bit} {kind}: "
+                                     f"max |diff| {dec_err}")
             enc_err = max(float((enc.scale - ref.scale).abs().max()),
                           float((enc.shift - ref.shift).abs().max()))
-            log(f"codec {shape} bit {bit} zero_item={zero_item}: "
-                f"bit-identical")
-            if shape == (8, 197, 768) and not zero_item:
+            log(f"codec {shape} bit {bit} {kind}: bit-identical")
+            if shape == (8, 197, 768) and kind == "plain":
                 nbytes = codec_bytes(shape, bit)
-                kernels = device_launches(
-                    lambda: fused_quant.fused_encode_outerdim(x, bit))
-                if kernels != 1:
-                    raise AssertionError(f"encode bit {bit}: {kernels} "
-                                         f"device kernels per call, not 1")
+                kernels = {name: device_launches(fn) for name, fn in (
+                    ("fused_encode",
+                     lambda: fused_quant.fused_encode_outerdim(x, bit)),
+                    ("fused_decode",
+                     lambda: fused_quant.fused_decode_outerdim(enc)))}
+                if kernels != {"fused_encode": 1, "fused_decode": 1}:
+                    raise AssertionError(f"codec bit {bit}: device kernels "
+                                         f"per call {kernels}, not 1")
                 # the other cluster size the design allows (16 blocks per
                 # item, a non-portable cluster), timed beside the chosen one
                 chosen = fused_quant.ENCODE_CLUSTER
@@ -323,7 +378,7 @@ def check_codec(dev, gen):
                     fused_quant.ENCODE_CLUSTER = chosen
                 rows[("fused_encode", bit)] = dict(
                     shape=list(shape), bit=bit, max_abs_err=enc_err,
-                    device_kernels=kernels, cluster=chosen,
+                    device_kernels=kernels["fused_encode"], cluster=chosen,
                     cluster16_ms=cluster16_ms,
                     ms=time_ms(lambda: fused_quant.fused_encode_outerdim(x, bit)),
                     plain_ms=time_ms(lambda: quant.tensor_encode_outerdim(x, bit)),
@@ -331,6 +386,7 @@ def check_codec(dev, gen):
                     library_ms=None)
                 rows[("fused_decode", bit)] = dict(
                     shape=list(shape), bit=bit, max_abs_err=dec_err,
+                    device_kernels=kernels["fused_decode"],
                     ms=time_ms(lambda: fused_quant.fused_decode_outerdim(enc)),
                     plain_ms=time_ms(lambda: quant.tensor_decode_outerdim(ref)),
                     bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
@@ -419,14 +475,18 @@ def int8_bound_ms(m, k, n, block_k):
 
 
 def device_launches(fn) -> int:
-    """Kernels one `fn()` call puts on the device (torch.profiler)."""
+    """Kernels one `fn()` call puts on the device (torch.profiler). The
+    first profiling session of a process can miss a kernel while the
+    tracer starts (a first session has counted no kernel for the encode
+    on the H100), so each count comes from the second of two sessions."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    for _ in range(2):
         fn()
         torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
     return sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA)
 
 
@@ -522,16 +582,17 @@ def check_int8_matmul(dev, gen):
 
 
 def ab_parent(parent_csrc: Path, dev, gen):
-    """Time another version's attention, int8, decode-attention and encode
-    kernels (built from `parent_csrc`) against this one's on the same
-    inputs, in the order parent, this, this, parent. The parent runs
-    through the same wrappers with its library swapped in (before the
+    """Time another version's attention, int8, decode-attention, encode
+    and decode kernels (built from `parent_csrc`) against this one's on
+    the same inputs, in the order parent, this, this, parent. The parent
+    runs through the same wrappers with its library swapped in (before the
     wgmma kernel existed, its int8 entry for both kernel choices). The
     one exception is the encode of a version whose `pe_fused_encode`
     still takes the two-pass arguments (a partial-min/max scratch and a
     chunk; before `pe_decode_attention_splits` existed): it is called
     with those. Kernel 5 is timed warm and with a cold L2, and each
-    kernel 1 and 5 case first checks that both versions agree."""
+    kernel 1, 2 and 5 case first checks that both versions agree.
+    Returns the rows, one per case."""
     import ctypes
     from pipeedge_tpu_torch.ops import _build, fused_quant, quant
     from pipeedge_tpu_torch.ops import attention
@@ -655,6 +716,20 @@ def ab_parent(parent_csrc: Path, dev, gen):
         cases.append((f"fused_encode [{UBATCH},197,768] bit {bit}", fn,
                       (lambda x=x, bit=bit: parent_encode(x, bit))
                       if two_pass_encode else fn))
+    # kernel 2 at ViT-Base's edge: the same words through both versions
+    for bit in (8, 4):
+        x = torch.randn((UBATCH, 197, 768), generator=gen, device=dev) * 3.0
+        enc = fused_quant.fused_encode_outerdim(x, bit)
+        fn = (lambda enc=enc: fused_quant.fused_decode_outerdim(enc))
+        _build._lib = parent
+        try:
+            got = fn()
+        finally:
+            _build._lib = ours
+        if not torch.equal(got, fn()):
+            raise AssertionError(f"ab: the parent's decode at bit {bit} "
+                                 f"differs from this one's")
+        cases.append((f"fused_decode [{UBATCH},197,768] bit {bit}", fn))
     rows = []
     for name, fn, *parent_fn in cases:
         p_fn = parent_fn[0] if parent_fn else fn
@@ -717,6 +792,11 @@ def check_decode_attention(dev, gen):
         ("dh32", 16, 256, 12, 32, 200, torch.float32, False),
         ("zero_range_row", 16, 256, 12, 64, 200, torch.float32, False),
         ("bf16", 16, 256, 12, 64, 200, torch.bfloat16, True),
+        # the tiny GPT-2's head dim (8-byte rows), and more batch cells
+        # than one grid axis takes
+        ("dh8", 16, 64, 4, 8, 50, torch.float32, False),
+        ("dh8_bf16", 16, 64, 4, 8, 50, torch.bfloat16, False),
+        ("b65537", 65537, 16, 1, 16, 13, torch.float32, False),
     ]
     rows = []
     for name, b, w, h, d, pos, dtype, strided in cases:
@@ -756,7 +836,7 @@ def check_decode_attention(dev, gen):
         row = dict(case=name, shape=[b, w, h, d], pos=pos,
                    dtype=str(dtype).replace("torch.", ""),
                    strided_window=strided, max_abs_err=err)
-        if name.startswith("main") or name == "bf16":
+        if name.startswith("main") or name in ("bf16", "dh8"):
             k_deq = decode._dequantize_rows(win["k"], win["k_scale"],
                                             win["k_shift"], dtype)
             v_deq = decode._dequantize_rows(win["v"], win["v_scale"],
@@ -954,6 +1034,10 @@ def profile_pass(run_once, label: str) -> None:
         "kernel_launches": sum(calls for _, _, calls in kernels),
         "top": [dict(kernel=name[:90], ms=ms, calls=calls,
                      share=ms / total) for name, ms, calls in kernels[:15]],
+        # every kernel of csrc/ (their names start pe_), in the top or not
+        "port": [dict(kernel=name[:90], ms=ms, calls=calls,
+                      share=ms / total) for name, ms, calls in kernels
+                 if "::pe_" in name],
     }))
 
 
@@ -1055,12 +1139,6 @@ def decode_main_path(device: str, model: str = DECODE_MODEL,
                                       and (tokens[run] < cfg.vocab_size)
                                       .all()))
 
-    def step(pipe, caches, tok, pos):
-        data = tok[:, None]
-        for i, st in enumerate(pipe.stages):
-            data, caches[i] = pipe._decode_step(st, data, caches[i], pos)
-        return data[:, 0]
-
     # (i) against the full-sequence forward over its own tokens
     seq = tokens["i"][:, :prompt_len + steps]
     full = seq
@@ -1075,7 +1153,7 @@ def decode_main_path(device: str, model: str = DECODE_MODEL,
     replay_equal = True
     for s in range(1, new_tokens):
         pos = prompt_len + s - 1
-        out = step(pipe, caches, seq[:, pos], pos)
+        out = decode_step(pipe, caches, seq[:, pos], pos)
         err = max(err, float((out - full[:, pos]).abs().max()))
         replay_equal &= bool(torch.equal(out.argmax(-1),
                                          tokens["i"][:, pos + 1]))
@@ -1085,51 +1163,14 @@ def decode_main_path(device: str, model: str = DECODE_MODEL,
     del full
 
     # (ii) and (iii) in lockstep on (ii)'s greedy tokens
-    pk, pd = pipes["ii"], pipes["iii"]
-    prefill_ms, cache, last = {}, {}, {}
-    for run, pipe in (("ii", pk), ("iii", pd)):
-        sync()
-        t0 = time.monotonic()
-        logits, cache[run] = pipe._prefill(ids)
-        sync()
-        prefill_ms[run] = (time.monotonic() - t0) * 1e3
-        last[run] = logits[:, -1]
-    tok = last["ii"].argmax(-1)
-    step_ms = {"ii": {}, "iii": {}}
-    per_step = {"ii": set(), "iii": set()}
-    route_err = float((last["ii"] - last["iii"]).abs().max()
-                      / last["iii"].abs().max())
-    for s in range(1, new_tokens):
-        pos = prompt_len + s - 1
-        bucket = pk._read_len(pos)
-        order = ("ii", "iii") if s % 2 else ("iii", "ii")
-        out = {}
-        for run in order:
-            pipe = pipes[run]
-            _build.reset_launch_counts()
-            sync()
-            t0 = time.monotonic()
-            out[run] = step(pipe, cache[run], tok, pos)
-            sync()
-            step_ms[run].setdefault(bucket, []).append(
-                (time.monotonic() - t0) * 1e3)
-            per_step[run].add(_build.launch_counts["decode_attention"])
-        route_err = max(route_err, float(
-            (out["ii"] - out["iii"]).abs().max() / out["iii"].abs().max()))
-        tok = out["ii"].argmax(-1)
-    res["lockstep"] = dict(
-        rel_err=route_err, prefill_ms=prefill_ms,
-        launches_per_step={r: sorted(v) for r, v in per_step.items()},
-        step_p50_ms={r: {str(b): statistics.median(v)
-                         for b, v in sorted(by.items())}
-                     for r, by in step_ms.items()},
-        steps_per_bucket={str(b): len(v)
-                          for b, v in sorted(step_ms["ii"].items())})
+    pk = pipes["ii"]
+    res["lockstep"], cache, tok = lockstep_routes(pipes, ids, new_tokens,
+                                                  sync)
     if profile:
         pos = prompt_len + steps
         for run in ("ii", "iii"):
-            profile_pass(lambda run=run: step(pipes[run], cache[run], tok,
-                                              pos),
+            profile_pass(lambda run=run: decode_step(pipes[run], cache[run],
+                                                     tok, pos),
                          f"decode step ({run}), bucket "
                          f"{pk._read_len(pos)}, pos {pos}")
 
@@ -1160,6 +1201,132 @@ def decode_main_path(device: str, model: str = DECODE_MODEL,
         # warm-up of 2 tokens (1 decode step) + the timed generation
         expected_decode_attention=blocks * (1 + steps) if on_card else 0)
     return res
+
+
+def decode_step(pipe, caches, tok, pos):
+    """One decode step of every stage of `pipe` at `pos`: tokens [B] ->
+    the last stage's logits [B, V]."""
+    data = tok[:, None]
+    for i, st in enumerate(pipe.stages):
+        data, caches[i] = pipe._decode_step(st, data, caches[i], pos)
+    return data[:, 0]
+
+
+def lockstep_routes(pipes, ids, new_tokens: int, sync):
+    """Prefill `ids` on the kernel route pipes["ii"] and the dequantize
+    route pipes["iii"] (both int8 caches), then step both on (ii)'s greedy
+    tokens, in alternating order, the launch counts set to 0 before each
+    step. Returns (the numbers, the caches, the last token)."""
+    from pipeedge_tpu_torch.ops import _build
+    prompt_len = ids.shape[1]
+    pk = pipes["ii"]
+    prefill_ms, cache, last = {}, {}, {}
+    for run in ("ii", "iii"):
+        sync()
+        t0 = time.monotonic()
+        logits, cache[run] = pipes[run]._prefill(ids)
+        sync()
+        prefill_ms[run] = (time.monotonic() - t0) * 1e3
+        last[run] = logits[:, -1]
+    tok = last["ii"].argmax(-1)
+    step_ms = {"ii": {}, "iii": {}}
+    per_step = {"ii": set(), "iii": set()}
+    route_err = float((last["ii"] - last["iii"]).abs().max()
+                      / last["iii"].abs().max())
+    for s in range(1, new_tokens):
+        pos = prompt_len + s - 1
+        bucket = pk._read_len(pos)
+        order = ("ii", "iii") if s % 2 else ("iii", "ii")
+        out = {}
+        for run in order:
+            _build.reset_launch_counts()
+            sync()
+            t0 = time.monotonic()
+            out[run] = decode_step(pipes[run], cache[run], tok, pos)
+            sync()
+            step_ms[run].setdefault(bucket, []).append(
+                (time.monotonic() - t0) * 1e3)
+            per_step[run].add(_build.launch_counts["decode_attention"])
+        route_err = max(route_err, float(
+            (out["ii"] - out["iii"]).abs().max() / out["iii"].abs().max()))
+        tok = out["ii"].argmax(-1)
+    numbers = dict(
+        rel_err=route_err, prefill_ms=prefill_ms,
+        launches_per_step={r: sorted(v) for r, v in per_step.items()},
+        step_p50_ms={r: {str(b): statistics.median(v)
+                         for b, v in sorted(by.items())}
+                     for r, by in step_ms.items()},
+        steps_per_bucket={str(b): len(v)
+                          for b, v in sorted(step_ms["ii"].items())})
+    return numbers, cache, tok
+
+
+def tiny_decode_path(device: str, model: str = TINY_DECODE_MODEL,
+                     partition=TINY_DECODE_PARTITION,
+                     batch: int = TINY_DECODE_BATCH,
+                     prompt_len: int = TINY_DECODE_PROMPT,
+                     new_tokens: int = TINY_DECODE_NEW) -> dict:
+    """The tiny GPT-2 (head dim 8; seeded random weights made in-process)
+    with an int8 cache through `DecodePipeline.generate` on the kernel
+    route (ii) and the dequantize route (iii), the launch counts set to 0
+    just before each timed generation; then the two in lockstep
+    (`lockstep_routes`). `check_tiny_decode` gates the result."""
+    from pipeedge_tpu_torch.models import registry
+    from pipeedge_tpu_torch.ops import _build
+    from pipeedge_tpu_torch.parallel import decode
+
+    on_card = torch.device(device).type == "cuda"
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    cfg = registry.get_model_config(model)
+    pipes = {run: decode.build_decode_pipeline(
+        model, partition, max_len=cfg.max_position_embeddings,
+        cache_bits=8, attend_floor=16, device=device,
+        int8_decode_attend=optin) for run, optin in (("ii", 1), ("iii", 0))}
+    ids = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, size=(batch, prompt_len))).to(device)
+    blocks = cfg.num_hidden_layers
+    res = {"head_dim": cfg.head_dim, "expected_decode_attention": {
+        "ii": blocks * (new_tokens - 1) if on_card else 0, "iii": 0},
+        "expected_launches_per_step": {"ii": [blocks if on_card else 0],
+                                       "iii": [0]}}
+    tokens = {}
+    for run, pipe in pipes.items():
+        pipe.generate(ids, 2)                  # warm-up (not counted)
+        sync()
+        _build.reset_launch_counts()
+        tokens[run] = pipe.generate(ids, new_tokens)
+        sync()
+        res[run] = dict(counts=dict(_build.launch_counts),
+                        shape=list(tokens[run].shape))
+    res["tokens_equal"] = bool(torch.equal(tokens["ii"], tokens["iii"]))
+    res["lockstep"], _, _ = lockstep_routes(pipes, ids, new_tokens, sync)
+    return res
+
+
+def check_tiny_decode(res, device_name: str) -> None:
+    log("tiny decode (ii)/(iii): " + json.dumps(
+        {**res, "card": device_name}, sort_keys=True))
+    for run in ("ii", "iii"):
+        got = res[run]["counts"]["decode_attention"]
+        if got != res["expected_decode_attention"][run]:
+            raise AssertionError(f"tiny decode ({run}): {got} decode "
+                                 f"attention launches != "
+                                 f"{res['expected_decode_attention'][run]}")
+    if not res["tokens_equal"]:
+        raise AssertionError("tiny decode: greedy tokens of the kernel "
+                             "route differ from the dequantize route's")
+    lock = res["lockstep"]
+    if lock["rel_err"] > DECODE_ROUTE_BOUND:
+        raise AssertionError(f"tiny decode (ii) vs (iii): logits differ by "
+                             f"{lock['rel_err']} of max |logit| > "
+                             f"{DECODE_ROUTE_BOUND}")
+    if lock["launches_per_step"] != res["expected_launches_per_step"]:
+        raise AssertionError(f"tiny decode lockstep: kernel launches per "
+                             f"step {lock['launches_per_step']}")
 
 
 def check_decode_path(res, device_name: str) -> None:
@@ -1242,8 +1409,8 @@ def main() -> int:
     attn_rows = check_attention(dev, gen)
     int8_rows = check_int8_matmul(dev, gen)
     dec_rows = check_decode_attention(dev, gen)
-    if args.ab_parent is not None:
-        ab_parent(args.ab_parent, dev, gen)
+    ab_rows = (ab_parent(args.ab_parent, dev, gen)
+               if args.ab_parent is not None else [])
 
     # phases 4 and 5: the main path, exact and with int8 compute
     results = main_path("cuda", profile=True)
@@ -1253,23 +1420,38 @@ def main() -> int:
     dec = decode_main_path("cuda", profile=True)
     check_decode_path(dec, device_name)
 
+    # phase 7: the tiny GPT-2 (head dim 8) through both int8 routes
+    tiny = tiny_decode_path("cuda")
+    check_tiny_decode(tiny, device_name)
+
+    def paired(prefix):
+        """The A/B rows of one kernel: case -> parent mean over this one's."""
+        return {r["case"]: r["speedup"] for r in ab_rows
+                if r["case"].startswith(prefix)} or None
+
     main_attn = next(r for r in attn_rows if r["layout"] == "bshd"
                      and r["dtype"] == "float32")
     kernels = []
+    # one row per codec kernel and bit width, each with the launches of
+    # the main path's run at that edge width
     for name in ("fused_encode", "fused_decode"):
-        row = codec_rows[(name, 8)]
-        kernels.append(dict(
-            name=name, route="cuda", source=SOURCES[name],
-            replaces=REPLACES[name], launches=results[8]["counts"][name],
-            max_abs_err=row["max_abs_err"], ms=row["ms"],
-            plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
-            bound_by=row["bound_by"], library_ms=None,
-            shape=row["shape"], bit=8,
-            **({"device_kernels": row["device_kernels"],
-                "cluster": row["cluster"],
-                "cluster16_ms": row["cluster16_ms"],
-                "bit4_ms": codec_rows[(name, 4)]["ms"]}
-               if name == "fused_encode" else {})))
+        for bit in (8, 4):
+            row = codec_rows[(name, bit)]
+            kernels.append(dict(
+                name=name, route="cuda", source=SOURCES[name],
+                replaces=REPLACES[name],
+                launches=results[bit]["counts"][name],
+                max_abs_err=row["max_abs_err"], ms=row["ms"],
+                plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
+                bound_by=row["bound_by"], library_ms=None,
+                shape=row["shape"], bit=bit,
+                device_kernels=row["device_kernels"],
+                paired=paired(f"{name} [{UBATCH},197,768] bit {bit}"),
+                **({"cluster": row["cluster"],
+                    "cluster16_ms": row["cluster16_ms"]}
+                   if name == "fused_encode" else {}),
+                **({"bit4_ms": codec_rows[(name, 4)]["ms"]}
+                   if bit == 8 else {})))
     kernels.append(dict(
         name="fused_attention", route="cuda",
         source=SOURCES["fused_attention"],
@@ -1279,6 +1461,7 @@ def main() -> int:
         plain_ms=main_attn["plain_ms"], bound_ms=main_attn["bound_ms"],
         bound_by=main_attn["bound_by"], library_ms=main_attn["library_ms"],
         shape=main_attn["shape"], dtype=main_attn["dtype"],
+        paired=paired("attention"),
         cases={f"{r['layout']} {r['shape']} {r['dtype']}"
                f"{' causal' if r['causal'] else ''}": {
                    key: r[key] for key in ("ms", "plain_ms", "library_ms",
@@ -1295,7 +1478,7 @@ def main() -> int:
         max_abs_err=max(r["max_abs_err"] for r in int8_rows),
         ms=qkv["ms"], plain_ms=qkv["plain_ms"], bound_ms=qkv["bound_ms"],
         bound_by=qkv["bound_by"], library_ms=None, shape=qkv["shape"],
-        kernel=qkv["kernel"],
+        kernel=qkv["kernel"], paired=paired("int8_matmul"),
         cases={r["case"]: dict(ms=r["ms"], plain_ms=r["plain_ms"],
                                bound_ms=r["bound_ms"],
                                bound_by=r["bound_by"], kernel=r["kernel"])
@@ -1316,6 +1499,8 @@ def main() -> int:
         dequant_route_ms=step["dequant_route_ms"],
         dequant_route_ms_l2_cold=step["dequant_route_ms_l2_cold"],
         sdpa_dequantized_ms=step["sdpa_dequantized_ms"],
+        paired=paired("decode_attention"),
+        tiny_decoder_launches=tiny["ii"]["counts"]["decode_attention"],
         cases={name: {k: r[k] for k in (
             "shape", "pos", "dtype", "ms", "ms_l2_cold", "plain_ms",
             "bound_ms", "bound_by", "dequant_route_ms",

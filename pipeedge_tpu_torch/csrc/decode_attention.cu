@@ -32,17 +32,19 @@
 // rows [0, pos] split into 1 range up to 256 rows, 2 up to 512, else 4
 // (split_count in ops/decode_attention.py states the same rule), and the
 // blocks of one (head, batch cell) form one thread-block cluster: a grid
-// of (splits, H, B) in clusters of (splits, 1, 1).
+// of (splits, H, B) in clusters of (splits, 1, 1). B past the grid's
+// 65535 is launched in chunks by the wrapper (ops/decode_attention.py).
 //   - Loads. Warp w takes the row groups w, w + 4, ... of its range, 32 /
-//     (D/16) rows a step, D/16 lanes a row, 16 int8 codes of K and of V
-//     and the row's four scale/shift values per lane, fetched two steps
-//     ahead in registers. The fresh row is staged in shared memory while
-//     the first loads are in flight.
+//     (D/C) rows a step, D/C lanes a row, C = min(D, 16) int8 codes of K
+//     and of V (one 16-byte load each; at D = 8, whose rows are 8 bytes,
+//     one 8-byte load and 32 rows a step) and the row's four scale/shift
+//     values per lane, fetched two steps ahead in registers. The fresh
+//     row is staged in shared memory while the first loads are in flight.
 //   - Compute (f32). The codes become exact floats by a byte permute and
 //     one add (no int-to-float conversion), and the affine dequantization
 //     comes out of the products: score = s (q . u) + z sum(q), and the
 //     value sum is sum (p s) u + sum p z. The running max moves only when
-//     a score passes it by kLazy, so the 16 accumulators are rescaled
+//     a score passes it by kLazy, so the C accumulators are rescaled
 //     rarely. K and V are then not formed element by element, so they
 //     are not bit-equal to the plain dequantization; the output stays
 //     within the f32 tolerance (chip_smoke.py, tests/test_torch_*).
@@ -128,12 +130,28 @@ __device__ __forceinline__ float dequant(uint32_t flipped, int j, float s,
   return __fadd_rn(__fmul_rn(u, s), z);
 }
 
-// One lane's share of one row group: 16 int8 codes of K and of V and the
-// row's four scale/shift values.
+// One lane's share of one row group: C int8 codes of K and of V (one
+// 16-byte load each at C = 16, 8-byte at C = 8) and the row's four
+// scale/shift values.
+template <int C>
 struct Frag {
-  int4 k, v;
+  using Vec = typename std::conditional<C == 16, int4, int2>::type;
+  Vec k, v;
   float ks, kz, vs, vz;
 };
+
+// The C / 4 words of a lane's codes, each XOR 0x80808080 (the biased
+// codes code + 128, see dequant).
+__device__ __forceinline__ void flip(const int4& c, uint32_t* w) {
+  w[0] = (uint32_t)c.x ^ 0x80808080u;
+  w[1] = (uint32_t)c.y ^ 0x80808080u;
+  w[2] = (uint32_t)c.z ^ 0x80808080u;
+  w[3] = (uint32_t)c.w ^ 0x80808080u;
+}
+__device__ __forceinline__ void flip(const int2& c, uint32_t* w) {
+  w[0] = (uint32_t)c.x ^ 0x80808080u;
+  w[1] = (uint32_t)c.y ^ 0x80808080u;
+}
 
 template <int D, typename T, bool kCluster>
 __global__ void __launch_bounds__(kThreads)
@@ -149,19 +167,20 @@ pe_decode_attention_kernel(const T* __restrict__ q,
                            int H, int64_t pos, int64_t rows_per,
                            int64_t kv_sb, int64_t kv_sw, int64_t sc_sb,
                            int64_t sc_sw, float scale) {
-  constexpr int LPR = D / 16;           // lanes per row, 16 columns each
+  constexpr int C = D < 16 ? D : 16;    // columns per lane
+  constexpr int LPR = D / C;            // lanes per row
   constexpr int G = 32 / LPR;           // rows per warp step
   constexpr bool kFactored = std::is_same<T, float>::value;
   constexpr int kSlots = kCluster ? kMaxSplits * kWarps : kWarps;
   // rank 0's: every warp's partial (m, l, acc[D]) of the cluster, written
   // by that warp
   __shared__ float s_pm[kSlots], s_pl[kSlots];
-  __shared__ float s_pa[kSlots][D];
+  __shared__ __align__(16) float s_pa[kSlots][D];
   __shared__ float s_new[2][D];           // the fresh row's K and V
 
   const int split = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int group = lane / LPR, col = (lane % LPR) * 16;
+  const int group = lane / LPR, col = (lane % LPR) * C;
   const int64_t n = pos + 1;
   const int64_t r_begin = min(n, (int64_t)split * rows_per);
   const int64_t r_end = min(n, r_begin + rows_per);
@@ -176,11 +195,12 @@ pe_decode_attention_kernel(const T* __restrict__ q,
   auto row_of = [&](int i) {
     return r_begin + ((int64_t)(warp + i * kWarps)) * G + group;
   };
-  auto fetch = [&](int i, Frag& f) {
+  using Vec = typename Frag<C>::Vec;
+  auto fetch = [&](int i, Frag<C>& f) {
     const int64_t r = row_of(i);
     if (r < r_end && r != pos) {
-      f.k = __ldg(reinterpret_cast<const int4*>(kb + r * kv_sw));
-      f.v = __ldg(reinterpret_cast<const int4*>(vb + r * kv_sw));
+      f.k = __ldg(reinterpret_cast<const Vec*>(kb + r * kv_sw));
+      f.v = __ldg(reinterpret_cast<const Vec*>(vb + r * kv_sw));
       const int64_t si = sc0 + r * sc_sw;
       f.ks = __ldg(ks + si);
       f.kz = __ldg(kz + si);
@@ -198,12 +218,12 @@ pe_decode_attention_kernel(const T* __restrict__ q,
   if constexpr (kCluster)
     asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
   // the loads of the first two steps go out before anything waits
-  Frag f0 = {}, f1 = {};
+  Frag<C> f0 = {}, f1 = {};
   fetch(0, f0);
   fetch(1, f1);
-  float qv[16], acc[16];
+  float qv[C], acc[C];
 #pragma unroll
-  for (int j = 0; j < 16; ++j) {
+  for (int j = 0; j < C; ++j) {
     qv[j] = to_f32(q[qrow + j]);
     acc[j] = 0.f;
   }
@@ -223,39 +243,34 @@ pe_decode_attention_kernel(const T* __restrict__ q,
   float qsum = 0.f;
   if constexpr (kFactored) {
 #pragma unroll
-    for (int j = 0; j < 16; ++j) qsum += qv[j];
+    for (int j = 0; j < C; ++j) qsum += qv[j];
 #pragma unroll
     for (int o = 1; o < LPR; o <<= 1) qsum += __shfl_xor_sync(kFull, qsum, o);
   }
   float m = kNegInf, l = 0.f, accz = 0.f;
   for (int i = 0; i < steps; ++i) {
-    Frag f2 = {};
+    Frag<C> f2 = {};
     fetch(i + 2, f2);                 // two steps ahead
     const int64_t r = row_of(i);
     const bool live = r < r_end;
     const bool fresh = r == pos;      // the fresh row, unquantized
-    const uint32_t kw[4] = {(uint32_t)f0.k.x ^ 0x80808080u,
-                            (uint32_t)f0.k.y ^ 0x80808080u,
-                            (uint32_t)f0.k.z ^ 0x80808080u,
-                            (uint32_t)f0.k.w ^ 0x80808080u};
-    const uint32_t vw[4] = {(uint32_t)f0.v.x ^ 0x80808080u,
-                            (uint32_t)f0.v.y ^ 0x80808080u,
-                            (uint32_t)f0.v.z ^ 0x80808080u,
-                            (uint32_t)f0.v.w ^ 0x80808080u};
+    uint32_t kw[C / 4], vw[C / 4];
+    flip(f0.k, kw);
+    flip(f0.v, vw);
     float dot = 0.f;
     if (fresh) {
 #pragma unroll
-      for (int j = 0; j < 16; ++j)
+      for (int j = 0; j < C; ++j)
         dot = fmaf(qv[j], s_new[0][col + j], dot);
     } else if constexpr (kFactored) {
       float d4[4] = {0.f, 0.f, 0.f, 0.f};   // four short chains, not one
 #pragma unroll
-      for (int j = 0; j < 16; ++j)
+      for (int j = 0; j < C; ++j)
         d4[j & 3] = fmaf(qv[j], biased(kw[j >> 2], j & 3), d4[j & 3]);
       dot = (d4[0] + d4[1]) + (d4[2] + d4[3]);
     } else {
 #pragma unroll
-      for (int j = 0; j < 16; ++j)
+      for (int j = 0; j < C; ++j)
         dot = fmaf(qv[j],
                    round_to<T>(dequant(kw[j >> 2], j & 3, f0.ks, f0.kz)),
                    dot);
@@ -273,20 +288,20 @@ pe_decode_attention_kernel(const T* __restrict__ q,
           l *= corr;
           accz *= corr;
 #pragma unroll
-          for (int j = 0; j < 16; ++j) acc[j] *= corr;
+          for (int j = 0; j < C; ++j) acc[j] *= corr;
           m = s;
         }
         const float p = expf(s - m);
         l += p;
         if (fresh) {
 #pragma unroll
-          for (int j = 0; j < 16; ++j)
+          for (int j = 0; j < C; ++j)
             acc[j] = fmaf(p, s_new[1][col + j], acc[j]);
         } else {
           const float ps = p * f0.vs;
           accz = fmaf(p, f0.vz, accz);
 #pragma unroll
-          for (int j = 0; j < 16; ++j)
+          for (int j = 0; j < C; ++j)
             acc[j] = fmaf(ps, biased(vw[j >> 2], j & 3), acc[j]);
         }
       } else {
@@ -296,11 +311,11 @@ pe_decode_attention_kernel(const T* __restrict__ q,
         l = l * corr + p;
         if (fresh) {
 #pragma unroll
-          for (int j = 0; j < 16; ++j)
+          for (int j = 0; j < C; ++j)
             acc[j] = acc[j] * corr + p * s_new[1][col + j];
         } else {
 #pragma unroll
-          for (int j = 0; j < 16; ++j)
+          for (int j = 0; j < C; ++j)
             acc[j] = acc[j] * corr +
                      p * round_to<T>(dequant(vw[j >> 2], j & 3, f0.vs, f0.vz));
         }
@@ -312,7 +327,7 @@ pe_decode_attention_kernel(const T* __restrict__ q,
   }
   if constexpr (kFactored) {
 #pragma unroll
-    for (int j = 0; j < 16; ++j) acc[j] += accz;
+    for (int j = 0; j < C; ++j) acc[j] += accz;
   }
 
   // merge the row groups of the warp (lanes with the same columns)
@@ -324,7 +339,7 @@ pe_decode_attention_kernel(const T* __restrict__ q,
     const float c = expf(m - m_n), c_o = expf(m_o - m_n);
     l = l * c + l_o * c_o;
 #pragma unroll
-    for (int j = 0; j < 16; ++j)
+    for (int j = 0; j < C; ++j)
       acc[j] = acc[j] * c + __shfl_xor_sync(kFull, acc[j], o) * c_o;
     m = m_n;
   }
@@ -346,7 +361,7 @@ pe_decode_attention_kernel(const T* __restrict__ q,
   }
   if (group == 0) {
 #pragma unroll
-    for (int j = 0; j < 16; j += 4)
+    for (int j = 0; j < C; j += 4)
       *reinterpret_cast<float4*>(pa + slot * D + col + j) =
           make_float4(acc[j], acc[j + 1], acc[j + 2], acc[j + 3]);
     if (lane == 0) {
@@ -417,6 +432,7 @@ int dispatch(const void* q, const void* k_new, const void* v_new,
   if (D == DIM)                                                             \
     return launch<DIM, T>(q, k_new, v_new, kq, vq, ks, kz, vs, vz, out, B,  \
                           H, pos, kv_sb, kv_sw, sc_sb, sc_sw, scale, s);
+  PE_DECODE_CASE(8)
   PE_DECODE_CASE(16)
   PE_DECODE_CASE(32)
   PE_DECODE_CASE(64)
@@ -433,8 +449,10 @@ extern "C" {
 // k_q, v_q: int8, element (b, r, h, d) at b*kv_sb + r*kv_sw + h*D + d, the
 // base and both strides 16-byte aligned. k_scale ... v_shift: f32, element
 // (b, r, h) at b*sc_sb + r*sc_sw + h. Rows 0..pos are read. dtype 0 = f32,
-// 1 = bf16. D in {16, 32, 64, 128}. One cluster launch; a refused launch
-// returns its error code.
+// 1 = bf16. D in {8, 16, 32, 64, 128}; B and H at most 65535 (ops/
+// decode_attention.py launches larger B in chunks, and window_refusal
+// states the rest). One cluster launch; a refused launch returns its
+// error code.
 int pe_decode_attention(const void* q, const void* k_new, const void* v_new,
                         const void* k_q, const void* v_q, const void* k_scale,
                         const void* k_shift, const void* v_scale,

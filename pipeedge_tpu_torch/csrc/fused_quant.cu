@@ -33,7 +33,30 @@
 //      walked in tiles by the same code: the reduction streams them, and
 //      the pack reads each tile again from device memory. When the slice
 //      is one tile, the pack finds it still in shared memory.
-//   2. pe_unpack_kernel: one thread per word, 16-byte vector stores.
+//      Each block folds with NaN-propagating min and max (min.NaN), as
+//      the plain ops do, and an item whose scale or shift is not finite
+//      (NaN, an infinity, or a range past the f32 maximum) takes a second
+//      pack path (SAT) whose codes go through XLA's saturating f32 ->
+//      uint32 convert; the branch is uniform over the cluster, so finite
+//      items keep the byte-permute path. B past the grid's 65535 is
+//      launched in chunks by the wrapper: a 1-D grid of C * B blocks,
+//      which lifts the limit in the kernel, ran slower on the H100 at
+//      the main shape.
+//   2. pe_decode_kernel. What bounds it is bytes too (the words in, 32/bit
+//      times as many f32 out), but the first design (one thread per word,
+//      grid (words/256, B)) spent its time elsewhere: an __fdiv_rn
+//      subroutine per value, 1184 blocks at the main shape (a partial
+//      second wave of 128), and gridDim.y = B, which capped B at 65535.
+//      Now each thread step writes one float4 (a warp 512 contiguous
+//      bytes) from one word load; the codes become exact floats by a byte
+//      permute (8 bits) or a shift and mask (4 bits) into the mantissa of
+//      2^23 and one subtract; q / L is div_rn with one reciprocal per
+//      thread (exact for 0 <= q <= L); and at most one wave of blocks
+//      walks the (item, float4) pairs in a grid-stride loop, the item
+//      from a multiply-high division, so B has no launch limit. (A chunk
+//      of 4 words per thread, one 16-byte load, wrote 64 or 128 bytes per
+//      thread, so a warp's stores spread over 2-4 KB: on the H100 it ran
+//      slower than the word-per-thread kernel it was to replace.)
 //
 // Bit identity with the plain PyTorch ops (ops/quant.py) on the same input:
 //   - scale = max(x) - shift equals max(x - shift) exactly, because rounding
@@ -42,7 +65,11 @@
 //   - q rounds half to even, like torch.round (not roundf): the encode
 //     adds 1.5 * 2^23 in f32, which rounds exactly as rintf on [0, 2^22);
 //   - the encode's division is correctly rounded (div_rn, or __fdiv_rn
-//     outside div_rn's range), as IEEE division is;
+//     outside div_rn's range), as IEEE division is, and so is the
+//     decode's q / L (div_rn);
+//   - non-finite input: min and max propagate NaN, scale is NaN where
+//     shift is -inf (max(x - shift) meets -inf - -inf), and the codes of
+//     such items saturate as XLA's convert does (see pack_slice);
 //   - every product, quotient and sum uses the _rn intrinsics, so nvcc
 //     cannot contract q / L * s + h into an FMA and the division stays IEEE
 //     whatever the build flags.
@@ -55,18 +82,31 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kThreads = 256;          // unpack
+constexpr int kThreads = 128;          // decode
 constexpr int kEncThreads = 512;       // encode
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int64_t kGroup = 32;          // floats per slice unit
 constexpr int64_t kMaxTile = 24576;     // floats of a slice held (96 KB)
 constexpr int kMaxCluster = 16;
 
+// min and max that propagate NaN, as torch.amin / amax and jnp.min / max
+// do (fminf / fmaxf skip it): one instruction each on sm_80 and later
+__device__ __forceinline__ float min_nan(float a, float b) {
+  float d;
+  asm("min.NaN.f32 %0, %1, %2;" : "=f"(d) : "f"(a), "f"(b));
+  return d;
+}
+__device__ __forceinline__ float max_nan(float a, float b) {
+  float d;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(d) : "f"(a), "f"(b));
+  return d;
+}
+
 __device__ __forceinline__ void warp_minmax(float& lo, float& hi) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) {
-    lo = fminf(lo, __shfl_xor_sync(kFull, lo, off));
-    hi = fmaxf(hi, __shfl_xor_sync(kFull, hi, off));
+    lo = min_nan(lo, __shfl_xor_sync(kFull, lo, off));
+    hi = max_nan(hi, __shfl_xor_sync(kFull, hi, off));
   }
 }
 
@@ -156,80 +196,32 @@ __device__ __forceinline__ void wait_copies() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
-// x [B, n] -> data [B, words], scale/shift [B]. Block (rank, b) holds
-// item b's floats [rank * slice, min(n, (rank + 1) * slice)), slice a
-// multiple of kGroup; tile = min(slice, kMaxTile) floats of dynamic
-// shared memory.
-template <int BIT>
-__global__ void __launch_bounds__(kEncThreads)
-pe_encode_kernel(const float* __restrict__ x, uint32_t* __restrict__ data,
-                 float* __restrict__ scale_out, float* __restrict__ shift_out,
-                 int64_t n, int64_t words, int64_t slice, int64_t tile,
-                 int vec) {
+// XLA's f32 -> uint32 convert, which the plain encode applies to its
+// rounded codes: NaN -> 0, below 0 -> 0, 2^32 and above -> 0xFFFFFFFF.
+__device__ __forceinline__ uint32_t saturate_u32(float v) {
+  return v != v ? 0u : v >= 4294967296.f ? 0xffffffffu
+                     : v > 0.f ? (uint32_t)v : 0u;
+}
+
+// Pack block `rank`'s slice [s0, s1) of one item into the item's words
+// dst, tile by tile (when the slice is one tile, it is still in shared
+// memory from the reduction). SAT: the item's scale or shift is not
+// finite, so a quotient may be NaN, infinite or past 2^b - 1; each code
+// then takes the saturating convert and the word is the OR of the shifted
+// codes cut to 32 bits, as the plain encode packs them. With a finite
+// scale and shift every quotient lies in [0, 1] and the codes in [0, 2^b
+// - 1], where that is the byte-permute pack.
+template <int BIT, bool SAT>
+__device__ __forceinline__ void pack_slice(float* s_x, const float* item,
+                                           uint32_t* dst, int64_t s0,
+                                           int64_t s1, int64_t tile,
+                                           int tiles, int vec, float shift,
+                                           float safe, bool store16) {
   constexpr int kPerWord = 32 / BIT;
-  extern __shared__ __align__(16) float s_x[];
-  __shared__ float s_rank_lo[kMaxCluster], s_rank_hi[kMaxCluster];
-  const int rank = blockIdx.x, b = blockIdx.y, t = threadIdx.x;
-  const int ranks = (int)gridDim.x;
-  const float* item = x + (int64_t)b * n;
-  const int64_t s0 = min(n, (int64_t)rank * slice);
-  const int64_t s1 = min(n, s0 + slice);
-  const int tiles = (int)((s1 - s0 + tile - 1) / tile);
-  cg::cluster_group cluster = cg::this_cluster();
-
-  float lo = INFINITY, hi = -INFINITY;
-  for (int i = 0; i < tiles; ++i) {
-    const int64_t t0 = s0 + (int64_t)i * tile;
-    const int m = (int)min(tile, s1 - t0);
-    copy_tile(s_x, item + t0, m, vec);
-    // announce that this block has started (its shared memory may be
-    // written by a peer once every block has); the matching wait comes
-    // just before the first remote write
-    if (i == 0) cluster_arrive_relaxed();
-    wait_copies();
-    if (vec) {  // this thread's own chunks
-      const float4* v = reinterpret_cast<const float4*>(s_x);
-      for (int c = t; c < m / 4; c += kEncThreads) {
-        const float4 f = v[c];
-        lo = fminf(fminf(lo, f.x), fminf(f.y, fminf(f.z, f.w)));
-        hi = fmaxf(fmaxf(hi, f.x), fmaxf(f.y, fmaxf(f.z, f.w)));
-      }
-    } else {
-      for (int c = t; c < m; c += kEncThreads) {
-        lo = fminf(lo, s_x[c]);
-        hi = fmaxf(hi, s_x[c]);
-      }
-    }
-  }
-  if (tiles == 0) cluster_arrive_relaxed();  // an empty slice too
-  block_minmax(lo, hi);   // its barrier also publishes s_x to the block
-
-  // hand this block's (min, max) to every rank of the cluster, then fold
-  // the ranks' partials from local shared memory
-  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
-  if (t < ranks) {
-    cluster.map_shared_rank(s_rank_lo, t)[rank] = lo;
-    cluster.map_shared_rank(s_rank_hi, t)[rank] = hi;
-  }
-  cluster.sync();
-  float mn = INFINITY, mx = -INFINITY;
-  for (int rk = 0; rk < ranks; ++rk) {
-    mn = fminf(mn, s_rank_lo[rk]);
-    mx = fmaxf(mx, s_rank_hi[rk]);
-  }
-  const float shift = mn;
-  const float sc = __fsub_rn(mx, shift);
-  if (rank == 0 && t == 0) {
-    scale_out[b] = sc;
-    shift_out[b] = shift;
-  }
-  const float safe = sc > 0.f ? sc : 1.f;
+  const int t = threadIdx.x;
   const float rcp = __frcp_rn(safe);
   const bool fast_div = safe >= 0x1p-60f && safe <= 0x1p60f;
   const float levels = (float)((1u << BIT) - 1u);
-  uint32_t* dst = data + (int64_t)b * words;
-  const bool store16 = (words & 3) == 0;   // every item's words aligned
-
   for (int i = 0; i < tiles; ++i) {
     const int64_t t0 = s0 + (int64_t)i * tile;
     const int m = (int)min(tile, s1 - t0);
@@ -255,14 +247,24 @@ pe_encode_kernel(const float* __restrict__ x, uint32_t* __restrict__ data,
           for (int k = 0; k < 4; ++k) {
             const int j = 4 * j4 + k;
             const float a = __fsub_rn(vals[k], shift);
-            const float x01 =
-                fast_div ? div_rn(a, safe, rcp) : __fdiv_rn(a, safe);
-            // the packed tail holds zeros
-            y[j] = w * kPerWord + j < m ? rint_bits(__fmul_rn(x01, levels))
-                                        : kRounded0;
+            const bool live = w * kPerWord + j < m;  // the tail packs zeros
+            if constexpr (SAT) {
+              y[j] = live ? saturate_u32(rintf(
+                                __fmul_rn(__fdiv_rn(a, safe), levels)))
+                          : 0u;
+            } else {
+              const float x01 =
+                  fast_div ? div_rn(a, safe, rcp) : __fdiv_rn(a, safe);
+              y[j] = live ? rint_bits(__fmul_rn(x01, levels)) : kRounded0;
+            }
           }
         }
-        word = pack_word<BIT>(y);
+        if constexpr (SAT) {
+#pragma unroll
+          for (int j = 0; j < kPerWord; ++j) word |= y[j] << (j * BIT);
+        } else {
+          word = pack_word<BIT>(y);
+        }
       }
       // lanes 4k..4k+3 hand their words to lane 4k: one 16-byte store
       const uint32_t w1 = __shfl_down_sync(kFull, word, 1);
@@ -277,6 +279,87 @@ pe_encode_kernel(const float* __restrict__ x, uint32_t* __restrict__ data,
       }
     }
   }
+}
+
+// x [B, n] -> data [B, words], scale/shift [B]. Block (rank, b) holds
+// item b's floats [rank * slice, min(n, (rank + 1) * slice)), slice a
+// multiple of kGroup; tile = min(slice, kMaxTile) floats of dynamic
+// shared memory.
+template <int BIT>
+__global__ void __launch_bounds__(kEncThreads)
+pe_encode_kernel(const float* __restrict__ x, uint32_t* __restrict__ data,
+                 float* __restrict__ scale_out, float* __restrict__ shift_out,
+                 int64_t n, int64_t words, int64_t slice, int64_t tile,
+                 int vec) {
+  extern __shared__ __align__(16) float s_x[];
+  __shared__ float s_rank_lo[kMaxCluster], s_rank_hi[kMaxCluster];
+  const int rank = blockIdx.x, b = blockIdx.y, t = threadIdx.x;
+  const int ranks = (int)gridDim.x;
+  const float* item = x + (int64_t)b * n;
+  const int64_t s0 = min(n, (int64_t)rank * slice);
+  const int64_t s1 = min(n, s0 + slice);
+  const int tiles = (int)((s1 - s0 + tile - 1) / tile);
+  cg::cluster_group cluster = cg::this_cluster();
+
+  float lo = INFINITY, hi = -INFINITY;
+  for (int i = 0; i < tiles; ++i) {
+    const int64_t t0 = s0 + (int64_t)i * tile;
+    const int m = (int)min(tile, s1 - t0);
+    copy_tile(s_x, item + t0, m, vec);
+    // announce that this block has started (its shared memory may be
+    // written by a peer once every block has); the matching wait comes
+    // just before the first remote write
+    if (i == 0) cluster_arrive_relaxed();
+    wait_copies();
+    if (vec) {  // this thread's own chunks
+      const float4* v = reinterpret_cast<const float4*>(s_x);
+      for (int c = t; c < m / 4; c += kEncThreads) {
+        const float4 f = v[c];
+        lo = min_nan(min_nan(lo, f.x), min_nan(f.y, min_nan(f.z, f.w)));
+        hi = max_nan(max_nan(hi, f.x), max_nan(f.y, max_nan(f.z, f.w)));
+      }
+    } else {
+      for (int c = t; c < m; c += kEncThreads) {
+        lo = min_nan(lo, s_x[c]);
+        hi = max_nan(hi, s_x[c]);
+      }
+    }
+  }
+  if (tiles == 0) cluster_arrive_relaxed();  // an empty slice too
+  block_minmax(lo, hi);   // its barrier also publishes s_x to the block
+
+  // hand this block's (min, max) to every rank of the cluster, then fold
+  // the ranks' partials from local shared memory
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+  if (t < ranks) {
+    cluster.map_shared_rank(s_rank_lo, t)[rank] = lo;
+    cluster.map_shared_rank(s_rank_hi, t)[rank] = hi;
+  }
+  cluster.sync();
+  float mn = INFINITY, mx = -INFINITY;
+  for (int rk = 0; rk < ranks; ++rk) {
+    mn = min_nan(mn, s_rank_lo[rk]);
+    mx = max_nan(mx, s_rank_hi[rk]);
+  }
+  const float shift = mn;
+  // max(x - shift) is max(x) - shift, but for shift = -inf, where the
+  // min element's -inf - -inf makes it NaN
+  const float sc = shift == -INFINITY ? __int_as_float(0x7fc00000)
+                                      : __fsub_rn(mx, shift);
+  if (rank == 0 && t == 0) {
+    scale_out[b] = sc;
+    shift_out[b] = shift;
+  }
+  const float safe = sc > 0.f ? sc : 1.f;
+  uint32_t* dst = data + (int64_t)b * words;
+  const bool store16 = (words & 3) == 0;   // every item's words aligned
+  // uniform across the block (and the cluster): one item
+  if (isfinite(sc) && isfinite(shift))
+    pack_slice<BIT, false>(s_x, item, dst, s0, s1, tile, tiles, vec, shift,
+                           safe, store16);
+  else
+    pack_slice<BIT, true>(s_x, item, dst, s0, s1, tile, tiles, vec, shift,
+                          safe, store16);
 }
 
 template <int BIT>
@@ -314,38 +397,107 @@ int launch_encode(const float* x, uint32_t* data, float* scale, float* shift,
                                  shift, n, words, slice, tile, vec);
 }
 
+// x / d for 0 <= x < 2^31 by a multiply-high and a shift (Granlund and
+// Montgomery; CUTLASS's FastDivmod): p = 31 + ceil(log2 d), mul =
+// ceil(2^p / d) < 2^32, and x / d = umulhi(x, mul) >> (p - 32); d = 1
+// divides by copying.
+struct FastDiv {
+  uint32_t d, mul, shr;
+};
+FastDiv make_fast_div(uint32_t d) {
+  if (d == 1) return {1u, 0u, 0u};
+  uint32_t l = 0;
+  while ((1ull << l) < d) ++l;
+  const uint32_t p = 31 + l;
+  return {d, (uint32_t)(((1ull << p) + d - 1) / d), p - 32};
+}
+__device__ __forceinline__ uint32_t divide(uint32_t x, FastDiv f) {
+  return f.d == 1 ? x : __umulhi(x, f.mul) >> f.shr;
+}
+
+// Code j of a word as an exact float, with no conversion instruction: the
+// code becomes the low mantissa bits of 2^23 (a byte permute at 8 bits, a
+// shift and mask at 4), and one subtract of 2^23 leaves it.
 template <int BIT>
-__global__ void pe_unpack_kernel(const uint32_t* __restrict__ data,
-                                 const float* __restrict__ scale,
-                                 const float* __restrict__ shift,
-                                 float* __restrict__ out, int64_t n,
-                                 int64_t words, int vec) {
-  constexpr int kPerWord = 32 / BIT;
-  const int b = blockIdx.y;
-  const int64_t w = (int64_t)blockIdx.x * kThreads + threadIdx.x;
-  if (w >= words) return;
-  const uint32_t word = __ldg(data + (int64_t)b * words + w);
-  const float sc = __ldg(scale + b), sh = __ldg(shift + b);
+__device__ __forceinline__ float code_of(uint32_t word, int j);
+template <>
+__device__ __forceinline__ float code_of<8>(uint32_t word, int j) {
+  return __fsub_rn(
+      __uint_as_float(__byte_perm(word, 0x4B000000u, 0x7540u | j)),
+      8388608.f);
+}
+template <>
+__device__ __forceinline__ float code_of<4>(uint32_t word, int j) {
+  return __fsub_rn(__uint_as_float(0x4B000000u | ((word >> (4 * j)) & 15u)),
+                   8388608.f);
+}
+
+// data [B, words] -> out [B, n]. Each step of a thread writes float4 f of
+// item b, flat index b * n4 + f, from one word (two float4 share a word at
+// 4 bits). Each value is rn(rn(rn(q / L) * scale) + shift), the plain
+// decode's ops.
+template <int BIT>
+__global__ void __launch_bounds__(kThreads)
+pe_decode_kernel(const uint32_t* __restrict__ data,
+                 const float* __restrict__ scale,
+                 const float* __restrict__ shift, float* __restrict__ out,
+                 int64_t n, int64_t words, uint32_t n4, uint32_t total,
+                 FastDiv per_item, int vec) {
+  constexpr int kF4 = 8 / BIT;            // float4 per word: 1, or 2
   const float levels = (float)((1u << BIT) - 1u);
-  constexpr uint32_t kMask = (1u << BIT) - 1u;
-  float vals[kPerWord];
+  const float rcp = __frcp_rn(levels);
+  const uint32_t stride = gridDim.x * kThreads;
+  for (uint32_t g = blockIdx.x * kThreads + threadIdx.x; g < total;
+       g += stride) {
+    const uint32_t b = divide(g, per_item);
+    const uint32_t f = g - b * n4;
+    uint32_t word = __ldg(data + (int64_t)b * words + f / kF4);
+    if constexpr (kF4 > 1) word >>= 16 * (f % kF4);  // this float4's nibbles
+    const float sc = __ldg(scale + b), sh = __ldg(shift + b);
+    float v[4];
 #pragma unroll
-  for (int j = 0; j < kPerWord; ++j) {
-    const float q = (float)((word >> (j * BIT)) & kMask);
-    vals[j] = __fadd_rn(__fmul_rn(__fdiv_rn(q, levels), sc), sh);
+    for (int j = 0; j < 4; ++j)
+      v[j] = __fadd_rn(
+          __fmul_rn(div_rn(code_of<BIT>(word, j), levels, rcp), sc), sh);
+    const int64_t e0 = 4 * (int64_t)f;
+    float* dst = out + (int64_t)b * n + e0;
+    if (vec) {
+      *reinterpret_cast<float4*>(dst) = make_float4(v[0], v[1], v[2], v[3]);
+    } else {
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        if (e0 + j < n) dst[j] = v[j];
+    }
   }
-  float* item = out + (int64_t)b * n;
-  const int64_t base = w * kPerWord;
-  if (vec && base + kPerWord <= n) {
-#pragma unroll
-    for (int j = 0; j < kPerWord; j += 4)
-      *reinterpret_cast<float4*>(item + base + j) =
-          make_float4(vals[j], vals[j + 1], vals[j + 2], vals[j + 3]);
-  } else {
-#pragma unroll
-    for (int j = 0; j < kPerWord; ++j)
-      if (base + j < n) item[base + j] = vals[j];
+}
+
+// One float4 per thread, at most the blocks the card holds at once (one
+// wave), which then loop.
+template <int BIT>
+int launch_decode(const uint32_t* d, const float* sc, const float* sh,
+                  float* o, int64_t B, int64_t n, int vec, cudaStream_t s) {
+  static int resident = 0;
+  if (resident == 0) {
+    int dev = 0, sms = 0, per_sm = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e == cudaSuccess)
+      e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, pe_decode_kernel<BIT>, kThreads, 0);
+    if (e != cudaSuccess) return (int)e;
+    resident = sms * per_sm;
   }
+  constexpr int64_t kPerWord = 32 / BIT;
+  const int64_t n4 = (n + 3) / 4;
+  const int64_t total = n4 * B;
+  if (total >= (int64_t)1 << 31) return (int)cudaErrorInvalidValue;
+  const int64_t need = (total + kThreads - 1) / kThreads;
+  pe_decode_kernel<BIT><<<(int)(need < resident ? need : resident), kThreads,
+                          0, s>>>(
+      d, sc, sh, o, n, (n + kPerWord - 1) / kPerWord, (uint32_t)n4,
+      (uint32_t)total, make_fast_div((uint32_t)n4), vec);
+  return 0;
 }
 
 }  // namespace
@@ -356,7 +508,8 @@ const char* pe_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// x f32 [B, n] contiguous -> data uint32 [B, words], scale/shift f32 [B].
+// x f32 [B, n] contiguous -> data uint32 [B, words], scale/shift f32 [B],
+// B <= 65535 (ops/fused_quant.py launches more items in chunks).
 // One cluster launch of `clusters` blocks per item, each taking `slice`
 // floats (a multiple of 32; clusters * slice >= n). vec: n % 4 == 0 and x
 // is 16-byte aligned. data is a fresh (256-byte aligned) allocation.
@@ -384,29 +537,27 @@ int pe_fused_encode(const void* x, void* data, void* scale, void* shift,
   return (int)cudaGetLastError();
 }
 
-// data uint32 [B, words], scale/shift f32 [B] -> out f32 [B, n]. vec: n % 4
-// == 0 (out is a fresh, 256-byte aligned allocation).
+// data uint32 [B, words], scale/shift f32 [B] -> out f32 [B, n]. vec: n %
+// 4 == 0 (out is a fresh, 256-byte aligned allocation). B * ceil(n / 4) <
+// 2^31.
 int pe_fused_decode(const void* data, const void* scale, const void* shift,
                     void* out, int64_t B, int64_t n, int bit, int vec,
                     void* stream) {
-  if (B <= 0 || n <= 0 || B > 65535) return (int)cudaErrorInvalidValue;
-  const int64_t per_word = 32 / bit;
-  const int64_t words = (n + per_word - 1) / per_word;
-  const int64_t word_blocks = (words + kThreads - 1) / kThreads;
-  if (word_blocks > 2147483647) return (int)cudaErrorInvalidValue;
+  if (B <= 0 || n <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid((unsigned)word_blocks, (unsigned)B);
   const uint32_t* d = static_cast<const uint32_t*>(data);
   const float* sc = static_cast<const float*>(scale);
   const float* sh = static_cast<const float*>(shift);
   float* o = static_cast<float*>(out);
+  int rc;
   if (bit == 8) {
-    pe_unpack_kernel<8><<<grid, kThreads, 0, s>>>(d, sc, sh, o, n, words, vec);
+    rc = launch_decode<8>(d, sc, sh, o, B, n, vec, s);
   } else if (bit == 4) {
-    pe_unpack_kernel<4><<<grid, kThreads, 0, s>>>(d, sc, sh, o, n, words, vec);
+    rc = launch_decode<4>(d, sc, sh, o, B, n, vec, s);
   } else {
     return (int)cudaErrorInvalidValue;
   }
+  if (rc) return rc;
   return (int)cudaGetLastError();
 }
 

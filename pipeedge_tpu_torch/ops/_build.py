@@ -26,7 +26,7 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
@@ -38,6 +38,11 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 KERNELS = ("fused_encode", "fused_decode", "fused_attention", "int8_matmul",
            "decode_attention")
 launch_counts: Dict[str, int] = {name: 0 for name in KERNELS}
+
+# the most blocks a grid takes along y or z: a kernel whose grid carries
+# the items (the encode) or batch cells (the decode attention) there is
+# launched once per `launch_chunks` range
+MAX_GRID_YZ = 65535
 
 _lib: Optional[ctypes.CDLL] = None
 _lock = threading.Lock()
@@ -81,6 +86,12 @@ def count_launch(name: str) -> None:
 def reset_launch_counts() -> None:
     for name in launch_counts:
         launch_counts[name] = 0
+
+
+def launch_chunks(n: int, size: int = MAX_GRID_YZ) -> List[Tuple[int, int]]:
+    """The [start, end) ranges, at most `size` long, that cover [0, n)
+    once and in order: one launch each."""
+    return [(s, min(n, s + size)) for s in range(0, n, size)]
 
 
 def _sources(csrc: Path) -> List[Path]:

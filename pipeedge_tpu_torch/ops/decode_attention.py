@@ -25,14 +25,37 @@ from __future__ import annotations
 
 import math
 import operator
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 import torch
 
 from . import _build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (16, 32, 64, 128)
+# every head dim an MHA decoder of the registry decodes (the tiny GPT-2's
+# 8, GPT-2's 64), and the powers of two between
+HEAD_DIMS = (8, 16, 32, 64, 128)
+
+
+def window_refusal(k_q, v_q) -> Optional[str]:
+    """Why the kernel would refuse the int8 window k_q/v_q [B, W, H, Dh]
+    on the card, or None when it takes it: the head dim, the 16-byte
+    alignment of the windows' bases and strides (the kernel's vector
+    loads) and the head count, the grid's y axis (any B: `_launch` takes
+    the batch cells, the z axis, in chunks). `_launch` raises with this
+    reason, and the decode driver's route gate (`parallel/decode.py`)
+    asks it before a step writes its cache row, so a step it routes here
+    never raises. It reads only shapes, strides and addresses."""
+    _, _, h, d = k_q.shape
+    if d not in HEAD_DIMS:
+        return f"the kernel takes head dims {HEAD_DIMS}, not {d}"
+    if any(x % 16 for x in (k_q.data_ptr(), v_q.data_ptr(), k_q.stride(0),
+                            k_q.stride(1))):
+        return ("the int8 window's base and strides must be multiples of "
+                "16 bytes")
+    if h > _build.MAX_GRID_YZ:
+        return f"the kernel takes at most {_build.MAX_GRID_YZ} heads, not {h}"
+    return None
 
 
 def split_count(pos: int) -> int:
@@ -119,25 +142,23 @@ def _check(q, k_q, k_scale, k_shift, v_q, v_scale, v_shift, k_new, v_new,
 def _launch(q, k_q, k_scale, k_shift, v_q, v_scale, v_shift, k_new, v_new,
             pos: int) -> torch.Tensor:
     b, _, h, d = q.shape
-    if d not in HEAD_DIMS:
-        raise ValueError(f"the decode attention kernel takes head dims "
-                         f"{HEAD_DIMS}, got {d}")
-    # 16-byte loads of int8 rows: base and strides (in bytes) must align
-    if any(x % 16 for x in (k_q.data_ptr(), v_q.data_ptr(), k_q.stride(0),
-                            k_q.stride(1))):
-        raise ValueError("the int8 window's base and strides must be "
-                         "multiples of 16 bytes")
+    refusal = window_refusal(k_q, v_q)
+    if refusal is not None:
+        raise ValueError(f"decode attention kernel: {refusal}")
     q, k_new, v_new = q.contiguous(), k_new.contiguous(), v_new.contiguous()
     out = torch.empty((b, 1, h * d), dtype=q.dtype, device=q.device)
     lib = _build.library()
-    _build.check(lib.pe_decode_attention(
-        q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(), k_q.data_ptr(),
-        v_q.data_ptr(), k_scale.data_ptr(), k_shift.data_ptr(),
-        v_scale.data_ptr(), v_shift.data_ptr(), out.data_ptr(),
-        _DTYPES[q.dtype], b, h, d, pos, k_q.stride(0), k_q.stride(1),
-        k_scale.stride(0), k_scale.stride(1), 1.0 / math.sqrt(d),
-        _build.stream_handle(q.device)), "decode_attention")
-    _build.count_launch("decode_attention")
+    stream = _build.stream_handle(q.device)
+    # the batch cells are the grid's z axis: one launch per 65535 of them
+    for b0, b1 in _build.launch_chunks(b):
+        ptrs = [t[b0:b1].data_ptr() for t in (
+            q, k_new, v_new, k_q, v_q, k_scale, k_shift, v_scale, v_shift,
+            out)]
+        _build.check(lib.pe_decode_attention(
+            *ptrs, _DTYPES[q.dtype], b1 - b0, h, d, pos, k_q.stride(0),
+            k_q.stride(1), k_scale.stride(0), k_scale.stride(1),
+            1.0 / math.sqrt(d), stream), "decode_attention")
+        _build.count_launch("decode_attention")
     return out
 
 

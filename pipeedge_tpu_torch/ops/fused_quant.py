@@ -10,7 +10,11 @@ Bit-identity contract: for bits 4 and 8, the kernels give the same packed
 words, scale, shift and decoded values as the plain ops on the same input
 on the card (`chip_smoke.py` holds them to it), and the plain encode gives
 the same words as the JAX package's `tensor_encode_outerdim`
-(tests/test_torch_quant.py).
+(tests/test_torch_quant.py). It holds for non-finite input too: an item
+holding NaN or an infinity, or whose range overflows f32, gets the same
+NaN or infinite scale and shift (NaN compared equal) and the same words,
+its codes saturating as XLA's f32 -> uint32 convert does. Any leading
+size is taken: the encode launches once per 65535 items, the decode once.
 
 `encode_outerdim`/`decode_outerdim` are the one dispatch seam the pipeline
 uses; bitwidths other than 4 and 8 have no kernel, in the JAX package
@@ -70,13 +74,18 @@ def fused_encode_outerdim(x: torch.Tensor, bit: int) -> quant_ops.QuantizedTenso
     data = torch.empty((b, words), dtype=torch.int32, device=x.device)
     scale = torch.empty((b,), dtype=torch.float32, device=x.device)
     shift = torch.empty((b,), dtype=torch.float32, device=x.device)
-    vec = int(n % 4 == 0 and flat.data_ptr() % 16 == 0)
     lib = _build.library()
-    _build.check(lib.pe_fused_encode(
-        flat.data_ptr(), data.data_ptr(), scale.data_ptr(), shift.data_ptr(),
-        b, n, bit, blocks, slice_len, vec,
-        _build.stream_handle(x.device)), "fused_encode")
-    _build.count_launch("fused_encode")
+    stream = _build.stream_handle(x.device)
+    # the items are the grid's y axis: one launch per 65535 of them (a
+    # 1-D grid without the limit ran slower, csrc/fused_quant.cu)
+    for b0, b1 in _build.launch_chunks(b):
+        part = flat[b0:b1]
+        vec = int(n % 4 == 0 and part.data_ptr() % 16 == 0)
+        _build.check(lib.pe_fused_encode(
+            part.data_ptr(), data[b0:b1].data_ptr(), scale[b0:b1].data_ptr(),
+            shift[b0:b1].data_ptr(), b1 - b0, n, bit, blocks, slice_len, vec,
+            stream), "fused_encode")
+        _build.count_launch("fused_encode")
     return quant_ops.QuantizedTensor(data=data, scale=scale, shift=shift,
                                      shape=shape, bit=bit)
 

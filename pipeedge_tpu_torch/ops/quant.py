@@ -82,10 +82,12 @@ def _pack_bits(ints: torch.Tensor, bit: int) -> torch.Tensor:
     if n_pad:
         ints = F.pad(ints, (0, n_pad))
     grouped = ints.reshape(*ints.shape[:-1], -1, per_word)
-    shifts = torch.arange(per_word, device=ints.device,
-                          dtype=torch.int64) * bit
-    # disjoint bit ranges: the sum is the bitwise OR
-    words = (grouped << shifts).sum(dim=-1)
+    # the bitwise OR of the shifted values, each cut to 32 bits, as the
+    # JAX package's uint32 shift-or: a saturated code (0xFFFFFFFF, from a
+    # non-finite quotient) spills over its neighbours' bits there too
+    words = grouped[..., 0] & _U32_MAX
+    for j in range(1, per_word):
+        words = words | ((grouped[..., j] << (j * bit)) & _U32_MAX)
     return torch.where(words > 0x7FFFFFFF, words - (1 << 32),
                        words).to(torch.int32)
 
@@ -122,9 +124,17 @@ def _quantize_items(flat: torch.Tensor, bit: int, mode: str):
         q = torch.clamp(torch.floor(x01 * levels), 0.0, levels - 1.0)
     else:
         raise ValueError(f"mode must be 'original' or 'modified', got {mode!r}")
-    # f32 -> uint32 saturates (XLA's convert): only bit 32 reaches 2^32
-    ints = q.to(torch.int64).clamp_(max=_U32_MAX)
-    return _pack_bits(ints, bit), scale[..., 0], shift[..., 0]
+    return _pack_bits(_saturate_u32(q), bit), scale[..., 0], shift[..., 0]
+
+
+def _saturate_u32(q: torch.Tensor) -> torch.Tensor:
+    """f32 -> uint32 codes as XLA's convert gives them, in int64: NaN -> 0,
+    below 0 -> 0, 2^32 and above (+inf included) -> 0xFFFFFFFF. Finite
+    input keeps q in [0, 2^b - 1], where this is the plain cast; bit 32
+    reaches 2^32, and an item whose scale or shift is not finite gives
+    NaN and infinite quotients (tests/test_torch_quant.py)."""
+    q = torch.nan_to_num(q.double(), nan=0.0, posinf=float(_U32_MAX))
+    return q.clamp_(0.0, float(_U32_MAX)).to(torch.int64)
 
 
 def _dequantize_items(words: torch.Tensor, scale: torch.Tensor,

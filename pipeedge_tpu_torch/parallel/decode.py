@@ -182,17 +182,24 @@ def _use_int8_decode_kernel(bcache: Cache, s: int, cfg: TransformerConfig,
     """The kernel variant (1 or 2) for an int8 single-token MHA decode
     step when the opt-in is set, else None (dequantize-then-attend).
 
-    The refusals are semantic: span steps (s != 1), fp caches, GQA and
+    The semantic refusals: span steps (s != 1), fp caches, GQA and
     sliding windows stay on the dequantize route. The JAX gate's width and
     VMEM caps were TPU limits; the kernel stages no window, so any width
-    routes. 'auto' (3) routes every eligible step to the kernel (variant 2,
-    as the JAX package's 'auto' does) until the card's own crossover
+    routes. Off the CPU (where the plain version takes every window), a
+    cache the kernel would refuse (`decode_attention.window_refusal`: head
+    dim, alignment, head count) stays on the dequantize route too; the gate
+    runs before the step writes its row, so a routed step never raises
+    halfway. 'auto' (3) routes every eligible step to the kernel (variant
+    2, as the JAX package's 'auto' does) until the card's own crossover
     against the dequantize route is set from measurements."""
     if not optin:
         return None
     if s != 1 or "k_scale" not in bcache:
         return None
     if cfg.kv_heads != cfg.num_attention_heads or cfg.sliding_window:
+        return None
+    if bcache["k"].device.type != "cpu" and decode_attention.window_refusal(
+            bcache["k"], bcache["v"]) is not None:
         return None
     return 1 if int(optin) == 1 else 2
 

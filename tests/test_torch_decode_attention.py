@@ -181,7 +181,8 @@ def test_quantize_rows_identical_to_jax(dtype):
 
 def test_gate_scope():
     cfg = treg.get_model_config(MODEL)
-    cache8 = {"k": None, "k_scale": None}
+    cache8 = {"k": torch.zeros((1, 4, 4, 8), dtype=torch.int8),
+              "k_scale": None}
     gate = tdec._use_int8_decode_kernel
     # span / fp cache / GQA / window never route, even when opted in
     assert gate(cache8, 2, cfg, 1) is None
@@ -339,3 +340,92 @@ def test_split_count_covers_rows_once():
         for (a0, a1), (b0, _) in zip(ranges, ranges[1:]):
             assert a1 == b0
         assert all(r1 > r0 for r0, r1 in ranges)
+
+
+# --- which windows the kernel takes, and the route gate that asks it -------
+
+def _meta_window(b, w, h, d, row_stride=None, offset=0):
+    """A [B, W, H, Dh] int8 window on the meta device: shapes, strides and
+    addresses without storage, what the CUDA kernel's checks read."""
+    row = h * d if row_stride is None else row_stride
+    base = torch.empty((b * w * row + offset + 64,), dtype=torch.int8,
+                       device="meta")
+    return base.as_strided((b, w, h, d), (w * row, row, d, 1), offset)
+
+
+@pytest.mark.parametrize("d", [8, 16, 32, 64, 128])
+def test_window_refusal_takes_registry_head_dims(d):
+    win = _meta_window(16, 64, 4, d)
+    assert tda.window_refusal(win, win) is None
+
+
+@pytest.mark.parametrize("case", ["dh12", "dh256", "base", "row_stride",
+                                  "heads"])
+def test_window_refusal_names_what_the_kernel_refuses(case):
+    win = {"dh12": lambda: _meta_window(2, 8, 4, 12),
+           "dh256": lambda: _meta_window(2, 8, 1, 256),
+           "base": lambda: _meta_window(2, 8, 4, 16, offset=8),
+           "row_stride": lambda: _meta_window(2, 8, 1, 16, row_stride=24),
+           "heads": lambda: _meta_window(1, 1, 65536, 8)}[case]()
+    assert tda.window_refusal(win, win) is not None
+
+
+def test_window_refusal_takes_any_batch():
+    """The batch cells go to the kernel in launches of at most 65535."""
+    win = _meta_window(65537, 16, 1, 16)
+    assert tda.window_refusal(win, win) is None
+    chunks = _build.launch_chunks(65537)
+    assert chunks == [(0, 65535), (65535, 65537)]
+
+
+@pytest.mark.parametrize("n", [0, 1, 65534, 65535, 65536, 3 * 65535 + 7])
+def test_launch_chunks_cover_items_once(n):
+    chunks = _build.launch_chunks(n)
+    assert all(0 < e - s <= _build.MAX_GRID_YZ for s, e in chunks)
+    assert [i for s, e in chunks for i in range(s, e)] == list(range(n))
+
+
+def test_gate_refuses_off_the_cpu_what_the_kernel_refuses():
+    """On a device other than the CPU the gate asks `window_refusal`
+    before the step writes its row: a window the kernel takes routes to
+    it, one it refuses stays on the dequantize route. On the CPU, where
+    the plain version takes every window, the same cache routes."""
+    cfg = treg.get_model_config(MODEL)
+    gate = tdec._use_int8_decode_kernel
+
+    def cache(k, v=None):
+        return {"k": k, "v": k if v is None else v, "k_scale": None}
+
+    tiny = _meta_window(4, 64, cfg.num_attention_heads, cfg.head_dim)
+    assert cfg.head_dim == 8 and gate(cache(tiny), 1, cfg, 1) == 1
+    assert gate(cache(tiny), 1, cfg, 3) == 2
+    for bad in (_meta_window(4, 64, 4, 12),
+                _meta_window(4, 64, 4, 8, offset=8),
+                _meta_window(4, 64, 3, 8, row_stride=24)):
+        assert gate(cache(bad), 1, cfg, 1) is None
+    assert gate(cache(tiny, _meta_window(4, 64, 4, 8, offset=8)), 1, cfg,
+                1) is None
+    cpu_odd = torch.zeros((4, 64, 4, 12), dtype=torch.int8)
+    assert gate(cache(cpu_odd), 1, cfg, 1) == 1
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_reference_matches_pallas_interpret_head_dim_8(dtype):
+    """The tiny GPT-2's head dim: the plain version (what the kernel is
+    held to on the card) against the JAX kernel in interpret mode."""
+    rng = np.random.default_rng(8)
+    b, t, h, d, pos = 3, 20, 4, 8, 17
+    rows = {n: rng.normal(size=(b, t, h, d)).astype(np.float32)
+            for n in ("k", "v")}
+    x = {n: rng.normal(size=(b, 1, h, d)).astype(np.float32)
+         for n in _ACT}
+    for n in ("k", "v"):
+        x[f"{n}_q"], x[f"{n}_scale"], x[f"{n}_shift"] = (
+            np.array(a) for a in jdec._quantize_rows(jnp.asarray(rows[n])))
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    want = jda.int8_decode_attention(*_jax_args(x, jdt), pos, interpret=True,
+                                     variant=1)
+    got = tda.int8_decode_attention(*_torch_args(x, tdt), pos)
+    assert tuple(got.shape) == (b, 1, h * d)
+    np.testing.assert_allclose(_np(got), _np(want),
+                               **(F32_TOL if dtype == "float32" else BF16_TOL))

@@ -7,6 +7,8 @@ evaluate q / L * s + h in IEEE op order (it differs by 1-2 ulp, ~1.4e-6
 at |x| ~ 4), while the port divides exactly; on the card the port's
 kernel and plain decode are bit-identical (chip_smoke.py).
 """
+from fractions import Fraction
+
 import numpy as np
 import pytest
 import torch
@@ -152,3 +154,123 @@ def test_encode_slices_partition(n, bit):
     assert starts[0] == 0 and ends[-1] == n
     assert all(e > s for s, e in zip(starts, ends))
     assert all(e == s for e, s in zip(ends, starts[1:]))
+
+
+# --- non-finite input (NaN, +-inf, ranges past the f32 maximum) -----------
+
+def _nonfinite_data(shape, seed):
+    """Item 0 holds a NaN, 1 a +inf, 2 a -inf (its first value), 3
+    alternates +-3e38 (max - min overflows to inf), 4 holds both
+    infinities, 5 is finite."""
+    x = _data(shape, seed=seed) * 3.0
+    flat = x.reshape(shape[0], -1)
+    n = flat.shape[1]
+    flat[0, n // 3] = np.nan
+    flat[1, n // 2] = np.inf
+    flat[2, 0] = -np.inf
+    flat[3, 0::2] = 3e38
+    flat[3, 1::2] = -3e38
+    flat[4, n - 1] = np.inf
+    flat[4, n // 4] = -np.inf
+    return x
+
+
+@pytest.mark.parametrize("bit", [4, 8])
+@pytest.mark.parametrize("shape", [(6, 40), (6, 5, 37)])
+def test_encode_nonfinite_items_match_jax(bit, shape):
+    """The plain encode (the CPU path of the codec kernel's wrapper) gives
+    the JAX package's words on items whose quotients are NaN, infinite or
+    out of range: XLA's f32 -> uint32 convert saturates (NaN -> 0, +inf
+    -> 0xFFFFFFFF) and the words are the OR of the shifted codes cut to
+    32 bits. Scale and shift match with NaN equal to NaN, and the decoded
+    values too (finite ones at the decode tolerance above)."""
+    x = _nonfinite_data(shape, seed=bit)
+    j_enc = jquant.tensor_encode_outerdim(jnp.asarray(x), bit)
+    for t_enc in (tquant.tensor_encode_outerdim(torch.from_numpy(x), bit),
+                  tfused.encode_outerdim(torch.from_numpy(x), bit)):
+        np.testing.assert_array_equal(tquant.words_u32(t_enc),
+                                      np.asarray(j_enc.data))
+        for name in ("scale", "shift"):
+            np.testing.assert_array_equal(getattr(t_enc, name).numpy(),
+                                          np.asarray(getattr(j_enc, name)))
+        np.testing.assert_allclose(
+            tfused.decode_outerdim(t_enc).numpy(),
+            np.asarray(jquant.tensor_decode_outerdim(j_enc)),
+            rtol=0, atol=DECODE_ATOL, equal_nan=True)
+    # every item but the finite one has a non-finite scale or shift
+    scale = np.asarray(j_enc.scale)
+    shift = np.asarray(j_enc.shift)
+    assert not np.isfinite(scale[:5] + shift[:5]).any()
+    assert np.isfinite(scale[5] + shift[5])
+
+
+@pytest.mark.parametrize("bit", [b for b in jquant.SUPPORTED_BITS if b])
+@pytest.mark.parametrize("mode", ["original", "modified"])
+def test_encode_nonfinite_items_match_jax_all_bits(bit, mode):
+    x = _nonfinite_data((6, 37), seed=30 + bit)
+    _assert_same_encode(
+        tquant.tensor_encode_outerdim(torch.from_numpy(x), bit, mode),
+        jquant.tensor_encode_outerdim(jnp.asarray(x), bit, mode))
+
+
+# --- the decode kernel's arithmetic, emulated exactly ----------------------
+
+def _rn32(v: Fraction) -> Fraction:
+    """v rounded to the nearest f32, ties to even (normal range)."""
+    if v == 0:
+        return Fraction(0)
+    m = abs(v)
+    e = m.numerator.bit_length() - m.denominator.bit_length()
+    while Fraction(2) ** e > m:
+        e -= 1
+    while Fraction(2) ** (e + 1) <= m:
+        e += 1
+    ulp = Fraction(2) ** (e - 23)
+    return (1 if v > 0 else -1) * round(m / ulp) * ulp
+
+
+def _div_rn(a: int, levels: int) -> Fraction:
+    """csrc/fused_quant.cu `div_rn(a, L, __frcp_rn(L))`: q = a r, e =
+    fma(-q, L, a), fma(e, r, q), each rounded once to f32."""
+    r = _rn32(Fraction(1, levels))
+    q = _rn32(a * r)
+    e = _rn32(a - q * levels)
+    return _rn32(e * r + q)
+
+
+@pytest.mark.parametrize("bit", [4, 8])
+def test_decode_division_is_correctly_rounded(bit):
+    """The decode kernel forms q / (2^b - 1) with one reciprocal and two
+    FMAs in place of a division per value. For every code q it equals the
+    correctly rounded quotient that the plain decode's IEEE division
+    gives, so the kernel's words decode to the same bits."""
+    levels = (1 << bit) - 1
+    got = [_div_rn(q, levels) for q in range(levels + 1)]
+    want = [_rn32(Fraction(q, levels)) for q in range(levels + 1)]
+    assert got == want
+    # and the plain version's f32 division gives those values
+    plain = (torch.arange(levels + 1, dtype=torch.float32)
+             / torch.full((), float(levels))).tolist()
+    assert [Fraction(v) for v in plain] == want
+
+
+@pytest.mark.parametrize("bit", [4, 8])
+def test_decode_kernel_order_matches_plain_and_pallas(bit):
+    """The decode kernel's order, emulated in numpy f32: the quotient
+    table of `_div_rn`, then one rounded multiply by scale and one
+    rounded add of shift. Bit-identical to the port's plain decode, and
+    within the decode tolerance of the JAX interpret-mode kernel."""
+    levels = (1 << bit) - 1
+    table = np.array([float(_div_rn(q, levels)) for q in range(levels + 1)],
+                     np.float32)
+    x = _data((4, 5, 37), seed=20 + bit, zero_item=True)
+    t_enc = tquant.tensor_encode_outerdim(torch.from_numpy(x), bit)
+    codes = tquant._unpack_bits(t_enc.data, bit, 5 * 37).numpy()
+    want = (table[codes] * t_enc.scale.numpy()[:, None]
+            + t_enc.shift.numpy()[:, None]).reshape(x.shape)
+    np.testing.assert_array_equal(
+        tfused.fused_decode_outerdim(t_enc).numpy(), want)
+    j_enc = jquant.tensor_encode_outerdim(jnp.asarray(x), bit)
+    np.testing.assert_allclose(
+        want, np.asarray(jfused.fused_decode_outerdim(j_enc, interpret=True)),
+        rtol=0, atol=DECODE_ATOL)
