@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port (`pipeedge_tpu_torch`) on one GPU.
 
-    python3 chip_smoke.py [--ab-parent DIR]
+    python3 chip_smoke.py [--ab-parent DIR] [--ab-entry-parent ROOT]
 
 Phases, each of which raises on failure (nothing is caught):
   1. card and toolchain: `nvidia-smi` name and power limit, torch and CUDA;
@@ -20,9 +20,18 @@ Phases, each of which raises on failure (nothing is caught):
        cluster size (16 blocks per item);
      - attention at [96, 197, 64] f32, [128, 257, 80] f32 (ViT-H), causal
        [8, 1024, 64] f32, [96, 197, 64] bf16, S = 1, S = 65 (one row past
-       a tile), causal [96, 197, 64] f32, and the main path's strided
-       [8, 197, 12, 64] in bf16 and f32, within the tolerances stated
-       below, each timed beside SDPA;
+       a tile), causal [96, 197, 64] f32, the main path's strided
+       [8, 197, 12, 64] in bf16 and f32, and the strided shapes of phases
+       8 and 9: DeiT-B [8, 198, 12, 64], DeiT-S [8, 198, 6, 64], BERT-B
+       [8, 64, 12, 64] f32 and the tiny BERT's head dim 8 [8, 64, 4, 8]
+       in f32 and bf16, within the tolerances stated below, each timed
+       beside SDPA;
+     - the plain codec on the card at every bitwidth an adaptive policy
+       can pick (32, 16, 10, 8, 6, 5, 4, 3, 2) at the edges of phases 8
+       and 9, DeiT-B's [8, 198, 768] and BERT-Base's [8, 64, 768]: words,
+       scale, shift and decoded values identical to the CPU's; at bits 4
+       and 8 the kernels launch once per call and equal the plain codec
+       on the same input bit for bit; each timed;
      - the block-scaled int8 matmul, bit-identical to its plain version,
        at the main path's three dense shapes, ragged M and N, K = 100 (a
        block of all of K), K = 80 (half a k-step of padding), K = 192
@@ -83,7 +92,39 @@ Phases, each of which raises on failure (nothing is caught):
      new tokens, int8 cache, on the kernel route (ii) and the dequantize
      route (iii): greedy tokens identical, 2 decode-attention launches
      per step on (ii) and none on (iii), and the two in lockstep within
-     the (ii)/(iii) bound.
+     the (ii)/(iii) bound;
+  8. DeiT-Base (`facebook/deit-base-distilled-patch16-224`, BASELINE
+     config 5) at full width and depth (seeded `init_params` weights in
+     the torch-hub npz keys, qkv fused), 8 stages of 6 sublayers, batch
+     64 in microbatches of 8, f32:
+     - edge bits 0, 8 and 4 on all 7 edges: bit 0 equal to the
+       single-shard forward, 8 and 4 within the stated bounds; 12
+       attention launches per microbatch, 7 encode and 7 decode launches
+       per quantized microbatch;
+     - one profiled pass at 8 bits;
+     - an unconstrained pass through the runtime's own monitoring and
+       callbacks (`runtime.init_monitoring`, `attach_callbacks`) measures
+       edge 0's rate; then ADAPTIVE_QUANT = HEURISTIC, HEURISTIC2 and
+       CONTROLLER with WINDOW_SIZE 2 against a SEND_CONSTRAINT of
+       ADAPTIVE_SHARE times that rate. Each microbatch's bits per edge
+       are read from the wire bytes `edge_bytes_callback` reports (each
+       bitwidth gives other bytes at a fixed shape) and printed; at least
+       one policy must move an edge off 8 bits; the codec launches must
+       equal the edge-microbatches that travelled at 4 or 8 bits; each
+       microbatch's logits must equal, bit for bit, its replay through
+       the same pipeline at the bits it travelled with (a second
+       replay only for a microbatch whose first replay differs);
+     - `python -m pipeedge_tpu_torch.runtime` once, 8 stages, HEURISTIC;
+  9. BERT-Base CoLA (`textattack/bert-base-uncased-CoLA`, BASELINE config
+     4) at full width (vocab 30522, 2 labels, 64 int32 token ids per
+     item): `python -m pipeedge_tpu_torch.runtime 0 2 -m ... -pt
+     1,24,25,48 -q 8,0 -b 64 -u 8` as a subprocess (12 attention
+     launches per microbatch, one encode and one decode per microbatch);
+     then in process, seeded weights in the HF npz keys, the 2-stage
+     pipeline at bit 0 equal to the single-shard forward and at 8 bits
+     within the stated bound, one profiled pass at 8 bits; then the tiny
+     BERT (head dim 8, stages 1-4 and 5-8, exact edges) on the card
+     against its run on the CPU within the f32 attention tolerance.
 Phase 3 also holds kernel 5 (decode attention) against its plain version
 at the main path's shapes (windows of a [16, 1024, 12, 64] stage cache at
 buckets 256 and 512, and pos 1000 of the whole cache), pos 0 and W-1,
@@ -93,6 +134,12 @@ the dequantize-then-attend route and SDPA over the dequantized window; the
 main cases warm and with a cold L2 (the calls rotate over copies of the
 cache that together stream more than the L2), and the host's split rule
 held to the library's.
+Each phase prints its wall time. With `--ab-entry-parent ROOT` (another
+checkout's root, e.g. the parent commit's unpacked under the gitignored
+`pipeedge_tpu_torch/_build/`), the ViT entry of the runtime (`-pt
+1,21,22,48 -q 8,0 -b 64 -u 8`, 5 rounds) then runs from that checkout and
+from this one in the order parent, this, this, parent, twice, and each
+run's items/s is printed.
 Then one `{"kernels": [...]}` JSON line and, last, the device line
 `{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}`.
 
@@ -206,6 +253,34 @@ DECODE_ROUTE_BOUND = 1e-3
 TINY_DECODE_MODEL = "pipeedge/test-tiny-gpt2"
 TINY_DECODE_PARTITION = [(1, 4), (5, 8)]
 TINY_DECODE_BATCH, TINY_DECODE_PROMPT, TINY_DECODE_NEW = 4, 16, 32
+
+# Phase 8, BASELINE config 5: DeiT-Base distilled at full width and depth
+# in 8 stages of 6 sublayers (7 single-tensor edges), batch 64 in
+# microbatches of 8, f32, every edge starting at 8 bits. The adaptive runs
+# adapt every ADAPTIVE_WINDOW microbatches against a send constraint of
+# ADAPTIVE_SHARE times the items/s the unconstrained run's edge 0 carried
+# (SEND_CONSTRAINT is in items/s), a rate the pipeline does not reach, so
+# each policy must compress further. Each adaptive microbatch's logits
+# must equal its replay at the bits it travelled with; REPLAY_BOUND (of
+# max |logit|) applies only if the fixed-bit replay is not itself
+# repeatable on the card.
+DEIT_MODEL = "facebook/deit-base-distilled-patch16-224"
+DEIT_PARTITION = [(6 * i + 1, 6 * i + 6) for i in range(8)]
+ADAPTIVE_WINDOW = 2
+ADAPTIVE_SHARE = 8.0
+REPLAY_BOUND = 1e-5
+
+# `--ab-entry-parent`: rounds of the ViT entry per run (the first pays the
+# cuBLAS and allocator warm-up)
+AB_ENTRY_ROUNDS = 5
+
+# Phase 9, BASELINE config 4: BERT-Base CoLA (2 labels) at full width, two
+# stages (one single-tensor edge), 64 tokens per item; then the tiny BERT
+# (head dim 8) on the card against the CPU at the f32 attention tolerance.
+BERT_MODEL = "textattack/bert-base-uncased-CoLA"
+BERT_PARTITION = [(1, 24), (25, 48)]
+TINY_BERT_MODEL = "pipeedge/test-tiny-bert"
+TINY_BERT_PARTITION = [(1, 4), (5, 8)]
 
 
 def log(msg: str) -> None:
@@ -417,7 +492,14 @@ def check_attention(dev, gen):
              ("bhsd", (96, 65, 64), torch.float32, False),
              ("bhsd", (96, 197, 64), torch.float32, True),
              ("bshd", (8, 197, 12, 64), torch.bfloat16, False),
-             ("bshd", (8, 197, 12, 64), torch.float32, False)]
+             ("bshd", (8, 197, 12, 64), torch.float32, False),
+             # phases 8 and 9: DeiT-B and DeiT-S (198 tokens), BERT-Base
+             # (64 tokens), the tiny BERT (head dim 8, padded to 32)
+             ("bshd", (8, 198, 12, 64), torch.float32, False),
+             ("bshd", (8, 198, 6, 64), torch.float32, False),
+             ("bshd", (8, 64, 12, 64), torch.float32, False),
+             ("bshd", (8, 64, 4, 8), torch.float32, False),
+             ("bshd", (8, 64, 4, 8), torch.bfloat16, False)]
     for layout, shape, dtype, causal in cases:
         q, k, v = (torch.randn(shape, generator=gen, device=dev).to(dtype)
                    for _ in range(3))
@@ -461,6 +543,63 @@ def check_attention(dev, gen):
                    bound_by=bound_by)
         log("attention " + json.dumps(row))
         rows.append(row)
+    return rows
+
+
+def check_policy_bits(dev, gen):
+    """The plain codec at every bitwidth an adaptive policy can pick
+    (`utils/quant.py BITWIDTHS`) on CUDA tensors of the edges of phases 8
+    and 9 (DeiT-B's [8, 198, 768], BERT-Base's [8, 64, 768]): the same
+    words, scale and shift as on the CPU, whose words the CPU tests hold to
+    the JAX package's (tests/test_torch_adaptive.py), and the same decoded
+    values. At bits 4 and 8 the routed codec (`encode_outerdim`) launches
+    the kernels, and their words, scale, shift and decoded values equal the
+    plain codec's on the same CUDA input. Timed, since a policy may leave
+    an edge at any of these bits."""
+    from pipeedge_tpu_torch.ops import _build, fused_quant, quant
+    from pipeedge_tpu_torch.utils.quant import BITWIDTHS
+    rows = []
+    for shape in ((8, 198, 768), (8, 64, 768)):
+        x = torch.randn(shape, generator=gen, device=dev)
+        x_cpu = x.cpu()
+        for bit in BITWIDTHS:
+            kernel = bit in fused_quant.FUSED_BITS
+            before = dict(_build.launch_counts)
+            enc = quant.tensor_encode_outerdim(x, bit)
+            want = quant.tensor_encode_outerdim(x_cpu, bit)
+            routed = fused_quant.encode_outerdim(x, bit)
+            dec = quant.tensor_decode_outerdim(enc)
+            routed_dec = fused_quant.decode_outerdim(routed)
+            torch.cuda.synchronize()
+            launched = {k: _build.launch_counts[k] - before.get(k, 0)
+                        for k in ("fused_encode", "fused_decode")}
+            if launched != {"fused_encode": int(kernel),
+                            "fused_decode": int(kernel)}:
+                raise AssertionError(f"codec {shape} at {bit} bits: kernel "
+                                     f"launches {launched}")
+            for name in ("data", "scale", "shift"):
+                if not torch.equal(getattr(enc, name).cpu(),
+                                   getattr(want, name)):
+                    raise AssertionError(f"plain encode {shape} at {bit} "
+                                         f"bits on the card: {name} differs "
+                                         f"from the CPU")
+                if not torch.equal(getattr(routed, name), getattr(enc, name)):
+                    raise AssertionError(f"routed encode {shape} at {bit} "
+                                         f"bits: {name} differs from the "
+                                         f"plain encode on the same input")
+            if not torch.equal(dec.cpu(), quant.tensor_decode_outerdim(want)):
+                raise AssertionError(f"plain decode {shape} at {bit} bits on "
+                                     f"the card differs from the CPU's")
+            if not torch.equal(routed_dec, dec):
+                raise AssertionError(f"routed decode {shape} at {bit} bits "
+                                     f"differs from the plain decode")
+            row = dict(bit=bit, shape=list(shape), kernel=kernel,
+                       encode_ms=time_ms(
+                           lambda: fused_quant.encode_outerdim(x, bit)),
+                       decode_ms=time_ms(
+                           lambda: fused_quant.decode_outerdim(routed)))
+            log("policy bit " + json.dumps(row))
+            rows.append(row)
     return rows
 
 
@@ -1036,8 +1175,8 @@ def profile_pass(run_once, label: str) -> None:
                      share=ms / total) for name, ms, calls in kernels[:15]],
         # every kernel of csrc/ (their names start pe_), in the top or not
         "port": [dict(kernel=name[:90], ms=ms, calls=calls,
-                      share=ms / total) for name, ms, calls in kernels
-                 if "::pe_" in name],
+                      ms_per_call=ms / calls, share=ms / total)
+                 for name, ms, calls in kernels if "::pe_" in name],
     }))
 
 
@@ -1368,18 +1507,484 @@ def check_decode_path(res, device_name: str) -> None:
                              f"{entry['expected_decode_attention']}")
 
 
+# --- phase 8: DeiT-Base in 8 stages with adaptive edges ---------------------
+
+def write_random_checkpoint(module, model: str, weights_dir: Path) -> Path:
+    """The whole model's `init_params(seed 0)` weights in the family's
+    checkpoint keys, as an npz under the gitignored build directory."""
+    from pipeedge_tpu_torch.models import registry
+    weights_dir.mkdir(parents=True, exist_ok=True)
+    path = weights_dir / f"{model.replace('/', '_')}-init-seed0.npz"
+    t0 = time.monotonic()
+    np.savez(path, **module.random_npz_weights(
+        registry.get_model_config(model), seed=0))
+    log(f"weights: {path.name} ({path.stat().st_size / 2**20:.1f} MiB) in "
+        f"{time.monotonic() - t0:.1f} s")
+    return path
+
+
+def single_shard_logits(model: str, weights_file: Path, inputs, device: str):
+    from pipeedge_tpu_torch.models import registry
+    fn, params, _ = registry.module_shard_factory(
+        model, str(weights_file), 1, registry.get_model_layers(model),
+        device=device)
+    return [fn(params, x) for x in inputs]
+
+
+def wire_bits(raw_bytes: int, widths, ubatch: int) -> dict:
+    """Wire bytes of one edge at each bitwidth a policy can pick (and 0),
+    from its raw f32 bytes: for each of its tensors (`widths`: their last
+    dims), packed words plus a scale and a shift per item. Each bitwidth
+    packs another count of values per word, so the bytes name the bit."""
+    from pipeedge_tpu_torch.ops.quant import packed_words
+    from pipeedge_tpu_torch.utils.quant import BITWIDTHS
+    seq = raw_bytes // (4 * ubatch * sum(widths))
+    table = {raw_bytes: 0}
+    for bit in BITWIDTHS:
+        nbytes = sum(ubatch * (packed_words(seq * w, bit) * 4 + 8)
+                     for w in widths)
+        if nbytes in table:
+            raise AssertionError(f"{bit} and {table[nbytes]} bits give the "
+                                 f"same wire bytes {nbytes}")
+        table[nbytes] = bit
+    return table
+
+
+def edge_widths(cfg, layer_end: int):
+    """Last dims of the tensors on the edge after sublayer `layer_end`:
+    (ctx, residual) after an attention, (mlp_h, residual) after an MLP-up,
+    the hidden state otherwise."""
+    sub = (layer_end - 1) % 4
+    d = cfg.hidden_size
+    return {0: (d, d), 2: (cfg.intermediate_size, d)}.get(sub, (d,))
+
+
+def adaptive_run(pipe, inputs, labels, policy, constraint: float,
+                 window: int, monitor_dir: Path) -> dict:
+    """One pass of the batch through the runtime's own loop: the monitoring
+    session and keys of `runtime.init_monitoring`, the per-edge callbacks
+    and the `ADAPTIVE_QUANT` policy of `runtime.attach_callbacks`, every
+    edge starting at 8 bits. Records each microbatch's wire bytes per edge
+    as `edge_bytes_callback` reports them; the launch counts are set to 0
+    just before the pass."""
+    from pipeedge_tpu_torch import runtime
+    from pipeedge_tpu_torch.monitoring import facade as monitoring
+    from pipeedge_tpu_torch.ops import _build
+    env = {runtime.ENV_WINDOW_SIZE: str(window),
+           runtime.ENV_SEND_CONSTRAINT: repr(constraint)}
+    if policy:
+        env[runtime.ENV_ADAPTIVE_QUANT] = policy
+    saved = {k: os.environ.pop(k, None) for k in (
+        runtime.ENV_WINDOW_SIZE, runtime.ENV_SEND_CONSTRAINT,
+        runtime.ENV_ADAPTIVE_QUANT)}
+    os.environ.update(env)
+    monitor_dir.mkdir(parents=True, exist_ok=True)
+    cwd = os.getcwd()
+    os.chdir(monitor_dir)          # the session's CSVs land in the cwd
+    set_edge_bits(pipe, 8)
+    wire = []
+    try:
+        runtime.init_monitoring(window)
+        runtime.attach_callbacks(pipe, window)
+        record, on_result = pipe.edge_bytes_callback, pipe.ubatch_callback
+        callback_s = [0.0, 0.0]     # edge-bytes callback, result callback
+
+        def spy(i, edge_bytes):
+            wire.append(list(edge_bytes))
+            t0 = time.perf_counter()
+            record(i, edge_bytes)
+            callback_s[0] += time.perf_counter() - t0
+
+        def timed_result(i, out):
+            t0 = time.perf_counter()
+            on_result(i, out)
+            callback_s[1] += time.perf_counter() - t0
+
+        pipe.edge_bytes_callback = spy
+        pipe.ubatch_callback = timed_result
+        for lb in labels:
+            runtime.label_queue.put(lb)
+        _build.reset_launch_counts()
+        outs, stats = pipe.run(inputs)
+        counts = dict(_build.launch_counts)
+        snap = monitoring.snapshot()
+    finally:
+        monitoring.finish()
+        pipe.edge_bytes_callback = pipe.ubatch_callback = None
+        os.chdir(cwd)
+        for k, v in saved.items():
+            os.environ.pop(k, None)
+            if v is not None:
+                os.environ[k] = v
+    return dict(outs=outs, wire=wire, counts=counts, stats=stats, snap=snap,
+                final_bits=runtime.edge_bits(pipe),
+                # the host's time in the runtime's callbacks per microbatch
+                edge_callback_ms=callback_s[0] * 1e3 / len(inputs),
+                result_callback_ms=callback_s[1] * 1e3 / len(inputs))
+
+
+def replay(pipe, x, bits):
+    """One microbatch through the same pipeline at fixed edge bits; returns
+    its logits and wire bytes per edge."""
+    for stage, bit in zip(pipe.stages[:-1], bits):
+        stage.quant_bit = bit
+    wire = []
+    pipe.edge_bytes_callback = lambda i, edge_bytes: wire.append(edge_bytes)
+    try:
+        outs, _ = pipe.run([x])
+    finally:
+        pipe.edge_bytes_callback = None
+    return outs[0], wire[0]
+
+
+def deit_path(device: str, model: str = DEIT_MODEL,
+              partition=DEIT_PARTITION, profile: bool = False,
+              weights_dir: Path = ROOT / "pipeedge_tpu_torch" / "_build") -> dict:
+    """Phase 8 (module docstring): DeiT-Base in 8 stages at bits 0, 8 and
+    4, then each adaptive policy through the runtime's callback against a
+    send constraint set from the unconstrained run, each microbatch
+    replayed at the bits it travelled with; then the runtime entry once
+    with HEURISTIC. `check_deit_path` gates the result."""
+    from pipeedge_tpu_torch import runtime
+    from pipeedge_tpu_torch.models import deit, edge_arity, registry
+    from pipeedge_tpu_torch.parallel.pipeline import build_pipeline
+
+    on_card = torch.device(device).type == "cuda"
+    cfg = registry.get_model_config(model)
+    weights_file = write_random_checkpoint(deit, model, weights_dir)
+    inputs, labels = runtime.load_batches(model, BATCH, UBATCH,
+                                          torch.device(device), torch.float32)
+    n_mb = len(inputs)
+    exact = single_shard_logits(model, weights_file, inputs, device)
+    pipe = build_pipeline(model, partition, model_file=str(weights_file),
+                          device=device, quant_bits=[8] * len(partition))
+    edges = len(partition) - 1
+    edge_tensors = sum(edge_arity(r) for _, r in partition[:-1])
+    blocks = cfg.num_hidden_layers
+    res = {"fixed": {}}
+    for bit in (0, 8, 4):
+        set_edge_bits(pipe, bit)
+        res["fixed"][bit] = measure(pipe, inputs, exact, expected={
+            "fused_attention": blocks * n_mb if on_card else 0,
+            "fused_encode": edge_tensors * n_mb if bit and on_card else 0,
+            "fused_decode": edge_tensors * n_mb if bit and on_card else 0,
+            "int8_matmul": 0, "decode_attention": 0},
+            expected_shape=[UBATCH, cfg.num_labels])
+    if profile:
+        set_edge_bits(pipe, 8)
+        profile_pass(lambda: pipe.run(inputs),
+                     f"deit-base, {len(partition)} stages, 8-bit edges")
+
+    # the raw bytes of each edge, from a bit-0 pass: the key to the bits
+    set_edge_bits(pipe, 0)
+    raw = []
+    pipe.edge_bytes_callback = lambda i, edge_bytes: raw.append(edge_bytes)
+    pipe.run(inputs[:1])
+    pipe.edge_bytes_callback = None
+    tables = [wire_bits(nbytes, edge_widths(cfg, r), UBATCH)
+              for nbytes, (_, r) in zip(raw[0], partition[:-1])]
+
+    monitor_dir = weights_dir / "monitor"
+    window = ADAPTIVE_WINDOW
+    free = adaptive_run(pipe, inputs, labels, None, 0.0, window, monitor_dir)
+    send0 = free["snap"]["send0"]["global"]
+    items_s = send0["heartrate"] * UBATCH
+    constraint = ADAPTIVE_SHARE * items_s
+    res["unconstrained"] = dict(
+        edge0_mbit_s=send0["perf"], edge0_items_s=items_s,
+        share=ADAPTIVE_SHARE, send_constraint_items_s=constraint,
+        # the 8-bit pipeline with the runtime's callbacks on, to set beside
+        # the same pipeline without them (res["fixed"][8])
+        steady_items_per_s=free["stats"].get(
+            "steady_state_throughput_items_sec"),
+        host_dispatch_ms=free["stats"]["host_dispatch_s_per_ubatch"] * 1e3,
+        edge_callback_ms=free["edge_callback_ms"],
+        result_callback_ms=free["result_callback_ms"],
+        send_constraint_edge0_mbit_s=ADAPTIVE_SHARE * send0["perf"],
+        bits=[[tables[e][b] for e, b in enumerate(mb)] for mb in free["wire"]])
+    log("deit adaptive: unconstrained run " + json.dumps(res["unconstrained"]))
+    res["policies"] = {}
+    for policy in ("HEURISTIC", "HEURISTIC2", "CONTROLLER"):
+        run = adaptive_run(pipe, inputs, labels, policy, constraint, window,
+                           monitor_dir)
+        bits = [[tables[e][b] for e, b in enumerate(mb)] for mb in run["wire"]]
+        gaps, equal, repeat_equal = [], [], []
+        scale = max(float(e.abs().max()) for e in exact)
+        for i, x in enumerate(inputs):
+            first, wire = replay(pipe, x, bits[i])
+            if wire != run["wire"][i]:
+                raise AssertionError(f"{policy} microbatch {i}: replay wire "
+                                     f"bytes {wire} != {run['wire'][i]}")
+            equal.append(bool(torch.equal(first, run["outs"][i])))
+            if not equal[-1]:
+                # is the fixed-bit pass itself repeatable on the card?
+                again, _ = replay(pipe, x, bits[i])
+                repeat_equal.append(bool(torch.equal(first, again)))
+            gaps.append(float((first - run["outs"][i]).abs().max()) / scale)
+        coded = sum(b in (4, 8) for mb in bits for b in mb)
+        res["policies"][policy] = dict(
+            bits=bits, final_bits=run["final_bits"], counts=run["counts"],
+            expected_counts={
+                "fused_attention": blocks * n_mb if on_card else 0,
+                "fused_encode": coded if on_card else 0,
+                "fused_decode": coded if on_card else 0,
+                "int8_matmul": 0, "decode_attention": 0},
+            replay_equal=equal, replay_repeat_equal=repeat_equal,
+            replay_rel_gap=max(gaps),
+            rel_err=max(float((o - e).abs().max()) for o, e in
+                        zip(run["outs"], exact)) / scale,
+            finite=all(bool(torch.isfinite(o).all()) for o in run["outs"]),
+            steady_items_per_s=run["stats"].get(
+                "steady_state_throughput_items_sec"),
+            edge_callback_ms=run["edge_callback_ms"],
+            result_callback_ms=run["result_callback_ms"],
+            edge0_mbit_s=run["snap"]["send0"]["global"]["perf"])
+        log(f"deit adaptive {policy}: bits per microbatch (edges 0..{edges - 1}) "
+            + json.dumps(bits))
+    del pipe
+
+    # the runtime entry itself, 8 stages, HEURISTIC against that constraint
+    pt = ",".join(f"{l},{r}" for l, r in partition)
+    res["entry"] = run_entry(
+        ["0", str(len(partition)), "-m", model, "-pt", pt,
+         "-q", ",".join(["8"] * edges + ["0"]), "-b", str(BATCH),
+         "-u", str(UBATCH), "--device", torch.device(device).type],
+        {"ADAPTIVE_QUANT": "HEURISTIC", "WINDOW_SIZE": str(window),
+         "SEND_CONSTRAINT": repr(constraint)}, monitor_dir)
+    res["entry"]["expected"] = {"fused_attention": blocks * n_mb
+                                if on_card else 0}
+    return res
+
+
+def run_entry(argv, env_extra: dict, cwd: Path) -> dict:
+    """`python -m pipeedge_tpu_torch.runtime ARGV` as a subprocess (its
+    monitoring CSVs in `cwd`); returns its report lines, launch counts and
+    final edge bits."""
+    cmd = [sys.executable, "-m", "pipeedge_tpu_torch.runtime"] + argv
+    env = dict(os.environ, PYTHONPATH=str(ROOT), **env_extra)
+    cwd.mkdir(parents=True, exist_ok=True)
+    t0 = time.monotonic()
+    proc = subprocess.run(cmd, cwd=cwd, env=env, capture_output=True,
+                          text=True, timeout=600)
+    if proc.returncode != 0:
+        raise RuntimeError(f"{' '.join(cmd)} exited {proc.returncode}:\n"
+                           f"{proc.stderr[-4000:]}")
+    lines = proc.stdout.splitlines()
+    for line in lines:
+        log("runtime entry: " + line)
+
+    def value(prefix):
+        found = [json.loads(ln.split("=", 1)[1]) for ln in lines
+                 if ln.startswith(prefix + "=")]
+        return found[0] if len(found) == 1 else None
+
+    return dict(command=" ".join(
+        [f"{k}={v}" for k, v in env_extra.items()] + cmd[1:]),
+        seconds=time.monotonic() - t0, kernel_launches=value("kernel_launches"),
+        edge_bits=value("edge_bits"),
+        report=[ln for ln in lines if ln.startswith("latency_sec=")])
+
+
+def ab_entry(parent_root: Path) -> list:
+    """The ViT entry of the port's runtime (`python -m
+    pipeedge_tpu_torch.runtime 0 2 -m google/vit-base-patch16-224 -pt
+    1,21,22,48 -q 8,0 -b 64 -u 8 --measure-rounds AB_ENTRY_ROUNDS`) from
+    another checkout (`parent_root`) and from this one, in the order
+    parent, this, this, parent, twice, each in a fresh working directory.
+    Returns one row per run: the rounds' items/s and the last round's
+    steady items/s and latency."""
+    argv = ["0", "2", "-m", MODEL, "-pt", "1,21,22,48", "-q", "8,0",
+            "-b", str(BATCH), "-u", str(UBATCH),
+            "--measure-rounds", str(AB_ENTRY_ROUNDS)]
+    rows = []
+    order = [("parent", parent_root), ("this", ROOT), ("this", ROOT),
+             ("parent", parent_root)] * 2
+    for n, (name, root) in enumerate(order):
+        cwd = ROOT / "pipeedge_tpu_torch" / "_build" / f"ab_entry{n}"
+        cwd.mkdir(parents=True, exist_ok=True)
+        t0 = time.monotonic()
+        proc = subprocess.run(
+            [sys.executable, "-m", "pipeedge_tpu_torch.runtime"] + argv,
+            cwd=cwd, env=dict(os.environ, PYTHONPATH=str(root.resolve())),
+            capture_output=True, text=True, timeout=600)
+        if proc.returncode != 0:
+            raise RuntimeError(f"ab entry ({name}) exited {proc.returncode}:"
+                               f"\n{proc.stderr[-4000:]}")
+        fields = [dict(kv.split("=", 1) for kv in ln.split())
+                  for ln in proc.stdout.splitlines()
+                  if ln.startswith(("round=", "steady_state_"))]
+        rounds = [float(f["throughput_items_sec"]) for f in fields
+                  if "round" in f]
+        steady = [float(f["steady_state_throughput_items_sec"])
+                  for f in fields if "steady_state_throughput_items_sec" in f]
+        row = dict(version=name, root=str(root), items_per_s_rounds=rounds,
+                   last_round_latency_s=float(fields[len(rounds) - 1][
+                       "latency_sec"]) if rounds else None,
+                   steady_items_per_s=steady[-1] if steady else None,
+                   csv_files=sorted(f.name for f in cwd.glob("*.csv")),
+                   seconds=time.monotonic() - t0)
+        log("ab entry " + json.dumps(row))
+        rows.append(row)
+    return rows
+
+
+def check_entry(name: str, entry: dict) -> None:
+    log(f"{name} entry: " + json.dumps(entry, sort_keys=True))
+    launches = entry["kernel_launches"] or {}
+    if len(entry["report"]) != 1 or entry["edge_bits"] is None or any(
+            launches.get(k) != v for k, v in entry["expected"].items()):
+        raise AssertionError(f"{name} entry: report {entry['report']}, "
+                             f"launches {launches} (expected "
+                             f"{entry['expected']}), edge bits "
+                             f"{entry['edge_bits']}")
+
+
+def check_fixed_bits(name: str, fixed: dict, device_name: str) -> None:
+    """Gate the fixed-bit runs of phases 8 and 9 (`measure` results keyed
+    by edge bit): shape, finite logits and launch counts; bit 0 equal to
+    the single-shard forward; other bits within LOGIT_BOUND."""
+    for bit, r in fixed.items():
+        log(f"{name} fixed bit {bit}: " + json.dumps(
+            {**r, "card": device_name}, sort_keys=True))
+        if r["shape"] != r["expected_shape"] or not r["finite"] or \
+                r["counts"] != r["expected_counts"]:
+            raise AssertionError(f"{name} bit {bit}: shape {r['shape']}, "
+                                 f"finite={r['finite']}, launch counts "
+                                 f"{r['counts']} != {r['expected_counts']}")
+        if bit == 0 and not r["equal"]:
+            raise AssertionError(f"{name} bit 0: pipeline logits differ "
+                                 f"from the single-shard forward by "
+                                 f"{r['max_abs_err']}")
+        if bit and not 0 < r["rel_err"] <= LOGIT_BOUND[bit]:
+            raise AssertionError(f"{name} bit {bit}: logit error "
+                                 f"{r['rel_err']} not in (0, "
+                                 f"{LOGIT_BOUND[bit]}]")
+
+
+def check_deit_path(res, device_name: str) -> None:
+    check_fixed_bits("deit", res["fixed"], device_name)
+    moved = False
+    for policy, r in res["policies"].items():
+        log(f"deit adaptive {policy}: " + json.dumps(
+            {k: v for k, v in r.items() if k != "bits"}, sort_keys=True))
+        if r["counts"] != r["expected_counts"] or not r["finite"]:
+            raise AssertionError(f"deit {policy}: launch counts {r['counts']}"
+                                 f" != {r['expected_counts']} or non-finite")
+        if not all(r["replay_equal"]):
+            # bit for bit, unless the same fixed-bit pass is itself not
+            # repeatable on the card (`replay_repeat_equal`: a second
+            # replay of each microbatch that differed); then within
+            # REPLAY_BOUND
+            if all(r["replay_repeat_equal"]) or \
+                    r["replay_rel_gap"] > REPLAY_BOUND:
+                raise AssertionError(f"deit {policy}: a microbatch differs "
+                                     f"from its fixed-bit replay by "
+                                     f"{r['replay_rel_gap']} of max |logit|")
+        moved = moved or any(b != 8 for mb in r["bits"] for b in mb)
+    if not moved:
+        raise AssertionError("deit: no adaptive policy moved an edge off 8 "
+                             "bits")
+    check_entry("deit", res["entry"])
+
+
+# --- phase 9: BERT-Base CoLA and the tiny BERT --------------------------------
+
+def bert_path(device: str, model: str = BERT_MODEL, partition=BERT_PARTITION,
+              profile: bool = False,
+              weights_dir: Path = ROOT / "pipeedge_tpu_torch" / "_build") -> dict:
+    """Phase 9 (module docstring): the runtime entry on BERT-Base CoLA,
+    then an in-process 2-stage run at bits 0 and 8 against the single-shard
+    forward, and the tiny BERT on `device` against its run on the CPU.
+    `check_bert_path` gates the result."""
+    from pipeedge_tpu_torch import runtime
+    from pipeedge_tpu_torch.models import bert, edge_arity, registry
+    from pipeedge_tpu_torch.parallel.pipeline import build_pipeline
+
+    on_card = torch.device(device).type == "cuda"
+    cfg = registry.get_model_config(model)
+    blocks = cfg.num_hidden_layers
+    n_mb = BATCH // UBATCH
+    edge_tensors = sum(edge_arity(r) for _, r in partition[:-1])
+    pt = ",".join(f"{l},{r}" for l, r in partition)
+    res = {"entry": run_entry(
+        ["0", str(len(partition)), "-m", model, "-pt", pt, "-q", "8,0",
+         "-b", str(BATCH), "-u", str(UBATCH),
+         "--device", torch.device(device).type], {},
+        weights_dir / "monitor")}
+    res["entry"]["expected"] = {
+        "fused_attention": blocks * n_mb if on_card else 0,
+        "fused_encode": edge_tensors * n_mb if on_card else 0,
+        "fused_decode": edge_tensors * n_mb if on_card else 0}
+
+    weights_file = write_random_checkpoint(bert, model, weights_dir)
+    inputs, _ = runtime.load_batches(model, BATCH, UBATCH,
+                                     torch.device(device), torch.float32)
+    exact = single_shard_logits(model, weights_file, inputs, device)
+    pipe = build_pipeline(model, partition, model_file=str(weights_file),
+                          device=device, quant_bits=[0] * len(partition))
+    res["fixed"] = {}
+    for bit in (0, 8):
+        set_edge_bits(pipe, bit)
+        res["fixed"][bit] = measure(pipe, inputs, exact, expected={
+            "fused_attention": blocks * n_mb if on_card else 0,
+            "fused_encode": edge_tensors * n_mb if bit and on_card else 0,
+            "fused_decode": edge_tensors * n_mb if bit and on_card else 0,
+            "int8_matmul": 0, "decode_attention": 0},
+            expected_shape=[UBATCH, cfg.num_labels])
+    if profile:
+        set_edge_bits(pipe, 8)
+        profile_pass(lambda: pipe.run(inputs),
+                     f"bert-base CoLA, {len(partition)} stages, 8-bit edge")
+    del pipe, exact
+
+    # the tiny BERT (head dim 8): on `device` and on the CPU, exact edges
+    tiny_inputs, _ = runtime.load_batches(TINY_BERT_MODEL, BATCH, UBATCH,
+                                          torch.device("cpu"), torch.float32)
+    outs = {}
+    for dev in (device, "cpu"):
+        tiny = build_pipeline(TINY_BERT_MODEL, TINY_BERT_PARTITION,
+                              device=dev, quant_bits=[0, 0])
+        outs[dev], _ = tiny.run([x.to(dev) for x in tiny_inputs])
+    gap = max(float((o.cpu() - c).abs().max())
+              for o, c in zip(outs[device], outs["cpu"]))
+    res["tiny"] = dict(max_abs_err=gap, head_dim=registry.get_model_config(
+        TINY_BERT_MODEL).head_dim, shape=list(outs["cpu"][0].shape))
+    for o, c in zip(outs[device], outs["cpu"]):
+        torch.testing.assert_close(o.cpu(), c, **ATTN_TOL[torch.float32])
+    return res
+
+
+def check_bert_path(res, device_name: str) -> None:
+    check_entry("bert", res["entry"])
+    check_fixed_bits("bert", res["fixed"], device_name)
+    log("tiny bert on the card vs the CPU: " + json.dumps(
+        {**res["tiny"], "card": device_name}))
+
+
 def main() -> int:
     import argparse
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--ab-parent", type=Path, default=None,
                         help="a csrc/ directory of another version to time "
                              "against this one (phase 3)")
+    parser.add_argument("--ab-entry-parent", type=Path, default=None,
+                        help="the root of another checkout whose ViT "
+                             "runtime entry to time against this one's "
+                             "(after phase 9)")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "False)", file=sys.stderr)
         return 2
     from pipeedge_tpu_torch.ops import _build
+
+    started = time.monotonic()
+    mark = [started]
+
+    def phase_done(name: str) -> None:
+        now = time.monotonic()
+        log(f"{name}: {now - mark[0]:.1f} s (total {now - started:.1f} s)")
+        mark[0] = now
 
     # phase 1: card and toolchain
     card = card_line()
@@ -1400,6 +2005,8 @@ def main() -> int:
         if "registers" in line or "spill" in line or line.startswith("=="):
             log("ptxas " + line.strip())
 
+    phase_done("phases 1-2")
+
     # phase 3: kernels against their plain versions
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
@@ -1407,22 +2014,47 @@ def main() -> int:
     for (name, bit), row in codec_rows.items():
         log(f"{name} " + json.dumps(row))
     attn_rows = check_attention(dev, gen)
+    policy_rows = check_policy_bits(dev, gen)
     int8_rows = check_int8_matmul(dev, gen)
     dec_rows = check_decode_attention(dev, gen)
     ab_rows = (ab_parent(args.ab_parent, dev, gen)
                if args.ab_parent is not None else [])
 
+    phase_done("phase 3")
+
     # phases 4 and 5: the main path, exact and with int8 compute
     results = main_path("cuda", profile=True)
     check_main_path(results, device_name)
+
+    phase_done("phases 4-5")
 
     # phase 6: the decode main path (GPT-2, int8 KV cache)
     dec = decode_main_path("cuda", profile=True)
     check_decode_path(dec, device_name)
 
+    phase_done("phase 6")
+
     # phase 7: the tiny GPT-2 (head dim 8) through both int8 routes
     tiny = tiny_decode_path("cuda")
     check_tiny_decode(tiny, device_name)
+
+    phase_done("phase 7")
+
+    # phase 8: DeiT-Base in 8 stages, fixed and adaptive edges
+    deit_res = deit_path("cuda", profile=True)
+    check_deit_path(deit_res, device_name)
+
+    phase_done("phase 8")
+
+    # phase 9: BERT-Base CoLA through the runtime entry, and the tiny BERT
+    bert_res = bert_path("cuda", profile=True)
+    check_bert_path(bert_res, device_name)
+
+    phase_done("phase 9")
+
+    if args.ab_entry_parent is not None:
+        ab_entry(args.ab_entry_parent)
+        phase_done("ab entry")
 
     def paired(prefix):
         """The A/B rows of one kernel: case -> parent mean over this one's."""
@@ -1451,7 +2083,13 @@ def main() -> int:
                     "cluster16_ms": row["cluster16_ms"]}
                    if name == "fused_encode" else {}),
                 **({"bit4_ms": codec_rows[(name, 4)]["ms"]}
-                   if bit == 8 else {})))
+                   if bit == 8 else {}),
+                # launches per pass of 8 microbatches on phase 8 (7 edges)
+                deit_launches=deit_res["fixed"][bit]["counts"][name],
+                # every policy bitwidth on phase 8's edge
+                policy_bits_ms={r["bit"]: r[f"{name[6:]}_ms"]
+                                for r in policy_rows
+                                if r["shape"] == [UBATCH, 198, 768]}))
     kernels.append(dict(
         name="fused_attention", route="cuda",
         source=SOURCES["fused_attention"],
@@ -1462,6 +2100,9 @@ def main() -> int:
         bound_by=main_attn["bound_by"], library_ms=main_attn["library_ms"],
         shape=main_attn["shape"], dtype=main_attn["dtype"],
         paired=paired("attention"),
+        # launches per pass of 8 microbatches on phases 8 and 9
+        deit_launches=deit_res["fixed"][8]["counts"]["fused_attention"],
+        bert_launches=bert_res["fixed"][8]["counts"]["fused_attention"],
         cases={f"{r['layout']} {r['shape']} {r['dtype']}"
                f"{' causal' if r['causal'] else ''}": {
                    key: r[key] for key in ("ms", "plain_ms", "library_ms",

@@ -28,7 +28,7 @@ from ..ops.attention import fused_attention
 @dataclasses.dataclass(frozen=True)
 class TransformerConfig:
     """Static model hyperparameters (local constants: no network fetch)."""
-    model_type: str              # 'vit' | 'gpt2'
+    model_type: str              # 'vit' | 'deit' | 'bert' | 'gpt2'
     hidden_size: int
     num_hidden_layers: int       # transformer blocks (sublayers = 4x this)
     num_attention_heads: int
@@ -42,6 +42,7 @@ class TransformerConfig:
     # text
     vocab_size: int = 0
     max_position_embeddings: int = 0
+    type_vocab_size: int = 2
     # mixture-of-experts (switch-FFN blocks; 0 = dense FFN)
     n_experts: int = 0
     capacity_factor: float = 1.25

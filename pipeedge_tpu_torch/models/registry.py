@@ -1,7 +1,8 @@
 """Model registry and shard factories.
 
-Port of `pipeedge_tpu/models/registry.py`, the ViT and dense GPT-2
-entries (the families the port carries so far). Layer counts are in
+Port of `pipeedge_tpu/models/registry.py`: the ViT, BERT, DeiT and
+dense GPT-2 entries (the families the port carries so far), in the JAX
+registry's order. Layer counts are in
 sublayers, 4 per transformer block; configs are local constants, so
 nothing is fetched.
 """
@@ -18,6 +19,8 @@ import torch
 
 from .. import DeviceLike, resolve_device
 from . import ShardConfig
+from . import bert as bert_mod
+from . import deit as deit_mod
 from . import gpt2 as gpt2_mod
 from . import vit as vit_mod
 from .layers import TransformerConfig
@@ -31,7 +34,7 @@ class ModelEntry:
     name: str
     layers: int                  # sublayer count = 4 * blocks
     weights_file: str            # default npz filename (reference format)
-    family: object               # module: vit_mod | gpt2_mod
+    family: object               # module: vit_mod | bert_mod | deit_mod | gpt2_mod
     config: TransformerConfig
 
 
@@ -41,6 +44,19 @@ def _vit(name, layers, weights, hidden, blocks, heads, inter, labels,
         model_type="vit", hidden_size=hidden, num_hidden_layers=blocks,
         num_attention_heads=heads, intermediate_size=inter, num_labels=labels,
         image_size=img, patch_size=patch))
+
+
+def _bert(name, layers, weights, hidden, blocks, heads, inter, labels):
+    return ModelEntry(name, layers, weights, bert_mod, TransformerConfig(
+        model_type="bert", hidden_size=hidden, num_hidden_layers=blocks,
+        num_attention_heads=heads, intermediate_size=inter, num_labels=labels,
+        vocab_size=30522, max_position_embeddings=512))
+
+
+def _deit(name, layers, weights, hidden, blocks, heads, inter):
+    return ModelEntry(name, layers, weights, deit_mod, TransformerConfig(
+        model_type="deit", hidden_size=hidden, num_hidden_layers=blocks,
+        num_attention_heads=heads, intermediate_size=inter, num_labels=1000))
 
 
 def _gpt2(name, layers, weights, hidden, blocks, heads, inter,
@@ -57,6 +73,15 @@ _MODELS: Dict[str, ModelEntry] = {e.name: e for e in [
     _vit("google/vit-large-patch16-224", 96, "ViT-L_16-224.npz", 1024, 24, 16, 4096, 1000),
     _vit("google/vit-huge-patch14-224-in21k", 128, "ViT-H_14.npz", 1280, 32, 16, 5120,
          21843, patch=14),
+    _bert("bert-base-uncased", 48, "BERT-B.npz", 768, 12, 12, 3072, 0),
+    _bert("bert-large-uncased", 96, "BERT-L.npz", 1024, 24, 16, 4096, 0),
+    _bert("textattack/bert-base-uncased-CoLA", 48, "BERT-B-CoLA.npz", 768, 12, 12, 3072, 2),
+    _deit("facebook/deit-base-distilled-patch16-224", 48, "DeiT_B_distilled.npz",
+          768, 12, 12, 3072),
+    _deit("facebook/deit-small-distilled-patch16-224", 48, "DeiT_S_distilled.npz",
+          384, 12, 6, 1536),
+    _deit("facebook/deit-tiny-distilled-patch16-224", 48, "DeiT_T_distilled.npz",
+          192, 12, 3, 768),
     # causal decoders (dense FFN; the switch-MoE entries wait for
     # parallel/expert.py)
     _gpt2("gpt2", 48, "GPT2.npz", 768, 12, 12, 3072),
@@ -64,6 +89,7 @@ _MODELS: Dict[str, ModelEntry] = {e.name: e for e in [
     # tiny synthetic models for fast tests
     _vit("pipeedge/test-tiny-vit", 8, "test-tiny-vit.npz", 32, 2, 4, 64, 5,
          patch=4, img=16),
+    _bert("pipeedge/test-tiny-bert", 8, "test-tiny-bert.npz", 32, 2, 4, 64, 2),
     _gpt2("pipeedge/test-tiny-gpt2", 8, "test-tiny-gpt2.npz", 32, 2, 4, 64,
           vocab=100, max_pos=64),
 ]}

@@ -37,6 +37,11 @@ SUPPORTED_BITS = (0, 1, 2, 3, 4, 5, 6, 8, 16, 32)
 _U32_MAX = (1 << 32) - 1
 
 
+def compression_factor(bit: int) -> float:
+    """Data-size improvement for a bitwidth > 0 (reference basic_op.py:109-111)."""
+    return 32.0 / bit
+
+
 def packed_words(n_values: int, bit: int) -> int:
     """Number of 32-bit words needed to pack `n_values` `bit`-wide ints."""
     per_word = 32 // bit

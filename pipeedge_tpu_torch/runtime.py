@@ -1,33 +1,73 @@
 """Pipeline-parallel inference runtime of the port: the `-c host` driver.
 
-The `-c host` subset of the repository's `runtime.py`, on PyTorch:
+The host loop of the repository's `runtime.py`, on PyTorch:
 
     python -m pipeedge_tpu_torch.runtime 0 2 -m google/vit-base-patch16-224 \\
         -pt 1,21,22,48 -q 8,0 -b 64 -u 8 -t float32 --measure-rounds 2
 
 runs a two-stage ViT-Base pipeline on the GPU with an 8-bit edge and
 prints `latency_sec=... throughput_items_sec=...` (the form of
-`runtime.py`'s report), the steady-state throughput line, and one line
-with each kernel's launch count. `--device cpu` runs the plain versions
+`runtime.py`'s report), the steady-state throughput line, one line with
+each kernel's launch count and one with each edge's bitwidth at the end
+of the run (`edge_bits=[...]`). `--device cpu` runs the plain versions
 of the kernels on the CPU. Without `--model-file` (or with a missing
 file) each stage draws seeded random weights.
+
+Inputs are synthetic: seeded random images for the vision models, seeded
+token ids (int32, 64 per item) for the text models; integer inputs keep
+their dtype on the way to the first stage, floats take `-t`.
+
+Monitoring and adaptive bitwidth, as in `runtime.py`: every run writes
+heartbeat CSVs into the working directory (`output.csv`, one row per
+retired microbatch; `send.csv`, the wire bytes of all edges; one
+`send<i>.csv` per inter-stage edge, fed with the wire bytes that edge
+carried for each microbatch), and the environment chooses the edge
+policy:
+
+    ADAPTIVE_QUANT   HEURISTIC | HEURISTIC2 | CONTROLLER (unset: fixed bits)
+    SEND_CONSTRAINT  the send rate to meet, items/s (0: none)
+    WINDOW_SIZE      microbatches per adaptation window (default 10)
+
+Each policy runs once per window on the results of the microbatches
+retired so far and sets each edge's `quant_bit` for the microbatches
+dispatched after it.
 """
 from __future__ import annotations
 
 import argparse
 import json
 import logging
+import os
+import queue
 import time
 from typing import List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
-from .models import registry
+from .models import get_microbatch_size, registry
+from .monitoring import facade as monitoring
 from .ops import _build
 from .parallel import pipeline as host_pipeline
 from .utils import data as data_utils
+from .utils import quant as quantutil
 
 logger = logging.getLogger(__name__)
+
+# Env knobs (reference runtime.py:40-52)
+ENV_WINDOW_SIZE = "WINDOW_SIZE"
+ENV_SEND_CONSTRAINT = "SEND_CONSTRAINT"
+ENV_ADAPTIVE_QUANT = "ADAPTIVE_QUANT"
+ADAPTIVE_QUANT_HEURISTIC = "HEURISTIC"
+ADAPTIVE_QUANT_HEURISTIC2 = "HEURISTIC2"
+ADAPTIVE_QUANT_CONTROLLER = "CONTROLLER"
+
+# the keys the host loop feeds (runtime.py:58-72 also opens 'shard',
+# 'recv', 'quant_encode' and 'quant_decode', which its DCN stages feed)
+MONITORING_KEY_OUTPUT = 'output'
+MONITORING_KEY_SEND = 'send'
+
+label_queue: "queue.Queue" = queue.Queue()
 
 
 def _pairs(text: str) -> List[Tuple[int, int]]:
@@ -63,7 +103,8 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                         default="google/vit-base-patch16-224",
                         choices=registry.get_model_names())
     parser.add_argument("-M", "--model-file", type=str,
-                        help="model weights file (.npz, Google ViT keys)")
+                        help="model weights file (.npz in the family's "
+                             "checkpoint keys)")
     parser.add_argument("-b", "--batch-size", default=64, type=int)
     parser.add_argument("-u", "--ubatch-size", default=8, type=int)
     parser.add_argument("-t", "--dtype", default="float32",
@@ -101,25 +142,211 @@ def _schedule(args) -> Tuple[List[Tuple[int, int]], List[int]]:
     return stage_layers, stage_quant
 
 
-def run_pipeline_host(args) -> dict:
-    """Build the pipeline, stream the batch `--measure-rounds` times and
-    print the report lines; returns the last round's stats."""
-    stage_layers, stage_quant = _schedule(args)
+def get_window_size() -> int:
+    """Window period for monitoring/adaptation (reference runtime.py:40-44)."""
+    return int(os.getenv(ENV_WINDOW_SIZE, "10"))
+
+
+def handle_results(tensors) -> None:
+    """Process one microbatch's result: accuracy against its labels (FIFO
+    order) for [B, n_classes] outputs, else softmax confidence."""
+    outputs = tensors.detach().float().cpu().numpy()
+    n_items = get_microbatch_size(outputs, verify=True)
+    # pop the label queue either way, so it stays in step with the stream
+    ubatch_labels = None if label_queue.empty() else label_queue.get()
+    if ubatch_labels is not None and outputs.ndim == 2:
+        assert len(outputs) == len(ubatch_labels)
+        pred = outputs.argmax(axis=-1)
+        acc = int((pred == np.asarray(ubatch_labels)).sum())
+    else:
+        exp = np.exp(outputs - outputs.max(axis=-1, keepdims=True))
+        probs = exp / exp.sum(axis=-1, keepdims=True)
+        conf = probs.max(axis=-1)   # [B] or [B, S]
+        acc = float(conf.reshape(conf.shape[0], -1).mean(axis=1).sum())
+    monitoring.iteration(MONITORING_KEY_OUTPUT, work=n_items, accuracy=acc,
+                         safe=False)
+    logger.debug("outputs is %s", outputs)
+
+
+def load_dataset(model_name: str, batch_size: int):
+    """Synthetic inputs for the model: token ids for the text models (64
+    per item, or the model's positions if fewer), images otherwise."""
+    cfg = registry.get_model_config(model_name)
+    if cfg.vocab_size:  # token models: BERT and GPT-2
+        return data_utils.synthetic_token_dataset(
+            batch_size, seq_len=min(64, cfg.max_position_embeddings or 64),
+            vocab_size=cfg.vocab_size, n_labels=max(cfg.num_labels, 2))
+    return data_utils.synthetic_image_dataset(
+        batch_size, shape=(cfg.num_channels, cfg.image_size, cfg.image_size),
+        n_labels=max(cfg.num_labels, 2))
+
+
+def to_input(x: np.ndarray, device: torch.device,
+             dtype: torch.dtype) -> torch.Tensor:
+    """A microbatch on `device`: floats take `dtype`, integer ids keep
+    theirs (an embedding gathers with them)."""
+    t = torch.from_numpy(x)
+    return t.to(device=device, dtype=dtype if t.is_floating_point() else None)
+
+
+def load_batches(model_name: str, batch_size: int, ubatch_size: int,
+                 device: torch.device, dtype: torch.dtype):
+    """The model's synthetic batch as microbatches on `device`
+    (`load_dataset`, `to_input`), and each microbatch's labels."""
+    inputs, labels = [], []
+    for x, lb in data_utils.batch_dataset(load_dataset(model_name, batch_size),
+                                          ubatch_size):
+        inputs.append(to_input(x, device, dtype))
+        labels.append(lb)
+    return inputs, labels
+
+
+def _make_adaptive_callback(edge_stages, window_size: int, edge_keys):
+    """Window-period bitwidth adaptation (reference runtime.py:121-216).
+
+    `edge_stages` are the stages whose *output* edge is adaptive (all but
+    the final stage); each exposes a mutable `quant_bit`. `edge_keys[i]`
+    names the monitoring key carrying stage i's edge telemetry (wire Mbits
+    per microbatch), so each stage adapts on its own edge's traffic."""
+    policy = os.getenv(ENV_ADAPTIVE_QUANT)
+    if not policy:
+        return None
+    rate_constraint = float(os.getenv(ENV_SEND_CONSTRAINT, "0"))
+    controllers = {}
+    ctl_state = {}
+
+    def callback(i: int, out) -> None:
+        tag = i + 1
+        if tag % window_size != 0:
+            # controller policy counts down its bitwidth1 window split
+            if policy == ADAPTIVE_QUANT_CONTROLLER:
+                for stage in edge_stages:
+                    st = ctl_state.get(id(stage))
+                    if st:
+                        bw1, bw2, it1 = st
+                        stage.quant_bit = (bw1 if it1 > 0 else bw2) % max(
+                            quantutil.BITWIDTHS)
+                        ctl_state[id(stage)] = (bw1, bw2, max(0, it1 - 1))
+            return
+        ubatch_size = get_microbatch_size(out)
+        for stage_idx, stage in enumerate(edge_stages):
+            key = edge_keys[stage_idx]
+            with monitoring.get_locked_context(key) as mctx:
+                if mctx is None:
+                    return
+                window_perf = mctx.get_window_perf(key=key)
+                window_work = mctx.get_window_work(key=key)
+                heartrate = mctx.get_window_heartrate(key=key)
+            if policy == ADAPTIVE_QUANT_HEURISTIC:
+                # discrete compress-ratio ladder (runtime.py:121-154)
+                if rate_constraint > 0:
+                    target_time = ubatch_size * window_size / rate_constraint
+                else:
+                    target_time = float('inf')
+                target_datasize = target_time * max(window_perf, 1e-12)
+                qbit = stage.quant_bit
+                eff = window_work * (32 / qbit if qbit > 0 else 1)
+                ratio = int(eff / target_datasize) + 1 if target_datasize > 0 else 1
+                for bound, bit in ((1, 0), (2, 16), (4, 8), (5, 6), (8, 4)):
+                    if ratio <= bound:
+                        stage.quant_bit = bit
+                        break
+                else:
+                    stage.quant_bit = 2
+            elif policy == ADAPTIVE_QUANT_HEURISTIC2:
+                # analytic largest-feasible bitwidth (runtime.py:156-174)
+                if rate_constraint <= 0:
+                    continue
+                ubatch_time = ubatch_size / rate_constraint
+                src_bit = 32
+                qbit = quantutil.constrain_max_bitwidth(
+                    ubatch_time, max(window_work, 1e-12) / window_size,
+                    max(window_perf, 1e-12), src_bit)
+                stage.quant_bit = max(2, qbit) % src_bit
+            elif policy == ADAPTIVE_QUANT_CONTROLLER:
+                # Kalman/integral controller window split (runtime.py:177-216)
+                if id(stage) not in controllers:
+                    bw_start = stage.quant_bit or max(quantutil.BITWIDTHS)
+                    controllers[id(stage)] = \
+                        quantutil.AdaptiveBitwidthPerformanceController(
+                            rate_constraint, quantutil.BITWIDTHS, bw_start)
+                ctl = controllers[id(stage)]
+                ctl.reference = rate_constraint
+                send_rate = heartrate * ubatch_size
+                bw1, bw2, it1 = ctl(send_rate, window_size)
+                ctl_state[id(stage)] = (bw1, bw2, it1)
+                stage.quant_bit = (bw1 if it1 > 0 else bw2) % max(
+                    quantutil.BITWIDTHS)
+            logger.info("Adaptive quantization (%s): bitwidth=%d", policy,
+                        stage.quant_bit)
+
+    return callback
+
+
+def init_monitoring(window_size: int) -> None:
+    """Open the monitoring session with the keys the host loop feeds:
+    `output` (`handle_results`) and `send` (all edges' wire Mbits per
+    microbatch); `attach_callbacks` adds one key per edge."""
+    monitoring.init(MONITORING_KEY_OUTPUT, window_size,
+                    work_type='classifications', acc_type='correct')
+    monitoring.add_key(MONITORING_KEY_SEND, work_type='Mbits')
+
+
+def attach_callbacks(pipe: host_pipeline.HostPipeline,
+                     window_size: int) -> List[str]:
+    """Wire a pipeline to the open monitoring session, as `runtime.py`'s
+    host loop does: one `send<i>` key per inter-stage edge, fed with
+    that edge's wire bytes for each microbatch (the plain `send` key gets
+    their sum), the results handler, and the `ADAPTIVE_QUANT` policy over
+    the edges. Returns the per-edge keys."""
+    edge_keys = [f"{MONITORING_KEY_SEND}{i}"
+                 for i in range(len(pipe.stages) - 1)]
+    for key in edge_keys:
+        monitoring.add_key(key, work_type='Mbits')
+    adaptive = _make_adaptive_callback(pipe.stages[:-1], window_size,
+                                       edge_keys=edge_keys)
+
+    def on_edge_bytes(i, edge_bytes):
+        total_mbits = 0.0
+        for key, nbytes in zip(edge_keys, edge_bytes):
+            mbits = nbytes * 8 / 1e6
+            total_mbits += mbits
+            monitoring.iteration(key, work=mbits, safe=False)
+        monitoring.iteration(MONITORING_KEY_SEND, work=total_mbits, safe=False)
+
+    def on_result(i, out):
+        handle_results(out)
+        if adaptive is not None:
+            adaptive(i, out)
+
+    pipe.edge_bytes_callback = on_edge_bytes
+    pipe.ubatch_callback = on_result
+    return edge_keys
+
+
+def edge_bits(pipe: host_pipeline.HostPipeline) -> List[int]:
+    """Each inter-stage edge's bitwidth as it stands."""
+    return [stage.quant_bit for stage in pipe.stages[:-1]]
+
+
+def run_pipeline_host(args, stage_layers: Sequence[Tuple[int, int]],
+                      stage_quant: Sequence[int]) -> dict:
+    """Build the pipeline, stream the batch `--measure-rounds` times under
+    the open monitoring session and print the report lines; returns the
+    last round's stats."""
     dtype = torch.bfloat16 if args.dtype == "bfloat16" else torch.float32
     pipe = host_pipeline.build_pipeline(
         args.model_name, stage_layers, model_file=args.model_file,
         device=args.device, quant_bits=stage_quant, dtype=dtype)
-    cfg = registry.get_model_config(args.model_name)
-    dataset = data_utils.synthetic_image_dataset(
-        args.batch_size,
-        shape=(cfg.num_channels, cfg.image_size, cfg.image_size),
-        n_labels=max(cfg.num_labels, 2))
-    device = pipe.stages[0].device
-    inputs = [torch.from_numpy(x).to(device=device, dtype=dtype)
-              for x, _ in data_utils.batch_dataset(dataset, args.ubatch_size)]
+    inputs, labels = load_batches(args.model_name, args.batch_size,
+                                  args.ubatch_size, pipe.stages[0].device,
+                                  dtype)
+    attach_callbacks(pipe, get_window_size())
     rounds = max(1, args.measure_rounds)
     stats: dict = {}
     for rnd in range(rounds):
+        for lb in labels:
+            label_queue.put(lb)
         tik = time.monotonic()
         _, stats = pipe.run(inputs)
         tok = time.monotonic()
@@ -133,6 +360,7 @@ def run_pipeline_host(args) -> dict:
         print(f"steady_state_throughput_items_sec={steady:.3f}")
     print("kernel_launches=" + json.dumps(_build.launch_counts,
                                           sort_keys=True))
+    print("edge_bits=" + json.dumps(edge_bits(pipe)))
     return stats
 
 
@@ -149,7 +377,13 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s %(levelname)s %(name)s: "
                                "%(message)s")
-    run_pipeline_host(parse_args(argv))
+    args = parse_args(argv)
+    stage_layers, stage_quant = _schedule(args)
+    init_monitoring(get_window_size())
+    try:
+        run_pipeline_host(args, stage_layers, stage_quant)
+    finally:
+        monitoring.finish()
 
 
 if __name__ == "__main__":

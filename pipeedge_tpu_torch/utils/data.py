@@ -1,7 +1,8 @@
 """Synthetic datasets (port of `pipeedge_tpu/utils/data.py`, the parts the
 host runtime uses). With no network and no dataset in the repository, the
-default input is a seeded random image batch, repeated to the requested
-length as the reference's rollover-single-image mode does."""
+inputs are seeded random images (vision models) or token ids (text
+models), repeated to the requested length as the reference's
+rollover-single-image mode does."""
 from __future__ import annotations
 
 from typing import Tuple
@@ -34,6 +35,18 @@ def synthetic_image_dataset(size: int, shape=(3, 224, 224),
     images = rng.normal(size=(min(size, 64),) + shape).astype(np.float32)
     labels = rng.integers(0, n_labels, size=(min(size, 64),))
     return RolloverTensorDataset(size, images, labels)
+
+
+def synthetic_token_dataset(size: int, seq_len: int = 512,
+                            vocab_size: int = 30522,
+                            n_labels: int = 2) -> RolloverTensorDataset:
+    """Random token-id dataset (int32 ids), the same seeded arrays as the
+    JAX package's."""
+    rng = np.random.default_rng(0)
+    ids = rng.integers(0, vocab_size,
+                       size=(min(size, 64), seq_len)).astype(np.int32)
+    labels = rng.integers(0, n_labels, size=(min(size, 64),))
+    return RolloverTensorDataset(size, ids, labels)
 
 
 def batch_dataset(dataset, ubatch_size: int):

@@ -500,11 +500,12 @@ def test_tiny_vit_int8_through_env_and_pipeline(weights_file, monkeypatch):
     assert not torch.equal(a, c)
 
 
-def test_runtime_int8_env_on_cpu(monkeypatch, capsys):
+def test_runtime_int8_env_on_cpu(monkeypatch, capsys, tmp_path):
     """`PIPEEDGE_QUANTIZE_COMPUTE=1 python -m pipeedge_tpu_torch.runtime`
     runs the int8 path (no flag), and its launch line names the int8
     kernel: none launched on the CPU, where the plain version runs."""
     from pipeedge_tpu_torch import runtime
+    monkeypatch.chdir(tmp_path)   # the monitoring CSVs land in the cwd
     monkeypatch.setenv("PIPEEDGE_QUANTIZE_COMPUTE", "1")
     tlayers.set_quantize_compute(None)
     runtime.main(["0", "2", "-m", MODEL, "-pt", "1,5,6,8", "-q", "8,0",

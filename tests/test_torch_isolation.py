@@ -1,9 +1,12 @@
 """The port stands alone: no JAX, no `pipeedge_tpu`, no silent CPU runs.
 
 - No import anywhere under `pipeedge_tpu_torch/` or in `chip_smoke.py`
-  names `jax`, `jaxlib` or `pipeedge_tpu` as its top-level module.
-- Every module of the port imports in a process where `jax` and
-  `pipeedge_tpu` cannot be imported.
+  names `jax`, `jaxlib` or `pipeedge_tpu` as its top-level module, nor a
+  module at the repository's root that imports one of them, directly or
+  through another root module (`monitoring`, `runtime`, `profiler`, ...:
+  the list is derived by scanning the root `*.py` files).
+- Every module of the port imports in a process where `jax`,
+  `pipeedge_tpu` and those root modules cannot be imported.
 - Entry points default to `cuda` and raise on a host without a GPU.
 """
 import ast
@@ -20,7 +23,20 @@ from pipeedge_tpu_torch import generate, runtime
 from pipeedge_tpu_torch.parallel.pipeline import build_pipeline
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-FORBIDDEN = {"jax", "jaxlib", "pipeedge_tpu"}
+JAX_TOPS = {"jax", "jaxlib", "pipeedge_tpu"}
+
+
+def _root_modules_importing(forbidden, root=ROOT):
+    """Root `*.py` modules whose imports reach a top-level name in
+    `forbidden`, directly or through other root modules (a fixed point)."""
+    imports = {f.stem: set(_imported_tops(f)) for f in root.glob("*.py")}
+    found = set()
+    while True:
+        more = {name for name, tops in imports.items()
+                if name not in found and tops & (forbidden | found)}
+        if not more:
+            return found
+        found |= more
 
 
 def _port_files():
@@ -42,12 +58,39 @@ def _imported_tops(path):
             yield node.module.split(".")[0]
 
 
+FORBIDDEN = JAX_TOPS | _root_modules_importing(JAX_TOPS)
+
+
+def _bad_imports(files, root=ROOT, forbidden=None):
+    forbidden = FORBIDDEN if forbidden is None else forbidden
+    return {(str(f.relative_to(root)), top) for f in files
+            for top in _imported_tops(f) if top in forbidden}
+
+
 def test_no_jax_or_reference_imports():
     files = _port_files()
     assert len(files) > 10 and files[-1].exists()
-    bad = {(str(f.relative_to(ROOT)), top) for f in files
-           for top in _imported_tops(f) if top in FORBIDDEN}
-    assert not bad
+    assert {"monitoring", "runtime", "profiler"} <= FORBIDDEN
+    assert "chip_smoke" not in FORBIDDEN
+    assert not _bad_imports(files)
+
+
+def test_scan_flags_a_root_module_that_imports_jax(tmp_path):
+    """A port module that imports a root module which imports the JAX
+    package (even through another root module) is flagged."""
+    (tmp_path / "facade.py").write_text("from pipeedge_tpu.utils import x\n")
+    (tmp_path / "wrapper.py").write_text("import facade\n")
+    (tmp_path / "plain.py").write_text("import os\n")
+    found = _root_modules_importing(JAX_TOPS, root=tmp_path)
+    assert found == {"facade", "wrapper"}
+    pkg = tmp_path / "pkg"
+    pkg.mkdir()
+    (pkg / "ok.py").write_text("import plain\nfrom . import sibling\n")
+    (pkg / "bad.py").write_text("import torch\nimport wrapper\n")
+    (pkg / "worse.py").write_text("from facade import iteration\n")
+    bad = _bad_imports(sorted(pkg.glob("*.py")), root=tmp_path,
+                       forbidden=JAX_TOPS | found)
+    assert bad == {("pkg/bad.py", "wrapper"), ("pkg/worse.py", "facade")}
 
 
 def test_port_imports_with_jax_blocked():
@@ -55,7 +98,7 @@ def test_port_imports_with_jax_blocked():
         pipeedge_tpu_torch.__path__, "pipeedge_tpu_torch.")]
     assert "pipeedge_tpu_torch.parallel.pipeline" in names
     code = ("import importlib, sys\n"
-            "for blocked in ('jax', 'jaxlib', 'pipeedge_tpu'):\n"
+            f"for blocked in {sorted(FORBIDDEN)!r}:\n"
             "    sys.modules[blocked] = None\n"
             f"for name in {names!r}:\n"
             "    importlib.import_module(name)\n"
@@ -84,7 +127,17 @@ def test_generate_without_device_raises_without_gpu():
                        "--prompt-len", "4", "--new-tokens", "2"])
 
 
-def test_runtime_cpu_prints_report(capsys):
+def test_runtime_without_device_raises_without_gpu(monkeypatch, tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("this host has a GPU: the default device is valid")
+    monkeypatch.chdir(tmp_path)
+    with pytest.raises(RuntimeError, match="cuda"):
+        runtime.main(["0", "2", "-m", "pipeedge/test-tiny-bert",
+                      "-pt", "1,4,5,8", "-q", "8,0", "-b", "4", "-u", "2"])
+
+
+def test_runtime_cpu_prints_report(capsys, monkeypatch, tmp_path):
+    monkeypatch.chdir(tmp_path)   # the monitoring CSVs land in the cwd
     runtime.main(["0", "2", "-m", "pipeedge/test-tiny-vit", "-pt", "1,5,6,8",
                   "-q", "8,0", "-b", "4", "-u", "2", "--device", "cpu",
                   "--measure-rounds", "2"])
