@@ -2,6 +2,7 @@
 """Smoke test of the PyTorch/CUDA port (`pipeedge_tpu_torch`) on one GPU.
 
     python3 chip_smoke.py [--ab-parent DIR] [--ab-entry-parent ROOT]
+                          [--profiles-out DIR]
 
 Phases, each of which raises on failure (nothing is caught):
   1. card and toolchain: `nvidia-smi` name and power limit, torch and CUDA;
@@ -24,8 +25,8 @@ Phases, each of which raises on failure (nothing is caught):
        [8, 197, 12, 64] in bf16 and f32, and the strided shapes of phases
        8 and 9: DeiT-B [8, 198, 12, 64], DeiT-S [8, 198, 6, 64], BERT-B
        [8, 64, 12, 64] f32 and the tiny BERT's head dim 8 [8, 64, 4, 8]
-       in f32 and bf16, within the tolerances stated below, each timed
-       beside SDPA;
+       in f32 and bf16, and phase 10's ViT-L [8, 197, 16, 64] f32,
+       within the tolerances stated below, each timed beside SDPA;
      - the plain codec on the card at every bitwidth an adaptive policy
        can pick (32, 16, 10, 8, 6, 5, 4, 3, 2) at the edges of phases 8
        and 9, DeiT-B's [8, 198, 768] and BERT-Base's [8, 64, 768]: words,
@@ -124,7 +125,30 @@ Phases, each of which raises on failure (nothing is caught):
      pipeline at bit 0 equal to the single-shard forward and at 8 bits
      within the stated bound, one profiled pass at 8 bits; then the tiny
      BERT (head dim 8, stages 1-4 and 5-8, exact edges) on the card
-     against its run on the CPU within the f32 attention tolerance.
+     against its run on the CPU within the f32 attention tolerance;
+ 10. PipeEdge's own loop, BASELINE config 3: `pipeedge_tpu_torch.profiler`
+     profiles every sublayer of ViT-Base and ViT-Large at full width and
+     depth (f32, microbatch 8, seeded random npz weights) into a
+     temporary directory: the layer count (48, 96), contiguous layers,
+     each layer's output shapes equal to the next one's inputs, finite
+     positive times, memory at least the layer's parameters. The
+     converters make models.yml and device_types.yml (type `h100`: the
+     card's memory in MiB, 450 GB/s of NVLink 4 in Mbit/s), devices.yml
+     names four hosts, and the native `sched-pipeline` (built from
+     `native/` by the port) must give 4 stages covering 1..96, one per
+     host. `python -m pipeedge_tpu_torch.runtime 0 4 -m
+     google/vit-large-patch16-224 -M ... -sm -sdt -sd -H ... -b 64 -u 8
+     --measure-rounds 2 --save-results ...` must exit 0, log the
+     scheduler's partition and hosts, launch kernel 3 24 times per
+     microbatch and save logits equal, bit for bit, to the single-shard
+     forward of the same weights on the same inputs. The scheduler's
+     predicted items/s (microbatch over the slowest stage's profile
+     time), the one-card prediction (over the sum of the stages' times)
+     and the measured steady items/s are printed side by side. Then
+     BASELINE configs 1 (`0 1`) and 2 (`-pt 1,24,25,48`) of ViT-Base
+     through the entry, rc 0 each. With `--profiles-out DIR` the
+     profiles and scheduler files are also written to DIR, each opening
+     with a comment line naming the card and its power limit.
 Phase 3 also holds kernel 5 (decode attention) against its plain version
 at the main path's shapes (windows of a [16, 1024, 12, 64] stage cache at
 buckets 256 and 512, and pos 1000 of the whole cache), pos 0 and W-1,
@@ -281,6 +305,25 @@ BERT_MODEL = "textattack/bert-base-uncased-CoLA"
 BERT_PARTITION = [(1, 24), (25, 48)]
 TINY_BERT_MODEL = "pipeedge/test-tiny-bert"
 TINY_BERT_PARTITION = [(1, 4), (5, 8)]
+
+# Phase 10, BASELINE config 3: PipeEdge's own loop. The port's profiler
+# measures every sublayer of ViT-Base and ViT-Large at full width and
+# depth (f32, microbatch 8, seeded random weights), the converters make
+# models.yml and device_types.yml of one device type with four hosts, the
+# native sched-pipeline partitions ViT-Large over them, and the runtime
+# entry runs that schedule (all four stages on this one card) for
+# SCHED_ROUNDS rounds of the batch. Then BASELINE configs 1 (one stage)
+# and 2 (`-pt 1,24,25,48`) of ViT-Base through the entry.
+SCHED_MODEL = "google/vit-large-patch16-224"
+PROFILE_MODELS = {"vitb": MODEL, "vitl": SCHED_MODEL}
+SCHED_DEV_TYPE = "h100"
+SCHED_HOSTS = [f"h100-{i}" for i in range(4)]
+SCHED_ROUNDS = 2
+# the device type's link rate, a planning number for placing stages on
+# several cards: 450 GB/s per direction of NVLink 4, in the converters'
+# Mbit/s (Mb = 2^20 bits)
+NVLINK_MBPS = int(450e9 * 8 / 2**20)
+BASELINE_PARTITION = "1,24,25,48"
 
 
 def log(msg: str) -> None:
@@ -499,7 +542,9 @@ def check_attention(dev, gen):
              ("bshd", (8, 198, 6, 64), torch.float32, False),
              ("bshd", (8, 64, 12, 64), torch.float32, False),
              ("bshd", (8, 64, 4, 8), torch.float32, False),
-             ("bshd", (8, 64, 4, 8), torch.bfloat16, False)]
+             ("bshd", (8, 64, 4, 8), torch.bfloat16, False),
+             # phase 10: ViT-Large (16 heads)
+             ("bshd", (8, 197, 16, 64), torch.float32, False)]
     for layout, shape, dtype, causal in cases:
         q, k, v = (torch.randn(shape, generator=gen, device=dev).to(dtype)
                    for _ in range(3))
@@ -1778,11 +1823,18 @@ def run_entry(argv, env_extra: dict, cwd: Path) -> dict:
                  if ln.startswith(prefix + "=")]
         return found[0] if len(found) == 1 else None
 
+    steady = [float(ln.split("=", 1)[1]) for ln in lines
+              if ln.startswith("steady_state_throughput_items_sec=")]
     return dict(command=" ".join(
         [f"{k}={v}" for k, v in env_extra.items()] + cmd[1:]),
         seconds=time.monotonic() - t0, kernel_launches=value("kernel_launches"),
         edge_bits=value("edge_bits"),
-        report=[ln for ln in lines if ln.startswith("latency_sec=")])
+        report=[ln for ln in lines if ln.startswith("latency_sec=")],
+        steady_items_per_s=steady[-1] if steady else None,
+        # the schedule the runtime logged (on stderr), message text only
+        sched_log=[ln.split("Scheduling: ", 1)[1]
+                   for ln in proc.stderr.splitlines()
+                   if "Scheduling: stage-to-" in ln])
 
 
 def ab_entry(parent_root: Path) -> list:
@@ -1961,6 +2013,271 @@ def check_bert_path(res, device_name: str) -> None:
         {**res["tiny"], "card": device_name}))
 
 
+# --- phase 10: the profiler -> scheduler -> runtime loop -------------------
+
+def layer_param_mib(model: str, weights_file: Path) -> list:
+    """Each sublayer's parameter MiB, from shards loaded on the CPU (one
+    per sublayer kind, first and last layer: the blocks are alike)."""
+    from pipeedge_tpu_torch import profiler
+    from pipeedge_tpu_torch.models import registry
+    total = registry.get_model_layers(model)
+    cache = {}
+    out = []
+    for layer in range(1, total + 1):
+        key = ((layer - 1) % 4, layer == 1, layer == total)
+        if key not in cache:
+            _, params, _ = registry.module_shard_factory(
+                model, str(weights_file), layer, layer, device="cpu")
+            cache[key] = profiler.params_bytes(params) / 1024 / 1024
+        out.append(cache[key])
+    return out
+
+
+def check_profile(results: dict, model: str, param_mib: list) -> dict:
+    """Hold one profiler run to its model: the layer count, contiguous
+    layers, each layer's output shapes equal to the next one's inputs,
+    finite positive times, memory at least the parameters'. Returns the
+    per-sublayer-kind times (s): mean over the inner blocks, first and
+    last layer, and the sum."""
+    from pipeedge_tpu_torch.models import registry
+    data = results["profile_data"]
+    total = registry.get_model_layers(model)
+    problems = []
+    if results["layers"] != total or \
+            [d["layer"] for d in data] != list(range(1, total + 1)):
+        problems.append(f"layers {[d['layer'] for d in data]} of {total}")
+    problems += [f"layer {a['layer']} shape_out {a['shape_out']} != layer "
+                 f"{b['layer']} shape_in {b['shape_in']}"
+                 for a, b in zip(data, data[1:])
+                 if a["shape_out"] != b["shape_in"]]
+    problems += [f"layer {d['layer']} time {d['time']}" for d in data
+                 if not (np.isfinite(d["time"]) and d["time"] > 0)]
+    problems += [f"layer {d['layer']} memory {d['memory']} MiB < "
+                 f"parameters {mib} MiB" for d, mib in zip(data, param_mib)
+                 if not d["memory"] >= mib]
+    if problems:
+        raise AssertionError(f"profile of {model}: " + "; ".join(problems))
+    inner = data[1:-1]     # without the embedding and the head
+    return dict(
+        kinds={kind: statistics.mean(d["time"] for d in inner
+                                     if (d["layer"] - 1) % 4 == i)
+               for i, kind in enumerate(("attention", "attention_out",
+                                         "mlp_up", "mlp_down"))},
+        first=data[0]["time"], last=data[-1]["time"],
+        total=sum(d["time"] for d in data),
+        memory_mib=sum(d["memory"] for d in data))
+
+
+def sublayer_times(model: str, weights_file: Path, device: str,
+                   iterations: int = 16) -> dict:
+    """Where a profiled sublayer's time goes: for the four sublayers of
+    the second block (layers 5-8), the profiler's time per forward (CUDA
+    events around `iterations` back-to-back forwards, host gaps
+    included), the kernels' own time per forward (torch.profiler over
+    the same loop) and the host's time to enqueue one forward (the loop
+    on the host clock, before the device is waited for)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from pipeedge_tpu_torch import profiler
+    from pipeedge_tpu_torch.models import registry
+    payload = profiler.default_inputs(model, UBATCH, device=device)
+    out = {}
+    for layer in range(1, 9):
+        fn, params, _ = registry.module_shard_factory(
+            model, str(weights_file), layer, layer, device=device)
+        if layer >= 5:
+            events_s = profiler.time_shard_fn(fn, params, payload, iterations)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(iterations):
+                fn(params, payload)
+            host_s = (time.perf_counter() - t0) / iterations
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(iterations):
+                    fn(params, payload)
+                torch.cuda.synchronize()
+            kernel_us = sum(e.self_device_time_total
+                            for e in prof.key_averages()
+                            if e.device_type == DeviceType.CUDA)
+            out[layer] = dict(events_ms=events_s * 1e3,
+                              kernels_ms=kernel_us / 1e3 / iterations,
+                              host_enqueue_ms=host_s * 1e3)
+        payload = fn(params, payload)
+        del fn, params
+    return out
+
+
+def sched_path(card: str, profiles_out=None) -> dict:
+    """Phase 10 (module docstring): profile, convert, schedule and run
+    ViT-Large through the runtime entry on cuda:0; then BASELINE configs
+    1 and 2. `check_sched_path` gates the result. With `profiles_out`,
+    the profiles and the scheduler's files are also written there, each
+    opening with a comment line that names the card (`card`)."""
+    import ast
+    import tempfile
+    from pipeedge_tpu_torch import profiler, runtime
+    from pipeedge_tpu_torch import profiler_results_to_device_types as to_types
+    from pipeedge_tpu_torch import profiler_results_to_models as to_models
+    from pipeedge_tpu_torch.models import registry, vit
+    from pipeedge_tpu_torch.ops import _build
+    from pipeedge_tpu_torch.parallel.pipeline import build_pipeline
+    from pipeedge_tpu_torch.sched import miniyaml, scheduler, yaml_files
+
+    device = "cuda"
+    weights_dir = ROOT / "pipeedge_tpu_torch" / "_build"
+    mem_mib = torch.cuda.get_device_properties(0).total_memory // 2**20
+    n_mb = BATCH // UBATCH
+    weights = {model: write_random_checkpoint(vit, model, weights_dir)
+               for model in dict.fromkeys([*PROFILE_MODELS.values(), MODEL])}
+    res = {"profiles": {}, "mem_mib": mem_mib, "bw_mbps": NVLINK_MBPS}
+    with tempfile.TemporaryDirectory(prefix="sched_") as tmp_name:
+        tmp = Path(tmp_name)
+        files = {"models": tmp / "models.yml",
+                 "device_types": tmp / "device_types.yml",
+                 "devices": tmp / "devices.yml"}
+        for key, model in PROFILE_MODELS.items():
+            out = tmp / f"profiler_results_{key}.yml"
+            files[key] = out
+            _build.reset_launch_counts()
+            t0 = time.monotonic()
+            results = profiler.main(
+                ["-m", model, "-M", str(weights[model]), "-b", str(UBATCH),
+                 "-t", "float32", "-o", str(out), "--device", device])
+            seconds = time.monotonic() - t0
+            launches = _build.launch_counts["fused_attention"]
+            res["profiles"][key] = dict(
+                model=model, seconds=seconds, attention_launches=launches,
+                **check_profile(results, model,
+                                layer_param_mib(model, weights[model])))
+            to_models.main(["-i", str(out), "-o", str(files["models"])])
+            to_types.main([SCHED_DEV_TYPE, "-i", str(out),
+                           "-o", str(files["device_types"]),
+                           "-dtm", str(mem_mib), "-dtb", str(NVLINK_MBPS)])
+        yaml_files.yaml_save({SCHED_DEV_TYPE: SCHED_HOSTS},
+                             str(files["devices"]))
+
+        sched = scheduler.sched_pipeline(
+            SCHED_MODEL, 2, 2, UBATCH, dtype="float32",
+            models_file=str(files["models"]),
+            dev_types_file=str(files["device_types"]),
+            dev_file=str(files["devices"]))
+        stages = [(host, tuple(lr)) for st in sched for host, lr in st.items()]
+        res["schedule"] = stages
+        time_s = miniyaml.load(files["device_types"])[SCHED_DEV_TYPE][
+            "model_profiles"][SCHED_MODEL][0]["time_s"]
+        stage_s = [sum(time_s[l - 1:r]) for _, (l, r) in stages]
+        res["stage_s"] = stage_s
+        # the scheduler's model: stages on separate cards, the slowest sets
+        # the rate; on one card the stages share it, so their sum does
+        res["predicted_items_per_s"] = UBATCH / max(stage_s)
+        res["one_card_items_per_s"] = UBATCH / sum(stage_s)
+
+        saved = tmp / "results.npz"
+        entry = run_entry(
+            ["0", str(len(SCHED_HOSTS)), "-m", SCHED_MODEL,
+             "-M", str(weights[SCHED_MODEL]), "-sm", str(files["models"]),
+             "-sdt", str(files["device_types"]),
+             "-sd", str(files["devices"]), "-H", ",".join(SCHED_HOSTS),
+             "-b", str(BATCH), "-u", str(UBATCH),
+             "--measure-rounds", str(SCHED_ROUNDS),
+             "--save-results", str(saved), "--device", device], {},
+            weights_dir / "monitor")
+        blocks = registry.get_model_config(SCHED_MODEL).num_hidden_layers
+        entry["expected"] = {
+            "fused_attention": blocks * n_mb * SCHED_ROUNDS,
+            "fused_encode": 0, "fused_decode": 0}
+        logged = {line.split(":", 1)[0]: ast.literal_eval(
+            line.split(": ", 1)[1]) for line in entry["sched_log"]}
+        entry["logged_layers"] = [tuple(lr) for lr in logged.get(
+            "stage-to-layer mapping", [])]
+        entry["logged_hosts"] = logged.get("stage-to-host mapping")
+        res["entry"] = entry
+
+        inputs, _ = runtime.load_batches(SCHED_MODEL, BATCH, UBATCH,
+                                         torch.device(device), torch.float32)
+        exact = single_shard_logits(SCHED_MODEL, weights[SCHED_MODEL], inputs,
+                                    device)
+        with np.load(saved) as z:
+            got = [z[f"arr_{i}"] for i in range(len(z.files))]
+        want = [e.cpu().numpy() for e in exact]
+        res["saved"] = dict(
+            microbatches=len(got), shape=list(got[0].shape) if got else None,
+            finite=all(bool(np.isfinite(g).all()) for g in got),
+            equal=len(got) == SCHED_ROUNDS * n_mb and all(
+                np.array_equal(g, want[i % n_mb]) for i, g in enumerate(got)),
+            max_abs_err=max((float(np.abs(g - want[i % n_mb]).max())
+                             for i, g in enumerate(got)
+                             if g.shape == want[i % n_mb].shape),
+                            default=None))
+        del exact
+        # the profile's sublayer times against the kernels' own, and one
+        # profiled pass of the scheduled stages in this process
+        res["sublayers"] = sublayer_times(SCHED_MODEL, weights[SCHED_MODEL],
+                                          device)
+        pipe = build_pipeline(SCHED_MODEL, [lr for _, lr in stages],
+                              model_file=str(weights[SCHED_MODEL]),
+                              device=device)
+        profile_pass(lambda: pipe.run(inputs),
+                     f"{SCHED_MODEL}, {len(stages)} scheduled stages")
+        del pipe
+
+        if profiles_out is not None:
+            profiles_out.mkdir(parents=True, exist_ok=True)
+            header = (f"# {card} (nvidia-smi name, power.limit); "
+                      f"chip_smoke.py phase 10\n")
+            for path in files.values():
+                (profiles_out / path.name).write_text(header +
+                                                      path.read_text())
+            log(f"profiles written to {profiles_out}")
+
+    res["baseline"] = {}
+    for name, argv in (("config 1", ["0", "1"]),
+                       ("config 2", ["0", "2", "-pt", BASELINE_PARTITION])):
+        e = run_entry(argv + ["-m", MODEL, "-M", str(weights[MODEL]),
+                              "-b", str(BATCH), "-u", str(UBATCH),
+                              "--device", device], {},
+                      weights_dir / "monitor")
+        blocks = registry.get_model_config(MODEL).num_hidden_layers
+        e["expected"] = {"fused_attention": blocks * n_mb,
+                         "fused_encode": 0, "fused_decode": 0}
+        res["baseline"][name] = e
+    return res
+
+
+def check_sched_path(res, device_name: str) -> None:
+    for key, prof in res["profiles"].items():
+        log(f"profile {key}: " + json.dumps({**prof, "card": device_name}))
+    entry = res["entry"]
+    check_entry("vit-large scheduled", entry)
+    if entry["logged_layers"] != [lr for _, lr in res["schedule"]] or \
+            entry["logged_hosts"] != [h for h, _ in res["schedule"]]:
+        raise AssertionError(f"the runtime ran {entry['logged_layers']} on "
+                             f"{entry['logged_hosts']}, the scheduler chose "
+                             f"{res['schedule']}")
+    saved = res["saved"]
+    log("vit-large scheduled results: " + json.dumps(saved))
+    if not (saved["equal"] and saved["finite"]):
+        raise AssertionError("vit-large scheduled: the saved logits differ "
+                             "from the single-shard forward: "
+                             + json.dumps(saved))
+    log("vit-large schedule: " + json.dumps({
+        "schedule": res["schedule"], "stage_ms": [t * 1e3 for t in
+                                                  res["stage_s"]],
+        "mem_mib": res["mem_mib"], "bw_mbps": res["bw_mbps"],
+        "card": device_name}))
+    # the three rates side by side (PERF.md says which the run follows)
+    log("vit-large sublayers 5-8, ms per forward: " + json.dumps(
+        {**res["sublayers"], "card": device_name}))
+    log("vit-large items/s: " + json.dumps({
+        "scheduler_predicted": res["predicted_items_per_s"],
+        "one_card_predicted": res["one_card_items_per_s"],
+        "measured_steady": entry["steady_items_per_s"],
+        "card": device_name}))
+    for name, e in res["baseline"].items():
+        check_entry(f"baseline {name}", e)
+
+
 def main() -> int:
     import argparse
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -1970,7 +2287,10 @@ def main() -> int:
     parser.add_argument("--ab-entry-parent", type=Path, default=None,
                         help="the root of another checkout whose ViT "
                              "runtime entry to time against this one's "
-                             "(after phase 9)")
+                             "(after phase 10)")
+    parser.add_argument("--profiles-out", type=Path, default=None,
+                        help="also write phase 10's profiles and scheduler "
+                             "files into this directory")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -2052,6 +2372,13 @@ def main() -> int:
 
     phase_done("phase 9")
 
+    # phase 10: the profiler -> scheduler -> runtime loop on ViT-Large
+    _build.reset_launch_counts()
+    sched_res = sched_path(card, profiles_out=args.profiles_out)
+    check_sched_path(sched_res, device_name)
+
+    phase_done("phase 10")
+
     if args.ab_entry_parent is not None:
         ab_entry(args.ab_entry_parent)
         phase_done("ab entry")
@@ -2103,6 +2430,12 @@ def main() -> int:
         # launches per pass of 8 microbatches on phases 8 and 9
         deit_launches=deit_res["fixed"][8]["counts"]["fused_attention"],
         bert_launches=bert_res["fixed"][8]["counts"]["fused_attention"],
+        # phase 10: the scheduled ViT-Large entry (all rounds), and the
+        # profiler's runs of ViT-Base and ViT-Large
+        vitl_scheduled_launches=sched_res["entry"]["kernel_launches"][
+            "fused_attention"],
+        profiler_launches={key: p["attention_launches"]
+                           for key, p in sched_res["profiles"].items()},
         cases={f"{r['layout']} {r['shape']} {r['dtype']}"
                f"{' causal' if r['causal'] else ''}": {
                    key: r[key] for key in ("ms", "plain_ms", "library_ms",

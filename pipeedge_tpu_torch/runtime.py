@@ -13,7 +13,23 @@ of the run (`edge_bits=[...]`). `--device cpu` runs the plain versions
 of the kernels on the CPU. Without `--model-file` (or with a missing
 file) each stage draws seeded random weights.
 
-Inputs are synthetic: seeded random images for the vision models, seeded
+Without `-pt`, more than one stage is scheduled as `runtime.py`
+schedules it: the native `sched-pipeline` (built from `native/` into
+`_build/` at first use) partitions the model from the profiler's files,
+
+    python -m pipeedge_tpu_torch.runtime 0 4 -m google/vit-large-patch16-224 \
+        -sm models.yml -sdt device_types.yml -sd devices.yml \
+        -H h100-0,h100-1,h100-2,h100-3
+
+(`pipeedge_tpu_torch/profiles/h100/` holds the card's own files), and the
+run logs the stage-to-layer and stage-to-host mapping it chose. The host
+pipeline has one device: every stage runs on it, whatever host the
+schedule names, and `-r` takes only the identity order. `--save-results NPZ` writes every delivered microbatch,
+in delivery order, and `--rebalance auto` re-splits the batch between
+measure rounds to the microbatch size the measured cadence favours.
+
+Inputs are synthetic (`--dataset-name synthetic`, the only dataset
+without a download): seeded random images for the vision models, seeded
 token ids (int32, 64 per item) for the text models; integer inputs keep
 their dtype on the way to the first stage, floats take `-t`.
 
@@ -49,6 +65,7 @@ from .models import get_microbatch_size, registry
 from .monitoring import facade as monitoring
 from .ops import _build
 from .parallel import pipeline as host_pipeline
+from .sched.scheduler import sched_pipeline
 from .utils import data as data_utils
 from .utils import quant as quantutil
 
@@ -109,10 +126,31 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     parser.add_argument("-u", "--ubatch-size", default=8, type=int)
     parser.add_argument("-t", "--dtype", default="float32",
                         choices=["float32", "bfloat16"])
+    # scheduling (runtime.py: -pt, -q, -r, -sm, -sdt, -sd, -H)
     parser.add_argument("-pt", "--partition", type=str,
                         help="comma-delimited layer pairs, e.g. '1,24,25,48'")
     parser.add_argument("-q", "--quant", type=str,
                         help="comma-delimited per-stage output quant bitwidths")
+    parser.add_argument("-r", "--rank-order", type=str, default=None,
+                        help="comma-delimited stage-to-rank mapping; the "
+                             "host pipeline has one device, so only the "
+                             "identity order 0,1,...,N-1 is accepted")
+    parser.add_argument("-sm", "--sched-models-file", default=None, type=str)
+    parser.add_argument("-sdt", "--sched-dev-types-file", default=None,
+                        type=str)
+    parser.add_argument("-sd", "--sched-dev-file", default=None, type=str)
+    parser.add_argument("-H", "--hosts", type=str,
+                        help="comma-delimited hosts for schedule mapping")
+    parser.add_argument("--rebalance", default="off", choices=["off", "auto"],
+                        help="auto: between measure rounds, adapt the "
+                             "microbatch size to the measured steady-state "
+                             "stage time vs fill/drain overhead")
+    parser.add_argument("--save-results", type=str, default=None,
+                        metavar="NPZ",
+                        help="save every delivered result microbatch (in "
+                             "delivery order, all rounds) to this .npz")
+    parser.add_argument("--dataset-name", type=str, default="synthetic",
+                        choices=["synthetic", "ImageNet", "CoLA"])
     parser.add_argument("--measure-rounds", type=int, default=1,
                         help="run the batch this many times; round 0 pays "
                              "the kernel build and warm-up")
@@ -122,23 +160,124 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     args = parser.parse_args(argv)
     if args.rank != 0:
         parser.error("the host driver is a single controller: rank must be 0")
+    if args.rank_order:
+        order = [int(r) for r in args.rank_order.split(",")]
+        if order != list(range(len(order))):
+            parser.error(f"-r {args.rank_order}: the host pipeline runs "
+                         "every stage on its one device, so a rank order "
+                         "other than 0,1,...,N-1 would place nothing")
+    if args.dataset_name != "synthetic":
+        parser.error(f"--dataset-name {args.dataset_name} needs a download "
+                     "(the dataset, and its tokenizer or image processor); "
+                     "the port runs the synthetic inputs only")
+    if args.rebalance == "auto" and args.measure_rounds <= 1:
+        parser.error("--rebalance auto on the host driver adapts the "
+                     "microbatch size BETWEEN measure rounds: pass "
+                     "--measure-rounds N > 1")
     return args
 
 
-def _schedule(args) -> Tuple[List[Tuple[int, int]], List[int]]:
-    total = registry.get_model_layers(args.model_name)
-    if args.partition:
-        stage_layers = _pairs(args.partition)
-        validate_partition(stage_layers, total)
-    elif args.quant:
+def parse_yaml_sched(sched: List[dict], hosts: Optional[List[str]]) -> \
+        Tuple[List[Tuple[int, int]], List[int]]:
+    """Parse the scheduler's YAML into stage_layers + stage_ranks (as
+    `runtime.py` does; PipeEdge runtime.py:260-288). A rank is the host's
+    index in `hosts`, or the host name read as an index without them."""
+    assert isinstance(sched, list)
+    if len(sched) == 0:
+        raise RuntimeError("No viable schedule found")
+    stage_layers = []
+    stage_ranks = []
+    # numeric host names come back from YAML as ints
+    hosts_s = [str(h) for h in hosts] if hosts else None
+    for stage in sched:
+        assert len(stage) == 1
+        for host, layers in stage.items():
+            assert len(layers) == 2
+            stage_layers.append((int(layers[0]), int(layers[1])))
+            if hosts_s:
+                try:
+                    stage_ranks.append(hosts_s.index(str(host)))
+                except ValueError:
+                    logger.error("Scheduling: host not in hosts list: %s", host)
+                    raise
+            else:
+                try:
+                    stage_ranks.append(int(host))
+                except ValueError:
+                    logger.error("Scheduling: 'hosts' not specified, failed "
+                                 "to parse as device index: %s", host)
+                    raise
+    return stage_layers, stage_ranks
+
+
+def get_pipeline_sched(world_size: int, hosts: Optional[List[str]],
+                       partition: Optional[List[Tuple[int, int]]],
+                       quant: Optional[List[int]],
+                       rank_order: Optional[List[int]], model_name: str,
+                       microbatch_size: int, s_models_file: Optional[str],
+                       s_dev_types_file: Optional[str],
+                       s_dev_file: Optional[str],
+                       dtype: str = 'float32') -> \
+        Tuple[List[Tuple[int, int]], List[int], List[int]]:
+    """Schedule resolution, in `runtime.py`'s order: manual partition >
+    single-stage degenerate > native scheduler. Returns (stage layers,
+    stage output bits, stage ranks)."""
+    total = registry.get_model_layers(model_name)
+    if partition:
+        logger.info("Scheduling: using user-defined partitioning")
+        try:
+            validate_partition(partition, total)
+        except ValueError as exc:
+            raise ValueError(
+                f"-pt: {exc} ({model_name} has {total} sublayers)") from exc
+        stage_layers = list(partition)
+        stage_quant = quant if quant else [0] * len(stage_layers)
+        stage_ranks = (rank_order if rank_order
+                       else list(range(len(stage_layers))))
+    elif quant:
         raise RuntimeError("Must specify partition with quantization")
-    elif args.worldsize > 1:
-        raise RuntimeError("the port has no scheduler yet: give the stage "
-                           "layers with -pt")
-    else:
+    elif rank_order:
+        raise RuntimeError("Must specify partition with rank stage ordering")
+    elif world_size <= 1:
+        logger.info("Scheduling: single-node execution (degenerate case)")
         stage_layers = [(1, total)]
-    quant = [int(q) for q in args.quant.split(",")] if args.quant else []
-    stage_quant = quant or [0] * len(stage_layers)
+        stage_quant = [0]
+        stage_ranks = [0]
+    else:
+        logger.info("Scheduling: using scheduler algorithm")
+        if hosts and len(hosts) != world_size:
+            raise RuntimeError("Specified hosts count != world size")
+        # dtype must match the profile's dtype key (the scheduler selects
+        # the model profile by exact (dtype, batch_size) match)
+        sched = sched_pipeline(model_name, 2, 2, microbatch_size,
+                               dtype=dtype, models_file=s_models_file,
+                               dev_types_file=s_dev_types_file,
+                               dev_file=s_dev_file)
+        stage_layers, stage_ranks = parse_yaml_sched(sched, hosts)
+        stage_quant = [0] * len(stage_layers)
+        if hosts:
+            # the scheduler's choice; the caller places the stages
+            logger.info("Scheduling: stage-to-host mapping: %s",
+                        [hosts[r] for r in stage_ranks])
+    logger.info("Scheduling: stage-to-layer mapping: %s", stage_layers)
+    logger.info("Scheduling: stage output quantization: %s", stage_quant)
+    logger.info("Scheduling: stage-to-rank mapping: %s", stage_ranks)
+    return stage_layers, stage_quant, stage_ranks
+
+
+def _schedule(args) -> Tuple[List[Tuple[int, int]], List[int]]:
+    """The run's stage layers and stage output bits, from the CLI."""
+    stage_layers, stage_quant, _ = get_pipeline_sched(
+        args.worldsize, args.hosts.split(",") if args.hosts else None,
+        _pairs(args.partition) if args.partition else None,
+        [int(q) for q in args.quant.split(",")] if args.quant else None,
+        [int(r) for r in args.rank_order.split(",")]
+        if args.rank_order else None,
+        args.model_name, args.ubatch_size, args.sched_models_file,
+        args.sched_dev_types_file, args.sched_dev_file, dtype=args.dtype)
+    # one device: the ranks (and hosts) name the schedule, not a placement
+    logger.info("Scheduling: all %d stage(s) run on the one %s device",
+                len(stage_layers), args.device)
     return stage_layers, stage_quant
 
 
@@ -333,7 +472,9 @@ def run_pipeline_host(args, stage_layers: Sequence[Tuple[int, int]],
                       stage_quant: Sequence[int]) -> dict:
     """Build the pipeline, stream the batch `--measure-rounds` times under
     the open monitoring session and print the report lines; returns the
-    last round's stats."""
+    last round's stats. With `--rebalance auto` the batch is re-split
+    between rounds (`adapt_microbatches`); with `--save-results` every
+    delivered microbatch of every round is saved, in delivery order."""
     dtype = torch.bfloat16 if args.dtype == "bfloat16" else torch.float32
     pipe = host_pipeline.build_pipeline(
         args.model_name, stage_layers, model_file=args.model_file,
@@ -344,16 +485,28 @@ def run_pipeline_host(args, stage_layers: Sequence[Tuple[int, int]],
     attach_callbacks(pipe, get_window_size())
     rounds = max(1, args.measure_rounds)
     stats: dict = {}
+    delivered: list = []
     for rnd in range(rounds):
         for lb in labels:
             label_queue.put(lb)
         tik = time.monotonic()
-        _, stats = pipe.run(inputs)
+        results, stats = pipe.run(inputs)
         tok = time.monotonic()
+        if args.save_results:
+            delivered.extend(r.detach().float().cpu().numpy() for r in results)
         if rounds > 1:
             batch_total = sum(len(u) for u in inputs)
             print(f"round={rnd} latency_sec={tok - tik:.6f} "
                   f"throughput_items_sec={batch_total / (tok - tik):.3f}")
+        if args.rebalance == "auto" and rnd + 1 < rounds:
+            # the planner may merge up to 4x the CLI microbatch (memory
+            # grows with it) but never the whole batch into one
+            inputs, labels = adapt_microbatches(
+                pipe, stats, inputs, labels, max_ubatch=4 * args.ubatch_size)
+    if args.save_results:
+        np.savez(args.save_results, *delivered)
+        logger.info("saved %d result microbatch(es) to %s", len(delivered),
+                    args.save_results)
     _report(tik, tok, inputs)
     steady = stats.get("steady_state_throughput_items_sec")
     if steady:
@@ -362,6 +515,46 @@ def run_pipeline_host(args, stage_layers: Sequence[Tuple[int, int]],
                                           sort_keys=True))
     print("edge_bits=" + json.dumps(edge_bits(pipe)))
     return stats
+
+
+def adapt_microbatches(pipe: host_pipeline.HostPipeline, stats: dict,
+                       inputs: list, labels: list,
+                       max_ubatch: Optional[int] = None):
+    """One adaptive-microbatching step between measure rounds (as
+    `runtime.py _adapt_microbatches`): split this round's measured steady
+    interval per microbatch into per-item time and per-microbatch host
+    overhead, ask `plan_microbatches` for the latency-minimizing split,
+    and re-slice the batch, inputs and labels at the same boundaries so
+    results and labels stay paired. Returns (inputs, labels)."""
+    interval = stats.get("steady_mb_interval_s")
+    if not interval or not inputs:
+        return inputs, labels
+    u_cur = max(len(u) for u in inputs)
+    t_fixed = stats.get("host_dispatch_s_per_ubatch") or 0.0
+    t_item = max(0.0, interval - t_fixed) / u_cur
+    batch_total = sum(len(u) for u in inputs)
+    u_new, m_new, t_pred = host_pipeline.plan_microbatches(
+        batch_total, len(pipe.stages), t_item, t_fixed,
+        max_ubatch=max(max_ubatch or 0, u_cur) or None)
+    if u_new == u_cur:
+        return inputs, labels
+    logger.info("adaptive ubatch: %d -> %d items/microbatch (%d -> %d "
+                "microbatches; modeled round latency %.4fs)", u_cur, u_new,
+                len(inputs), m_new, t_pred)
+    print(f"adaptive_ubatch={u_new} microbatches={m_new} "
+          f"predicted_latency_sec={t_pred:.6f}")
+    flat = torch.cat(list(inputs), dim=0)
+    new_inputs = [flat[i:i + u_new] for i in range(0, batch_total, u_new)]
+    new_labels = labels
+    if labels and all(lb is not None for lb in labels):
+        lflat = np.concatenate([np.asarray(lb) for lb in labels], axis=0)
+        new_labels = [lflat[i:i + u_new]
+                      for i in range(0, batch_total, u_new)]
+    # enough microbatches in flight to cover the pipeline's depth, never
+    # more than double buffering gives
+    pipe.max_inflight = max(len(pipe.stages) + 1,
+                            min(2 * len(pipe.stages), m_new))
+    return new_inputs, new_labels
 
 
 def _report(tik, tok, ubatches):

@@ -6,7 +6,9 @@
   through another root module (`monitoring`, `runtime`, `profiler`, ...:
   the list is derived by scanning the root `*.py` files).
 - Every module of the port imports in a process where `jax`,
-  `pipeedge_tpu` and those root modules cannot be imported.
+  `pipeedge_tpu` and those root modules cannot be imported; nothing of
+  the port imports `yaml` (the card's host has no PyYAML), and its
+  scheduling modules, profiler and runtime import without it.
 - Entry points default to `cuda` and raise on a host without a GPU.
 """
 import ast
@@ -103,6 +105,30 @@ def test_port_imports_with_jax_blocked():
             f"for name in {names!r}:\n"
             "    importlib.import_module(name)\n"
             "assert 'jax' not in [m for m in sys.modules if sys.modules[m]]\n"
+            "print('ok')\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
+def test_port_reads_and_writes_yaml_without_pyyaml():
+    """The card's host has no PyYAML: no module of the port, nor
+    `chip_smoke.py`, imports `yaml`, and the scheduling modules, the
+    profiler, its converters and the runtime import, and the port's YAML
+    subset round-trips, in a process where `yaml` cannot be imported."""
+    assert not _bad_imports(_port_files(), forbidden={"yaml"})
+    code = ("import sys\n"
+            "for blocked in ['yaml'] + "
+            f"{sorted(FORBIDDEN)!r}:\n"
+            "    sys.modules[blocked] = None\n"
+            "from pipeedge_tpu_torch import (profiler, runtime,\n"
+            "    profiler_results_to_models,\n"
+            "    profiler_results_to_device_types)\n"
+            "from pipeedge_tpu_torch.sched import (miniyaml, profiles,\n"
+            "    rebalance, scheduler, yaml_files, yaml_types)\n"
+            "v = {'time_s': [1e-05, 3.2e-05, 0.0001], 0: ['h100-0', 7]}\n"
+            "assert miniyaml.loads(miniyaml.dumps(v)) == v\n"
             "print('ok')\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
