@@ -149,6 +149,31 @@ Phases, each of which raises on failure (nothing is caught):
      through the entry, rc 0 each. With `--profiles-out DIR` the
      profiles and scheduler files are also written to DIR, each opening
      with a comment line naming the card and its power limit.
+ 11. GPT-2 serving at full width (`pipeedge_tpu_torch/serve.py`, in
+     process: `make_handler` behind its `ThreadingHTTPServer` on
+     127.0.0.1), phase 6's weights, `-pt 1,24,25,48 --max-len 1024 -t
+     float32 --kv-bits 8 --int8-decode-attend auto --max-active 16`:
+     16 concurrent clients (seeded prompts [1, 64..256], 16..48 new
+     tokens, greedy; 4 streamed, 4 on a 128-token prefix registered
+     through /prefix, 2 with an eos token their solo run emits partway,
+     one batched [4, 128] with 64 new tokens), once on the wave executor
+     and once on the stage executor, then 4 requests on an fp cache
+     (wave). Every served result equals, bit for bit, the request's solo
+     `DecodePipeline.generate` on an oracle pipeline loaded from the same
+     npz (eos masking applied to the solo run); each streamed request's
+     step lines equal its final line; decode-attention launches equal 12
+     x the single-token decode waves the executor reports and
+     Sum(new tokens - 1) over the traffic (none on the fp cache, and no
+     other kernel); /metrics' `pipeedge_serve_tokens_total` and
+     `pipeedge_serve_requests_total{endpoint="/generate",status="200"}`
+     move by the traffic's rows x new tokens and request count; /healthz
+     names the executor (and the stage workers' stats). Printed per run:
+     aggregate tokens/s, first-token ms and latency p50/p95, launches;
+     one profiled pass of 4 wave ticks; the host's cost per launch of
+     one-element adds from one thread against two at once; then `python -m
+     pipeedge_tpu_torch.serve` once as a subprocess: its readiness line,
+     one /generate equal to the oracle, /healthz, and exit code 0 after
+     SIGTERM.
 Phase 3 also holds kernel 5 (decode attention) against its plain version
 at the main path's shapes (windows of a [16, 1024, 12, 64] stage cache at
 buckets 256 and 512, and pos 1000 of the whole cache), pos 0 and W-1,
@@ -324,6 +349,26 @@ SCHED_ROUNDS = 2
 # Mbit/s (Mb = 2^20 bits)
 NVLINK_MBPS = int(450e9 * 8 / 2**20)
 BASELINE_PARTITION = "1,24,25,48"
+
+# Phase 11, GPT-2 serving at full width through the port's HTTP server
+# (module docstring). `--max-active 16` admits every client at once (16
+# requests, 19 rows, 32 live per-stage caches); the brownout ladder runs
+# with watermarks above this traffic, whose requests each take seconds by
+# design, so no request is clamped and each must equal its solo run.
+SERVE_FLAGS = ["-m", DECODE_MODEL, "-pt", "1,24,25,48", "--max-len", "1024",
+               "-t", "float32", "--int8-decode-attend", "auto",
+               "--max-active", "16", "--brownout-p95-high", "600",
+               "--brownout-p95-low", "300"]
+SERVE_KINDS = (["stream"] * 4 + ["prefix"] * 4 + ["eos"] * 2 + ["batched"]
+               + ["plain"] * 5)
+SERVE_FP_KINDS = ["stream", "prefix", "eos", "plain"]
+SERVE_PROMPT = (64, 256)          # prompt lengths drawn from [64, 256]
+SERVE_NEW = (16, 48)              # new tokens drawn from [16, 48]
+SERVE_PREFIX_LEN = 128
+SERVE_BATCHED = (4, 128, 64)      # rows, prompt length, new tokens
+SERVE_PROFILE_TICKS = 4           # profiled wave ticks of 4 requests
+SERVE_PROFILE_NEW = 64            # ... with 64 new tokens each
+SERVE_DISPATCH_OPS = 20000        # one-element adds per dispatching thread
 
 
 def log(msg: str) -> None:
@@ -1189,11 +1234,12 @@ def measure(pipe, inputs, exact, expected, expected_shape) -> dict:
         expected_shape=expected_shape)
 
 
-def profile_pass(run_once, label: str) -> None:
+def profile_pass(run_once, label: str) -> dict:
     """Device time by kernel over one warm `run_once()` (a pass of the
-    pipeline as it is set, or one decode step), and the device's busy
-    share of its wall time (kernel time summed over all streams, so
-    overlap between the stages can lift it above what one stream shows)."""
+    pipeline as it is set, one decode step, or a few executor ticks), and
+    the device's busy share of its wall time (kernel time summed over all
+    streams, so overlap between the stages can lift it above what one
+    stream shows). Logs the numbers and returns them."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     run_once()
@@ -1212,7 +1258,7 @@ def profile_pass(run_once, label: str) -> None:
                and e.self_device_time_total > 0]
     kernels.sort(key=lambda k: -k[1])
     total = sum(ms for _, ms, _ in kernels)
-    log("profile " + json.dumps({
+    numbers = {
         "pass": label, "wall_ms": wall_ms, "device_ms": total,
         "device_busy_share": total / wall_ms,
         "kernel_launches": sum(calls for _, _, calls in kernels),
@@ -1222,7 +1268,9 @@ def profile_pass(run_once, label: str) -> None:
         "port": [dict(kernel=name[:90], ms=ms, calls=calls,
                       ms_per_call=ms / calls, share=ms / total)
                  for name, ms, calls in kernels if "::pe_" in name],
-    }))
+    }
+    log("profile " + json.dumps(numbers))
+    return numbers
 
 
 def check_main_path(results, device_name: str):
@@ -2278,6 +2326,416 @@ def check_sched_path(res, device_name: str) -> None:
         check_entry(f"baseline {name}", e)
 
 
+# --- phase 11: GPT-2 serving through the port's HTTP server ----------------
+
+def serve_requests(rng, vocab: int, kinds) -> list:
+    """One request per kind, drawn from `rng`: "plain", "stream",
+    "prefix" (the prompt is the suffix after the registered prefix),
+    "eos" (its eos token is chosen from its solo run, `serve_oracle`) and
+    "batched" (SERVE_BATCHED)."""
+    reqs = []
+    for kind in kinds:
+        if kind == "batched":
+            rows, length, new = SERVE_BATCHED
+        else:
+            rows = 1
+            length = int(rng.integers(SERVE_PROMPT[0], SERVE_PROMPT[1] + 1))
+            new = int(rng.integers(SERVE_NEW[0], SERVE_NEW[1] + 1))
+        ids = rng.integers(0, vocab, size=(rows, length)).tolist()
+        reqs.append({"kind": kind, "ids": ids, "new": new, "eos": None})
+    return reqs
+
+
+def mask_after_eos(ids: np.ndarray, prompt_len: int, eos: int) -> np.ndarray:
+    """A solo run [B, S + T] as the executors return an eos request: cut
+    after the step where every row has emitted `eos` (at most T), and
+    every token after a row's first eos set to `eos` (the pad)."""
+    toks = ids[:, prompt_len:]
+    hit = toks == eos
+    first = np.where(hit.any(1), hit.argmax(1), toks.shape[1])
+    stop = int(first.max()) + 1 if hit.any(1).all() else toks.shape[1]
+    toks = toks[:, :stop].copy()
+    for r, f in enumerate(first):
+        toks[r, f + 1:] = eos
+    return np.concatenate([ids[:, :prompt_len], toks], axis=1)
+
+
+def serve_oracle(pipe, reqs, prefix_ids) -> dict:
+    """Each request solo through `pipe.generate` (the prefix handle from
+    `pipe.precompute_prefix` where the request uses one); an "eos"
+    request gets as its eos token the token its solo run emits halfway,
+    and the solo run masked as the executors return it. rid -> [B, S+T]."""
+    handle = pipe.precompute_prefix(np.asarray([prefix_ids]))
+    want = {}
+    for i, r in enumerate(reqs):
+        ids = torch.as_tensor(r["ids"], device=pipe.device)
+        solo = pipe.generate(ids, r["new"], prefix=(
+            handle if r["kind"] == "prefix" else None)).cpu().numpy()
+        if r["kind"] == "eos":
+            s = ids.shape[1]
+            r["eos"] = int(solo[0, s + r["new"] // 2])
+            solo = mask_after_eos(solo, s, r["eos"])
+        want[i] = solo
+    torch.cuda.synchronize()
+    return want
+
+
+def http_json(port: int, path: str, obj=None, timeout: float = 600):
+    import urllib.request
+    data = None if obj is None else json.dumps(obj).encode()
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}",
+                                 data=data)
+    with urllib.request.urlopen(req, timeout=timeout) as resp:
+        body = resp.read().decode()
+    return body if path == "/metrics" else json.loads(body)
+
+
+def serve_metric(text: str, family: str, **labels) -> float:
+    """One series of a /metrics body (0 when absent)."""
+    from pipeedge_tpu_torch.telemetry.collector import parse_prom_text
+    return sum(v for lab, v in parse_prom_text(text, [family]).get(
+        family, []) if all(lab.get(k) == w for k, w in labels.items()))
+
+
+def serve_client(port: int, rid: int, r: dict, pid: str, start, out: dict):
+    """One client: waits on `start`, sends its /generate, records the
+    result, the client-side latency and (streamed) the step lines."""
+    import urllib.request
+    body = {"ids": r["ids"], "new_tokens": r["new"]}
+    if r["kind"] == "prefix":
+        body["prefix_id"] = pid
+    if r["eos"] is not None:
+        body["eos_token"] = r["eos"]
+    if r["kind"] == "stream":
+        body["stream"] = True
+    start.wait()
+    t0 = time.monotonic()
+    try:
+        if r["kind"] == "stream":
+            req = urllib.request.Request(
+                f"http://127.0.0.1:{port}/generate",
+                data=json.dumps(body).encode())
+            with urllib.request.urlopen(req, timeout=900) as resp:
+                lines = [json.loads(ln) for ln in resp.read().decode()
+                         .splitlines() if ln.strip()]
+            final = lines[-1]
+            out[rid] = dict(ids=final["ids"], steps=[ln["tokens"] for ln in
+                                                     lines[:-1]],
+                            first_token_ms=final["first_token_ms"])
+        else:
+            out[rid] = dict(ids=http_json(port, "/generate", body,
+                                          timeout=900)["ids"])
+    except Exception as exc:   # noqa: BLE001 — the check reports it
+        out[rid] = dict(error=repr(exc))
+    out[rid].update(t0=t0, t1=time.monotonic())
+
+
+def serve_run(pipe, args, reqs, want, prefix_ids, label: str) -> dict:
+    """Serve `reqs` concurrently through the port's HTTP front end over
+    `pipe` (flags `args`), the launch counts set to 0 just before the
+    clients start and read just after the last one returns."""
+    import threading
+    from pipeedge_tpu_torch import serve, telemetry
+    from pipeedge_tpu_torch.ops import _build
+
+    telemetry.configure(rank=0)
+    service = serve.make_service(args, pipe)
+    httpd = serve.Server(("127.0.0.1", 0),
+                         serve.make_handler(service, args.model_name))
+    port = httpd.server_address[1]
+    server = threading.Thread(target=httpd.serve_forever, daemon=True)
+    server.start()
+    try:
+        pid = http_json(port, "/prefix", {"ids": prefix_ids})["prefix_id"]
+        before = http_json(port, "/metrics")
+        out: dict = {}
+        start = threading.Event()
+        clients = [threading.Thread(target=serve_client,
+                                    args=(port, i, r, pid, start, out))
+                   for i, r in enumerate(reqs)]
+        for c in clients:
+            c.start()
+        torch.cuda.synchronize()
+        _build.reset_launch_counts()
+        start.set()
+        for c in clients:
+            c.join()
+        torch.cuda.synchronize()
+        counts = dict(_build.launch_counts)
+        after = http_json(port, "/metrics")
+        health = http_json(port, "/healthz")
+        ex = service.exec if service.exec is not None else service.batcher
+        kind_steps = [dict(k) for k in ex.kind_steps]
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        service.stop()
+    wall = max(o["t1"] for o in out.values()) - min(
+        o["t0"] for o in out.values())
+    served = {i: np.asarray(o["ids"]) for i, o in out.items()
+              if "ids" in o}
+    tokens = sum(served[i].shape[0] * (served[i].shape[1]
+                                       - len(r["ids"][0]))
+                 for i, r in enumerate(reqs) if i in served)
+    lat_ms = [(o["t1"] - o["t0"]) * 1e3 for o in out.values()]
+    first_ms = [o["first_token_ms"] for o in out.values()
+                if o.get("first_token_ms") is not None]
+    blocks = [st["n_blocks"] for st in pipe.stages]
+    delta = {fam: serve_metric(after, fam, **lab) - serve_metric(
+        before, fam, **lab) for fam, lab in (
+        ("pipeedge_serve_tokens_total", {}),
+        ("pipeedge_serve_requests_total",
+         {"endpoint": "/generate", "status": "200"}))}
+    res = dict(
+        label=label, executor=args.executor, kv_bits=args.kv_bits,
+        requests=len(reqs), errors={i: o["error"] for i, o in out.items()
+                                    if "error" in o},
+        mismatched=sorted(i for i in range(len(reqs))
+                          if i not in served
+                          or not np.array_equal(served[i], want[i])),
+        stream_steps_equal=all(
+            np.array_equal(np.asarray(out[i]["steps"]).T,
+                           np.asarray(out[i]["ids"])[:, len(r["ids"][0]):])
+            for i, r in enumerate(reqs)
+            if r["kind"] == "stream" and "ids" in out[i]),
+        counts=counts, kind_steps=kind_steps,
+        expected_decode_attention=(
+            sum(b * k["step"] for b, k in zip(blocks, kind_steps))
+            if args.kv_bits else 0),
+        decode_waves=kind_steps[-1]["step"],
+        traffic_decode_waves=sum(
+            served[i].shape[1] - len(r["ids"][0]) - 1
+            for i, r in enumerate(reqs) if i in served),
+        blocks=sum(blocks),
+        metrics_delta=delta,
+        expected_tokens_total=sum(len(r["ids"]) * r["new"] for r in reqs),
+        healthz=dict(ok=health["ok"], executor=health["executor"],
+                     stats_keys=sorted(health["stats"])),
+        wall_s=wall, tokens=tokens, tok_per_s=tokens / wall,
+        latency_ms_p50=float(np.percentile(lat_ms, 50)),
+        latency_ms_p95=float(np.percentile(lat_ms, 95)),
+        first_token_ms_p50=(float(np.percentile(first_ms, 50))
+                            if first_ms else None),
+        first_token_ms_p95=(float(np.percentile(first_ms, 95))
+                            if first_ms else None))
+    if args.executor == "stage":
+        res["healthz"]["workers"] = {k: health["stats"][k] for k in (
+            "stage_steps", "busy", "queued")}
+    return res
+
+
+def dispatch_threads() -> dict:
+    """Host cost of launching ops from one thread against two at once:
+    2 x SERVE_DISPATCH_OPS one-element in-place adds on the card from one
+    thread, and SERVE_DISPATCH_OPS from each of two threads started
+    together (each on its own tensor, under inference mode as the
+    executors run), in the order one, two, two, one; synchronized before
+    each clock read. Two threads that dispatch no faster than one show
+    that PyTorch's dispatch, not the card, bounds the stage workers."""
+    import threading
+    xs = [torch.zeros(1, device="cuda") for _ in range(2)]
+
+    def launch(x, n):
+        with torch.inference_mode():
+            for _ in range(n):
+                x.add_(1.0)
+
+    n_ops = SERVE_DISPATCH_OPS
+
+    def one():
+        launch(xs[0], 2 * n_ops)
+
+    def two():
+        threads = [threading.Thread(target=launch, args=(x, n_ops))
+                   for x in xs]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+
+    launch(xs[0], 1000)                        # warm-up
+    times = {"one": [], "two": []}
+    for name, fn in (("one", one), ("two", two), ("two", two),
+                     ("one", one)):
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        fn()
+        torch.cuda.synchronize()
+        times[name].append((time.monotonic() - t0) * 1e6 / (2 * n_ops))
+    res = {f"{k}_thread_us_per_op": v for k, v in times.items()}
+    res["two_over_one"] = sum(times["two"]) / sum(times["one"])
+    return res
+
+
+def serve_entry(flags, req: dict, want: np.ndarray) -> dict:
+    """`python -m pipeedge_tpu_torch.serve` as a subprocess: its
+    readiness line, one /generate (held to `want`), /healthz, then
+    SIGTERM and its exit code. The process is killed if anything fails."""
+    import queue
+    import signal
+    import socket
+    import threading
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    cmd = [sys.executable, "-m", "pipeedge_tpu_torch.serve", *flags,
+           "--port", str(port)]
+    t0 = time.monotonic()
+    proc = subprocess.Popen(cmd, cwd=ROOT, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    lines: "queue.Queue" = queue.Queue()
+    reader = threading.Thread(target=lambda: [lines.put(ln) for ln in
+                                              proc.stdout], daemon=True)
+    reader.start()
+    log_lines = []
+    try:
+        deadline = time.monotonic() + 300
+        while True:
+            line = lines.get(timeout=max(1.0, deadline - time.monotonic()))
+            log_lines.append(line.rstrip())
+            if line.startswith("serving "):
+                break
+        ready_s = time.monotonic() - t0
+        got = np.asarray(http_json(port, "/generate", {
+            "ids": req["ids"], "new_tokens": req["new"]})["ids"])
+        health = http_json(port, "/healthz")
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=120)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    reader.join(timeout=10)
+    while not lines.empty():
+        log_lines.append(lines.get().rstrip())
+    return dict(command=" ".join(cmd[1:]), ready_s=ready_s, rc=rc,
+                equal=bool(np.array_equal(got, want)),
+                healthz_ok=health["ok"], executor=health["executor"],
+                output=log_lines[-5:], seconds=time.monotonic() - t0)
+
+
+def serve_path(card: str,
+               weights_dir: Path = ROOT / "pipeedge_tpu_torch" / "_build"
+               ) -> dict:
+    """Phase 11 (module docstring): the served runs, their oracle, one
+    profiled pass of wave ticks and the entry. `check_serve_path` gates
+    the result."""
+    from pipeedge_tpu_torch import serve
+    from pipeedge_tpu_torch.models import gpt2, registry
+    from pipeedge_tpu_torch.parallel import batcher
+
+    cfg = registry.get_model_config(DECODE_MODEL)
+    weights_file = (weights_dir
+                    / f"{DECODE_MODEL.replace('/', '_')}-random-seed0.npz")
+    if not weights_file.exists():          # phase 6 writes it
+        weights_dir.mkdir(parents=True, exist_ok=True)
+        np.savez(weights_file, **gpt2.random_npz_weights(cfg, seed=0))
+    pm_dir = weights_dir / "postmortems"
+    flags = {bits: SERVE_FLAGS + ["-M", str(weights_file), "--kv-bits",
+                                  str(bits), "--postmortem-dir", str(pm_dir)]
+             for bits in (8, 0)}
+    rng = np.random.default_rng(11)
+    prefix_ids = rng.integers(0, cfg.vocab_size,
+                              size=SERVE_PREFIX_LEN).tolist()
+    traffic = {8: serve_requests(rng, cfg.vocab_size, SERVE_KINDS),
+               0: serve_requests(rng, cfg.vocab_size, SERVE_FP_KINDS)}
+    # the served pipelines and the oracle each hold their own copy of the
+    # weights, read from the npz as `-M` reads it
+    params = {who: [registry.module_shard_factory(
+        DECODE_MODEL, str(weights_file), l, r, stage=i, device="cuda")[1]
+        for i, (l, r) in enumerate(DECODE_PARTITION)]
+        for who in ("server", "oracle")}
+    res = {"card": card, "runs": []}
+    for bits in (8, 0):
+        args = serve.parse_args(flags[bits] + ["--executor", "wave"])
+        t0 = time.monotonic()
+        want = serve_oracle(serve.build_pipeline(args, params["oracle"]),
+                            traffic[bits], prefix_ids)
+        res[f"oracle_s_{bits}"] = time.monotonic() - t0
+        pipe = serve.build_pipeline(args, params["server"])
+        for executor in (("wave", "stage") if bits else ("wave",)):
+            args = serve.parse_args(flags[bits] + ["--executor", executor])
+            res["runs"].append(serve_run(
+                pipe, args, traffic[bits], want, prefix_ids,
+                f"{executor}, {'int8' if bits else 'fp'} cache"))
+            log("serve run " + json.dumps(res["runs"][-1], sort_keys=True))
+        if bits:
+            # a few wave ticks of 4 in-flight requests under the profiler
+            b = batcher.ContinuousBatcher(pipe, max_active=4)
+            for i in range(4):
+                b.submit(i, traffic[bits][i + 4]["ids"], SERVE_PROFILE_NEW)
+            for _ in range(16):                # prompts in, steps flowing
+                b.tick()
+            prof = profile_pass(
+                lambda: [b.tick() for _ in range(SERVE_PROFILE_TICKS)],
+                f"{SERVE_PROFILE_TICKS} wave ticks, 4 requests, int8")
+            res["profile"] = dict(
+                wall_ms=prof["wall_ms"], device_ms=prof["device_ms"],
+                busy_share=prof["device_busy_share"],
+                launches_per_tick=prof["kernel_launches"]
+                / SERVE_PROFILE_TICKS)
+            entry_req = next(r for r in traffic[bits]
+                             if r["kind"] == "plain")
+            res["entry"] = serve_entry(
+                flags[bits] + ["--executor", "wave"], entry_req,
+                want[traffic[bits].index(entry_req)])
+            log("serve entry " + json.dumps(res["entry"], sort_keys=True))
+            del b
+            res["dispatch"] = dispatch_threads()
+        del pipe
+        torch.cuda.empty_cache()
+    return res
+
+
+def check_serve_path(res, device_name: str) -> None:
+    for run in res["runs"]:
+        name = f"serve ({run['label']})"
+        log(f"{name}: " + json.dumps({
+            k: run[k] for k in ("tok_per_s", "wall_s", "tokens",
+                                "first_token_ms_p50", "first_token_ms_p95",
+                                "latency_ms_p50", "latency_ms_p95",
+                                "counts")} | {"card": res["card"],
+                                              "device": device_name}))
+        if run["errors"] or run["mismatched"]:
+            raise AssertionError(f"{name}: errors {run['errors']}, results "
+                                 f"unequal to their solo runs: "
+                                 f"{run['mismatched']}")
+        if not run["stream_steps_equal"]:
+            raise AssertionError(f"{name}: streamed step lines differ from "
+                                 "the final line")
+        want = {k: 0 for k in run["counts"]}
+        want["decode_attention"] = run["expected_decode_attention"]
+        if run["counts"] != want:
+            raise AssertionError(f"{name}: launch counts {run['counts']} "
+                                 f"!= {want}")
+        waves = run["decode_waves"]
+        if waves != run["traffic_decode_waves"] or (
+                run["kv_bits"] and run["counts"]["decode_attention"]
+                != run["blocks"] * waves):
+            raise AssertionError(
+                f"{name}: {run['counts']['decode_attention']} decode "
+                f"attention launches, {waves} decode waves reported, "
+                f"{run['traffic_decode_waves']} in the traffic, "
+                f"{run['blocks']} blocks")
+        delta = run["metrics_delta"]
+        if delta["pipeedge_serve_tokens_total"] != \
+                run["expected_tokens_total"] or \
+                delta["pipeedge_serve_requests_total"] != run["requests"]:
+            raise AssertionError(f"{name}: /metrics moved by {delta}, "
+                                 f"traffic {run['expected_tokens_total']} "
+                                 f"tokens, {run['requests']} requests")
+        health = run["healthz"]
+        if not health["ok"] or health["executor"] != run["executor"] or (
+                run["executor"] == "stage"
+                and len(health["workers"]["stage_steps"]) != 2):
+            raise AssertionError(f"{name}: /healthz {health}")
+    entry = res["entry"]
+    if entry["rc"] != 0 or not entry["equal"] or not entry["healthz_ok"]:
+        raise AssertionError(f"serve entry: {entry}")
+    log("serve profile: " + json.dumps(res["profile"]))
+    log("serve dispatch threads: " + json.dumps(res["dispatch"]))
+
+
 def main() -> int:
     import argparse
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -2379,6 +2837,12 @@ def main() -> int:
 
     phase_done("phase 10")
 
+    # phase 11: GPT-2 serving through the port's HTTP server
+    serve_res = serve_path(card)
+    check_serve_path(serve_res, device_name)
+
+    phase_done("phase 11")
+
     if args.ab_entry_parent is not None:
         ab_entry(args.ab_entry_parent)
         phase_done("ab entry")
@@ -2475,6 +2939,9 @@ def main() -> int:
         sdpa_dequantized_ms=step["sdpa_dequantized_ms"],
         paired=paired("decode_attention"),
         tiny_decoder_launches=tiny["ii"]["counts"]["decode_attention"],
+        # phase 11: the served traffic of each int8 run
+        serve_launches={run["executor"]: run["counts"]["decode_attention"]
+                        for run in serve_res["runs"] if run["kv_bits"]},
         cases={name: {k: r[k] for k in (
             "shape", "pos", "dtype", "ms", "ms_l2_cold", "plain_ms",
             "bound_ms", "bound_by", "dequant_route_ms",

@@ -14,7 +14,8 @@ fallback: a failed build or launch raises.
 
 `launch_counts` holds one plain integer per kernel wrapper. A wrapper
 adds one where it launches its kernel (CUDA tensors only), so a run can
-show that its main path went through the kernels.
+show that its main path went through the kernels; the count is taken
+under a lock, since the serving executors launch from several threads.
 """
 from __future__ import annotations
 
@@ -46,6 +47,7 @@ MAX_GRID_YZ = 65535
 
 _lib: Optional[ctypes.CDLL] = None
 _lock = threading.Lock()
+_count_lock = threading.Lock()
 build_seconds: Optional[float] = None
 ptxas_log: str = ""
 
@@ -80,7 +82,10 @@ _SIGNATURES = {
 
 
 def count_launch(name: str) -> None:
-    launch_counts[name] += 1
+    # under a lock: the serving executors launch from several threads, and
+    # `+=` on a dict entry is a read and a write the GIL may split
+    with _count_lock:
+        launch_counts[name] += 1
 
 
 def reset_launch_counts() -> None:

@@ -77,6 +77,51 @@ def test_no_jax_or_reference_imports():
     assert not _bad_imports(files)
 
 
+# the serving slice's modules, each a copy or port of a JAX-package module
+SERVING_MODULES = [
+    "telemetry/__init__.py", "telemetry/metrics.py", "telemetry/flight.py",
+    "telemetry/collector.py", "telemetry/chrome_trace.py",
+    "health/__init__.py", "health/guard.py", "health/scorer.py",
+    "serving/__init__.py", "serving/admission.py", "serving/brownout.py",
+    "parallel/batcher.py", "serve.py"]
+
+
+@pytest.mark.parametrize("rel", SERVING_MODULES)
+def test_serving_modules_import_no_jax_anywhere(rel):
+    """Each serving-slice module is scanned, and none imports `jax` or
+    `pipeedge_tpu` (nor a root module that does), at module level or
+    inside a function (the scan walks every import node)."""
+    path = ROOT / "pipeedge_tpu_torch" / rel
+    assert path in _port_files()
+    tops = set(_imported_tops(path))
+    assert not tops & FORBIDDEN, tops & FORBIDDEN
+    # absolute imports inside functions (relative ones stay in the port)
+    nested = [node for node in ast.walk(ast.parse(path.read_text()))
+              if (isinstance(node, ast.Import) or (
+                  isinstance(node, ast.ImportFrom) and node.level == 0))
+              and node.col_offset > 0]
+    for node in nested:
+        names = ([a.name for a in node.names] if isinstance(node, ast.Import)
+                 else [node.module])
+        assert not {n.split(".")[0] for n in names} & FORBIDDEN
+
+
+def test_scan_flags_an_import_inside_a_function(tmp_path):
+    (tmp_path / "lazy.py").write_text(
+        "def f():\n    import jax.numpy as jnp\n    return jnp\n")
+    assert _bad_imports([tmp_path / "lazy.py"], root=tmp_path) == {
+        ("lazy.py", "jax")}
+
+
+def test_serve_without_device_raises_without_gpu():
+    if torch.cuda.is_available():
+        pytest.skip("this host has a GPU: the default device is valid")
+    from pipeedge_tpu_torch import serve
+    with pytest.raises(RuntimeError, match="cuda"):
+        serve.main(["-m", "pipeedge/test-tiny-gpt2", "-pt", "1,4,5,8",
+                    "--max-len", "48", "--port", "0"])
+
+
 def test_scan_flags_a_root_module_that_imports_jax(tmp_path):
     """A port module that imports a root module which imports the JAX
     package (even through another root module) is flagged."""
