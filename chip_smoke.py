@@ -174,6 +174,43 @@ Phases, each of which raises on failure (nothing is caught):
      pipeedge_tpu_torch.serve` once as a subprocess: its readiness line,
      one /generate equal to the oracle, /healthz, and exit code 0 after
      SIGTERM.
+ 12. The paged KV plane (`pipeedge_tpu_torch/kv/`) under phase 11's int8
+     server and weights, with `--kv-pages 1024 --kv-page-size 16
+     --chunked-prefill 64 --step-join` (PAGED_* below), on the wave and
+     then the stage executor: 19 concurrent clients (phase 11's int8
+     traffic but its 4 prefix clients; a publisher whose prompt is
+     exactly the 128-token prefix, served alone first; 4 sharers whose
+     prompts start with it; one 512-token prompt in 8 chunks; one request
+     of 16 tokens in all, one page). Every result equals, bit for bit,
+     its solo run through a dense wave executor that chunks as the
+     server does; decode-attention launches equal 12 x (the decode waves
+     + the one-token prompt chunks); the trie reports at least 4 hits in
+     each run; after the traffic and an eviction of the cold prefix
+     pages the pool has every page free, nothing leaked, and /metrics'
+     `pipeedge_kv_pages{state="free"}` equals the total. Printed: the
+     runs' tokens/s, latency and first-token ms, the stage/wave ratio,
+     and the launches and device time per profiled wave tick of 4
+     requests, dense and paged.
+ 13. Speculative decoding: gpt2-medium at full width and depth (seeded
+     npz, 1.4 GB f32) verifying, gamma 4, f32, [4, 128] prompts, 64 new
+     tokens, the drafts of (a) gpt2 (phase 6's npz) and (b) gpt2-medium
+     itself with seeded noise on its last block's weight matrices (a
+     draft that agrees on some proposals and not on others, so rounds
+     accept 0 < a < gamma tokens and roll the draft back), each in host
+     and in device sync, timed in pairs (host, device, device, host,
+     twice); then (c) gpt2-medium as its own draft. Every generation is
+     held to the target's greedy `generate` by the rule of `spec_rule`
+     (CHANGES.md); its verify rounds are counted at the target's
+     `extend` and held to its readbacks (1 + (gamma + 1) per round in
+     host sync, 1 + 2 per round in device sync) and to its acceptance;
+     host and device sync with the same acceptance and rounds; (b)'s
+     acceptance strictly between 0 and 1, (c)'s 1.0; the measured
+     span-vs-serial logit difference printed. Then 4 `"speculative":
+     true` requests through the in-process server with `--draft-model
+     gpt2 --kv-pages 1024`, each equal to plain greedy, both pools whole
+     afterwards; then `python -m pipeedge_tpu_torch.generate -m
+     gpt2-medium --draft-model gpt2 --gamma 4`, exit code 0. Printed:
+     acceptance, readbacks per round, tokens/s against plain greedy.
 Phase 3 also holds kernel 5 (decode attention) against its plain version
 at the main path's shapes (windows of a [16, 1024, 12, 64] stage cache at
 buckets 256 and 512, and pos 1000 of the whole cache), pos 0 and W-1,
@@ -369,6 +406,42 @@ SERVE_BATCHED = (4, 128, 64)      # rows, prompt length, new tokens
 SERVE_PROFILE_TICKS = 4           # profiled wave ticks of 4 requests
 SERVE_PROFILE_NEW = 64            # ... with 64 new tokens each
 SERVE_DISPATCH_OPS = 20000        # one-element adds per dispatching thread
+
+# Phase 12, the paged KV plane: phase 11's server and weights with 1024
+# pages of 16 tokens per stage (12 blocks x (2 x 768 B of int8 K/V + 4 x
+# 12 x 4 B of scales) x 16384 tokens, 340 MB), prompts past 64 tokens in
+# 64-token chunks between decode steps, admission re-driven at every step.
+# Traffic: phase 11's int8 clients but the 4 on a registered prefix; one
+# publisher whose prompt is exactly phase 11's 128-token prefix (8 whole
+# pages), served alone first, then 4 sharers whose prompts start with it
+# (suffixes of at most one chunk, so a sharer's suffix runs as one span),
+# one 512-token prompt (8 chunks) and one request of 16 tokens in all
+# (one page: a window narrower than the attend floor of 64).
+PAGED_FLAGS = ["--kv-pages", "1024", "--kv-page-size", "16",
+               "--chunked-prefill", "64", "--step-join"]
+PAGED_CHUNK = 64
+PAGED_SHARERS = 4
+PAGED_SUFFIX = (16, 64)           # sharer suffix lengths drawn from [16, 64]
+PAGED_LONG = (512, 32)            # prompt length, new tokens
+PAGED_SHORT = (8, 8)              # prompt length, new tokens: one page
+
+# Phase 13, speculative decoding: gpt2-medium (24 blocks, 1024 wide, 16
+# heads; seeded npz, 1.4 GB in f32) verifies what gpt2 (phase 6's npz)
+# drafts, gamma 4, f32, fp caches (the server refuses --draft-model with
+# --kv-bits), batch 4 x 128-token prompts, 64 new tokens, in host and in
+# device sync; then gpt2-medium as its own draft; then 4 speculative
+# requests through the server with --kv-pages; then the generate entry.
+SPEC_TARGET = "gpt2-medium"
+SPEC_DRAFT = DECODE_MODEL
+SPEC_GAMMA = 4
+SPEC_BATCH, SPEC_PROMPT, SPEC_NEW = 4, 128, 64
+# the noisy self-draft: seeded N(0, 1) noise times SPEC_NOISE times each
+# matrix's own standard deviation, added to every weight matrix of the
+# last block
+SPEC_NOISE = 0.1
+SPEC_PAIRS = 2                    # (host, device, device, host) x 2
+SPEC_SERVE = 4                    # speculative requests through the server
+SPEC_SERVE_NEW = 32
 
 
 def log(msg: str) -> None:
@@ -2430,16 +2503,24 @@ def serve_client(port: int, rid: int, r: dict, pid: str, start, out: dict):
     out[rid].update(t0=t0, t1=time.monotonic())
 
 
-def serve_run(pipe, args, reqs, want, prefix_ids, label: str) -> dict:
+def serve_run(pipe, args, reqs, want, prefix_ids, label: str,
+              first=None, draft=None, prompt_singles: int = 0) -> dict:
     """Serve `reqs` concurrently through the port's HTTP front end over
-    `pipe` (flags `args`), the launch counts set to 0 just before the
-    clients start and read just after the last one returns."""
+    `pipe` (flags `args`; `draft`, the draft pipeline with
+    `--draft-model`), the launch counts set to 0 just before the clients
+    start and read just after the last one returns. Request `first`, when
+    given, is served alone to completion before the others start (a
+    prefix publisher). On a paged server the trie's and the pool's
+    numbers are read after the traffic, then every cold prefix page is
+    evicted and the pool read again. `prompt_singles` counts the prompt
+    chunks and spans of one token in the traffic: an int8 step of one
+    token attends through kernel 5 whatever its kind."""
     import threading
     from pipeedge_tpu_torch import serve, telemetry
     from pipeedge_tpu_torch.ops import _build
 
     telemetry.configure(rank=0)
-    service = serve.make_service(args, pipe)
+    service = serve.make_service(args, pipe, draft=draft)
     httpd = serve.Server(("127.0.0.1", 0),
                          serve.make_handler(service, args.model_name))
     port = httpd.server_address[1]
@@ -2448,15 +2529,22 @@ def serve_run(pipe, args, reqs, want, prefix_ids, label: str) -> dict:
     try:
         pid = http_json(port, "/prefix", {"ids": prefix_ids})["prefix_id"]
         before = http_json(port, "/metrics")
+        # the trie's counters live in the process's registry, which an
+        # earlier server in this process moved too: read them as deltas
+        kv_before = http_json(port, "/healthz")["serving"].get("kv")
         out: dict = {}
         start = threading.Event()
         clients = [threading.Thread(target=serve_client,
                                     args=(port, i, r, pid, start, out))
-                   for i, r in enumerate(reqs)]
+                   for i, r in enumerate(reqs) if i != first]
         for c in clients:
             c.start()
         torch.cuda.synchronize()
         _build.reset_launch_counts()
+        if first is not None:
+            alone = threading.Event()
+            alone.set()
+            serve_client(port, first, reqs[first], pid, alone, out)
         start.set()
         for c in clients:
             c.join()
@@ -2466,6 +2554,19 @@ def serve_run(pipe, args, reqs, want, prefix_ids, label: str) -> dict:
         health = http_json(port, "/healthz")
         ex = service.exec if service.exec is not None else service.batcher
         kind_steps = [dict(k) for k in ex.kind_steps]
+        kv = None
+        if service.kv_backend is not None:
+            kv = dict(after_traffic=health["serving"]["kv"],
+                      trie_hits=health["serving"]["kv"]["prefix"]["hits"]
+                      - kv_before["prefix"]["hits"],
+                      evicted=service.kv_backend.evict_cold_all())
+            kv["pool"] = service.kv_backend.pool.stats()
+            kv["metrics_pages"] = {
+                state: serve_metric(http_json(port, "/metrics"),
+                                    "pipeedge_kv_pages", state=state)
+                for state in ("total", "free")}
+            if service.spec is not None:
+                kv["draft_pool"] = service.spec.draft_pool.stats()
     finally:
         httpd.shutdown()
         httpd.server_close()
@@ -2501,7 +2602,8 @@ def serve_run(pipe, args, reqs, want, prefix_ids, label: str) -> dict:
         counts=counts, kind_steps=kind_steps,
         expected_decode_attention=(
             sum(b * k["step"] for b, k in zip(blocks, kind_steps))
-            if args.kv_bits else 0),
+            + sum(blocks) * prompt_singles if args.kv_bits else 0),
+        prompt_singles=prompt_singles,
         decode_waves=kind_steps[-1]["step"],
         traffic_decode_waves=sum(
             served[i].shape[1] - len(r["ids"][0]) - 1
@@ -2511,6 +2613,7 @@ def serve_run(pipe, args, reqs, want, prefix_ids, label: str) -> dict:
         expected_tokens_total=sum(len(r["ids"]) * r["new"] for r in reqs),
         healthz=dict(ok=health["ok"], executor=health["executor"],
                      stats_keys=sorted(health["stats"])),
+        kv=kv, ticks=ex.stats.get("ticks"),
         wall_s=wall, tokens=tokens, tok_per_s=tokens / wall,
         latency_ms_p50=float(np.percentile(lat_ms, 50)),
         latency_ms_p95=float(np.percentile(lat_ms, 95)),
@@ -2687,7 +2790,7 @@ def serve_path(card: str,
     return res
 
 
-def check_serve_path(res, device_name: str) -> None:
+def check_serve_path(res, device_name: str, entry: bool = True) -> None:
     for run in res["runs"]:
         name = f"serve ({run['label']})"
         log(f"{name}: " + json.dumps({
@@ -2711,11 +2814,12 @@ def check_serve_path(res, device_name: str) -> None:
         waves = run["decode_waves"]
         if waves != run["traffic_decode_waves"] or (
                 run["kv_bits"] and run["counts"]["decode_attention"]
-                != run["blocks"] * waves):
+                != run["blocks"] * (waves + run["prompt_singles"])):
             raise AssertionError(
                 f"{name}: {run['counts']['decode_attention']} decode "
                 f"attention launches, {waves} decode waves reported, "
                 f"{run['traffic_decode_waves']} in the traffic, "
+                f"{run['prompt_singles']} one-token prompt chunks, "
                 f"{run['blocks']} blocks")
         delta = run["metrics_delta"]
         if delta["pipeedge_serve_tokens_total"] != \
@@ -2729,11 +2833,535 @@ def check_serve_path(res, device_name: str) -> None:
                 run["executor"] == "stage"
                 and len(health["workers"]["stage_steps"]) != 2):
             raise AssertionError(f"{name}: /healthz {health}")
+    if not entry:
+        return
     entry = res["entry"]
     if entry["rc"] != 0 or not entry["equal"] or not entry["healthz_ok"]:
         raise AssertionError(f"serve entry: {entry}")
     log("serve profile: " + json.dumps(res["profile"]))
     log("serve dispatch threads: " + json.dumps(res["dispatch"]))
+
+
+# --- phase 12: the paged KV plane under the serving traffic -----------------
+
+def paged_requests(rng, vocab: int, prefix_ids) -> tuple:
+    """Phase 12's traffic (PAGED_* above): phase 11's int8 requests drawn
+    from `rng` as phase 11 draws them, less the prefix ones, then the
+    publisher, the sharers, the long and the short request. Returns
+    (requests, index of the publisher)."""
+    reqs = [r for r in serve_requests(rng, vocab, SERVE_KINDS)
+            if r["kind"] != "prefix"]
+    first = len(reqs)
+    reqs.append({"kind": "publish", "ids": [list(prefix_ids)],
+                 "new": int(rng.integers(SERVE_NEW[0], SERVE_NEW[1] + 1)),
+                 "eos": None})
+    for _ in range(PAGED_SHARERS):
+        n = int(rng.integers(PAGED_SUFFIX[0], PAGED_SUFFIX[1] + 1))
+        reqs.append({"kind": "share", "ids": [list(prefix_ids) + rng.integers(
+            0, vocab, size=n).tolist()],
+            "new": int(rng.integers(SERVE_NEW[0], SERVE_NEW[1] + 1)),
+            "eos": None})
+    for kind, (length, new) in (("long", PAGED_LONG),
+                                ("short", PAGED_SHORT)):
+        reqs.append({"kind": kind, "ids": rng.integers(
+            0, vocab, size=(1, length)).tolist(), "new": new, "eos": None})
+    return reqs, first
+
+
+def prompt_singles(reqs, chunk: int, shared: int) -> int:
+    """The one-token prompt steps of the traffic: a chunked prompt pass
+    whose last chunk is one token, or a one-token pass (sharers run only
+    the tokens past the `shared` prefix)."""
+    n_single = 0
+    for r in reqs:
+        n = len(r["ids"][0]) - (shared if r["kind"] == "share" else 0)
+        n_single += n == 1 or (n > chunk and n % chunk == 1)
+    return n_single
+
+
+def chunked_oracle(pipe, reqs, chunk: int) -> dict:
+    """Each request alone through a dense wave executor that chunks
+    prompts as the server does (an int8 cache's chunked prompt pass is
+    its own computation: a chunk attends earlier chunks' rows
+    dequantized). A sharer's rows [0, 128) are then the publisher's
+    chunks and its suffix the last chunk, run as the span at offset 128
+    the server runs over the shared pages. An "eos" request takes the
+    token its solo run emits halfway, as in `serve_oracle`."""
+    from pipeedge_tpu_torch.parallel import batcher
+    want = {}
+    for i, r in enumerate(reqs):
+        b = batcher.ContinuousBatcher(pipe, max_active=1,
+                                      chunk_tokens=chunk)
+        b.submit(i, np.asarray(r["ids"]), r["new"])
+        solo = b.run()[i]
+        if r["kind"] == "eos":
+            s = len(r["ids"][0])
+            r["eos"] = int(solo[0, s + r["new"] // 2])
+            solo = mask_after_eos(solo, s, r["eos"])
+        want[i] = solo
+    torch.cuda.synchronize()
+    return want
+
+
+def tick_profile(pipe, reqs, kv=None) -> dict:
+    """`SERVE_PROFILE_TICKS` wave ticks of 4 in-flight int8 requests
+    under the profiler, dense or (`kv`) paged, after 16 ticks that bring
+    their prompts in: the launches and device time per tick."""
+    from pipeedge_tpu_torch.parallel import batcher
+    b = batcher.ContinuousBatcher(pipe, max_active=4, kv=kv)
+    for i, r in enumerate(reqs):
+        b.submit(i, r["ids"], SERVE_PROFILE_NEW)
+    for _ in range(16):
+        b.tick()
+    prof = profile_pass(
+        lambda: [b.tick() for _ in range(SERVE_PROFILE_TICKS)],
+        f"{SERVE_PROFILE_TICKS} wave ticks, 4 requests, int8"
+        + (", paged" if kv is not None else ""))
+    return dict(wall_ms=prof["wall_ms"], device_ms=prof["device_ms"],
+                busy_share=prof["device_busy_share"],
+                launches_per_tick=prof["kernel_launches"]
+                / SERVE_PROFILE_TICKS,
+                device_ms_per_tick=prof["device_ms"] / SERVE_PROFILE_TICKS)
+
+
+def paged_path(card: str,
+               weights_dir: Path = ROOT / "pipeedge_tpu_torch" / "_build"
+               ) -> dict:
+    """Phase 12 (module docstring): phase 11's int8 server over the paged
+    KV plane on the wave and the stage executor, held to solo runs; the
+    launches per profiled wave tick, dense and paged."""
+    from pipeedge_tpu_torch import serve
+    from pipeedge_tpu_torch.kv import PagedKvBackend
+    from pipeedge_tpu_torch.models import registry
+    from pipeedge_tpu_torch.telemetry import metrics as prom
+
+    cfg = registry.get_model_config(DECODE_MODEL)
+    weights_file = (weights_dir
+                    / f"{DECODE_MODEL.replace('/', '_')}-random-seed0.npz")
+    flags = SERVE_FLAGS + ["-M", str(weights_file), "--kv-bits", "8",
+                           "--postmortem-dir",
+                           str(weights_dir / "postmortems")]
+    rng = np.random.default_rng(11)          # phase 11's draws
+    prefix_ids = rng.integers(0, cfg.vocab_size,
+                              size=SERVE_PREFIX_LEN).tolist()
+    reqs, first = paged_requests(rng, cfg.vocab_size, prefix_ids)
+    params = {who: [registry.module_shard_factory(
+        DECODE_MODEL, str(weights_file), l, r, stage=i, device="cuda")[1]
+        for i, (l, r) in enumerate(DECODE_PARTITION)]
+        for who in ("server", "oracle")}
+    args = serve.parse_args(flags + ["--executor", "wave"])
+    t0 = time.monotonic()
+    want = chunked_oracle(serve.build_pipeline(args, params["oracle"]),
+                          reqs, PAGED_CHUNK)
+    res = {"card": card, "oracle_s": time.monotonic() - t0, "runs": [],
+           "kinds": [r["kind"] for r in reqs],
+           "prompt_lens": [len(r["ids"][0]) for r in reqs]}
+    pipe = serve.build_pipeline(args, params["server"])
+    for executor in ("wave", "stage"):
+        args = serve.parse_args(flags + PAGED_FLAGS
+                                + ["--executor", executor])
+        res["runs"].append(serve_run(
+            pipe, args, reqs, want, prefix_ids,
+            f"{executor}, int8 cache, paged", first=first,
+            prompt_singles=prompt_singles(reqs, PAGED_CHUNK,
+                                          SERVE_PREFIX_LEN)))
+        log("paged run " + json.dumps(res["runs"][-1], sort_keys=True))
+    profiled = [r for r in reqs if r["kind"] == "plain"][:4]
+    kv = PagedKvBackend(pipe, 1024, 16, registry=prom.Registry())
+    res["arena_mb"] = kv.pool.arena_bytes / 1e6
+    res["profile"] = {"dense": tick_profile(pipe, profiled),
+                      "paged": tick_profile(pipe, profiled, kv=kv)}
+    del pipe, kv
+    torch.cuda.empty_cache()
+    return res
+
+
+def check_paged_path(res, serve_res, device_name: str) -> None:
+    """Phase 12's gates: phase 11's per-run checks, then the trie's hits,
+    the pool back to all pages free with nothing leaked, and /metrics'
+    free-page gauge at the total."""
+    check_serve_path({"runs": res["runs"], "card": res["card"]},
+                     device_name, entry=False)
+    for run in res["runs"]:
+        name = f"paged serve ({run['label']})"
+        kv = run["kv"]
+        hits = kv["trie_hits"]
+        pool = kv["pool"]
+        if hits < PAGED_SHARERS:
+            raise AssertionError(f"{name}: {hits} trie hits, want >= "
+                                 f"{PAGED_SHARERS}: {kv}")
+        if pool["pages_free"] != pool["pages_total"] or pool["leaked"] \
+                or kv["after_traffic"]["leaked"]:
+            raise AssertionError(f"{name}: pool not whole after the "
+                                 f"traffic and eviction: {kv}")
+        if kv["metrics_pages"]["free"] != kv["metrics_pages"]["total"] \
+                or kv["metrics_pages"]["total"] != pool["pages_total"]:
+            raise AssertionError(f"{name}: /metrics pipeedge_kv_pages "
+                                 f"{kv['metrics_pages']}, pool {pool}")
+        log(f"{name}: kv " + json.dumps(kv))
+    wave, stage = res["runs"]
+    dense_wave = next(r for r in serve_res["runs"]
+                      if r["executor"] == "wave" and r["kv_bits"])
+    log("paged: " + json.dumps({
+        "arena_mb": res["arena_mb"], "oracle_s": res["oracle_s"],
+        "stage_over_wave_tok_per_s": stage["tok_per_s"] / wave["tok_per_s"],
+        "wave_tok_per_s_paged_over_dense": wave["tok_per_s"]
+        / dense_wave["tok_per_s"],
+        "launches_per_tick": {k: v["launches_per_tick"]
+                              for k, v in res["profile"].items()}
+        | {"phase 11": serve_res["profile"]["launches_per_tick"]},
+        "profile": res["profile"], "card": res["card"],
+        "device": device_name}))
+
+
+# --- phase 13: speculative decoding -----------------------------------------
+
+def serial_logits(pipe, ids, tokens) -> torch.Tensor:
+    """The target's logits [B, T, V] along a given continuation `tokens`
+    [B, T]: the prompt's prefill, then one serial decode step per token
+    (the computation `generate` runs), logits of step t predicting t."""
+    with torch.inference_mode():
+        data, caches = pipe._prefill(pipe._ids(ids))
+        out = [data[:, -1].float()]
+        pos = ids.shape[1]
+        for t in range(tokens.shape[1] - 1):
+            data = pipe._ids(tokens[:, t:t + 1])
+            for i, st in enumerate(pipe.stages):
+                data, caches[i] = pipe._decode_step(st, data, caches[i],
+                                                    pos + t)
+            out.append(data[:, 0].float())
+    return torch.stack(out, dim=1)
+
+
+def span_vs_serial(pipe, ids, tokens, k: int) -> float:
+    """max |span logits - serial step logits| over one k-token verify
+    span [S, S + k) after the prompt against k serial decode steps over
+    the same tokens (the port's counterpart of the JAX package's
+    `test_extend_matches_serial_steps`)."""
+    pos = ids.shape[1]
+    with torch.inference_mode():
+        ids_t = pipe._ids(ids)
+        _, caches = pipe._prefill(ids_t)
+        span, _ = pipe.extend(tokens[:, :k], caches, pos)
+        _, caches = pipe._prefill(ids_t)
+        serial = []
+        for j in range(k):
+            data = pipe._ids(tokens[:, j:j + 1])
+            for i, st in enumerate(pipe.stages):
+                data, caches[i] = pipe._decode_step(st, data, caches[i],
+                                                    pos + j)
+            serial.append(data[:, 0])
+        serial = torch.stack(serial, dim=1)
+    return float((span.float() - serial.float()).abs().max())
+
+
+def spec_rule(got, want, prompt_len: int, serial, span_diff: float) -> dict:
+    """The phase-13 check (CHANGES.md): speculative tokens equal the
+    target's greedy tokens; a row may differ only where, at its first
+    differing step, the speculative token is the serial run's second
+    choice and the serial top-2 logit gap is within the measured
+    span-vs-serial logit difference (a near-tie the verify GEMM's
+    rounding can flip). Later steps of such a row follow another prefix
+    and are not compared."""
+    rows = []
+    for b in range(want.shape[0]):
+        diff = np.nonzero(got[b, prompt_len:] != want[b, prompt_len:])[0]
+        if not diff.size:
+            continue
+        t = int(diff[0])
+        top2 = torch.topk(serial[b, t], 2)
+        gap = float(top2.values[0] - top2.values[1])
+        rows.append(dict(row=b, step=t, spec_token=int(got[b, prompt_len + t]),
+                         greedy_token=int(want[b, prompt_len + t]),
+                         second=int(top2.indices[1]), top2_gap=gap,
+                         span_vs_serial=span_diff,
+                         near_tie=bool(int(top2.indices[1])
+                                       == int(got[b, prompt_len + t])
+                                       and gap <= span_diff)))
+    return dict(equal=not rows, differing=rows,
+                ok=all(r["near_tie"] for r in rows))
+
+
+class CountedVerify:
+    """A target pipeline whose `extend` calls are counted: on a dense
+    generation the prompt goes through `_prefill`, so each call is one
+    verify round. Everything else is the wrapped pipeline's."""
+
+    def __init__(self, pipe):
+        self.pipe = pipe
+        self.calls = 0
+
+    def __getattr__(self, name):
+        return getattr(self.pipe, name)
+
+    def extend(self, tokens, caches, pos):
+        self.calls += 1
+        return self.pipe.extend(tokens, caches, pos)
+
+
+def noisy_draft(target, max_len: int, eps: float, seed: int = 0):
+    """`target` (one stage) as its own draft, with seeded noise of
+    relative size `eps` on every weight matrix of its last block; every
+    other parameter is the target's own tensor."""
+    from pipeedge_tpu_torch.parallel.decode import build_decode_pipeline
+    gen = torch.Generator(device=target.device)
+    gen.manual_seed(seed)
+    params = dict(target.stages[0]["params"])
+    blocks = list(params["blocks"])
+    last = {name: dict(leaf) for name, leaf in blocks[-1].items()}
+    for leaf in last.values():
+        if "w" in leaf:
+            w = leaf["w"]
+            leaf["w"] = w + eps * w.std() * torch.randn(
+                w.shape, generator=gen, device=w.device, dtype=w.dtype)
+    blocks[-1] = last
+    params["blocks"] = blocks
+    return build_decode_pipeline(SPEC_TARGET, None, max_len=max_len,
+                                 stage_params=[params],
+                                 device=target.device)
+
+
+def spec_call(target, d_pipe, sync: str, ids, want, serial,
+              span_diff: float) -> dict:
+    """One timed speculative generation (after a short warm-up), its
+    verify rounds counted at the target's `extend`."""
+    from pipeedge_tpu_torch.parallel.speculative import SpeculativeDecoder
+    counted = CountedVerify(target)
+    spec = SpeculativeDecoder(counted, d_pipe, gamma=SPEC_GAMMA, sync=sync)
+    spec.generate(ids[:, :8], 2)                    # warm-up
+    counted.calls = 0
+    got, secs = timed(lambda: spec.generate(ids, SPEC_NEW))
+    return dict(sync=sync, seconds=secs, acceptance=spec.last_acceptance_rate,
+                syncs=spec.last_sync_count, rounds=counted.calls,
+                rule=spec_rule(got, want, SPEC_PROMPT, serial, span_diff))
+
+
+def timed(fn) -> tuple:
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    out = fn()
+    out = out.cpu().numpy() if isinstance(out, torch.Tensor) else out
+    return out, time.monotonic() - t0
+
+
+def spec_path(card: str,
+              weights_dir: Path = ROOT / "pipeedge_tpu_torch" / "_build"
+              ) -> dict:
+    """Phase 13 (module docstring): gpt2-medium verifying the drafts of
+    gpt2 and of its noisy self, host and device sync timed in pairs,
+    then as its own draft, then speculative requests through the paged
+    server, then the generate entry."""
+    from pipeedge_tpu_torch import serve
+    from pipeedge_tpu_torch.models import gpt2, registry
+    from pipeedge_tpu_torch.parallel.decode import build_decode_pipeline
+
+    res = {"card": card}
+    files = {}
+    t0 = time.monotonic()
+    for model in (SPEC_TARGET, SPEC_DRAFT):
+        files[model] = weights_dir / f"{model}-random-seed0.npz"
+        if not files[model].exists():
+            weights_dir.mkdir(parents=True, exist_ok=True)
+            np.savez(files[model], **gpt2.random_npz_weights(
+                registry.get_model_config(model), seed=0))
+    res["weights_s"] = time.monotonic() - t0
+    max_len = 1024
+    target = build_decode_pipeline(SPEC_TARGET, None, max_len=max_len,
+                                   model_file=str(files[SPEC_TARGET]),
+                                   device="cuda")
+    draft = build_decode_pipeline(SPEC_DRAFT, None, max_len=max_len,
+                                  model_file=str(files[SPEC_DRAFT]),
+                                  device="cuda")
+    vocab = target.cfg.vocab_size
+    rng = np.random.default_rng(13)
+    ids = rng.integers(0, vocab, size=(SPEC_BATCH, SPEC_PROMPT))
+    target.generate(ids[:, :8], 2)                  # warm-up
+    want, plain_s = timed(lambda: target.generate(ids, SPEC_NEW))
+    serial = serial_logits(target, ids, want[:, SPEC_PROMPT:])
+    span_diff = span_vs_serial(target, ids, want[:, SPEC_PROMPT:],
+                               SPEC_GAMMA + 1)
+    tokens = SPEC_BATCH * SPEC_NEW
+    res["plain"] = dict(seconds=plain_s, tok_per_s=tokens / plain_s)
+    res["span_vs_serial"] = span_diff
+    res["runs"] = []
+    noisy = noisy_draft(target, max_len, SPEC_NOISE)
+    for name, d_pipe in (("gpt2 draft", draft), ("noisy self-draft", noisy)):
+        # host and device rounds in pairs, so a drift of the host's
+        # speed between calls weighs on both alike
+        calls = [spec_call(target, d_pipe, sync, ids, want, serial,
+                           span_diff)
+                 for _ in range(SPEC_PAIRS)
+                 for sync in ("host", "device", "device", "host")]
+        for sync in ("host", "device"):
+            mine = [c for c in calls if c["sync"] == sync]
+            secs = [c["seconds"] for c in mine]
+            res["runs"].append(dict(
+                draft=name, sync=sync, seconds=secs,
+                tok_per_s=tokens / float(np.median(secs)),
+                speedup=plain_s / float(np.median(secs)),
+                calls=[{k: c[k] for k in ("acceptance", "syncs", "rounds",
+                                          "rule")} for c in mine]))
+            log("spec run " + json.dumps(res["runs"][-1]))
+        host, device = res["runs"][-2:]
+        # > 1: device rounds take less time than host rounds
+        device["device_over_host"] = float(
+            np.median(host["seconds"]) / np.median(device["seconds"]))
+    del noisy
+    self_draft = spec_call(target, target, "device", ids, want, serial,
+                           span_diff)
+    res["runs"].append(dict(
+        draft="self-draft", sync="device", seconds=[self_draft["seconds"]],
+        tok_per_s=tokens / self_draft["seconds"],
+        speedup=plain_s / self_draft["seconds"],
+        calls=[{k: self_draft[k] for k in ("acceptance", "syncs", "rounds",
+                                           "rule")}]))
+    log("spec run " + json.dumps(res["runs"][-1]))
+    del serial
+    # the speculative requests through the paged server (fp cache)
+    flags = ["-m", SPEC_TARGET, "-M", str(files[SPEC_TARGET]),
+             "--max-len", str(max_len), "-t", "float32",
+             "--draft-model", SPEC_DRAFT, "--gamma", str(SPEC_GAMMA),
+             "--kv-pages", "1024", "--kv-page-size", "16",
+             "--brownout-p95-high", "600", "--brownout-p95-low", "300",
+             "--postmortem-dir", str(weights_dir / "postmortems")]
+    args = serve.parse_args(flags)
+    reqs = [{"ids": rng.integers(0, vocab, size=(1, SPEC_PROMPT)).tolist(),
+             "new": SPEC_SERVE_NEW} for _ in range(SPEC_SERVE)]
+    served = spec_serve(args, target, draft, reqs)
+    served["equal"] = [bool(np.array_equal(
+        got, target.generate(np.asarray(r["ids"]),
+                             r["new"]).cpu().numpy()))
+        for got, r in zip(served.pop("results"), reqs)]
+    res["serve"] = served
+    log("spec serve " + json.dumps(served))
+    del target, draft
+    torch.cuda.empty_cache()
+    res["entry"] = generate_entry(
+        ["-m", SPEC_TARGET, "-M", str(files[SPEC_TARGET]), "--draft-model",
+         SPEC_DRAFT, "--gamma", str(SPEC_GAMMA)])
+    log("spec entry " + json.dumps(res["entry"]))
+    return res
+
+
+def spec_serve(args, target, draft, reqs) -> dict:
+    """`reqs` as concurrent `"speculative": true` requests through the
+    in-process server over `target` and `draft`; the results, /metrics'
+    speculative counter, and both pools after the traffic."""
+    import threading
+    from pipeedge_tpu_torch import serve, telemetry
+    telemetry.configure(rank=0)
+    service = serve.make_service(args, target, draft=draft)
+    httpd = serve.Server(("127.0.0.1", 0),
+                         serve.make_handler(service, args.model_name))
+    port = httpd.server_address[1]
+    server = threading.Thread(target=httpd.serve_forever, daemon=True)
+    server.start()
+    out = {}
+
+    def client(i, r):
+        out[i] = http_json(port, "/generate", {
+            "ids": r["ids"], "new_tokens": r["new"], "speculative": True},
+            timeout=900)["ids"]
+
+    try:
+        t0 = time.monotonic()
+        clients = [threading.Thread(target=client, args=(i, r))
+                   for i, r in enumerate(reqs)]
+        for c in clients:
+            c.start()
+        for c in clients:
+            c.join()
+        wall = time.monotonic() - t0
+        health = http_json(port, "/healthz")
+        ok = serve_metric(http_json(port, "/metrics"),
+                          "pipeedge_serve_requests_total",
+                          endpoint="/generate-speculative", status="200")
+        pools = {"target": service.kv_backend.pool.stats(),
+                 "draft": service.spec.draft_pool.stats()}
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        service.stop()
+    return dict(results=[np.asarray(out.get(i)) for i in range(len(reqs))],
+                wall_s=wall, tok_per_s=sum(r["new"] for r in reqs) / wall,
+                healthz_speculative=health["speculative"],
+                requests_200=ok, pools=pools)
+
+
+def generate_entry(argv) -> dict:
+    """`python -m pipeedge_tpu_torch.generate ARGV` as a subprocess: its
+    exit code and report lines."""
+    cmd = [sys.executable, "-m", "pipeedge_tpu_torch.generate"] + argv
+    t0 = time.monotonic()
+    proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                          timeout=600)
+    return dict(command=" ".join(cmd[1:]), rc=proc.returncode,
+                seconds=time.monotonic() - t0,
+                report=[ln for ln in proc.stdout.splitlines()
+                        if ln.startswith(("generated", "kernel_launches"))],
+                stderr=proc.stderr[-2000:] if proc.returncode else "")
+
+
+def check_spec_path(res, device_name: str) -> None:
+    """Phase 13's gates: every speculative generation by the rule of
+    `spec_rule`, the self-draft's acceptance 1.0 and its tokens equal,
+    the served requests equal to plain greedy with both pools whole, and
+    the entry's exit code 0."""
+    for run in res["runs"]:
+        name = f"spec ({run['draft']}, {run['sync']} sync)"
+        per_round = 2 if run["sync"] == "device" else SPEC_GAMMA + 1
+        for call in run["calls"]:
+            if not call["rule"]["ok"]:
+                raise AssertionError(f"{name}: tokens differ from greedy "
+                                     f"beyond a near-tie: {call['rule']}")
+            rounds, acc = call["rounds"], call["acceptance"]
+            if call["syncs"] != 1 + per_round * rounds:
+                raise AssertionError(f"{name}: {call['syncs']} readbacks "
+                                     f"in {rounds} verify rounds")
+            # each round emits its accepted drafts and one target token
+            # after the first token: SPEC_NEW - 1 more, the last round
+            # overshooting by at most gamma
+            emitted = rounds + round(acc * SPEC_GAMMA * rounds)
+            if not SPEC_NEW - 1 <= emitted < SPEC_NEW + SPEC_GAMMA:
+                raise AssertionError(f"{name}: {rounds} rounds at "
+                                     f"acceptance {acc} emit {emitted}")
+        if any(c != run["calls"][0] for c in run["calls"]):
+            raise AssertionError(f"{name}: repeats differ: {run['calls']}")
+    gpt2_host, gpt2_device, noisy_host, noisy_device, self_draft = \
+        res["runs"]
+    for host, device in ((gpt2_host, gpt2_device),
+                         (noisy_host, noisy_device)):
+        if host["calls"][0] != device["calls"][0] | {
+                "syncs": host["calls"][0]["syncs"]}:
+            raise AssertionError(f"host and device sync differ: {host}, "
+                                 f"{device}")
+    if not 0.0 < noisy_host["calls"][0]["acceptance"] < 1.0:
+        raise AssertionError(f"noisy self-draft: acceptance not partial: "
+                             f"{noisy_host}")
+    call = self_draft["calls"][0]
+    if call["acceptance"] != 1.0 or not call["rule"]["equal"]:
+        raise AssertionError(f"self-draft: {self_draft}")
+    served = res["serve"]
+    pools = served["pools"]
+    if not all(served["equal"]) or served["requests_200"] != SPEC_SERVE \
+            or not served["healthz_speculative"] or any(
+                p["pages_free"] != p["pages_total"] or p["leaked"]
+                for p in pools.values()):
+        raise AssertionError(f"speculative serving: {served}")
+    if res["entry"]["rc"] != 0:
+        raise AssertionError(f"generate entry: {res['entry']}")
+    log("spec: " + json.dumps({k: res[k] for k in (
+        "plain", "span_vs_serial", "weights_s")} | {
+        "runs": [{k: r[k] for k in ("draft", "sync", "tok_per_s",
+                                    "speedup", "seconds")}
+                 | {"acceptance": r["calls"][0]["acceptance"],
+                    "syncs_per_round": (r["calls"][0]["syncs"] - 1)
+                    / r["calls"][0]["rounds"]}
+                 | ({"device_over_host": r["device_over_host"]}
+                    if "device_over_host" in r else {})
+                 for r in res["runs"]],
+        "serve_tok_per_s": served["tok_per_s"],
+        "card": res["card"], "device": device_name}))
 
 
 def main() -> int:
@@ -2843,6 +3471,18 @@ def main() -> int:
 
     phase_done("phase 11")
 
+    # phase 12: the paged KV plane under phase 11's server
+    paged_res = paged_path(card)
+    check_paged_path(paged_res, serve_res, device_name)
+
+    phase_done("phase 12")
+
+    # phase 13: speculative decoding, in process, served and the entry
+    spec_res = spec_path(card)
+    check_spec_path(spec_res, device_name)
+
+    phase_done("phase 13")
+
     if args.ab_entry_parent is not None:
         ab_entry(args.ab_entry_parent)
         phase_done("ab entry")
@@ -2942,6 +3582,11 @@ def main() -> int:
         # phase 11: the served traffic of each int8 run
         serve_launches={run["executor"]: run["counts"]["decode_attention"]
                         for run in serve_res["runs"] if run["kv_bits"]},
+        # phase 12: the same server over the paged KV plane
+        paged_serve_launches={run["executor"]: run["counts"][
+            "decode_attention"] for run in paged_res["runs"]},
+        paged_decode_waves={run["executor"]: run["decode_waves"]
+                            for run in paged_res["runs"]},
         cases={name: {k: r[k] for k in (
             "shape", "pos", "dtype", "ms", "ms_l2_cold", "plain_ms",
             "bound_ms", "bound_by", "dequant_route_ms",

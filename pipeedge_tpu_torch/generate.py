@@ -12,6 +12,15 @@ the run (warm-up included). `--device cpu` runs the plain versions of the
 kernels on the CPU. Without `--model-file` (or with a missing file) each
 stage draws seeded random weights. `PIPEEDGE_INT8_DECODE_ATTEND=1` routes
 the int8 cache's decode steps through the decode-attention kernel.
+
+`--draft-model NAME [--gamma G]` decodes greedily by speculative rounds
+(`parallel/speculative.py`): the draft model, one stage, proposes G
+tokens per round and the target verifies them in one span; the tokens
+are the target's own greedy ones, and the report line adds the
+acceptance rate and the host readbacks per round:
+
+    python -m pipeedge_tpu_torch.generate -m gpt2-medium \\
+        --draft-model gpt2 --gamma 4 -b 4 --prompt-len 128 --new-tokens 64
 """
 from __future__ import annotations
 
@@ -86,6 +95,16 @@ def parse_args(argv: Optional[Sequence[str]] = None):
                         help="treat the first N prompt tokens as a prefix "
                              "shared by every batch row, prefilled once "
                              "and reused; the suffixes run as one span")
+    parser.add_argument("--draft-model", default=None,
+                        choices=[n for n in registry.get_model_names()
+                                 if registry.get_model_config(n).model_type
+                                 == "gpt2"],
+                        help="speculative decoding: this (smaller, same-"
+                             "vocabulary) model proposes --gamma tokens "
+                             "per round and the target verifies them in "
+                             "one span; tokens equal plain greedy")
+    parser.add_argument("--gamma", default=4, type=int,
+                        help="draft lookahead per speculative round")
     parser.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                         help="cuda runs the hand-written kernels; cpu their "
                              "plain versions")
@@ -102,6 +121,18 @@ def parse_args(argv: Optional[Sequence[str]] = None):
                      "generation only (not --beams/--prefill-ubatch)")
     if args.shared_prefix and not 0 < args.shared_prefix < args.prompt_len:
         parser.error(f"--shared-prefix must be in (0, {args.prompt_len})")
+    if args.draft_model and (args.temperature > 0 or args.top_k
+                             or args.beams or args.prefill_ubatch
+                             or args.kv_bits):
+        # the JAX entry's text, which also names its flags the port's
+        # entry does not have (--concurrent, --monitor, --spmd-wave,
+        # --dcn-addrs)
+        parser.error("--draft-model is greedy-exact speculative "
+                     "decoding; it does not compose with sampling/"
+                     "--beams/--concurrent/--monitor/--spmd-wave/"
+                     "--prefill-ubatch/--dcn-addrs, nor --kv-bits "
+                     "(int8 span verification is not bit-identical "
+                     "to serial int8 steps)")
     if args.partition:
         nums = [int(x) for x in args.partition.split(",")]
         if len(nums) % 2:
@@ -117,23 +148,45 @@ def run(args) -> np.ndarray:
     dtype = torch.bfloat16 if args.dtype == "bfloat16" else torch.float32
     partition = args.partition or [
         (1, registry.get_model_layers(args.model_name))]
+    max_len = args.max_len or args.prompt_len + args.new_tokens
+    if args.draft_model and args.max_len is None:
+        max_len += args.gamma   # verify spans write past the last token
     pipe = decode.build_decode_pipeline(
-        args.model_name, partition,
-        max_len=args.max_len or args.prompt_len + args.new_tokens,
+        args.model_name, partition, max_len=max_len,
         dtype=dtype, cache_bits=args.kv_bits,
         attend_floor=args.attend_floor, model_file=args.model_file,
         device=args.device)
     ids = prompt_ids(args, cfg)
     p_len = args.shared_prefix
     label = f"{len(partition)} stages"
-    if args.beams:
+    spec = None
+    if p_len:
+        ids[:, :p_len] = ids[0, :p_len]
+        prefix = torch.as_tensor(ids[:, :p_len], device=pipe.device)
+    if args.draft_model:
+        from .parallel.speculative import SpeculativeDecoder
+        d_pipe = decode.build_decode_pipeline(
+            args.draft_model, None, max_len=max_len, dtype=dtype,
+            attend_floor=args.attend_floor, device=args.device)
+        spec = SpeculativeDecoder(pipe, d_pipe, gamma=args.gamma)
+        label += (f", speculative gamma={args.gamma} "
+                  f"draft={args.draft_model} sync={spec.sync}")
+        if p_len:
+            handle = spec.precompute_prefix(ids[:1, :p_len])
+
+            def gen(n):
+                return torch.cat([prefix, spec.generate(
+                    ids[:, p_len:], n, prefix=handle)], dim=1)
+            label += f", shared prefix {p_len}"
+        else:
+            def gen(n):
+                return spec.generate(ids, n)
+    elif args.beams:
         def gen(n):
             return pipe.generate_beam(ids, n, beams=args.beams)
         label += f", beam {args.beams}"
     elif p_len:
-        ids[:, :p_len] = ids[0, :p_len]
         handle = pipe.precompute_prefix(ids[:1, :p_len])
-        prefix = torch.as_tensor(ids[:, :p_len], device=pipe.device)
 
         def gen(n):
             out = pipe.generate(ids[:, p_len:], n, prefix=handle,
@@ -152,6 +205,13 @@ def run(args) -> np.ndarray:
     tik = time.monotonic()
     out = gen(args.new_tokens).cpu().numpy()   # the copy waits for the card
     dt = time.monotonic() - tik
+    if spec is not None:
+        rate = spec.last_acceptance_rate
+        rounds = (spec.last_sync_count - 1) // (
+            2 if spec.sync == "device" else args.gamma + 1)
+        label += (" acceptance=" + (f"{rate:.2f}" if rate is not None
+                                    else "n/a")
+                  + f" syncs={spec.last_sync_count} rounds={rounds}")
     print_summary(args, dt, out, label)
     print("kernel_launches=" + json.dumps(_build.launch_counts,
                                           sort_keys=True))

@@ -1,0 +1,256 @@
+"""Cross-request prefix sharing: a prompt-token hash trie over KV pages.
+
+Port copy of `pipeedge_tpu/kv/prefix.py` (it holds no arrays).
+`precompute_prefix` makes prompt caching possible only through a
+HAND-PASSED handle: the caller has to know which requests share a
+prefix. The trie makes sharing automatic and cross-request: a
+finished prompt's full pages are published here keyed by their token
+content, and a later request walks the trie at admission — every
+matched page is referenced (refcount, kv/pool.py) instead of
+re-prefilled, and only the unmatched suffix runs as a span step.
+
+Structure: one node per PAGE of prompt tokens (`page_size` tokens), so
+the key at each level is a fixed-size token chunk and a match is always
+a whole number of pages — shared pages are physically immutable (the
+borrower never writes positions below its shared length; kv/backend.py
+restricts scatter to private pages). Partial-page matches are
+deliberately NOT shared: the tail page of a prompt is still being
+written by its owner's decode steps.
+
+Lifecycle: `insert` retains each published page with one trie
+reference; a page is COLD when the trie holds its only reference
+(`pool.refcount == 1`) — no live request is reading it. `evict_cold`
+reclaims cold leaf nodes in LRU order (leaf-first keeps every surviving
+node's prefix chain intact); it is the pool's allocation-pressure hook
+and the brownout ladder's `evict_cold_pages` rung.
+
+Lock order: the trie lock ("kv.prefix") is taken before any pool call;
+the pool's condition is a leaf lock.
+"""
+from __future__ import annotations
+
+from typing import Dict, List, Optional, Sequence, Tuple
+
+from ..telemetry import metrics as prom
+from ..utils.threads import make_lock
+from .pool import KvPagePool
+
+LOOKUP_RESULTS = ("hit", "partial", "miss")
+
+
+class _Node:
+    __slots__ = ("key", "pid", "parent", "children", "stamp")
+
+    def __init__(self, key: Tuple[int, ...], pid: int,
+                 parent: Optional["_Node"], stamp: int):
+        self.key = key
+        self.pid = pid
+        self.parent = parent
+        self.children: Dict[Tuple[int, ...], "_Node"] = {}
+        self.stamp = stamp
+
+
+class PrefixTrie:
+    """Page-granular prompt-prefix cache over a `KvPagePool`."""
+
+    def __init__(self, pool: KvPagePool,
+                 registry: Optional[prom.Registry] = None):
+        self.pool = pool
+        self.page_size = pool.page_size
+        self._lock = make_lock("kv.prefix")
+        self._root: Dict[Tuple[int, ...], _Node] = {}
+        self._nodes = 0
+        self._clock = 0      # logical LRU clock (bumped per lookup/insert)
+        reg = prom.REGISTRY if registry is None else registry
+        self.m_lookups = reg.counter(
+            "pipeedge_kv_prefix_lookups_total",
+            "prefix-trie lookups by result: hit (>= 1 full page matched "
+            "and reused), partial (some pages matched, shorter than the "
+            "longest published prefix path), miss (nothing matched). "
+            "hit+partial both reuse pages; the split tells how often the "
+            "workload's prefixes align with published ones")
+        for result in LOOKUP_RESULTS:
+            self.m_lookups.declare(result=result)
+        self.m_pages_reused = reg.counter(
+            "pipeedge_kv_prefix_pages_reused_total",
+            "KV pages referenced from the trie instead of re-prefilled")
+        self.m_pages_reused.declare()
+        self.m_cached = reg.gauge(
+            "pipeedge_kv_prefix_pages_cached",
+            "prompt pages currently retained by the prefix trie")
+        self.m_cached.set(0)
+
+    def __len__(self) -> int:
+        with self._lock:
+            return self._nodes
+
+    def _chunks(self, tokens: Sequence[int]) -> List[Tuple[int, ...]]:
+        n = len(tokens) // self.page_size
+        return [tuple(int(t) for t in
+                      tokens[i * self.page_size:(i + 1) * self.page_size])
+                for i in range(n)]
+
+    # -- lookup / insert --------------------------------------------------
+
+    def lookup(self, tokens: Sequence[int],
+               max_tokens: Optional[int] = None) -> List[int]:
+        """Longest whole-page prefix match for `tokens`; returns the
+        matched page ids, each with one reference taken for the caller
+        (release them with `pool.release` when the request completes).
+        `max_tokens` caps the match (the borrower must keep at least one
+        prompt token out of the shared prefix — the span step needs a
+        non-empty suffix, `DecodePipeline.generate`'s prefix rule)."""
+        chunks = self._chunks(tokens)
+        if max_tokens is not None:
+            chunks = chunks[:max(0, max_tokens // self.page_size)]
+        pids: List[int] = []
+        with self._lock:
+            self._clock += 1
+            level = self._root
+            for key in chunks:
+                node = level.get(key)
+                if node is None:
+                    break
+                node.stamp = self._clock
+                pids.append(node.pid)
+                level = node.children
+            if pids:
+                self.pool.share(pids)
+                self.m_pages_reused.inc(len(pids))
+                self.m_lookups.inc(result="hit" if len(pids) == len(chunks)
+                                   else "partial")
+            else:
+                self.m_lookups.inc(result="miss")
+        return pids
+
+    def peek(self, tokens: Sequence[int],
+             max_tokens: Optional[int] = None) -> int:
+        """Matched-token count of the longest whole-page prefix WITHOUT
+        taking references or counting a lookup — a routing probe (the
+        disaggregation split uses it to decide whether a prompt even
+        needs the prefill fleet, tools/serve.py)."""
+        chunks = self._chunks(tokens)
+        if max_tokens is not None:
+            chunks = chunks[:max(0, max_tokens // self.page_size)]
+        matched = 0
+        with self._lock:
+            level = self._root
+            for key in chunks:
+                node = level.get(key)
+                if node is None:
+                    break
+                matched += 1
+                level = node.children
+        return matched * self.page_size
+
+    def insert(self, tokens: Sequence[int], pids: Sequence[int]) -> int:
+        """Publish a prefilled prompt's full pages: `pids[i]` holds the
+        KV rows of token chunk `i` on every stage. Existing nodes win
+        (the first publisher of a chunk keeps it — a concurrent
+        duplicate's pages simply stay private and die with its request);
+        new nodes take one retention reference. Returns nodes added."""
+        chunks = self._chunks(tokens)
+        if len(pids) < len(chunks):
+            chunks = chunks[:len(pids)]
+        added = 0
+        with self._lock:
+            self._clock += 1
+            level, parent = self._root, None
+            for key, pid in zip(chunks, pids):
+                node = level.get(key)
+                if node is None:
+                    node = _Node(key, int(pid), parent, self._clock)
+                    level[key] = node
+                    self.pool.share([int(pid)])
+                    self._nodes += 1
+                    added += 1
+                else:
+                    node.stamp = self._clock
+                    if node.pid != pid:
+                        # a different physical page holds the same
+                        # tokens: keep the published one; the duplicate
+                        # stays private to its request
+                        level = node.children
+                        parent = node
+                        continue
+                level = node.children
+                parent = node
+            self.m_cached.set(self._nodes)
+        return added
+
+    # -- eviction ---------------------------------------------------------
+
+    def _cold_leaves(self) -> List[_Node]:
+        """Leaf nodes whose page the trie alone references, oldest
+        first. Leaf-first keeps surviving prefix chains contiguous.
+        One refcount SNAPSHOT per walk, not a pool-lock round trip per
+        node (can_admit probes this on the wave batcher's tick path)."""
+        refs = self.pool.refcounts()
+        out = []
+        stack = list(self._root.values())
+        while stack:
+            node = stack.pop()
+            if node.children:
+                stack.extend(node.children.values())
+            elif refs.get(node.pid, 0) == 1:
+                out.append(node)
+        out.sort(key=lambda n: n.stamp)
+        return out
+
+    def cold_pages(self) -> int:
+        """How many pages eviction could reclaim right now (free +
+        cold is the backend's `can_admit` headroom). Counts the whole
+        cold SUBTREES, not just current leaves: evicting a cold leaf
+        exposes its parent, so a fully-cold chain reclaims end to end."""
+        refs = self.pool.refcounts()    # one snapshot, not per-node locks
+
+        def count(node: _Node) -> Tuple[int, bool]:
+            total, all_cold = 0, True
+            for child in node.children.values():
+                t, cold = count(child)
+                total += t
+                all_cold = all_cold and cold
+            if all_cold and refs.get(node.pid, 0) == 1:
+                return total + 1, True
+            return total, False
+
+        with self._lock:
+            return sum(count(n)[0] for n in self._root.values())
+
+    def evict_cold(self, need: Optional[int] = None) -> int:
+        """Reclaim cold pages: at most `need` (None = ALL cold pages —
+        the brownout rung's proactive sweep). Returns pages freed."""
+        freed = 0
+        with self._lock:
+            while need is None or freed < need:
+                leaves = self._cold_leaves()
+                if not leaves:
+                    break
+                for node in leaves:
+                    if need is not None and freed >= need:
+                        break
+                    siblings = (self._root if node.parent is None
+                                else node.parent.children)
+                    siblings.pop(node.key, None)
+                    self._nodes -= 1
+                    self.pool.release([node.pid], evicted=True)
+                    freed += 1
+            self.m_cached.set(self._nodes)
+        return freed
+
+    def stats(self) -> dict:
+        with self._lock:
+            nodes = self._nodes
+        hits = self.m_lookups.value(result="hit") \
+            + self.m_lookups.value(result="partial")
+        misses = self.m_lookups.value(result="miss")
+        total = hits + misses
+        return {"pages_cached": nodes,
+                "lookups": int(total),
+                # hits/misses exposed raw so consumers can difference
+                # two snapshots into a WINDOW rate instead of the
+                # lifetime-cumulative hit_rate below
+                "hits": int(hits), "misses": int(misses),
+                "hit_rate": (None if total == 0
+                             else round(hits / total, 4)),
+                "pages_reused_total": int(self.m_pages_reused.value())}

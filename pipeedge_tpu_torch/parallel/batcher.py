@@ -44,10 +44,15 @@ What the port does its own way, and why:
   (not the JAX package's: ROADMAP §C).
 - **`torch.inference_mode`** is thread-local: every thread that runs
   stage work enters it.
-- The paged KV plane (`kv=`) and shipped prefill (`shipped=`) wait for
-  ROADMAP A5.3a and raise. The JAX executors' `sp_degree` refusal has no
-  counterpart: the port's `DecodePipeline` has no sequence-parallel
-  prefill until ROADMAP A7.
+- **The paged KV plane** (`kv=`, a `kv.PagedKvBackend`): requests hold
+  page tables over one shared pool instead of private dense slots, every
+  stage-step (chunks included) runs through `kv.run_stage` (gather, the
+  same stage function, scatter of the written private pages), admission
+  waits on pages (the wave batcher's pending head; the stage workers'
+  submitter) and `max_active` defaults to the pool's page count.
+  Shipped prefill (`shipped=`) waits for ROADMAP A5.3b and raises. The
+  JAX executors' `sp_degree` refusal has no counterpart: the port's
+  `DecodePipeline` has no sequence-parallel prefill until ROADMAP A7.
 """
 from __future__ import annotations
 
@@ -89,10 +94,11 @@ del _ex
 KINDS = ("prefill", "span", "chunk", "step")
 
 
-def _paged_refusal(what: str) -> ValueError:
-    return ValueError(f"{what}: the paged KV plane is not ported to "
-                      "pipeedge_tpu_torch yet (ROADMAP A5.3a); the port's "
-                      "executors run dense per-request caches")
+def _shipped_refusal() -> ValueError:
+    return ValueError("shipped KV: disaggregated prefill is not ported to "
+                      "pipeedge_tpu_torch yet (ROADMAP A5.3b with A6, the "
+                      "prefill supervisors); the port's executors run "
+                      "every prompt pass themselves")
 
 
 def _on_device_stream(pipe: DecodePipeline):
@@ -142,6 +148,12 @@ class _Request:
     expired: bool = False            # the deadline check tripped
     rows_done: Optional[np.ndarray] = None   # [B] eos seen per row
     caches: Optional[List] = None    # per-stage cache slots (admission)
+    # paged KV plane (`kv/`): page tables + sharing state when a
+    # PagedKvBackend drives this request instead of dense cache slots
+    kvstate: Optional[Dict] = None
+    # the prompt on the host when the caller gave it there (the prefix
+    # trie keys pages by token content without a readback)
+    host_ids: Optional[np.ndarray] = None
     # chunked prefill: `chunk_rest` holds the prompt tokens not yet
     # dispatched, `chunk_off` the in-flight chunk's absolute cache offset,
     # `chunk_next` the next chunk's offset, and `chunk_final` whether the
@@ -174,9 +186,10 @@ def _build_request(pipe: DecodePipeline, rid, ids, new_tokens: int,
     the stage-worker executor (the JAX package's errors, and one
     generator discipline, so token streams match across executors)."""
     if shipped is not None:
-        raise _paged_refusal("shipped KV")
+        raise _shipped_refusal()
+    host_ids = None
     if not isinstance(ids, torch.Tensor):
-        ids = np.asarray(ids)
+        ids = host_ids = np.asarray(ids)
     with _on_device_stream(pipe):
         ids = torch.as_tensor(ids, dtype=torch.long, device=pipe.device)
     if ids.dim() != 2 or ids.shape[1] == 0:
@@ -203,7 +216,8 @@ def _build_request(pipe: DecodePipeline, rid, ids, new_tokens: int,
         prompt_len=prompt_len, prefix=prefix, eos_token=eos_token,
         pad_token=eos_token if pad_token is None else pad_token,
         on_token=on_token, cancel=cancel,
-        deadline=None if deadline is None else float(deadline))
+        deadline=None if deadline is None else float(deadline),
+        host_ids=host_ids)
 
 
 def _seed_caches(pipe: DecodePipeline, req: _Request) -> str:
@@ -286,6 +300,15 @@ def _run_stage(pipe: DecodePipeline, i: int, req: _Request, data,
     return out
 
 
+def _dispatch(pipe: DecodePipeline, kv, i: int, req: _Request, data,
+              kind: str):
+    """One stage-step on the request's dense cache slots, or through the
+    paged backend's page tables when the executor has one."""
+    if kv is not None:
+        return kv.run_stage(i, req, data, kind)
+    return _run_stage(pipe, i, req, data, kind)
+
+
 def _pick(req: _Request, out) -> torch.Tensor:
     """The next token [B] from the last stage's output: the last
     position's logits for every wave kind (prefill [B,S], span [B,S_s],
@@ -354,12 +377,16 @@ class ContinuousBatcher:
                  kv=None, chunk_tokens: int = 0,
                  prefill_budget: Optional[int] = None,
                  step_join: bool = False, on_step=None):
-        if kv is not None:
-            raise _paged_refusal("ContinuousBatcher(kv=...)")
         self.pipe = pipe
         self.n_stages = len(pipe.stages)
-        self.max_active = (self.n_stages + 1 if max_active is None
-                           else max_active)
+        # paged-KV backend (kv/backend.py): requests hold page tables over
+        # the shared pool, and admission is bounded by PAGES (max_active
+        # defaults to the pool's page count)
+        self.kv = kv
+        if max_active is None:
+            max_active = (self.n_stages + 1 if kv is None
+                          else max(self.n_stages + 1, kv.pool.n_pages))
+        self.max_active = max_active
         if self.max_active < 1:
             raise ValueError(f"max_active must be >= 1, got {self.max_active}")
         # chunked prefill: prompt passes longer than `chunk_tokens` are
@@ -424,13 +451,18 @@ class ContinuousBatcher:
         completes the request at its next pick with the tokens decoded so
         far. `deadline` (absolute `time.monotonic()` seconds) is checked
         at every decode-step boundary; expiry fires `cancel`. `shipped`
-        waits for ROADMAP A5.3a and raises."""
+        waits for ROADMAP A5.3b and raises."""
         if rid in self.results or rid in self._live_rids:
             raise ValueError(f"duplicate request id {rid!r}")
         req = _build_request(self.pipe, rid, ids, new_tokens, temperature,
                              top_k, seed, eos_token, pad_token, prefix,
                              on_token=on_token, cancel=cancel,
                              deadline=deadline, shipped=shipped)
+        if self.kv is not None:
+            # a reservation bigger than the whole pool would wedge the
+            # pending queue forever (can_admit never true): reject it up
+            # front like the dense path's capacity check
+            self.kv.check_admittable(req)
         self._live_rids.add(rid)
         self.pending.append(req)
 
@@ -444,8 +476,14 @@ class ContinuousBatcher:
                 self.results[req.rid] = _finalize_tokens(req)
                 self._live_rids.discard(req.rid)
                 continue
-            self.pending.popleft()
-            kind, data = _seed_caches(self.pipe, req), req.ids
+            if self.kv is not None:
+                if not self.kv.can_admit(req):
+                    break       # head-of-line: wait for page releases
+                self.pending.popleft()
+                kind, data = self.kv.admit(req)
+            else:
+                self.pending.popleft()
+                kind, data = _seed_caches(self.pipe, req), req.ids
             kind, data = _maybe_chunk(req, kind, data, self.chunk_tokens)
             if kind == "chunk":
                 self.stats["prefill_chunks"] += 1
@@ -498,6 +536,8 @@ class ContinuousBatcher:
         self.results[req.rid] = _finalize_tokens(req)
         req.caches = None            # free this request's cache slots
         req.chunk_rest = None
+        if self.kv is not None:
+            self.kv.release(req)     # ... or its page references
         self.active -= 1
         self._live_rids.discard(req.rid)
         _sched_mark("retire", req.rid)
@@ -561,7 +601,7 @@ class ContinuousBatcher:
                 continue
             req, data, kind = (self._pop_stage0() if i == 0
                                else self._stage_q[i].popleft())
-            out = _run_stage(self.pipe, i, req, data, kind)
+            out = _dispatch(self.pipe, self.kv, i, req, data, kind)
             self.stats["stage_steps"] += 1
             self.kind_steps[i][kind] += 1
             worked = True
@@ -609,12 +649,15 @@ class StageWorkerExecutor:
                  max_active: Optional[int] = None, kv=None,
                  chunk_tokens: int = 0, step_join: bool = False,
                  on_step=None):
-        if kv is not None:
-            raise _paged_refusal("StageWorkerExecutor(kv=...)")
         self.pipe = pipe
         self.n_stages = len(pipe.stages)
-        self.max_active = (self.n_stages + 1 if max_active is None
-                           else max_active)
+        # paged-KV backend: page-table caches + token-bounded admission
+        # (submit blocks on PAGE availability, not just the slot count)
+        self.kv = kv
+        if max_active is None:
+            max_active = (self.n_stages + 1 if kv is None
+                          else max(self.n_stages + 1, kv.pool.n_pages))
+        self.max_active = max_active
         if self.max_active < 1:
             raise ValueError(f"max_active must be >= 1, got {self.max_active}")
         # chunked prefill: the stage queues are FIFO, so bounding every
@@ -660,11 +703,16 @@ class StageWorkerExecutor:
                shipped: Optional[Dict] = None) -> None:
         """Admit one request (same argument contract as
         `ContinuousBatcher.submit`). BLOCKS while `max_active` requests
-        are in flight — admission backpressure is the caller's thread."""
+        are in flight — admission backpressure is the caller's thread; a
+        paged executor also blocks on PAGE availability."""
         req = _build_request(self.pipe, rid, ids, new_tokens, temperature,
                              top_k, seed, eos_token, pad_token, prefix,
                              on_token=on_token, cancel=cancel,
                              deadline=deadline, shipped=shipped)
+        if self.kv is not None:
+            # reject a bigger-than-the-pool reservation BEFORE taking a
+            # slot: the same up-front ValueError the wave batcher gives
+            self.kv.check_admittable(req)
         with self._lock:
             self._check_dead()
             if rid in self.results or rid in self._live:
@@ -688,7 +736,12 @@ class StageWorkerExecutor:
                 self._slots.release()
                 return
             try:
-                kind, data = _seed_caches(self.pipe, req), req.ids
+                if self.kv is not None:
+                    # page admission blocks like the slot semaphore does:
+                    # completions release pages
+                    kind, data = self.kv.admit(req, block=True)
+                else:
+                    kind, data = _seed_caches(self.pipe, req), req.ids
                 kind, data = _maybe_chunk(req, kind, data,
                                           self.chunk_tokens)
                 if kind == "chunk":
@@ -698,8 +751,11 @@ class StageWorkerExecutor:
                 _sched_mark("join", rid)
                 self._q[0].put((req, data, kind))
             except BaseException:
-                # roll the admission back (e.g. cache allocation OOM):
-                # leaking the slot would eventually wedge every submit
+                # roll the admission back (cache allocation OOM, page-pool
+                # exhaustion or closure): leaking the slot would
+                # eventually wedge every submit
+                if self.kv is not None:
+                    self.kv.release(req)
                 with self._lock:
                     self.active -= 1
                 raise
@@ -742,6 +798,11 @@ class StageWorkerExecutor:
         exits — after the join, every still-live request's waiter is
         FAILED rather than left hanging. Drain with `wait` before stopping
         if results matter."""
+        if self.kv is not None:
+            # wake submitters parked on PAGE availability too (the
+            # semaphore over-release below reaches only slot waiters);
+            # in-flight completions still release their pages
+            self.kv.pool.close()
         for q in self._q:
             q.put(self._DONE)
         for w in self._workers:
@@ -774,7 +835,7 @@ class StageWorkerExecutor:
                 req, data, kind = item
                 self.stats["busy"][i] = True
                 try:
-                    out = _run_stage(self.pipe, i, req, data, kind)
+                    out = _dispatch(self.pipe, self.kv, i, req, data, kind)
                     self.stats["stage_steps"][i] += 1
                     self.kind_steps[i][kind] += 1
                     if i + 1 < self.n_stages:
@@ -793,6 +854,8 @@ class StageWorkerExecutor:
         arr = _finalize_tokens(req)
         req.caches = None            # free this request's cache slots
         req.chunk_rest = None
+        if self.kv is not None:
+            self.kv.release(req)     # ... or its page references
         _sched_mark("retire", req.rid)
         with self._lock:
             self.results[req.rid] = arr
@@ -843,6 +906,9 @@ class StageWorkerExecutor:
             if self._dead is None:
                 self._dead = exc
             self._lock.notify_all()
-        # wake submitters blocked on admission so they observe the death
+        # wake submitters blocked on admission so they observe the death:
+        # both the slot semaphore and (paged) the page-pool wait
+        if self.kv is not None:
+            self.kv.pool.close()
         for _ in range(self.max_active):
             self._slots.release()

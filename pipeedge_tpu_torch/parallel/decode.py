@@ -17,7 +17,10 @@ Port of the single-device path of `pipeedge_tpu/parallel/decode.py`
 - **Bucketed attend windows**: a decode step attends cache rows
   [0, read_len), read_len the least power of two >= the live length
   (>= the attend floor), which JAX needed as a static shape; eager
-  PyTorch keeps it, so both packages attend the same windows.
+  PyTorch keeps it, so both packages attend the same windows. A prefill
+  attends its own S prompt rows (the JAX package attends the whole cache
+  with the rows past S masked, the same function): so a prefill on a
+  paged view (`kv/`) is the same computation as on a dense cache.
 - **The int8 decode-attend route** (`_use_int8_decode_kernel`): with an
   int8 cache, a single-token MHA step may attend through kernel 5
   (`ops/decode_attention.py`), which dequantizes in registers, in place
@@ -348,6 +351,9 @@ def _make_stage_run(family, cfg: TransformerConfig,
 
     @torch.inference_mode()
     def run(params, data, cache, pos, prefill, read_len=None):
+        if prefill and read_len is None:
+            # the prompt's own rows: any width past them is masked
+            read_len = data.shape[1]
         if shard_config.is_first:
             if prefill:
                 data = family.embed(params["embeddings"], data, cfg)

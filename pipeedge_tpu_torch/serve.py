@@ -36,13 +36,32 @@ Endpoints (as in `tools/serve.py`, JSON unless noted):
   With `"stream": true` the response is chunked `application/x-ndjson`:
   one `{"step": i, "tokens": [[...]]}` line per decode step, then a final
   `{"ids", "first_token_ms", "steps", "rid"}` line equal to the plain
-  response. `"speculative": true` gets the JAX server's answer without a
-  draft model (400, "speculative generation unavailable"), or plain
+  response. `"speculative": true` runs greedy draft/verify rounds with
+  `--draft-model` (the target's own greedy tokens), gets the JAX server's
+  400 ("speculative generation unavailable") without one, and plain
   greedy under brownout.
 
 Tokens equal solo `DecodePipeline.generate` runs with the same settings.
 With an int8 cache (`--kv-bits 8`) and `--int8-decode-attend` on, every
 single-token decode step attends through the decode-attention kernel.
+
+The paged KV plane (`--kv-pages N [--kv-page-size 16]`, `kv/`): the
+executors run on page tables over one shared pool per stage instead of
+dense per-request caches, a prompt-prefix trie shares whole prompt pages
+across requests, admission charges each request's page reservation
+against a KV TOKEN budget of N x page size, `/prefix` registers token
+lists (the trie owns the KV), the brownout ladder's evict rung reclaims
+cold prefix pages, and the governor sweeps orphaned pages. It enables
+`--chunked-prefill N` (prompt passes split into N-token chunks between
+decode steps, `--prefill-budget` tokens per wave tick) and shares the
+pool with speculative generations (`--draft-model` gets a draft-layout
+pool of its own):
+
+    python -m pipeedge_tpu_torch.serve -m gpt2 -pt 1,24,25,48 \\
+        --max-len 1024 -t float32 --kv-bits 8 --int8-decode-attend auto \\
+        --kv-pages 1024 --kv-page-size 16 --chunked-prefill 64 --step-join
+    python -m pipeedge_tpu_torch.serve -m gpt2-medium --max-len 1024 \\
+        -t float32 --draft-model gpt2 --gamma 4 --kv-pages 1024
 
 Threads and the card: the executor threads and the handler threads all
 enqueue on the device's default stream (`parallel/batcher.py`). A
@@ -51,9 +70,9 @@ the executor's thread (`_fence_tokens`); the handler thread waits on that
 event, so it never reads a tensor still being written.
 
 Not ported yet, and refused at parse time with the ROADMAP item that
-ports them: the router, replica roles and autoscale, the paged KV plane,
-disaggregated prefill, chunked prefill and step-join at the server, and
-speculative decoding (`REFUSED`).
+ports them: the router, replica roles and autoscale, and disaggregated
+prefill (`REFUSED`). Without `--kv-pages`, a `prefix_id` names a dense
+`precompute_prefix` handle (and, with a draft model, the draft's too).
 """
 from __future__ import annotations
 
@@ -72,16 +91,18 @@ import torch
 
 from . import health as peer_health
 from . import telemetry
+from .kv import KvPagePool, PagedKvBackend
 from .models import registry
 from .parallel import batcher as batcher_mod
 from .parallel.decode import build_decode_pipeline
+from .parallel.speculative import SpeculativeDecoder
 from .serving import (AdmissionController, AdmissionShed, BrownoutLadder,
                       DeadlineExceeded, REQUEST_CLASSES, Watermarks,
                       default_policies, parse_class_map)
 from .telemetry import collector as fleet_obs
 from .telemetry import flight
 from .telemetry import metrics as prom
-from .utils.threads import make_condition
+from .utils.threads import make_condition, make_lock
 
 # request outcomes the per-class counter tracks (the request-class x
 # outcome matrix, pre-declared at service construction)
@@ -97,9 +118,7 @@ RID_HEADER = "X-PipeEdge-Rid"
 _ROUTER = "A5.2a, the router and ReplicaSupervisor"
 _FLEET = "A5.2b, FleetCollector"
 _AUTOSCALE = "A5.2c, serving/autoscale.py"
-_PAGED = "A5.3a, the paged KV plane"
 _DISAGG = "A5.3b with A6, the prefill supervisors over the port's DCN"
-_SPEC = "A5.4, parallel/speculative.py"
 REFUSED = {
     "--role": ({}, _ROUTER),
     "--replicas": ({"type": int}, _ROUTER),
@@ -123,12 +142,6 @@ REFUSED = {
     "--autoscale-queue-low": ({"type": float}, _AUTOSCALE),
     "--autoscale-burn-high": ({"type": float}, _AUTOSCALE),
     "--autoscale-burn-low": ({"type": float}, _AUTOSCALE),
-    "--kv-pages": ({"type": int}, _PAGED),
-    "--kv-page-size": ({"type": int}, _PAGED),
-    "--chunked-prefill": ({"type": int}, _PAGED),
-    "--prefill-budget": ({"type": int}, _PAGED),
-    "--step-join": ({"action": "store_true"}, _PAGED),
-    "--brownout-clamp-chunk": ({"type": int}, _PAGED),
     "--disaggregate": ({}, _DISAGG),
     "--prefill-ranks": ({"type": int}, _DISAGG),
     "--prefill-lease-timeout": ({"type": float}, _DISAGG),
@@ -137,8 +150,6 @@ REFUSED = {
     "--prefill-heartbeat-interval": ({"type": float}, _DISAGG),
     "--prefill-concurrency": ({"type": int}, _DISAGG),
     "--kv-ship-bits": ({"type": int}, _DISAGG),
-    "--draft-model": ({}, _SPEC),
-    "--gamma": ({"type": int}, _SPEC),
     "--fleet-scrape-interval": ({"type": float}, _FLEET),
     "--fleet-history": ({"type": int}, _FLEET),
 }
@@ -208,17 +219,34 @@ class _Service:
     """Owns the pipeline + executor; HTTP handler threads submit requests
     and wait for (or stream) their results."""
 
-    def __init__(self, pipe, max_active=None, max_prefixes=8,
+    def __init__(self, pipe, max_active=None, max_prefixes=8, spec=None,
                  executor="wave", edge_itemsize=2,
                  admission_enabled=True, queue_capacity=64,
                  class_rates=None, class_deadlines_s=None,
                  brownout_enabled=True, brownout_marks=None,
                  clamp_new_tokens=16, governor_interval=0.25,
-                 postmortem_dir=None, slo_objective=0.99,
-                 slo_burn_fast=30.0, slo_burn_slow=300.0,
-                 slo_burn_threshold=10.0):
+                 postmortem_dir=None, kv_pages=0, kv_page_size=16,
+                 chunked_prefill=0, step_join=False,
+                 prefill_budget=None, clamp_chunk_tokens=0,
+                 slo_objective=0.99, slo_burn_fast=30.0,
+                 slo_burn_slow=300.0, slo_burn_threshold=10.0):
         self.pipe = pipe
+        self.spec = spec
         self.executor = executor
+        # -- paged KV plane (kv/) ---------------------------------------
+        # kv_pages > 0 swaps the executors' dense per-request cache slots
+        # for page tables over one shared pool (+ the prefix trie);
+        # admission then runs on a KV TOKEN budget
+        self.kv_backend = None
+        if kv_pages:
+            self.kv_backend = PagedKvBackend(pipe, kv_pages, kv_page_size)
+            if spec is not None:
+                # speculative verify caches reserve pages from the SAME
+                # pool as decode requests; the draft model gets its own
+                # pool over its own pipeline geometry
+                spec.attach_paged(self.kv_backend,
+                                  KvPagePool(spec.draft, kv_pages,
+                                             kv_page_size))
         self.cond = make_condition("serve.results")
         # -- /metrics + healthz counters (one source of truth) ----------
         # healthz's stats read the registry instruments back (stats()),
@@ -273,8 +301,13 @@ class _Service:
             "(prefill + decode steps, estimated from shapes)")
         for i in range(len(pipe.stages) - 1):
             self.m_edge_bytes.declare(edge=f"{i}->{i + 1}")
-        self.prefixes = OrderedDict()   # LRU-bounded: handles hold full
-        self.max_prefixes = max_prefixes   # max_len KV buffers
+        # speculative generations hold THIS lock, not self.cond: plain
+        # requests and result waits proceed concurrently; serializing
+        # speculative requests with each other bounds their cache memory
+        self.spec_lock = make_lock("serve.speculative")
+        self.prefixes = OrderedDict()   # LRU-bounded: dense handles hold
+        self.spec_prefixes = OrderedDict()   # full max_len KV buffers
+        self.max_prefixes = max_prefixes
         self._next_rid = 0
         self._next_pid = 0
         self._stop = False
@@ -287,15 +320,25 @@ class _Service:
         self._recovered = threading.Event()
         # observed heal durations: the basis of the derived Retry-After
         self._heal_s = deque(maxlen=8)
+        # iteration-level scheduling: chunked_prefill > 0 splits long
+        # prompt passes into fixed-token chunks between decode steps;
+        # step_join re-drives admission at every decode-step boundary
+        self.chunked_prefill = int(chunked_prefill)
+        self.step_join = bool(step_join)
         if executor == "stage":
             self.exec = batcher_mod.StageWorkerExecutor(
-                pipe, max_active=max_active, on_step=self._on_step)
+                pipe, max_active=max_active, kv=self.kv_backend,
+                chunk_tokens=self.chunked_prefill, step_join=self.step_join,
+                on_step=self._on_step)
             self.batcher = None
             self.worker = None
         elif executor == "wave":
             self.exec = None
             self.batcher = batcher_mod.ContinuousBatcher(
-                pipe, max_active=max_active, on_step=self._on_step)
+                pipe, max_active=max_active, kv=self.kv_backend,
+                chunk_tokens=self.chunked_prefill,
+                prefill_budget=prefill_budget, step_join=self.step_join,
+                on_step=self._on_step)
             self.worker = threading.Thread(target=self._loop, daemon=True,
                                            name="wave-executor")
             self.worker.start()
@@ -313,18 +356,29 @@ class _Service:
             "decode-step boundary and answered 504)")
         self.admission: Optional[AdmissionController] = None
         if admission_enabled:
+            # paged mode: each admit also charges the request's page
+            # reservation against a TOKEN budget, so many small requests
+            # share the capacity a few dense slots would pin
             self.admission = AdmissionController(
                 concurrency=concurrency, queue_capacity=queue_capacity,
-                policies=default_policies(class_rates, class_deadlines_s))
+                policies=default_policies(class_rates, class_deadlines_s),
+                token_budget=(None if self.kv_backend is None
+                              else self.kv_backend.pool.tokens_capacity))
         self.brownout: Optional[BrownoutLadder] = None
         self._gov_stop = threading.Event()
         self.governor_interval = float(governor_interval)
         if brownout_enabled:
             self.brownout = BrownoutLadder(
                 brownout_marks if brownout_marks is not None
-                else Watermarks(), clamp_new_tokens=clamp_new_tokens)
-        # the governor also ticks the SLO burn-rate engine, which always
-        # exists, so the thread always runs
+                else Watermarks(), clamp_new_tokens=clamp_new_tokens,
+                clamp_chunk_tokens=clamp_chunk_tokens)
+            if self.kv_backend is not None:
+                # the evict_cold_pages rung's lever: reclaim cached but
+                # idle prefix pages before any request class is shed
+                self.brownout.evict_hook = self.kv_backend.evict_cold_all
+        # the governor also ticks the SLO burn-rate engine and (paged)
+        # sweeps orphaned pages; the burn engine always exists, so the
+        # thread always runs
         self._governor = threading.Thread(target=self._governor_loop,
                                           daemon=True,
                                           name="brownout-governor")
@@ -366,14 +420,35 @@ class _Service:
     def add_prefix(self, ids):
         with self.cond:
             self._check_admittable()
-            # built in this handler thread, on the executors' stream
+            if self.kv_backend is not None:
+                # paged mode: registration is the TOKEN LIST; the prefix
+                # trie dedups the prefill across every request using it
+                tokens = [int(t) for t in ids]
+                if not tokens:
+                    raise ValueError("prefix must be non-empty")
+                pid = f"p{self._next_pid}"
+                self._next_pid += 1
+                self.prefixes[pid] = {"tokens": tokens,
+                                      "len": len(tokens)}
+                while len(self.prefixes) > self.max_prefixes:
+                    self.prefixes.popitem(last=False)
+                return pid, len(tokens)
+            # both handles (the draft's too, with a draft model) before
+            # registering either; built in this handler thread, on the
+            # executors' stream
             with batcher_mod._stage_context(self.pipe):
                 target = self.pipe.precompute_prefix(ids)
+                draft = (self.spec.draft.precompute_prefix(ids)
+                         if self.spec is not None else None)
             pid = f"p{self._next_pid}"
             self._next_pid += 1
             self.prefixes[pid] = target
+            if draft is not None:
+                self.spec_prefixes[pid] = {"target": target,
+                                           "draft": draft}
             while len(self.prefixes) > self.max_prefixes:
-                self.prefixes.popitem(last=False)   # evict oldest
+                old, _ = self.prefixes.popitem(last=False)  # evict oldest
+                self.spec_prefixes.pop(old, None)
             return pid, target["len"]
 
     def _check_dead(self):
@@ -394,14 +469,40 @@ class _Service:
                            "threshold": self.burn.threshold}
         self.flight.maybe_dump("slo_burn", context=ctx)
 
+    def _live_request_ids(self):
+        """Snapshot of every live executor request id (and, with a draft
+        model, every speculative generation's page owner): the orphan
+        sweep's liveness set. None when the snapshot raced a mutation
+        (the sweep skips; the next tick retries)."""
+        src = (self.exec._live if self.exec is not None
+               else self.batcher._live_rids)
+        for _ in range(3):
+            try:
+                live = set(src)
+                break
+            except RuntimeError:     # set mutated during copy
+                continue
+        else:
+            return None
+        if self.spec is not None:
+            live |= self.spec.live_rids()
+        return live
+
     def _governor_loop(self):
         """Periodic brownout tick: the windowed p95 of the request-latency
         histogram + the admission queue depth drive the ladder; the
         degraded lifecycle floors it (healing implies at least level 1).
-        The ladder's shed classes feed straight into admission."""
+        The ladder's shed classes feed straight into admission, its chunk
+        clamp into the executor. With a paged backend the loop is also
+        the leak audit: every ~2 s the pool's owner ledger is reconciled
+        against executor liveness."""
         prev_counts, prev_n = self.m_latency.snapshot()
         last_level = self.brownout.level if self.brownout is not None else 0
+        sweep_every = max(1, round(2.0 / self.governor_interval))
+        ticks = 0
         while not self._gov_stop.wait(self.governor_interval):
+            ticks += 1
+            self._sweep_pages(ticks % sweep_every == 0)
             counts, n = self.m_latency.snapshot()
             delta = [c - p for c, p in zip(counts, prev_counts)]
             p95 = prom.percentile_from_counts(
@@ -429,6 +530,29 @@ class _Service:
                     self.flight.maybe_dump("slo",
                                            context=self.bundle_context())
                 last_level = level
+            if self.chunked_prefill:
+                # the clamp_tokens rung's second lever: a smaller chunk
+                # while hot (identity when clamp_chunk_tokens is 0)
+                want = self.brownout.clamp_chunk(self.chunked_prefill)
+                ex = self.exec if self.exec is not None else self.batcher
+                if ex.chunk_tokens != want:
+                    ex.set_chunk_tokens(want)
+                    self.flight.note("chunk_clamp", chunk_tokens=want)
+
+    def _sweep_pages(self, due: bool) -> None:
+        """The governor's orphan sweep (paged mode, when `due`): liveness
+        is passed as a CALLABLE, so the sweep reads the owner ledger
+        first and liveness second, and a request admitted between the
+        two reads is never taken for dead."""
+        if self.kv_backend is None or not due:
+            return
+        leaked = self.kv_backend.sweep_orphans(self._live_request_ids)
+        if leaked:
+            self.flight.note("kv_pages_reclaimed", pages=leaked)
+        if self.spec is not None:
+            d_leaked = self.spec.sweep_orphans()
+            if d_leaked:
+                self.flight.note("draft_pages_reclaimed", pages=d_leaked)
 
     # -- failover window ------------------------------------------------
 
@@ -520,12 +644,23 @@ class _Service:
             self._next_rid += 1
         return f"q{n}"
 
-    def admit(self, request_class: str, deadline_s=None, rid=None):
+    def kv_tokens(self, ids, new_tokens) -> int:
+        """The admission token charge of one request under the paged KV
+        plane: its prompt + max-new-tokens page reservation (0 with
+        dense caches or no admission: slot-only admission)."""
+        if self.kv_backend is None or self.admission is None or not ids:
+            return 0
+        return self.kv_backend.tokens_needed(
+            max(len(r) for r in ids), int(new_tokens), len(ids))
+
+    def admit(self, request_class: str, deadline_s=None, rid=None,
+              tokens: int = 0):
         """Acquire an admission ticket (blocking, EDF order) + its
         absolute deadline. Returns (ticket, deadline); raises
         `AdmissionShed` (503 + Retry-After) on shed, KeyError on an
         unknown class. The caller hands the ticket to `generate`, which
-        releases it."""
+        releases it. `tokens` is the KV-token charge under a token
+        budget (`kv_tokens`)."""
         if self.admission is None:
             deadline = (None if deadline_s is None
                         else time.monotonic() + float(deadline_s))
@@ -533,7 +668,8 @@ class _Service:
         deadline = self.admission.deadline_for(request_class, deadline_s)
         t0 = time.monotonic_ns()
         try:
-            ticket = self.admission.admit(request_class, deadline, rid=rid)
+            ticket = self.admission.admit(request_class, deadline,
+                                          rid=rid, tokens=tokens)
         except AdmissionShed as exc:
             telemetry.record(
                 "serve", f"shed:{exc.request_class}:{exc.reason}",
@@ -591,29 +727,88 @@ class _Service:
             s["admission"] = self.admission.snapshot()
         if self.brownout is not None:
             s["brownout"] = self.brownout.snapshot()
+        if self.chunked_prefill or self.step_join:
+            # iteration-level scheduling: the configured chunk size, the
+            # EFFECTIVE one (brownout may clamp it) and the chunk waves
+            ex = self.exec if self.exec is not None else self.batcher
+            s["scheduler"] = {
+                "chunked_prefill": self.chunked_prefill,
+                "chunk_tokens": ex.chunk_tokens,
+                "step_join": self.step_join,
+                "prefill_chunks": int(
+                    self.exec.snapshot()["prefill_chunks"]
+                    if self.exec is not None
+                    else self.batcher.stats["prefill_chunks"]),
+            }
+        if self.kv_backend is not None:
+            s["kv"] = self.kv_backend.snapshot()
+            s["kv"]["disaggregated"] = False    # ROADMAP A5.3b
+            # the leak audit's health surface: page references the
+            # orphan sweep reclaimed (0 = no leaks)
+            s["kv"]["leaked"] = s["kv"]["pool"]["leaked"]
         return s
 
-    def generate_speculative(self, ids, new_tokens, request_class=
-                             "interactive", deadline_s=None, rid=None):
-        """`"speculative": true` without a draft model: admitted like any
-        generate, then refused as the JAX server refuses it (KeyError,
-        HTTP 400) and counted under /generate-speculative."""
-        del ids, new_tokens
+    def generate_speculative(self, ids, new_tokens, prefix_id=None,
+                             request_class="interactive",
+                             deadline_s=None, ticket=None, rid=None):
+        """Greedy speculative decoding (the target's own greedy tokens;
+        the draft changes only the dispatch count). Holds only the
+        dedicated spec lock during the generation, so plain requests keep
+        flowing through the executor. Admitted like any generate (the
+        deadline guards the queue wait; the rounds have no mid-flight
+        cancel boundary). Without a draft model: the JAX server's
+        KeyError (HTTP 400), counted under /generate-speculative."""
+        t0 = time.monotonic()
         if rid is None:
             rid = self.mint_rid()
+        tctx = telemetry.TraceContext(rid, request_class,
+                                      deadline_ms=None if deadline_s is None
+                                      else deadline_s * 1e3,
+                                      parent="serve.speculative")
+        released = self.admission is None
         try:
-            ticket, _ = self.admit(request_class, deadline_s, rid=rid)
+            strip = 0
+            if self.kv_backend is not None and prefix_id is not None:
+                # paged mode: the prefix becomes prepended tokens BEFORE
+                # the token charge is computed
+                with self.cond:
+                    self._check_dead()
+                    self._check_admittable()
+                    ids, strip = self._expand_prefix(
+                        ids, {"prefix_id": prefix_id})
+                prefix_id = None
+            if ticket is None and self.admission is not None:
+                # paged speculative rounds reserve up to gamma verify
+                # positions past new_tokens: charge for them
+                gamma = self.spec.gamma if self.spec is not None else 0
+                ticket, _ = self.admit(
+                    request_class, deadline_s, rid=rid,
+                    tokens=self.kv_tokens(ids, int(new_tokens) + gamma))
+            completed = False
             try:
-                raise KeyError("server started without --draft-model; "
-                               "speculative generation unavailable")
+                with telemetry.trace_scope(tctx):
+                    out = self._generate_speculative_once(ids, new_tokens,
+                                                          prefix_id,
+                                                          rid=rid)
+                    if strip:
+                        out = out[:, strip:]
+                completed = True
             finally:
-                if self.admission is not None:
-                    self.admission.release(ticket, completed=False)
+                if not released:
+                    # failures must not feed the service-rate estimator
+                    self.admission.release(ticket, completed=completed)
+                    released = True
         except AdmissionShed:
             self.m_requests.inc(endpoint="/generate-speculative",
                                 status="503")
             self.m_class_outcome.inc(**{"class": request_class,
                                         "outcome": "shed"})
+            raise
+        except ServiceDegraded:
+            self.m_requests.inc(endpoint="/generate-speculative",
+                                status="503")
+            self.m_class_outcome.inc(**{"class": request_class,
+                                        "outcome": "degraded"})
             raise
         except BaseException:
             self.m_requests.inc(endpoint="/generate-speculative",
@@ -621,17 +816,56 @@ class _Service:
             self.m_class_outcome.inc(**{"class": request_class,
                                         "outcome": "error"})
             raise
+        self.m_latency.observe(time.monotonic() - t0, exemplar=rid)
+        self.m_requests.inc(endpoint="/generate-speculative", status="200")
+        self.m_class_outcome.inc(**{"class": request_class,
+                                    "outcome": "ok"})
+        self.m_tokens.inc(len(ids) * int(new_tokens))
+        self._account_edge_bytes(ids, int(new_tokens))
+        return out
+
+    def _generate_speculative_once(self, ids, new_tokens, prefix_id,
+                                   rid=None):
+        if self.spec is None:
+            raise KeyError("server started without --draft-model; "
+                           "speculative generation unavailable")
+        with self.cond:                     # resolve the prefix briefly
+            self._check_dead()
+            self._check_admittable()
+            prefix = None
+            if prefix_id is not None:
+                if prefix_id not in self.spec_prefixes:
+                    raise KeyError(
+                        f"unknown prefix_id {prefix_id!r} for speculative "
+                        "generation (register via /prefix while the "
+                        "draft model is configured)")
+                self.prefixes.move_to_end(prefix_id)   # LRU touch
+                prefix = self.spec_prefixes[prefix_id]
+        # on the executors' stream; the rid names the page owner in the
+        # pools' ledgers, so the governor's orphan sweep can name it
+        with self.spec_lock, telemetry.span("serve", "speculative"), \
+                batcher_mod._on_device_stream(self.pipe):
+            out = self.spec.generate(ids, new_tokens, prefix=prefix,
+                                     rid=rid)
+            return out.cpu().numpy()
 
     def prevalidate(self, ids, new_tokens, kw):
         """Resolve prefix_id and run the full admission validation WITHOUT
         submitting: the streaming path needs errors raised BEFORE the
         200/chunked headers commit. Returns `(ids, kw)` with the prefix
-        handle in `kw["prefix"]`."""
+        resolved: the dense handle in `kw["prefix"]`, or (paged mode) the
+        prefix TOKENS prepended to `ids` and `kw["strip_prefix"]`, so the
+        response still omits them."""
         kw = dict(kw)
         with self.cond:
             self._check_dead()
             self._check_admittable()
-            self._resolve_prefix(kw)
+            if self.kv_backend is not None:
+                ids, strip = self._expand_prefix(ids, kw)
+                if strip:
+                    kw["strip_prefix"] = strip
+            else:
+                self._resolve_prefix(kw)
         batcher_mod._build_request(
             self.pipe, "__prevalidate__", ids, new_tokens,
             kw.get("temperature", 0.0), kw.get("top_k", 0),
@@ -648,6 +882,23 @@ class _Service:
             self.prefixes.move_to_end(pid)     # LRU touch
             kw["prefix"] = self.prefixes[pid]
 
+    def _expand_prefix(self, ids, kw):
+        """Paged mode: a `prefix_id` becomes its registered tokens
+        prepended to every prompt row (the trie turns the repeated
+        prefill into page reuse). Returns (expanded ids, strip); callers
+        slice `strip` columns off the result, so the response matches
+        the dense handle contract (suffix + continuation)."""
+        pid = kw.pop("prefix_id", None)
+        if pid is None:
+            return ids, 0
+        if pid not in self.prefixes:
+            raise KeyError(f"unknown prefix_id {pid!r} (evicted "
+                           "or never registered)")
+        self.prefixes.move_to_end(pid)         # LRU touch
+        tokens = self.prefixes[pid]["tokens"]
+        return [list(tokens) + [int(t) for t in r] for r in ids], \
+            len(tokens)
+
     def generate(self, ids, new_tokens, on_token=None,
                  request_class="interactive", deadline_s=None,
                  ticket=None, deadline=None, rid=None, **kw):
@@ -663,11 +914,19 @@ class _Service:
                                       deadline_ms=None if deadline_s is None
                                       else deadline_s * 1e3,
                                       parent="serve.generate")
+        # paged mode: a prefix_id becomes prepended tokens BEFORE the
+        # token charge is computed (the reservation covers the whole
+        # prompt; the trie makes the shared part nearly free to run)
+        strip = int(kw.pop("strip_prefix", 0))
+        if self.kv_backend is not None and kw.get("prefix_id") is not None:
+            with self.cond:
+                ids, strip = self._expand_prefix(ids, kw)
         completed = False
         try:
             if ticket is None and deadline is None:
-                ticket, deadline = self.admit(request_class, deadline_s,
-                                              rid=rid)
+                ticket, deadline = self.admit(
+                    request_class, deadline_s, rid=rid,
+                    tokens=self.kv_tokens(ids, new_tokens))
             try:
                 if self.brownout is not None:
                     new_tokens = self.brownout.clamp(new_tokens)
@@ -730,7 +989,8 @@ class _Service:
         self._account_edge_bytes(ids, int(new_tokens))
         self.flight.note("done", rid=rid, cls=request_class,
                          ms=round(elapsed * 1e3, 3))
-        return out
+        # paged prefix contract: the response omits the prepended prefix
+        return out[:, strip:] if strip else out
 
     def _generate_policied(self, ids, new_tokens, on_token, kw, rid=None):
         with self.cond:
@@ -859,8 +1119,9 @@ def make_handler(service, model_name):
             if rid is None:
                 rid = service.mint_rid()
             try:
-                ticket, deadline = service.admit(request_class, deadline_s,
-                                                 rid=rid)
+                ticket, deadline = service.admit(
+                    request_class, deadline_s, rid=rid,
+                    tokens=service.kv_tokens(ids, new_tokens))
             except AdmissionShed:
                 # a streaming shed never reaches generate(): settle both
                 # counters here
@@ -967,8 +1228,7 @@ def make_handler(service, model_name):
                 self._send(503 if dead else 200,
                            {"ok": not dead, "model": model_name,
                             "stages": len(service.pipe.stages),
-                            # no draft model until ROADMAP A5.4
-                            "speculative": False,
+                            "speculative": service.spec is not None,
                             "executor": service.executor,
                             "degraded": degraded,
                             # no POST /drain until the router's slice
@@ -1047,6 +1307,7 @@ def make_handler(service, model_name):
                         else:
                             out = service.generate_speculative(
                                 ids, int(req["new_tokens"]),
+                                prefix_id=req.get("prefix_id"),
                                 request_class=request_class,
                                 deadline_s=deadline_s, rid=rid)
                         self._send(200, {"ids": out.tolist(), "rid": rid},
@@ -1168,10 +1429,22 @@ def build_parser() -> argparse.ArgumentParser:
                    help="wave: one thread ticks the batcher; stage: one "
                         "worker thread per pipeline stage (healthz reports "
                         "per-worker stats)")
+    p.add_argument("--draft-model", default=None,
+                   choices=[n for n in registry.get_model_names()
+                            if registry.get_model_config(n).model_type
+                            == "gpt2"],
+                   help="enable speculative generation: requests with "
+                        '"speculative": true run greedy draft/verify '
+                        "rounds against this (smaller, same-vocabulary) "
+                        "model, token-identical to plain greedy")
+    p.add_argument("--gamma", default=4, type=int,
+                   help="speculative draft lookahead per round")
     p.add_argument("--max-active", default=None, type=int)
     p.add_argument("--max-prefixes", default=8, type=int,
                    help="LRU bound on registered prompt prefixes (each "
-                        "handle retains full max_len KV buffers)")
+                        "handle retains full max_len KV buffers; with "
+                        "--kv-pages only the token lists are stored: the "
+                        "prefix trie owns the KV)")
     p.add_argument("--port", default=8321, type=int)
     p.add_argument("--host", default="127.0.0.1")
     # -- overload protection --------------------------------------------
@@ -1195,6 +1468,35 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--brownout-dwell-down", default=2.0, type=float)
     p.add_argument("--brownout-clamp-tokens", default=16, type=int,
                    help="new_tokens clamp at brownout level >= 2")
+    p.add_argument("--brownout-clamp-chunk", default=0, type=int,
+                   metavar="TOKENS",
+                   help="chunked-prefill chunk-size clamp at brownout "
+                        "level >= 2 (0 = lever unarmed; only applies "
+                        "with --chunked-prefill)")
+    # -- paged KV plane ---------------------------------------------------
+    p.add_argument("--kv-pages", default=0, type=int,
+                   help="enable the paged KV plane: N fixed-size pages "
+                        "per stage shared by every request (page tables "
+                        "+ cross-request prefix trie); admission then "
+                        "runs on a KV TOKEN budget of N x --kv-page-size "
+                        "instead of max_active slots. 0 = dense "
+                        "per-request cache slots")
+    p.add_argument("--kv-page-size", default=16, type=int,
+                   help="cache positions per KV page")
+    p.add_argument("--chunked-prefill", default=0, type=int, metavar="N",
+                   help="split prompt passes longer than N tokens into "
+                        "N-token chunks interleaved with decode steps "
+                        "at every executor step boundary (needs "
+                        "--kv-pages). 0 = run-to-completion prefill")
+    p.add_argument("--prefill-budget", default=None, type=int,
+                   metavar="TOKENS",
+                   help="prompt tokens the wave executor may start per "
+                        "decode step when chunking (default: the chunk "
+                        "size, one chunk per step)")
+    p.add_argument("--step-join", action="store_true",
+                   help="re-drive the admission queue at every decode-"
+                        "step boundary, so queued requests join mid-"
+                        "generation instead of at the next completion")
     p.add_argument("--governor-interval", default=0.25, type=float)
     p.add_argument("--trace-spans", default=None, metavar="OUT",
                    help="write the request/stage spans as Perfetto-"
@@ -1228,6 +1530,21 @@ def parse_args(argv: Optional[Sequence[str]] = None):
         if hasattr(args, flag.lstrip("-").replace("-", "_")):
             p.error(f"{flag} is not ported to pipeedge_tpu_torch yet "
                     f"(ROADMAP {item})")
+    # the JAX server's composition checks, before any model build
+    if args.chunked_prefill < 0:
+        p.error("--chunked-prefill must be >= 0")
+    if args.chunked_prefill and not args.kv_pages:
+        p.error("--chunked-prefill needs --kv-pages (chunk waves write "
+                "prompt spans at an offset into the request's page "
+                "table; dense cache slots have no span-at-offset path)")
+    if args.prefill_budget is not None and not args.chunked_prefill:
+        p.error("--prefill-budget only applies with --chunked-prefill")
+    if args.prefill_budget is not None and args.prefill_budget < 1:
+        p.error("--prefill-budget must be >= 1")
+    if args.draft_model and args.kv_bits:
+        p.error("--draft-model does not compose with --kv-bits (int8 "
+                "span verification is not bit-identical to serial "
+                "int8 steps)")
     if args.partition:
         nums = [int(x) for x in args.partition.split(",")]
         if len(nums) % 2:
@@ -1250,12 +1567,30 @@ def build_pipeline(args, stage_params=None):
         device=args.device, int8_decode_attend=args.int8_decode_attend)
 
 
-def make_service(args, pipe) -> _Service:
-    """The `_Service` the flags describe, over `pipe`."""
+def build_draft_pipeline(args, stage_params=None):
+    """The `--draft-model` pipeline: one stage, the target's max_len,
+    dtype and attend floor, an fp cache; None without a draft model."""
+    if not args.draft_model:
+        return None
+    return build_decode_pipeline(
+        args.draft_model, None, max_len=args.max_len,
+        dtype=torch.bfloat16 if args.dtype == "bfloat16" else torch.float32,
+        attend_floor=args.attend_floor, stage_params=stage_params,
+        device=args.device)
+
+
+def make_service(args, pipe, draft=None) -> _Service:
+    """The `_Service` the flags describe, over `pipe` (and, with
+    `--draft-model`, over `draft`, built from the flags when not given)."""
     if args.inject_stall:
         _inject_stall(pipe, args.inject_stall, build_parser())
+    spec = None
+    if args.draft_model:
+        if draft is None:
+            draft = build_draft_pipeline(args)
+        spec = SpeculativeDecoder(pipe, draft, gamma=args.gamma)
     return _Service(pipe, max_active=args.max_active,
-                    max_prefixes=args.max_prefixes,
+                    max_prefixes=args.max_prefixes, spec=spec,
                     executor=args.executor,
                     edge_itemsize=2 if args.dtype == "bfloat16" else 4,
                     admission_enabled=not args.no_admission,
@@ -1273,6 +1608,12 @@ def make_service(args, pipe) -> _Service:
                     clamp_new_tokens=args.brownout_clamp_tokens,
                     governor_interval=args.governor_interval,
                     postmortem_dir=args.postmortem_dir,
+                    kv_pages=args.kv_pages,
+                    kv_page_size=args.kv_page_size,
+                    chunked_prefill=args.chunked_prefill,
+                    step_join=args.step_join,
+                    prefill_budget=args.prefill_budget,
+                    clamp_chunk_tokens=args.brownout_clamp_chunk,
                     slo_objective=args.slo_objective,
                     slo_burn_fast=args.slo_burn_fast,
                     slo_burn_slow=args.slo_burn_slow,

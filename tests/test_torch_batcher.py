@@ -18,7 +18,8 @@ one set of HF-layout random weights loaded into both:
 - the port's own contracts: each run equals its own solo `generate`
   (sampled requests too, per seed), a prefix handle's caches are
   unchanged by the requests that use it, a dead or stopped worker fails
-  its waiters, the paged plane and shipped prefill refuse, and many
+  its waiters, shipped prefill refuses (the paged plane has its own
+  file, `test_torch_kv_plane.py`), and many
   concurrent clients on the stage workers keep every result exact.
 
 Tokens are compared exactly; no logits are compared here.
@@ -435,13 +436,22 @@ def test_sampled_request_equals_solo_generate(pipes, executor):
 
 
 def test_paged_plane_and_shipped_refused(pipes):
+    """Both executors take the paged plane (`kv=`); shipped prefill KV
+    is refused on either cache provider, naming its ROADMAP item."""
+    from pipeedge_tpu_torch.kv import PagedKvBackend
+    from pipeedge_tpu_torch.telemetry import metrics as prom
     pipe = pipes["fp"]["torch"]
     for cls in (tbatcher.ContinuousBatcher, tbatcher.StageWorkerExecutor):
-        with pytest.raises(ValueError, match="ROADMAP A5.3a"):
-            cls(pipe, kv=object())
-    b = tbatcher.ContinuousBatcher(pipe)
-    with pytest.raises(ValueError, match="ROADMAP A5.3a"):
-        b.submit("x", _traffic()["a"]["ids"], 2, shipped={})
+        for kv in (None, PagedKvBackend(pipe, 16, 4,
+                                        registry=prom.Registry())):
+            ex = cls(pipe, kv=kv)
+            try:
+                assert ex.kv is kv
+                with pytest.raises(ValueError, match="ROADMAP A5.3b"):
+                    ex.submit("x", _traffic()["a"]["ids"], 2, shipped={})
+            finally:
+                if cls is tbatcher.StageWorkerExecutor:
+                    ex.stop()
 
 
 def test_stop_wakes_blocked_submitter_and_fails_waiters(pipes):
@@ -560,3 +570,57 @@ def test_executor_threads_use_one_stream_context():
     with tbatcher._stage_context(pipe):
         seen.append(torch.is_inference_mode_enabled())
     assert seen == [True] and not torch.is_inference_mode_enabled()
+
+
+def _paged_dispatch_trace(pkg, pipe, traffic, **kw):
+    """The wave dispatch order over a paged backend (page size 4): (tick,
+    stage, rid, kind, width at stage 0) per stage-step, the results, the
+    stats, and the backend's pool and trie afterwards."""
+    if pkg == "jax":
+        from pipeedge_tpu.kv import PagedKvBackend
+        from pipeedge_tpu.telemetry import metrics as prom
+    else:
+        from pipeedge_tpu_torch.kv import PagedKvBackend
+        from pipeedge_tpu_torch.telemetry import metrics as prom
+    kv = PagedKvBackend(pipe, 40, 4, registry=prom.Registry())
+    b = PACKAGES[pkg].ContinuousBatcher(pipe, kv=kv, **kw)
+    trace = []
+    real = kv.run_stage
+
+    def spy(i, req, data, kind):
+        trace.append((b.stats["ticks"], i, req.rid, kind,
+                      int(data.shape[1]) if i == 0 else None))
+        return real(i, req, data, kind)
+
+    kv.run_stage = spy
+    for rid, req in traffic.items():
+        ids = req["ids"] if pkg == "torch" else np.asarray(req["ids"],
+                                                           np.int32)
+        b.submit(rid, ids, req["new_tokens"])
+    results = {k: np.asarray(v) for k, v in b.run().items()}
+    return trace, results, dict(b.stats), kv.snapshot()
+
+
+@pytest.mark.parametrize("mode", list(MODES))
+@pytest.mark.parametrize("kw", [dict(), dict(chunk_tokens=4),
+                                dict(chunk_tokens=2, prefill_budget=3,
+                                     step_join=True),
+                                dict(step_join=True, max_active=1)],
+                         ids=["plain", "chunk4", "chunk2-budget3-join",
+                              "step-join"])
+def test_paged_wave_scheduling_matches_jax(pipes, mode, kw):
+    """The paged wave batcher (`kv=`) dispatches the same stage-steps in
+    the same ticks as the JAX paged batcher, with the same tokens,
+    stats, pool and trie snapshots; the tokens are the dense batcher's
+    under the same scheduling."""
+    traffic = {k: v for k, v in _traffic().items() if k != "e"}
+    got = _paged_dispatch_trace("torch", pipes[mode]["torch"], traffic,
+                                **kw)
+    want = _paged_dispatch_trace("jax", pipes[mode]["jax"], traffic, **kw)
+    assert got[0] == want[0]
+    _assert_same(got[1], want[1])
+    assert got[2] == want[2] and got[3] == want[3]
+    dense = tbatcher.ContinuousBatcher(pipes[mode]["torch"], **kw)
+    for rid, req in traffic.items():
+        dense.submit(rid, req["ids"], req["new_tokens"])
+    _assert_same(got[1], {k: np.asarray(v) for k, v in dense.run().items()})

@@ -77,13 +77,16 @@ def test_no_jax_or_reference_imports():
     assert not _bad_imports(files)
 
 
-# the serving slice's modules, each a copy or port of a JAX-package module
+# the serving slices' modules, each a copy or port of a JAX-package
+# module (the paged KV plane and speculative decoding included)
 SERVING_MODULES = [
     "telemetry/__init__.py", "telemetry/metrics.py", "telemetry/flight.py",
     "telemetry/collector.py", "telemetry/chrome_trace.py",
     "health/__init__.py", "health/guard.py", "health/scorer.py",
     "serving/__init__.py", "serving/admission.py", "serving/brownout.py",
-    "parallel/batcher.py", "serve.py"]
+    "parallel/batcher.py", "serve.py", "kv/__init__.py", "kv/pool.py",
+    "kv/prefix.py", "kv/backend.py", "parallel/speculative.py",
+    "generate.py"]
 
 
 @pytest.mark.parametrize("rel", SERVING_MODULES)

@@ -16,6 +16,11 @@ file is given. It is held to:
   key sets, the same `/metrics` families and label sets for what both
   serve, the same degraded -> healing -> healed phases, 503s and
   Retry-After values, and the same answer to `"speculative": true`;
+- the paged KV plane and speculative generation against the JAX server
+  run with the same flags: the same tokens (plain, streamed, chunked,
+  trie-shared, speculative), the same `kv` / `scheduler` key sets in
+  /healthz and `pipeedge_kv_*` families in /metrics, and the same parse
+  errors for the flags' compositions;
 - its own contracts: deadline 504s under `--inject-stall`, every refused
   flag failing at parse time with its ROADMAP item, `--device cuda`
   raising on a host without a GPU, and the entry serving one request and
@@ -469,3 +474,221 @@ def test_entry_serves_and_exits_on_sigterm(oracles, tmp_path):
         if proc.poll() is None:
             proc.kill()
             proc.wait()
+
+
+# ---------------------------------------------------------------------------
+# the paged KV plane and speculative generation at the server
+# ---------------------------------------------------------------------------
+
+# the port's paged servers and the JAX one: a 32-page pool of 4 tokens,
+# prompts past 4 tokens in chunks, admission re-driven at each step, and
+# speculative requests drafted by the tiny GPT-2 itself (one stage)
+PAGED = ["--kv-pages", "32", "--kv-page-size", "4", "--chunked-prefill", "4",
+         "--step-join", "--draft-model", MODEL, "--gamma", "3"]
+
+
+@pytest.fixture(scope="module")
+def paged_servers(tmp_path_factory):
+    """executor -> a running paged port server (fp cache, draft model)."""
+    pm = str(tmp_path_factory.mktemp("postmortems_paged"))
+    out = {ex: _PortServer(["--executor", ex, "--postmortem-dir", pm,
+                            *PAGED]) for ex in ("wave", "stage")}
+    yield out
+    for s in out.values():
+        s.close()
+
+
+@pytest.fixture(scope="module")
+def jax_paged_server():
+    """`tools/serve.py` with the same paged and speculative flags."""
+    port = _free_port()
+    env = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=REPO)
+    proc, _ = _spawn([sys.executable, os.path.join(REPO, "tools",
+                                                   "serve.py"),
+                      *BASE, *PAGED, "--port", str(port)], env)
+    yield port
+    proc.terminate()
+    proc.wait(timeout=30)
+
+
+def _paged_bodies():
+    """Request bodies: plain two-row, a single row long enough to chunk,
+    and a row on a registered 8-token prefix (sent twice: the second
+    reuses the first one's published pages)."""
+    return [{"ids": _ids(41, (2, 6)), "new_tokens": 6},
+            {"ids": _ids(42, (1, 11)), "new_tokens": 7},
+            {"ids": _ids(43, (1, 3)), "new_tokens": 5, "prefix": True},
+            {"ids": _ids(43, (1, 3)), "new_tokens": 5, "prefix": True}]
+
+
+def _paged_traffic(port):
+    pid = _post(port, "/prefix", {"ids": _ids(40, (8,))})["prefix_id"]
+    out = []
+    for body in _paged_bodies():
+        body = dict(body)
+        if body.pop("prefix", False):
+            body["prefix_id"] = pid
+        out.append(_post(port, "/generate", body)["ids"])
+        out.append(_stream(port, body)[-1]["ids"])
+    return out
+
+
+@pytest.mark.fleet
+@pytest.mark.parametrize("executor", ["wave", "stage"])
+def test_paged_generate_matches_jax(paged_servers, jax_paged_server,
+                                    oracles, executor):
+    """/generate on --kv-pages (plain and streamed, chunked, on a
+    trie-shared registered prefix) answers the JAX paged server's tokens,
+    which are the solo greedy runs."""
+    got = _paged_traffic(paged_servers[executor].port)
+    assert got == _paged_traffic(jax_paged_server)
+    prefix = _ids(40, (8,))
+    for i, body in enumerate(_paged_bodies()):
+        ids = np.asarray(body["ids"])
+        if body.get("prefix"):
+            ids = np.concatenate([np.asarray([prefix]), ids], axis=1)
+        want = np.asarray(oracles["fp"].generate(ids, body["new_tokens"]))
+        if body.get("prefix"):
+            want = want[:, 8:]
+        for resp in got[2 * i:2 * i + 2]:
+            np.testing.assert_array_equal(np.asarray(resp), want)
+    kv = _get(paged_servers[executor].port, "/healthz")["serving"]["kv"]
+    assert kv["prefix"]["hits"] >= 1 and kv["leaked"] == 0
+
+
+@pytest.mark.fleet
+@pytest.mark.parametrize("executor", ["wave", "stage"])
+def test_speculative_with_draft_equals_greedy(paged_servers,
+                                              jax_paged_server, oracles,
+                                              executor):
+    """`"speculative": true` with --draft-model (paged) answers plain
+    greedy, as the JAX server does, on a registered prefix too; the
+    target's and the draft's pools are whole afterwards."""
+    srv = paged_servers[executor]
+    ids = _ids(44, (2, 7))
+    body = {"ids": ids, "new_tokens": 9, "speculative": True}
+    want = np.asarray(oracles["fp"].generate(np.asarray(ids), 9))
+    got = _post(srv.port, "/generate", body)
+    np.testing.assert_array_equal(np.asarray(got["ids"]), want)
+    assert got["ids"] == _post(jax_paged_server, "/generate", body)["ids"]
+    pid = _post(srv.port, "/prefix", {"ids": _ids(45, (5,))})["prefix_id"]
+    full = np.concatenate([np.asarray([_ids(45, (5,))] * 2), ids], axis=1)
+    got = _post(srv.port, "/generate", dict(body, prefix_id=pid))
+    np.testing.assert_array_equal(
+        np.asarray(got["ids"]),
+        np.asarray(oracles["fp"].generate(full, 9))[:, 5:])
+    spec = srv.service.spec
+    assert spec.kv is srv.service.kv_backend
+    assert spec.draft_pool.free_pages == spec.draft_pool.n_pages
+    assert srv.service.kv_backend.pool.stats()["owners"] == 0
+    assert _get(srv.port, "/healthz")["speculative"] is True
+
+
+def test_speculative_on_dense_caches_equals_greedy(oracles):
+    """Without --kv-pages the draft model runs on dense caches; a
+    registered prefix holds both models' handles."""
+    srv = _PortServer(["--draft-model", MODEL, "--gamma", "2"])
+    try:
+        ids = _ids(46, (1, 6))
+        got = _post(srv.port, "/generate", {"ids": ids, "new_tokens": 8,
+                                            "speculative": True})
+        np.testing.assert_array_equal(
+            np.asarray(got["ids"]),
+            np.asarray(oracles["fp"].generate(np.asarray(ids), 8)))
+        prefix = _ids(47, (6,))
+        pid = _post(srv.port, "/prefix", {"ids": prefix})["prefix_id"]
+        assert set(srv.service.spec_prefixes[pid]) == {"target", "draft"}
+        got = _post(srv.port, "/generate", {"ids": ids, "new_tokens": 8,
+                                            "speculative": True,
+                                            "prefix_id": pid})
+        want = np.asarray(oracles["fp"].generate(
+            np.concatenate([np.asarray([prefix]), ids], axis=1), 8))
+        np.testing.assert_array_equal(np.asarray(got["ids"]), want[:, 6:])
+        code, body, _ = _error(srv.port, "/generate", {
+            "ids": ids, "new_tokens": 2, "speculative": True,
+            "prefix_id": "nope"})
+        assert code == 400 and "unknown prefix_id" in body["error"]
+    finally:
+        srv.close()
+
+
+def _kv_key_sets(health):
+    kv = health["serving"]["kv"]
+    return {"serving": sorted(health["serving"]), "kv": sorted(kv),
+            "pool": sorted(kv["pool"]), "prefix": sorted(kv["prefix"]),
+            "scheduler": sorted(health["serving"]["scheduler"]),
+            "admission": sorted(health["serving"]["admission"])}
+
+
+@pytest.mark.fleet
+def test_paged_healthz_and_metrics_match_jax(paged_servers,
+                                             jax_paged_server):
+    """/healthz's `kv` and `scheduler` blocks have the JAX server's key
+    sets, and /metrics the JAX server's `pipeedge_kv_*` families with
+    their label sets."""
+    port = paged_servers["wave"].port
+    for p in (port, jax_paged_server):
+        _post(p, "/generate", {"ids": [[1, 2, 3, 4, 5, 6]],
+                               "new_tokens": 2})
+    got, want = _get(port, "/healthz"), _get(jax_paged_server, "/healthz")
+    assert _kv_key_sets(got) == _kv_key_sets(want)
+    assert got["serving"]["kv"]["pool"]["pages_total"] == 32
+    assert got["speculative"] is want["speculative"] is True
+    fams = {name: labels for name, labels in _families(
+        _get(port, "/metrics")).items() if name.startswith("pipeedge_kv_")}
+    jfams = {name: labels for name, labels in _families(
+        _get(jax_paged_server, "/metrics")).items()
+        if name.startswith("pipeedge_kv_")}
+    # the JAX server's disaggregation family is for ROADMAP A5.3b
+    jfams.pop("pipeedge_kv_prefill_colocated_total", None)
+    assert fams == jfams and "pipeedge_kv_pages" in fams
+
+
+# the JAX server's parse-time composition checks (and its --draft-model /
+# --kv-bits check, made after it builds its pipeline)
+PARSE_ERRORS = [["--chunked-prefill", "-1"],
+                ["--chunked-prefill", "4"],
+                ["--prefill-budget", "2"],
+                ["--kv-pages", "8", "--chunked-prefill", "4",
+                 "--prefill-budget", "0"],
+                ["--draft-model", MODEL, "--kv-bits", "8"]]
+
+
+@pytest.mark.fleet
+@pytest.mark.parametrize("bad", PARSE_ERRORS,
+                         ids=["chunk-negative", "chunk-without-pages",
+                              "budget-without-chunk", "budget-zero",
+                              "draft-with-int8"])
+def test_paged_parse_errors_match_jax(bad, capsys):
+    with pytest.raises(SystemExit) as err:
+        serve.parse_args(BASE + bad)
+    assert err.value.code == 2
+    got = [ln for ln in capsys.readouterr().err.splitlines()
+           if "error:" in ln][-1].split("error: ", 1)[1]
+    env = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, os.path.join(REPO, "tools",
+                                                        "serve.py"),
+                           *BASE, *bad, "--port", str(_free_port())],
+                          capture_output=True, text=True, env=env,
+                          cwd=REPO, timeout=300)
+    assert proc.returncode == 2
+    want = [ln for ln in proc.stderr.splitlines()
+            if "error:" in ln][-1].split("error: ", 1)[1]
+    assert got == want
+
+
+# each flag the paged-plane and speculative slice took off `serve.REFUSED`
+PORTED_FLAGS = {"--kv-pages": ["8"], "--kv-page-size": ["8"],
+                "--chunked-prefill": ["4", "--kv-pages", "8"],
+                "--prefill-budget": ["2", "--kv-pages", "8",
+                                     "--chunked-prefill", "4"],
+                "--step-join": [], "--brownout-clamp-chunk": ["2"],
+                "--draft-model": [MODEL], "--gamma": ["3"]}
+
+
+@pytest.mark.parametrize("flag", sorted(PORTED_FLAGS))
+def test_paged_and_spec_flags_accepted(flag):
+    assert flag not in serve.REFUSED
+    args = serve.parse_args(BASE + [flag, *PORTED_FLAGS[flag]])
+    assert getattr(args, flag.lstrip("-").replace("-", "_")) not in (
+        None, 0, False)
