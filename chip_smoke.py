@@ -14,8 +14,9 @@ Phases, each of which raises on failure (nothing is caught):
        shared memory ([2, 605184], [2, 605189]), items scaled from 1e-30
        to 1e30 ([64, 151296]), a zero-range item, items holding NaN,
        +inf, -inf, both infinities and a range past the f32 maximum
-       ([6, 151296], [6, 37]) and more items than a grid axis takes
-       ([65537, 37]): words bit-identical, scale, shift and decoded
+       ([6, 151296], [6, 37]), more items than a grid axis takes
+       ([65537, 37]) and phase 14's Llama edge [8, 128, 4096]: words
+       bit-identical, scale, shift and decoded
        values too (NaN counted equal to NaN); one device kernel per
        encode and per decode call; the encode also timed at the other
        cluster size (16 blocks per item);
@@ -25,8 +26,12 @@ Phases, each of which raises on failure (nothing is caught):
        [8, 197, 12, 64] in bf16 and f32, and the strided shapes of phases
        8 and 9: DeiT-B [8, 198, 12, 64], DeiT-S [8, 198, 6, 64], BERT-B
        [8, 64, 12, 64] f32 and the tiny BERT's head dim 8 [8, 64, 4, 8]
-       in f32 and bf16, and phase 10's ViT-L [8, 197, 16, 64] f32,
-       within the tolerances stated below, each timed beside SDPA;
+       in f32 and bf16, phase 10's ViT-L [8, 197, 16, 64] f32, and phase
+       14's causal head dim 128 (Llama-3-8B [8, 128, 32, 128] f32 and
+       bf16, the decode checks' forwards [4, 640, 32, 128] f32 and bf16,
+       [4, 512, 32, 128] f32, Mistral-7B [1, 4096, 32, 128] f32 and
+       bf16) and the MoE GPT-2's causal [8, 128, 12, 64] f32, within
+       the tolerances stated below, each timed beside SDPA;
      - the plain codec on the card at every bitwidth an adaptive policy
        can pick (32, 16, 10, 8, 6, 5, 4, 3, 2) at the edges of phases 8
        and 9, DeiT-B's [8, 198, 768] and BERT-Base's [8, 64, 768]: words,
@@ -211,6 +216,53 @@ Phases, each of which raises on failure (nothing is caught):
      afterwards; then `python -m pipeedge_tpu_torch.generate -m
      gpt2-medium --draft-model gpt2 --gamma 4`, exit code 0. Printed:
      acceptance, readbacks per round, tokens/s against plain greedy.
+ 14. The decoder families at full width and depth. Each model's weights
+     are drawn on the card from a seeded CUDA generator in the structure
+     of its `load_params` (`card_params`; not the JAX package's numpy
+     stream, which the CPU tests hold), shared by every pipeline, oracle
+     and server of the model, and freed before the next model:
+     (a) Llama-3-8B, f32 (32.1 GB), `build_pipeline` `-pt 1,64,65,128`,
+     32 sequences of 128 tokens in microbatches of 8, edge bits 0, 8 and
+     4: bit 0 equal to the single-shard forward, 8 and 4 within the
+     stated bounds, 32 kernel-3 launches and one encode and one decode
+     per microbatch; one profiled 8-bit microbatch;
+     (b) the same weights and cut through `DecodePipeline.generate`,
+     batch 4, a 512-token prompt, 128 new tokens, fp and int8 caches (the
+     kernel-5 opt-in set: no launch, a Llama step never asks the gate),
+     timed; the fp cache's prefill and each step replayed, timed, its
+     logits within FAMILY_FP_BOUND of the forward over the same 640
+     tokens (32 kernel-3 launches); one profiled decode step;
+     (c) the in-process server, `--kv-bits 8 --kv-pages 512
+     --kv-page-size 16 --chunked-prefill 64`, wave and stage executors:
+     8 concurrent clients (2 streamed, 4 plain, 2 sharers of a 128-token
+     prefix that a publisher served alone first put in the trie), prompts
+     of 64-512 tokens, 16-64 new tokens; each equal to its solo run
+     through a dense executor chunking alike, no kernel launched, the
+     pool whole afterwards;
+     (d) Mistral-7B, f32 (29.0 GB): one 4090-token prompt and 16 new
+     tokens (the steps cross the 4096-token window) on an fp cache, each
+     step within FAMILY_FP_BOUND of the forward over the 4106 tokens,
+     which takes the masked route (no kernel-3 launch); the forward over
+     the first 4096 tokens launches kernel 3 32 times and agrees with it;
+     (e) Llama-2-7B (MHA), bf16 (13.5 GB): generate [4, 512] + 128 on fp
+     and int8 caches, timed, no kernel-5 launch;
+     (f) `pipeedge/gpt2-moe-8e`, f32: the pipeline `-pt 1,24,25,48` at
+     edge bits 0 and 8 (12 kernel-3 launches per microbatch; bit 8 equal
+     to the stages' forward with the plain codec at the cut, and the
+     tokens before their sequence's first rerouted token within
+     LOGIT_BOUND of the exact forward), the expert load of each block,
+     generate [16, 192] + 128 on an int8 cache of 1024 rows (phase 6's
+     windows) with the kernel-5 opt-in 'auto' (12 launches per decode
+     step), then the kernel route and the dequantize route in lockstep
+     under one routing (`RoutingPin`), within DECODE_ROUTE_BOUND, and 4
+     requests through the in-process server (1024 rows), each equal to
+     its solo run;
+     (g) `python -m pipeedge_tpu_torch.generate` on the tiny Llama,
+     Mistral and MoE (int8 cache), and `python -m
+     pipeedge_tpu_torch.runtime` on the tiny Llama at `-pt 1,4,5,8 -q
+     8,0`, exit code 0 each.
+     Printed: items/s and tokens/s, step p50 per attend bucket, prefill
+     ms, peak memory, the profiles, and a `phase 14 summary` line.
 Phase 3 also holds kernel 5 (decode attention) against its plain version
 at the main path's shapes (windows of a [16, 1024, 12, 64] stage cache at
 buckets 256 and 512, and pos 1000 of the whole cache), pos 0 and W-1,
@@ -443,6 +495,70 @@ SPEC_PAIRS = 2                    # (host, device, device, host) x 2
 SPEC_SERVE = 4                    # speculative requests through the server
 SPEC_SERVE_NEW = 32
 
+# Phase 14, the decoder families at full width (module docstring). The
+# weights are drawn on the card (`card_params`); every pipeline, oracle
+# and server of one model shares them, and each model is freed before
+# the next: two f32 copies of an 8B model and its caches do not fit.
+LLAMA3 = "meta-llama/Meta-Llama-3-8B"
+LLAMA2 = "meta-llama/Llama-2-7b-hf"
+MISTRAL = "mistralai/Mistral-7B-v0.1"
+MOE = "pipeedge/gpt2-moe-8e"
+LLAMA_BLOCKS = 32
+FAMILY_PARTITION = [(1, 64), (65, 128)]
+MOE_PARTITION = [(1, 24), (25, 48)]
+FAMILY_FWD = (32, 8, 128)         # sequences, microbatch, tokens
+FAMILY_DECODE = (4, 512, 128)     # batch, prompt, new tokens
+LLAMA_MAX_LEN = 640
+MISTRAL_DECODE = (4090, 16)       # prompt, new tokens: steps cross 4096
+MOE_DECODE = (16, 192, 128)       # batch, prompt, new tokens; max_len is
+                                  # DECODE_MAX_LEN, so kernel 5 sees
+                                  # phase 6's windows
+# fp decode logits against the forward over the same tokens, as a share
+# of max |logit| (f32 on both sides). Phase 6 holds GPT-2 (12 blocks,
+# inner widths 768 / 3072) at 1e-4; here 32 blocks of inner widths 4096 /
+# 14336 sum longer dot products in other orders (M = B rows per step
+# against B x S), the forward attends through kernel 3's 3xTF32 products
+# (each within ~2^-21 of f32) where a step attends through an f32 einsum,
+# and the unnormalized residual stream grows with depth. 10x phase 6's
+# bound. The same bound holds Mistral's kernel-3 route at S = 4096
+# against its masked route.
+FAMILY_FP_BOUND = 1e-3
+# The MoE GPT-2's 8-bit edge. Top-1 routing is discontinuous: an 8-bit
+# edge moves a token's router logits a little, enough to flip a near-tie
+# between two experts or a token's rank for a capacity slot, and a
+# rerouted token then takes another expert's whole FFN delta (or none),
+# and so do the later tokens of its sequence through attention. So the
+# edge is held in two parts (`family_forward`, `routing_split`): the
+# pipeline's logits equal, bit for bit, the stages' forward with the
+# plain codec applied at the cut; and the tokens of a sequence before its
+# first rerouted token (expert or capacity slot, in any block) stay
+# within LOGIT_BOUND of the exact forward, as a ViT's tokens do. The
+# error of the rerouted tokens is printed, not bounded: it is the
+# model's, not the codec's.
+# Phase 14c: the Llama-3-8B server with an int8 cache on 512 pages of 16
+# tokens per stage, prompts past 64 tokens in 64-token chunks; 8
+# concurrent clients (2 streamed, 4 plain, 2 sharers of the 128-token
+# prefix a publisher served alone first has put in the trie), prompts of
+# 64-512 tokens and 16-64 new tokens.
+LLAMA_SERVE_FLAGS = ["-m", LLAMA3, "-pt", "1,64,65,128", "--max-len",
+                     str(LLAMA_MAX_LEN), "-t", "float32", "--kv-bits", "8",
+                     "--max-active", "9", "--brownout-p95-high", "600",
+                     "--brownout-p95-low", "300"]
+LLAMA_PAGED_FLAGS = ["--kv-pages", "512", "--kv-page-size", "16",
+                     "--chunked-prefill", "64"]
+FAMILY_SERVE_PROMPT = (64, 512)
+FAMILY_SERVE_NEW = (16, 64)
+FAMILY_SHARERS = 2
+# Phase 14f: 4 requests of phase 11's draw through the MoE GPT-2's server
+MOE_SERVE = 4
+MOE_SERVE_FLAGS = ["-m", MOE, "-pt", "1,24,25,48", "--max-len", "1024", "-t",
+                   "float32", "--kv-bits", "8", "--int8-decode-attend",
+                   "auto", "--max-active", "4"]
+# Phase 14g: the entries on the tiny models
+FAMILY_TINY = ["pipeedge/test-tiny-llama", "pipeedge/test-tiny-mistral",
+               "pipeedge/test-tiny-moe"]
+FAMILY_TINY_NEW = 16
+
 
 def log(msg: str) -> None:
     print(msg, flush=True)
@@ -568,7 +684,9 @@ def check_codec(dev, gen):
                         ((64, 197 * 768), "scaled"),
                         ((6, 151296), "nonfinite"), ((6, 37), "nonfinite"),
                         ((65537, 37), "plain"),
-                        ((8, 197, 768), "plain")):
+                        ((8, 197, 768), "plain"),
+                        # phase 14: a Llama-3-8B / Mistral-7B edge
+                        ((8, 128, 4096), "plain")):
         for bit in (8, 4):
             x = codec_input(shape, kind, gen, dev)
             enc = fused_quant.fused_encode_outerdim(x, bit)
@@ -593,7 +711,7 @@ def check_codec(dev, gen):
             enc_err = max(float((enc.scale - ref.scale).abs().max()),
                           float((enc.shift - ref.shift).abs().max()))
             log(f"codec {shape} bit {bit} {kind}: bit-identical")
-            if shape == (8, 197, 768) and kind == "plain":
+            if shape in ((8, 197, 768), (8, 128, 4096)) and kind == "plain":
                 nbytes = codec_bytes(shape, bit)
                 kernels = {name: device_launches(fn) for name, fn in (
                     ("fused_encode",
@@ -612,7 +730,10 @@ def check_codec(dev, gen):
                         lambda: fused_quant.fused_encode_outerdim(x, bit))
                 finally:
                     fused_quant.ENCODE_CLUSTER = chosen
-                rows[("fused_encode", bit)] = dict(
+                # the main path's edge keyed (name, bit), others with
+                # their shape
+                key = () if shape == (8, 197, 768) else (shape,)
+                rows[("fused_encode", bit) + key] = dict(
                     shape=list(shape), bit=bit, max_abs_err=enc_err,
                     device_kernels=kernels["fused_encode"], cluster=chosen,
                     cluster16_ms=cluster16_ms,
@@ -620,7 +741,7 @@ def check_codec(dev, gen):
                     plain_ms=time_ms(lambda: quant.tensor_encode_outerdim(x, bit)),
                     bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
                     library_ms=None)
-                rows[("fused_decode", bit)] = dict(
+                rows[("fused_decode", bit) + key] = dict(
                     shape=list(shape), bit=bit, max_abs_err=dec_err,
                     device_kernels=kernels["fused_decode"],
                     ms=time_ms(lambda: fused_quant.fused_decode_outerdim(enc)),
@@ -662,7 +783,20 @@ def check_attention(dev, gen):
              ("bshd", (8, 64, 4, 8), torch.float32, False),
              ("bshd", (8, 64, 4, 8), torch.bfloat16, False),
              # phase 10: ViT-Large (16 heads)
-             ("bshd", (8, 197, 16, 64), torch.float32, False)]
+             ("bshd", (8, 197, 16, 64), torch.float32, False),
+             # phase 14: the Llama family's causal forward at head dim
+             # 128: Llama-3-8B's microbatch (f32; bf16 beside it), the
+             # decode checks' forwards over 640 tokens (Llama-3-8B f32,
+             # Llama-2-7B bf16), Mistral-7B at its window (f32; bf16
+             # beside it); a 512-token forward; and the MoE GPT-2's
+             ("bshd", (8, 128, 32, 128), torch.float32, True),
+             ("bshd", (8, 128, 32, 128), torch.bfloat16, True),
+             ("bshd", (4, 640, 32, 128), torch.float32, True),
+             ("bshd", (4, 640, 32, 128), torch.bfloat16, True),
+             ("bshd", (4, 512, 32, 128), torch.float32, True),
+             ("bshd", (1, 4096, 32, 128), torch.float32, True),
+             ("bshd", (1, 4096, 32, 128), torch.bfloat16, True),
+             ("bshd", (8, 128, 12, 64), torch.float32, True)]
     for layout, shape, dtype, causal in cases:
         q, k, v = (torch.randn(shape, generator=gen, device=dev).to(dtype)
                    for _ in range(3))
@@ -1517,16 +1651,20 @@ def decode_step(pipe, caches, tok, pos):
     return data[:, 0]
 
 
-def lockstep_routes(pipes, ids, new_tokens: int, sync):
+def lockstep_routes(pipes, ids, new_tokens: int, sync, pin=None):
     """Prefill `ids` on the kernel route pipes["ii"] and the dequantize
     route pipes["iii"] (both int8 caches), then step both on (ii)'s greedy
     tokens, in alternating order, the launch counts set to 0 before each
-    step. Returns (the numbers, the caches, the last token)."""
+    step. With a `RoutingPin` (an MoE model), the second run of each
+    prefill and step takes the first one's routing. Returns (the numbers,
+    the caches, the last token)."""
     from pipeedge_tpu_torch.ops import _build
     prompt_len = ids.shape[1]
     pk = pipes["ii"]
     prefill_ms, cache, last = {}, {}, {}
-    for run in ("ii", "iii"):
+    for j, run in enumerate(("ii", "iii")):
+        if pin is not None:
+            pin.start(j == 0)
         sync()
         t0 = time.monotonic()
         logits, cache[run] = pipes[run]._prefill(ids)
@@ -1543,7 +1681,9 @@ def lockstep_routes(pipes, ids, new_tokens: int, sync):
         bucket = pk._read_len(pos)
         order = ("ii", "iii") if s % 2 else ("iii", "ii")
         out = {}
-        for run in order:
+        for j, run in enumerate(order):
+            if pin is not None:
+                pin.start(j == 0)
             _build.reset_launch_counts()
             sync()
             t0 = time.monotonic()
@@ -2503,6 +2643,15 @@ def serve_client(port: int, rid: int, r: dict, pid: str, start, out: dict):
     out[rid].update(t0=t0, t1=time.monotonic())
 
 
+def reaches_kernel5(model: str) -> bool:
+    """Whether `model`'s int8 decode steps route to kernel 5: the GPT-2
+    family's steps ask the gate; a family with its own cached block
+    (Llama) attends through the dequantize route and never asks it."""
+    from pipeedge_tpu_torch.models import registry
+    return registry.get_model_entry(model).family.FAMILY \
+        .cached_block_step is None
+
+
 def serve_run(pipe, args, reqs, want, prefix_ids, label: str,
               first=None, draft=None, prompt_singles: int = 0) -> dict:
     """Serve `reqs` concurrently through the port's HTTP front end over
@@ -2514,7 +2663,8 @@ def serve_run(pipe, args, reqs, want, prefix_ids, label: str,
     numbers are read after the traffic, then every cold prefix page is
     evicted and the pool read again. `prompt_singles` counts the prompt
     chunks and spans of one token in the traffic: an int8 step of one
-    token attends through kernel 5 whatever its kind."""
+    token attends through kernel 5 whatever its kind, in a family whose
+    steps reach it (`reaches_kernel5`)."""
     import threading
     from pipeedge_tpu_torch import serve, telemetry
     from pipeedge_tpu_torch.ops import _build
@@ -2582,6 +2732,7 @@ def serve_run(pipe, args, reqs, want, prefix_ids, label: str,
     first_ms = [o["first_token_ms"] for o in out.values()
                 if o.get("first_token_ms") is not None]
     blocks = [st["n_blocks"] for st in pipe.stages]
+    kernel5 = bool(args.kv_bits) and reaches_kernel5(args.model_name)
     delta = {fam: serve_metric(after, fam, **lab) - serve_metric(
         before, fam, **lab) for fam, lab in (
         ("pipeedge_serve_tokens_total", {}),
@@ -2602,7 +2753,8 @@ def serve_run(pipe, args, reqs, want, prefix_ids, label: str,
         counts=counts, kind_steps=kind_steps,
         expected_decode_attention=(
             sum(b * k["step"] for b, k in zip(blocks, kind_steps))
-            + sum(blocks) * prompt_singles if args.kv_bits else 0),
+            + sum(blocks) * prompt_singles if kernel5 else 0),
+        kernel5=kernel5,
         prompt_singles=prompt_singles,
         decode_waves=kind_steps[-1]["step"],
         traffic_decode_waves=sum(
@@ -2813,7 +2965,7 @@ def check_serve_path(res, device_name: str, entry: bool = True) -> None:
                                  f"!= {want}")
         waves = run["decode_waves"]
         if waves != run["traffic_decode_waves"] or (
-                run["kv_bits"] and run["counts"]["decode_attention"]
+                run["kernel5"] and run["counts"]["decode_attention"]
                 != run["blocks"] * (waves + run["prompt_singles"])):
             raise AssertionError(
                 f"{name}: {run['counts']['decode_attention']} decode "
@@ -3364,6 +3516,774 @@ def check_spec_path(res, device_name: str) -> None:
         "card": res["card"], "device": device_name}))
 
 
+# --- phase 14: the decoder families at full width ---------------------------
+
+def card_params(model: str, dtype=torch.float32, seed: int = 0) -> dict:
+    """A whole model's parameters drawn on the card with a seeded CUDA
+    generator, in the structure the family's `load_params` builds (a list
+    of per-block dicts): N(0, 0.02) matrices, norm scales N(1, 0.02),
+    zero linear biases. This is not the JAX package's numpy stream
+    (`init_params`, which the CPU tests hold to the JAX package): 8e9 f64
+    normals drawn on the host would take minutes. The LM head of the
+    MoE GPT-2 is tied to `wte` (a transposed view), the Llama head is its
+    own matrix, as in `load_params` of their checkpoints."""
+    from pipeedge_tpu_torch.models import registry
+    cfg = registry.get_model_config(model)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    d, it, vocab = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size
+
+    def mat(*shape, mean=0.0):
+        return torch.empty(shape, dtype=dtype, device="cuda").normal_(
+            mean, 0.02, generator=gen)
+
+    def zeros(*shape):
+        return torch.zeros(shape, dtype=dtype, device="cuda")
+
+    def lin(n_in, n_out):
+        return {"w": mat(n_in, n_out), "b": zeros(n_out)}
+
+    if cfg.model_type == "llama":
+        kv = cfg.kv_heads * cfg.head_dim
+
+        def norm():
+            return {"scale": mat(d, mean=1.0)}
+
+        blocks = [{"ln_before": norm(), "q": lin(d, d), "k": lin(d, kv),
+                   "v": lin(d, kv), "attn_out": lin(d, d),
+                   "ln_after": norm(), "mlp_gate": lin(d, it),
+                   "mlp_up": lin(d, it), "mlp_down": lin(it, d)}
+                  for _ in range(cfg.num_hidden_layers)]
+        return {"embeddings": {"wte": mat(vocab, d)}, "blocks": blocks,
+                "final": {"ln": norm(), "head": lin(d, vocab)}}
+    e = cfg.n_experts
+
+    def norm():
+        return {"scale": mat(d, mean=1.0), "bias": mat(d)}
+
+    wte = mat(vocab, d)
+    blocks = [{"ln_before": norm(), "q": lin(d, d), "k": lin(d, d),
+               "v": lin(d, d), "attn_out": lin(d, d), "ln_after": norm(),
+               "moe": {"router": lin(d, e), "experts": {
+                   "mlp_up": {"w": mat(e, d, it), "b": zeros(e, it)},
+                   "mlp_down": {"w": mat(e, it, d), "b": zeros(e, d)}}}}
+              for _ in range(cfg.num_hidden_layers)]
+    return {"embeddings": {"wte": wte,
+                           "wpe": mat(cfg.max_position_embeddings, d)},
+            "blocks": blocks,
+            "final": {"ln": norm(), "head": {"w": wte.T, "b": zeros(vocab)}}}
+
+
+def shard_view(whole: dict, model: str, l: int, r: int) -> dict:
+    """Shard [l, r]'s parameters as views of `whole`'s tensors (no copy):
+    every pipeline, oracle and server of one model shares one set."""
+    from pipeedge_tpu_torch.models import registry
+    from pipeedge_tpu_torch.models.shard import build_shard_params
+    return build_shard_params(
+        registry.make_shard_config(model, l, r),
+        lambda: whole["embeddings"], lambda b, subs: whole["blocks"][b],
+        lambda: whole["final"])
+
+
+def param_gb(params: dict) -> float:
+    """GB of the distinct tensors of a parameter tree (a tied view counts
+    once)."""
+    seen, total = set(), 0
+
+    def walk(t):
+        nonlocal total
+        if isinstance(t, dict):
+            for v in t.values():
+                walk(v)
+        elif isinstance(t, (list, tuple)):
+            for v in t:
+                walk(v)
+        elif t.untyped_storage().data_ptr() not in seen:
+            seen.add(t.untyped_storage().data_ptr())
+            total += t.untyped_storage().nbytes()
+    walk(params)
+    return total / 1e9
+
+
+def free_card() -> None:
+    import gc
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+
+class RoutingPin:
+    """Watches the MoE routing (`parallel/expert.py _routing`) while it is
+    entered. `start(True)` begins a record: each call's decision (expert
+    [T], gate [T], keep [E, C], kept [E, C]) is kept in `calls`.
+    `start(False)` replays the record: each call still computes its own
+    routing, adds the tokens it would route otherwise (expert or capacity
+    slot) to `rerouted` (a tensor on the card, read once at the end), and
+    returns the recorded decision, so two pipelines route alike."""
+
+    def __init__(self):
+        from pipeedge_tpu_torch.parallel import expert
+        self.module, self.routing = expert, expert._routing
+        self.calls, self.i, self.record, self.rerouted = [], 0, True, 0
+
+    def __enter__(self):
+        self.module._routing = self._route
+        return self
+
+    def __exit__(self, *exc):
+        self.module._routing = self.routing
+
+    def start(self, record: bool) -> None:
+        if record:
+            self.calls = []
+        self.record, self.i = record, 0
+
+    def _route(self, router, tokens, n_experts, capacity):
+        out = self.routing(router, tokens, n_experts, capacity)
+        if self.record:
+            self.calls.append(out)
+            return out
+        want = self.calls[self.i]
+        self.i += 1
+        self.rerouted = self.rerouted + routed_apart(out, want).sum()
+        return want
+
+
+def routed_apart(a, b) -> torch.Tensor:
+    """[T] bool: tokens that two routing decisions send to different
+    experts or keep in one and drop in the other."""
+    def kept(decision):
+        expert, _, keep, ok = decision
+        return torch.zeros_like(expert).scatter_add_(
+            0, keep.reshape(-1), ok.reshape(-1).to(expert.dtype)) > 0
+    return (a[0] != b[0]) | (kept(a) != kept(b))
+
+
+def routing_split(exact, cut, exact_calls, cut_calls, ubatch: int,
+                  seq: int, scale: float) -> dict:
+    """The MoE edge's error split at each sequence's first rerouted token
+    (module constants): the tokens before it in every microbatch against
+    the rest. `exact_calls` / `cut_calls`: the routing of each microbatch
+    (one record of a call per block) in the exact forward and the
+    forward with the codec at the cut."""
+    clean_err, clean, rerouted = 0.0, 0, 0
+    for e, c, ec, cc in zip(exact, cut, exact_calls, cut_calls):
+        apart = torch.zeros(ubatch * seq, dtype=torch.bool, device=e.device)
+        for a, b in zip(ec, cc):
+            apart |= routed_apart(a, b)
+        rerouted += int(apart.sum())
+        after = apart.view(ubatch, seq).int().cummax(dim=1).values.bool()
+        err = (c - e).abs().amax(dim=-1)
+        clean += int((~after).sum())
+        if bool((~after).any()):
+            clean_err = max(clean_err, float(err[~after].max()))
+    return dict(clean_tokens=clean, clean_rel_err=clean_err / scale,
+                rerouted_tokens=rerouted, tokens=len(exact) * ubatch * seq)
+
+
+def family_forward(model: str, whole: dict, partition, bits, batch: int,
+                   ubatch: int, seq: int, dtype, profile: bool = False
+                   ) -> dict:
+    """The host pipeline (`build_pipeline` over views of `whole`) at the
+    edge bits `bits`, each run counted and held against the single-shard
+    forward (`measure`); with `profile`, one 8-bit forward microbatch under
+    torch.profiler. A routed (MoE) model's quantized runs are also held to
+    the stages' forward with the plain codec at the cut (`equal_at_cut`)
+    and split at each sequence's first rerouted token (`routing_split`)."""
+    from pipeedge_tpu_torch.models import edge_arity, registry
+    from pipeedge_tpu_torch.models.shard import shard_apply
+    from pipeedge_tpu_torch.ops import clamp, quant
+    from pipeedge_tpu_torch.parallel.pipeline import build_pipeline
+
+    entry = registry.get_model_entry(model)
+    cfg, total = entry.config, registry.get_model_layers(model)
+    ids = torch.from_numpy(np.random.default_rng(14).integers(
+        0, cfg.vocab_size, size=(batch, seq))).to("cuda")
+    inputs = list(ids.split(ubatch))
+    n_mb = len(inputs)
+    whole_sc = registry.make_shard_config(model, 1, total)
+    views = [shard_view(whole, model, l, r) for l, r in partition]
+    routed = bool(cfg.n_experts)
+    exact, exact_calls = [], []
+    with RoutingPin() as pin:
+        for x in inputs:
+            pin.start(True)
+            exact.append(shard_apply(entry.family.FAMILY, cfg, whole_sc,
+                                     whole, x))
+            exact_calls.append(pin.calls)
+    pipe = build_pipeline(model, partition, device="cuda",
+                          quant_bits=[0] * len(partition), dtype=dtype,
+                          stage_params=views)
+    edge_tensors = sum(edge_arity(r) for _, r in partition[:-1])
+    res = {}
+    for bit in bits:
+        set_edge_bits(pipe, bit)
+        torch.cuda.reset_peak_memory_stats()
+        res[bit] = measure(pipe, inputs, exact, expected={
+            "fused_attention": cfg.num_hidden_layers * n_mb,
+            "fused_encode": edge_tensors * n_mb if bit else 0,
+            "fused_decode": edge_tensors * n_mb if bit else 0,
+            "int8_matmul": 0, "decode_attention": 0},
+            expected_shape=[ubatch, seq, cfg.vocab_size])
+        res[bit]["max_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        if routed and not bit:
+            # each block's routing of microbatch 0: tokens assigned to
+            # each expert, tokens kept, the capacity
+            res["expert_load"] = [dict(
+                assigned=torch.bincount(c[0], minlength=cfg.n_experts)
+                .tolist(), kept=c[3].sum(dim=1).tolist(),
+                capacity=c[2].shape[1]) for c in exact_calls[0]]
+        if not (routed and bit):
+            continue
+        outs, _ = pipe.run(inputs)
+        cut, cut_calls = [], []
+        with RoutingPin() as pin:
+            for x in inputs:
+                pin.start(True)
+                data = x
+                for i, ((l, r), params) in enumerate(zip(partition, views)):
+                    if i:
+                        if pipe.stages[i - 1].clamp:
+                            data = clamp.clamp_banner2019_laplace(data, bit)
+                        data = quant.tensor_decode_outerdim(
+                            quant.tensor_encode_outerdim(data, bit))
+                    data = shard_apply(entry.family.FAMILY, cfg,
+                                       registry.make_shard_config(model, l, r),
+                                       params, data)
+                cut.append(data)
+                cut_calls.append(pin.calls)
+        res[bit]["equal_at_cut"] = all(torch.equal(o, c)
+                                       for o, c in zip(outs, cut))
+        res[bit] |= routing_split(
+            exact, cut, exact_calls, cut_calls, ubatch, seq,
+            max(float(e.abs().max()) for e in exact))
+        del outs, cut, cut_calls
+    if profile:
+        set_edge_bits(pipe, 8)
+        res["profile"] = profile_pass(
+            lambda: pipe.run(inputs[:1]),
+            f"{model} forward microbatch [{ubatch}, {seq}], 8-bit edge")
+    res["inputs"] = inputs
+    return res
+
+
+def check_family_forward(name: str, res: dict, device_name: str) -> None:
+    bits = [b for b in res if isinstance(b, int)]
+    for bit in bits:
+        r = res[bit]
+        log(f"{name} forward bit {bit}: " + json.dumps(
+            {**r, "card": device_name}, sort_keys=True))
+        if r["shape"] != r["expected_shape"] or not r["finite"]:
+            raise AssertionError(f"{name} bit {bit}: logits of shape "
+                                 f"{r['shape']}, finite={r['finite']}")
+        if r["counts"] != r["expected_counts"]:
+            raise AssertionError(f"{name} bit {bit}: launch counts "
+                                 f"{r['counts']} != {r['expected_counts']}")
+        if bit == 0 and not r["equal"]:
+            raise AssertionError(f"{name} bit 0: pipeline logits differ from "
+                                 f"the single-shard forward by "
+                                 f"{r['max_abs_err']}")
+        if bit and "equal_at_cut" in r:     # a routed model (constants)
+            if not r["equal_at_cut"] or not r["rel_err"] > 0:
+                raise AssertionError(
+                    f"{name} bit {bit}: pipeline logits unequal to the "
+                    f"forward with the plain codec at the cut, or equal "
+                    f"to the exact forward (rel_err {r['rel_err']})")
+            if not (r["clean_tokens"] > 0
+                    and r["clean_rel_err"] <= LOGIT_BOUND[bit]):
+                raise AssertionError(
+                    f"{name} bit {bit}: {r['clean_tokens']} tokens before "
+                    f"their sequence's first rerouted token, logit error "
+                    f"{r['clean_rel_err']} of the logit scale > "
+                    f"{LOGIT_BOUND[bit]}")
+        elif bit and not 0 < r["rel_err"] <= LOGIT_BOUND[bit]:
+            raise AssertionError(f"{name} bit {bit}: logit error "
+                                 f"{r['rel_err']} of the logit scale not in "
+                                 f"(0, {LOGIT_BOUND[bit]}]")
+    if 4 in bits and not res[4]["rel_err"] > res[8]["rel_err"]:
+        raise AssertionError(f"{name}: 4-bit logit error not above 8-bit")
+
+
+def family_decode(model: str, whole: dict, partition, dtype, batch: int,
+                  prompt: int, new: int, max_len: int, modes=("fp", "int8"),
+                  int8_optin=1, replay: bool = True,
+                  profile: bool = False) -> dict:
+    """`DecodePipeline.generate` over views of `whole` on an fp and an int8
+    cache (`int8_optin`: forced on for Llama, whose steps must not ask
+    the gate), timed, the launch counts set to 0 just before each
+    generation. With `replay`, the fp cache's prefill and every step run
+    again on the generated tokens, each timed and held against the
+    forward over the whole sequence (`full_forward`, its kernel-3
+    launches counted; `res["full"]`, `res["seq"]`); with `profile`, one
+    fp decode step under torch.profiler."""
+    from pipeedge_tpu_torch.models import registry
+    from pipeedge_tpu_torch.ops import _build
+    from pipeedge_tpu_torch.parallel import decode
+
+    entry = registry.get_model_entry(model)
+    cfg = entry.config
+    views = [shard_view(whole, model, l, r) for l, r in partition]
+    pipes = {mode: decode.DecodePipeline(
+        entry.family.FAMILY, cfg, partition, views, max_len=max_len,
+        device="cuda", dtype=dtype, cache_bits=8 if mode == "int8" else 0,
+        int8_decode_attend=int8_optin if mode == "int8" else 0)
+        for mode in modes}
+    ids = torch.from_numpy(np.random.default_rng(15).integers(
+        0, cfg.vocab_size, size=(batch, prompt))).to("cuda")
+    res, tokens = {}, {}
+    for mode, pipe in pipes.items():
+        pipe.generate(ids, 2)                   # warm-up (not counted)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _build.reset_launch_counts()
+        t0 = time.monotonic()
+        tokens[mode] = pipe.generate(ids, new)
+        torch.cuda.synchronize()
+        dt = time.monotonic() - t0
+        res[mode] = dict(
+            counts=dict(_build.launch_counts), tok_per_s=batch * new / dt,
+            generate_s=dt, shape=list(tokens[mode].shape),
+            max_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+            in_vocab=bool(((tokens[mode] >= 0)
+                           & (tokens[mode] < cfg.vocab_size)).all()))
+    if not replay:
+        return res
+    seq = tokens["fp"]
+    full, launches = full_forward(model, views, partition, seq)
+    pipe = pipes["fp"]
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    logits, caches = pipe._prefill(ids)
+    torch.cuda.synchronize()
+    prefill_ms = (time.monotonic() - t0) * 1e3
+    scale = float(full.abs().max())
+    err = float((logits - full[:, :prompt]).abs().max())
+    step_ms: dict = {}
+    for s in range(1, new):
+        pos = prompt + s - 1
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        out = decode_step(pipe, caches, seq[:, pos], pos)
+        torch.cuda.synchronize()
+        step_ms.setdefault(pipe._read_len(pos), []).append(
+            (time.monotonic() - t0) * 1e3)
+        err = max(err, float((out - full[:, pos]).abs().max()))
+    res["fp"].update(
+        rel_err_vs_full=err / scale, max_abs_err=err, logit_scale=scale,
+        finite=bool(torch.isfinite(full).all()), prefill_ms=prefill_ms,
+        step_p50_ms={str(b): statistics.median(v)
+                     for b, v in sorted(step_ms.items())},
+        steps_per_bucket={str(b): len(v) for b, v in sorted(step_ms.items())},
+        full_forward_launches=launches, full_forward_tokens=seq.shape[1])
+    if profile:
+        pos = prompt + new - 1
+        res["profile"] = profile_pass(
+            lambda: decode_step(pipe, caches, seq[:, pos - 1], pos - 1),
+            f"{model} decode step, batch {batch}, pos {pos - 1}, fp cache")
+    res["full"], res["seq"] = full, seq
+    return res
+
+
+def full_forward(model: str, views, partition, seq):
+    """The forward of `seq` through the stages' views, back to back; its
+    kernel-3 launches counted."""
+    from pipeedge_tpu_torch.models import registry
+    from pipeedge_tpu_torch.models.shard import shard_apply
+    from pipeedge_tpu_torch.ops import _build
+    entry = registry.get_model_entry(model)
+    _build.reset_launch_counts()
+    data = seq
+    for (l, r), params in zip(partition, views):
+        data = shard_apply(entry.family.FAMILY, entry.config,
+                           registry.make_shard_config(model, l, r), params,
+                           data)
+    torch.cuda.synchronize()
+    return data, _build.launch_counts["fused_attention"]
+
+
+def check_family_decode(name: str, res: dict, bound, expected_launches: int,
+                        device_name: str, expected_kernel5: int = 0) -> None:
+    for mode in ("fp", "int8"):
+        r = res.get(mode)
+        if r is None:
+            continue
+        log(f"{name} decode ({mode}): " + json.dumps(
+            {**r, "card": device_name}, sort_keys=True))
+        want = {k: 0 for k in r["counts"]}
+        if mode == "int8":
+            want["decode_attention"] = expected_kernel5
+        if r["counts"] != want:
+            raise AssertionError(f"{name} decode ({mode}): launch counts "
+                                 f"{r['counts']} != {want}")
+        if not r["in_vocab"]:
+            raise AssertionError(f"{name} decode ({mode}): token out of "
+                                 "the vocabulary")
+    fp = res["fp"]
+    if "full_forward_launches" not in fp:
+        return
+    if not fp["finite"]:
+        raise AssertionError(f"{name}: the full forward is not finite")
+    if fp["full_forward_launches"] != expected_launches:
+        raise AssertionError(
+            f"{name}: the forward over {fp['full_forward_tokens']} tokens "
+            f"launched kernel 3 {fp['full_forward_launches']} times, not "
+            f"{expected_launches}")
+    if bound is not None and fp["rel_err_vs_full"] > bound:
+        raise AssertionError(f"{name}: fp step logits off the full forward "
+                             f"by {fp['rel_err_vs_full']} of max |logit| > "
+                             f"{bound}")
+
+
+def family_serve_requests(rng, vocab: int, prefix_ids) -> tuple:
+    """Phase 14c's traffic: 2 streamed and 4 plain clients (prompts and
+    new tokens drawn from FAMILY_SERVE_PROMPT / FAMILY_SERVE_NEW), then a
+    publisher whose prompt is the 128-token prefix (served alone first)
+    and 2 sharers whose prompts start with it. Returns (requests, index of
+    the publisher)."""
+    reqs = []
+    for kind in ["stream"] * 2 + ["plain"] * 4:
+        length = int(rng.integers(FAMILY_SERVE_PROMPT[0],
+                                  FAMILY_SERVE_PROMPT[1] + 1))
+        reqs.append({"kind": kind, "ids": rng.integers(
+            0, vocab, size=(1, length)).tolist(), "new": int(rng.integers(
+                FAMILY_SERVE_NEW[0], FAMILY_SERVE_NEW[1] + 1)), "eos": None})
+    first = len(reqs)
+    reqs.append({"kind": "publish", "ids": [list(prefix_ids)],
+                 "new": FAMILY_SERVE_NEW[0], "eos": None})
+    for _ in range(FAMILY_SHARERS):
+        n = int(rng.integers(PAGED_SUFFIX[0], PAGED_SUFFIX[1] + 1))
+        reqs.append({"kind": "share", "ids": [list(prefix_ids) + rng.integers(
+            0, vocab, size=n).tolist()], "new": int(rng.integers(
+                FAMILY_SERVE_NEW[0], FAMILY_SERVE_NEW[1] + 1)), "eos": None})
+    return reqs, first
+
+
+def family_serve(card: str, model: str, whole: dict, flags, paged=None,
+                 kinds=None, executors=("wave", "stage")) -> dict:
+    """The in-process server over views of `whole` (the oracle pipeline
+    shares them), each result held to its solo run: with `paged` flags,
+    phase 14c's traffic against a dense wave executor that chunks alike;
+    without, `kinds` of phase 11's requests against solo `generate`."""
+    from pipeedge_tpu_torch import serve
+    from pipeedge_tpu_torch.models import registry
+
+    cfg = registry.get_model_config(model)
+    flags = flags + ["--device", "cuda"]
+    args = serve.parse_args(flags + ["--executor", "wave"])
+    views = [shard_view(whole, model, l, r) for l, r in args.partition]
+    rng = np.random.default_rng(16)
+    prefix_ids = rng.integers(0, cfg.vocab_size,
+                              size=SERVE_PREFIX_LEN).tolist()
+    oracle = serve.build_pipeline(args, views)
+    t0 = time.monotonic()
+    if paged is not None:
+        reqs, first = family_serve_requests(rng, cfg.vocab_size, prefix_ids)
+        want = chunked_oracle(oracle, reqs, PAGED_CHUNK)
+        singles = prompt_singles(reqs, PAGED_CHUNK, SERVE_PREFIX_LEN)
+    else:
+        reqs, first = serve_requests(rng, cfg.vocab_size, kinds), None
+        want = serve_oracle(oracle, reqs, prefix_ids)
+        singles = 0
+    res = {"card": card, "oracle_s": time.monotonic() - t0, "runs": [],
+           "prompt_lens": [len(r["ids"][0]) for r in reqs]}
+    del oracle
+    pipe = serve.build_pipeline(args, views)
+    for executor in executors:
+        run_args = serve.parse_args(flags + (paged or [])
+                                    + ["--executor", executor])
+        torch.cuda.reset_peak_memory_stats()
+        res["runs"].append(serve_run(
+            pipe, run_args, reqs, want, prefix_ids,
+            f"{model}, {executor}, {'int8' if args.kv_bits else 'fp'} cache"
+            + (", paged" if paged else ""), first=first,
+            prompt_singles=singles))
+        res["runs"][-1]["max_memory_gb"] = \
+            torch.cuda.max_memory_allocated() / 1e9
+        log("family serve run " + json.dumps(res["runs"][-1],
+                                             sort_keys=True))
+    del pipe
+    free_card()
+    return res
+
+
+def check_family_serve(name: str, res: dict, device_name: str,
+                       min_hits: int = 0) -> None:
+    check_serve_path(res, device_name, entry=False)
+    for run in res["runs"]:
+        kv = run["kv"]
+        if kv is None:
+            continue
+        pool = kv["pool"]
+        if kv["trie_hits"] < min_hits or pool["pages_free"] != \
+                pool["pages_total"] or pool["leaked"] \
+                or kv["after_traffic"]["leaked"]:
+            raise AssertionError(f"{name} ({run['label']}): trie hits "
+                                 f"{kv['trie_hits']} (want >= {min_hits}), "
+                                 f"pool {pool}")
+        log(f"{name} ({run['label']}): kv " + json.dumps(kv))
+
+
+def family_entries(weights_dir: Path) -> list:
+    """The entries on the card as subprocesses: generate on the tiny
+    Llama, Mistral and MoE (int8 cache; the kernel-5 opt-in set in the
+    environment: launched by the GPT-2 family's steps only), and the
+    runtime on the tiny Llama at `-q 8,0`."""
+    from pipeedge_tpu_torch.models import registry
+    runs = []
+    for model in FAMILY_TINY:
+        cfg = registry.get_model_config(model)
+        cmd = [sys.executable, "-m", "pipeedge_tpu_torch.generate", "-m",
+               model, "-pt", "1,4,5,8", "-b", "4", "--prompt-len", "16",
+               "--new-tokens", str(FAMILY_TINY_NEW), "--kv-bits", "8",
+               "--device", "cuda"]
+        env = dict(os.environ, PIPEEDGE_INT8_DECODE_ATTEND="1")
+        t0 = time.monotonic()
+        proc = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
+                              text=True, timeout=600)
+        lines = proc.stdout.splitlines()
+        for line in lines:
+            log(f"generate entry ({model}): " + line)
+        launches = [json.loads(ln.split("=", 1)[1]) for ln in lines
+                    if ln.startswith("kernel_launches=")]
+        runs.append(dict(
+            command=" ".join(cmd[1:]), rc=proc.returncode,
+            stderr=proc.stderr[-2000:] if proc.returncode else "",
+            seconds=time.monotonic() - t0,
+            report=[ln for ln in lines if ln.startswith("generated ")],
+            counts=launches[0] if launches else None,
+            # the warm-up's one step and the timed run's steps
+            expected_decode_attention=cfg.num_hidden_layers * FAMILY_TINY_NEW
+            if reaches_kernel5(model) else 0))
+    rt = run_entry(["0", "2", "-m", "pipeedge/test-tiny-llama", "-pt",
+                    "1,4,5,8", "-q", "8,0", "-b", "16", "-u", "4",
+                    "--device", "cuda"], {},
+                   weights_dir / "runtime_tiny_llama")
+    runs.append(dict(rt, rc=0))
+    return runs
+
+
+def check_family_entries(runs: list) -> None:
+    for run in runs:
+        log("family entry: " + json.dumps(run, sort_keys=True))
+        if run["rc"] != 0:
+            raise AssertionError(f"{run['command']} exited {run['rc']}: "
+                                 f"{run.get('stderr')}")
+        if "kernel_launches" in run:          # the runtime
+            k = run["kernel_launches"]
+            if not (k and len(run["report"]) >= 1) or not (
+                    k["fused_attention"] > 0
+                    and k["fused_encode"] == k["fused_decode"] > 0):
+                raise AssertionError(f"runtime entry: {run}")
+        elif len(run["report"]) != 1 or run["counts"] is None or \
+                run["counts"]["decode_attention"] != \
+                run["expected_decode_attention"]:
+            raise AssertionError(f"generate entry: {run}")
+
+
+def draw_model(model: str, dtype, seed: int) -> tuple:
+    """`card_params` of `model` after freeing the card; (params, GB)."""
+    free_card()
+    t0 = time.monotonic()
+    whole = card_params(model, dtype, seed=seed)
+    torch.cuda.synchronize()
+    gb = param_gb(whole)
+    log(f"{model}: {gb:.2f} GB of {str(dtype)[6:]} parameters drawn on "
+        f"the card in {time.monotonic() - t0:.1f} s")
+    return whole, gb
+
+
+def llama3_path(card: str, device_name: str, pm) -> dict:
+    """Phase 14 a-c: Llama-3-8B (f32) through the host pipeline, the
+    decode pipeline and the paged server, each gated."""
+    out = {}
+    whole, out["llama3_gb"] = draw_model(LLAMA3, torch.float32, 0)
+    fwd = family_forward(LLAMA3, whole, FAMILY_PARTITION, (0, 8, 4),
+                         *FAMILY_FWD, torch.float32, profile=True)
+    check_family_forward(LLAMA3, fwd, device_name)
+    out["llama3_forward"] = {k: v for k, v in fwd.items() if k != "inputs"}
+    del fwd
+    free_card()
+    dec = family_decode(LLAMA3, whole, FAMILY_PARTITION, torch.float32,
+                        *FAMILY_DECODE, max_len=LLAMA_MAX_LEN, profile=True)
+    del dec["full"], dec["seq"]
+    check_family_decode(LLAMA3, dec, FAMILY_FP_BOUND, LLAMA_BLOCKS,
+                        device_name)
+    out["llama3_decode"] = dec
+    free_card()
+    out["llama3_serve"] = family_serve(card, LLAMA3, whole,
+                                       LLAMA_SERVE_FLAGS + pm,
+                                       paged=LLAMA_PAGED_FLAGS)
+    check_family_serve(LLAMA3, out["llama3_serve"], device_name,
+                       min_hits=FAMILY_SHARERS)
+    return out
+
+
+def mistral_path(device_name: str) -> dict:
+    """Phase 14d: Mistral-7B (f32) decoding across its window, held to
+    the forward over the same tokens (the masked route), and the forward
+    at S = window (kernel 3) held to that."""
+    from pipeedge_tpu_torch.models import llama, registry
+    whole, gb = draw_model(MISTRAL, torch.float32, 1)
+    prompt, new = MISTRAL_DECODE
+    dec = family_decode(MISTRAL, whole, FAMILY_PARTITION, torch.float32, 1,
+                        prompt, new, max_len=prompt + new, modes=("fp",))
+    full, seq = dec.pop("full"), dec.pop("seq")
+    cfg = registry.get_model_config(MISTRAL)
+    fused = llama.fused_route(cfg, seq.shape[1])
+    check_family_decode(MISTRAL, dec, FAMILY_FP_BOUND,
+                        LLAMA_BLOCKS if fused else 0, device_name)
+    w = cfg.sliding_window
+    views = [shard_view(whole, MISTRAL, l, r) for l, r in FAMILY_PARTITION]
+    at_window, launches = full_forward(MISTRAL, views, FAMILY_PARTITION,
+                                       seq[:, :w])
+    route_err = float((at_window - full[:, :w]).abs().max()
+                      / full[:, :w].abs().max())
+    dec["window"] = dict(tokens=w, launches=launches,
+                         masked_tokens=seq.shape[1], route_rel_err=route_err)
+    log(f"{MISTRAL} window: " + json.dumps(dec["window"]))
+    if launches != LLAMA_BLOCKS or route_err > FAMILY_FP_BOUND:
+        raise AssertionError(
+            f"{MISTRAL}: the forward at S = {w} launched kernel 3 "
+            f"{launches} times (want {LLAMA_BLOCKS}); it differs from the "
+            f"masked route by {route_err} of max |logit|")
+    return {"mistral_gb": gb, "mistral_decode": dec}
+
+
+def llama2_path(device_name: str) -> dict:
+    """Phase 14e: Llama-2-7B (MHA, bf16) generation on fp and int8
+    caches."""
+    whole, gb = draw_model(LLAMA2, torch.bfloat16, 2)
+    dec = family_decode(LLAMA2, whole, FAMILY_PARTITION, torch.bfloat16,
+                        *FAMILY_DECODE, max_len=LLAMA_MAX_LEN)
+    del dec["full"], dec["seq"]
+    check_family_decode(LLAMA2, dec, None, LLAMA_BLOCKS, device_name)
+    return {"llama2_gb": gb, "llama2_decode": dec}
+
+
+def moe_path(card: str, device_name: str, pm) -> dict:
+    """Phase 14f: the switch-MoE GPT-2 (f32) through the host pipeline,
+    its expert load, int8 generation on kernel 5 held in lockstep to the
+    dequantize route under one routing, and the server."""
+    from pipeedge_tpu_torch.models import registry
+    from pipeedge_tpu_torch.parallel import decode
+    out = {}
+    whole, out["moe_gb"] = draw_model(MOE, torch.float32, 3)
+    fwd = family_forward(MOE, whole, MOE_PARTITION, (0, 8), *FAMILY_FWD,
+                         torch.float32)
+    out["moe_expert_load"] = fwd.pop("expert_load")
+    check_family_forward(MOE, fwd, device_name)
+    log(f"{MOE} expert load per block (microbatch 0): "
+        + json.dumps(out["moe_expert_load"]))
+    out["moe_forward"] = {k: v for k, v in fwd.items() if k != "inputs"}
+    del fwd
+    # capacity routing is not causal: a step routes its own 16 tokens, the
+    # forward all of them, so the steps are not held to the forward here
+    # (the CPU tests hold them to the JAX package's); the kernel route is
+    # held to the dequantize route instead, as phase 6 holds GPT-2's
+    batch, prompt, new = MOE_DECODE
+    dec = family_decode(MOE, whole, MOE_PARTITION, torch.float32, batch,
+                        prompt, new, max_len=DECODE_MAX_LEN,
+                        int8_optin="auto", replay=False)
+    cfg = registry.get_model_config(MOE)
+    blocks = cfg.num_hidden_layers
+    check_family_decode(MOE, dec, None, 0, device_name,
+                        expected_kernel5=blocks * (new - 1))
+    views = [shard_view(whole, MOE, l, r) for l, r in MOE_PARTITION]
+    pipes = {run: decode.DecodePipeline(
+        registry.get_model_entry(MOE).family.FAMILY, cfg, MOE_PARTITION,
+        views, max_len=DECODE_MAX_LEN, device="cuda", cache_bits=8,
+        int8_decode_attend=optin) for run, optin in (("ii", "auto"),
+                                                     ("iii", 0))}
+    ids = torch.from_numpy(np.random.default_rng(15).integers(
+        0, cfg.vocab_size, size=(batch, prompt))).to("cuda")
+    with RoutingPin() as pin:
+        lock, _, _ = lockstep_routes(pipes, ids, new,
+                                     torch.cuda.synchronize, pin=pin)
+        lock["rerouted_tokens"] = int(pin.rerouted)
+    del pipes
+    dec["lockstep"] = lock
+    log(f"{MOE} lockstep (ii)/(iii): " + json.dumps(
+        {**lock, "card": device_name}, sort_keys=True))
+    if lock["rel_err"] > DECODE_ROUTE_BOUND or lock["launches_per_step"] \
+            != {"ii": [blocks], "iii": [0]}:
+        raise AssertionError(
+            f"{MOE} (ii) vs (iii): logits differ by {lock['rel_err']} of "
+            f"max |logit| (bound {DECODE_ROUTE_BOUND}); kernel launches per "
+            f"step {lock['launches_per_step']}")
+    out["moe_decode"] = dec
+    out["moe_serve"] = family_serve(card, MOE, whole, MOE_SERVE_FLAGS + pm,
+                                    kinds=["plain"] * MOE_SERVE,
+                                    executors=("wave",))
+    check_family_serve(MOE, out["moe_serve"], device_name)
+    return out
+
+
+def families_path(card: str, device_name: str,
+                  weights_dir: Path = ROOT / "pipeedge_tpu_torch" / "_build"
+                  ) -> dict:
+    """Phase 14 (module docstring), gated as it goes; each model is freed
+    before the next is drawn. Returns what the kernels line and PERF.md
+    read."""
+    pm = ["--postmortem-dir", str(weights_dir / "postmortems")]
+    t0 = time.monotonic()
+    out = {}
+    for name, run in (("a-c", lambda: llama3_path(card, device_name, pm)),
+                      ("d", lambda: mistral_path(device_name)),
+                      ("e", lambda: llama2_path(device_name)),
+                      ("f", lambda: moe_path(card, device_name, pm)),
+                      ("g", lambda: {"entries": family_entries(weights_dir)})):
+        out |= run()
+        free_card()
+        log(f"phase 14{name}: {time.monotonic() - t0:.1f} s (memory "
+            f"allocated {torch.cuda.memory_allocated() / 1e9:.2f} GB)")
+    check_family_entries(out["entries"])
+    log("phase 14 summary: " + json.dumps(
+        family_summary(out) | {"card": card, "device": device_name}))
+    return out
+
+
+def family_summary(out: dict) -> dict:
+    """Phase 14's numbers in one line: GB drawn, items/s, tokens/s,
+    prefill ms, step p50 per bucket, launches and device ms of the
+    profiled step and microbatch, peak memory."""
+    def dec(key):
+        d = out[key]
+        return {mode: {k: d[mode].get(k) for k in (
+            "tok_per_s", "prefill_ms", "step_p50_ms", "max_memory_gb",
+            "rel_err_vs_full")} for mode in ("fp", "int8") if mode in d}
+
+    def prof(p):
+        return None if p is None else {k: p[k] for k in (
+            "wall_ms", "device_ms", "device_busy_share", "kernel_launches")}
+
+    fwd = out["llama3_forward"]
+    return {
+        "gb": {k: out[k] for k in ("llama3_gb", "mistral_gb", "llama2_gb",
+                                   "moe_gb")},
+        "llama3_forward": {bit: {k: fwd[bit][k] for k in (
+            "items_per_s", "p50_ms", "rel_err", "max_memory_gb")}
+            for bit in (0, 8, 4)},
+        "llama3_forward_profile": prof(fwd.get("profile")),
+        "llama3_decode": dec("llama3_decode"),
+        "llama3_step_profile": prof(out["llama3_decode"].get("profile")),
+        "llama3_serve": [{k: r[k] for k in (
+            "label", "tok_per_s", "latency_ms_p50", "latency_ms_p95",
+            "first_token_ms_p50", "max_memory_gb")}
+            for r in out["llama3_serve"]["runs"]],
+        "mistral_decode": dec("mistral_decode")
+        | {"window": out["mistral_decode"]["window"]},
+        "llama2_decode": dec("llama2_decode"),
+        "moe_forward": {bit: {k: out["moe_forward"][bit].get(k) for k in (
+            "items_per_s", "rel_err", "clean_rel_err", "clean_tokens",
+            "rerouted_tokens")} for bit in (0, 8)},
+        "moe_decode": dec("moe_decode"),
+        "moe_lockstep": {k: out["moe_decode"]["lockstep"][k] for k in (
+            "rel_err", "rerouted_tokens", "step_p50_ms")},
+        "moe_serve_tok_per_s": out["moe_serve"]["runs"][0]["tok_per_s"],
+        "entries_s": [round(r["seconds"], 1) for r in out["entries"]]}
+
+
 def main() -> int:
     import argparse
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -3417,8 +4337,8 @@ def main() -> int:
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     codec_rows = check_codec(dev, gen)
-    for (name, bit), row in codec_rows.items():
-        log(f"{name} " + json.dumps(row))
+    for key, row in codec_rows.items():
+        log(f"{key[0]} " + json.dumps(row))
     attn_rows = check_attention(dev, gen)
     policy_rows = check_policy_bits(dev, gen)
     int8_rows = check_int8_matmul(dev, gen)
@@ -3483,6 +4403,11 @@ def main() -> int:
 
     phase_done("phase 13")
 
+    # phase 14: the decoder families at full width
+    fam = families_path(card, device_name)
+
+    phase_done("phase 14")
+
     if args.ab_entry_parent is not None:
         ab_entry(args.ab_entry_parent)
         phase_done("ab entry")
@@ -3520,7 +4445,15 @@ def main() -> int:
                 # every policy bitwidth on phase 8's edge
                 policy_bits_ms={r["bit"]: r[f"{name[6:]}_ms"]
                                 for r in policy_rows
-                                if r["shape"] == [UBATCH, 198, 768]}))
+                                if r["shape"] == [UBATCH, 198, 768]},
+                # phase 14: the Llama-3-8B edge and its pass of 4
+                # microbatches; the MoE GPT-2's edge at 8 bits
+                llama_edge={k: codec_rows[(name, bit, (8, 128, 4096))][k]
+                            for k in ("shape", "ms", "plain_ms", "bound_ms",
+                                      "bound_by", "max_abs_err")},
+                llama3_launches=fam["llama3_forward"][bit]["counts"][name],
+                **({"moe_launches": fam["moe_forward"][8]["counts"][name]}
+                   if bit == 8 else {})))
     kernels.append(dict(
         name="fused_attention", route="cuda",
         source=SOURCES["fused_attention"],
@@ -3540,6 +4473,17 @@ def main() -> int:
             "fused_attention"],
         profiler_launches={key: p["attention_launches"]
                            for key, p in sched_res["profiles"].items()},
+        # phase 14: per pass of 4 microbatches (Llama-3-8B, the MoE
+        # GPT-2), and per forward of the decode checks
+        llama3_forward_launches=fam["llama3_forward"][8]["counts"][
+            "fused_attention"],
+        moe_forward_launches=fam["moe_forward"][8]["counts"][
+            "fused_attention"],
+        decode_check_forward_launches={
+            name: fam[key]["fp"]["full_forward_launches"] for name, key in (
+                (LLAMA3, "llama3_decode"), (LLAMA2, "llama2_decode"),
+                (MISTRAL, "mistral_decode"))},
+        mistral_window_launches=fam["mistral_decode"]["window"]["launches"],
         cases={f"{r['layout']} {r['shape']} {r['dtype']}"
                f"{' causal' if r['causal'] else ''}": {
                    key: r[key] for key in ("ms", "plain_ms", "library_ms",
@@ -3587,6 +4531,15 @@ def main() -> int:
             "decode_attention"] for run in paged_res["runs"]},
         paged_decode_waves={run["executor"]: run["decode_waves"]
                             for run in paged_res["runs"]},
+        # phase 14: the MoE GPT-2's int8 generation and served run; none
+        # on the Llama family's int8 steps
+        moe_generate_launches=fam["moe_decode"]["int8"]["counts"][
+            "decode_attention"],
+        moe_serve_launches=fam["moe_serve"]["runs"][0]["counts"][
+            "decode_attention"],
+        llama_int8_launches={name: fam[key]["int8"]["counts"][
+            "decode_attention"] for name, key in (
+                (LLAMA3, "llama3_decode"), (LLAMA2, "llama2_decode"))},
         cases={name: {k: r[k] for k in (
             "shape", "pos", "dtype", "ms", "ms_l2_cold", "plain_ms",
             "bound_ms", "bound_by", "dequant_route_ms",

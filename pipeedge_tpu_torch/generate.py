@@ -1,9 +1,11 @@
-"""Pipelined KV-cache text generation (GPT-2 family), the port's entry.
+"""Pipelined KV-cache text generation (GPT-2, MoE GPT-2, Llama, Mistral).
 
 The local path of the repository's `tools/generate.py`, on PyTorch:
 
     python -m pipeedge_tpu_torch.generate -m gpt2 -pt 1,24,25,48 -b 16 \\
         --prompt-len 192 --new-tokens 128 --max-len 1024 --kv-bits 8
+    python -m pipeedge_tpu_torch.generate -m meta-llama/Meta-Llama-3-8B \\
+        -t bfloat16 -b 4 --prompt-len 512 --new-tokens 128
 
 decodes seeded synthetic prompts through a block-aligned pipeline on the
 GPU and prints `generated BxN tokens in Xs = Y tok/s (...)`, the first
@@ -59,9 +61,9 @@ def parse_args(argv: Optional[Sequence[str]] = None):
     parser.add_argument("-m", "--model-name", default="gpt2",
                         choices=[n for n in registry.get_model_names()
                                  if registry.get_model_config(n).model_type
-                                 == "gpt2"])
+                                 in registry.DECODER_TYPES])
     parser.add_argument("-M", "--model-file", default=None,
-                        help="weights (.npz, HF GPT-2 state-dict keys)")
+                        help="weights (.npz, HF state-dict keys of the family)")
     parser.add_argument("-pt", "--partition", default=None,
                         help="comma-separated layer ranges, e.g. 1,24,25,48 "
                              "(default: single stage)")
@@ -98,7 +100,7 @@ def parse_args(argv: Optional[Sequence[str]] = None):
     parser.add_argument("--draft-model", default=None,
                         choices=[n for n in registry.get_model_names()
                                  if registry.get_model_config(n).model_type
-                                 == "gpt2"],
+                                 in registry.DECODER_TYPES],
                         help="speculative decoding: this (smaller, same-"
                              "vocabulary) model proposes --gamma tokens "
                              "per round and the target verifies them in "

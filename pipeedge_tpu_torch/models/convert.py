@@ -5,7 +5,10 @@ numpy arrays (a caller holding JAX arrays passes them through
 `jax.device_get` first; the port never sees JAX). The full blocks may be
 stacked (one array per leaf, leading axis = block, the `lax.scan`
 layout) or a tuple/list of per-block dicts (the unrolled layout); the
-port always gets a list of per-block dicts.
+port always gets a list of per-block dicts. The trees of every family
+carry across: the Llama blocks' leaves, and the MoE blocks' stacked
+expert leaves ([L, E, ...] under `blocks`, [E, ...] in a partial head or
+tail block).
 """
 from __future__ import annotations
 

@@ -1,13 +1,18 @@
 """GPT-2 model family: causal-decoder shards with the 4-way sublayer split.
 
-Port of `pipeedge_tpu/models/gpt2.py`, the dense family only. A GPT-2
-block is pre-LN like ViT's, so the sublayer cut points carry over:
+Port of `pipeedge_tpu/models/gpt2.py`. A GPT-2 block is pre-LN like
+ViT's, so the sublayer cut points carry over:
   sub 0: ln_1 -> causal self-attention       payload becomes (ctx, residual)
   sub 1: attn output proj + residual         payload becomes hidden
   sub 2: ln_2 -> MLP-up + GeLU(tanh)         payload becomes (mlp_h, residual)
   sub 3: MLP-down + residual                 payload becomes hidden
 First shard: token + learned position embeddings. Last shard: final
 LayerNorm + LM head -> per-token vocab logits [B, S, V].
+
+The switch-MoE variant (`cfg.n_experts > 0`) keeps the whole routed FFN
+in sublayer 2 (`parallel/expert.py moe_ffn_delta`: capacity routing
+cannot span a pipeline cut), whose edge carries (delta, residual);
+sublayer 3 is the parameter-free residual add.
 
 Parameters reuse the ViT sublayer names (ln_before/q/k/v/attn_out/
 ln_after/mlp_up/mlp_down). The causal attention core is
@@ -16,8 +21,8 @@ ln_after/mlp_up/mlp_down). The causal attention core is
 Weights: HF `GPT2LMHeadModel`/`GPT2Model` state-dict npz. HF stores these
 as `Conv1D`, kernels already [in, out]; the fused `c_attn` [D, 3D] kernel
 splits into q/k/v; the LM head is tied to `wte` unless `lm_head.weight`
-is present. The switch-MoE variant (`n_experts > 0`) needs
-`parallel/expert.py`, which the port does not have yet: it raises.
+is present; the MoE blocks' experts load from `h.{i}.moe.*` keys
+(`moe_state_dict`).
 """
 from __future__ import annotations
 
@@ -30,13 +35,21 @@ from . import ShardConfig
 from .layers import TransformerConfig, dense, gelu_new, layer_norm, self_attention
 from .shard import FamilySpec, build_shard_params
 
+SUBLAYER_PARAMS = {
+    0: ("ln_before", "q", "k", "v"),
+    1: ("attn_out",),
+    2: ("ln_after", "mlp_up"),
+    3: ("mlp_down",),
+}
 
-def _dense_ffn_only(cfg: TransformerConfig) -> None:
-    if cfg.n_experts:
-        raise ValueError(
-            f"GPT-2 with n_experts={cfg.n_experts} (switch-MoE FFN) needs "
-            "parallel/expert.py, which pipeedge_tpu_torch has not ported "
-            "yet (ROADMAP A5)")
+# the routed-FFN variant: the switch-FFN in sublayer 2, sublayer 3 the
+# parameter-free residual add
+MOE_SUBLAYER_PARAMS = {
+    0: ("ln_before", "q", "k", "v"),
+    1: ("attn_out",),
+    2: ("ln_after", "moe"),
+    3: (),
+}
 
 
 def embed(p: Dict, input_ids: torch.Tensor,
@@ -57,11 +70,17 @@ def sublayer(p: Dict, sub: int, data, cfg: TransformerConfig):
         ctx, skip = data
         return dense(p["attn_out"], ctx) + skip
     if sub == 2:
-        _dense_ffn_only(cfg)
         normed = layer_norm(p["ln_after"], data, cfg.layer_norm_eps)
+        if cfg.n_experts:
+            from ..parallel.expert import moe_ffn_delta
+            delta = moe_ffn_delta(p["moe"], normed, cfg.n_experts,
+                                  cfg.capacity_factor, act=gelu_new)
+            return (delta, data)
         return (gelu_new(dense(p["mlp_up"], normed)), data)
     if sub == 3:
         mlp_h, skip = data
+        if cfg.n_experts:
+            return mlp_h + skip      # sublayer 2's delta + residual
         return dense(p["mlp_down"], mlp_h) + skip
     raise ValueError(f"sublayer must be 0..3, got {sub}")
 
@@ -89,7 +108,6 @@ def load_params(cfg: TransformerConfig, shard_config: ShardConfig,
 
     Accepts `GPT2LMHeadModel` keys (`transformer.`-prefixed + `lm_head.*`)
     and bare `GPT2Model` keys; the LM head falls back to the tied `wte`."""
-    _dense_ffn_only(cfg)
     keys = set(weights.keys())
     if any(k.startswith("transformer.") for k in keys):
         sd = {k.removeprefix("transformer."): weights[k] for k in keys
@@ -121,9 +139,24 @@ def load_params(cfg: TransformerConfig, shard_config: ShardConfig,
         if 2 in subs:
             p["ln_after"] = {"scale": _a(sd[root + "ln_2.weight"], dtype),
                              "bias": _a(sd[root + "ln_2.bias"], dtype)}
-            p["mlp_up"] = {"w": _a(sd[root + "mlp.c_fc.weight"], dtype),
-                           "b": _a(sd[root + "mlp.c_fc.bias"], dtype)}
-        if 3 in subs:
+            if cfg.n_experts:
+                moe = root + "moe."
+                p["moe"] = {
+                    "router": {"w": _a(sd[moe + "router.weight"], dtype),
+                               "b": _a(sd[moe + "router.bias"], dtype)},
+                    "experts": {
+                        "mlp_up": {
+                            "w": _a(sd[moe + "experts.c_fc.weight"], dtype),
+                            "b": _a(sd[moe + "experts.c_fc.bias"], dtype)},
+                        "mlp_down": {
+                            "w": _a(sd[moe + "experts.c_proj.weight"],
+                                    dtype),
+                            "b": _a(sd[moe + "experts.c_proj.bias"],
+                                    dtype)}}}
+            else:
+                p["mlp_up"] = {"w": _a(sd[root + "mlp.c_fc.weight"], dtype),
+                               "b": _a(sd[root + "mlp.c_fc.bias"], dtype)}
+        if 3 in subs and not cfg.n_experts:
             p["mlp_down"] = {"w": _a(sd[root + "mlp.c_proj.weight"], dtype),
                              "b": _a(sd[root + "mlp.c_proj.bias"], dtype)}
         return p
@@ -149,7 +182,6 @@ def init_params(cfg: TransformerConfig, shard_config: ShardConfig,
     Draws exactly the numpy stream of the JAX package's `gpt2.init_params`,
     so one seed gives identical weights in both packages. The random LM
     head is its own [D, V] matrix, not tied to `wte`."""
-    _dense_ffn_only(cfg)
     rng = np.random.default_rng(seed)
     d, it = cfg.hidden_size, cfg.intermediate_size
 
@@ -176,8 +208,20 @@ def init_params(cfg: TransformerConfig, shard_config: ShardConfig,
             p["attn_out"] = {"w": mat(d, d), "b": vec(d)}
         if 2 in subs:
             p["ln_after"] = ln()
-            p["mlp_up"] = {"w": mat(d, it), "b": vec(it)}
-        if 3 in subs:
+            if cfg.n_experts:
+                e = cfg.n_experts
+                p["moe"] = {
+                    "router": {"w": mat(d, e), "b": vec(e)},
+                    "experts": {
+                        "mlp_up": {"w": mat(e, d, it),
+                                   "b": torch.zeros((e, it), dtype=dtype)},
+                        "mlp_down": {"w": mat(e, it, d),
+                                     "b": torch.zeros((e, d), dtype=dtype)},
+                    },
+                }
+            else:
+                p["mlp_up"] = {"w": mat(d, it), "b": vec(it)}
+        if 3 in subs and not cfg.n_experts:
             p["mlp_down"] = {"w": mat(it, d), "b": vec(d)}
         return p
 
@@ -198,8 +242,13 @@ def random_npz_weights(cfg: TransformerConfig,
     stream, this gives every shard of every partition the same weights
     (through `load_params` or `np.savez` + `--model-file`), so a pipeline
     can be held against the single-shard forward. Biases and norm
-    parameters are random too, so their code paths are exercised."""
-    _dense_ffn_only(cfg)
+    parameters are random too, so their code paths are exercised. The
+    switch-MoE layout is `moe_state_dict`'s."""
+    if cfg.n_experts:
+        raise ValueError(
+            f"GPT-2 with n_experts={cfg.n_experts} stores its routed FFN "
+            "under h.{i}.moe.* (parallel/expert.py params): draw it with "
+            "moe_state_dict")
     rng = np.random.default_rng(seed)
     d, it = cfg.hidden_size, cfg.intermediate_size
 
@@ -228,3 +277,39 @@ def random_npz_weights(cfg: TransformerConfig,
         out[root + "mlp.c_proj.weight"] = r(it, d)
         out[root + "mlp.c_proj.bias"] = r(d)
     return out
+
+
+def moe_state_dict(cfg: TransformerConfig, seed: int = 0
+                   ) -> Dict[str, np.ndarray]:
+    """A whole MoE model's seeded random state dict in the flat npz layout
+    `load_params` reads (`h.{i}.moe.*` for the routed FFN), f32: the JAX
+    package's `moe_state_dict` stream, so one seed gives equal weights."""
+    if not cfg.n_experts:
+        raise ValueError("moe_state_dict needs an MoE config (n_experts > 0)")
+    rng = np.random.default_rng(seed)
+    d, it, e = cfg.hidden_size, cfg.intermediate_size, cfg.n_experts
+
+    def mat(*shape):
+        return rng.normal(0, 0.02, size=shape).astype(np.float32)
+
+    sd = {"wte.weight": mat(cfg.vocab_size, d),
+          "wpe.weight": mat(cfg.max_position_embeddings, d),
+          "ln_f.weight": np.ones(d, np.float32),
+          "ln_f.bias": np.zeros(d, np.float32)}
+    for i in range(cfg.num_hidden_layers):
+        root = f"h.{i}."
+        sd[root + "ln_1.weight"] = np.ones(d, np.float32)
+        sd[root + "ln_1.bias"] = np.zeros(d, np.float32)
+        sd[root + "attn.c_attn.weight"] = mat(d, 3 * d)
+        sd[root + "attn.c_attn.bias"] = np.zeros(3 * d, np.float32)
+        sd[root + "attn.c_proj.weight"] = mat(d, d)
+        sd[root + "attn.c_proj.bias"] = np.zeros(d, np.float32)
+        sd[root + "ln_2.weight"] = np.ones(d, np.float32)
+        sd[root + "ln_2.bias"] = np.zeros(d, np.float32)
+        sd[root + "moe.router.weight"] = mat(d, e)
+        sd[root + "moe.router.bias"] = np.zeros(e, np.float32)
+        sd[root + "moe.experts.c_fc.weight"] = mat(e, d, it)
+        sd[root + "moe.experts.c_fc.bias"] = np.zeros((e, it), np.float32)
+        sd[root + "moe.experts.c_proj.weight"] = mat(e, it, d)
+        sd[root + "moe.experts.c_proj.bias"] = np.zeros((e, d), np.float32)
+    return sd

@@ -28,7 +28,7 @@ from ..ops.attention import fused_attention
 @dataclasses.dataclass(frozen=True)
 class TransformerConfig:
     """Static model hyperparameters (local constants: no network fetch)."""
-    model_type: str              # 'vit' | 'deit' | 'bert' | 'gpt2'
+    model_type: str              # 'vit' | 'deit' | 'bert' | 'gpt2' | 'llama'
     hidden_size: int
     num_hidden_layers: int       # transformer blocks (sublayers = 4x this)
     num_attention_heads: int
@@ -48,6 +48,8 @@ class TransformerConfig:
     capacity_factor: float = 1.25
     # grouped-query attention: 0 = same as query heads
     num_kv_heads: int = 0
+    # rotary position embedding base (llama family)
+    rope_theta: float = 10000.0
     # sliding-window attention: each position attends to the last
     # `sliding_window` positions (incl. itself); 0 = full causal
     sliding_window: int = 0
@@ -198,6 +200,31 @@ def self_attention(p, x: torch.Tensor, num_heads: int,
     k = dense(p["k"], x, tag=tags["k"]).reshape(b, s, num_heads, hd)
     v = dense(p["v"], x, tag=tags["v"]).reshape(b, s, num_heads, hd)
     return fused_attention(q, k, v, causal=causal).reshape(b, s, d)
+
+
+def rms_norm(p, x: torch.Tensor, eps: float) -> torch.Tensor:
+    """RMSNorm (scale only, no mean subtraction; the llama family): the
+    statistics and the scale in f32, then cast, as HF `LlamaRMSNorm`."""
+    xf = x.float()
+    normed = xf * torch.rsqrt(xf.pow(2).mean(dim=-1, keepdim=True) + eps)
+    return (normed * p["scale"].float()).to(x.dtype)
+
+
+def rope_rotate(x: torch.Tensor, pos: torch.Tensor,
+                theta: float) -> torch.Tensor:
+    """Rotary position embedding of [B, S, H, Dh] at positions `pos` [S]
+    (HF llama convention): half-split rotation, angles in f32, one
+    frequency per pair duplicated across the two halves."""
+    hd = x.shape[-1]
+    inv_freq = 1.0 / (theta ** (torch.arange(0, hd, 2, dtype=torch.float32,
+                                             device=x.device) / hd))
+    angles = pos.to(device=x.device, dtype=torch.float32)[:, None] \
+        * inv_freq[None]                                       # [S, hd/2]
+    cos = torch.cat([torch.cos(angles)] * 2, dim=-1)[None, :, None]
+    sin = torch.cat([torch.sin(angles)] * 2, dim=-1)[None, :, None]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    rotated = torch.cat([-x2, x1], dim=-1)
+    return (x * cos + rotated * sin).to(x.dtype)
 
 
 def gelu(x: torch.Tensor) -> torch.Tensor:

@@ -1,8 +1,8 @@
 """Model registry and shard factories.
 
-Port of `pipeedge_tpu/models/registry.py`: the ViT, BERT, DeiT and
-dense GPT-2 entries (the families the port carries so far), in the JAX
-registry's order. Layer counts are in
+Port of `pipeedge_tpu/models/registry.py`: every entry of the JAX
+registry (ViT, BERT, DeiT, GPT-2 dense and switch-MoE, Llama-2/-3 and
+Mistral), in its order, with its hyperparameters. Layer counts are in
 sublayers, 4 per transformer block; configs are local constants, so
 nothing is fetched.
 """
@@ -22,11 +22,16 @@ from . import ShardConfig
 from . import bert as bert_mod
 from . import deit as deit_mod
 from . import gpt2 as gpt2_mod
+from . import llama as llama_mod
 from . import vit as vit_mod
 from .layers import TransformerConfig
 from .shard import params_to, shard_apply
 
 logger = logging.getLogger(__name__)
+
+# the model types with KV-cache decoding (`parallel/decode.py`): what the
+# generate and serve entries take, as `tools/generate.py` does
+DECODER_TYPES = ("gpt2", "llama")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -34,7 +39,7 @@ class ModelEntry:
     name: str
     layers: int                  # sublayer count = 4 * blocks
     weights_file: str            # default npz filename (reference format)
-    family: object               # module: vit_mod | bert_mod | deit_mod | gpt2_mod
+    family: object               # module: vit/bert/deit/gpt2/llama_mod
     config: TransformerConfig
 
 
@@ -60,12 +65,23 @@ def _deit(name, layers, weights, hidden, blocks, heads, inter):
 
 
 def _gpt2(name, layers, weights, hidden, blocks, heads, inter,
-          vocab=50257, max_pos=1024):
+          vocab=50257, max_pos=1024, n_experts=0, capacity_factor=1.25):
     return ModelEntry(name, layers, weights, gpt2_mod, TransformerConfig(
         model_type="gpt2", hidden_size=hidden, num_hidden_layers=blocks,
         num_attention_heads=heads, intermediate_size=inter,
         layer_norm_eps=1e-5, vocab_size=vocab,
-        max_position_embeddings=max_pos))
+        max_position_embeddings=max_pos, n_experts=n_experts,
+        capacity_factor=capacity_factor))
+
+
+def _llama(name, layers, weights, hidden, blocks, heads, kv_heads, inter,
+           vocab, max_pos, theta=10000.0, window=0):
+    return ModelEntry(name, layers, weights, llama_mod, TransformerConfig(
+        model_type="llama", hidden_size=hidden, num_hidden_layers=blocks,
+        num_attention_heads=heads, num_kv_heads=kv_heads,
+        intermediate_size=inter, layer_norm_eps=1e-5, vocab_size=vocab,
+        max_position_embeddings=max_pos, rope_theta=theta,
+        sliding_window=window))
 
 
 _MODELS: Dict[str, ModelEntry] = {e.name: e for e in [
@@ -82,16 +98,35 @@ _MODELS: Dict[str, ModelEntry] = {e.name: e for e in [
           384, 12, 6, 1536),
     _deit("facebook/deit-tiny-distilled-patch16-224", 48, "DeiT_T_distilled.npz",
           192, 12, 3, 768),
-    # causal decoders (dense FFN; the switch-MoE entries wait for
-    # parallel/expert.py)
+    # causal decoders
     _gpt2("gpt2", 48, "GPT2.npz", 768, 12, 12, 3072),
     _gpt2("gpt2-medium", 96, "GPT2-M.npz", 1024, 24, 16, 4096),
+    # synthetic switch-MoE decoder (top-1 routed FFN, 8 experts per block)
+    _gpt2("pipeedge/gpt2-moe-8e", 48, "GPT2-MoE-8E.npz", 768, 12, 12, 3072,
+          n_experts=8),
+    # the llama family: RoPE / RMSNorm / SwiGLU / grouped-query attention
+    _llama("meta-llama/Llama-2-7b-hf", 128, "Llama-2-7B.npz", 4096, 32, 32,
+           32, 11008, vocab=32000, max_pos=4096),
+    _llama("meta-llama/Meta-Llama-3-8B", 128, "Llama-3-8B.npz", 4096, 32,
+           32, 8, 14336, vocab=128256, max_pos=8192, theta=500000.0),
+    # Mistral: the llama block with a sliding window (the same HF
+    # state-dict layout; the window is a mask, not a weight)
+    _llama("mistralai/Mistral-7B-v0.1", 128, "Mistral-7B.npz", 4096, 32,
+           32, 8, 14336, vocab=32000, max_pos=32768, window=4096),
     # tiny synthetic models for fast tests
     _vit("pipeedge/test-tiny-vit", 8, "test-tiny-vit.npz", 32, 2, 4, 64, 5,
          patch=4, img=16),
     _bert("pipeedge/test-tiny-bert", 8, "test-tiny-bert.npz", 32, 2, 4, 64, 2),
     _gpt2("pipeedge/test-tiny-gpt2", 8, "test-tiny-gpt2.npz", 32, 2, 4, 64,
           vocab=100, max_pos=64),
+    _llama("pipeedge/test-tiny-llama", 8, "test-tiny-llama.npz", 32, 2, 4,
+           2, 64, vocab=100, max_pos=64),
+    _llama("pipeedge/test-tiny-mistral", 8, "test-tiny-mistral.npz", 32, 2,
+           4, 2, 64, vocab=100, max_pos=64, window=4),
+    # capacity_factor = n_experts: no capacity drops, so routing is a
+    # per-token gate and cached decode equals the full forward
+    _gpt2("pipeedge/test-tiny-moe", 8, "test-tiny-moe.npz", 32, 2, 4, 64,
+          vocab=100, max_pos=64, n_experts=4, capacity_factor=4.0),
 ]}
 
 

@@ -14,6 +14,8 @@ A model family plugs in three functions via `FamilySpec`:
   embed(embed_params, raw_input, cfg)        -> hidden [B, S, D]
   sublayer(block_params, sub, payload, cfg)  -> payload (tensor or 2-tuple)
   finalize(final_params, hidden, cfg)        -> model output
+and, for KV-cache decoding (`parallel/decode.py`), optional hooks that
+replace the GPT-2-shaped defaults.
 """
 from __future__ import annotations
 
@@ -30,11 +32,25 @@ ShardData = Any  # torch.Tensor | tuple[torch.Tensor, torch.Tensor]
 
 @dataclasses.dataclass(frozen=True)
 class FamilySpec:
-    """The functions that define a model family."""
+    """The functions that define a model family. The optional decode
+    hooks plug a decoder into `parallel/decode.py`: `cached_block_step`
+    replaces the GPT-2-shaped block step, `decode_embed` and `span_embed`
+    the wte + wpe embeddings of one token and of a K-token span. The
+    tensor- and sequence-parallel hooks of the JAX spec wait for ROADMAP
+    A7."""
     name: str
     embed: Callable[[Dict, Any, TransformerConfig], torch.Tensor]
     sublayer: Callable[[Dict, int, ShardData, TransformerConfig], ShardData]
     finalize: Callable[[Dict, torch.Tensor, TransformerConfig], torch.Tensor]
+    # (p, x, bcache, pos, cfg, prefill, read_len=None) -> x, the cache
+    # slice written in place
+    cached_block_step: Any = None
+    decode_embed: Any = None         # (embed_params, tok, pos) -> [B, 1, D]
+    span_embed: Any = None           # (embed_params, tok [B,K], pos) ->
+    #                                  [B, K, D] (speculative verify span)
+    # attention reads absolute positions (RoPE): chunk-local attention
+    # overrides (sequence-parallel cores) would rotate at wrong offsets
+    position_dependent_attention: bool = False
     # sublayers that LEAD with a dense and accept an 8-bit wire
     # `QuantizedTensor` as the payload's first tensor (the int8
     # stage-seam tunnel, parallel/pipeline.py + ops/int8_matmul.py)

@@ -1,7 +1,11 @@
-"""Autoregressive KV-cache decoding through the pipeline (GPT-2 family).
+"""Autoregressive KV-cache decoding through the pipeline (the decoders).
 
 Port of the single-device path of `pipeedge_tpu/parallel/decode.py`
 (the tensor-, sequence- and expert-parallel variants are not ported).
+The block step, the single-token and the span embeddings come from the
+family (`FamilySpec` hooks: the Llama family supplies its own), with the
+GPT-2-shaped ones of this module as the defaults; the switch-MoE GPT-2's
+block tail routes through `parallel/expert.py`.
 
 - **Static caches, written in place**: each stage holds one [n_blocks, B,
   max_len, H, Dh] K and V buffer (plus per-(position, head) scale/shift
@@ -22,10 +26,12 @@ Port of the single-device path of `pipeedge_tpu/parallel/decode.py`
   with the rows past S masked, the same function): so a prefill on a
   paged view (`kv/`) is the same computation as on a dense cache.
 - **The int8 decode-attend route** (`_use_int8_decode_kernel`): with an
-  int8 cache, a single-token MHA step may attend through kernel 5
-  (`ops/decode_attention.py`), which dequantizes in registers, in place
-  of the dequantize-then-attend route. The choice is resolved once, when
-  the pipeline is built (`_resolve_int8_optin`), and is off by default.
+  int8 cache, a single-token MHA step of the default (GPT-2-shaped)
+  block step may attend through kernel 5 (`ops/decode_attention.py`),
+  which dequantizes in registers, in place of the dequantize-then-attend
+  route. The choice is resolved once, when the pipeline is built
+  (`_resolve_int8_optin`), and is off by default. A family's own block
+  step (Llama) never asks the gate, as in the JAX package.
 
 Eager functions replace the jitted stage programs; `read_len` stays an
 explicit argument. Greedy decoding and beam search match the JAX
@@ -46,6 +52,7 @@ from ..models import ShardConfig, plan_shard
 from ..models.layers import TransformerConfig, dense, gelu_new, layer_norm
 from ..models.shard import params_to
 from ..ops import decode_attention
+from .expert import moe_ffn_delta
 
 Cache = Dict[str, torch.Tensor]   # {'k': [L, B, T, H, Dh], 'v': ...}
 # int8 variant adds per-(block, batch, position, head) scale/shift rows:
@@ -245,9 +252,15 @@ def _cache_update_and_read(bcache: Cache, k_new: torch.Tensor,
 def _block_tail(p: Dict, x: torch.Tensor, ctx: torch.Tensor,
                 cfg: TransformerConfig) -> torch.Tensor:
     """Post-attention half of a GPT-2 block: output projection + residual,
-    dense FFN + residual."""
+    FFN + residual (the routed switch-FFN for an MoE config)."""
     x = dense(p["attn_out"], ctx) + x
     normed = layer_norm(p["ln_after"], x, cfg.layer_norm_eps)
+    if cfg.n_experts:
+        # capacity routing is not causal: a step routes only its own
+        # tokens, so a capacity-bounded model's cached step is not the
+        # full forward's computation (capacity_factor >= n_experts is)
+        return x + moe_ffn_delta(p["moe"], normed, cfg.n_experts,
+                                 cfg.capacity_factor, act=gelu_new)
     return dense(p["mlp_down"], gelu_new(dense(p["mlp_up"], normed))) + x
 
 
@@ -347,7 +360,12 @@ def _make_stage_run(family, cfg: TransformerConfig,
         raise ValueError("decode requires a block-aligned partition "
                          f"(layers [{shard_config.layer_start}, "
                          f"{shard_config.layer_end}] cut mid-block)")
-    optin = _resolve_int8_optin(int8_optin)
+    # the family's cached block (llama: RoPE/GQA/SwiGLU), else the
+    # GPT-2-shaped step with the int8-kernel opt-in resolved here, once
+    block_fn = family.cached_block_step or functools.partial(
+        _block_step, int8_optin=_resolve_int8_optin(int8_optin))
+    tok_embed = family.decode_embed or single_token_embed
+    tok_span_embed = family.span_embed or span_embed
 
     @torch.inference_mode()
     def run(params, data, cache, pos, prefill, read_len=None):
@@ -358,13 +376,12 @@ def _make_stage_run(family, cfg: TransformerConfig,
             if prefill:
                 data = family.embed(params["embeddings"], data, cfg)
             elif data.dim() == 2 and data.shape[1] > 1:
-                data = span_embed(params["embeddings"], data, pos)
+                data = tok_span_embed(params["embeddings"], data, pos)
             else:
-                data = single_token_embed(params["embeddings"], data, pos)
+                data = tok_embed(params["embeddings"], data, pos)
         for i, bp in enumerate(stage_blocks(params)):
-            data = _block_step(bp, data, {k: c[i] for k, c in cache.items()},
-                               pos, cfg, prefill, read_len=read_len,
-                               int8_optin=optin)
+            data = block_fn(bp, data, {k: c[i] for k, c in cache.items()},
+                            pos, cfg, prefill, read_len=read_len)
         if shard_config.is_last:
             data = family.finalize(params["final"], data, cfg)
         return data, cache

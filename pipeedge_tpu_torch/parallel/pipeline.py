@@ -337,7 +337,9 @@ def build_pipeline(model_name: str, partition: Sequence[Tuple[int, int]],
                    model_file: Optional[str] = None,
                    device: DeviceLike = None,
                    quant_bits: Optional[Sequence[int]] = None,
-                   dtype=None, max_inflight: int = 0) -> HostPipeline:
+                   dtype=None, max_inflight: int = 0,
+                   stage_params: Optional[Sequence[Dict]] = None
+                   ) -> HostPipeline:
     """Build a host-driven pipeline from a model partition.
 
     `partition` is the stage-layers list [[l0, r0], [l1, r1], ...];
@@ -348,7 +350,11 @@ def build_pipeline(model_name: str, partition: Sequence[Tuple[int, int]],
     Int8 tunnel: when the active `QuantizeCompute` config has `tunnel`
     set, a stage whose first sublayer leads with a dense
     (`FamilySpec.wire_subs`) and whose incoming edge runs at 8 bits keeps
-    that payload encoded for its first matmul."""
+    that payload encoded for its first matmul.
+
+    `stage_params[i]` supplies stage i's ready parameters (on `device`,
+    in `dtype`, so nothing is copied) in place of loading them: stages
+    and other pipelines may share one model's tensors."""
     from ..models import registry
     from ..models.layers import quantize_compute
 
@@ -363,7 +369,8 @@ def build_pipeline(model_name: str, partition: Sequence[Tuple[int, int]],
     for i, (layer_start, layer_end) in enumerate(partition):
         fn, params, _ = registry.module_shard_factory(
             model_name, model_file, layer_start, layer_end, stage=i,
-            dtype=dtype, device=dev)
+            dtype=dtype, device=dev,
+            params=None if stage_params is None else stage_params[i])
         bit = quant_bits[i] if i < len(quant_bits) else 0
         # the final stage's output edge is the result path: never quantized
         if i == len(partition) - 1:

@@ -1409,10 +1409,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-m", "--model-name", default="gpt2",
                    choices=[n for n in registry.get_model_names()
                             if registry.get_model_config(n).model_type
-                            == "gpt2"])
+                            in registry.DECODER_TYPES])
     p.add_argument("-M", "--model-file", default=None,
-                   help="weights (.npz, HF GPT-2 state-dict keys); without "
-                        "it each stage draws seeded random weights")
+                   help="weights (.npz, HF state-dict keys of the family); "
+                        "without it each stage draws seeded random weights")
     p.add_argument("-pt", "--partition", default=None)
     p.add_argument("--max-len", default=1024, type=int)
     p.add_argument("-t", "--dtype", default="bfloat16",
@@ -1432,7 +1432,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--draft-model", default=None,
                    choices=[n for n in registry.get_model_names()
                             if registry.get_model_config(n).model_type
-                            == "gpt2"],
+                            in registry.DECODER_TYPES],
                    help="enable speculative generation: requests with "
                         '"speculative": true run greedy draft/verify '
                         "rounds against this (smaller, same-vocabulary) "

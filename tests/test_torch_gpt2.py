@@ -187,12 +187,30 @@ def test_registry_entries_match_jax():
         assert treg.get_model_layers(name) == jreg.get_model_layers(name)
 
 
-def test_moe_config_raises_naming_expert_module():
+def test_moe_config_raises_naming_expert_module(monkeypatch):
+    """An MoE config's routed FFN is `parallel/expert.py`'s: the dense
+    HF-layout writer refuses it naming that module, `init_params` draws
+    the router and expert params, and sublayer 2 calls `moe_ffn_delta`
+    with GPT-2's activation."""
+    from pipeedge_tpu_torch.parallel import expert
     moe = dataclasses.replace(CFG, n_experts=4, capacity_factor=4.0)
     with pytest.raises(ValueError, match="parallel/expert.py"):
-        tgpt2.init_params(moe, _sc(1, TOTAL))
-    with pytest.raises(ValueError, match="parallel/expert.py"):
-        tgpt2.sublayer({}, 2, torch.zeros(1, 2, CFG.hidden_size), moe)
+        tgpt2.random_npz_weights(moe)
+    params = tgpt2.init_params(moe, _sc(1, TOTAL))
+    block = params["blocks"][0]
+    assert set(block["moe"]) == {"router", "experts"}
+    assert "mlp_up" not in block and "mlp_down" not in block
+    calls = []
+    real = expert.moe_ffn_delta
+
+    def spy(*args, **kw):
+        calls.append(kw["act"])
+        return real(*args, **kw)
+
+    monkeypatch.setattr(expert, "moe_ffn_delta", spy)
+    delta, skip = tgpt2.sublayer(block, 2, torch.ones(1, 2, CFG.hidden_size),
+                                 moe)
+    assert calls == [tlayers.gelu_new] and delta.shape == skip.shape
 
 
 def test_gelu_new_matches_jax():

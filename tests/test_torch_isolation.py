@@ -88,8 +88,15 @@ SERVING_MODULES = [
     "kv/prefix.py", "kv/backend.py", "parallel/speculative.py",
     "generate.py"]
 
+# the decoder families' modules: the Llama family, the switch-MoE FFN, and
+# the shards and the decode pipeline that dispatch to them
+DECODER_MODULES = [
+    "models/llama.py", "parallel/expert.py", "models/gpt2.py",
+    "models/layers.py", "models/registry.py", "models/convert.py",
+    "parallel/decode.py"]
 
-@pytest.mark.parametrize("rel", SERVING_MODULES)
+
+@pytest.mark.parametrize("rel", SERVING_MODULES + DECODER_MODULES)
 def test_serving_modules_import_no_jax_anywhere(rel):
     """Each serving-slice module is scanned, and none imports `jax` or
     `pipeedge_tpu` (nor a root module that does), at module level or

@@ -21,6 +21,10 @@ file is given. It is held to:
   trie-shared, speculative), the same `kv` / `scheduler` key sets in
   /healthz and `pipeedge_kv_*` families in /metrics, and the same parse
   errors for the flags' compositions;
+- the tiny Llama (GQA) on the paged, chunked server: each of a few
+  concurrent requests equal to its solo run through a dense executor
+  that chunks as the server does (fp and int8 caches, both executors),
+  and on fp to the JAX `DecodePipeline`'s greedy run;
 - its own contracts: deadline 504s under `--inject-stall`, every refused
   flag failing at parse time with its ROADMAP item, `--device cuda`
   raising on a host without a GPU, and the entry serving one request and
@@ -692,3 +696,86 @@ def test_paged_and_spec_flags_accepted(flag):
     args = serve.parse_args(BASE + [flag, *PORTED_FLAGS[flag]])
     assert getattr(args, flag.lstrip("-").replace("-", "_")) not in (
         None, 0, False)
+
+
+# ---------------------------------------------------------------------------
+# the Llama family at the server
+# ---------------------------------------------------------------------------
+
+LLAMA = "pipeedge/test-tiny-llama"
+LLAMA_FLAGS = ["-m", LLAMA, "-pt", "1,4,5,8", "--max-len", "48", "-t",
+               "float32", "--device", "cpu"]
+LLAMA_PAGED = ["--kv-pages", "32", "--kv-page-size", "4",
+               "--chunked-prefill", "4"]
+
+
+@pytest.fixture(scope="module")
+def llama_jax_oracle():
+    """The JAX `DecodePipeline` on the seeded weights both packages draw
+    per stage for the tiny Llama (fp cache)."""
+    from pipeedge_tpu.models import registry
+    from pipeedge_tpu.parallel import decode
+    params = [registry.module_shard_factory(LLAMA, None, l, r, stage=i,
+                                            unroll=False)[1]
+              for i, (l, r) in enumerate(PARTITION)]
+    return decode.DecodePipeline(
+        registry.get_model_entry(LLAMA).family.FAMILY,
+        registry.get_model_config(LLAMA), PARTITION, params, max_len=48)
+
+
+@pytest.mark.parametrize("cache", ["fp", "int8"])
+@pytest.mark.parametrize("executor", ["wave", "stage"])
+def test_tiny_llama_served_equals_solo(llama_jax_oracle, tmp_path, executor,
+                                       cache):
+    """Three concurrent clients (two rows, a prompt of three chunks, a
+    streamed one) on the paged server: each result equals its solo run
+    through a dense wave executor chunking as the server does, and on an
+    fp cache the JAX package's greedy tokens."""
+    from pipeedge_tpu_torch.parallel import batcher
+    bits = ["--kv-bits", "8"] if cache == "int8" else []
+    args = serve.parse_args(LLAMA_FLAGS + LLAMA_PAGED + bits + [
+        "--executor", executor, "--postmortem-dir", str(tmp_path)])
+    bodies = [{"ids": _ids(61, (2, 6)), "new_tokens": 6},
+              {"ids": _ids(62, (1, 11)), "new_tokens": 7},
+              {"ids": _ids(63, (1, 5)), "new_tokens": 5, "stream": True}]
+    oracle = serve.build_pipeline(serve.parse_args(LLAMA_FLAGS + bits))
+    want = []
+    for i, body in enumerate(bodies):
+        b = batcher.ContinuousBatcher(oracle, max_active=1, chunk_tokens=4)
+        b.submit(i, np.asarray(body["ids"]), body["new_tokens"])
+        want.append(np.asarray(b.run()[i]))
+        if cache == "fp":
+            np.testing.assert_array_equal(want[-1], np.asarray(
+                llama_jax_oracle.generate(np.asarray(body["ids"]),
+                                          body["new_tokens"])))
+    service = serve.make_service(args, serve.build_pipeline(args))
+    httpd = serve.Server(("127.0.0.1", 0), serve.make_handler(service,
+                                                              LLAMA))
+    port = httpd.server_address[1]
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    try:
+        got = [None] * len(bodies)
+
+        def client(i, body):
+            if body.get("stream"):
+                got[i] = _stream(port, {k: v for k, v in body.items()
+                                        if k != "stream"})[-1]["ids"]
+            else:
+                got[i] = _post(port, "/generate", body)["ids"]
+
+        clients = [threading.Thread(target=client, args=(i, body))
+                   for i, body in enumerate(bodies)]
+        for c in clients:
+            c.start()
+        for c in clients:
+            c.join(timeout=120)
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(np.asarray(g), w)
+        kv = _get(port, "/healthz")["serving"]["kv"]
+        assert kv["leaked"] == 0
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        service.stop()
+        thread.join(timeout=30)

@@ -18,8 +18,15 @@ weights per model loaded into both packages:
 - the generate entry's `--draft-model` run and its refusal, word for
   word the JAX entry's.
 
-The Llama/Mistral, MoE and tensor-parallel cases of the JAX file wait for
-their models and meshes in the port (ROADMAP A5.5, A5.6 and A7).
+- the Llama and Mistral cases of the JAX file (RoPE, GQA and the sliding
+  window under span verification, prompt caching at a global offset,
+  speculation on a prefix handle), and the dropless MoE one: each
+  target's speculative tokens equal its greedy ones in the port and in
+  the JAX package, the draft being the target's seeded params plus
+  seeded noise, as the JAX file draws it.
+
+The tensor-parallel case of the JAX file waits for its mesh in the port
+(ROADMAP A7).
 """
 import dataclasses
 import os
@@ -335,3 +342,89 @@ def test_generate_draft_refusals_match_jax(flag, capsys):
                           env=env, cwd=REPO, timeout=300)
     assert proc.returncode == 2
     assert got == _error_line(proc.stderr)
+
+
+# --- the Llama family and the dropless MoE --------------------------------
+
+def _family_pipes(name, noise_seed=None):
+    """{"jax": ..., "torch": ...} one-stage pipelines on `name`'s seeded
+    params (the JAX package's init stream), plus seeded N(0, 0.02) noise
+    on every float leaf when `noise_seed` is given (a draft)."""
+    entry = jreg.get_model_entry(name)
+    jcfg = entry.config
+    params = entry.family.init_params(jcfg, JShardConfig(1, 8, True, True),
+                                      seed=0)
+    if noise_seed is not None:
+        rng = np.random.default_rng(noise_seed)
+        params = jax.tree_util.tree_map(
+            lambda x: x + jax.numpy.asarray(
+                rng.normal(scale=0.02, size=x.shape), x.dtype), params)
+    tparams = params_from_jax(jax.device_get(params))
+    tentry = treg.get_model_entry(name)
+    return {"jax": jdec.DecodePipeline(entry.family.FAMILY, jcfg, [(1, 8)],
+                                       [params], max_len=MAX_LEN),
+            "torch": tdec.DecodePipeline(tentry.family.FAMILY, tentry.config,
+                                         [(1, 8)], [tparams],
+                                         max_len=MAX_LEN, device="cpu")}
+
+
+FAMILY_MODELS = ["pipeedge/test-tiny-llama", "pipeedge/test-tiny-mistral"]
+
+
+@pytest.fixture(scope="module")
+def family_pipes():
+    """name -> (target, draft), built once."""
+    return {name: (_family_pipes(name), _family_pipes(name, noise_seed=23))
+            for name in FAMILY_MODELS + ["pipeedge/test-tiny-moe"]}
+
+
+@pytest.mark.parametrize("name", FAMILY_MODELS + ["pipeedge/test-tiny-moe"])
+def test_spec_greedy_exact_llama_family_and_moe(family_pipes, name):
+    """RoPE/GQA (and Mistral's window: an 8-token prompt and 12 tokens,
+    twice past its 4) under span verification; the dropless MoE routes
+    per token, so a span routes as serial steps do."""
+    target, draft = family_pipes[name]
+    ids = _ids(2, 8, seed=5)
+    want = _np(target["jax"].generate(np.asarray(ids, np.int32), 12))
+    np.testing.assert_array_equal(_np(target["torch"].generate(ids, 12)),
+                                  want)
+    spec = SpeculativeDecoder(target["torch"], draft["torch"], gamma=3)
+    np.testing.assert_array_equal(_np(spec.generate(ids, 12)), want)
+    assert 0.0 <= spec.last_acceptance_rate <= 1.0
+
+
+@pytest.mark.parametrize("name", FAMILY_MODELS)
+def test_prefix_cache_llama_family(family_pipes, name):
+    """precompute_prefix + a suffix span at offset 6 equals the whole
+    prompt's generation (RoPE at a global offset; the window anchored by
+    absolute positions), as in the JAX package."""
+    target = family_pipes[name][0]
+    rng = np.random.default_rng(17)
+    prefix = rng.integers(0, 100, size=(1, 6))
+    suffix = rng.integers(0, 100, size=(3, 5))
+    full = np.concatenate([np.repeat(prefix, 3, axis=0), suffix], axis=1)
+    want = _np(target["jax"].generate(np.asarray(full, np.int32), 10))
+    got = _np(target["torch"].generate(
+        suffix, 10, prefix=target["torch"].precompute_prefix(prefix)))
+    np.testing.assert_array_equal(got, want[:, 6:])
+
+
+@pytest.mark.parametrize("name", FAMILY_MODELS)
+def test_spec_with_prefix_cache_llama_family(family_pipes, name):
+    """Speculation from a shared prefix handle (both pipelines prefill it)
+    equals the target's plain whole-prompt greedy run; a self-draft on the
+    same handle accepts everything."""
+    target, draft = (p["torch"] for p in family_pipes[name])
+    rng = np.random.default_rng(41)
+    prefix = rng.integers(0, 100, size=(1, 6))
+    suffix = rng.integers(0, 100, size=(2, 4))
+    full = np.concatenate([np.repeat(prefix, 2, axis=0), suffix], axis=1)
+    want = _np(target.generate(full, 11))
+    spec = SpeculativeDecoder(target, draft, gamma=3)
+    got = spec.generate(suffix, 11, prefix=spec.precompute_prefix(prefix))
+    np.testing.assert_array_equal(_np(got), want[:, 6:])
+    self_spec = SpeculativeDecoder(target, target, gamma=2)
+    got = self_spec.generate(suffix, 11,
+                             prefix=self_spec.precompute_prefix(prefix))
+    np.testing.assert_array_equal(_np(got), want[:, 6:])
+    assert self_spec.last_acceptance_rate == 1.0
