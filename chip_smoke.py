@@ -263,6 +263,45 @@ Phases, each of which raises on failure (nothing is caught):
      8,0`, exit code 0 each.
      Printed: items/s and tokens/s, step p50 per attend bucket, prefill
      ms, peak memory, the profiles, and a `phase 14 summary` line.
+ 15. the rest of PipeEdge's loop and the replica router:
+     (a) `python -m pipeedge_tpu_torch.revauct` over the committed
+     `pipeedge_tpu_torch/profiles/h100/` (ViT-Large, `-u 8`, latency- and
+     throughput-ordered, seed 0, side by side): each schedule covers
+     [1, 96] and runs through the runtime entry with raw edges, its saved
+     logits equal to the single-shard forward bit for bit (kernel 3 at 24
+     launches per microbatch);
+     (b) the ViT-Base runtime entry (`-pt 1,21,22,48 -q 8,0 -b 64 -u 8`,
+     2 rounds) without and with `--trace DIR --trace-spans OUT` (each its
+     own process, so no profiler session of this script is open there):
+     items/s of both, the trace written (a busy profiler fails here) and
+     its device events naming kernel 3 and the codec's encode and decode,
+     and the spans dump: `stage` x 2 and `results` x 1 per microbatch, no
+     `wire`;
+     (c) generate on `gpt2` `-pt 1,24,25,48` in process: `--kv-bits 8
+     --concurrent 4 -b 4 --prompt-len 192 --new-tokens 128 --max-len
+     1024` (kernel-5 opt-in on), every request equal to its solo run and
+     kernel 5 at 12 launches per decode wave; `--monitor`'s decode.csv
+     with 127 rows; `-sm/-sdt/-sd` over a profile of GPT-2 (48 sublayers,
+     f32, batch 4) that the port's profiler makes here, the cut
+     block-aligned and printed;
+     (d) two `gpt2` replicas as in-process servers (`--role replica`,
+     paged fp KV: `--kv-pages 1024 --kv-page-size 16`) behind the router
+     entry (`--role router --replica-addrs`): a 256-token prefix
+     published alone, then 8 sharers of it registered through the
+     router's `/prefix` and 4 plain requests, each equal to its solo run,
+     the launches per served request; the router's `/drain` of the
+     prefix's replica moves its pages to the survivor, whose next
+     sharer spans its suffix on the trie's pages (no prefill), both pools
+     whole after; then the survivor's prefix rows through the ship codec
+     at 8 bits (kernels 1 and 2), words, scale, shift and values equal to
+     the plain codec on the card, timed at that shape;
+     (e) the router entry spawning two int8 `gpt2` replicas (`--replicas
+     2`, kernel 5): one SIGKILLed in the middle of a burst of 16 streamed
+     requests, none lost, each equal to its solo int8 run in this process,
+     the dead replica respawned with the next epoch and readmitted, the
+     router and its replicas gone after SIGTERM; tokens/s and first-token
+     and request latency p50/p95 through the router. (d) and (e) also
+     fail if the router process holds a GPU device file.
 Phase 3 also holds kernel 5 (decode attention) against its plain version
 at the main path's shapes (windows of a [16, 1024, 12, 64] stage cache at
 buckets 256 and 512, and pos 1000 of the whole cache), pos 0 and W-1,
@@ -4284,6 +4323,766 @@ def family_summary(out: dict) -> dict:
         "entries_s": [round(r["seconds"], 1) for r in out["entries"]]}
 
 
+# --- phase 15: the rest of PipeEdge's loop and the replica router ----------
+
+BUILD_DIR = ROOT / "pipeedge_tpu_torch" / "_build"
+H100_PROFILES = ROOT / "pipeedge_tpu_torch" / "profiles" / "h100"
+REVAUCT_SCHEDULERS = ("latency_ordered", "throughput_ordered")
+TRACE_ROUNDS = 2
+TRACE_ARGV = ["-pt", "1,21,22,48", "-q", "8,0", "-b", str(BATCH),
+              "-u", str(UBATCH), "--measure-rounds", str(TRACE_ROUNDS)]
+CONCURRENT = (4, 4, 192, 128)     # requests, rows, prompt, new tokens
+# sampled, so the concurrent requests differ: request r draws with seed r
+# and is held to the solo run with `--seed r`
+CONCURRENT_SAMPLING = ["--temperature", "0.8", "--top-k", "40"]
+SCHED_GEN_HOSTS = 2               # the -sm generate run's devices.yml
+ROUTER_PAGED = ["--kv-pages", "1024", "--kv-page-size", "16"]
+ROUTER_PREFIX_LEN = 256
+ROUTER_CLIENTS = (8, 4)           # prefix sharers, plain requests
+ROUTER_BURST = 16
+ROUTER_NEW = (16, 32)             # new tokens of the burst's requests
+ROUTER_POLL = "0.25"
+
+
+def revauct_cli(scheduler: str) -> dict:
+    """`python -m pipeedge_tpu_torch.revauct` for ViT-Large over the card's
+    profiles as a subprocess; returns its schedule (1-based, data-host
+    entry dropped)."""
+    from pipeedge_tpu_torch.sched import miniyaml
+    cmd = [sys.executable, "-m", "pipeedge_tpu_torch.revauct", "0",
+           str(len(SCHED_HOSTS)), "-m", SCHED_MODEL, "-u", str(UBATCH),
+           "--seed", "0", "-sch", scheduler,
+           "-sm", str(H100_PROFILES / "models.yml"),
+           "-sdt", str(H100_PROFILES / "device_types.yml"),
+           "-sd", str(H100_PROFILES / "devices.yml"),
+           "-sdnw", str(H100_PROFILES / "device_neighbors_world.yml")]
+    t0 = time.monotonic()
+    proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                          timeout=300,
+                          env=dict(os.environ, PYTHONPATH=str(ROOT)))
+    if proc.returncode != 0:
+        raise RuntimeError(f"{' '.join(cmd)} exited {proc.returncode}:\n"
+                           f"{proc.stderr[-2000:]}")
+    sched = miniyaml.loads(proc.stdout)
+    return dict(scheduler=scheduler, yaml=proc.stdout,
+                seconds=time.monotonic() - t0,
+                stages=[tuple(lr) for part in sched
+                        for lr in part.values() if lr],
+                hosts=[h for part in sched for h, lr in part.items() if lr])
+
+
+def revauct_path() -> dict:
+    """Phase 15a: the reverse auction over the card's profiles, each
+    schedule run by the runtime entry (raw edges), its saved logits held
+    to the single-shard forward. The two schedulers' CLIs, then their
+    entries, run side by side (their results do not depend on timing; no
+    rate is read from them)."""
+    from concurrent.futures import ThreadPoolExecutor
+    from pipeedge_tpu_torch import runtime
+    from pipeedge_tpu_torch.models import registry
+    model = SCHED_MODEL
+    total = registry.get_model_layers(model)
+    weights = BUILD_DIR / f"{model.replace('/', '_')}-init-seed0.npz"
+    inputs, _ = runtime.load_batches(model, BATCH, UBATCH,
+                                     torch.device("cuda"), torch.float32)
+    want = [e.cpu().numpy() for e in
+            single_shard_logits(model, weights, inputs, "cuda")]
+    blocks = registry.get_model_config(model).num_hidden_layers
+    with ThreadPoolExecutor(len(REVAUCT_SCHEDULERS)) as pool:
+        runs = list(pool.map(revauct_cli, REVAUCT_SCHEDULERS))
+        for run in runs:
+            runtime.validate_partition(run["stages"], total)
+
+        def entry(run):
+            saved = BUILD_DIR / f"revauct_{run['scheduler']}.npz"
+            e = run_entry(
+                ["0", str(len(run["stages"])), "-m", model, "-M",
+                 str(weights), "-pt",
+                 ",".join(f"{l},{r}" for l, r in run["stages"]),
+                 "-b", str(BATCH), "-u", str(UBATCH), "--save-results",
+                 str(saved)], {}, BUILD_DIR / f"monitor_{run['scheduler']}")
+            e["expected"] = {"fused_attention": blocks * len(inputs),
+                             "fused_encode": 0, "fused_decode": 0}
+            return e, saved
+        entries = list(pool.map(entry, runs))
+    for run, (e, saved) in zip(runs, entries):
+        with np.load(saved) as z:
+            got = [z[f"arr_{i}"] for i in range(len(z.files))]
+        run["entry"] = e
+        run["equal"] = len(got) == len(want) and all(
+            np.array_equal(g, w) for g, w in zip(got, want))
+        run["max_abs_err"] = max((float(np.abs(g - w).max())
+                                  for g, w in zip(got, want)
+                                  if g.shape == w.shape), default=None)
+    return {"runs": runs}
+
+
+def check_revauct_path(res, device_name: str) -> None:
+    for run in res["runs"]:
+        log(f"revauct {run['scheduler']}: " + json.dumps(
+            {k: run[k] for k in ("stages", "hosts", "seconds", "equal",
+                                 "max_abs_err")} | {"card": device_name}))
+        check_entry(f"revauct {run['scheduler']}", run["entry"])
+        if not run["equal"]:
+            raise AssertionError(f"revauct {run['scheduler']}: bit 0 differs "
+                                 "from the single-shard forward by "
+                                 f"{run['max_abs_err']}")
+
+
+def trace_kernels(trace_file: Path) -> dict:
+    """Device kernel events of a `--trace` Chrome trace, counted by name."""
+    with open(trace_file) as f:
+        events = json.load(f)["traceEvents"]
+    counts: dict = {}
+    for e in events:
+        if e.get("cat") == "kernel":
+            counts[e["name"]] = counts.get(e["name"], 0) + 1
+    return counts
+
+
+def tracing_path() -> dict:
+    """Phase 15b: the runtime entry on ViT-Base without and with `--trace`
+    and `--trace-spans` (separate processes: no profiler session of this
+    script is open in them); the trace's device kernels and the spans."""
+    import shutil
+    from pipeedge_tpu_torch.models import registry
+    from pipeedge_tpu_torch.telemetry import chrome_trace
+    from pipeedge_tpu_torch.utils import tracing
+    weights = BUILD_DIR / f"{MODEL.replace('/', '_')}-init-seed0.npz"
+    trace_dir = BUILD_DIR / "trace_vitb"
+    spans_file = BUILD_DIR / "spans_vitb.json"
+    shutil.rmtree(trace_dir, ignore_errors=True)
+    spans_file.unlink(missing_ok=True)
+    base = ["0", "2", "-m", MODEL, "-M", str(weights), *TRACE_ARGV]
+    res = {"plain": run_entry(base, {}, BUILD_DIR / "monitor")}
+    res["traced"] = run_entry(base + ["--trace", str(trace_dir),
+                                      "--trace-spans", str(spans_file)],
+                              {}, BUILD_DIR / "monitor")
+    trace_file = trace_dir / tracing.TRACE_FILE
+    res["trace_written"] = trace_file.exists()
+    res["trace_mb"] = (trace_file.stat().st_size / 2**20
+                       if res["trace_written"] else None)
+    res["trace_kernels"] = (trace_kernels(trace_file)
+                            if res["trace_written"] else {})
+    with open(spans_file) as f:
+        spans = chrome_trace.trace_to_spans(json.load(f))
+    res["spans"] = {}
+    for s in spans:
+        res["spans"][s["cat"]] = res["spans"].get(s["cat"], 0) + 1
+    res["stage_names"] = sorted({s["name"] for s in spans
+                                 if s["cat"] == "stage"})
+    n_mb = TRACE_ROUNDS * BATCH // UBATCH
+    res["microbatches"] = n_mb
+    # ViT-Base cut after sublayer 21: a two-tensor 8-bit edge
+    blocks = registry.get_model_config(MODEL).num_hidden_layers
+    for key in ("plain", "traced"):
+        res[key]["expected"] = {"fused_attention": blocks * n_mb,
+                                "fused_encode": 2 * n_mb,
+                                "fused_decode": 2 * n_mb}
+    return res
+
+
+def check_tracing_path(res, device_name: str) -> None:
+    n_mb = res["microbatches"]
+    for key in ("plain", "traced"):
+        check_entry(f"tracing {key}", res[key])
+    log("tracing: " + json.dumps({
+        "items_per_s_plain": res["plain"]["steady_items_per_s"],
+        "items_per_s_traced": res["traced"]["steady_items_per_s"],
+        "trace_mb": res["trace_mb"], "spans": res["spans"],
+        "trace_kernels": {k: v for k, v in res["trace_kernels"].items()
+                          if "pe_" in k},
+        "card": device_name}))
+    if not res["trace_written"]:
+        raise AssertionError("tracing: --trace wrote no trace.json (was a "
+                             "profiler session already open?)")
+    names = " ".join(res["trace_kernels"])
+    missing = [k for k in ("pe_attention_mma_kernel", "pe_encode_kernel",
+                           "pe_decode_kernel") if k not in names]
+    if missing:
+        raise AssertionError(f"tracing: the trace's device events name "
+                             f"none of {missing}")
+    want = {"stage": 2 * n_mb, "results": n_mb}
+    if res["spans"] != want or res["stage_names"] != ["stage0", "stage1"]:
+        raise AssertionError(f"tracing: spans {res['spans']} "
+                             f"({res['stage_names']}), expected {want} and "
+                             "no wire span")
+
+
+def generate_flags_path() -> dict:
+    """Phase 15c: generate's `--concurrent` (int8 cache, kernel 5, sampled
+    with a seed per request) against solo runs, `--monitor`'s decode.csv,
+    and `-sm/-sdt/-sd` over profiles the port's profiler makes here."""
+    import contextlib
+    import io
+    import tempfile
+    from pipeedge_tpu_torch import generate, profiler
+    from pipeedge_tpu_torch import profiler_results_to_device_types as to_types
+    from pipeedge_tpu_torch import profiler_results_to_models as to_models
+    from pipeedge_tpu_torch.models import registry
+    from pipeedge_tpu_torch.ops import _build
+    from pipeedge_tpu_torch.parallel import decode
+    from pipeedge_tpu_torch.sched import yaml_files
+    model = DECODE_MODEL
+    cfg = registry.get_model_config(model)
+    weights = BUILD_DIR / f"{model.replace('/', '_')}-random-seed0.npz"
+    n_req, rows, prompt, new = CONCURRENT
+    common = ["-m", model, "-M", str(weights), "-b", str(rows),
+              "--prompt-len", str(prompt), "--max-len", str(DECODE_MAX_LEN)]
+    res: dict = {}
+    env_key = "PIPEEDGE_INT8_DECODE_ATTEND"
+    old = os.environ.get(env_key)
+    os.environ[env_key] = "1"
+    try:
+        argv = common + ["-pt", "1,24,25,48", "--kv-bits", "8",
+                         "--new-tokens", str(new), *CONCURRENT_SAMPLING]
+        # the solo runs on one pipeline built as the entry builds it
+        gen_args = generate.parse_args(argv)
+        pipe = decode.build_decode_pipeline(
+            model, gen_args.partition, max_len=DECODE_MAX_LEN,
+            cache_bits=8, attend_floor=gen_args.attend_floor,
+            model_file=str(weights), device="cuda")
+        ids = generate.prompt_ids(gen_args, cfg)
+        solos = [pipe.generate(ids, new, temperature=gen_args.temperature,
+                               top_k=gen_args.top_k, seed=r).cpu().numpy()
+                 for r in range(n_req)]
+        del pipe
+        torch.cuda.synchronize()
+        _build.reset_launch_counts()
+        t0 = time.monotonic()
+        many = generate.main(argv + ["--concurrent", str(n_req)])
+        res["concurrent_s"] = time.monotonic() - t0
+        counts = dict(_build.launch_counts)
+        # the warm-up batch and the timed one: each request's first token
+        # comes from its prefill, each later one from a decode wave
+        waves = 2 * n_req * (new - 1)
+        blocks = cfg.num_hidden_layers
+        res["concurrent"] = dict(
+            shape=list(many.shape), counts=counts, decode_waves=waves,
+            launches_per_wave=counts["decode_attention"] / waves,
+            expected=blocks * waves,
+            equal=len(many) == n_req and all(
+                np.array_equal(m, solo) for m, solo in zip(many, solos)),
+            distinct=len({m.tobytes() for m in many}))
+        with tempfile.TemporaryDirectory(prefix="monitor_",
+                                         dir=BUILD_DIR) as tmp:
+            cwd = os.getcwd()
+            os.chdir(tmp)
+            try:
+                generate.main(argv + ["--monitor"])
+            finally:
+                os.chdir(cwd)
+            with open(Path(tmp) / "decode.csv") as f:
+                res["monitor_rows"] = len(f.read().splitlines()) - 1
+        res["monitor_expected"] = new - 1
+    finally:
+        if old is None:
+            os.environ.pop(env_key)
+        else:
+            os.environ[env_key] = old
+    # -sm/-sdt/-sd over the card's own profile of the model
+    prof_dir = BUILD_DIR / "gen_sched"
+    prof_dir.mkdir(parents=True, exist_ok=True)
+    results = prof_dir / "profiler_results.yml"
+    results.unlink(missing_ok=True)     # the profiler adds to a file
+    t0 = time.monotonic()
+    profiler.main(["-m", model, "-M", str(weights), "-b", str(rows),
+                   "-t", "float32", "-o", str(results)])
+    res["profile_s"] = time.monotonic() - t0
+    files = {"-sm": prof_dir / "models.yml", "-sdt": prof_dir /
+             "device_types.yml", "-sd": prof_dir / "devices.yml"}
+    for f in files.values():
+        f.unlink(missing_ok=True)
+    to_models.main(["-i", str(results), "-o", str(files["-sm"])])
+    mem_mib = torch.cuda.get_device_properties(0).total_memory // 2**20
+    to_types.main([SCHED_DEV_TYPE, "-i", str(results),
+                   "-o", str(files["-sdt"]), "-dtm", str(mem_mib),
+                   "-dtb", str(NVLINK_MBPS)])
+    yaml_files.yaml_save({SCHED_DEV_TYPE: SCHED_HOSTS[:SCHED_GEN_HOSTS]},
+                         str(files["-sd"]))
+    argv = common + ["--new-tokens", "8"]
+    for flag, path in files.items():
+        argv += [flag, str(path)]
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        res["scheduled_partition"] = generate.scheduled_partition(
+            generate.parse_args(argv))
+        out = generate.main(argv)
+    res["scheduled_output"] = buf.getvalue().splitlines()
+    res["scheduled_shape"] = list(out.shape)
+    res["scheduled_expected_shape"] = [rows, prompt + 8]
+    res["total"] = registry.get_model_layers(model)
+    return res
+
+
+def check_generate_flags_path(res, device_name: str) -> None:
+    conc = res["concurrent"]
+    log("generate --concurrent: " + json.dumps(conc | {
+        "seconds": res["concurrent_s"], "card": device_name}))
+    if not conc["equal"] or conc["distinct"] != CONCURRENT[0] or \
+            conc["counts"]["decode_attention"] != conc["expected"]:
+        raise AssertionError(f"--concurrent: requests equal solo runs: "
+                             f"{conc['equal']}; distinct requests "
+                             f"{conc['distinct']} of {CONCURRENT[0]}; "
+                             f"kernel-5 launches "
+                             f"{conc['counts']['decode_attention']} != "
+                             f"{conc['expected']}")
+    if res["monitor_rows"] != res["monitor_expected"]:
+        raise AssertionError(f"--monitor: decode.csv has "
+                             f"{res['monitor_rows']} rows, not "
+                             f"{res['monitor_expected']}")
+    part = [tuple(p) for p in res["scheduled_partition"]]
+    log("generate -sm partition: " + json.dumps(
+        {"partition": part, "profile_s": res["profile_s"],
+         "lines": [ln for ln in res["scheduled_output"]
+                   if ln.startswith(("scheduler partition", "generated"))],
+         "card": device_name}))
+    from pipeedge_tpu_torch import runtime
+    runtime.validate_partition(part, res["total"])
+    if any((l - 1) % 4 or r % 4 for l, r in part) or \
+            res["scheduled_shape"] != res["scheduled_expected_shape"]:
+        raise AssertionError(f"-sm: partition {part} not block-aligned, or "
+                             f"output {res['scheduled_shape']}")
+
+
+class RouterProc:
+    """`python -m pipeedge_tpu_torch.serve --role router ...` as a
+    subprocess: its output kept, its port read from its serving line;
+    `close()` stops it (SIGTERM, then SIGKILL of it and of every replica
+    pid it reported)."""
+
+    def __init__(self, argv, timeout: float = 300):
+        import queue
+        import threading
+        self.cmd = [sys.executable, "-m", "pipeedge_tpu_torch.serve",
+                    "--role", "router", "--port", "0",
+                    "--router-poll-interval", ROUTER_POLL, *argv]
+        self.proc = subprocess.Popen(
+            self.cmd, cwd=ROOT, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True,
+            env=dict(os.environ, PYTHONPATH=str(ROOT)))
+        self.lines: list = []
+        self.replica_pids: set = set()
+        q: "queue.Queue" = queue.Queue()
+
+        def pump():
+            for ln in self.proc.stdout:
+                self.lines.append(ln.rstrip())
+                q.put(ln)
+        self.reader = threading.Thread(target=pump, daemon=True)
+        self.reader.start()
+        t0 = time.monotonic()
+        while True:
+            ln = q.get(timeout=max(1.0, timeout - (time.monotonic() - t0)))
+            if ln.startswith("serving router"):
+                self.port = int(ln.rsplit(":", 1)[1])
+                break
+        self.ready_s = time.monotonic() - t0
+
+    def health(self) -> dict:
+        h = http_json(self.port, "/healthz", timeout=30)
+        for rec in (h.get("workers") or {}).values():
+            self.replica_pids.add(rec["pid"])
+        return h
+
+    def close(self) -> int:
+        import signal
+        try:
+            self.proc.send_signal(signal.SIGTERM)
+            rc = self.proc.wait(timeout=120)
+        finally:
+            if self.proc.poll() is None:
+                self.proc.kill()
+                self.proc.wait()
+            for pid in self.replica_pids:
+                try:
+                    os.kill(pid, signal.SIGKILL)
+                except ProcessLookupError:
+                    pass
+        self.reader.join(timeout=10)
+        return rc
+
+    def touches_card(self) -> bool:
+        """Whether the router process holds a GPU device file open (a
+        CUDA context does): it must not, being model-free."""
+        fd_dir = Path(f"/proc/{self.proc.pid}/fd")
+        targets = []
+        for fd in fd_dir.iterdir():
+            try:
+                targets.append(os.readlink(fd))
+            except OSError:        # closed while listing
+                pass
+        return any(t.startswith("/dev/nvidia") for t in targets)
+
+    def replicas_gone(self) -> bool:
+        return all(not Path(f"/proc/{p}").exists()
+                   or Path(f"/proc/{p}/stat").read_text().split()[2] == "Z"
+                   for p in self.replica_pids)
+
+
+def wait_until(pred, timeout: float, step: float = 0.1) -> bool:
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        if pred():
+            return True
+        time.sleep(step)
+    return False
+
+
+def router_adopt_path() -> dict:
+    """Phase 15d: two replicas as in-process servers (paged fp KV) behind
+    the router entry (`--replica-addrs`): clients held to solo runs, the
+    launches per served request, the drain's prefix migration into the
+    survivor's trie, both pools whole after. Then a direct check of the
+    ship codec at 8 bits (kernels 1 and 2) on the survivor's prefix rows:
+    no entry ships quantized KV (the drain ships exact frames), so these
+    launches are the codec's at KV shapes, not a path's."""
+    import threading
+    from pipeedge_tpu_torch import serve
+    from pipeedge_tpu_torch.kv import ship
+    from pipeedge_tpu_torch.models import registry
+    from pipeedge_tpu_torch.ops import _build
+    from pipeedge_tpu_torch.ops import quant as quant_ops
+    model, prefix_len = DECODE_MODEL, ROUTER_PREFIX_LEN
+    cfg = registry.get_model_config(model)
+    weights = BUILD_DIR / f"{model.replace('/', '_')}-random-seed0.npz"
+    base = SERVE_FLAGS + ["-M", str(weights), "--kv-bits", "0",
+                          "--postmortem-dir", str(BUILD_DIR / "postmortems")]
+    args = serve.parse_args(base + ROUTER_PAGED + ["--role", "replica"])
+    params = [registry.module_shard_factory(
+        model, str(weights), l, r, stage=i, device="cuda")[1]
+        for i, (l, r) in enumerate(args.partition)]
+    rng = np.random.default_rng(15)
+    prefix_ids = rng.integers(0, cfg.vocab_size, size=prefix_len).tolist()
+    reqs = serve_requests(rng, cfg.vocab_size, ["prefix"] * ROUTER_CLIENTS[0]
+                          + ["plain"] * ROUTER_CLIENTS[1])
+    # the prefix alone first (phase 12's publisher): its pages enter the
+    # trie, so every sharer's prompt pass is the span over its suffix
+    # that the oracle's prefix handle runs
+    publisher = {"kind": "publish", "ids": [list(prefix_ids)],
+                 "new": SERVE_NEW[0], "eos": None}
+    oracle = serve.build_pipeline(serve.parse_args(base), params)
+    want = serve_oracle(oracle, reqs + [publisher], prefix_ids)
+    reps, router = [], None
+    res: dict = {}
+    try:
+        for _ in range(2):
+            service = serve.make_service(args, serve.build_pipeline(
+                args, params))
+            httpd = serve.Server(("127.0.0.1", 0),
+                                 serve.make_handler(service, model))
+            threading.Thread(target=httpd.serve_forever,
+                             daemon=True).start()
+            reps.append((service, httpd))
+        router = RouterProc(["--replica-addrs", ",".join(
+            f"127.0.0.1:{h.server_address[1]}" for _, h in reps)])
+        res["router_ready_s"] = router.ready_s
+        port = router.port
+        pid = http_json(port, "/prefix", {"ids": prefix_ids})["prefix_id"]
+        out: dict = {}
+        start = threading.Event()
+        threads = [threading.Thread(target=serve_client,
+                                    args=(port, i, r, pid, start, out))
+                   for i, r in enumerate(reqs)]
+        for t in threads:
+            t.start()
+        torch.cuda.synchronize()
+        _build.reset_launch_counts()
+        alone = threading.Event()
+        alone.set()
+        serve_client(port, len(reqs), publisher, pid, alone, out)
+        reqs = reqs + [publisher]
+        start.set()
+        for t in threads:
+            t.join()
+        torch.cuda.synchronize()
+        counts = dict(_build.launch_counts)
+        res["counts"] = counts
+        res["per_request"] = {k: v / len(reqs) for k, v in counts.items()}
+        res["errors"] = {i: o["error"] for i, o in out.items()
+                         if "error" in o}
+        res["mismatched"] = sorted(
+            i for i in range(len(reqs)) if "ids" not in out.get(i, {})
+            or not np.array_equal(np.asarray(out[i]["ids"]), want[i]))
+        wall = max(o["t1"] for o in out.values()) - min(
+            o["t0"] for o in out.values())
+        res["wall_s"] = wall
+        kvs = [s.kv_backend for s, _ in reps]
+        probe = prefix_ids + [0]
+        owner = next(i for i, kv in enumerate(kvs)
+                     if kv.shared_prompt_tokens(probe) >= prefix_len)
+        survivor = 1 - owner
+        res["survivor_before"] = kvs[survivor].shared_prompt_tokens(probe)
+        res["drain"] = http_json(port, "/drain", {"replica": f"r{owner}"})
+        res["survivor_after"] = kvs[survivor].shared_prompt_tokens(probe)
+        ex = reps[survivor][0].batcher
+        steps0 = dict(ex.kind_steps[0])
+        hits0 = kvs[survivor].trie.stats()["hits"]
+        last = serve_requests(rng, cfg.vocab_size, ["prefix"])[0]
+        got = http_json(port, "/generate", {"ids": last["ids"],
+                                            "new_tokens": last["new"],
+                                            "prefix_id": pid})
+        res["after_drain_equal"] = bool(np.array_equal(
+            np.asarray(got["ids"]), serve_oracle(oracle, [last],
+                                                 prefix_ids)[0]))
+        res["survivor_span"] = ex.kind_steps[0]["span"] - steps0["span"]
+        res["survivor_prefill"] = (ex.kind_steps[0]["prefill"]
+                                   - steps0["prefill"])
+        res["trie_hits"] = kvs[survivor].trie.stats()["hits"] - hits0
+        res["states"] = {n: r["state"] for n, r in
+                         router.health()["fleet"].items()}
+        res["router_touches_card"] = router.touches_card()
+
+        def whole(kv):
+            pool, trie = kv.pool.stats(), kv.trie.stats()
+            return (pool["pages_free"] + trie["pages_cached"]
+                    == pool["pages_total"] and pool["owners"] == 0
+                    and pool["leaked"] == 0)
+        res["pools_whole"] = wait_until(lambda: all(whole(kv) for kv in kvs),
+                                        30)
+        res["pools"] = [dict(kv.pool.stats(), cached=kv.trie.stats()[
+            "pages_cached"]) for kv in kvs]
+        # the ship codec at 8 bits on the survivor's prefix rows, called
+        # directly (the drain above shipped exact frames)
+        pids = kvs[survivor].trie.lookup(probe, max_tokens=prefix_len)
+        try:
+            table = np.asarray([pids], np.int64)
+            caches = [kvs[survivor].pool.gather(i, table)
+                      for i in range(len(args.partition))]
+        finally:
+            kvs[survivor].pool.release(pids)
+        _build.reset_launch_counts()
+        frames = ship.encode_kv_ship(caches, prefix_len,
+                                     np.zeros((1, 1), np.float32), bits=8)
+        handle = ship.decode_kv_ship(frames, torch.float32, device="cuda")
+        res["ship_counts"] = dict(_build.launch_counts)
+        res["ship_expected"] = 2 * len(caches)
+        res["ship_mb"] = sum(f.nbytes for f in frames) / 2**20
+        equal, err = True, 0.0
+        at = 2
+        for i, cache in enumerate(caches):
+            at += 1                          # the stage frame's header
+            for name in ("k", "v"):
+                rows = cache[name][:, :, :prefix_len]
+                plain = quant_ops.tensor_encode_outerdim(rows, 8)
+                words, scale, shift = frames[at:at + 3]
+                equal &= bool(np.array_equal(words, quant_ops.words_u32(
+                    plain)) and np.array_equal(scale, plain.scale.cpu()
+                                               .numpy())
+                    and np.array_equal(shift, plain.shift.cpu().numpy()))
+                dec = handle["stage_rows"][i][name]
+                equal &= bool(torch.equal(
+                    dec, quant_ops.tensor_decode_outerdim(plain)))
+                err = max(err, float((dec - rows).abs().max()))
+                at += 4
+        res["ship_equal_plain"] = equal
+        res["ship_max_abs_err"] = err
+        # the codec at the ship's shape: one stage's K rows
+        from pipeedge_tpu_torch.ops import fused_quant
+        rows = caches[0]["k"][:, :, :prefix_len].contiguous()
+        enc = fused_quant.fused_encode_outerdim(rows, 8)
+        shape = list(rows.shape)
+        res["ship_codec"] = dict(
+            shape=shape,
+            encode_ms=time_ms(
+                lambda: fused_quant.fused_encode_outerdim(rows, 8)),
+            plain_encode_ms=time_ms(
+                lambda: quant_ops.tensor_encode_outerdim(rows, 8)),
+            decode_ms=time_ms(
+                lambda: fused_quant.fused_decode_outerdim(enc)),
+            plain_decode_ms=time_ms(
+                lambda: quant_ops.tensor_decode_outerdim(enc)),
+            bound_ms=codec_bytes(shape, 8) / HBM_BYTES_PER_S * 1e3,
+            bound_by="bytes")
+    finally:
+        if router is not None:
+            res["router_rc"] = router.close()
+        for service, httpd in reps:
+            httpd.shutdown()
+            httpd.server_close()
+            service.stop()
+    del oracle, reps
+    free_card()
+    return res
+
+
+def check_router_adopt_path(res, device_name: str) -> None:
+    log("router adopt: " + json.dumps(res | {"card": device_name},
+                                      sort_keys=True, default=str))
+    problems = []
+    if res["errors"] or res["mismatched"] or not res["after_drain_equal"]:
+        problems.append(f"errors {res['errors']}, mismatched "
+                        f"{res['mismatched']}, after drain "
+                        f"{res['after_drain_equal']}")
+    if not (res["drain"].get("drained") and res["drain"].get(
+            "migrated_prefixes", 0) >= 1 and res["survivor_before"] == 0
+            and res["survivor_after"] >= ROUTER_PREFIX_LEN
+            and res["survivor_span"] == 1 and res["survivor_prefill"] == 0
+            and res["trie_hits"] > 0):
+        problems.append("drain migration: " + json.dumps(
+            {k: res[k] for k in ("drain", "survivor_before",
+                                 "survivor_after", "survivor_span",
+                                 "survivor_prefill", "trie_hits")}))
+    if not res["pools_whole"]:
+        problems.append(f"pools not whole: {res['pools']}")
+    ship = res["ship_counts"]
+    if not res["ship_equal_plain"] or ship["fused_encode"] != \
+            res["ship_expected"] or ship["fused_decode"] != \
+            res["ship_expected"]:
+        problems.append(f"ship codec check at 8 bits: equal to the plain "
+                        f"codec {res['ship_equal_plain']}, launches {ship}")
+    if res.get("router_rc") != 0 or res["router_touches_card"]:
+        problems.append(f"router exited {res.get('router_rc')}, holds a "
+                        f"GPU device file: {res['router_touches_card']}")
+    if problems:
+        raise AssertionError("router adopt: " + "; ".join(problems))
+
+
+def stream_client(port: int, i: int, body: dict, start, out: dict) -> None:
+    """One streamed request through the router, timestamped at its first
+    step line and at its end (client side)."""
+    import urllib.request
+    start.wait()
+    t0 = time.monotonic()
+    first = None
+    try:
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{port}/generate",
+            data=json.dumps(dict(body, stream=True)).encode())
+        lines = []
+        with urllib.request.urlopen(req, timeout=600) as resp:
+            for raw in resp:
+                if not raw.strip():
+                    continue
+                if first is None:
+                    first = time.monotonic()
+                lines.append(json.loads(raw))
+        out[i] = dict(ids=lines[-1].get("ids"), final=lines[-1],
+                      steps=len(lines) - 1)
+    except Exception as exc:   # noqa: BLE001 — the check reports it
+        out[i] = dict(error=repr(exc))
+    out[i].update(t0=t0, t_first=first, t1=time.monotonic())
+
+
+def router_spawn_path() -> dict:
+    """Phase 15e: the router entry spawning two int8 replicas; one is
+    SIGKILLed in the middle of a burst of streamed requests: none lost,
+    each equal to its solo int8 run (kernel 5, in this process), the
+    dead replica respawned with the next epoch and readmitted."""
+    import signal
+    import threading
+    from pipeedge_tpu_torch import serve
+    from pipeedge_tpu_torch.models import registry
+    cfg = registry.get_model_config(DECODE_MODEL)
+    weights = BUILD_DIR / f"{DECODE_MODEL.replace('/', '_')}-random-seed0.npz"
+    base = SERVE_FLAGS + ["-M", str(weights), "--kv-bits", "8",
+                          "--postmortem-dir", str(BUILD_DIR / "postmortems")]
+    rng = np.random.default_rng(16)
+    reqs = []
+    for _ in range(ROUTER_BURST):
+        length = int(rng.integers(SERVE_PROMPT[0], SERVE_PROMPT[1] + 1))
+        reqs.append({"ids": rng.integers(0, cfg.vocab_size,
+                                         size=(1, length)).tolist(),
+                     "new": int(rng.integers(ROUTER_NEW[0],
+                                             ROUTER_NEW[1] + 1))})
+    res: dict = {}
+    router = RouterProc(["--replicas", "2", *base], timeout=600)
+    try:
+        res["ready_s"] = router.ready_s
+        port = router.port
+        wait_until(lambda: all(r["state"] == "healthy" for r in
+                               router.health()["fleet"].values()), 60)
+        before = router.health()["workers"]
+        out: dict = {}
+        start = threading.Event()
+        threads = [threading.Thread(target=stream_client, args=(
+            port, i, {"ids": r["ids"], "new_tokens": r["new"]}, start, out))
+            for i, r in enumerate(reqs)]
+        for t in threads:
+            t.start()
+        t0 = time.monotonic()
+        start.set()
+        # mid-burst: once the first request finished (or 1 s passed)
+        wait_until(lambda: any("t1" in o for o in list(out.values())), 1.0,
+                   step=0.02)
+        victim = before["0"]["pid"]
+        os.kill(victim, signal.SIGKILL)
+        t_kill = time.monotonic()
+        res["killed_after_s"] = t_kill - t0
+        res["finished_before_kill"] = sum("t1" in o for o in
+                                          list(out.values()))
+        for t in threads:
+            t.join()
+        res["burst_s"] = max(o["t1"] for o in out.values()) - t0
+        res["readmitted"] = wait_until(
+            lambda: (router.health()["workers"]["0"]["epoch"] == 1
+                     and router.health()["fleet"]["r0"]["state"]
+                     == "healthy"), 180, step=0.25)
+        res["readmit_s"] = time.monotonic() - t_kill
+        after = router.health()
+        res["epochs"] = {k: v["epoch"] for k, v in after["workers"].items()}
+        res["states"] = {k: v["state"] for k, v in after["fleet"].items()}
+        res["respawned_pid_differs"] = after["workers"]["0"]["pid"] != victim
+        res["router_touches_card"] = router.touches_card()
+        # the solo int8 runs, in this process on kernel 5
+        args = serve.parse_args(base)
+        oracle = serve.build_pipeline(args)
+        res["errors"] = {i: o["error"] for i, o in out.items()
+                         if "error" in o}
+        res["mismatched"] = []
+        for i, r in enumerate(reqs):
+            want = oracle.generate(torch.as_tensor(r["ids"], device="cuda"),
+                                   r["new"]).cpu().numpy()
+            if "ids" not in out[i] or not np.array_equal(
+                    np.asarray(out[i]["ids"]), want):
+                res["mismatched"].append(i)
+        del oracle
+        lat = [(o["t1"] - o["t0"]) * 1e3 for o in out.values() if "t1" in o]
+        first = [(o["t_first"] - o["t0"]) * 1e3 for o in out.values()
+                 if o.get("t_first") is not None]
+        tokens = sum(r["new"] for r in reqs)
+        res.update(tokens=tokens, tok_per_s=tokens / res["burst_s"],
+                   latency_ms_p50=float(np.percentile(lat, 50)),
+                   latency_ms_p95=float(np.percentile(lat, 95)),
+                   first_token_ms_p50=float(np.percentile(first, 50)),
+                   first_token_ms_p95=float(np.percentile(first, 95)),
+                   served_by={}, failovers=serve_metric(
+                       http_json(port, "/metrics"),
+                       "pipeedge_router_failovers_total"))
+        for o in out.values():
+            rep = (o.get("final") or {}).get("replica")
+            res["served_by"][rep] = res["served_by"].get(rep, 0) + 1
+    finally:
+        res["router_rc"] = router.close()
+        res["replicas_gone"] = wait_until(router.replicas_gone, 30)
+        res["log_tail"] = [ln for ln in router.lines
+                           if not ln.startswith("[replica")][-12:]
+    free_card()
+    return res
+
+
+def check_router_spawn_path(res, device_name: str) -> None:
+    log("router spawned: " + json.dumps(res | {"card": device_name},
+                                        sort_keys=True, default=str))
+    if res["errors"] or res["mismatched"]:
+        raise AssertionError(f"router spawned: lost or wrong requests: "
+                             f"errors {res['errors']}, mismatched "
+                             f"{res['mismatched']}")
+    if not (res["readmitted"] and res["epochs"] == {"0": 1, "1": 0}
+            and res["respawned_pid_differs"]
+            and set(res["states"].values()) == {"healthy"}):
+        raise AssertionError("router spawned: the killed replica was not "
+                             "respawned and readmitted: " + json.dumps(
+                                 {k: res[k] for k in ("readmitted", "epochs",
+                                                      "states")}))
+    if res["router_rc"] != 0 or not res["replicas_gone"] or \
+            res["router_touches_card"]:
+        raise AssertionError(f"router spawned: rc {res['router_rc']}, "
+                             f"replicas gone {res['replicas_gone']}, the "
+                             f"router holds a GPU device file: "
+                             f"{res['router_touches_card']}")
+
+
 def main() -> int:
     import argparse
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -4408,6 +5207,23 @@ def main() -> int:
 
     phase_done("phase 14")
 
+    # phase 15: the rest of PipeEdge's loop and the replica router
+    revauct_res = revauct_path()
+    check_revauct_path(revauct_res, device_name)
+    phase_done("phase 15a")
+    trace_res = tracing_path()
+    check_tracing_path(trace_res, device_name)
+    phase_done("phase 15b")
+    gen_res = generate_flags_path()
+    check_generate_flags_path(gen_res, device_name)
+    phase_done("phase 15c")
+    adopt_res = router_adopt_path()
+    check_router_adopt_path(adopt_res, device_name)
+    phase_done("phase 15d")
+    spawn_res = router_spawn_path()
+    check_router_spawn_path(spawn_res, device_name)
+    phase_done("phase 15e")
+
     if args.ab_entry_parent is not None:
         ab_entry(args.ab_entry_parent)
         phase_done("ab entry")
@@ -4452,7 +5268,19 @@ def main() -> int:
                             for k in ("shape", "ms", "plain_ms", "bound_ms",
                                       "bound_by", "max_abs_err")},
                 llama3_launches=fam["llama3_forward"][bit]["counts"][name],
-                **({"moe_launches": fam["moe_forward"][8]["counts"][name]}
+                **({"moe_launches": fam["moe_forward"][8]["counts"][name],
+                    # phase 15: a direct check of the codec on KV shapes,
+                    # 8-bit ship frames of the router's survivor (one per
+                    # leaf and stage; no entry ships quantized KV, so these
+                    # are not a path's launches), and the traced ViT-Base
+                    # entry (2 rounds of 8 microbatches)
+                    "kv_ship_codec_check": {
+                        "launches": adopt_res["ship_counts"][name]} | {
+                        k: adopt_res["ship_codec"][k] for k in (
+                            "shape", f"{name[6:]}_ms", f"plain_{name[6:]}_ms",
+                            "bound_ms", "bound_by")},
+                    "traced_entry_launches": trace_res["traced"][
+                        "kernel_launches"][name]}
                    if bit == 8 else {})))
     kernels.append(dict(
         name="fused_attention", route="cuda",
@@ -4484,6 +5312,12 @@ def main() -> int:
                 (LLAMA3, "llama3_decode"), (LLAMA2, "llama2_decode"),
                 (MISTRAL, "mistral_decode"))},
         mistral_window_launches=fam["mistral_decode"]["window"]["launches"],
+        # phase 15: the reverse auction's ViT-Large runs (one round of 8
+        # microbatches per schedule) and the traced ViT-Base entry
+        revauct_launches={run["scheduler"]: run["entry"]["kernel_launches"][
+            "fused_attention"] for run in revauct_res["runs"]},
+        traced_entry_launches=trace_res["traced"]["kernel_launches"][
+            "fused_attention"],
         cases={f"{r['layout']} {r['shape']} {r['dtype']}"
                f"{' causal' if r['causal'] else ''}": {
                    key: r[key] for key in ("ms", "plain_ms", "library_ms",
@@ -4540,6 +5374,14 @@ def main() -> int:
         llama_int8_launches={name: fam[key]["int8"]["counts"][
             "decode_attention"] for name, key in (
                 (LLAMA3, "llama3_decode"), (LLAMA2, "llama2_decode"))},
+        # phase 15: generate --concurrent (warm-up and timed batches), the
+        # launches per request of the router's adopted fp fleet
+        concurrent_launches=gen_res["concurrent"]["counts"][
+            "decode_attention"],
+        concurrent_launches_per_wave=gen_res["concurrent"][
+            "launches_per_wave"],
+        routed_fp_launches_per_request=adopt_res["per_request"][
+            "decode_attention"],
         cases={name: {k: r[k] for k in (
             "shape", "pos", "dtype", "ms", "ms_l2_cold", "plain_ms",
             "bound_ms", "bound_by", "dequant_route_ms",

@@ -23,6 +23,26 @@ acceptance rate and the host readbacks per round:
 
     python -m pipeedge_tpu_torch.generate -m gpt2-medium \\
         --draft-model gpt2 --gamma 4 -b 4 --prompt-len 128 --new-tokens 64
+
+`--concurrent N` decodes N requests of `-b` rows each through the
+continuous batcher (`parallel/batcher.py ContinuousBatcher`), every
+request's tokens equal to its solo run; `--monitor` writes one heartbeat
+per decoded token to `decode.csv` in the working directory (each beat
+waits on a CUDA event recorded after its token, so it times the token's
+emission, not its dispatch); `-sm/-sdt/-sd` cut the model with the
+native scheduler over the profiler's files and round the cut to whole
+blocks, as decoding needs:
+
+    python -m pipeedge_tpu_torch.generate -m gpt2 -pt 1,24,25,48 \\
+        --kv-bits 8 --concurrent 4 -b 4 --prompt-len 192 --new-tokens 128 \\
+        --max-len 1024
+    python -m pipeedge_tpu_torch.generate -m gpt2 -b 4 \\
+        -sm models.yml -sdt device_types.yml -sd devices.yml
+
+The JAX entry's flags for other device layouts are refused at parse time
+with the ROADMAP item that ports them (`REFUSED`): `--edge-bits`,
+`--dcn-addrs` and `--rank` (the DCN fleet, A6), `--tp`, `--sp`, `--ep`
+and `--spmd-wave` (the multi-GPU axes, A7).
 """
 from __future__ import annotations
 
@@ -36,8 +56,25 @@ import numpy as np
 import torch
 
 from .models import registry
+from .monitoring import facade as monitoring
 from .ops import _build
 from .parallel import decode
+from .sched.scheduler import sched_pipeline
+
+# `tools/generate.py` flags this entry refuses, each with the ROADMAP
+# item that ports it: flag -> (argparse keywords, item)
+_DCN = "A6, the DCN driver's device seam"
+_AXES = "A7, the multi-GPU axes"
+REFUSED = {
+    "--edge-bits": ({"type": int}, _DCN),
+    "--dcn-addrs": ({}, _DCN),
+    "--rank": ({"type": int}, _DCN),
+    "--tp": ({"type": int}, _AXES),
+    "--sp": ({"type": int}, _AXES),
+    "--ep": ({"type": int}, _AXES),
+    "--spmd-wave": ({"action": "store_true"}, _AXES),
+}
+MONITOR_KEY = "decode"
 
 
 def prompt_ids(args, cfg) -> np.ndarray:
@@ -107,34 +144,62 @@ def parse_args(argv: Optional[Sequence[str]] = None):
                              "one span; tokens equal plain greedy")
     parser.add_argument("--gamma", default=4, type=int,
                         help="draft lookahead per speculative round")
+    parser.add_argument("--concurrent", default=0, type=int,
+                        help="continuous batching: decode this many "
+                             "concurrent requests (each of -b sequences) "
+                             "through the wave executor; tokens match "
+                             "solo runs per request")
+    parser.add_argument("--monitor", action="store_true",
+                        help="record per-step heartbeats to decode.csv "
+                             "(overwrites an existing decode.csv in cwd)")
+    parser.add_argument("-sm", "--sched-models-file", default=None)
+    parser.add_argument("-sdt", "--sched-dev-types-file", default=None)
+    parser.add_argument("-sd", "--sched-dev-file", default=None)
     parser.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                         help="cuda runs the hand-written kernels; cpu their "
                              "plain versions")
+    for flag, (kw, item) in REFUSED.items():
+        parser.add_argument(flag, default=argparse.SUPPRESS,
+                            help=f"not ported yet (ROADMAP {item})", **kw)
     args = parser.parse_args(argv)
+    for flag, (_, item) in REFUSED.items():
+        if hasattr(args, flag.lstrip("-").replace("-", "_")):
+            parser.error(f"{flag} is not ported to pipeedge_tpu_torch yet "
+                         f"(ROADMAP {item})")
+    # the JAX entry's composition errors, word for word (some name its
+    # flags that are refused above)
     if args.new_tokens < 1:
         parser.error("--new-tokens must be >= 1")
     if args.beams and args.temperature > 0:
         parser.error("--beams and --temperature are mutually exclusive")
+    if args.beams and args.monitor:
+        parser.error("--monitor records per-step heartbeats only for "
+                     "greedy/sampled generation, not --beams")
     if args.beams and args.prefill_ubatch:
         parser.error("--prefill-ubatch applies to greedy/sampled "
                      "generation, not --beams")
     if args.shared_prefix and (args.beams or args.prefill_ubatch):
-        parser.error("--shared-prefix composes with plain greedy/sampled "
-                     "generation only (not --beams/--prefill-ubatch)")
+        parser.error("--shared-prefix composes with plain, speculative, "
+                     "or --concurrent greedy/sampled generation only "
+                     "(not --beams/--spmd-wave/--prefill-ubatch/"
+                     "--dcn-addrs)")
     if args.shared_prefix and not 0 < args.shared_prefix < args.prompt_len:
         parser.error(f"--shared-prefix must be in (0, {args.prompt_len})")
     if args.draft_model and (args.temperature > 0 or args.top_k
-                             or args.beams or args.prefill_ubatch
+                             or args.beams or args.concurrent
+                             or args.monitor or args.prefill_ubatch
                              or args.kv_bits):
-        # the JAX entry's text, which also names its flags the port's
-        # entry does not have (--concurrent, --monitor, --spmd-wave,
-        # --dcn-addrs)
         parser.error("--draft-model is greedy-exact speculative "
                      "decoding; it does not compose with sampling/"
                      "--beams/--concurrent/--monitor/--spmd-wave/"
                      "--prefill-ubatch/--dcn-addrs, nor --kv-bits "
                      "(int8 span verification is not bit-identical "
                      "to serial int8 steps)")
+    if args.concurrent and (args.beams or args.monitor
+                            or args.prefill_ubatch):
+        parser.error("--concurrent composes with greedy/sampled "
+                     "generation only (not --beams/--monitor/"
+                     "--prefill-ubatch)")
     if args.partition:
         nums = [int(x) for x in args.partition.split(",")]
         if len(nums) % 2:
@@ -143,13 +208,90 @@ def parse_args(argv: Optional[Sequence[str]] = None):
     return args
 
 
+def scheduled_partition(args):
+    """The native scheduler's cut over the profiler's files (`-sm`,
+    `-sdt`, `-sd`), rounded to whole blocks (decoding steps block by
+    block); prints the rounding when it moved a cut."""
+    total = registry.get_model_layers(args.model_name)
+    # the profile records are keyed by (dtype, batch size)
+    sched = sched_pipeline(args.model_name, 2, 2, args.batch_size,
+                           dtype=args.dtype,
+                           models_file=args.sched_models_file,
+                           dev_types_file=args.sched_dev_types_file,
+                           dev_file=args.sched_dev_file)
+    if not sched:
+        raise SystemExit("No viable schedule found")
+    raw = [tuple(int(v) for v in layers)
+           for stage in sched for layers in stage.values()]
+    partition = decode.round_partition_to_blocks(raw, total)
+    if partition != raw:
+        print(f"scheduler partition {raw} rounded to block-aligned "
+              f"{partition}")
+    return partition
+
+
+def _heartbeat(step, tokens) -> None:
+    """`--monitor`'s per-token beat: wait for the token itself (a CUDA
+    event recorded after it on its stream), then beat. The first beat
+    sets the time base, so decode.csv holds new_tokens - 1 intervals."""
+    del step
+    if tokens.device.type == "cuda":
+        torch.cuda.current_stream(tokens.device).record_event().synchronize()
+    monitoring.iteration(MONITOR_KEY, work=int(tokens.shape[0]), safe=False)
+
+
+def run_concurrent(args, pipe, ids: np.ndarray, p_len: int,
+                   label: str) -> np.ndarray:
+    """`--concurrent`: N requests of the same prompt batch (sampling seed
+    `--seed` + request index) through one `ContinuousBatcher`, once to
+    warm up and once timed; returns every request's ids, [N, B, S + new]
+    (the shared prefix included)."""
+    from .parallel.batcher import ContinuousBatcher
+    handle = pipe.precompute_prefix(ids[:1, :p_len]) if p_len else None
+    req_ids = ids[:, p_len:] if p_len else ids
+
+    def run_batch():
+        batcher = ContinuousBatcher(pipe)
+        for req in range(args.concurrent):
+            batcher.submit(req, req_ids, args.new_tokens,
+                           temperature=args.temperature, top_k=args.top_k,
+                           seed=args.seed + req, prefix=handle)
+        return batcher, batcher.run()
+
+    run_batch()                     # warm-up (kernel build)
+    if pipe.device.type == "cuda":
+        torch.cuda.synchronize(pipe.device)
+    tik = time.monotonic()
+    batcher, results = run_batch()      # host arrays: the tokens are in
+    dt = time.monotonic() - tik
+    outs = [results[r] for r in range(args.concurrent)]
+    if p_len:
+        outs = [np.concatenate([ids[:, :p_len], o], axis=1) for o in outs]
+    n_tok = args.concurrent * args.batch_size * args.new_tokens
+    shared = f", shared prefix {p_len}" if p_len else ""
+    print(f"generated {args.concurrent}x{args.batch_size}x"
+          f"{args.new_tokens} tokens in {dt:.3f}s = {n_tok / dt:.1f} "
+          f"tok/s ({label}, continuous batching{shared}; "
+          f"{batcher.stats['ticks']} ticks, "
+          f"{batcher.stats['stage_steps']} stage-steps)")
+    print("sample continuation ids:", outs[0][0, args.prompt_len:].tolist())
+    print("kernel_launches=" + json.dumps(_build.launch_counts,
+                                          sort_keys=True))
+    return np.stack(outs)
+
+
 def run(args) -> np.ndarray:
     """Build the pipeline, warm it up, time one generation and print the
-    report lines; returns the generated ids [B, prompt_len + new_tokens]."""
+    report lines; returns the generated ids [B, prompt_len + new_tokens]
+    ([N, B, ...] with `--concurrent N`)."""
     cfg = registry.get_model_config(args.model_name)
     dtype = torch.bfloat16 if args.dtype == "bfloat16" else torch.float32
-    partition = args.partition or [
-        (1, registry.get_model_layers(args.model_name))]
+    if args.partition:
+        partition = args.partition
+    elif args.sched_models_file:
+        partition = scheduled_partition(args)
+    else:
+        partition = [(1, registry.get_model_layers(args.model_name))]
     max_len = args.max_len or args.prompt_len + args.new_tokens
     if args.draft_model and args.max_len is None:
         max_len += args.gamma   # verify spans write past the last token
@@ -165,6 +307,8 @@ def run(args) -> np.ndarray:
     if p_len:
         ids[:, :p_len] = ids[0, :p_len]
         prefix = torch.as_tensor(ids[:, :p_len], device=pipe.device)
+    if args.concurrent:
+        return run_concurrent(args, pipe, ids, p_len, label)
     if args.draft_model:
         from .parallel.speculative import SpeculativeDecoder
         d_pipe = decode.build_decode_pipeline(
@@ -190,22 +334,32 @@ def run(args) -> np.ndarray:
     elif p_len:
         handle = pipe.precompute_prefix(ids[:1, :p_len])
 
-        def gen(n):
+        def gen(n, cb=None):
             out = pipe.generate(ids[:, p_len:], n, prefix=handle,
                                 temperature=args.temperature,
-                                top_k=args.top_k, seed=args.seed)
+                                top_k=args.top_k, seed=args.seed,
+                                step_callback=cb)
             return torch.cat([prefix, out], dim=1)
         label += f", shared prefix {p_len} (prefilled once)"
     else:
-        def gen(n):
+        def gen(n, cb=None):
             return pipe.generate(ids, n, temperature=args.temperature,
                                  top_k=args.top_k, seed=args.seed,
-                                 prefill_ubatch=args.prefill_ubatch)
+                                 prefill_ubatch=args.prefill_ubatch,
+                                 step_callback=cb)
     gen(min(2, args.new_tokens))            # warm-up (kernel build)
     if pipe.device.type == "cuda":
         torch.cuda.synchronize(pipe.device)
+    if args.monitor:      # greedy/sampled only (parse_args): gen takes cb
+        monitoring.init(MONITOR_KEY, window_size=16, work_type="tokens")
     tik = time.monotonic()
-    out = gen(args.new_tokens).cpu().numpy()   # the copy waits for the card
+    try:
+        out = (gen(args.new_tokens, _heartbeat) if args.monitor
+               else gen(args.new_tokens))
+        out = out.cpu().numpy()       # the copy waits for the card
+    finally:
+        if args.monitor:
+            monitoring.finish()
     dt = time.monotonic() - tik
     if spec is not None:
         rate = spec.last_acceptance_rate

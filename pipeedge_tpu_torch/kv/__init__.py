@@ -7,12 +7,13 @@ Port of the single-replica half of `pipeedge_tpu/kv`:
              the owner ledger, eviction
 - `prefix`:  `PrefixTrie`: whole-page prompt matching + cold eviction
 - `backend`: `PagedKvBackend`: the executors' gather/scatter cache
-             provider
+             provider, and the router's prefix export and install
+- `ship`:    the frame half of KV shipping (wire-v2 bundles)
 
 Dense per-request cache slots bound serving concurrency by SLOTS; this
 package bounds it by TOKENS and shares prompt prefixes across requests.
-KV shipping (`ship`), disaggregated prefill (`disagg`, `fleet`) and the
-backend's prefix migration wait for ROADMAP A5.2a and A5.3b.
+Disaggregated prefill (`disagg`, `fleet`, the socket half of `ship`)
+waits for ROADMAP A5.3b.
 """
 from .backend import PagedKvBackend
 from .pool import KvPagePool, PoolExhausted, pages_for

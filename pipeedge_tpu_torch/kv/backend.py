@@ -35,16 +35,18 @@ arena's read-modify-write (gather -> stage function -> scatter) is
 serialized under one arena lock. On the card every executor thread
 enqueues on the device's default stream, so the hold is host-side only.
 
-Not ported yet: installing shipped prefill KV (`shipped=`, ROADMAP
-A5.3b) and the router's prefix migration (`export_prefix` /
-`install_prefix`, ROADMAP A5.2a); both stand on `kv/ship.py` and
-`comm/wire.py`'s v2 framing, and raise until those are ported.
+Prefix migration (the router's drain): `export_prefix` snapshots the
+trie's pages of a prompt prefix as exact `kv/ship.py` frames (fp caches
+only), `install_prefix` lands such frames in this
+pool and trie. Not ported yet: installing a prefill fleet's shipped KV
+(`shipped=`, ROADMAP A5.3b), which raises.
 """
 from __future__ import annotations
 
 from typing import List, Optional, Tuple
 
 import numpy as np
+import torch
 
 from .. import telemetry
 from ..telemetry import metrics as prom
@@ -52,9 +54,7 @@ from ..utils.threads import make_lock
 from .pool import KvPagePool, pages_for
 from .prefix import PrefixTrie
 
-# the ROADMAP items that port what stands on kv/ship.py
-_MIGRATE = ("ROADMAP A5.2a, with port copies of kv/ship.py and "
-            "comm/wire.py's v2 framing")
+# the ROADMAP item that ports the shipped-KV install
 _DISAGG = "ROADMAP A5.3b with A6, the prefill supervisors"
 
 
@@ -251,15 +251,86 @@ class PagedKvBackend:
 
     # -- prefix migration (the router's drain) ---------------------------
 
-    def export_prefix(self, tokens, bits: int = 0):
-        """The router's drain export of a cached prefix as ship frames."""
-        del tokens, bits
-        raise _ship_refusal("export_prefix", _MIGRATE)
+    def export_prefix(self, tokens):
+        """Snapshot the trie's cached pages of this prompt prefix as
+        exact `kv/ship.py` frames: the router's drain ships them to a
+        survivor instead of re-prefilling there. Returns `(frames, tokens_covered,
+        n_pages)`, or None when the trie holds nothing for the prefix or
+        the cache is int8 (quantized caches do not ship exactly)."""
+        from . import ship
+        toks = [int(t) for t in tokens]
+        pids = self.trie.lookup(toks, max_tokens=len(toks))
+        if not pids:
+            return None
+        try:
+            plen = len(pids) * self.page_size
+            table = np.asarray([pids], np.int64)
+            with telemetry.span("kv", "export"):
+                # gather copies the pages out, so the encode runs after
+                # the lock (on the same stream, after the gather)
+                with self._arena_lock:
+                    caches = [self.pool.gather(i, table)
+                              for i in range(self._n_stages)]
+                if any(set(view) != {"k", "v"} for view in caches):
+                    return None       # int8 cache: not shippable
+                # a prefix export carries no sampling decision: the
+                # logits slot is a placeholder the importer ignores
+                frames = ship.encode_kv_ship(
+                    caches, plen, np.zeros((1, 1), np.float32))
+            return frames, plen, len(pids)
+        finally:
+            # lookup took one reference per matched page for us; the
+            # trie's own retention references keep the pages cached
+            self.pool.release(pids)
 
     def install_prefix(self, tokens, handle) -> int:
-        """The receive side of `export_prefix`."""
-        del tokens, handle
-        raise _ship_refusal("install_prefix", _MIGRATE)
+        """Land a peer replica's exported prefix in this pool and trie
+        (the receive side of `export_prefix`): alloc pages, scatter the
+        shipped rows, publish to the trie. Idempotent: a prefix the trie
+        already covers installs no page. Returns pages installed."""
+        toks = [int(t) for t in tokens]
+        plen = int(handle["prompt_len"])
+        rows = handle["stage_rows"]
+        if plen % self.page_size or plen > len(toks) or plen <= 0:
+            raise ValueError(
+                f"shipped prefix covers {plen} tokens; expected a "
+                f"positive multiple of page_size {self.page_size} "
+                f"within the {len(toks)}-token prefix")
+        if len(rows) != self._n_stages:
+            raise ValueError(f"shipped prefix has {len(rows)} stages; "
+                             f"this pipeline has {self._n_stages}")
+        toks = toks[:plen]
+        if self.trie.peek(toks, max_tokens=plen) >= plen:
+            return 0        # already cached here: nothing to install
+        n = plen // self.page_size
+        pids = self.pool.alloc(n)
+        try:
+            table = np.asarray([pids], np.int64)
+            writes = [(0, j) for j in range(n)]
+            with telemetry.span("kv", "import"):
+                with self._arena_lock:
+                    for i in range(self._n_stages):
+                        view = self.pool.gather(i, table)
+                        if set(rows[i]) != set(view):
+                            raise ValueError(
+                                f"shipped prefix leaves "
+                                f"{sorted(rows[i])} do not match this "
+                                f"pipeline's cache leaves "
+                                f"{sorted(view)}")
+                        for name, arr in rows[i].items():
+                            view[name][:, :, :plen] = torch.as_tensor(
+                                arr).to(device=view[name].device,
+                                        dtype=view[name].dtype)
+                        self.pool.scatter(i, table, view, writes)
+            # insert adds the trie's retention refs for NEW nodes; pages
+            # duplicating an existing node stay ours alone and die with
+            # the release below
+            self.trie.insert(toks, pids)
+        except BaseException:
+            self.pool.release(pids)
+            raise
+        self.pool.release(pids)     # drop the alloc ref; trie refs live on
+        return n
 
     # -- completion / pressure -------------------------------------------
 

@@ -64,8 +64,10 @@ _MESH_ARGS = ("mesh", "sp_mesh", "ep_mesh", "tp_ep_mesh")
 
 def init_cache(cfg: TransformerConfig, n_blocks: int, batch: int,
                max_len: int, dtype=torch.float32, cache_bits: int = 0,
-               device: DeviceLike = "cpu") -> Cache:
-    """Zeroed stacked KV cache for `n_blocks` blocks on `device`.
+               *, device: DeviceLike) -> Cache:
+    """Zeroed stacked KV cache for `n_blocks` blocks on `device` (a
+    required keyword: a cache the caller did not place would land on the
+    host unnoticed).
 
     `cache_bits=8` stores K/V as int8 with per-(position, head) affine
     scales: cache reads dominate a decode step's memory traffic, so int8

@@ -23,6 +23,15 @@ microbatches streamed through the stages, results retired in FIFO order.
   8 bits leaves that payload's leading tensor encoded; the dense consumes
   the wire bytes in the int8 matmul (ops/int8_matmul.wire_dense).
 
+Spans, as in the JAX `HostPipeline` (recorded when `telemetry.configure`
+armed a recorder; the runtime's `--trace-spans`): `stage` around each
+stage's dispatch (host time: the device work is asynchronous), tagged
+with `stage=`, `mb=` and `rid=`; `results`/`retire` around each
+microbatch's retirement, where device time surfaces; `wire` around a
+payload's copy to a stage's device, which never happens on one card.
+Each stage dispatch is also a named `torch.profiler` region
+(`utils/tracing.py annotate`), so a `--trace` session shows it.
+
 On the CPU (`device="cpu"`, the tests) there are no streams: stages run
 in order on the host, with the plain versions of the kernels.
 """
@@ -35,10 +44,12 @@ from typing import Any, Callable, Dict, Iterator, List, Optional, Sequence, Tupl
 import torch
 
 from .. import DeviceLike, resolve_device
+from .. import telemetry
 from ..models.shard import params_to
 from ..ops import clamp as clamp_ops
 from ..ops import fused_quant
 from ..ops import quant as quant_ops
+from ..utils import tracing
 
 
 def _encode_payload(payload, bit: int, clamp: bool):
@@ -89,6 +100,11 @@ def _tensors(payload) -> Iterator[torch.Tensor]:
             yield t
 
 
+def _on_device(payload, device: torch.device) -> bool:
+    """Whether every tensor of a payload already lies on `device`."""
+    return all(t.device == device for t in _tensors(payload))
+
+
 def _to_device(payload, device: torch.device):
     """Copy a payload to `device` (no-op for tensors already there)."""
     def move(t):
@@ -129,7 +145,10 @@ class PipelineStage:
     def __call__(self, payload):
         """Run the stage on the current stream: decode, shard, encode."""
         decode = _tunnel_decode_payload if self.tunnel else _decode_payload
-        data = decode(_to_device(payload, self.device))
+        if not _on_device(payload, self.device):
+            with telemetry.span("wire", f"edge->{self.name or 'stage'}"):
+                payload = _to_device(payload, self.device)
+        data = decode(payload)
         return _encode_payload(self.shard_fn(self.params, data),
                                self.quant_bit, self.clamp)
 
@@ -152,41 +171,52 @@ class HostPipeline:
         # byte counts [stage0->1, stage1->2, ...]
         self.edge_bytes_callback = edge_bytes_callback
 
-    def enqueue(self, ubatch, edge_bytes: Optional[List[int]] = None):
+    def enqueue(self, ubatch, edge_bytes: Optional[List[int]] = None,
+                mb: Optional[int] = None,
+                trace: Optional[telemetry.TraceContext] = None):
         """Dispatch one microbatch through all stages without waiting.
 
         Returns (final payload, event): the event (None on the CPU) is
         recorded after the last stage's work and fences the result. When
         `edge_bytes` is a list, it receives each inter-stage edge's wire
-        byte count."""
+        byte count. `mb` tags the stage spans with the microbatch id,
+        `trace` with the request id it serves."""
         data = ubatch
         ready = None
         first = self.stages[0]
         if first.stream is not None:
             ready = torch.cuda.current_stream(first.device).record_event()
         last = len(self.stages) - 1
+        rid = trace.rid if trace is not None else None
         for i, stage in enumerate(self.stages):
-            if stage.stream is None:
-                data = stage(data)
-                if i == last:
-                    data = _undequantized_guard(data)
-            else:
-                with torch.cuda.stream(stage.stream):
-                    if ready is not None:
-                        stage.stream.wait_event(ready)
-                    for t in _tensors(data):
-                        if t.device == stage.device:
-                            t.record_stream(stage.stream)
+            name = stage.name or f"stage{i}"
+            with tracing.annotate(name), \
+                    telemetry.span("stage", name, stage=i, mb=mb, rid=rid):
+                if stage.stream is None:
                     data = stage(data)
                     if i == last:
                         data = _undequantized_guard(data)
-                    ready = stage.stream.record_event()
+                else:
+                    with torch.cuda.stream(stage.stream):
+                        if ready is not None:
+                            stage.stream.wait_event(ready)
+                        for t in _tensors(data):
+                            if t.device == stage.device:
+                                t.record_stream(stage.stream)
+                        data = stage(data)
+                        if i == last:
+                            data = _undequantized_guard(data)
+                        ready = stage.stream.record_event()
             if edge_bytes is not None and i < last:
                 edge_bytes.append(payload_wire_bytes(data))
         return data, ready
 
-    def run(self, ubatches: Sequence[Any]) -> Tuple[List[Any], Dict[str, float]]:
-        """Stream all microbatches; returns (results, stats).
+    def run(self, ubatches: Sequence[Any],
+            traces: Optional[Sequence[telemetry.TraceContext]] = None
+            ) -> Tuple[List[Any], Dict[str, float]]:
+        """Stream all microbatches; returns (results, stats). `traces`
+        (optional, one per microbatch) tags each microbatch's spans with
+        the request id it serves.
 
         latency = t(last result) - t(first enqueue); throughput = total
         items / latency. `steady_state_throughput_items_sec` excludes the
@@ -204,10 +234,12 @@ class HostPipeline:
         tik = time.monotonic()
         for i, ubatch in enumerate(ubatches):
             edge_bytes: Optional[List[int]] = [] if track_edges else None
+            trace = traces[i] if traces is not None and i < len(traces) \
+                else None
             t_d0 = time.monotonic()
-            out, ready = self.enqueue(ubatch, edge_bytes)
+            out, ready = self.enqueue(ubatch, edge_bytes, mb=i, trace=trace)
             dispatch_s.append(time.monotonic() - t_d0)
-            inflight.append((i, out, ready, edge_bytes, t_d0))
+            inflight.append((i, out, ready, edge_bytes, t_d0, trace))
             while inflight and _is_done(inflight[0][2]):
                 self._retire(inflight.pop(0), results, retired, mb_latency_s)
             while len(inflight) >= self.max_inflight:
@@ -241,14 +273,17 @@ class HostPipeline:
         return results, stats
 
     def _retire(self, item, results, retired: list, mb_latency_s: list):
-        i, out, ready, edge_bytes, t_enq = item
-        if ready is not None:
-            ready.synchronize()
-            # the result was made on the last stage's stream; the caller
-            # uses it on its own, which the allocator must know before it
-            # reuses the memory once the caller drops the result
-            for t in _tensors(out):
-                t.record_stream(torch.cuda.current_stream(t.device))
+        i, out, ready, edge_bytes, t_enq, trace = item
+        with telemetry.span("results", "retire", mb=i,
+                            rid=trace.rid if trace is not None else None):
+            if ready is not None:
+                ready.synchronize()
+                # the result was made on the last stage's stream; the
+                # caller uses it on its own, which the allocator must
+                # know before it reuses the memory once the caller drops
+                # the result
+                for t in _tensors(out):
+                    t.record_stream(torch.cuda.current_stream(t.device))
         now = time.monotonic()
         retired.append((_leading_dim(out), now))
         mb_latency_s.append(now - t_enq)

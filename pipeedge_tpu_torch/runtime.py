@@ -47,6 +47,19 @@ policy:
 Each policy runs once per window on the results of the microbatches
 retired so far and sets each edge's `quant_bit` for the microbatches
 dispatched after it.
+
+Tracing, as in `runtime.py`: `--trace DIR` records the run in one
+`torch.profiler` session (host and device activity) and writes it as
+`DIR/trace.json`; `--trace-spans OUT` records the host pipeline's spans
+(`stage` per stage dispatch, `results` per retired microbatch, `wire`
+per cross-device copy) and writes them as Chrome trace JSON to OUT
+(`telemetry/chrome_trace.py`).
+
+The flags of `runtime.py` that this entry does not run are refused at
+parse time, each naming the ROADMAP item that ports it (`REFUSED`): the
+DCN driver's (A6), the multi-device axes' (A7), the rank autoscaler's,
+`--platform` (the port's switch is `--device`) and the dataset flags
+(the real datasets need a download).
 """
 from __future__ import annotations
 
@@ -65,9 +78,12 @@ from .models import get_microbatch_size, registry
 from .monitoring import facade as monitoring
 from .ops import _build
 from .parallel import pipeline as host_pipeline
+from . import telemetry
 from .sched.scheduler import sched_pipeline
+from .telemetry import chrome_trace
 from .utils import data as data_utils
 from .utils import quant as quantutil
+from .utils import tracing
 
 logger = logging.getLogger(__name__)
 
@@ -85,6 +101,56 @@ MONITORING_KEY_OUTPUT = 'output'
 MONITORING_KEY_SEND = 'send'
 
 label_queue: "queue.Queue" = queue.Queue()
+
+# `runtime.py` flags this entry refuses, each with the ROADMAP item that
+# ports it (so no flag is silently ignored): flag -> (argparse keywords,
+# item)
+_DCN = "A6, the DCN driver's device seam"
+_REBALANCE = _DCN + " (the rebalancer between rounds)"
+_AXES = "A7, the multi-GPU axes"
+_AUTOSCALE = "A5.2c / A6, the rank autoscaler"
+_DATASET = ("A7 small pieces: the real datasets need a download, so the "
+            "port runs the synthetic inputs only")
+_INT, _FLOAT, _STR, _SWITCH = ({"type": int}, {"type": float}, {},
+                               {"action": "store_true"})
+REFUSED = {
+    "--stage-ckpt": (_STR, _DCN),
+    "-D": ({"type": int, "dest": "data_rank"}, _DCN),
+    "--dcn-addrs": (_STR, _DCN),
+    "-P": ({"type": int, "dest": "port"}, _DCN),
+    "--sched-timeout": (_FLOAT, _DCN),
+    "--rounds": (_INT, _DCN),
+    "--wire-crc": (_SWITCH, _DCN),
+    "--heartbeat-interval": (_FLOAT, _DCN),
+    "--heartbeat-miss": (_INT, _DCN),
+    "--on-peer-death": (_STR, _DCN),
+    "--on-peer-rejoin": (_STR, _DCN),
+    "--on-peer-degraded": (_STR, _DCN),
+    "--degraded-threshold": (_FLOAT, _DCN),
+    "--degraded-confirm": (_INT, _DCN),
+    "--degraded-readmit": (_INT, _DCN),
+    "--rebalance-threshold": (_FLOAT, _REBALANCE),
+    "--rebalance-cooldown": (_INT, _REBALANCE),
+    "--rebalance-confirm": (_INT, _REBALANCE),
+    "--spmd-dp": (_INT, _AXES),
+    "--spmd-tp": (_INT, _AXES),
+    "--spmd-sp": (_INT, _AXES),
+    "--spmd-sp-kind": (_STR, _AXES),
+    "--stage-tp": (_INT, _AXES),
+    "--tp-quant-bits": (_INT, _AXES),
+    "--stage-depth": (_INT, _AXES),
+    "--autoscale-ranks": (_STR, _AUTOSCALE),
+    "--autoscale-min": (_INT, _AUTOSCALE),
+    "--autoscale-max": (_INT, _AUTOSCALE),
+    "--autoscale-confirm": (_INT, _AUTOSCALE),
+    "--autoscale-cooldown": (_FLOAT, _AUTOSCALE),
+    "--autoscale-rank-high": (_FLOAT, _AUTOSCALE),
+    "--autoscale-rank-low": (_FLOAT, _AUTOSCALE),
+    "--dataset-root": (_STR, _DATASET),
+    "--dataset-split": (_STR, _DATASET),
+    "--dataset-indices-tsv": (_STR, _DATASET),
+    "--dataset-shuffle": (_SWITCH, _DATASET),
+}
 
 
 def _pairs(text: str) -> List[Tuple[int, int]]:
@@ -157,7 +223,38 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     parser.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                         help="cuda runs the hand-written kernels; cpu their "
                              "plain versions")
+    parser.add_argument("-c", "--comm", default="host",
+                        choices=["host", "spmd", "dcn", "p2p", "rpc"],
+                        help="pipeline driver: host (p2p and rpc are its "
+                             "aliases); spmd and dcn are not ported yet")
+    parser.add_argument("--trace", type=str, default=None, metavar="DIR",
+                        help="record the run in one torch.profiler session "
+                             "and write it to DIR/trace.json")
+    parser.add_argument("--trace-spans", type=str, default=None,
+                        metavar="OUT",
+                        help="record the pipeline's spans (stage, results, "
+                             "wire) and write them as Chrome trace JSON to "
+                             "OUT")
+    parser.add_argument("--platform", default=argparse.SUPPRESS,
+                        help="the JAX package's backend switch; the port "
+                             "takes --device")
+    for flag, (kw, item) in REFUSED.items():
+        parser.add_argument(flag, default=argparse.SUPPRESS,
+                            help=f"not ported yet (ROADMAP {item})", **kw)
     args = parser.parse_args(argv)
+    for flag, (kw, item) in REFUSED.items():
+        if hasattr(args, kw.get("dest", flag.lstrip("-").replace("-", "_"))):
+            parser.error(f"{flag} is not ported to pipeedge_tpu_torch yet "
+                         f"(ROADMAP {item})")
+    if hasattr(args, "platform"):
+        parser.error("--platform is the JAX package's backend switch; "
+                     "the port runs on --device cuda (default) or --device "
+                     "cpu")
+    if args.comm in ("spmd", "dcn"):
+        parser.error(f"-c {args.comm} is not ported to pipeedge_tpu_torch "
+                     "yet (ROADMAP "
+                     + (_AXES if args.comm == "spmd" else _DCN)
+                     + "); the port runs the host driver")
     if args.rank != 0:
         parser.error("the host driver is a single controller: rank must be 0")
     if args.rank_order:
@@ -572,11 +669,19 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
                                "%(message)s")
     args = parse_args(argv)
     stage_layers, stage_quant = _schedule(args)
+    if args.trace_spans:
+        telemetry.configure(rank=0)
     init_monitoring(get_window_size())
     try:
-        run_pipeline_host(args, stage_layers, stage_quant)
+        with tracing.trace(args.trace):
+            run_pipeline_host(args, stage_layers, stage_quant)
     finally:
         monitoring.finish()
+    if args.trace_spans and telemetry.recorder() is not None:
+        spans = telemetry.recorder().snapshot()
+        chrome_trace.dump_trace(spans, args.trace_spans)
+        logger.info("trace-spans: %d span(s) -> %s", len(spans),
+                    args.trace_spans)
 
 
 if __name__ == "__main__":

@@ -24,6 +24,21 @@ def yaml_device_types_load(file) -> dict:
     return _yaml_load_map(file)
 
 
+def yaml_devices_load(file) -> dict:
+    """devices.yml: device type name -> list of hosts."""
+    return _yaml_load_map(file)
+
+
+def yaml_device_neighbors_load(file) -> dict:
+    """device_neighbors.yml: neighbor host -> yaml_device_neighbors_type."""
+    return _yaml_load_map(file)
+
+
+def yaml_device_neighbors_world_load(file) -> dict:
+    """device_neighbors_world.yml: host -> {neighbor host -> link props}."""
+    return _yaml_load_map(file)
+
+
 def yaml_save(yml, file) -> None:
     """Save with leaf lists in flow style (PipeEdge's emitted formats)."""
     miniyaml.dump(yml, file)

@@ -69,17 +69,42 @@ streamed token is copied to pinned host memory behind a CUDA event in
 the executor's thread (`_fence_tokens`); the handler thread waits on that
 event, so it never reads a tensor still being written.
 
+The routed fleet (`--role router|replica`): a model-free router process
+health-polls N decode replicas and routes `/generate` and `/prefix`
+across them (`serving/router.py`: prefix affinity, retry to another
+replica, hedging, mid-stream failover). With `--replicas N` it spawns
+and supervises N `--role replica` processes on free ports (a dead one
+respawns with the next epoch and is readmitted after clean polls); with
+`--replica-addrs HOST:PORT,...` it routes across replicas someone else
+runs. A replica is a single server plus `POST /drain` (stop admitting,
+finish in-flight work), `POST /kv/export` and `POST /kv/import` (a
+cached prefix's pages as base64 `kv/ship.py` frames, which the router's
+drain moves to a survivor; needs `--kv-pages`); the router's own `POST
+/drain {"replica": "r0"}` orchestrates that:
+
+    python -m pipeedge_tpu_torch.serve --role router --replicas 2 \\
+        -m gpt2 -pt 1,24,25,48 -t float32 --kv-bits 8 \\
+        --int8-decode-attend auto --max-len 1024 --port 8321
+    python -m pipeedge_tpu_torch.serve --role router \\
+        --replica-addrs 127.0.0.1:8400,127.0.0.1:8401 --port 8321
+
+The router prints `serving router (<n> replicas) on <host>:<port>` once
+every replica is up and it listens; SIGTERM stops it and its replicas.
+
 Not ported yet, and refused at parse time with the ROADMAP item that
-ports them: the router, replica roles and autoscale, and disaggregated
-prefill (`REFUSED`). Without `--kv-pages`, a `prefix_id` names a dense
-`precompute_prefix` handle (and, with a draft model, the draft's too).
+ports them: the fleet collector (`--fleet-*`), autoscale and
+disaggregated prefill (`REFUSED`). Without `--kv-pages`, a `prefix_id`
+names a dense `precompute_prefix` handle (and, with a draft model, the
+draft's too).
 """
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import queue as queue_mod
 import signal
+import subprocess
 import sys
 import threading
 import time
@@ -91,7 +116,7 @@ import torch
 
 from . import health as peer_health
 from . import telemetry
-from .kv import KvPagePool, PagedKvBackend
+from .kv import KvPagePool, PagedKvBackend, ship
 from .models import registry
 from .parallel import batcher as batcher_mod
 from .parallel.decode import build_decode_pipeline
@@ -115,21 +140,10 @@ RID_HEADER = "X-PipeEdge-Rid"
 # `tools/serve.py` flags this entry accepts and refuses, each with the
 # ROADMAP item that ports it (so no flag is silently ignored):
 # flag -> (argparse keywords, ROADMAP item)
-_ROUTER = "A5.2a, the router and ReplicaSupervisor"
 _FLEET = "A5.2b, FleetCollector"
 _AUTOSCALE = "A5.2c, serving/autoscale.py"
 _DISAGG = "A5.3b with A6, the prefill supervisors over the port's DCN"
 REFUSED = {
-    "--role": ({}, _ROUTER),
-    "--replicas": ({"type": int}, _ROUTER),
-    "--replica-addrs": ({}, _ROUTER),
-    "--no-replica-respawn": ({"action": "store_true"}, _ROUTER),
-    "--router-poll-interval": ({"type": float}, _ROUTER),
-    "--router-health-timeout": ({"type": float}, _ROUTER),
-    "--route-timeout": ({"type": float}, _ROUTER),
-    "--route-retries": ({"type": int}, _ROUTER),
-    "--hedge-ms": ({"type": float}, _ROUTER),
-    "--drain-timeout": ({"type": float}, _ROUTER),
     "--autoscale": ({}, _AUTOSCALE),
     "--autoscale-min": ({"type": int}, _AUTOSCALE),
     "--autoscale-max": ({"type": int}, _AUTOSCALE),
@@ -233,6 +247,7 @@ class _Service:
         self.pipe = pipe
         self.spec = spec
         self.executor = executor
+        self.draining = False     # POST /drain (a replica behind a router)
         # -- paged KV plane (kv/) ---------------------------------------
         # kv_pages > 0 swaps the executors' dense per-request cache slots
         # for page tables over one shared pool (+ the prefix trie);
@@ -611,6 +626,48 @@ class _Service:
         deg = self.degraded_info
         if deg is not None:
             raise ServiceDegraded(deg["dead_rank"], deg["retry_after"])
+        if self.draining:
+            # drains don't heal: the Retry-After sends the client to
+            # another replica (the router already stopped routing here;
+            # this is the race window's backstop)
+            raise RuntimeError("draining: this replica admits no new "
+                               "requests")
+
+    def begin_drain(self):
+        """POST /drain: stop admitting, let in-flight work finish. The
+        router owns the rest (migrate warm prefixes, detach, respawn);
+        this side refuses new admits and reports `active` in /healthz."""
+        self.draining = True
+        self.flight.note("drain_begin")
+
+    # -- replica-to-replica KV migration ---------------------------------
+
+    def kv_export(self, ids):
+        """POST /kv/export: this replica's cached KV pages of a prompt
+        prefix as a base64 ship blob. Returns (blob | None,
+        tokens_covered, pages)."""
+        if self.kv_backend is None:
+            raise ValueError("KV export needs --kv-pages (dense cache "
+                             "slots have no page plane to export)")
+        # imported here, as the JAX server does: importing the router
+        # registers its metric families, which a replica does not serve
+        from .serving.router import encode_ship_blob
+        out = self.kv_backend.export_prefix([int(t) for t in ids])
+        if out is None:
+            return None, 0, 0
+        frames, plen, pages = out
+        return encode_ship_blob(frames), plen, pages
+
+    def kv_import(self, ids, blob_b64):
+        """POST /kv/import: install a shipped prefix in this replica's
+        page pool and trie (an already-cached prefix installs 0 pages).
+        Returns pages installed."""
+        if self.kv_backend is None:
+            raise ValueError("KV import needs --kv-pages")
+        from .serving.router import decode_ship_blob
+        handle = ship.decode_kv_ship(decode_ship_blob(blob_b64),
+                                     self.pipe.dtype, device=self.pipe.device)
+        return self.kv_backend.install_prefix([int(t) for t in ids], handle)
 
     def _await_recovery(self) -> bool:
         """Block until the degraded window closes (True) or its retry
@@ -1231,9 +1288,7 @@ def make_handler(service, model_name):
                             "speculative": service.spec is not None,
                             "executor": service.executor,
                             "degraded": degraded,
-                            # no POST /drain until the router's slice
-                            # (ROADMAP A5.2a): a single server never drains
-                            "draining": False,
+                            "draining": service.draining,
                             "serving": service.serving_stats(),
                             "flight": service.flight_stats(),
                             "peer_health": peer_health.snapshot(),
@@ -1272,6 +1327,21 @@ def make_handler(service, model_name):
                 elif self.path == "/prefix":
                     pid, plen = service.add_prefix(req["ids"])
                     self._send(200, {"prefix_id": pid, "len": plen})
+                elif self.path == "/drain":
+                    # the router's graceful drain (replica side): stop
+                    # admitting, keep finishing; /healthz's stats.active
+                    # reports the remaining in-flight work
+                    service.begin_drain()
+                    self._send(200, {"draining": True,
+                                     "active": service.stats().get(
+                                         "active", 0)})
+                elif self.path == "/kv/export":
+                    blob, plen, pages = service.kv_export(req["ids"])
+                    self._send(200, {"blob": blob, "tokens_covered": plen,
+                                     "pages": pages})
+                elif self.path == "/kv/import":
+                    pages = service.kv_import(req["ids"], req["blob"])
+                    self._send(200, {"installed_pages": pages})
                 elif self.path == "/generate":
                     ids = req["ids"]
                     if ids and not isinstance(ids[0], list):
@@ -1517,6 +1587,45 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help="cuda runs the hand-written kernels; cpu their "
                         "plain versions")
+    # -- routed decode fleet -----------------------------------------------
+    p.add_argument("--role", default="single",
+                   choices=["single", "router", "replica"],
+                   help="single: one decode process serving directly; "
+                        "router: a model-free front end that health-checks "
+                        "and routes across N decode replicas (spawned and "
+                        "supervised, or external via --replica-addrs); "
+                        "replica: a decode process behind a router (the "
+                        "single surface plus drain/migration)")
+    p.add_argument("--replicas", default=2, type=int,
+                   help="decode replica processes the router spawns and "
+                        "supervises (ignored with --replica-addrs)")
+    p.add_argument("--replica-addrs", default=None,
+                   metavar="HOST:PORT,...",
+                   help="route across EXTERNAL replicas at these addresses "
+                        "instead of spawning any (no respawn supervision)")
+    p.add_argument("--no-replica-respawn", action="store_true",
+                   help="do not respawn dead decode replicas (default: "
+                        "respawn with crash-loop backoff + epoch bump and "
+                        "readmit after clean health polls)")
+    p.add_argument("--router-poll-interval", default=0.5, type=float,
+                   help="seconds between /healthz polls per replica")
+    p.add_argument("--router-health-timeout", default=2.0, type=float,
+                   help="health-poll timeout; a slow poll scores as "
+                        "degraded, a failed one as a miss")
+    p.add_argument("--route-timeout", default=120.0, type=float,
+                   help="per-attempt request timeout at the router")
+    p.add_argument("--route-retries", default=2, type=int,
+                   help="re-route attempts to a DIFFERENT replica after a "
+                        "connect failure or mid-stream death")
+    p.add_argument("--hedge-ms", default=0.0, type=float,
+                   help="tail hedging for non-streaming interactive "
+                        "requests: if the primary replica has not answered "
+                        "within this many ms, race a second replica and "
+                        "keep the first answer (0 = off)")
+    p.add_argument("--drain-timeout", default=60.0, type=float,
+                   help="seconds POST /drain waits for a replica's "
+                        "in-flight requests before migrating its prefix "
+                        "pages anyway")
     for flag, (kw, item) in REFUSED.items():
         p.add_argument(flag, default=argparse.SUPPRESS,
                        help=f"not ported yet (ROADMAP {item})", **kw)
@@ -1545,6 +1654,15 @@ def parse_args(argv: Optional[Sequence[str]] = None):
         p.error("--draft-model does not compose with --kv-bits (int8 "
                 "span verification is not bit-identical to serial "
                 "int8 steps)")
+    if args.role == "router":
+        if args.replica_addrs is None and args.replicas < 1:
+            p.error("--replicas must be >= 1 (or pass --replica-addrs)")
+        if args.hedge_ms < 0:
+            p.error("--hedge-ms must be >= 0")
+        if args.route_retries < 0:
+            p.error("--route-retries must be >= 0")
+    elif args.replica_addrs is not None:
+        p.error("--replica-addrs only applies with --role router")
     if args.partition:
         nums = [int(x) for x in args.partition.split(",")]
         if len(nums) % 2:
@@ -1620,8 +1738,423 @@ def make_service(args, pipe, draft=None) -> _Service:
                     slo_burn_threshold=args.slo_burn_threshold)
 
 
+class ReplicaSupervisor:
+    """The decode replicas behind `--role router`: each rank is a full
+    `python -m pipeedge_tpu_torch.serve --role replica` process on its
+    own port, supervised: a dead replica respawns with the next epoch
+    (env `DCN_EPOCH`) after a crash-loop backoff, and the router's health
+    polls readmit it once it proves itself. `restart(rank)` is the drain
+    endgame. Port of the JAX server's replica supervisor, without the
+    autoscaler's `add_rank`/`retire_rank` (ROADMAP A5.2c)."""
+
+    RESPAWN_DELAY_S = 0.5
+    RESPAWN_BACKOFF_MAX_S = 30.0
+    FAST_DEATH_S = 5.0     # an incarnation dying this fast escalates
+
+    def __init__(self, base_cmd, host, ports, respawn=True):
+        self._base_cmd = list(base_cmd)
+        self._host = host
+        self._ports = list(ports)
+        self.ranks = tuple(range(len(self._ports)))
+        self.respawn = bool(respawn)
+        self._procs = {}                  # rank -> Popen
+        self._epoch = {r: 0 for r in self.ranks}
+        self._ready = {r: threading.Event() for r in self.ranks}
+        # crash-loop protection: a replica that dies FAST (startup
+        # failure) doubles its respawn delay up to the cap; an
+        # incarnation that lived a while resets the backoff
+        self._backoff = {r: self.RESPAWN_DELAY_S for r in self.ranks}
+        self._spawned_at = {r: 0.0 for r in self.ranks}
+        self._respawn_after = {r: 0.0 for r in self.ranks}
+        self._stop = threading.Event()
+        self._lock = make_lock("serve.replica_sup")
+        self._watchers = []
+        for r in self.ranks:
+            self._spawn(r)
+        self._supervisor = threading.Thread(target=self._watch_loop,
+                                            daemon=True,
+                                            name="replica-supervisor")
+        self._supervisor.start()
+
+    # -- the replica's argv/env/ready-line contract ----------------------
+
+    def _argv(self, rank):
+        return [sys.executable, "-m", "pipeedge_tpu_torch.serve"] \
+            + self._base_cmd + ["--host", self._host,
+                                "--port", str(self._ports[rank])]
+
+    def _env(self, rank):
+        env = dict(os.environ)
+        env["DCN_EPOCH"] = str(self._epoch[rank])
+        # the package's own checkout first, wherever the router runs from
+        root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+        env["PYTHONPATH"] = os.pathsep.join(
+            [root] + [p for p in env.get("PYTHONPATH", "").split(os.pathsep)
+                      if p])
+        return env
+
+    def _is_ready(self, rank, line):
+        # the replica's own "serving ... on HOST:PORT" line
+        return (line.startswith("serving ")
+                and f" on {self._host}:{self._ports[rank]}" in line)
+
+    def url_of(self, rank):
+        return f"http://{self._host}:{self._ports[rank]}"
+
+    # -- lifecycle -------------------------------------------------------
+
+    def _spawn(self, rank):
+        proc = subprocess.Popen(
+            self._argv(rank), env=self._env(rank), text=True,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+        with self._lock:
+            # stop() may have swept _procs while this Popen was in
+            # flight: a spawn the shutdown can no longer see is ended
+            # here, not leaked
+            if self._stop.is_set():
+                proc.terminate()
+                return
+            self._procs[rank] = proc
+            self._spawned_at[rank] = time.monotonic()
+        t = threading.Thread(target=self._pump, args=(rank, proc),
+                             daemon=True, name=f"replica-out-r{rank}")
+        t.start()
+        self._watchers = [w for w in self._watchers if w.is_alive()]
+        self._watchers.append(t)
+        print(f"decode replica rank {rank} spawned "
+              f"(pid={proc.pid}, epoch={self._epoch[rank]})", flush=True)
+
+    def _pump(self, rank, proc):
+        # tee the replica's output through this process's stdout, prefixed
+        for line in proc.stdout:
+            print(f"[replica r{rank}] {line}", end="", flush=True)
+            if self._is_ready(rank, line):
+                self._ready[rank].set()
+
+    def _watch_loop(self):
+        dead_pending = set()       # deaths observed, respawn not yet due
+        while not self._stop.wait(self.RESPAWN_DELAY_S):
+            now = time.monotonic()
+            for rank in self.ranks:
+                with self._lock:
+                    proc = self._procs.get(rank)
+                if proc is None or proc.poll() is None:
+                    continue
+                if rank not in dead_pending:
+                    # observe the death ONCE: escalate the backoff only
+                    # for fast deaths (crash loop), reset otherwise
+                    lived = now - self._spawned_at[rank]
+                    if lived < self.FAST_DEATH_S:
+                        self._backoff[rank] = min(
+                            self.RESPAWN_BACKOFF_MAX_S,
+                            self._backoff[rank] * 2)
+                    else:
+                        self._backoff[rank] = self.RESPAWN_DELAY_S
+                    self._respawn_after[rank] = now + self._backoff[rank]
+                    dead_pending.add(rank)
+                    print(f"decode replica rank {rank} died "
+                          f"(rc={proc.returncode}; respawn backoff "
+                          f"{self._backoff[rank]:g}s)", flush=True)
+                    if not self.respawn:
+                        with self._lock:
+                            self._procs.pop(rank, None)
+                        continue
+                if not self.respawn or self._stop.is_set() \
+                        or now < self._respawn_after[rank]:
+                    continue
+                dead_pending.discard(rank)
+                self._ready[rank].clear()
+                self._epoch[rank] += 1
+                self._spawn(rank)
+
+    def wait_ready(self, timeout=180.0):
+        deadline = time.monotonic() + timeout
+        for rank in self.ranks:
+            if not self._ready[rank].wait(
+                    max(0.0, deadline - time.monotonic())):
+                raise RuntimeError(
+                    f"decode replica rank {rank} never became ready "
+                    f"within {timeout}s")
+
+    def restart(self, rank):
+        """Planned restart (the router's drain endgame): terminate the
+        incarnation; the watch loop respawns it with the next epoch, the
+        path an unplanned death takes."""
+        with self._lock:
+            proc = self._procs.get(rank)
+        if proc is not None and proc.poll() is None:
+            proc.terminate()
+
+    def pid_of(self, rank):
+        with self._lock:
+            proc = self._procs.get(rank)
+        return None if proc is None else proc.pid
+
+    def snapshot(self):
+        with self._lock:
+            return {str(r): {"pid": p.pid, "epoch": self._epoch[r],
+                             "alive": p.poll() is None}
+                    for r, p in self._procs.items()}
+
+    def stop(self):
+        self._stop.set()
+        self._supervisor.join(timeout=5)
+        with self._lock:
+            procs = list(self._procs.values())
+        for proc in procs:
+            if proc.poll() is None:
+                proc.terminate()
+        for proc in procs:
+            try:
+                proc.wait(timeout=10)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait(timeout=5)
+
+
+def _exit_once(*_):
+    """SIGTERM handler: unwind through the caller's finally (exit 0); a
+    second SIGTERM during that shutdown is ignored."""
+    signal.signal(signal.SIGTERM, signal.SIG_IGN)
+    sys.exit(0)
+
+
+def _free_ports(n, host="127.0.0.1"):
+    import socket as socket_mod
+    socks = [socket_mod.create_server((host, 0)) for _ in range(n)]
+    ports = [s.getsockname()[1] for s in socks]
+    for s in socks:
+        s.close()
+    return ports
+
+
+def make_router_handler(router, model_name):
+    """HTTP surface of `--role router`: the endpoint shapes one replica
+    serves (clients need no change), backed by the `DecodeRouter`."""
+
+    class Handler(BaseHTTPRequestHandler):
+        protocol_version = "HTTP/1.1"      # chunked transfer needs 1.1
+
+        def log_message(self, *a):      # quiet server
+            pass
+
+        def _send(self, code, obj, headers=()):
+            body = json.dumps(obj).encode()
+            self.send_response(code)
+            self.send_header("Content-Type", "application/json")
+            self.send_header("Content-Length", str(len(body)))
+            for name, value in headers:
+                self.send_header(name, value)
+            self.end_headers()
+            self.wfile.write(body)
+
+        def _chunk(self, obj):
+            data = json.dumps(obj).encode() + b"\n"
+            self.wfile.write(f"{len(data):x}\r\n".encode() + data + b"\r\n")
+            self.wfile.flush()
+
+        def do_GET(self):
+            if self.path == "/metrics":
+                body = prom.REGISTRY.render().encode()
+                self.send_response(200)
+                self.send_header("Content-Type",
+                                 "text/plain; version=0.0.4")
+                self.send_header("Content-Length", str(len(body)))
+                self.end_headers()
+                self.wfile.write(body)
+            elif self.path == "/fleet":
+                self._send(503, {"error": "the fleet collector is not "
+                                          "ported to pipeedge_tpu_torch "
+                                          f"yet (ROADMAP {_FLEET})"})
+            elif self.path.split("?", 1)[0] == "/debug/spans":
+                drain = "drain=0" not in self.path
+                self._send(200,
+                           fleet_obs.debug_spans_payload(drain=drain))
+            elif self.path == "/healthz":
+                code, body = router.healthz()
+                body["model"] = model_name
+                headers = ((("Retry-After", "1"),) if code == 503
+                           else ())
+                self._send(code, body, headers=headers)
+            else:
+                self._send(404, {"error": f"unknown path {self.path}"})
+
+        def do_POST(self):
+            try:
+                n = int(self.headers.get("Content-Length", 0))
+                req = json.loads(self.rfile.read(n) or b"{}")
+                if self.path == "/generate":
+                    if req.get("stream"):
+                        self._stream(req)
+                        return
+                    status, body, headers = router.dispatch(req)
+                    self._send(status, body, headers=headers)
+                elif self.path == "/prefix":
+                    pid, plen = router.register_prefix(req["ids"])
+                    self._send(200, {"prefix_id": pid, "len": plen})
+                elif self.path == "/drain":
+                    out = router.drain_replica(
+                        req["replica"],
+                        migrate=bool(req.get("migrate", True)))
+                    self._send(200 if out.get("drained") else 409, out)
+                else:
+                    self._send(404, {"error": f"unknown path {self.path}"})
+            except (KeyError, ValueError, TypeError, IndexError) as exc:
+                self._send(400, {"error": str(exc)})
+            except RuntimeError as exc:
+                self._send(503, {"error": str(exc)},
+                           headers=(("Retry-After", "1"),))
+
+        def _stream(self, req):
+            """Relay a streaming generation: the router's generator owns
+            failover; this method only moves lines to the socket."""
+            streaming = False
+            it = router.stream(req)
+            for item in it:
+                if item[0] == "status":
+                    _, code, headers = item
+                    if code == 200:
+                        self.send_response(200)
+                        self.send_header("Content-Type",
+                                         "application/x-ndjson")
+                        self.send_header("Transfer-Encoding", "chunked")
+                        for name, value in headers:
+                            self.send_header(name, value)
+                        self.end_headers()
+                        streaming = True
+                    else:
+                        nxt = next(it, None)
+                        body = (nxt[1] if nxt is not None
+                                and nxt[0] == "line" else {})
+                        self._send(code, body, headers=headers)
+                        return
+                else:
+                    try:
+                        self._chunk(item[1])
+                    except OSError:
+                        # the client went away: closing the generator
+                        # tears down the upstream replica connection too
+                        it.close()
+                        return
+            if streaming:
+                try:
+                    self.wfile.write(b"0\r\n\r\n")
+                    self.wfile.flush()
+                except OSError:
+                    pass
+
+    return Handler
+
+
+def replica_command(args) -> list:
+    """The `--role replica` flags of a spawned replica: the router's own
+    serving flags, passed through."""
+    cmd = ["--role", "replica", "-m", args.model_name,
+           "--max-len", str(args.max_len), "-t", args.dtype,
+           "--kv-bits", str(args.kv_bits),
+           "--attend-floor", str(args.attend_floor),
+           "--executor", args.executor,
+           "--max-prefixes", str(args.max_prefixes),
+           "--queue-capacity", str(args.queue_capacity),
+           "--kv-pages", str(args.kv_pages),
+           "--kv-page-size", str(args.kv_page_size),
+           "--chunked-prefill", str(args.chunked_prefill),
+           "--governor-interval", str(args.governor_interval),
+           "--brownout-queue-high", str(args.brownout_queue_high),
+           "--brownout-queue-low", str(args.brownout_queue_low),
+           "--brownout-p95-high", str(args.brownout_p95_high),
+           "--brownout-p95-low", str(args.brownout_p95_low),
+           "--brownout-dwell-up", str(args.brownout_dwell_up),
+           "--brownout-dwell-down", str(args.brownout_dwell_down),
+           "--brownout-clamp-tokens", str(args.brownout_clamp_tokens),
+           "--brownout-clamp-chunk", str(args.brownout_clamp_chunk),
+           "--slo-objective", str(args.slo_objective),
+           "--slo-burn-fast", str(args.slo_burn_fast),
+           "--slo-burn-slow", str(args.slo_burn_slow),
+           "--slo-burn-threshold", str(args.slo_burn_threshold),
+           "--device", args.device]
+    partition = (",".join(f"{l},{r}" for l, r in args.partition)
+                 if args.partition else None)
+    optional = (("-pt", partition), ("-M", args.model_file),
+                ("--max-active", args.max_active),
+                ("--prefill-budget", args.prefill_budget),
+                ("--int8-decode-attend", args.int8_decode_attend),
+                ("--postmortem-dir", args.postmortem_dir),
+                ("--inject-stall", args.inject_stall))
+    for flag, value in optional:
+        if value is not None:
+            cmd += [flag, str(value)]
+    for flag, on in (("--step-join", args.step_join),
+                     ("--no-admission", args.no_admission),
+                     ("--no-brownout", args.no_brownout)):
+        if on:
+            cmd.append(flag)
+    if args.draft_model:
+        cmd += ["--draft-model", args.draft_model, "--gamma", str(args.gamma)]
+    for flag, rates in (("--class-rate", args.class_rate),
+                        ("--class-deadline", args.class_deadline)):
+        for cls, value in (rates or {}).items():
+            cmd += [flag, f"{cls}={value}"]
+    return cmd
+
+
+def _run_router(args) -> None:
+    """`--role router`: spawn or adopt the replica fleet, start the health
+    poller, serve the routed HTTP surface until SIGTERM. Model-free: the
+    router loads no weights and never touches a card."""
+    from .serving.router import DecodeRouter, RouterPolicy
+    policy = RouterPolicy(
+        poll_interval_s=args.router_poll_interval,
+        health_timeout_s=args.router_health_timeout,
+        request_timeout_s=args.route_timeout,
+        route_retries=args.route_retries,
+        hedge_ms=args.hedge_ms,
+        drain_timeout_s=args.drain_timeout)
+    supervisor = None
+    if args.replica_addrs:
+        replicas = {}
+        for i, addr in enumerate(args.replica_addrs.split(",")):
+            addr = addr.strip()
+            replicas[f"r{i}"] = (addr if addr.startswith("http")
+                                 else f"http://{addr}")
+    else:
+        ports = _free_ports(args.replicas, args.host)
+        supervisor = ReplicaSupervisor(
+            replica_command(args), args.host, ports,
+            respawn=not args.no_replica_respawn)
+        replicas = {f"r{i}": supervisor.url_of(i) for i in range(len(ports))}
+    server = None
+    router = DecodeRouter(replicas, policy=policy, supervisor=supervisor)
+    # the router's own span ring, for /debug/spans
+    telemetry.configure(rank=0)
+    # SIGTERM unwinds through the finally below: replicas stop too
+    signal.signal(signal.SIGTERM, _exit_once)
+    try:
+        if supervisor is not None:
+            for i, name in enumerate(replicas):
+                router.bind_rank(name, i)
+            supervisor.wait_ready(timeout=600.0)
+        router.start()
+        server = Server((args.host, args.port),
+                        make_router_handler(router, args.model_name))
+        # the bound port (`--port 0` takes a free one)
+        print(f"serving router ({len(replicas)} replicas) on "
+              f"{args.host}:{server.server_address[1]}", flush=True)
+        server.serve_forever()
+    finally:
+        if server is not None:
+            server.server_close()
+        router.stop()
+        if supervisor is not None:
+            supervisor.stop()
+
+
 def main(argv: Optional[Sequence[str]] = None) -> None:
     args = parse_args(argv)
+    if args.role == "router":
+        # a model-free proxy: no weights, no card
+        _run_router(args)
+        return
     pipe = build_pipeline(args)
     # spans are always on in serving processes: GET /debug/spans drains
     # the ring without pre-arming; --trace-spans controls only the
@@ -1632,7 +2165,7 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
                     make_handler(service, args.model_name))
     # SIGTERM unwinds through the finally below: the executors stop, the
     # trace is written and the process exits 0
-    signal.signal(signal.SIGTERM, lambda *a: sys.exit(0))
+    signal.signal(signal.SIGTERM, _exit_once)
     print(f"serving {args.model_name} ({len(pipe.stages)} stages, "
           f"{args.executor} executor) on {args.host}:{args.port}",
           flush=True)

@@ -15,8 +15,8 @@ the single-replica server needs:
   (`BrownoutLadder`).
 
 Deadline propagation itself lives in the executors
-(`parallel/batcher.py`). The router and autoscale exports of the JAX
-package wait for their slices (ROADMAP A5.2a, A5.2c).
+(`parallel/batcher.py`). The replica router is `serving/router.py`
+(imported as such); the autoscaler waits for ROADMAP A5.2c.
 """
 from .admission import (AdmissionController, AdmissionShed, ClassPolicy,
                         DeadlineExceeded, EDFQueue, REQUEST_CLASSES,

@@ -171,7 +171,7 @@ def test_prefill_ubatch_equals_whole(weights, ids):
 
 
 def test_cache_reorders_copy():
-    cache = tdec.init_cache(CFG, 2, 2, 8, cache_bits=8)
+    cache = tdec.init_cache(CFG, 2, 2, 8, cache_bits=8, device="cpu")
     rows = torch.tensor([0, 0, 1])
     for out in (tdec._repeat_batch(cache, 1), tdec._repeat_batch(cache, 3),
                 tdec._gather_batch(cache, rows)):
@@ -181,6 +181,17 @@ def test_cache_reorders_copy():
                 cache[name].untyped_storage().data_ptr()
     assert tdec._gather_batch(cache, rows)["k"].shape[1] == 3
     assert tdec._repeat_batch(cache, 3)["k_scale"].shape == (2, 6, 8, 4)
+
+
+def test_init_cache_needs_a_device():
+    """`device` is a required keyword: a cache nobody placed never lands
+    on the host unnoticed."""
+    with pytest.raises(TypeError, match="device"):
+        tdec.init_cache(CFG, 2, 1, 8)
+    with pytest.raises(TypeError):
+        tdec.init_cache(CFG, 2, 1, 8, torch.float32, 0, "cpu")
+    cache = tdec.init_cache(CFG, 2, 1, 8, device="cpu")
+    assert cache["k"].device.type == "cpu"
 
 
 def test_sampling_deterministic_per_seed(weights, ids):
@@ -235,7 +246,7 @@ def test_validation_errors(weights):
     with pytest.raises(ValueError, match="attend_floor"):
         make(attend_floor=0)
     with pytest.raises(ValueError, match="cache_bits"):
-        tdec.init_cache(CFG, 2, 1, 8, cache_bits=4)
+        tdec.init_cache(CFG, 2, 1, 8, cache_bits=4, device="cpu")
     for mesh_arg in ("mesh", "sp_mesh", "ep_mesh", "tp_ep_mesh"):
         with pytest.raises(ValueError, match="ROADMAP A7"):
             make(**{mesh_arg: object()})

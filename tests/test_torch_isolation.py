@@ -96,7 +96,16 @@ DECODER_MODULES = [
     "parallel/decode.py"]
 
 
-@pytest.mark.parametrize("rel", SERVING_MODULES + DECODER_MODULES)
+# PipeEdge's own loop on one card (the reverse auction, span tracing) and
+# the replica router with its wire-v2 frames and KV ship bundles
+LOOP_AND_ROUTER_MODULES = [
+    "sched/revauct.py", "sched/yaml_files.py", "revauct.py",
+    "utils/tracing.py", "parallel/pipeline.py", "runtime.py",
+    "comm/__init__.py", "comm/wire.py", "kv/ship.py", "serving/router.py"]
+
+
+@pytest.mark.parametrize("rel", SERVING_MODULES + DECODER_MODULES
+                         + LOOP_AND_ROUTER_MODULES)
 def test_serving_modules_import_no_jax_anywhere(rel):
     """Each serving-slice module is scanned, and none imports `jax` or
     `pipeedge_tpu` (nor a root module that does), at module level or

@@ -611,12 +611,19 @@ def test_paged_sizing_matches_jax(pipes):
     assert tkv.shared_prompt_tokens([1, 2, 3]) == 0
 
 
-def test_ship_dependent_methods_name_their_items(pipe):
-    kv = _backend(pipe)
-    with pytest.raises(ValueError, match="ROADMAP A5.2a"):
-        kv.export_prefix([1, 2, 3, 4])
-    with pytest.raises(ValueError, match="ROADMAP A5.2a"):
-        kv.install_prefix([1, 2, 3, 4], {})
+def test_ship_dependent_methods_name_their_items(pipes):
+    """The router's prefix migration is ported (kv/ship.py frames; held in
+    tests/test_torch_wire.py): with nothing cached both backends export
+    None and refuse a malformed handle alike. The shipped-KV install of
+    disaggregated prefill still names its item."""
+    kv = _backend(pipes["fp"]["torch"])
+    jkv = _jbackend(pipes["fp"]["jax"])
+    assert kv.export_prefix([1, 2, 3, 4]) is None
+    assert jkv.export_prefix([1, 2, 3, 4]) is None
+    bad = {"prompt_len": 3, "stage_rows": []}
+    for backend in (kv, jkv):
+        with pytest.raises(ValueError, match="multiple of page_size"):
+            backend.install_prefix([1, 2, 3, 4], bad)
     with pytest.raises(ValueError, match="ROADMAP A5.3b"):
         kv._install_shipped(object(), {})
 

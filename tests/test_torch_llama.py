@@ -503,7 +503,7 @@ def test_caches_are_sized_at_kv_heads(pipes):
     """Dense caches and the paged arenas hold kv_heads (2), not the 4
     query heads."""
     cfg = treg.get_model_config(LLAMA)
-    cache = tdec.init_cache(cfg, 2, 3, 16, cache_bits=8)
+    cache = tdec.init_cache(cfg, 2, 3, 16, cache_bits=8, device="cpu")
     assert cache["k"].shape == (2, 3, 16, 2, 8)
     assert cache["k_scale"].shape == (2, 3, 16, 2)
     pipe = pipes("torch", LLAMA, 2, "int8")

@@ -325,11 +325,25 @@ def _families(text):
 
 
 @pytest.mark.fleet
-def test_metrics_families_match_jax(servers, jax_server):
-    for port in (servers[("wave", "fp")].port, jax_server):
-        _post(port, "/generate", {"ids": [[1, 2, 3]], "new_tokens": 2})
-    got = _families(_get(servers[("wave", "fp")].port, "/metrics"))
-    want = _families(_get(jax_server, "/metrics"))
+def test_metrics_families_match_jax(jax_server, tmp_path):
+    """The port's server entry (wave executor, fp cache: the JAX
+    server's flags) in its own process, as the JAX server is: the
+    registry of an in-process server also holds the families of
+    whatever else this test process imported (the router's, once a
+    routed-fleet test ran here)."""
+    port = _free_port()
+    proc, _ = _spawn([sys.executable, "-m", "pipeedge_tpu_torch.serve",
+                      *BASE, "--device", "cpu", "--port", str(port),
+                      "--postmortem-dir", str(tmp_path)],
+                     dict(os.environ, PYTHONPATH=REPO))
+    try:
+        for p in (port, jax_server):
+            _post(p, "/generate", {"ids": [[1, 2, 3]], "new_tokens": 2})
+        got = _families(_get(port, "/metrics"))
+        want = _families(_get(jax_server, "/metrics"))
+    finally:
+        proc.terminate()
+        proc.wait(timeout=30)
     # every family the port serves is the JAX server's, with its labels
     for name, labels in got.items():
         assert want.get(name) == labels, name
