@@ -41,7 +41,7 @@ blocks, as decoding needs:
 
 The JAX entry's flags for other device layouts are refused at parse time
 with the ROADMAP item that ports them (`REFUSED`): `--edge-bits`,
-`--dcn-addrs` and `--rank` (the DCN fleet, A6), `--tp`, `--sp`, `--ep`
+`--dcn-addrs` and `--rank` (the DCN fleet, A6b), `--tp`, `--sp`, `--ep`
 and `--spmd-wave` (the multi-GPU axes, A7).
 """
 from __future__ import annotations
@@ -63,7 +63,7 @@ from .sched.scheduler import sched_pipeline
 
 # `tools/generate.py` flags this entry refuses, each with the ROADMAP
 # item that ports it: flag -> (argparse keywords, item)
-_DCN = "A6, the DCN driver's device seam"
+_DCN = "A6b, generate over the DCN transport"
 _AXES = "A7, the multi-GPU axes"
 REFUSED = {
     "--edge-bits": ({"type": int}, _DCN),

@@ -55,7 +55,7 @@ from .pool import KvPagePool, pages_for
 from .prefix import PrefixTrie
 
 # the ROADMAP item that ports the shipped-KV install
-_DISAGG = "ROADMAP A5.3b with A6, the prefill supervisors"
+_DISAGG = "ROADMAP A5.3b, the prefill supervisors"
 
 
 def _ship_refusal(what: str, item: str) -> ValueError:

@@ -16,7 +16,7 @@ package's, so a bundle either package encodes decodes in the other.
 
 Logits always ship exact: quantizing the pick's input would change
 tokens. The socket half (`ship_over_socket`) and the disaggregated
-prefill that ships whole requests wait for ROADMAP A5.3b with A6.
+prefill that ships whole requests wait for ROADMAP A5.3b.
 """
 from __future__ import annotations
 

@@ -18,7 +18,7 @@ Bids fan out through a thread pool, the shape of PipeEdge's RPC
 fan-out without network bring-up; hosts in the YAML play the role of
 ranks. The distributed auction (`--comm dcn`, one process per rank over
 the DCN command plane) is refused: it waits for the port's DCN driver
-(ROADMAP A6). No PyYAML: the port's `sched/miniyaml.py` reads and writes
+(ROADMAP A6b). No PyYAML: the port's `sched/miniyaml.py` reads and writes
 the files.
 """
 from __future__ import annotations
@@ -193,7 +193,7 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     parser.add_argument("-c", "--comm", default="local",
                         choices=["local", "dcn"],
                         help="bid fan-out: a local thread pool; dcn is "
-                             "not ported yet (ROADMAP A6)")
+                             "not ported yet (ROADMAP A6b)")
     devcfg = parser.add_argument_group('Device configuration')
     devcfg.add_argument("-sm", "--sched-models-file", default='models.yml')
     devcfg.add_argument("-sdt", "--sched-dev-types-file",
@@ -225,7 +225,7 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     args = parser.parse_args(argv)
     if args.comm == "dcn":
         parser.error("--comm dcn is not ported to pipeedge_tpu_torch yet "
-                     "(ROADMAP A6, the DCN driver's device seam); "
+                     "(ROADMAP A6b, the auction over the DCN transport); "
                      "--comm local runs the same auction in one process")
     return args
 

@@ -142,7 +142,7 @@ RID_HEADER = "X-PipeEdge-Rid"
 # flag -> (argparse keywords, ROADMAP item)
 _FLEET = "A5.2b, FleetCollector"
 _AUTOSCALE = "A5.2c, serving/autoscale.py"
-_DISAGG = "A5.3b with A6, the prefill supervisors over the port's DCN"
+_DISAGG = "A5.3b, the prefill supervisors over the port's DCN"
 REFUSED = {
     "--autoscale": ({}, _AUTOSCALE),
     "--autoscale-min": ({"type": int}, _AUTOSCALE),

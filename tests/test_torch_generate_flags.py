@@ -110,10 +110,33 @@ def test_runtime_refuses_naming_the_item(flag):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--platform", "cpu"], "--device"), (["-c", "dcn"], "A6"),
+    (["--platform", "cpu"], "--device"),
+    (["-c", "dcn", "--on-peer-death", "failover"], "A6"),
     (["-c", "spmd"], "A7")])
 def test_runtime_refuses_the_other_drivers(argv, item):
     assert item in _error(lambda: runtime.parse_args(["0", "2"] + argv))
+
+
+# each flag of the DCN driver that the port runs, with a value
+DCN_FLAGS = {"-c": ["dcn"], "-D": ["1"],
+             "--dcn-addrs": ["127.0.0.1:1,127.0.0.1:2"], "-P": ["29700"],
+             "--sched-timeout": ["5"], "--rounds": ["2"], "--wire-crc": [],
+             "--heartbeat-interval": ["0.5"], "--heartbeat-miss": ["3"],
+             "--stage-ckpt": ["ckpt"], "--stage-depth": ["1"],
+             "--on-peer-death": ["abort"]}
+
+
+@pytest.mark.parametrize("flag", sorted(DCN_FLAGS))
+def test_runtime_parses_the_dcn_flags(flag):
+    """Each DCN flag this slice ported parses (with -c dcn) and is off the
+    refused table; the fault-recovery flags that stay refused name A6b."""
+    assert flag not in runtime.REFUSED
+    args = runtime.parse_args(["1", "2", "-c", "dcn", flag]
+                              + DCN_FLAGS[flag])
+    assert args.comm == "dcn" and args.rank == 1
+    for stays in ("--on-peer-rejoin", "--on-peer-degraded",
+                  "--rebalance-threshold", "--autoscale-ranks"):
+        assert runtime.REFUSED[stays][1].startswith("A6b")
 
 
 def test_runtime_takes_the_host_driver_aliases():

@@ -8,7 +8,9 @@
 - Every module of the port imports in a process where `jax`,
   `pipeedge_tpu` and those root modules cannot be imported; nothing of
   the port imports `yaml` (the card's host has no PyYAML), and its
-  scheduling modules, profiler and runtime import without it.
+  scheduling modules, profiler and runtime import without it; nothing of
+  the port imports `ml_dtypes` (a JAX dependency the card's host lacks),
+  and the DCN transport frames without it.
 - Entry points default to `cuda` and raise on a host without a GPU.
 """
 import ast
@@ -104,8 +106,13 @@ LOOP_AND_ROUTER_MODULES = [
     "comm/__init__.py", "comm/wire.py", "kv/ship.py", "serving/router.py"]
 
 
+# PipeEdge's own transport: the DCN context and stage, the host codec,
+# the per-stage checkpoints
+DCN_MODULES = ["comm/dcn.py", "ops/native_quant.py", "utils/checkpoint.py"]
+
+
 @pytest.mark.parametrize("rel", SERVING_MODULES + DECODER_MODULES
-                         + LOOP_AND_ROUTER_MODULES)
+                         + LOOP_AND_ROUTER_MODULES + DCN_MODULES)
 def test_serving_modules_import_no_jax_anywhere(rel):
     """Each serving-slice module is scanned, and none imports `jax` or
     `pipeedge_tpu` (nor a root module that does), at module level or
@@ -198,6 +205,39 @@ def test_port_reads_and_writes_yaml_without_pyyaml():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "ok"
+
+
+def test_port_never_imports_ml_dtypes():
+    assert not _bad_imports(_port_files(), forbidden={"ml_dtypes"})
+    code = ("import sys\n"
+            "for blocked in ['ml_dtypes'] + "
+            f"{sorted(FORBIDDEN)!r}:\n"
+            "    sys.modules[blocked] = None\n"
+            "import socket, torch\n"
+            "from pipeedge_tpu_torch.comm import dcn, wire\n"
+            "from pipeedge_tpu_torch import runtime\n"
+            "a, b = socket.socketpair()\n"
+            "t = torch.ones(2, 3, dtype=torch.bfloat16)\n"
+            "dcn._send_frame(a, 1, 0, wire.wire_encode_device(t, 0)"
+            ".finalize())\n"
+            "out = wire.wire_decode(dcn._recv_frame(b)[3], torch.bfloat16,"
+            " device='cpu')\n"
+            "assert torch.equal(out, t)\n"
+            "print('ok')\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
+def test_dcn_runtime_without_device_raises_without_gpu(monkeypatch,
+                                                       tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("this host has a GPU: the default device is valid")
+    monkeypatch.chdir(tmp_path)
+    with pytest.raises(RuntimeError, match="cuda"):
+        runtime.main(["1", "2", "-c", "dcn", "-m", "pipeedge/test-tiny-vit",
+                      "--dcn-addrs", "127.0.0.1:1,127.0.0.1:2"])
 
 
 def test_build_pipeline_without_device_raises_without_gpu():

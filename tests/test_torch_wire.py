@@ -4,7 +4,10 @@
   on the same input, array for array (dtype, words, scale, shift, shape
   and the CRC trailer), at bits 0, 4 and 8, with and without CRC; each
   package decodes the other's frames; a corrupted frame raises
-  `WireCorruptError` in both; the byte counters agree.
+  `WireCorruptError` in both; the byte counters agree. The v1 (host)
+  frame travels both ways too, and a bfloat16 frame goes onto the DCN
+  wire byte for byte as JAX's with `ml_dtypes` blocked (the card's host
+  has none).
 - `kv/ship.py`: bundles round-trip in the port and decode in the other
   package both ways; the byte form round-trips.
 - `PagedKvBackend.export_prefix` / `install_prefix` on the tiny GPT-2:
@@ -108,9 +111,108 @@ def test_corrupt_frame_raises_in_both_packages(bit):
 
 
 def test_v1_frames_are_refused():
-    v1 = [np.asarray(0, np.int32), np.zeros((2, 3), np.float32)]
-    with pytest.raises(ValueError, match="ROADMAP A6"):
-        twire.wire_decode(v1, torch.float32, device="cpu")
+    """A v1 frame whose quads are torn is refused, in both packages."""
+    for body in ([np.zeros((2, 3), np.uint32)],
+                 [np.zeros((2, 3), np.uint32)] * 5):
+        bad = [np.asarray(8, np.int32)] + body
+        with pytest.raises(ValueError,
+                           match="malformed quantized wire frame"):
+            twire.wire_decode(bad, torch.float32, device="cpu")
+        with pytest.raises(ValueError,
+                           match="malformed quantized wire frame"):
+            jwire.wire_decode(bad, jnp.float32)
+
+
+def test_v1_frame_decodes():
+    v1 = [np.asarray(0, np.int32), np.ones((2, 3), np.float32)]
+    np.testing.assert_array_equal(
+        twire.wire_decode(v1, torch.float32, device="cpu").numpy(),
+        np.ones((2, 3), np.float32))
+
+
+@pytest.mark.parametrize("bit", BITS)
+def test_v1_encoder_refuses_a_payload_off_the_cpu(bit):
+    """The v1 encoder runs on the host: a payload on another device (here
+    `meta`; the card's case is in test_torch_card.py) is refused, naming
+    the device encoder, and nothing is copied to the host."""
+    on_cpu = torch.zeros((2, 3))
+    elsewhere = torch.zeros((2, 3), device="meta")
+    for out in (elsewhere, (on_cpu, elsewhere)):
+        with pytest.raises(ValueError, match="wire_encode_device"):
+            twire.wire_encode(out, bit)
+
+
+@pytest.mark.parametrize("native", ["1", "0"], ids=["native", "plain"])
+@pytest.mark.parametrize("bit", BITS)
+def test_v1_frames_both_ways(bit, native, monkeypatch):
+    """The port's v1 frame (its native codec, or the plain ops where the
+    native codec is not built) is the JAX v1 frame array for array, and
+    each package decodes the other's."""
+    if native == "1":
+        assert bit == 0 or twire.native_wire_codec(bit) is not None
+    else:
+        monkeypatch.setattr(twire, "native_wire_codec", lambda bit: None)
+    arrays = _payload("pair", seed=bit + 3)
+    got = twire.wire_encode(tuple(torch.from_numpy(a) for a in arrays), bit)
+    want = jwire.wire_encode(tuple(jnp.asarray(a) for a in arrays), bit)
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert np.asarray(g).dtype == np.asarray(w).dtype
+        np.testing.assert_array_equal(np.asarray(g), np.asarray(w))
+    j_from_t = _as_tuple(jwire.wire_decode(got, jnp.float32))
+    t_from_j = _as_tuple(twire.wire_decode(want, torch.float32,
+                                           device="cpu"))
+    for a, j, t in zip(arrays, j_from_t, t_from_j):
+        np.testing.assert_allclose(t.numpy(), np.asarray(j), rtol=0,
+                                   atol=DECODE_ATOL)
+        if bit == 0:
+            np.testing.assert_array_equal(t.numpy(), a)
+    assert twire.frame_payload_bytes(got) == jwire.frame_payload_bytes(want)
+
+
+def _dcn_bytes(module, frame):
+    import socket
+    a, b = socket.socketpair()
+    module._send_frame(a, 1, 0, frame)
+    a.close()
+    data = bytearray()
+    while chunk := b.recv(1 << 16):
+        data += chunk
+    b.close()
+    return bytes(data)
+
+
+def test_bf16_and_4bit_frames_without_ml_dtypes(monkeypatch):
+    """With `ml_dtypes` unimportable, the port's wire encoder and DCN
+    framing put a bfloat16 stage output (and int4/uint4 codes) on the wire
+    byte for byte as the JAX package's encoder and framing do, and read
+    the JAX frame back."""
+    import ml_dtypes
+    from pipeedge_tpu.comm import dcn as jdcn
+    x = np.random.default_rng(4).normal(size=(3, 5)).astype(np.float32)
+    jframe = jwire.wire_encode_device(jnp.asarray(x, jnp.bfloat16),
+                                      0).finalize()
+    want = _dcn_bytes(jdcn, jframe)
+    i4 = np.arange(-8, 7, dtype=np.int8)
+    u4 = np.arange(0, 15, dtype=np.uint8)
+    want4 = _dcn_bytes(jdcn, [i4.astype(ml_dtypes.int4),
+                              u4.astype(ml_dtypes.uint4)])
+    monkeypatch.setitem(__import__("sys").modules, "ml_dtypes", None)
+    t = torch.from_numpy(x).to(torch.bfloat16)
+    frame = twire.wire_encode_device(t, 0).finalize()
+    from pipeedge_tpu_torch.comm import dcn as tdcn
+    assert _dcn_bytes(tdcn, frame) == want
+    got4 = [twire.WireArray(i4, twire.CODE_INT4),
+            twire.WireArray(u4, twire.CODE_UINT4)]
+    assert _dcn_bytes(tdcn, got4) == want4
+    import socket
+    a, b = socket.socketpair()
+    a.sendall(want)
+    _, _, _, back = tdcn._recv_frame(b)
+    a.close(), b.close()
+    assert back[1].wire_code == twire.CODE_BFLOAT16
+    out = twire.wire_decode(back, torch.bfloat16, device="cpu")
+    assert out.dtype == torch.bfloat16 and torch.equal(out, t)
 
 
 def test_decode_needs_a_device():
