@@ -221,17 +221,19 @@ Phases, each of which raises on failure (nothing is caught):
      of its `load_params` (`card_params`; not the JAX package's numpy
      stream, which the CPU tests hold), shared by every pipeline, oracle
      and server of the model, and freed before the next model:
-     (a) Llama-3-8B, f32 (32.1 GB), `build_pipeline` `-pt 1,64,65,128`,
+     The Llama-family models run at LLAMA_BLOCKS (16) of their 32 blocks,
+     at full width (the script's time):
+     (a) Llama-3-8B, f32, `build_pipeline` `-pt 1,32,33,64`,
      16 sequences of 128 tokens in microbatches of 8, edge bits 0, 8 and
      4: bit 0 equal to the single-shard forward, 8 and 4 within the
-     stated bounds, 32 kernel-3 launches and one encode and one decode
+     stated bounds, 16 kernel-3 launches and one encode and one decode
      per microbatch; one profiled 8-bit microbatch;
      (b) the same weights and cut through `DecodePipeline.generate`,
      batch 4, a 512-token prompt, 128 new tokens, fp and int8 caches (the
      kernel-5 opt-in set: no launch, a Llama step never asks the gate),
      timed; the fp cache's prefill and each step replayed, timed, its
      logits within FAMILY_FP_BOUND of the forward over the same 640
-     tokens (32 kernel-3 launches); one profiled decode step;
+     tokens (16 kernel-3 launches); one profiled decode step;
      (c) the in-process server, `--kv-bits 8 --kv-pages 512
      --kv-page-size 16 --chunked-prefill 64`, wave and stage executors:
      8 concurrent clients (2 streamed, 4 plain, 2 sharers of a 128-token
@@ -239,12 +241,12 @@ Phases, each of which raises on failure (nothing is caught):
      of 64-512 tokens, 8-32 new tokens; each equal to its solo run
      through a dense executor chunking alike, no kernel launched, the
      pool whole afterwards;
-     (d) Mistral-7B, f32 (29.0 GB): one 4090-token prompt and 16 new
+     (d) Mistral-7B, f32: one 4090-token prompt and 16 new
      tokens (the steps cross the 4096-token window) on an fp cache, each
      step within FAMILY_FP_BOUND of the forward over the 4106 tokens,
      which takes the masked route (no kernel-3 launch); the forward over
-     the first 4096 tokens launches kernel 3 32 times and agrees with it;
-     (e) Llama-2-7B (MHA), bf16 (13.5 GB): generate [4, 512] + 128 on fp
+     the first 4096 tokens launches kernel 3 16 times and agrees with it;
+     (e) Llama-2-7B (MHA), bf16: generate [4, 512] + 128 on fp
      and int8 caches, timed, no kernel-5 launch;
      (f) `pipeedge/gpt2-moe-8e`, f32: the pipeline `-pt 1,24,25,48` at
      edge bits 0 and 8 (12 kernel-3 launches per microbatch; bit 8 equal
@@ -333,6 +335,30 @@ Phases, each of which raises on failure (nothing is caught):
      rank 0's first edge frame: the data rank exits non-zero naming rank
      1 within 30 s, and no process of the fleet is left.
      Each sub-run's seconds are printed.
+ 17. the routed fleet's observatory and capacity loop: the router entry
+     with one int8 `gpt2` replica (phase 15e's flags on the paged KV
+     plane, `--max-active 4 --no-brownout`) under `--autoscale auto
+     --autoscale-min 1 --autoscale-max 2 --fleet-scrape-interval 0.5`
+     (AUTOSCALE_FLAGS): (a) 16 closed-loop streamed clients (phase 15e's
+     prompt and token draws) queue on r0 until exactly one
+     `autoscale_spawn replica=r1 rank=1 epoch=0`, the health polls
+     readmit r1, fresh prompts reach it and it answers 8 times;
+     `pipeedge_fleet_actual_size` reaches 2; (c) at quiescence, both
+     replicas live, `GET /fleet`'s per-class `requests_total` and
+     `ok_total` equal the sums over the replicas' own /metrics; (b) the
+     load stops: one `autoscale_drain` of r1, its process gone and not
+     respawned, the fleet back to 1, the decision counter at up/applied
+     1 and down/applied 1 and nothing else, `/fleet`'s totals r0's own
+     plus r1's last; the router's span ring through
+     `telemetry/report.py` (both applies, no flap) and `python -m
+     pipeedge_tpu_torch.trace_report --fleet URL --request RID` on the
+     first request, resolved in the router's and r0's rings; every answer
+     equal to its solo int8 run in this process (kernel 5), and r1's own
+     kernel-5 launches read from its exit line. Printed: seconds from the
+     first up-pressure window to the spawn, from the spawn to the
+     readmission, the drain's, the router's tokens/s before r1's
+     readmission (r0 alone) and after it, migrated prefixes, the phase's
+     seconds.
 Phase 3 also holds kernel 5 (decode attention) against its plain version
 at the main path's shapes (windows of a [16, 1024, 12, 64] stage cache at
 buckets 256 and 512, and pos 1000 of the whole cache), pos 0 and W-1,
@@ -355,6 +381,7 @@ Exits nonzero, and prints no result, without a CUDA device.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import statistics
@@ -578,8 +605,13 @@ LLAMA3 = "meta-llama/Meta-Llama-3-8B"
 LLAMA2 = "meta-llama/Llama-2-7b-hf"
 MISTRAL = "mistralai/Mistral-7B-v0.1"
 MOE = "pipeedge/gpt2-moe-8e"
-LLAMA_BLOCKS = 32
-FAMILY_PARTITION = [(1, 64), (65, 128)]
+# the three Llama-family models run at 16 of their 32 blocks (full width;
+# `cut_llama_depth`): at 32 the whole script with phase 17 took 889.2 s
+# on the H100 (NVIDIA H100 80GB HBM3, 700.00 W), too near its 1200 s
+# limit on a slower host
+LLAMA_BLOCKS = 16
+FAMILY_PARTITION = [(1, 2 * LLAMA_BLOCKS), (2 * LLAMA_BLOCKS + 1,
+                                            4 * LLAMA_BLOCKS)]
 MOE_PARTITION = [(1, 24), (25, 48)]
 # sequences, microbatch, tokens; 32 sequences until the script passed
 # 1000 s of its limit (PR 13)
@@ -617,7 +649,9 @@ FAMILY_FP_BOUND = 1e-3
 # concurrent clients (2 streamed, 4 plain, 2 sharers of the 128-token
 # prefix a publisher served alone first has put in the trie), prompts of
 # 64-512 tokens and 8-32 new tokens.
-LLAMA_SERVE_FLAGS = ["-m", LLAMA3, "-pt", "1,64,65,128", "--max-len",
+LLAMA_SERVE_FLAGS = ["-m", LLAMA3, "-pt", ",".join(
+                         str(b) for lr in FAMILY_PARTITION for b in lr),
+                     "--max-len",
                      str(LLAMA_MAX_LEN), "-t", "float32", "--kv-bits", "8",
                      "--max-active", "9", "--brownout-p95-high", "600",
                      "--brownout-p95-low", "300"]
@@ -4304,6 +4338,26 @@ def moe_path(card: str, device_name: str, pm) -> dict:
     return out
 
 
+@contextlib.contextmanager
+def cut_llama_depth():
+    """Llama-3-8B, Llama-2-7B and Mistral-7B at LLAMA_BLOCKS blocks, full
+    width, in this process's registry for the time of the block: every
+    pipeline, oracle and in-process server built from their names takes
+    that depth. Phase 14's subprocesses run the tiny models only."""
+    import dataclasses
+    from pipeedge_tpu_torch.models import registry
+    saved = {m: registry.get_model_entry(m) for m in (LLAMA3, LLAMA2,
+                                                      MISTRAL)}
+    for m, e in saved.items():
+        registry._MODELS[m] = dataclasses.replace(
+            e, layers=4 * LLAMA_BLOCKS, config=dataclasses.replace(
+                e.config, num_hidden_layers=LLAMA_BLOCKS))
+    try:
+        yield
+    finally:
+        registry._MODELS.update(saved)
+
+
 def families_path(card: str, device_name: str,
                   weights_dir: Path = ROOT / "pipeedge_tpu_torch" / "_build"
                   ) -> dict:
@@ -4318,7 +4372,8 @@ def families_path(card: str, device_name: str,
                       ("e", lambda: llama2_path(device_name)),
                       ("f", lambda: moe_path(card, device_name, pm)),
                       ("g", lambda: {"entries": family_entries(weights_dir)})):
-        out |= run()
+        with cut_llama_depth():
+            out |= run()
         free_card()
         log(f"phase 14{name}: {time.monotonic() - t0:.1f} s (memory "
             f"allocated {torch.cuda.memory_allocated() / 1e9:.2f} GB)")
@@ -5663,6 +5718,391 @@ def check_dcn_path(res, device_name: str) -> None:
     log("phase 16 seconds " + json.dumps(res["seconds"]))
 
 
+# --- phase 17: the routed fleet's observatory and capacity loop ------------
+
+# One int8 `gpt2` replica behind the router under `--autoscale auto`,
+# phase 15e's weights and serving flags on the paged KV plane, at most 4
+# requests active per replica so the rest queue, and no brownout ladder
+# (its clamp would cut the new tokens of queued requests, and each
+# request is held to its solo run). The loop scrapes and ticks every 0.5
+# s, confirms a direction over 2 windows, waits 2 s between decisions and
+# wants 6 s of calm before it drains: long enough for the observatory's
+# checks while both replicas are live.
+AUTOSCALE_FLAGS = ["--replicas", "1", "--max-active", "4", "--no-brownout",
+                   "--fleet-scrape-interval", "0.5", "--autoscale", "auto",
+                   "--autoscale-min", "1", "--autoscale-max", "2",
+                   "--autoscale-interval", "0.5", "--autoscale-confirm", "2",
+                   "--autoscale-cooldown", "2", "--autoscale-dwell-down",
+                   "6"]
+AUTOSCALE_CLIENTS = 16     # closed-loop clients: 4 active, 12 queued on r0
+AUTOSCALE_R1_ANSWERS = 8   # answers from r1 before the load stops
+AUTOSCALE_LOAD_S = 120.0   # the most the ramp up may take
+AUTOSCALE_DOWN_S = 60.0    # the most the ramp down may take after it
+
+
+class ClosedLoad:
+    """One streaming client thread per request of `sets[0]`, each sending
+    its request again and again until `stop()`; after `switch()`, request
+    i of `sets[1]` (fresh prompts: the router's affinity pinned the first
+    set to r0). Keeps (set, index, final line, t0, t1) per answer."""
+
+    def __init__(self, port: int, sets):
+        import threading
+        self.answers: list = []
+        self.errors: list = []
+        self._halt, self._switch = threading.Event(), threading.Event()
+
+        def client(i):
+            while not self._halt.is_set():
+                k = int(self._switch.is_set())
+                r = sets[k][i]
+                out: dict = {}
+                start = threading.Event()
+                start.set()
+                stream_client(port, 0, {"ids": r["ids"],
+                                        "new_tokens": r["new"]}, start, out)
+                if "error" in out[0]:
+                    self.errors.append((k, i, out[0]["error"]))
+                else:
+                    self.answers.append((k, i, out[0]["final"],
+                                         out[0]["t0"], out[0]["t1"]))
+        self.threads = [threading.Thread(target=client, args=(i,))
+                        for i in range(len(sets[0]))]
+        for t in self.threads:
+            t.start()
+
+    def served_by(self, name: str) -> int:
+        return sum(1 for a in list(self.answers) if a[2].get("replica") == name)
+
+    def switch(self) -> None:
+        self._switch.set()
+
+    def stop(self) -> None:
+        self._halt.set()
+        for t in self.threads:
+            t.join()
+
+
+def fleet_class_totals(text: str) -> dict:
+    """{class: {ok_total, requests_total}} of one /metrics body."""
+    from pipeedge_tpu_torch.telemetry import collector as fleet_obs
+    counts = fleet_obs.BurnRateEngine.counts_from_families(
+        fleet_obs.parse_prom_text(text))
+    return {cls: {"ok_total": g, "requests_total": t}
+            for cls, (g, t) in counts.items()}
+
+
+def autoscale_path() -> dict:
+    """Phase 17: the router entry with one int8 replica under `--autoscale
+    auto`. (a) closed-loop clients queue on r0 until the controller spawns
+    r1, the health polls readmit it and it serves; (c) at quiescence
+    `/fleet`'s per-class totals against the two replicas' own /metrics;
+    (b) the load stops, r1 is drained and retired; then the router's span
+    ring through `telemetry/report.py` and `python -m
+    pipeedge_tpu_torch.trace_report --fleet URL --request RID`; every
+    answer against its solo int8 run in this process (kernel 5)."""
+    import threading
+    import urllib.request
+    from pipeedge_tpu_torch import serve
+    from pipeedge_tpu_torch.models import registry
+    from pipeedge_tpu_torch.ops import _build
+    from pipeedge_tpu_torch.telemetry import report
+    cfg = registry.get_model_config(DECODE_MODEL)
+    weights = BUILD_DIR / f"{DECODE_MODEL.replace('/', '_')}-random-seed0.npz"
+    base = SERVE_FLAGS + ["-M", str(weights), "--kv-bits", "8",
+                          "--postmortem-dir", str(BUILD_DIR / "postmortems"),
+                          *ROUTER_PAGED]
+    rng = np.random.default_rng(17)
+
+    def draw():
+        length = int(rng.integers(SERVE_PROMPT[0], SERVE_PROMPT[1] + 1))
+        return {"ids": rng.integers(0, cfg.vocab_size,
+                                    size=(1, length)).tolist(),
+                "new": int(rng.integers(ROUTER_NEW[0], ROUTER_NEW[1] + 1))}
+    sets = [[draw() for _ in range(AUTOSCALE_CLIENTS)] for _ in range(2)]
+    res: dict = {}
+    t_phase = time.monotonic()
+    r0_pid = None
+    # the loop's flags last: they override the serving flags' --max-active
+    router = RouterProc([*base, *AUTOSCALE_FLAGS], timeout=600)
+    try:
+        port = router.port
+        url = f"http://127.0.0.1:{port}"
+        res["ready_s"] = router.ready_s
+        res["mode_line"] = next((ln for ln in router.lines
+                                 if ln.startswith("autoscale mode=")), None)
+        wait_until(lambda: router.health()["fleet"]["r0"]["state"]
+                   == "healthy", 60)
+        r0_pid = router.health()["workers"]["0"]["pid"]
+        # the first request alone, on r0: the one the trace report
+        # resolves at the end
+        first_out: dict = {}
+        go = threading.Event()
+        go.set()
+        stream_client(port, 0, {"ids": sets[0][0]["ids"],
+                                "new_tokens": sets[0][0]["new"]}, go,
+                      first_out)
+        first = first_out[0]
+        res["first"] = {"replica": first["final"].get("replica"),
+                        "rid": first["final"].get("rid")}
+        # (a) the ramp up
+        seen = {"t_pressure": None, "t_spawn": None, "t_readmit": None,
+                "size": 0, "r1_pid": None}
+        load = ClosedLoad(port, sets)
+        t_load = time.monotonic()
+        deadline = t_load + AUTOSCALE_LOAD_S
+        while time.monotonic() < deadline:
+            h = router.health()
+            now = time.monotonic()
+            if seen["t_pressure"] is None and \
+                    h["autoscale"]["streak"]["direction"] == 1:
+                seen["t_pressure"] = now
+            seen["size"] = max(seen["size"], h["autoscale"]["size"])
+            if "1" in h["workers"] and seen["t_spawn"] is None:
+                seen["t_spawn"] = now
+                seen["r1_pid"] = h["workers"]["1"]["pid"]
+            r1 = h["fleet"].get("r1")
+            if seen["t_readmit"] is None and r1 and \
+                    r1["state"] == "healthy":
+                seen["t_readmit"] = now
+                load.switch()
+            if seen["t_readmit"] is not None and \
+                    load.served_by("r1") >= AUTOSCALE_R1_ANSWERS:
+                break
+            time.sleep(0.1)
+        load.stop()
+        t_stop = time.monotonic()
+        # (c) at quiescence, both replicas live: /fleet against the
+        # replicas' own /metrics, once two scrapes have passed
+        time.sleep(1.2)
+        fleet = http_json(port, "/fleet")
+        live = {name: urllib.request.urlopen(f"{u}/metrics", timeout=30)
+                .read().decode() for name, u in fleet["targets"].items()}
+        router_metrics = http_json(port, "/metrics")
+        res["actual_size_live"] = serve_metric(router_metrics,
+                                               "pipeedge_fleet_actual_size")
+        res["fleet_targets"] = sorted(fleet["targets"])
+        sums = {}
+        for text in live.values():
+            for cls, rec in fleet_class_totals(text).items():
+                for k, v in rec.items():
+                    sums.setdefault(cls, {}).setdefault(k, 0.0)
+                    sums[cls][k] += v
+        res["fleet_totals"] = {cls: {k: rec[k] for k in sums[cls]}
+                               for cls, rec in fleet["classes"].items()}
+        res["replica_sums"] = sums
+        r1_final = fleet_class_totals(live.get("r1", ""))
+        # (b) the ramp down
+        wait_until(lambda: any(ln.startswith("autoscale_drain")
+                               for ln in router.lines), AUTOSCALE_DOWN_S)
+        res["r1_gone"] = seen["r1_pid"] is not None and wait_until(
+            lambda: not Path(f"/proc/{seen['r1_pid']}").exists()
+            or Path(f"/proc/{seen['r1_pid']}/stat").read_text().split()[2]
+            == "Z", 30)
+        wait_until(lambda: any(ln.startswith("[replica r1] kernel_launches=")
+                               for ln in router.lines), 30)
+        time.sleep(2.0)              # a respawn would show by now
+        h = router.health()
+        res["after"] = {"fleet": sorted(h["fleet"]),
+                        "workers": sorted(h["workers"]),
+                        "size": h["autoscale"]["size"],
+                        "decisions": h["autoscale"]["decisions"]}
+        router_metrics = http_json(port, "/metrics")
+        res["decisions"] = {f"{d}/{o}": serve_metric(
+            router_metrics, "pipeedge_autoscale_decisions_total",
+            direction=d, outcome=o) for d in ("up", "down")
+            for o in ("applied", "advised", "held", "flap_damped")}
+        res["actual_size_after"] = serve_metric(
+            router_metrics, "pipeedge_fleet_actual_size")
+        time.sleep(1.2)
+        fleet = http_json(port, "/fleet")
+        r0_now = fleet_class_totals(urllib.request.urlopen(
+            f"{fleet['targets']['r0']}/metrics", timeout=30).read().decode())
+        res["totals_after"] = {
+            "fleet": {cls: {k: rec[k] for k in r0_now[cls]}
+                      for cls, rec in fleet["classes"].items()},
+            "r0_plus_r1_final": {cls: {k: r0_now[cls][k]
+                                       + r1_final.get(cls, {}).get(k, 0.0)
+                                       for k in r0_now[cls]}
+                                 for cls in r0_now}}
+        # the router's span ring (peeked) through the report, then the
+        # trace report across the router and r0 (drains the rings)
+        with urllib.request.urlopen(f"{url}/debug/spans?drain=0",
+                                    timeout=30) as resp:
+            ring = json.loads(resp.read())["spans"]
+        res["autoscale_section"] = report.analyze_spans(
+            ring, span_cost_ns=report.measure_span_cost_ns())["autoscale"]
+        applies = {s["name"]: (s["t1"] - s["t0"]) / 1e9 for s in ring
+                   if s["cat"] == "autoscale"
+                   and s["name"].startswith("apply:")}
+        res["spawn_apply_s"] = applies.get("apply:up")
+        res["drain_s"] = applies.get("apply:down")
+        tr = subprocess.run(
+            [sys.executable, "-m", "pipeedge_tpu_torch.trace_report",
+             "--fleet", url, "--request", res["first"]["rid"]], cwd=ROOT,
+            env=dict(os.environ, PYTHONPATH=str(ROOT)), capture_output=True,
+            text=True, timeout=120)
+        res["trace_report_rc"] = tr.returncode
+        timeline = json.loads(tr.stdout) if tr.stdout.strip() else {}
+        procs = timeline.get("processes", {})
+        by_target = {p["target"]: int(k) for k, p in procs.items()}
+        res["timeline"] = {
+            "found": timeline.get("found"), "spans": timeline.get("spans"),
+            "ranks": timeline.get("ranks"), "by_target": by_target,
+            "r0_ok": procs.get(str(by_target.get("r0")), {}).get("ok"),
+            "segments": sorted(timeline.get("segments", {})),
+            "dominant": (timeline.get("dominant_stall") or {}).get(
+                "segment"), "total_ms": timeline.get("total_ms")}
+        # the times (the spawn's: the first health poll that lists rank 1)
+        t_spawn = seen["t_spawn"]
+        res["spawn_lines"] = [ln for ln in router.lines
+                              if ln.startswith("autoscale_spawn")]
+        res["drain_lines"] = [ln for ln in router.lines
+                              if ln.startswith("autoscale_drain")]
+        res["rank1_spawned"] = sum("decode replica rank 1 spawned" in ln
+                                   for ln in router.lines)
+        res["rank1_retired"] = any("decode replica rank 1 retired" in ln
+                                   for ln in router.lines)
+        res["pressure_to_spawn_s"] = (
+            None if None in (t_spawn, seen["t_pressure"])
+            else t_spawn - seen["t_pressure"])
+        res["spawn_to_readmit_s"] = (
+            None if None in (t_spawn, seen["t_readmit"])
+            else seen["t_readmit"] - t_spawn)
+        res["size_max"] = seen["size"]
+        answers = load.answers
+        res["answers"] = len(answers) + 1
+        res["errors"] = load.errors
+        res["served_by"] = {}
+        for a in answers:
+            rep = a[2].get("replica")
+            res["served_by"][rep] = res["served_by"].get(rep, 0) + 1
+
+        def tok_s(lo, hi):
+            if lo is None or hi is None or hi <= lo:
+                return None
+            done = [a for a in answers if lo <= a[4] <= hi]
+            return sum(sets[k][i]["new"] for k, i, *_ in done) / (hi - lo)
+        # r0 serves alone until r1's readmission, the two after it
+        res["tok_per_s_before_readmit"] = tok_s(t_load, seen["t_readmit"])
+        res["tok_per_s_after_readmit"] = tok_s(seen["t_readmit"], t_stop)
+        res["load_s"] = t_stop - t_load
+        launches = next((ln for ln in router.lines if ln.startswith(
+            "[replica r1] kernel_launches=")), None)
+        res["r1_launches"] = (json.loads(launches.split("=", 1)[1])
+                              if launches else None)
+        # every answer against its request's solo int8 run, in this
+        # process on kernel 5
+        args = serve.parse_args(base)
+        oracle = serve.build_pipeline(args)
+        want = {}
+        res["mismatched"] = []
+        _build.reset_launch_counts()
+        for k, i, final in [(0, 0, first["final"])] + [
+                (a[0], a[1], a[2]) for a in answers]:
+            if (k, i) not in want:
+                r = sets[k][i]
+                want[(k, i)] = oracle.generate(
+                    torch.as_tensor(r["ids"], device="cuda"),
+                    r["new"]).cpu().numpy()
+            if not np.array_equal(np.asarray(final.get("ids")),
+                                  want[(k, i)]):
+                res["mismatched"].append((k, i))
+        res["solo_runs"] = len(want)
+        res["solo_launches"] = _build.launch_counts["decode_attention"]
+        del oracle
+    finally:
+        res["router_rc"] = router.close()
+        res["replicas_gone"] = wait_until(router.replicas_gone, 30)
+        res["r0_gone"] = r0_pid is not None and wait_until(
+            lambda: not Path(f"/proc/{r0_pid}").exists()
+            or Path(f"/proc/{r0_pid}/stat").read_text().split()[2] == "Z",
+            30)
+        res["log_tail"] = [ln for ln in router.lines
+                           if not ln.startswith("[replica")][-12:]
+        if sys.exc_info()[0] is not None:
+            log("autoscale failed; the router's output: "
+                + json.dumps(router.lines[-40:]))
+    free_card()
+    res["seconds"] = time.monotonic() - t_phase
+    return res
+
+
+def check_autoscale_path(res, device_name: str) -> None:
+    log("autoscale: " + json.dumps(res | {"card": device_name},
+                                   sort_keys=True, default=str))
+    if res["errors"] or res["mismatched"]:
+        raise AssertionError(f"autoscale: lost or wrong requests: errors "
+                             f"{res['errors'][:4]}, mismatched "
+                             f"{res['mismatched'][:8]}")
+    if res["mode_line"] != ("autoscale mode=auto min=1 max=2 confirm=2 "
+                            "cooldown=2"):
+        raise AssertionError(f"autoscale: mode line {res['mode_line']!r}")
+    if not (len(res["spawn_lines"]) == 1 and res["spawn_lines"][0].startswith(
+            "autoscale_spawn replica=r1 rank=1 epoch=0 url=")
+            and res["rank1_spawned"] == 1):
+        raise AssertionError("autoscale: not exactly one spawn of r1 at "
+                             f"epoch 0: {res['spawn_lines']}")
+    if not (res["spawn_to_readmit_s"] is not None
+            and res["served_by"].get("r1", 0) >= AUTOSCALE_R1_ANSWERS
+            and res["size_max"] == 2 and res["actual_size_live"] == 2):
+        raise AssertionError(
+            "autoscale: r1 was not readmitted and serving, or the fleet "
+            "never reached 2: " + json.dumps(
+                {k: res[k] for k in ("spawn_to_readmit_s", "served_by",
+                                     "size_max", "actual_size_live")}))
+    if res["fleet_targets"] != ["r0", "r1"] or \
+            res["fleet_totals"] != res["replica_sums"] or \
+            sum(t["ok_total"] for t in res["replica_sums"].values()) \
+            != res["answers"]:
+        raise AssertionError(
+            f"autoscale: /fleet {res['fleet_totals']} against the replicas' "
+            f"/metrics {res['replica_sums']} ({res['answers']} answers)")
+    if not (len(res["drain_lines"]) == 1 and res["drain_lines"][0]
+            .startswith("autoscale_drain replica=r1 rank=1 migrated=")
+            and res["r1_gone"] and res["rank1_retired"]
+            and res["after"]["fleet"] == ["r0"]
+            and res["after"]["workers"] == ["0"]
+            and res["after"]["size"] == 1
+            and res["actual_size_after"] == 1):
+        raise AssertionError("autoscale: r1 was not drained and retired: "
+                             + json.dumps({k: res[k] for k in (
+                                 "drain_lines", "r1_gone", "after")}))
+    want = {f"{d}/{o}": float(o == "applied") for d in ("up", "down")
+            for o in ("applied", "advised", "held", "flap_damped")}
+    if res["decisions"] != want:
+        raise AssertionError(f"autoscale: decisions {res['decisions']}")
+    if res["totals_after"]["fleet"] != res["totals_after"]["r0_plus_r1_final"]:
+        raise AssertionError(f"autoscale: /fleet after the drain "
+                             f"{res['totals_after']}")
+    sec = res["autoscale_section"]
+    if not (sec.get("applies") == 2 and sec.get("flap_damped") == 0
+            and sec.get("by_direction") == {"down": {"apply": 1, "plan": 1},
+                                            "up": {"apply": 1, "plan": 1}}):
+        raise AssertionError(f"autoscale: report section {sec}")
+    tl = res["timeline"]
+    if not (res["trace_report_rc"] == 0 and tl["found"] and tl["r0_ok"]
+            and res["first"]["replica"] == "r0"
+            and set(tl["ranks"] or ()) == {tl["by_target"].get("router"),
+                                           tl["by_target"].get("r0")}
+            and any(s.startswith("route/r0") for s in tl["segments"])):
+        raise AssertionError(f"autoscale: trace_report --fleet --request: "
+                             f"rc {res['trace_report_rc']}, {tl}")
+    if not (res["r1_launches"] and res["r1_launches"]["decode_attention"] > 0
+            and res["solo_launches"] > 0):
+        raise AssertionError(f"autoscale: kernel 5 launches: r1 "
+                             f"{res['r1_launches']}, solo runs "
+                             f"{res['solo_launches']}")
+    if res["router_rc"] != 0 or not res["replicas_gone"] or not res["r0_gone"]:
+        raise AssertionError(f"autoscale: router rc {res['router_rc']}, "
+                             f"replicas gone {res['replicas_gone']}")
+    log("phase 17 times " + json.dumps({k: res[k] for k in (
+        "pressure_to_spawn_s", "spawn_to_readmit_s", "spawn_apply_s",
+        "tok_per_s_before_readmit", "tok_per_s_after_readmit", "drain_s",
+        "load_s", "seconds")} | {"migrated": int(
+            res["drain_lines"][0].rsplit("=", 1)[1]), "card": device_name}))
+
+
 def main() -> int:
     import argparse
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -5809,6 +6249,11 @@ def main() -> int:
                                    for bit in (0, 8, 4)})
     check_dcn_path(dcn_res, device_name)
     phase_done("phase 16")
+
+    # phase 17: the routed fleet's observatory and capacity loop
+    auto_res = autoscale_path()
+    check_autoscale_path(auto_res, device_name)
+    phase_done("phase 17")
 
     if args.ab_entry_parent is not None:
         ab_entry(args.ab_entry_parent)
@@ -5983,6 +6428,12 @@ def main() -> int:
             "launches_per_wave"],
         routed_fp_launches_per_request=adopt_res["per_request"][
             "decode_attention"],
+        # phase 17: the replica the autoscaler spawned and retired (its
+        # own process, read from its exit line), and the solo runs its
+        # answers were held to in this process
+        autoscaled_replica_launches=auto_res["r1_launches"][
+            "decode_attention"],
+        autoscale_solo_launches=auto_res["solo_launches"],
         cases={name: {k: r[k] for k in (
             "shape", "pos", "dtype", "ms", "ms_l2_cold", "plain_ms",
             "bound_ms", "bound_by", "dequant_route_ms",

@@ -771,7 +771,13 @@ class DistDcnContext(DistContext):
         gate on their own stop flag inside the handler."""
         self._peer_death_handler = handler
 
-    def _mark_dead(self, rank: int, reason: str = "connection lost") -> None:
+    def _mark_dead(self, rank: int, reason: str = "connection lost",
+                   last_sign: Optional[float] = None) -> None:
+        """A connection to or from `rank` failed. `last_sign` is the stamp
+        of the last life sign read on that connection, when a reader saw
+        it drop: a grace window then counts any newer life sign of the
+        rank (another connection's HELLO or frame, a successful dial, a
+        JOIN admission) as a revival, however late the drop was seen."""
         if rank < 0 or self._stop.is_set():
             return
         if self._reconnect_grace > 0:
@@ -781,11 +787,23 @@ class DistDcnContext(DistContext):
             with self._dead_lock:
                 if rank in self._dead or rank in self._pending_death:
                     return
-                timer = threading.Timer(
-                    self._reconnect_grace, self._confirm_dead,
-                    args=(rank, time.monotonic(), reason))
-                timer.daemon = True
-                self._pending_death[rank] = timer
+                if last_sign is not None \
+                        and self._alive_at.get(rank, 0.0) > last_sign:
+                    # the reader saw its drop only after the rank's next
+                    # life sign: a restarted incarnation already spoke
+                    superseded = True
+                else:
+                    superseded = False
+                    timer = threading.Timer(
+                        self._reconnect_grace, self._confirm_dead,
+                        args=(rank, (time.monotonic() if last_sign is None
+                                     else last_sign), reason))
+                    timer.daemon = True
+                    self._pending_death[rank] = timer
+            if superseded:
+                logger.info("rank %d: peer rank %d %s after a newer life "
+                            "sign; not a death", self._rank, rank, reason)
+                return
             logger.warning("rank %d: peer rank %d %s; reconnect grace %.1fs",
                            self._rank, rank, reason, self._reconnect_grace)
             timer.start()
@@ -795,7 +813,8 @@ class DistDcnContext(DistContext):
     def _confirm_dead(self, rank: int, marked_at: float, reason: str) -> None:
         """Grace expiry: the peer is dead unless it showed a life sign
         (inbound frame / fresh HELLO / successful dial / JOIN admission)
-        after the mark."""
+        after `marked_at` (the dropped connection's last life sign, or the
+        time of the mark)."""
         with self._dead_lock:
             self._pending_death.pop(rank, None)
         self._declare_dead(rank, reason + " (grace expired)",
@@ -848,11 +867,13 @@ class DistDcnContext(DistContext):
         if self._peer_death_handler is not None:
             self._peer_death_handler(rank)
 
-    def _alive_sign(self, rank: int) -> None:
+    def _alive_sign(self, rank: int) -> float:
         """Record a life sign from `rank` (called from reader threads and
-        successful dials); what an open grace window is checked against."""
+        successful dials); what an open grace window is checked against.
+        Returns its stamp."""
         with self._dead_lock:
-            self._alive_at[rank] = time.monotonic()
+            now = self._alive_at[rank] = time.monotonic()
+        return now
 
     def dead_ranks(self) -> frozenset:
         """Ranks this context has confirmed dead (post-grace) and not
@@ -1342,6 +1363,7 @@ class DistDcnContext(DistContext):
     def _reader_loop(self, conn: socket.socket) -> None:
         src = -1
         conn_epoch = 0
+        last_sign = None        # stamp of this connection's last life sign
         warned_stale = False
         # zero-copy tier: one receive-buffer pool per connection (reader
         # threads never share buffers, so the pool needs no lock)
@@ -1361,7 +1383,7 @@ class DistDcnContext(DistContext):
                                             conn_epoch)
             with self._conns_lock:
                 self._ever_connected.add(src)
-            self._alive_sign(src)
+            last_sign = self._alive_sign(src)
             while not self._stop.is_set():
                 msg_type, aux, channel, n_tensors = _recv_header(conn)
                 # traced data frame: identical to _MSG_TENSORS except the
@@ -1401,7 +1423,7 @@ class DistDcnContext(DistContext):
                 # partially-hung peer — beat loop wedged, reader alive —
                 # alive forever, defeating beat-silence detection.
                 if msg_type != _MSG_HEARTBEAT_ACK:
-                    self._alive_sign(src)
+                    last_sign = self._alive_sign(src)
                 hooked = (msg_type == _MSG_TENSORS
                           and self._recv_pre_hook is not None)
                 if hooked:
@@ -1601,7 +1623,7 @@ class DistDcnContext(DistContext):
                 else:
                     logger.warning("connection from rank %d dropped: %s",
                                    src, exc)
-                    self._mark_dead(src)
+                    self._mark_dead(src, last_sign=last_sign)
         finally:
             conn.close()
 

@@ -16,7 +16,8 @@ earliest-deadline-first queue, watermark-driven brownout), so a surge is
 shed with 503 + Retry-After; a request's `"deadline_ms"` rides into the
 executor, which cancels expired work at the next decode-step boundary
 (HTTP 504). It prints `serving <model> (<n> stages, <executor> executor)
-on <host>:<port>` once it listens.
+on <host>:<port>` once it listens, and `kernel_launches={...}` (the
+kernels this process launched) when it exits.
 
 Endpoints (as in `tools/serve.py`, JSON unless noted):
 - GET  /healthz   -> {"ok", "model", "stages", "speculative", "executor",
@@ -91,11 +92,30 @@ drain moves to a survivor; needs `--kv-pages`); the router's own `POST
 The router prints `serving router (<n> replicas) on <host>:<port>` once
 every replica is up and it listens; SIGTERM stops it and its replicas.
 
+The router's observatory and capacity loop: a fleet collector scrapes
+every replica's /metrics each `--fleet-scrape-interval` seconds (default
+1; <= 0 turns it off and GET /fleet answers 503) into `GET /fleet`
+(per-class goodput and shed rates, the summed admission queue depth, the
+max brownout level, the exemplar union, per-replica age and errors, the
+SLO burn rates). `--autoscale auto` closes the loop over it
+(`serving/autoscale.py`): sustained queue depth, brownout or SLO burn
+spawns a replica with `add_rank` (it earns traffic through the health
+polls' readmission, printing `autoscale_spawn replica=... rank=...
+epoch=... url=...`), sustained calm drains the newest healthy replica
+with prefix migration and retires its process (`autoscale_drain
+replica=... rank=... migrated=...`); `advise` logs and counts the same
+decisions and moves nothing. `/healthz` and `/fleet` carry the
+controller's `autoscale` block:
+
+    python -m pipeedge_tpu_torch.serve --role router --replicas 1 \
+        -m gpt2 -pt 1,24,25,48 -t float32 --kv-bits 8 --kv-pages 1024 \
+        --max-active 4 --autoscale auto --autoscale-min 1 \
+        --autoscale-max 2 --fleet-scrape-interval 0.5 --port 8321
+
 Not ported yet, and refused at parse time with the ROADMAP item that
-ports them: the fleet collector (`--fleet-*`), autoscale and
-disaggregated prefill (`REFUSED`). Without `--kv-pages`, a `prefix_id`
-names a dense `precompute_prefix` handle (and, with a draft model, the
-draft's too).
+ports them: disaggregated prefill (`REFUSED`). Without `--kv-pages`, a
+`prefix_id` names a dense `precompute_prefix` handle (and, with a draft
+model, the draft's too).
 """
 from __future__ import annotations
 
@@ -118,6 +138,7 @@ from . import health as peer_health
 from . import telemetry
 from .kv import KvPagePool, PagedKvBackend, ship
 from .models import registry
+from .ops import _build
 from .parallel import batcher as batcher_mod
 from .parallel.decode import build_decode_pipeline
 from .parallel.speculative import SpeculativeDecoder
@@ -140,22 +161,8 @@ RID_HEADER = "X-PipeEdge-Rid"
 # `tools/serve.py` flags this entry accepts and refuses, each with the
 # ROADMAP item that ports it (so no flag is silently ignored):
 # flag -> (argparse keywords, ROADMAP item)
-_FLEET = "A5.2b, FleetCollector"
-_AUTOSCALE = "A5.2c, serving/autoscale.py"
 _DISAGG = "A5.3b, the prefill supervisors over the port's DCN"
 REFUSED = {
-    "--autoscale": ({}, _AUTOSCALE),
-    "--autoscale-min": ({"type": int}, _AUTOSCALE),
-    "--autoscale-max": ({"type": int}, _AUTOSCALE),
-    "--autoscale-confirm": ({"type": int}, _AUTOSCALE),
-    "--autoscale-cooldown": ({"type": float}, _AUTOSCALE),
-    "--autoscale-interval": ({"type": float}, _AUTOSCALE),
-    "--autoscale-dwell-up": ({"type": float}, _AUTOSCALE),
-    "--autoscale-dwell-down": ({"type": float}, _AUTOSCALE),
-    "--autoscale-queue-high": ({"type": float}, _AUTOSCALE),
-    "--autoscale-queue-low": ({"type": float}, _AUTOSCALE),
-    "--autoscale-burn-high": ({"type": float}, _AUTOSCALE),
-    "--autoscale-burn-low": ({"type": float}, _AUTOSCALE),
     "--disaggregate": ({}, _DISAGG),
     "--prefill-ranks": ({"type": int}, _DISAGG),
     "--prefill-lease-timeout": ({"type": float}, _DISAGG),
@@ -164,8 +171,6 @@ REFUSED = {
     "--prefill-heartbeat-interval": ({"type": float}, _DISAGG),
     "--prefill-concurrency": ({"type": int}, _DISAGG),
     "--kv-ship-bits": ({"type": int}, _DISAGG),
-    "--fleet-scrape-interval": ({"type": float}, _FLEET),
-    "--fleet-history": ({"type": int}, _FLEET),
 }
 
 
@@ -1626,6 +1631,59 @@ def build_parser() -> argparse.ArgumentParser:
                    help="seconds POST /drain waits for a replica's "
                         "in-flight requests before migrating its prefix "
                         "pages anyway")
+    p.add_argument("--fleet-scrape-interval", default=1.0, type=float,
+                   metavar="S",
+                   help="(router) period of the fleet collector's "
+                        "/metrics scrape across replicas: feeds GET "
+                        "/fleet and the SLO burn-rate engine (<= 0 "
+                        "disables; /fleet then 503s)")
+    p.add_argument("--fleet-history", default=120, type=int,
+                   help="(router) scrape samples retained per target "
+                        "(the /fleet rate window is bounded by "
+                        "history * scrape interval)")
+    # -- closed-loop capacity ---------------------------------------------
+    p.add_argument("--autoscale", default="off",
+                   choices=["off", "advise", "auto"],
+                   help="(router) closed-loop capacity control over the "
+                        "supervised replica fleet: scale-out spawns a "
+                        "replica with the next epoch (warm-up gated "
+                        "before it takes traffic), scale-in drains + "
+                        "migrates KV prefixes then retires the process. "
+                        "advise = run the identical decision loop but "
+                        "only log (the A/B control arm); auto = act")
+    p.add_argument("--autoscale-min", default=1, type=int,
+                   help="replica floor the autoscaler never drains below")
+    p.add_argument("--autoscale-max", default=2, type=int,
+                   help="replica ceiling it never spawns above")
+    p.add_argument("--autoscale-confirm", default=3, type=int,
+                   help="consecutive same-direction observation windows "
+                        "before a decision is eligible (one hot scrape "
+                        "moves nothing)")
+    p.add_argument("--autoscale-cooldown", default=10.0, type=float,
+                   metavar="S",
+                   help="seconds between decisions; each direction "
+                        "REVERSAL doubles the effective cooldown "
+                        "(flap damper, capped at 8x)")
+    p.add_argument("--autoscale-interval", default=1.0, type=float,
+                   metavar="S", help="governor tick period")
+    p.add_argument("--autoscale-dwell-up", default=0.0, type=float,
+                   metavar="S",
+                   help="seconds up-pressure must persist before "
+                        "scale-out (on top of --autoscale-confirm)")
+    p.add_argument("--autoscale-dwell-down", default=5.0, type=float,
+                   metavar="S",
+                   help="seconds calm must persist before scale-in")
+    p.add_argument("--autoscale-queue-high", default=4.0, type=float,
+                   help="summed admission queue depth PER REPLICA that "
+                        "counts as up pressure")
+    p.add_argument("--autoscale-queue-low", default=0.5, type=float,
+                   help="per-replica queue depth below which the fleet "
+                        "counts as calm (dead band against queue-high)")
+    p.add_argument("--autoscale-burn-high", default=1.0, type=float,
+                   help="short-window SLO burn rate that counts as up "
+                        "pressure")
+    p.add_argument("--autoscale-burn-low", default=0.25, type=float,
+                   help="burn rate below which the fleet counts as calm")
     for flag, (kw, item) in REFUSED.items():
         p.add_argument(flag, default=argparse.SUPPRESS,
                        help=f"not ported yet (ROADMAP {item})", **kw)
@@ -1661,8 +1719,28 @@ def parse_args(argv: Optional[Sequence[str]] = None):
             p.error("--hedge-ms must be >= 0")
         if args.route_retries < 0:
             p.error("--route-retries must be >= 0")
+        if args.autoscale != "off":
+            if args.replica_addrs is not None:
+                p.error("--autoscale needs a SUPERVISED fleet (it "
+                        "spawns and retires replica processes); "
+                        "--replica-addrs fleets are the operator's "
+                        "lifecycle")
+            if args.fleet_scrape_interval <= 0:
+                p.error("--autoscale needs the fleet collector "
+                        "(--fleet-scrape-interval > 0) — its scrape is "
+                        "the controller's signal plane")
+            if not 1 <= args.autoscale_min <= args.autoscale_max:
+                p.error("need 1 <= --autoscale-min <= --autoscale-max")
+            if args.autoscale_confirm < 1:
+                p.error("--autoscale-confirm must be >= 1")
+            if args.autoscale_interval <= 0:
+                p.error("--autoscale-interval must be > 0")
     elif args.replica_addrs is not None:
         p.error("--replica-addrs only applies with --role router")
+    elif args.autoscale != "off":
+        p.error("--autoscale only applies with --role router (runtime "
+                "--rounds fleets get the pipeline-level half via "
+                "runtime.py --autoscale-ranks)")
     if args.partition:
         nums = [int(x) for x in args.partition.split(",")]
         if len(nums) % 2:
@@ -1744,8 +1822,8 @@ class ReplicaSupervisor:
     own port, supervised: a dead replica respawns with the next epoch
     (env `DCN_EPOCH`) after a crash-loop backoff, and the router's health
     polls readmit it once it proves itself. `restart(rank)` is the drain
-    endgame. Port of the JAX server's replica supervisor, without the
-    autoscaler's `add_rank`/`retire_rank` (ROADMAP A5.2c)."""
+    endgame; `add_rank`/`retire_rank` are the autoscaler's actuators.
+    Port of the JAX server's replica supervisor."""
 
     RESPAWN_DELAY_S = 0.5
     RESPAWN_BACKOFF_MAX_S = 30.0
@@ -1766,6 +1844,10 @@ class ReplicaSupervisor:
         self._backoff = {r: self.RESPAWN_DELAY_S for r in self.ranks}
         self._spawned_at = {r: 0.0 for r in self.ranks}
         self._respawn_after = {r: 0.0 for r in self.ranks}
+        # ranks retired by the autoscaler: their epoch records are
+        # retained so a later add_rank continues the sequence (+1) and
+        # the rejoin stays fenced against every dead incarnation
+        self._retired = set()
         self._stop = threading.Event()
         self._lock = make_lock("serve.replica_sup")
         self._watchers = []
@@ -1797,6 +1879,12 @@ class ReplicaSupervisor:
         # the replica's own "serving ... on HOST:PORT" line
         return (line.startswith("serving ")
                 and f" on {self._host}:{self._ports[rank]}" in line)
+
+    def _on_add_rank(self, rank):
+        # a resurrected rank reuses its old port (the listener is gone:
+        # nothing holds it); a brand-new rank gets a fresh one
+        while len(self._ports) <= rank:
+            self._ports += _free_ports(1, self._host)
 
     def url_of(self, rank):
         return f"http://{self._host}:{self._ports[rank]}"
@@ -1885,6 +1973,60 @@ class ReplicaSupervisor:
         if proc is not None and proc.poll() is None:
             proc.terminate()
 
+    # -- autoscale membership ----------------------------------------------
+
+    def add_rank(self, rank=None):
+        """Autoscale scale-out: bring a new rank into the supervised set,
+        preferring the lowest retired rank id. A resurrected rank
+        continues its epoch sequence (+1), so its join is fenced against
+        every dead incarnation exactly like a respawn; a brand-new rank
+        starts at epoch 0. Returns the rank spawned."""
+        with self._lock:
+            if rank is None:
+                spare = sorted(self._retired)
+                rank = spare[0] if spare else \
+                    (max(self._epoch) + 1 if self._epoch else 0)
+            if rank in self.ranks:
+                raise ValueError(f"rank {rank} is already active")
+            self._retired.discard(rank)
+            if rank in self._epoch:
+                self._epoch[rank] += 1
+            else:
+                self._epoch[rank] = 0
+            self._ready[rank] = threading.Event()
+            self._backoff[rank] = self.RESPAWN_DELAY_S
+            self._spawned_at[rank] = 0.0
+            self._respawn_after[rank] = 0.0
+            self._on_add_rank(rank)
+            self.ranks = tuple(list(self.ranks) + [rank])
+        self._spawn(rank)
+        return rank
+
+    def retire_rank(self, rank):
+        """Autoscale scale-in endgame: take `rank` out of the supervised
+        set WITHOUT respawn and terminate its incarnation. The proc
+        record is popped under the lock BEFORE the terminate, so the
+        watch loop can never observe the death and resurrect it (a
+        retired rank leaves `snapshot()`). Epoch records are retained
+        (see add_rank)."""
+        with self._lock:
+            if rank not in self.ranks:
+                return False
+            self.ranks = tuple(r for r in self.ranks if r != rank)
+            proc = self._procs.pop(rank, None)
+            self._ready[rank].clear()
+            self._retired.add(rank)
+        if proc is not None and proc.poll() is None:
+            proc.terminate()
+            try:
+                proc.wait(timeout=10)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait(timeout=5)
+        print(f"decode replica rank {rank} retired "
+              f"(epoch={self._epoch[rank]})", flush=True)
+        return True
+
     def pid_of(self, rank):
         with self._lock:
             proc = self._procs.get(rank)
@@ -1928,9 +2070,14 @@ def _free_ports(n, host="127.0.0.1"):
     return ports
 
 
-def make_router_handler(router, model_name):
+def make_router_handler(router, model_name, collector=None,
+                        autoscaler=None):
     """HTTP surface of `--role router`: the endpoint shapes one replica
-    serves (clients need no change), backed by the `DecodeRouter`."""
+    serves (clients need no change), backed by the `DecodeRouter`.
+    `collector` (a `FleetCollector`) backs GET /fleet, the one aggregated
+    scrape surface across router and replicas; `autoscaler` (an
+    `AutoscaleRunner`) adds the capacity controller's snapshot to
+    /healthz and /fleet."""
 
     class Handler(BaseHTTPRequestHandler):
         protocol_version = "HTTP/1.1"      # chunked transfer needs 1.1
@@ -1963,9 +2110,17 @@ def make_router_handler(router, model_name):
                 self.end_headers()
                 self.wfile.write(body)
             elif self.path == "/fleet":
-                self._send(503, {"error": "the fleet collector is not "
-                                          "ported to pipeedge_tpu_torch "
-                                          f"yet (ROADMAP {_FLEET})"})
+                if collector is None:
+                    self._send(503, {"error": "fleet collector disabled "
+                                              "(--fleet-scrape-interval "
+                                              "0)"},
+                               headers=(("Retry-After", "5"),))
+                else:
+                    snap = collector.fleet_snapshot()
+                    if autoscaler is not None:
+                        snap["autoscale"] = \
+                            autoscaler.controller.snapshot()
+                    self._send(200, snap)
             elif self.path.split("?", 1)[0] == "/debug/spans":
                 drain = "drain=0" not in self.path
                 self._send(200,
@@ -1973,6 +2128,9 @@ def make_router_handler(router, model_name):
             elif self.path == "/healthz":
                 code, body = router.healthz()
                 body["model"] = model_name
+                if autoscaler is not None:
+                    body["autoscale"] = \
+                        autoscaler.controller.snapshot()
                 headers = ((("Retry-After", "1"),) if code == 503
                            else ())
                 self._send(code, body, headers=headers)
@@ -2098,10 +2256,120 @@ def replica_command(args) -> list:
     return cmd
 
 
+def _fleet_collector(args, router, router_flight):
+    """The router's fleet collector: scrapes every replica's /metrics
+    into GET /fleet, and feeds a burn-rate engine whose fast-window
+    breach dumps an `slo_burn` postmortem of the router. None when
+    `--fleet-scrape-interval <= 0`."""
+    if args.fleet_scrape_interval <= 0:
+        return None
+
+    def _on_breach(cls, burn):
+        router_flight.note("slo_burn_breach", rid=None,
+                           request_class=cls, burn=round(burn, 3))
+        router_flight.maybe_dump(
+            "slo_burn",
+            context={"class": cls, "burn_rate": round(burn, 4),
+                     "window": "short",
+                     "objective": args.slo_objective,
+                     "threshold": args.slo_burn_threshold,
+                     "fleet": router.registry.snapshot()})
+
+    burn = fleet_obs.BurnRateEngine(
+        objective=args.slo_objective,
+        fast_window_s=args.slo_burn_fast,
+        slow_window_s=args.slo_burn_slow,
+        threshold=args.slo_burn_threshold,
+        on_breach=_on_breach)
+    return fleet_obs.FleetCollector(
+        router.scrape_targets,
+        interval_s=args.fleet_scrape_interval,
+        history=args.fleet_history,
+        burn=burn)
+
+
+def _autoscaler(args, router, supervisor, collector):
+    """The closed capacity loop (`serving/autoscale.py`): its signals come
+    from the fleet collector's aggregated scrape, its actuators are the
+    supervisor (spawn with the next epoch) and the router's drain without
+    respawn. Advise mode runs the same loop but only logs. None when
+    `--autoscale off`."""
+    if args.autoscale == "off":
+        return None
+    from .serving import autoscale as autoscale_mod
+    apol = autoscale_mod.CapacityPolicy(
+        min_size=args.autoscale_min,
+        max_size=args.autoscale_max,
+        confirm=args.autoscale_confirm,
+        cooldown_s=args.autoscale_cooldown,
+        dwell_up_s=args.autoscale_dwell_up,
+        dwell_down_s=args.autoscale_dwell_down,
+        queue_high=args.autoscale_queue_high,
+        queue_low=args.autoscale_queue_low,
+        burn_high=args.autoscale_burn_high,
+        burn_low=args.autoscale_burn_low)
+
+    def _fleet_size():
+        return len(router.registry.names())
+
+    def _plan_capacity(direction, cur, target):
+        # the dry-run: an un-runnable move renders as `held`
+        if supervisor is None:
+            return {"ok": False,
+                    "reason": "static fleet (--replica-addrs)"}
+        if direction == "up":
+            return {"ok": True, "direction": "up", "to": target}
+        snap = router.registry.snapshot()
+        healthy = [n for n, rec in snap.items()
+                   if rec["state"] == "healthy"]
+        if len(healthy) < 2:
+            return {"ok": False,
+                    "reason": "no healthy survivor to absorb "
+                              "the drain"}
+        # newest healthy replica leaves first (LIFO): the warmest caches
+        # stay with the longest-lived replicas
+        victim = max(healthy,
+                     key=lambda n: int(n[1:]) if n[1:].isdigit() else -1)
+        return {"ok": True, "direction": "down", "victim": victim,
+                "to": target}
+
+    def _apply_capacity(plan):
+        if plan["direction"] == "up":
+            rank = supervisor.add_rank()
+            name = f"r{rank}"
+            url = supervisor.url_of(rank)
+            router.add_replica(name, url, rank=rank)
+            print(f"autoscale_spawn replica={name} rank={rank} "
+                  f"epoch={supervisor.snapshot()[str(rank)]['epoch']} "
+                  f"url={url}", flush=True)
+        else:
+            victim = plan["victim"]
+            out = router.remove_replica(victim)
+            rank = out.get("rank")
+            if rank is not None:
+                supervisor.retire_rank(rank)
+            print(f"autoscale_drain replica={victim} rank={rank} "
+                  f"migrated={out.get('migrated_prefixes', 0)}",
+                  flush=True)
+
+    controller = autoscale_mod.CapacityController(
+        apol, mode=args.autoscale, size_fn=_fleet_size,
+        plan_fn=_plan_capacity, apply_fn=_apply_capacity,
+        label="replicas")
+
+    def _signals():
+        fleet = collector.fleet_snapshot()
+        return autoscale_mod.signals_from_fleet(fleet, _fleet_size())
+
+    return autoscale_mod.AutoscaleRunner(
+        controller, _signals, interval_s=args.autoscale_interval)
+
+
 def _run_router(args) -> None:
     """`--role router`: spawn or adopt the replica fleet, start the health
-    poller, serve the routed HTTP surface until SIGTERM. Model-free: the
-    router loads no weights and never touches a card."""
+    poller, the fleet collector and the autoscaler, serve the routed HTTP
+    surface until SIGTERM. Model-free: the router loads no weights and
+    never touches a card."""
     from .serving.router import DecodeRouter, RouterPolicy
     policy = RouterPolicy(
         poll_interval_s=args.router_poll_interval,
@@ -2125,8 +2393,12 @@ def _run_router(args) -> None:
         replicas = {f"r{i}": supervisor.url_of(i) for i in range(len(ports))}
     server = None
     router = DecodeRouter(replicas, policy=policy, supervisor=supervisor)
-    # the router's own span ring, for /debug/spans
+    # the router is a peer process of the fleet observatory: its own span
+    # ring for /debug/spans, a flight recorder for slo_burn postmortems
     telemetry.configure(rank=0)
+    router_flight = flight.configure(rank=0, out_dir=args.postmortem_dir)
+    collector = _fleet_collector(args, router, router_flight)
+    autoscaler = _autoscaler(args, router, supervisor, collector)
     # SIGTERM unwinds through the finally below: replicas stop too
     signal.signal(signal.SIGTERM, _exit_once)
     try:
@@ -2135,8 +2407,18 @@ def _run_router(args) -> None:
                 router.bind_rank(name, i)
             supervisor.wait_ready(timeout=600.0)
         router.start()
+        if collector is not None:
+            collector.start()
+        if autoscaler is not None:
+            autoscaler.start()
+            print(f"autoscale mode={args.autoscale} "
+                  f"min={args.autoscale_min} max={args.autoscale_max} "
+                  f"confirm={args.autoscale_confirm} "
+                  f"cooldown={args.autoscale_cooldown:g}", flush=True)
         server = Server((args.host, args.port),
-                        make_router_handler(router, args.model_name))
+                        make_router_handler(router, args.model_name,
+                                            collector=collector,
+                                            autoscaler=autoscaler))
         # the bound port (`--port 0` takes a free one)
         print(f"serving router ({len(replicas)} replicas) on "
               f"{args.host}:{server.server_address[1]}", flush=True)
@@ -2144,6 +2426,10 @@ def _run_router(args) -> None:
     finally:
         if server is not None:
             server.server_close()
+        if autoscaler is not None:
+            autoscaler.stop()
+        if collector is not None:
+            collector.stop()
         router.stop()
         if supervisor is not None:
             supervisor.stop()
@@ -2174,6 +2460,10 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     finally:
         server.server_close()
         service.stop()
+        # the kernels this process launched (a replica behind a router
+        # prints it through the router's output when it is retired)
+        print("kernel_launches=" + json.dumps(_build.launch_counts,
+                                              sort_keys=True), flush=True)
         if args.trace_spans and telemetry.recorder() is not None:
             from .telemetry import chrome_trace
             chrome_trace.dump_trace(telemetry.recorder().snapshot(),

@@ -571,6 +571,54 @@ def test_grace_window_expires_to_death():
         _shutdown(watcher)
 
 
+@pytest.mark.parametrize("sign", ["frame", "dial"])
+def test_late_drop_after_restart_is_not_a_death(sign):
+    """A restarted peer's life sign (its HELLO and a frame, or the
+    watcher's successful dial to its new listener) can come before the
+    watcher's reader sees the old connection drop. The drop is held here
+    until that sign is in, deterministically: the grace window must then
+    count the sign as a revival, not open after it and expire into a
+    death of the live peer."""
+    addrs = [("127.0.0.1", p) for p in _free_ports(2)]
+    watcher = dcn.DistDcnContext(2, 0, addrs, reconnect_grace=1.5)
+    watcher.init()
+    deaths = queue.Queue()
+    watcher.register_peer_death_handler(deaths.put)
+    held, release = threading.Event(), threading.Event()
+    mark_dead = watcher._mark_dead
+
+    def late_mark_dead(*args, **kwargs):
+        held.set()
+        release.wait(10)
+        return mark_dead(*args, **kwargs)
+
+    watcher._mark_dead = late_mark_dead
+    peer = dcn.DistDcnContext(2, 1, addrs)
+    peer.init()
+    try:
+        peer.send_tensors(0, [np.arange(3, dtype=np.int32)])
+        watcher.recv_tensors(1, timeout=10)
+        peer.shutdown()
+        assert held.wait(10)
+        peer = dcn.DistDcnContext(2, 1, addrs)
+        peer.init()
+        fresh = np.full((2,), 7, np.int32)
+        if sign == "frame":
+            peer.send_tensors(0, [fresh])
+            got = watcher.recv_tensors(1, timeout=10)
+        else:
+            watcher.send_tensors(1, [fresh])
+            got = peer.recv_tensors(0, timeout=10)
+        np.testing.assert_array_equal(got[0], fresh)
+        release.set()
+        time.sleep(2.0)     # past the grace window
+        assert deaths.empty()
+        assert not watcher.dead_ranks()
+    finally:
+        release.set()
+        _shutdown(peer, watcher)
+
+
 # -- liveness plane ----------------------------------------------------
 
 def test_heartbeat_detects_beat_silent_peer():

@@ -111,8 +111,16 @@ LOOP_AND_ROUTER_MODULES = [
 DCN_MODULES = ["comm/dcn.py", "ops/native_quant.py", "utils/checkpoint.py"]
 
 
+# the routed fleet's observatory and capacity loop (the fleet collector
+# is telemetry/collector.py, above): the autoscaler, the span report and
+# its profile feedback, trace_report
+OBSERVATORY_MODULES = ["serving/autoscale.py", "telemetry/report.py",
+                       "telemetry/feedback.py", "trace_report.py"]
+
+
 @pytest.mark.parametrize("rel", SERVING_MODULES + DECODER_MODULES
-                         + LOOP_AND_ROUTER_MODULES + DCN_MODULES)
+                         + LOOP_AND_ROUTER_MODULES + DCN_MODULES
+                         + OBSERVATORY_MODULES)
 def test_serving_modules_import_no_jax_anywhere(rel):
     """Each serving-slice module is scanned, and none imports `jax` or
     `pipeedge_tpu` (nor a root module that does), at module level or
