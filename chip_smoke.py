@@ -221,19 +221,19 @@ Phases, each of which raises on failure (nothing is caught):
      of its `load_params` (`card_params`; not the JAX package's numpy
      stream, which the CPU tests hold), shared by every pipeline, oracle
      and server of the model, and freed before the next model:
-     The Llama-family models run at LLAMA_BLOCKS (16) of their 32 blocks,
+     The Llama-family models run at LLAMA_BLOCKS (8) of their 32 blocks,
      at full width (the script's time):
-     (a) Llama-3-8B, f32, `build_pipeline` `-pt 1,32,33,64`,
+     (a) Llama-3-8B, f32, `build_pipeline` `-pt 1,16,17,32`,
      16 sequences of 128 tokens in microbatches of 8, edge bits 0, 8 and
      4: bit 0 equal to the single-shard forward, 8 and 4 within the
-     stated bounds, 16 kernel-3 launches and one encode and one decode
+     stated bounds, 8 kernel-3 launches and one encode and one decode
      per microbatch; one profiled 8-bit microbatch;
      (b) the same weights and cut through `DecodePipeline.generate`,
      batch 4, a 512-token prompt, 128 new tokens, fp and int8 caches (the
      kernel-5 opt-in set: no launch, a Llama step never asks the gate),
      timed; the fp cache's prefill and each step replayed, timed, its
      logits within FAMILY_FP_BOUND of the forward over the same 640
-     tokens (16 kernel-3 launches); one profiled decode step;
+     tokens (8 kernel-3 launches); one profiled decode step;
      (c) the in-process server, `--kv-bits 8 --kv-pages 512
      --kv-page-size 16 --chunked-prefill 64`, wave and stage executors:
      8 concurrent clients (2 streamed, 4 plain, 2 sharers of a 128-token
@@ -245,7 +245,7 @@ Phases, each of which raises on failure (nothing is caught):
      tokens (the steps cross the 4096-token window) on an fp cache, each
      step within FAMILY_FP_BOUND of the forward over the 4106 tokens,
      which takes the masked route (no kernel-3 launch); the forward over
-     the first 4096 tokens launches kernel 3 16 times and agrees with it;
+     the first 4096 tokens launches kernel 3 8 times and agrees with it;
      (e) Llama-2-7B (MHA), bf16: generate [4, 512] + 128 on fp
      and int8 caches, timed, no kernel-5 launch;
      (f) `pipeedge/gpt2-moe-8e`, f32: the pipeline `-pt 1,24,25,48` at
@@ -262,7 +262,8 @@ Phases, each of which raises on failure (nothing is caught):
      (g) `python -m pipeedge_tpu_torch.generate` on the tiny Llama,
      Mistral and MoE (int8 cache), and `python -m
      pipeedge_tpu_torch.runtime` on the tiny Llama at `-pt 1,4,5,8 -q
-     8,0`, exit code 0 each.
+     8,0`, the four at once (since PR 15, for the script's time), exit
+     code 0 each.
      Printed: items/s and tokens/s, step p50 per attend bucket, prefill
      ms, peak memory, the profiles, and a `phase 14 summary` line.
  15. the rest of PipeEdge's loop and the replica router:
@@ -359,6 +360,27 @@ Phases, each of which raises on failure (nothing is caught):
      readmission, the drain's, the router's tokens/s before r1's
      readmission (r0 alone) and after it, migrated prefixes, the phase's
      seconds.
+ 18. the DCN driver's fault plane, each case through `python -m
+     pipeedge_tpu_torch.chaos_dcn` (CHAOS_CASES) on ViT-Base at full
+     width (phase 16's weights) at `-pt 1,21,22,48 -q 8,0 -b 64 -u 8`,
+     one process and CUDA context per rank, `--on-peer-death failover`:
+     (a) 3 ranks, `kill@3` on rank 1: "moves rank 1 -> 2", at least one
+     microbatch replayed, the results equal to 16a's round 2 (the
+     unfaulted fleet at this cut and bits) bit for bit, the spare's
+     kernel 2 and 3 launches one per replayed microbatch (and edge
+     tensor, and attention block), rank 0's kernel 1 launches one per
+     edge tensor of the 8 to 8 + replayed microbatches it encoded;
+     (b) 2 ranks, `kill@2`: the data rank exits non-zero naming rank 1
+     and "no spare capacity"; (c) 4 ranks, `restart@3:1000`, a spare
+     slower than rank 1 (`--arm 2=delay@1:2000`), `--rounds 3
+     --on-peer-rejoin heal`: one `rejoin_rank=1 epoch=1`, a
+     `heal_round=` line with `ranks=0,1`, 24 results each equal to the
+     unfaulted fleet's, `time_to_full_capacity_s`; (d) 4 ranks,
+     `slow@2:400`, `--rounds 4 --on-peer-degraded quarantine`:
+     `quarantine_rank=1`, 32 results as in (c). Every case fails if a
+     process of its fleet (a restarted incarnation included) outlives
+     it; the four run at once, each its own fleet; the launches of each
+     rank are the kernels line's `fault_plane_launches`.
 Phase 3 also holds kernel 5 (decode attention) against its plain version
 at the main path's shapes (windows of a [16, 1024, 12, 64] stage cache at
 buckets 256 and 512, and pos 1000 of the whole cache), pos 0 and W-1,
@@ -605,11 +627,12 @@ LLAMA3 = "meta-llama/Meta-Llama-3-8B"
 LLAMA2 = "meta-llama/Llama-2-7b-hf"
 MISTRAL = "mistralai/Mistral-7B-v0.1"
 MOE = "pipeedge/gpt2-moe-8e"
-# the three Llama-family models run at 16 of their 32 blocks (full width;
+# the three Llama-family models run at 8 of their 32 blocks (full width;
 # `cut_llama_depth`): at 32 the whole script with phase 17 took 889.2 s
 # on the H100 (NVIDIA H100 80GB HBM3, 700.00 W), too near its 1200 s
-# limit on a slower host
-LLAMA_BLOCKS = 16
+# limit on a slower host, so PR 14 cut them to 16; with phase 18 a host
+# 1.4x slower reached 932 s by the end of phase 15 (PR 15), so 8
+LLAMA_BLOCKS = 8
 FAMILY_PARTITION = [(1, 2 * LLAMA_BLOCKS), (2 * LLAMA_BLOCKS + 1,
                                             4 * LLAMA_BLOCKS)]
 MOE_PARTITION = [(1, 24), (25, 48)]
@@ -4144,42 +4167,50 @@ def check_family_serve(name: str, res: dict, device_name: str,
 
 
 def family_entries(weights_dir: Path) -> list:
-    """The entries on the card as subprocesses: generate on the tiny
-    Llama, Mistral and MoE (int8 cache; the kernel-5 opt-in set in the
-    environment: launched by the GPT-2 family's steps only), and the
-    runtime on the tiny Llama at `-q 8,0`."""
+    """The entries on the card as subprocesses, all at once (each its own
+    process and CUDA context): generate on the tiny Llama, Mistral and
+    MoE (int8 cache; the kernel-5 opt-in set in the environment: launched
+    by the GPT-2 family's steps only), and the runtime on the tiny Llama
+    at `-q 8,0`."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(len(FAMILY_TINY) + 1) as pool:
+        runs = [pool.submit(generate_tiny_entry, model)
+                for model in FAMILY_TINY]
+        rt = pool.submit(run_entry, [
+            "0", "2", "-m", "pipeedge/test-tiny-llama", "-pt", "1,4,5,8",
+            "-q", "8,0", "-b", "16", "-u", "4", "--device", "cuda"], {},
+            weights_dir / "runtime_tiny_llama")
+        return [run.result() for run in runs] + [dict(rt.result(), rc=0)]
+
+
+def generate_tiny_entry(model: str) -> dict:
+    """`python -m pipeedge_tpu_torch.generate` on one tiny decoder (phase
+    14g): its report line, launches and exit code."""
     from pipeedge_tpu_torch.models import registry
-    runs = []
-    for model in FAMILY_TINY:
-        cfg = registry.get_model_config(model)
-        cmd = [sys.executable, "-m", "pipeedge_tpu_torch.generate", "-m",
-               model, "-pt", "1,4,5,8", "-b", "4", "--prompt-len", "16",
-               "--new-tokens", str(FAMILY_TINY_NEW), "--kv-bits", "8",
-               "--device", "cuda"]
-        env = dict(os.environ, PIPEEDGE_INT8_DECODE_ATTEND="1")
-        t0 = time.monotonic()
-        proc = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
-                              text=True, timeout=600)
-        lines = proc.stdout.splitlines()
-        for line in lines:
-            log(f"generate entry ({model}): " + line)
-        launches = [json.loads(ln.split("=", 1)[1]) for ln in lines
-                    if ln.startswith("kernel_launches=")]
-        runs.append(dict(
-            command=" ".join(cmd[1:]), rc=proc.returncode,
-            stderr=proc.stderr[-2000:] if proc.returncode else "",
-            seconds=time.monotonic() - t0,
-            report=[ln for ln in lines if ln.startswith("generated ")],
-            counts=launches[0] if launches else None,
-            # the warm-up's one step and the timed run's steps
-            expected_decode_attention=cfg.num_hidden_layers * FAMILY_TINY_NEW
-            if reaches_kernel5(model) else 0))
-    rt = run_entry(["0", "2", "-m", "pipeedge/test-tiny-llama", "-pt",
-                    "1,4,5,8", "-q", "8,0", "-b", "16", "-u", "4",
-                    "--device", "cuda"], {},
-                   weights_dir / "runtime_tiny_llama")
-    runs.append(dict(rt, rc=0))
-    return runs
+    cfg = registry.get_model_config(model)
+    cmd = [sys.executable, "-m", "pipeedge_tpu_torch.generate", "-m",
+           model, "-pt", "1,4,5,8", "-b", "4", "--prompt-len", "16",
+           "--new-tokens", str(FAMILY_TINY_NEW), "--kv-bits", "8",
+           "--device", "cuda"]
+    env = dict(os.environ, PIPEEDGE_INT8_DECODE_ATTEND="1")
+    t0 = time.monotonic()
+    proc = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
+                          text=True, timeout=600)
+    lines = proc.stdout.splitlines()
+    for line in lines:
+        log(f"generate entry ({model}): " + line)
+    launches = [json.loads(ln.split("=", 1)[1]) for ln in lines
+                if ln.startswith("kernel_launches=")]
+    return dict(
+        command=" ".join(cmd[1:]), rc=proc.returncode,
+        stderr=proc.stderr[-2000:] if proc.returncode else "",
+        seconds=time.monotonic() - t0,
+        report=[ln for ln in lines if ln.startswith("generated ")],
+        counts=launches[0] if launches else None,
+        # the warm-up's one step and the timed run's steps
+        expected_decode_attention=cfg.num_hidden_layers * FAMILY_TINY_NEW
+        if reaches_kernel5(model) else 0)
 
 
 def check_family_entries(runs: list) -> None:
@@ -5531,7 +5562,8 @@ def dcn_local_path(weights_file: Path, want) -> dict:
         c.init()
     args = argparse.Namespace(model_name=MODEL, model_file=str(weights_file),
                               device="cuda", data_rank=0, sched_timeout=60,
-                              stage_depth=0, stage_ckpt=None, wire_crc=False)
+                              stage_depth=0, stage_ckpt=None, wire_crc=False,
+                              on_peer_death="abort")
     layers, quant, ranks = PARTITION, [8, 0], [0, 1]
     inputs, _ = runtime.load_batches(MODEL, BATCH, UBATCH,
                                      torch.device("cpu"), torch.float32)
@@ -6103,6 +6135,180 @@ def check_autoscale_path(res, device_name: str) -> None:
             res["drain_lines"][0].rsplit("=", 1)[1]), "card": device_name}))
 
 
+# --- phase 18: the DCN driver's fault plane -----------------------------
+
+# (a)-(d) through the chaos harness, ViT-Base at full width (phase 16's
+# weights) at -pt 1,21,22,48 -q 8,0 -b 64 -u 8, one process and CUDA
+# context per rank. The beat budget (1 s x 10) covers a rank's CUDA
+# start and the spare's build of the stage it takes over.
+CHAOS_RANK_ARGS = ["-m", MODEL, "-pt",
+                   ",".join(f"{l},{r}" for l, r in PARTITION), "-q", "8,0",
+                   "-r", "0,1", "-b", str(BATCH), "-u", str(UBATCH),
+                   "--heartbeat-interval", "1", "--heartbeat-miss", "10",
+                   "--sched-timeout", "300", "--device", "cuda"]
+# (c): the restarted rank needs its restart delay plus an interpreter's
+# and a CUDA context's start to JOIN, longer than three ViT-Base rounds
+# on the card take; the substitute spare is made slower than the rank it
+# replaces (2 s per send: 12-16 s a round), so the rounds it carries
+# outlast that and the JOIN lands before the last boundary
+CHAOS_RESTART_MS = 1000
+CHAOS_SPARE_DELAY_MS = 2000
+# (d): a straggler slower than the other stage's first round on the card
+# (its first CUDA uses), so round 0's window already counts against it
+CHAOS_SLOW_MS = 400
+CHAOS_CASES = {
+    "a_kill": ["--world", "3", "--chaos", "kill@3"],
+    "b_no_spare": ["--world", "2", "--chaos", "kill@2", "--expect",
+                   "abort"],
+    "c_restart_heal": ["--world", "4", "--chaos",
+                       f"restart@3:{CHAOS_RESTART_MS}", "--arm",
+                       f"2=delay@1:{CHAOS_SPARE_DELAY_MS}", "--rounds", "3",
+                       "--on-peer-rejoin", "heal", "--expect", "heal"],
+    "d_quarantine": ["--world", "4", "--chaos", f"slow@2:{CHAOS_SLOW_MS}",
+                     "--rounds", "4", "--on-peer-degraded", "quarantine",
+                     "--expect", "quarantine"],
+}
+
+
+def chaos_case(name: str, weights_file: Path) -> dict:
+    """One case through `python -m pipeedge_tpu_torch.chaos_dcn`: its JSON
+    record, exit code, each rank's output (`out.log` in its directory)
+    and the data rank's saved results."""
+    d = BUILD_DIR / f"chaos_{name}"
+    if d.exists():
+        import shutil
+        shutil.rmtree(d)
+    d.mkdir(parents=True)
+    t0 = time.monotonic()
+    proc = subprocess.run(
+        [sys.executable, "-m", "pipeedge_tpu_torch.chaos_dcn",
+         *CHAOS_RANK_ARGS, "-M", str(weights_file), "--workdir", str(d),
+         "--save-results", str(d / "results.npz"), "--timeout", "400",
+         *CHAOS_CASES[name]],
+        capture_output=True, text=True, cwd=d, timeout=480,
+        env=dict(os.environ, PYTHONPATH=str(ROOT)))
+    seconds = time.monotonic() - t0
+    lines = proc.stdout.strip().splitlines()
+    if not lines:
+        raise AssertionError(f"chaos {name}: no record (rc "
+                             f"{proc.returncode}):\n{proc.stderr[-4000:]}")
+    record = json.loads(lines[-1])
+    outs = {int(r.name[4:]): (r / "out.log").read_text(errors="replace")
+            for r in sorted(d.glob("rank*")) if (r / "out.log").exists()}
+    results = []
+    if (d / "results.npz").exists():
+        with np.load(d / "results.npz") as f:
+            results = [f[f"arr_{i}"] for i in range(len(f.files))]
+    return dict(rc=proc.returncode, record=record, outs=outs,
+                results=results, seconds=seconds)
+
+
+def chaos_path(want) -> dict:
+    """Phase 18: the cases of CHAOS_CASES, all at once (each its own fleet
+    on its own ports; they share the card and the host's cores, which
+    their times carry); `want` is phase 16a's round 2 (the unfaulted fleet
+    at this cut and bits)."""
+    from concurrent.futures import ThreadPoolExecutor
+    from pipeedge_tpu_torch.models import edge_arity
+    weights_file = BUILD_DIR / f"{MODEL.replace('/', '_')}-random-seed0.npz"
+    res = {"want": want, "arity": edge_arity(PARTITION[0][1])}
+    with ThreadPoolExecutor(len(CHAOS_CASES)) as pool:
+        futures = {name: pool.submit(chaos_case, name, weights_file)
+                   for name in CHAOS_CASES}
+        res["cases"] = {name: f.result() for name, f in futures.items()}
+    for name, case in res["cases"].items():
+        log(f"phase 18 {name}: {case['seconds']:.1f} s")
+    return res
+
+
+def chaos_launch_problem(launches: dict, arity: int, replayed: int):
+    """Case (a)'s launches: the spare decodes (kernel 2) and attends
+    (kernel 3) every replayed microbatch, and rank 0 encoded (kernel 1)
+    each of the 8 to 8 + `replayed` microbatches it dispatched over the
+    two rounds. Returns what is wrong, or None."""
+    n_mb = BATCH // UBATCH
+    spare, head = launches["2"], launches["0"]
+    want = {"fused_decode": arity * replayed,
+            "fused_attention": stage_attention(*PARTITION[1]) * replayed}
+    if spare is None or any(spare[k] != v for k, v in want.items()):
+        return (f"the spare's launches {spare} are not {want} for "
+                f"{replayed} replayed microbatches")
+    enc = (head or {}).get("fused_encode", 0)
+    if enc % arity or not arity * n_mb <= enc <= arity * (n_mb + replayed):
+        return (f"rank 0's {enc} encode launches are not one per edge "
+                f"tensor of {n_mb}..{n_mb + replayed} microbatches")
+    return None
+
+
+def check_chaos_path(res, device_name: str) -> dict:
+    """Every check of phase 18; returns each case's launches per rank (the
+    kernels line's `chaos_launches`)."""
+    cases, want, arity = res["cases"], res["want"], res["arity"]
+    n_mb = BATCH // UBATCH
+    summary, launches = {}, {}
+
+    def fail(name, what):
+        c = cases[name]
+        raise AssertionError(
+            f"chaos {name}: {what}\nrecord {json.dumps(c['record'])}\n"
+            + "\n".join(f"--- rank {r}\n{o[-3000:]}"
+                        for r, o in c["outs"].items()))
+
+    def same_rounds(name, rounds):
+        got = cases[name]["results"]
+        if len(got) != rounds * n_mb:
+            fail(name, f"{len(got)} results, not {rounds * n_mb}")
+        for k, (g, w) in enumerate(zip(got, want * rounds)):
+            if g.shape != w.shape or not np.array_equal(g, w):
+                fail(name, f"result {k} differs from the unfaulted fleet's")
+
+    for name, c in cases.items():
+        rec = c["record"]
+        if rec["survivors"]:
+            fail(name, f"fleet processes outlived the case: "
+                       f"{rec['survivors']}")
+        if c["rc"] != 0:
+            fail(name, f"the harness exited {c['rc']}")
+        launches[name] = rec["kernel_launches"]
+        summary[name] = {k: rec[k] for k in (
+            "detect_s", "recover_s", "replayed", "rejoin_s", "heal_s",
+            "time_to_full_capacity_s", "quarantine_s", "total_s")}
+        summary[name]["seconds"] = c["seconds"]
+    # (a) the spare takes stage 1 over and replays
+    a = cases["a_kill"]
+    replayed = a["record"]["replayed"] or 0
+    if "moves rank 1 -> 2" not in a["outs"][0] or replayed < 1:
+        fail("a_kill", f"no failover to rank 2 with a replay ({replayed})")
+    same_rounds("a_kill", 1)
+    problem = chaos_launch_problem(launches["a_kill"], arity, replayed)
+    if problem:
+        fail("a_kill", problem)
+    # (b) no spare: a non-zero exit naming rank 1
+    b = cases["b_no_spare"]
+    if not b["record"]["aborted"] or "no spare capacity" not in \
+            b["outs"][0] or "rank 1 died" not in b["outs"][0]:
+        fail("b_no_spare", "the fleet did not abort naming rank 1")
+    # (c) one rejoin at epoch 1, a heal back to ranks 0,1, every result once
+    c = cases["c_restart_heal"]
+    data = c["outs"][0]
+    heal = [ln for ln in data.splitlines() if "heal_round=" in ln]
+    if data.count("rejoin_rank=1") != 1 or "rejoin_rank=1 epoch=1" \
+            not in data:
+        fail("c_restart_heal", "rank 1 did not rejoin once at epoch 1")
+    if len(heal) != 1 or "ranks=0,1" not in heal[0] or \
+            c["record"]["time_to_full_capacity_s"] is None:
+        fail("c_restart_heal", f"no heal to ranks 0,1: {heal}")
+    same_rounds("c_restart_heal", 3)
+    # (d) the straggler quarantined, every round delivered
+    d = cases["d_quarantine"]
+    if "quarantine_rank=1" not in d["outs"][0]:
+        fail("d_quarantine", "rank 1 was not quarantined")
+    same_rounds("d_quarantine", 4)
+    log("chaos " + json.dumps({"cases": summary, "launches": launches,
+                               "card": device_name}, sort_keys=True))
+    return launches
+
+
 def main() -> int:
     import argparse
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -6255,6 +6461,12 @@ def main() -> int:
     check_autoscale_path(auto_res, device_name)
     phase_done("phase 17")
 
+    # phase 18: the DCN driver's fault plane, through the chaos harness
+    chaos_res = chaos_path(dcn_res["vit"]["results"][BATCH // UBATCH:
+                                                     2 * (BATCH // UBATCH)])
+    chaos_launches = check_chaos_path(chaos_res, device_name)
+    phase_done("phase 18")
+
     if args.ab_entry_parent is not None:
         ab_entry(args.ab_entry_parent)
         phase_done("ab entry")
@@ -6278,6 +6490,13 @@ def main() -> int:
                 f"rank{r}": c[name]
                 for r, c in dcn_res["deit"]["counts"].items()},
             "local_tier": dcn_res["local"]["counts"][name]}
+
+    def fault_launches(name):
+        """Phase 18's launches of one kernel in each rank's process (its
+        exit line; the killed rank has none), replays included."""
+        return {case: {f"rank{r}": (c or {}).get(name)
+                       for r, c in per_rank.items()}
+                for case, per_rank in chaos_launches.items()}
 
     kernels = []
     # one row per codec kernel and bit width, each with the launches of
@@ -6303,6 +6522,8 @@ def main() -> int:
                 # launches per pass of 8 microbatches on phase 8 (7 edges)
                 deit_launches=deit_res["fixed"][bit]["counts"][name],
                 dcn_launches=dcn_launches(name),
+                **({"fault_plane_launches": fault_launches(name)}
+                   if bit == 8 else {}),
                 # every policy bitwidth on phase 8's edge
                 policy_bits_ms={r["bit"]: r[f"{name[6:]}_ms"]
                                 for r in policy_rows
@@ -6340,6 +6561,7 @@ def main() -> int:
         # launches per pass of 8 microbatches on phases 8 and 9
         deit_launches=deit_res["fixed"][8]["counts"]["fused_attention"],
         dcn_launches=dcn_launches("fused_attention"),
+        fault_plane_launches=fault_launches("fused_attention"),
         bert_launches=bert_res["fixed"][8]["counts"]["fused_attention"],
         # phase 10: the scheduled ViT-Large entry (all rounds), and the
         # profiler's runs of ViT-Base and ViT-Large

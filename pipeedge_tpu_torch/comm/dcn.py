@@ -25,8 +25,9 @@ so a port rank and a JAX rank talk to each other.
   bounded hand-off queues (reference ConditionQueue maxsize=1,
   p2p:88-93), at `depth` microbatches each.
 
-The JAX package's fault injection (`comm/chaos.py`) is not ported
-(ROADMAP A6b).
+Fault injection (`comm/chaos.py`, the `DCN_CHAOS` spec) wraps a
+context's `send_tensors`; its `corrupt@K` flips one bit of a frame here,
+below the integrity layer (`_send_tensors_once`, on a copy).
 """
 from __future__ import annotations
 
@@ -550,6 +551,23 @@ def _recv_body(sock: socket.socket, n: int,
     return tensors
 
 
+def _flip_one_bit(tensors: Sequence) -> List:
+    """Chaos corrupt@K: return `tensors` with one bit flipped in a COPY
+    of the largest tensor (the activation payload — never the header,
+    microbatch id, or checksum, which are all small). The caller's
+    arrays are untouched."""
+    tensors = list(tensors)
+    sizes = [int(np.asarray(t).nbytes) for t in tensors]
+    if not sizes or max(sizes) == 0:
+        return tensors
+    idx = sizes.index(max(sizes))
+    victim = np.array(tensors[idx], copy=True)
+    flat = victim.reshape(-1).view(np.uint8)
+    flat[flat.size // 2] ^= np.uint8(1)
+    tensors[idx] = victim
+    return tensors
+
+
 def _recv_frame(sock: socket.socket) -> Tuple[int, int, int, List[np.ndarray]]:
     msg_type, aux, channel, n = _recv_header(sock)
     return msg_type, aux, channel, _recv_body(sock, n)
@@ -666,6 +684,13 @@ class DistDcnContext(DistContext):
         self.accept_joins = bool(accept_joins)
         # highest epoch each peer ever HELLO'd/JOINed with (under _dead_lock)
         self._peer_epoch: Dict[int, int] = {}
+        # when each peer's current (restarted) incarnation first spoke: the
+        # HELLO that raised its epoch (under _dead_lock). With the dial
+        # stamp of each outgoing connection (`_dialed_at`, under
+        # _conns_lock; keyed (is_cmd, dst)) it tells a JOIN admission
+        # which cached connections reach the OLD incarnation
+        self._incarnation_at: Dict[int, float] = {}
+        self._dialed_at: Dict[Tuple[bool, int], float] = {}
         # fence floor per peer: frames from incarnations with epoch below
         # this are stale and dropped at the reader. Raised to dead_epoch+1
         # when a death is confirmed, and to the admitted epoch on JOIN.
@@ -729,6 +754,10 @@ class DistDcnContext(DistContext):
         self._frame_seq: Dict[Tuple[int, int], int] = {}
         self._last_frames: Dict[Tuple[int, int], deque] = {}
         self._wire_crc = wire_codec.crc_enabled()
+        # chaos hook (comm/chaos.py corrupt@K): one-shot bit flip applied
+        # BELOW the integrity layer, on a copy, so the resend cache and
+        # any checksum stay clean — simulated wire corruption
+        self._corrupt_next_send = False
         # send/recv measurement hooks (reference p2p:132-152): pre fires just
         # before the payload moves, post just after, so (post - pre) is the
         # actual wire transfer time — excluding idle waits for data to exist.
@@ -909,6 +938,9 @@ class DistDcnContext(DistContext):
             was_dead = src in self._dead
             self._dead.discard(src)
             timer = self._pending_death.pop(src, None)
+            # the new incarnation spoke first on the connection carrying
+            # this JOIN (its HELLO raised the epoch), if not before
+            reborn_at = self._incarnation_at.get(src, time.monotonic())
             self._alive_at[src] = time.monotonic()
             self._peer_epoch[src] = max(self._peer_epoch.get(src, 0), epoch)
             # supersede every older incarnation: even if the old one was
@@ -918,13 +950,19 @@ class DistDcnContext(DistContext):
         if timer is not None:
             timer.cancel()
         # the old incarnation's outgoing sockets are gone; drop them so
-        # the next send/beat redials the restarted listener. Its
-        # negotiated transport path is equally stale (a restarted rank
+        # the next send/beat redials the restarted listener. Only those:
+        # a connection dialed after the new incarnation first spoke (the
+        # echo of its first heartbeat, say) reaches the NEW listener, and
+        # dropping it would close it under the new incarnation, which
+        # would take the drop for this rank's death and fence it. Its
+        # negotiated transport path is stale either way (a restarted rank
         # is a NEW process: a colocated grant would now dangle).
         self._edge_path.pop(src, None)
         with self._conns_lock:
-            self._conns.pop(src, None)
-            self._cmd_conns.pop(src, None)
+            for is_cmd, conns in ((False, self._conns),
+                                  (True, self._cmd_conns)):
+                if self._dialed_at.get((is_cmd, src), 0.0) < reborn_at:
+                    conns.pop(src, None)
         # heartbeat hygiene: restart the watch from the peer's FIRST new
         # beat (watching-starts-at-first-beat rule), and clear the dial
         # backoff so this rank resumes beating it immediately — a second
@@ -988,6 +1026,16 @@ class DistDcnContext(DistContext):
             return False
         finally:
             lock.release()
+
+    def cmd_send(self, dst: int, cmd: int,
+                 tensors: Sequence[np.ndarray] = (),
+                 timeout: Optional[float] = None) -> None:
+        """Send a command frame to ONE peer over the command connection —
+        the point-to-point complement of `cmd_broadcast` (an admission ACK
+        must reach exactly the rejoiner, not the fleet). Raises OSError
+        when `dst` is unreachable."""
+        self._cmd_channel_send(dst, _MSG_CMD, cmd, tensors,
+                               timeout=timeout)
 
     def announce_join(self, peers: Optional[Sequence[int]] = None,
                       timeout: float = 5.0) -> List[int]:
@@ -1280,6 +1328,8 @@ class DistDcnContext(DistContext):
         self._last_frames = {}
         self._peer_epoch = {}
         self._min_epoch = {}
+        self._incarnation_at = {}
+        self._dialed_at = {}
         self.stale_frames_dropped = 0
         # forget which peers were ever up: a relaunched fleet's listeners
         # get the full rendezvous budget again, not the fast-refusal path
@@ -1379,6 +1429,8 @@ class DistDcnContext(DistContext):
             conn_epoch = int(np.asarray(hello[0]).reshape(-1)[0]) \
                 if hello else 0
             with self._dead_lock:
+                if conn_epoch > self._peer_epoch.get(src, 0):
+                    self._incarnation_at[src] = time.monotonic()
                 self._peer_epoch[src] = max(self._peer_epoch.get(src, 0),
                                             conn_epoch)
             with self._conns_lock:
@@ -1681,6 +1733,8 @@ class DistDcnContext(DistContext):
                     (np.asarray(self.epoch, np.int64),))
         with self._conns_lock:
             conns[dst] = conn
+            self._dialed_at[(conns is self._cmd_conns, dst)] = \
+                time.monotonic()
             self._ever_connected.add(dst)
         self._alive_sign(dst)   # a successful dial revives a grace window
         return conn
@@ -1760,7 +1814,14 @@ class DistDcnContext(DistContext):
         if trace is not None:
             wire_tensors = [trace.to_wire()] + list(tensors)
             msg_type = _MSG_TENSORS_TRACED
+        # chaos corrupt@K: flip one bit in a COPY, below the integrity
+        # layer — the resend cache (and any frame checksum, computed by
+        # the caller's PendingWire.finalize) keeps the clean bytes, so a
+        # consumer-requested resend genuinely recovers the frame
         frame_tensors = wire_tensors
+        if self._corrupt_next_send:
+            self._corrupt_next_send = False
+            frame_tensors = _flip_one_bit(wire_tensors)
         # frame integrity: with PIPEEDGE_WIRE_CRC armed, CRC-FLAGGED
         # frames carry a per-(dst, channel) sequence number in the aux
         # field instead of the (reader-unused) sender rank, so a
@@ -1821,6 +1882,24 @@ class DistDcnContext(DistContext):
         and no frames remain (already-delivered frames drain first)."""
         return self.recv_tensors_meta(src, timeout=timeout,
                                       channel=channel)[0]
+
+    def drop_queued(self, channel: int, src: Optional[int] = None) -> int:
+        """Discard the frames waiting on `channel` (from `src`, or from
+        every rank), without blocking; returns how many. What a round
+        that is over leaves there is stale: a reader parked on that full
+        queue would hold back every later frame of its connection."""
+        with self._recv_lock:
+            queues = [q for (s, ch), q in self._recv_queues.items()
+                      if ch == channel and src in (None, s)]
+        dropped = 0
+        for q in queues:
+            while True:
+                try:
+                    q.get_nowait()
+                except queue.Empty:
+                    break
+                dropped += 1
+        return dropped
 
     def recv_tensors_meta(self, src: int, timeout: Optional[float] = None,
                           channel: int = CHANNEL_DATA) \
@@ -2199,6 +2278,30 @@ class DistDcnContext(DistContext):
         offset = telemetry.estimate_clock_offset(samples)
         return telemetry.spans_from_wire(blob), offset
 
+    def collect_digest(self, dst: int, timeout: float = 5.0):
+        """Fetch `dst`'s cumulative span digest over the command channel:
+        the lightweight per-round collection the peer-health scorer reads
+        (telemetry.Digest, durations only — no clock probes, no full
+        trace). Empty dict when the peer records no spans. Raises
+        queue.Empty on timeout and OSError when `dst` is unreachable; one
+        in-flight collection per peer (shared reply queue with
+        `collect_spans`)."""
+        q = self._span_queue(dst)
+        while True:  # drop stale replies from an abandoned collection
+            try:
+                q.get_nowait()
+            except queue.Empty:
+                break
+        self._send_neg(dst, _MSG_SPANS, _SPANS_DIGEST)
+        deadline = time.monotonic() + timeout
+        while True:
+            aux, tensors = q.get(timeout=max(0.0, deadline
+                                             - time.monotonic()))
+            if aux == _SPANS_DIGEST:
+                return telemetry.digest_from_wire(tensors[1])
+            # a late reply from a previously timed-out collect_spans probe
+            # (different aux): discard, keep waiting for OUR reply
+
 
 class DcnPipelineStage:
     """One pipeline stage over the DCN transport: recv -> work -> send on
@@ -2243,6 +2346,7 @@ class DcnPipelineStage:
                  dispatch_cb: Optional[Callable] = None,
                  readback_cb: Optional[Callable] = None,
                  depth: Optional[int] = None,
+                 mb_of: Optional[Callable] = None,
                  stage: Optional[int] = None):
         if depth is None:
             depth = int(os.getenv("DCN_STAGE_DEPTH", "2"))
@@ -2268,6 +2372,12 @@ class DcnPipelineStage:
         self._results_cb = results_cb
         self._recv_channel = recv_channel
         self._send_channel = send_channel
+        # telemetry: extracts the GLOBAL microbatch id from an inbound
+        # tensor list (failover frames carry it as the leading tensor);
+        # without it spans tag the stage-local dispatch sequence, which a
+        # failover replay would renumber from 0 — miscorrelating exactly
+        # the traces failover forensics needs
+        self._mb_of = mb_of
         # pipeline-stage index for span tagging: with it, this stage's
         # dispatch/readback/emit spans land on the report's per-stage
         # tracks AND in the digest the rebalancer differences per round
@@ -2346,14 +2456,21 @@ class DcnPipelineStage:
             self._queue_work.put((tensors, trace))
 
     def _work_loop(self) -> None:
-        # span mb tag: the stage-local dispatch sequence (equal to the
-        # global id on a FIFO run)
-        mb = 0
+        # span mb tag: the global id when the frame carries one (mb_of),
+        # else the stage-local dispatch sequence (equal to the global id
+        # on a FIFO run)
+        seq = 0
         while True:
             item = self._queue_work.get()
             if item is self._SENTINEL or self._stop.is_set():
                 return
             tensors, trace = item
+            mb = seq
+            if self._mb_of is not None:
+                try:
+                    mb = self._mb_of(tensors)
+                except Exception:  # malformed frame: keep the sequence tag
+                    pass
             rid = trace.rid if trace is not None else None
             # trace_scope: spans the callback records WITHOUT an explicit
             # rid (the compute span inside dispatch_cb) inherit this
@@ -2365,7 +2482,7 @@ class DcnPipelineStage:
             if out is self.SKIP:
                 continue    # dropped (corrupt frame awaiting its resend)
             self._queue_out.put((mb, out, trace))
-            mb += 1
+            seq += 1
 
     def _send_loop(self) -> None:
         while True:

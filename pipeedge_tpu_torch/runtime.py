@@ -74,12 +74,36 @@ thread waits only on that microbatch's event before the frame goes out.
 `-pt "a;b" -q "x;y"` (or `--rounds N`) runs several schedule rounds on one
 fleet; an empty CMD_SCHED ends it. A peer's death (a dropped connection,
 or `--heartbeat-interval` beats missed `--heartbeat-miss` times) stops the
-fleet, each survivor naming the dead rank (`--on-peer-death abort`).
-Every rank prints its `kernel_launches=`, per round and in total.
+fleet, each survivor naming the dead rank (`--on-peer-death abort`, the
+default). Every rank prints its `kernel_launches=`, per round and in
+total.
+
+The DCN driver's fault plane, as in `runtime.py`:
+
+- `--on-peer-death failover`: every frame leads with its global
+  microbatch id, and the data rank keeps a ledger of the round
+  (`_MicrobatchLedger`: acks by id, delivery in order, exactly once,
+  snapshots every `DCN_LEDGER_SNAPSHOT` acks). A stage rank's death ends
+  the round; the survivors re-plan (`sched/failover.py`: spare
+  substitution keeps the partition, so the replay is bit-identical) and
+  the unacknowledged microbatches replay on the new schedule. With no
+  spare left the fleet aborts, naming the dead rank.
+- `--on-peer-rejoin ignore|spare|heal` (default spare): a restarted rank
+  (`DCN_EPOCH` > 0) announces itself with a JOIN; it comes back as an
+  idle spare, and under `heal` the pre-failure schedule is restored at
+  the next round boundary (the `heal_round=` line).
+- `--on-peer-degraded quarantine` (with `--degraded-threshold/-confirm/
+  -readmit`): the data rank scores every stage rank at each round
+  boundary from the fleet's span digests, heartbeat round trips and send
+  retries (`health/scorer.py`) and benches a confirmed straggler
+  (`quarantine_rank=`), readmitting it on probation (`readmit_rank=`).
+
+`python -m pipeedge_tpu_torch.chaos_dcn` launches such a fleet with one
+fault armed in one rank (`comm/chaos.py`) and times its recovery.
 
 The flags of `runtime.py` that this entry does not run are refused at
 parse time, each naming the ROADMAP item that ports it (`REFUSED`): the
-DCN driver's fault recovery, rebalancer and autoscaler (A6b), the
+DCN driver's rebalancer and rank autoscaler (A6b's control half), the
 multi-device axes' (A7), `--platform` (the port's switch is `--device`)
 and the dataset flags (the real datasets need a download).
 """
@@ -107,11 +131,12 @@ from .parallel import pipeline as host_pipeline
 from . import telemetry
 from .sched.scheduler import sched_pipeline
 from .telemetry import chrome_trace
+from .telemetry import flight
 from .telemetry import metrics as prom
 from .utils import data as data_utils
 from .utils import quant as quantutil
 from .utils import tracing
-from .utils.threads import ThreadSafeCounter
+from .utils.threads import ThreadSafeCounter, make_lock
 
 logger = logging.getLogger(__name__)
 
@@ -152,8 +177,39 @@ stop_counter = ThreadSafeCounter(name="runtime.stops")
 # set once the fleet is tearing down cleanly (empty CMD_SCHED sent or
 # received): from then on, dropped connections are expected, not deaths
 fleet_shutdown = threading.Event()
+# failover mode state (--on-peer-death failover): ranks announced dead via
+# CMD_DEAD or observed locally; deaths accumulate for the whole run
+dead_ranks: set = set()
+dead_lock = make_lock("runtime.dead")
+# rejoined-but-not-healed ranks (guarded by dead_lock): alive spare
+# capacity that must NOT silently reclaim its old stage at the next
+# round's failover re-plan. --on-peer-rejoin spare keeps ranks here;
+# heal clears the bench at the round boundary that restores capacity.
+benched_ranks: set = set()
+# gray-quarantined ranks (guarded by dead_lock): alive but benched by
+# the peer-health plane (--on-peer-degraded quarantine). Kept SEPARATE
+# from benched_ranks so a rejoin heal clearing the bench can never
+# silently readmit a quarantined straggler; only probation readmission
+# (health/scorer.py) removes entries here.
+quarantined_ranks: set = set()
+# a death landed mid-round: the data rank ends the round, re-schedules over
+# the survivors, and replays the unacknowledged microbatches
+failover_event = threading.Event()
+# elastic membership (--on-peer-rejoin): a confirmed-dead rank passed the
+# JOIN admission handshake and is live again. The handler removes it from
+# dead_ranks; `_heal_state` carries what the data rank's round loop needs
+# to close the capacity loop at the next boundary.
+_heal_state: dict = {
+    "detect_ns": None,    # first death detection of the open episode
+    "rejoin_ns": None,    # admission stamp of the most recent rejoin
+    "pre_failure": None,  # schedule running when the episode's death hit
+    "pending": False,     # a heal should be attempted at the boundary
+}
 # --save-results at the dcn data rank: every delivered result, in order
 _results_sink: Optional[list] = None
+# failover telemetry: monotonic_ns stamps of each death detection, consumed
+# by the data rank's recovery span (detection -> replay-round completion)
+_failover_detect_ns: List[int] = []
 
 # /metrics plane: the DCN transport hooks feed these
 _WIRE_BYTES = prom.REGISTRY.counter(
@@ -169,29 +225,40 @@ _EDGE_PATH = prom.REGISTRY.gauge(
 _HEARTBEATS_RX = prom.REGISTRY.counter(
     "pipeedge_heartbeats_received_total",
     "liveness-plane heartbeat frames received, by sender rank")
+_FAILOVER_EVENTS = prom.REGISTRY.counter(
+    "pipeedge_failover_events_total",
+    "mid-run peer deaths entering the failover path")
 _PEER_DEATHS = prom.REGISTRY.counter(
     "pipeedge_peer_deaths_total", "peer deaths observed (any mode)")
 _REJOINS = prom.REGISTRY.counter(
     "pipeedge_rejoins_total",
     "peers re-admitted through the JOIN handshake after a confirmed death")
+_TTFC = prom.REGISTRY.gauge(
+    "pipeedge_time_to_full_capacity_seconds",
+    "latest heal episode: first death detection -> partition healed back "
+    "to full capacity at a round boundary")
+_LEDGER_SNAPSHOTS = prom.REGISTRY.counter(
+    "pipeedge_ledger_snapshots_total",
+    "microbatch-ledger snapshots taken (bounds failover replay state)")
+# the heartbeat RTT percentiles the peer-health scorer reads (q = p50 |
+# p99); the frame-integrity counter lives with its verification site in
+# comm/dcn.py (`dcn.FRAMES_CORRUPT`)
+_HB_RTT = prom.REGISTRY.gauge(
+    "pipeedge_heartbeat_rtt_ms",
+    "heartbeat round-trip percentiles per peer over the bounded sample "
+    "window (q = p50 | p99)")
 
 # `runtime.py` flags this entry refuses, each with the ROADMAP item that
 # ports it (so no flag is silently ignored): flag -> (argparse keywords,
 # item)
-_DCN_B = "A6b, the DCN driver's fault recovery"
-_REBALANCE = "A6b, the DCN rebalancer between rounds"
+_REBALANCE = "A6b's control half, the DCN rebalancer between rounds"
 _AXES = "A7, the multi-GPU axes"
-_AUTOSCALE = "A6b, the DCN rank autoscaler"
+_AUTOSCALE = "A6b's control half, the DCN rank autoscaler"
 _DATASET = ("A7 small pieces: the real datasets need a download, so the "
             "port runs the synthetic inputs only")
 _INT, _FLOAT, _STR, _SWITCH = ({"type": int}, {"type": float}, {},
                                {"action": "store_true"})
 REFUSED = {
-    "--on-peer-rejoin": (_STR, _DCN_B),
-    "--on-peer-degraded": (_STR, _DCN_B),
-    "--degraded-threshold": (_FLOAT, _DCN_B),
-    "--degraded-confirm": (_INT, _DCN_B),
-    "--degraded-readmit": (_INT, _DCN_B),
     "--rebalance-threshold": (_FLOAT, _REBALANCE),
     "--rebalance-cooldown": (_INT, _REBALANCE),
     "--rebalance-confirm": (_INT, _REBALANCE),
@@ -293,8 +360,37 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                              "batch each round)")
     parser.add_argument("--on-peer-death", default="abort",
                         choices=["abort", "failover"],
-                        help="dcn reaction to a rank dying mid-run: abort "
-                             "the fleet (failover is not ported yet)")
+                        help="dcn reaction to a stage rank dying mid-run: "
+                             "abort the fleet, or re-schedule over the "
+                             "survivors and replay the unacknowledged "
+                             "microbatches (pass it to every rank; results "
+                             "are exactly-once by microbatch id)")
+    parser.add_argument("--on-peer-rejoin", default="spare",
+                        choices=["ignore", "spare", "heal"],
+                        help="dcn reaction to a confirmed-dead rank passing "
+                             "the JOIN handshake (a restarted incarnation "
+                             "with a higher DCN_EPOCH): ignore refuses it, "
+                             "spare re-admits it as idle capacity for later "
+                             "failovers, heal also restores the pre-failure "
+                             "schedule at the next round boundary")
+    parser.add_argument("--on-peer-degraded", default="ignore",
+                        choices=["ignore", "quarantine"],
+                        help="dcn reaction to a gray-failing peer (alive, "
+                             "but its health score confirmed a straggler): "
+                             "ignore scores only; quarantine benches it at "
+                             "the next round boundary (its stage moves to a "
+                             "spare, no replay) and readmits it on "
+                             "probation. Forces span recording on; pass it "
+                             "to every rank")
+    parser.add_argument("--degraded-threshold", type=float, default=0.4,
+                        help="health score at which a rank turns suspect "
+                             "(the readmit threshold is half of it)")
+    parser.add_argument("--degraded-confirm", type=int, default=2,
+                        help="consecutive bad windows after the suspect "
+                             "entry before quarantine")
+    parser.add_argument("--degraded-readmit", type=int, default=2,
+                        help="consecutive recovered windows before a "
+                             "quarantined rank readmits on probation")
     parser.add_argument("--wire-crc", action="store_true",
                         help="checksum every wire-v2 frame, verify it on "
                              "receive and ask for one resend of a corrupt "
@@ -363,14 +459,19 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
         parser.error(f"-c spmd is not ported to pipeedge_tpu_torch yet "
                      f"(ROADMAP {_AXES}); the port runs the host and dcn "
                      "drivers")
-    if args.on_peer_death != "abort":
-        parser.error(f"--on-peer-death {args.on_peer_death} is not ported "
-                     f"to pipeedge_tpu_torch yet (ROADMAP {_DCN_B}); the "
-                     "port's dcn driver aborts the fleet")
     dcn = args.comm == "dcn"
     n_rounds = max(len(v.split(";")) for v in
                    (args.partition or "", args.quant or "",
                     args.rank_order or ""))
+    if args.on_peer_degraded == "quarantine":
+        # runtime.py's composition errors, word for word
+        if not dcn:
+            parser.error("--on-peer-degraded quarantine applies to the "
+                         "dcn driver (per-process ranks)")
+        if args.rounds == 1 and n_rounds == 1:
+            parser.error("--on-peer-degraded quarantine acts at round "
+                         "boundaries: pass --rounds N (or ';'-separated "
+                         "schedule rounds)")
     if not dcn:
         for flag, given in (("--stage-ckpt", args.stage_ckpt),
                             ("--rounds", args.rounds != 1)):
@@ -853,13 +954,40 @@ def handle_cmd(cmd: int, tensors) -> None:
         logger.warning("handle_cmd: re-admitted into the fleet "
                        "(current round %d)", rnd_now)
     elif cmd == CMD_DEAD:
-        # a failover announcement (from a JAX rank running --on-peer-death
-        # failover); the port's driver aborts on a death it sees itself
-        logger.warning("handle_cmd: rank %d announced dead",
-                       int(np.asarray(tensors[0])))
+        # a failover announcement (--on-peer-death failover) from the
+        # survivor that saw the death first, a port rank or a JAX rank
+        dead = int(np.asarray(tensors[0]))
+        logger.warning("handle_cmd: rank %d announced dead (failover)", dead)
+        with dead_lock:
+            known = dead in dead_ranks
+            dead_ranks.add(dead)
+        if not known:
+            # every survivor may broadcast the same death; count the event
+            # once and stamp detection once, or the failover metrics and
+            # spans multiply by the fleet size
+            _record_failover_detect(dead)
+        failover_event.set()
         monitoring.flush()
     else:
         logger.warning("handle_cmd: Unknown command: %s", cmd)
+
+
+def _record_failover_detect(dead: int, failover: bool = True) -> None:
+    """First-observation bookkeeping for a peer death: one detect span,
+    one detection stamp (the recovery span's start), one death count —
+    callers dedupe against dead_ranks (or stop_info) before calling.
+    `failover=False` (abort path) skips the failover-event counter."""
+    now = time.monotonic_ns()
+    telemetry.record("failover", "detect", now, now)
+    flight.note("peer_death", dead_rank=dead, failover=failover)
+    _failover_detect_ns.append(now)
+    if _heal_state["detect_ns"] is None:
+        # anchor of the time-to-full-capacity clock: the FIRST detection
+        # of the episode a later heal closes
+        _heal_state["detect_ns"] = now
+    _PEER_DEATHS.inc(peer=str(dead))
+    if failover:
+        _FAILOVER_EVENTS.inc()
 
 
 class _EdgeQuantState:
@@ -915,11 +1043,14 @@ def build_dcn_stage(args, ctx, rnd: int, i: int,
     waits on that microbatch's event only. The output edge's bitwidth is
     negotiated with the consumer, adapts under `ADAPTIVE_QUANT` on this
     rank's own `send` window, and its transport tier is negotiated
-    (`local` hands the device tensors to a consumer in this process)."""
+    (`local` hands the device tensors to a consumer in this process).
+    Under `--on-peer-death failover` every frame leads with its global
+    microbatch id: dispatch strips it, readback puts it back in front."""
     from .comm import dcn
     from .comm import wire
 
     rank, data_rank = ctx.rank, args.data_rank
+    failover_mode = args.on_peer_death == "failover"
     parity = dcn.CHANNEL_ROUND_PARITY * (rnd % 2)
     wire_crc = args.wire_crc or wire.crc_enabled()
     guard_on = nan_guard.nan_guard_enabled()
@@ -987,6 +1118,11 @@ def build_dcn_stage(args, ctx, rnd: int, i: int,
     ubatch_idx = [0]
 
     def dispatch_cb(tensors):
+        mbid = None
+        if failover_mode:
+            # the id never enters the stage: stripped here, put back in
+            # front of the output frame by readback
+            mbid, tensors = tensors[0], tensors[1:]
         with _stream_scope(stream):
             if is_first:
                 payload = to_input(np.asarray(tensors[0]), device, dtype)
@@ -1007,7 +1143,7 @@ def build_dcn_stage(args, ctx, rnd: int, i: int,
                         logger.error("resend request to rank %d failed: "
                                      "%s", rank_src, rexc)
                     return dcn.DcnPipelineStage.SKIP
-            mb = mb_seq[0]
+            mb = _mbid_of(mbid) if mbid is not None else mb_seq[0]
             mb_seq[0] += 1
             if guard_on:
                 payload = nan_guard.check_finite(payload,
@@ -1022,10 +1158,10 @@ def build_dcn_stage(args, ctx, rnd: int, i: int,
         # the raw output rides the hand-off queue only when the adaptive
         # policy reads it (it would pin `depth` microbatches otherwise)
         return (pending, out if adaptive is not None else None,
-                int(first.shape[0]))
+                int(first.shape[0]), mbid)
 
     def readback_cb(item):
-        pending, out, n_items = item
+        pending, out, n_items, mbid = item
         if edge_tier[0] == dcn.PATH_LOCAL:
             # a consumer in this process takes the device tensors, its
             # stream waiting on this microbatch's event
@@ -1041,16 +1177,517 @@ def build_dcn_stage(args, ctx, rnd: int, i: int,
             ubatch_idx[0] += 1
             if edge.quant_bit:
                 edge.quant_bit = negotiate(edge.quant_bit)
+        if mbid is not None:
+            # a 0-d host array, as the data rank sent it
+            tagged = [np.asarray(mbid)] + list(frame)
+            frame = (wire.DeviceFrame(tagged, frame.event)
+                     if isinstance(frame, wire.DeviceFrame) else tagged)
         return frame
 
     return dcn.DcnPipelineStage(
         ctx, rank_src, rank_dst, dispatch_cb=dispatch_cb,
         readback_cb=readback_cb, stage=i,
+        # failover frames lead with the global microbatch id: the stage's
+        # spans carry it, so a replay traces under the same id
+        mb_of=(lambda ts: _mbid_of(ts[0])) if failover_mode else None,
         depth=args.stage_depth or None,
         recv_channel=(dcn.CHANNEL_FEED if is_first
                       else dcn.CHANNEL_DATA) + parity,
         send_channel=(dcn.CHANNEL_RESULTS if is_last
                       else dcn.CHANNEL_DATA) + parity)
+
+
+ENV_LEDGER_SNAPSHOT = "DCN_LEDGER_SNAPSHOT"  # acks between ledger
+# snapshots (0 disables). Each snapshot compacts acknowledged microbatch
+# payloads out of the ledger and advances the replay frontier, so a
+# failover replays from the last snapshot's frontier — O(unacknowledged)
+# work and memory — instead of rescanning (and holding) the whole round.
+DEFAULT_LEDGER_SNAPSHOT = 8
+
+
+class _MicrobatchLedger:
+    """Bounded in-flight ledger for the data rank (failover mode): every
+    microbatch is registered with its id before dispatch, acknowledged when
+    its result frame lands, and REPLAYED (same id) after a failover if no
+    acknowledgment arrived. Duplicate results — a replay overlapping a
+    frame that was already in flight when the stage died, or a transient
+    resend — are dropped by id, and delivery to `handle_results` is held
+    until contiguous, so the result stream at the data rank is exactly-once
+    and in microbatch order regardless of arrival order (`runtime.py
+    _MicrobatchLedger`).
+
+    Snapshots (`maybe_snapshot`, every `snapshot_every` acks) keep the
+    failover replay O(in-flight) instead of O(round): acknowledged
+    payloads are dropped (they can never be refed — an ack is final) and
+    the replay frontier advances past the acked prefix, so `pending()`
+    after a mid-round death scans and ships only the microbatches that
+    genuinely need replaying from the last snapshot on.
+
+    An acknowledged result is kept as given until its turn to be
+    delivered: the caller hands over a host copy the ledger owns, never a
+    view of a pooled receive buffer or of recycled staging memory."""
+
+    def __init__(self, ubatches, labels, snapshot_every: Optional[int] = None):
+        self._ubatches = list(ubatches)
+        self._labels = (list(labels) if labels
+                        else [None] * len(self._ubatches))
+        self._snapshot_every = (snapshot_every if snapshot_every is not None
+                                else int(os.getenv(
+                                    ENV_LEDGER_SNAPSHOT,
+                                    str(DEFAULT_LEDGER_SNAPSHOT))))
+        self._acks_since_snapshot = 0
+        self._frontier = 0        # lowest possibly-unacked microbatch id
+        self.snapshots = 0        # snapshots taken (tests/metrics)
+        # mbid -> epoch of the incarnation whose result was accepted: the
+        # dedupe key carries the epoch, so forensics (and tests) can tell
+        # a same-incarnation resend from a stale-incarnation replay
+        self._acked: dict = {}
+        self._held: dict = {}       # acked but not yet contiguous
+        self._next_deliver = 0
+        # per-source epoch floor (fence_rank): an ack produced by an
+        # incarnation below the floor is stale and refused — the transport
+        # already fences these at the reader; this is the ledger's own
+        # belt-and-braces (a stale frame must NEVER ack a microbatch)
+        self._epoch_floor: dict = {}
+        self.stale_dropped = 0
+        # request <-> microbatch mapping: the feed loop records each
+        # microbatch's trace/request id here, so a postmortem bundle can
+        # resolve a request to its microbatches (and back) after the fact
+        self._traces: dict = {}
+        self._lock = make_lock("runtime.ledger")
+        self.done = threading.Event()
+        if not self._ubatches:
+            self.done.set()
+
+    def record_trace(self, mbid: int, rid: str) -> None:
+        """Bind microbatch `mbid` to request id `rid` (feed time)."""
+        with self._lock:
+            self._traces[int(mbid)] = str(rid)
+
+    def trace_of(self, mbid: int) -> Optional[str]:
+        with self._lock:
+            return self._traces.get(int(mbid))
+
+    def forensics(self) -> dict:
+        """The ledger slice of a failover postmortem bundle: progress,
+        the replay set, and the request ids in flight when it was taken
+        (ids only — payloads stay out of the bundle)."""
+        with self._lock:
+            pending = [i for i in range(self._frontier,
+                                        len(self._ubatches))
+                       if i not in self._acked]
+            return {"microbatches": len(self._ubatches),
+                    "acked": len(self._acked),
+                    "pending_mbids": pending,
+                    "frontier": self._frontier,
+                    "snapshots": self.snapshots,
+                    "stale_dropped": self.stale_dropped,
+                    "next_deliver": self._next_deliver,
+                    "traces": {str(k): v
+                               for k, v in sorted(self._traces.items())}}
+
+    @property
+    def acked_count(self) -> int:
+        with self._lock:
+            return len(self._acked)
+
+    def pending(self) -> List[Tuple[int, np.ndarray]]:
+        """(microbatch id, ubatch) pairs not yet acknowledged — what the
+        feed loop sends, and after a failover, exactly the replay set.
+        The scan starts at the snapshot frontier: everything below it was
+        acked (and compacted away) by the last snapshot."""
+        with self._lock:
+            return [(i, self._ubatches[i])
+                    for i in range(self._frontier, len(self._ubatches))
+                    if i not in self._acked]
+
+    def maybe_snapshot(self) -> bool:
+        """Count an ack toward the snapshot cadence; snapshot when due.
+        Called by the results loop after every accepted ack (cheap: a
+        counter bump between snapshots)."""
+        if self._snapshot_every <= 0:
+            return False
+        with self._lock:
+            self._acks_since_snapshot += 1
+            if self._acks_since_snapshot < self._snapshot_every:
+                return False
+            self._snapshot_locked()
+        _LEDGER_SNAPSHOTS.inc()
+        return True
+
+    def snapshot(self) -> None:
+        """Compact now (see `maybe_snapshot` for the periodic form)."""
+        with self._lock:
+            self._snapshot_locked()
+        _LEDGER_SNAPSHOTS.inc()
+
+    def _snapshot_locked(self) -> None:
+        # an acked payload is never refed (acks are final even across
+        # failovers — replay covers only unacked ids), so drop it and
+        # advance the frontier past the acked prefix: replay work and
+        # ledger memory both become O(unacknowledged since snapshot)
+        for i in range(self._frontier, len(self._ubatches)):
+            if i in self._acked:
+                self._ubatches[i] = None
+        while self._frontier < len(self._ubatches) \
+                and self._frontier in self._acked:
+            self._frontier += 1
+        self._acks_since_snapshot = 0
+        self.snapshots += 1
+
+    def acked_epochs(self) -> dict:
+        """mbid -> producing incarnation's epoch, for every accepted ack."""
+        with self._lock:
+            return dict(self._acked)
+
+    def fence_rank(self, src: int, min_epoch: int) -> None:
+        """Refuse acks from `src` incarnations below `min_epoch` (mirrors
+        the transport fence, `DistDcnContext.min_epoch_of`)."""
+        with self._lock:
+            self._epoch_floor[src] = max(self._epoch_floor.get(src, 0),
+                                         int(min_epoch))
+
+    def ack(self, mbid: int, out, epoch: int = 0,
+            src: Optional[int] = None) -> bool:
+        """Acknowledge microbatch `mbid`'s result; False for a duplicate
+        or a stale-incarnation ack (both dropped). Results are surfaced
+        through `handle_results` in id order so the label queue and
+        accuracy bookkeeping stay aligned."""
+        deliver = []
+        with self._lock:
+            if src is not None and epoch < self._epoch_floor.get(src, 0):
+                self.stale_dropped += 1
+                return False
+            if mbid in self._acked or not 0 <= mbid < len(self._ubatches):
+                return False
+            self._acked[mbid] = int(epoch)
+            self._held[mbid] = out
+            while self._next_deliver in self._held:
+                i = self._next_deliver
+                deliver.append((self._labels[i], self._held.pop(i)))
+                self._next_deliver += 1
+            complete = len(self._acked) == len(self._ubatches)
+        for label, result in deliver:
+            if label is not None:
+                label_queue.put(label)
+            handle_results(result)
+        if complete:
+            self.done.set()
+        return True
+
+
+def _collect_fleet_digests(ctx, args, stage_ranks):
+    """Pull every stage rank's CUMULATIVE span digest over the command
+    channel once (kilobytes; `DistDcnContext.collect_digest`), at a round
+    boundary. Returns `{rank: digest}`, or None when any rank is dead or
+    unreachable (the whole window is unmeasurable — partial snapshots
+    must not advance anyone's baseline)."""
+    with dead_lock:
+        gone = set(dead_ranks)
+    out = {}
+    for src in sorted(set(stage_ranks)):
+        if src == args.rank:
+            rec = telemetry.recorder()
+            out[src] = rec.digest() if rec is not None else {}
+        elif src in gone:
+            logger.info("telemetry window: rank %d is dead; skipping "
+                        "this round", src)
+            return None
+        else:
+            try:
+                out[src] = ctx.collect_digest(src, timeout=10.0)
+            except Exception as exc:  # noqa: BLE001 - any peer hiccup
+                logger.warning("telemetry window: digest collection from "
+                               "rank %d failed (%s)", src, exc)
+                return None
+    return out
+
+
+def _estimates_from_digests(cur_digests, sched, prev_digests: dict,
+                            min_samples: int = 2):
+    """One consumer's measured window: difference a fleet digest
+    snapshot against `prev_digests` (the caller-owned baselines, which
+    advance here — every rank's, atomically, so windows always cover one
+    time span) and decompose into per-stage service estimates
+    (telemetry/feedback.py). Returns the estimates dict, or None when
+    the snapshot is absent or fails the self-test."""
+    from .telemetry import feedback
+
+    if cur_digests is None:
+        return None
+    stage_layers = sched[0]
+    windows = [feedback.diff_digests(cur, prev_digests.get(src, {}))
+               for src, cur in cur_digests.items()]
+    prev_digests.update(cur_digests)
+    est = feedback.stage_estimates(feedback.merge_digests(windows))
+    problems = feedback.check_estimates(est, len(stage_layers),
+                                        min_samples=min_samples)
+    if problems:
+        logger.info("telemetry window failed the self-test (%s)",
+                    "; ".join(problems))
+        return None
+    return est
+
+
+def _consider_peer_health(ctx, args, hstate: dict, sched, next_sched,
+                          world_size: int, rnd: int,
+                          cur_digests=None) -> None:
+    """One gray-failure decision at a round boundary (data rank only, as
+    `runtime.py _consider_peer_health`): fold this round's measured
+    signals — per-stage service time against the fleet median (the
+    digest windows), heartbeat RTT p99 against the fleet median
+    (`DistDcnContext.heartbeat_rtt_stats`), transport redial counts —
+    into the EWMA health scorer, and act on its transitions:
+
+    - suspect / floor-hold / recovery: recorded (health spans, flight
+      ring) but nothing moves.
+    - quarantine (`--on-peer-degraded quarantine`, confirmed over N
+      windows, min-fleet floor verified by DRY-RUNNING the next round's
+      failover plan with the victim benched): a planned bench — the rank
+      is alive and this round fully drained, so adding it to
+      `quarantined_ranks` makes the next boundary's re-plan move its
+      stage to a spare with no ledger replay.
+    - probation readmit: the score recovered; un-benching lets the next
+      round's own schedule restore the stage through the same re-plan
+      path.
+
+    Never raises; an unmeasurable service window still folds RTT/retry
+    signals so quarantined ranks keep moving toward (or away from)
+    readmission."""
+    from statistics import median
+
+    from . import health as health_mod
+
+    scorer = hstate["scorer"]
+    _stage_layers, _q, stage_ranks = sched
+    # cur_digests=None = the boundary's shared sweep failed: no service
+    # signal this window, but RTT/retry signals still fold below
+    est = _estimates_from_digests(cur_digests, sched,
+                                  hstate["prev_digests"])
+
+    # relative signals: a fleet where everything is slow is balanced,
+    # not gray — normalize against the TRUE median (an upper median would
+    # make a 2-stage fleet's straggler its own baseline). Absolute floors
+    # guard the false-positive side: a stage a few ms over the median or
+    # a sub-5 ms RTT at 2x the median reads as healthy (ratio 1.0)
+    excess_floor_s = float(os.getenv("PIPEEDGE_HEALTH_MIN_EXCESS_S",
+                                     "0.02"))
+    rtt_floor_ms = float(os.getenv("PIPEEDGE_HEALTH_RTT_FLOOR_MS", "5"))
+    service_ratio: dict = {}
+    if est:
+        svc = {stage_ranks[i]: e.service_s for i, e in est.items()
+               if 0 <= i < len(stage_ranks)}
+        med = median(svc.values()) if svc else 0.0
+        if med > 0:
+            service_ratio = {
+                r: (s / med if s - med >= excess_floor_s else 1.0)
+                for r, s in svc.items()}
+    rtt = ctx.heartbeat_rtt_stats()
+    rtt_ratio: dict = {}
+    if rtt:
+        med = median(v["p99_ms"] for v in rtt.values())
+        for peer, v in rtt.items():
+            _HB_RTT.set(v["p50_ms"], peer=str(peer), q="p50")
+            _HB_RTT.set(v["p99_ms"], peer=str(peer), q="p99")
+            if med > 0 and len(rtt) > 1:
+                rtt_ratio[peer] = (v["p99_ms"] / med
+                                   if v["p99_ms"] >= rtt_floor_ms
+                                   else 1.0)
+    retries_now = ctx.send_retry_counts()
+    prev_r = hstate["prev_retries"]
+    window_retries = {p: n - prev_r.get(p, 0)
+                      for p, n in retries_now.items()}
+    hstate["prev_retries"] = retries_now
+
+    with dead_lock:
+        dead_now = set(dead_ranks)
+        bench_now = set(benched_ranks) | set(quarantined_ranks)
+    # score every rank carrying a stage this round PLUS every quarantined
+    # rank (still beating — its RTT drives readmission)
+    for peer in sorted((set(stage_ranks) | set(quarantined_ranks))
+                       - dead_now - {args.rank}):
+        sample = health_mod.HealthSample(
+            service_ratio=service_ratio.get(peer),
+            rtt_ratio=rtt_ratio.get(peer),
+            send_retries=int(window_retries.get(peer, 0)))
+        floor_ok = False
+        if args.on_peer_degraded == "quarantine" \
+                and scorer.state_of(peer) in (health_mod.STATE_SUSPECT,
+                                              health_mod.STATE_PROBATION):
+            # min-fleet floor: quarantine (or a probation relapse) only if
+            # the NEXT round still has a runnable plan with this rank also
+            # benched — the cascade the boundary re-plan will run
+            planned = _plan_failover(args, next_sched, world_size,
+                                     dead_now, benched=bench_now | {peer})
+            floor_ok = planned is not None
+        t = scorer.observe(peer, sample, can_quarantine=floor_ok)
+        if t is None:
+            continue
+        now = time.monotonic_ns()
+        if t.to == health_mod.STATE_QUARANTINED:
+            with dead_lock:
+                quarantined_ranks.add(peer)
+            telemetry.record("health", f"quarantine:r{peer}", now, now)
+            flight.note("peer_degraded", rank=peer, to=t.to,
+                        score=round(t.score, 4), reason=t.reason)
+            flight.maybe_dump("gray", context={
+                "rank": peer, "round": rnd, "score": t.score,
+                "reason": t.reason, "health": scorer.snapshot()})
+            logger.warning("peer health: QUARANTINING rank %d at round "
+                           "%d (%s); its stage moves to a spare at the "
+                           "next boundary", peer, rnd, t.reason)
+            # machine-parseable line (the chaos harness keys on it)
+            print(f"quarantine_rank={peer} round={rnd} "
+                  f"score={t.score:.4f}", flush=True)
+        elif t.frm == health_mod.STATE_QUARANTINED \
+                and t.to == health_mod.STATE_PROBATION:
+            with dead_lock:
+                quarantined_ranks.discard(peer)
+            telemetry.record("health", f"readmit:r{peer}", now, now)
+            flight.note("peer_readmitted", rank=peer,
+                        score=round(t.score, 4))
+            logger.warning("peer health: READMITTING rank %d on "
+                           "probation at round %d (%s)", peer, rnd,
+                           t.reason)
+            print(f"readmit_rank={peer} round={rnd} "
+                  f"score={t.score:.4f}", flush=True)
+        elif t.frm == t.to:
+            # floor hold (suspect stays suspect / probation relapse held):
+            # checked before the suspect branch, which would otherwise
+            # record a suspect-state hold as a second `suspect` span
+            telemetry.record("health", f"held:r{peer}", now, now)
+            flight.note("peer_quarantine_held", rank=peer,
+                        score=round(t.score, 4))
+        elif t.to == health_mod.STATE_SUSPECT:
+            telemetry.record("health", f"suspect:r{peer}", now, now)
+            flight.note("peer_suspect", rank=peer,
+                        score=round(t.score, 4), reason=t.reason)
+        else:                 # suspect/probation -> healthy
+            telemetry.record("health", f"recovered:r{peer}", now, now)
+            flight.note("peer_recovered", rank=peer,
+                        score=round(t.score, 4))
+
+
+def _plan_failover(args, sched, world_size: int, dead_now: set,
+                   benched: Optional[set] = None):
+    """Re-schedule over the survivors (sched/failover.py cascade). The
+    native scheduler re-solve is attempted only when profile files were
+    given; spare substitution — which preserves the partition and thus
+    bit-identical replay — is the fallback. None = no capacity: abort.
+    `benched` ranks (rejoined, not healed, or quarantined) keep no stage
+    but stay in the spare pool at lowest priority."""
+    from .sched import failover as failover_sched
+
+    scheduler_fn = None
+    if args.sched_models_file or args.sched_dev_types_file \
+            or args.sched_dev_file:
+        def scheduler_fn(n_survivors):
+            return get_pipeline_sched(
+                n_survivors, None, None, None, None, args.model_name,
+                args.ubatch_size, args.sched_models_file,
+                args.sched_dev_types_file, args.sched_dev_file,
+                dtype=args.dtype)
+    return failover_sched.plan_failover(*sched, world_size, dead_now,
+                                        scheduler_fn=scheduler_fn,
+                                        benched=benched)
+
+
+def _maybe_heal(args, sched, world_size: int, rnd: int,
+                schedules, sched_idx: int) -> None:
+    """One heal decision at a round boundary (`--on-peer-rejoin heal`,
+    data rank only): if the capacity the episode lost is restorable —
+    every rank the pre-failure schedule names is alive again, or idle
+    ranks allow a re-expansion (sched/failover.py `plan_rejoin`) — clear
+    the bench so the next round runs the fleet at full capacity, and
+    close the episode's time-to-full-capacity clock. A restore needs no
+    schedule rewrite (each remaining round's own schedule replans clean
+    once the bench is empty); a genuine re-expansion is written over the
+    remaining rounds. The heal line reports the schedule the next round
+    will run. A rejoiner that cannot restore capacity yet stays a spare
+    and the heal stays pending for a later boundary."""
+    from .sched import failover as failover_sched
+
+    with dead_lock:
+        dead_now = set(dead_ranks)
+    pre = _heal_state["pre_failure"]
+    healed = failover_sched.plan_rejoin(sched, pre, world_size, dead_now)
+    if healed is None:
+        logger.info("heal: capacity not restorable yet (dead=%s); the "
+                    "rejoined rank stays a spare", sorted(dead_now))
+        return
+    restored = pre is not None and healed == (list(pre[0]), list(pre[1]),
+                                              list(pre[2]))
+    if restored:
+        # the next round's own schedule runs clean once the bench is
+        # empty: report THAT, not the plan
+        layers, _quant, ranks = schedules[sched_idx + 1]
+    else:
+        for j in range(sched_idx + 1, len(schedules)):
+            schedules[j] = (list(healed[0]), list(healed[1]),
+                            list(healed[2]))
+        layers, _quant, ranks = healed
+    now = time.monotonic_ns()
+    t0 = _heal_state["detect_ns"] or _heal_state["rejoin_ns"] or now
+    telemetry.record("rejoin", "heal", t0, now)
+    ttfc = (now - t0) / 1e9
+    _TTFC.set(ttfc)
+    with dead_lock:
+        benched_ranks.clear()
+    _heal_state["pending"] = False
+    _heal_state["pre_failure"] = None
+    _heal_state["detect_ns"] = None
+    logger.warning("heal: partition %s to full capacity for round "
+                   "%d: layers=%s ranks=%s (%.3fs after detection)",
+                   "restored" if restored else "re-expanded",
+                   rnd, list(layers), list(ranks), ttfc)
+    # machine-parseable heal line (the chaos harness keys its healed
+    # timestamp and final partition on it)
+    print(f"heal_round={rnd} "
+          f"partition={','.join(f'{l},{r}' for l, r in layers)} "
+          f"ranks={','.join(str(r) for r in ranks)} "
+          f"time_to_full_capacity_s={ttfc:.3f}", flush=True)
+
+
+def _abort_no_capacity(ctx, dead_now: set) -> None:
+    """Failover found no schedule the survivors can run: fall back to the
+    abort semantics, naming the dead rank fleet-wide (death-carrying
+    CMD_STOP) so every worker raises instead of waiting for a schedule."""
+    dead = sorted(dead_now)[0]
+    stop_info[0] = dead
+    monitoring.flush()
+    try:
+        ctx.cmd_broadcast(CMD_STOP, [np.asarray(dead, np.int32)],
+                          best_effort=True)
+    except OSError:  # pragma: no cover - best_effort already guards
+        pass
+    stop_event.set()
+    raise RuntimeError(
+        f"pipeline aborted: rank {dead} died and no spare capacity "
+        "remains to fail over (set --on-peer-death abort to skip the "
+        "re-schedule attempt)")
+
+
+def _handle_corrupt_results(ctx, src: int, channel: int, exc) -> None:
+    """A result frame failed its checksum where the transport reader did
+    not verify it (the producer armed `--wire-crc`, this rank did not):
+    count it, note it, and request a latest-frame resend. In failover mode
+    the ledger dedupes and orders the resent frame by microbatch id;
+    without a ledger the FIFO label pairing may shift by one — the same
+    caveat DCN_SEND_RETRIES carries outside failover mode."""
+    from .comm import dcn
+    dcn.FRAMES_CORRUPT.inc(peer=str(src))
+    flight.note("frame_corrupt", peer=src, error=str(exc))
+    logger.error("results: corrupt frame from rank %d (%s); requesting "
+                 "resend", src, exc)
+    try:
+        ctx.request_resend(src, channel)
+    except OSError as rexc:
+        logger.error("resend request to rank %d failed: %s", src, rexc)
+
+
+def _mbid_of(t) -> int:
+    """The microbatch id a failover frame leads with (a 0-d int64)."""
+    return int(np.asarray(t).reshape(-1)[0])
 
 
 def _launch_delta(before: dict) -> dict:
@@ -1063,22 +1700,43 @@ def run_pipeline_dcn(args, schedules, ubatches, labels) -> None:
     schedule (`schedules`: a list of (stage layers, stage bits, stage
     ranks)), streams the microbatches to the first stage and collects
     the results from the last; workers build the stage each CMD_SCHED
-    gives them until an empty one ends the run. A peer's death stops the
-    fleet (`--on-peer-death abort`)."""
-    from .comm import dcn
+    gives them until an empty one ends the run.
+
+    A peer's death stops the fleet (`--on-peer-death abort`), or, under
+    `failover`, ends the round: the data rank re-plans over the survivors
+    and replays what its ledger has not acknowledged, in a new round.
+    A restarted rank (`DCN_EPOCH` > 0) announces its JOIN; the data rank
+    admits it as a spare and, under `--on-peer-rejoin heal`, restores
+    the pre-failure schedule at the next round boundary. Under
+    `--on-peer-degraded quarantine` each boundary scores the stage ranks
+    and benches a confirmed straggler (`_consider_peer_health`)."""
+    from .comm import chaos, dcn
 
     rank, world_size = args.rank, args.worldsize
     data_rank = args.data_rank
+    failover_mode = args.on_peer_death == "failover"
     resolve_device(args.device)   # a run asked for the card needs one
     _declare_fleet_metric_labels(world_size, rank)
+    # per-rank flight recorder: always-on event ring; postmortem bundles
+    # fire on failover (data rank), one per cooldown window
+    flight.configure(rank=rank)
     addrs = dcn.parse_rank_addrs(args.dcn_addrs, world_size, args.port)
     dtype = torch.bfloat16 if args.dtype == "bfloat16" else torch.float32
     launches0 = dict(_build.launch_counts)
 
-    # deaths are terminal: the abort driver has no rejoin (A6b)
     with dcn.DistDcnContext(world_size, rank, addrs, cmd_handler=handle_cmd,
-                            accept_joins=False) as ctx:
+                            accept_joins=args.on_peer_rejoin != "ignore"
+                            ) as ctx:
         _register_dcn_monitor_hooks(ctx)
+        chaos.maybe_install(ctx)   # deterministic fault injection, env-gated
+        if ctx.send_retries > 0 and not failover_mode:
+            # a resent frame can DUPLICATE or reorder a microbatch; only
+            # the failover ledger dedupes by id. Without it, the FIFO
+            # label/result pairing can silently misalign.
+            logger.warning(
+                "DCN_SEND_RETRIES=%d without --on-peer-death failover: "
+                "resends are not deduplicated; result/label alignment is "
+                "not guaranteed after a transient fault", ctx.send_retries)
 
         def on_peer_death(dead: int) -> None:
             if stop_info[0] is not None:
@@ -1088,9 +1746,29 @@ def run_pipeline_dcn(args, schedules, ubatches, labels) -> None:
             if fleet_shutdown.wait(timeout=2.0):
                 return
             monitoring.flush()
-            now = time.monotonic_ns()
-            telemetry.record("failover", "detect", now, now)
-            _PEER_DEATHS.inc(peer=str(dead))
+            if failover_mode and dead != data_rank:
+                with dead_lock:
+                    announced = dead in dead_ranks
+                    dead_ranks.add(dead)
+                if announced:
+                    return
+                _record_failover_detect(dead)
+                logger.error("rank %d: peer rank %d died; entering failover",
+                             rank, dead)
+                failover_event.set()
+                # every rank may detect independently; the announcement is
+                # idempotent at the receivers (dead_ranks is a set) and the
+                # data rank alone orchestrates the recovery
+                try:
+                    ctx.cmd_broadcast(CMD_DEAD, [np.asarray(dead, np.int32)],
+                                      best_effort=True)
+                except OSError:  # pragma: no cover - best_effort guards
+                    pass
+                return
+            # the data rank's death is never survivable — it alone holds
+            # the ledger, the inputs and the orchestration — so even in
+            # failover mode it takes the abort path
+            _record_failover_detect(dead, failover=False)
             logger.error("rank %d: peer rank %d died; stopping the pipeline",
                          rank, dead)
             stop_info[0] = dead
@@ -1104,6 +1782,61 @@ def run_pipeline_dcn(args, schedules, ubatches, labels) -> None:
             stop_event.set()
 
         ctx.register_peer_death_handler(on_peer_death)
+
+        # heal state shared between the rejoin handler (reader-thread
+        # dispatch) and the data rank's round loop
+        round_state = {"rnd": 0}
+        ledger_ref: List[Optional[_MicrobatchLedger]] = [None]
+
+        def on_peer_rejoin(src: int, epoch: int) -> None:
+            """A peer passed the JOIN handshake: pull it out of the dead
+            set (it is live idle capacity again), and — on the data rank —
+            fence the ledger, ack the admission (CMD_ADMIT) and arm the
+            heal for the next round boundary."""
+            with dead_lock:
+                was_dead = src in dead_ranks
+                dead_ranks.discard(src)
+                # its old stage stays where the failover moved it until a
+                # heal says otherwise (spare mode never does)
+                if was_dead:
+                    benched_ranks.add(src)
+            now = time.monotonic_ns()
+            telemetry.record("rejoin", "admit", now, now)
+            _REJOINS.inc(peer=str(src))
+            _heal_state["rejoin_ns"] = now
+            if was_dead:
+                _heal_state["pending"] = True
+            logger.warning("rank %d: peer rank %d rejoined with epoch %d%s",
+                           rank, src, epoch,
+                           " (was confirmed dead)" if was_dead else "")
+            if rank != data_rank:
+                return
+            # machine-parseable admission line (the chaos harness keys its
+            # rejoin timestamp on it)
+            print(f"rejoin_rank={src} epoch={epoch} "
+                  f"was_dead={int(was_dead)}", flush=True)
+            # epoch floor for the ledger: results signed by the fenced
+            # incarnation must never ack a microbatch
+            ledger = ledger_ref[0]
+            if ledger is not None:
+                ledger.fence_rank(src, ctx.min_epoch_of(src))
+            # a rank admitted once the fleet is tearing down may have
+            # missed the empty CMD_SCHED: it gets its own, or it would
+            # wait out --sched-timeout holding its device
+            done = fleet_shutdown.is_set()
+            try:
+                if done:
+                    ctx.cmd_send(src, CMD_SCHED, [], timeout=10.0)
+                else:
+                    ctx.cmd_send(src, CMD_ADMIT,
+                                 [np.asarray(round_state["rnd"], np.int32)],
+                                 timeout=10.0)
+            except OSError as exc:
+                logger.warning("%s to rank %d failed (%s)",
+                               "the empty CMD_SCHED" if done else "CMD_ADMIT",
+                               src, exc)
+
+        ctx.register_peer_rejoin_handler(on_peer_rejoin)
 
         def liveness_beat(src: int) -> None:
             _HEARTBEATS_RX.inc(src=str(src))
@@ -1127,22 +1860,33 @@ def run_pipeline_dcn(args, schedules, ubatches, labels) -> None:
             if args.heartbeat_interval > 0 else None,
             miss_threshold=args.heartbeat_miss
             if args.heartbeat_miss > 0 else None)
+        if ctx.epoch > 0:
+            # this process IS a restarted incarnation (env DCN_EPOCH, e.g.
+            # chaos restart@K:MS or an orchestrator relaunch): ask the
+            # fleet to re-admit it before waiting for a schedule
+            # the data rank first: if it is gone, so is the fleet this
+            # incarnation would rejoin, and waiting for a schedule would
+            # only hold the device until --sched-timeout
+            reached = ctx.announce_join(peers=[data_rank])
+            if rank != data_rank and not reached:
+                raise RuntimeError(
+                    f"rank {rank}: restarted as epoch {ctx.epoch}, but the "
+                    f"data rank {data_rank} did not take its JOIN; the "
+                    "fleet has ended")
+            reached += ctx.announce_join(
+                peers=[r for r in range(world_size) if r != data_rank])
+            logger.warning("rank %d: restarted as epoch %d; JOIN announced "
+                           "to rank(s) %s", rank, ctx.epoch, reached)
         results_target = [0]
         if rank == data_rank:
-            try:
-                for rnd, sched in enumerate(schedules):
-                    if rnd:
-                        logger.info("re-schedule: broadcasting round %d "
-                                    "(partition %s)", rnd, sched[0])
-                    _dcn_round(args, ctx, rnd, *sched, ubatches, labels,
-                               dtype, results_target)
-            finally:
-                if args.trace_spans:
-                    _collect_write_spans(ctx, args)
+            _drive_rounds(args, ctx, schedules, ubatches, labels, dtype,
+                          results_target, round_state, ledger_ref)
             # no more rounds: an empty schedule releases the workers
             # (fleet_shutdown first, so peers closing are not deaths)
             fleet_shutdown.set()
-            ctx.cmd_broadcast(CMD_SCHED, [], exclude=ctx.dead_ranks())
+            with dead_lock:
+                gone = set(dead_ranks)
+            ctx.cmd_broadcast(CMD_SCHED, [], exclude=gone)
         else:
             rnd = 0
             while True:
@@ -1171,7 +1915,8 @@ def run_pipeline_dcn(args, schedules, ubatches, labels) -> None:
                 stage_quant = [int(q) for q in tensors[1]]
                 stage_ranks = [int(r) for r in tensors[2]]
                 # the schedule carries the data rank's global round index
-                # (channel parity must match the fleet's)
+                # (channel parity must match the fleet's; a rejoined
+                # worker starts counting mid-sequence)
                 if len(tensors) > 3:
                     rnd = int(np.asarray(tensors[3]).reshape(-1)[0])
                 _dcn_round(args, ctx, rnd, stage_layers, stage_quant,
@@ -1182,30 +1927,183 @@ def run_pipeline_dcn(args, schedules, ubatches, labels) -> None:
           + json.dumps(_launch_delta(launches0), sort_keys=True), flush=True)
 
 
+def _drive_rounds(args, ctx, schedules, ubatches, labels, dtype,
+                  results_target, round_state: dict, ledger_ref: list) -> None:
+    """The data rank's round loop (`runtime.py run_pipeline_dcn`): each
+    schedule round runs once, or, when a stage rank dies under failover,
+    until a round over the re-planned survivors completes it from the
+    ledger. At each completed boundary before the last: the peer-health
+    decision, then the heal. The merged span trace is written whatever
+    happens (`--trace-spans`)."""
+    world_size = args.worldsize
+    failover_mode = args.on_peer_death == "failover"
+    # peer-health plane (gray failures): active whenever the fleet
+    # records spans — `--on-peer-degraded quarantine` forces them on
+    # (main_dcn); with `ignore` and --trace-spans the scorer still runs
+    # for observability (scores, suspect spans, flight events) but never
+    # benches
+    health_state = None
+    if telemetry.enabled() and world_size > 1:
+        from . import health as health_mod
+        h_scorer = health_mod.PeerHealthScorer(
+            [r for r in range(world_size) if r != args.rank],
+            policy=health_mod.HealthPolicy(
+                suspect_threshold=args.degraded_threshold,
+                readmit_threshold=args.degraded_threshold / 2,
+                confirm=args.degraded_confirm,
+                readmit=args.degraded_readmit))
+        health_mod.set_scorer(h_scorer)
+        health_state = {"scorer": h_scorer, "prev_digests": {},
+                        "prev_retries": {}}
+    schedules = [tuple(s) for s in schedules]
+    try:
+        rnd = 0
+        fo_t0 = None   # recovery span: detection stamp, if any
+        for sched_idx in range(len(schedules)):
+            sched = schedules[sched_idx]
+            ledger = None
+            if failover_mode:
+                # clear BEFORE snapshotting: a death landing in between is
+                # caught by the snapshot (its rank joins dead_ranks before
+                # the event is set), and a death landing after re-sets the
+                # event and fails the round over normally
+                failover_event.clear()
+                with dead_lock:
+                    dead_now = set(dead_ranks)
+                    bench_now = set(benched_ranks) | set(quarantined_ranks)
+                if dead_now or bench_now:
+                    # a later round may still name a rank that died earlier
+                    # (or rejoined un-healed, or was quarantined): remap
+                    # before broadcasting
+                    if _heal_state["pre_failure"] is None:
+                        _heal_state["pre_failure"] = sched
+                    sched = _plan_failover(args, sched, world_size, dead_now,
+                                           benched=bench_now)
+                    if sched is None:
+                        _abort_no_capacity(ctx, dead_now)
+                ledger = _MicrobatchLedger(ubatches, labels)
+                ledger_ref[0] = ledger
+            while True:
+                round_state["rnd"] = rnd
+                if rnd:
+                    logger.info("re-schedule: broadcasting round %d "
+                                "(partition %s)", rnd, sched[0])
+                status = _dcn_round(args, ctx, rnd, *sched, ubatches,
+                                    labels, dtype, results_target,
+                                    ledger=ledger)
+                rnd += 1
+                if status != "failover":
+                    if fo_t0 is not None:
+                        # detection -> replay-round completion (the span
+                        # report's failover breakdown); consume this
+                        # episode's stamps
+                        telemetry.record("failover", "recover", fo_t0,
+                                         time.monotonic_ns())
+                        fo_t0 = None
+                        del _failover_detect_ns[:]
+                    if sched_idx + 1 < len(schedules):
+                        if health_state is not None:
+                            # gray-failure decision at the boundary: the
+                            # round is fully drained, so a quarantine is a
+                            # planned bench with no replay
+                            _consider_peer_health(
+                                ctx, args, health_state, sched,
+                                schedules[sched_idx + 1], world_size,
+                                rnd - 1,
+                                cur_digests=_collect_fleet_digests(
+                                    ctx, args, sched[2]))
+                        if args.on_peer_rejoin == "heal" \
+                                and _heal_state["pending"]:
+                            # capacity came back mid-run: restore (or
+                            # re-expand) before the next round's broadcast
+                            _maybe_heal(args, sched, world_size, rnd,
+                                        schedules, sched_idx)
+                    break
+                if fo_t0 is None:
+                    # FIRST detection of this episode
+                    fo_t0 = (_failover_detect_ns[0] if _failover_detect_ns
+                             else time.monotonic_ns())
+                # failover postmortem bundle: the ledger's replay set and
+                # request map and the membership at the moment the round
+                # failed over — written before the re-plan mutates them
+                with dead_lock:
+                    fo_dead = sorted(dead_ranks)
+                    fo_bench = sorted(benched_ranks)
+                flight.note("failover", dead_ranks=fo_dead, round=rnd)
+                flight.maybe_dump("failover", context={
+                    "round": rnd, "dead_ranks": fo_dead,
+                    "benched_ranks": fo_bench,
+                    "ledger": ledger.forensics()})
+                # clear-then-snapshot, same ordering as above
+                failover_event.clear()
+                with dead_lock:
+                    dead_now = set(dead_ranks)
+                    bench_now = set(benched_ranks) | set(quarantined_ranks)
+                if _heal_state["pre_failure"] is None:
+                    # the schedule running when the episode's death hit:
+                    # what --on-peer-rejoin heal restores
+                    _heal_state["pre_failure"] = sched
+                replay = ledger.pending()
+                with telemetry.span("failover", "reschedule"):
+                    planned = _plan_failover(args, sched, world_size,
+                                             dead_now, benched=bench_now)
+                if planned is None:
+                    _abort_no_capacity(ctx, dead_now)
+                logger.warning(
+                    "failover: rank(s) %s dead (benched: %s); re-scheduling "
+                    "over survivors and replaying %d unacknowledged "
+                    "microbatch(es)", sorted(dead_now), sorted(bench_now),
+                    len(replay))
+                sched = planned
+    finally:
+        if args.trace_spans:
+            _collect_write_spans(ctx, args)
+
+
 def _dcn_round(args, ctx, rnd, stage_layers, stage_quant, stage_ranks,
                ubatches, labels, dtype, results_target,
-               stop_base: Optional[int] = None) -> None:
+               ledger: Optional[_MicrobatchLedger] = None,
+               stop_base: Optional[int] = None) -> Optional[str]:
     """One schedule round on a live fleet: (data rank) broadcast the
     schedule, build this rank's stage if it has one, stream the batch,
     stop; (worker) build, run until this round's CMD_STOP. Prints this
-    round's kernel launches on this rank."""
+    round's kernel launches on this rank.
+
+    With a `ledger` (failover mode at the data rank) every frame leads
+    with its microbatch id, only unacknowledged microbatches are fed, and
+    a stage rank's death ends the round with status "failover" (the
+    survivors' results drained) instead of raising: the caller re-plans
+    and replays. Returns "ok" on completion, "failover" on a survivable
+    death, None on worker ranks."""
     from .comm import dcn
     from .comm import wire
 
     rank, data_rank = args.rank, args.data_rank
     parity = dcn.CHANNEL_ROUND_PARITY * (rnd % 2)
+    # an aborting death is terminal for the whole run (failover-mode
+    # deaths live in dead_ranks instead)
     if stop_info[0] is not None:
         raise RuntimeError(f"rank {rank}: pipeline aborted: rank "
                            f"{stop_info[0]} died")
     t_round0 = time.monotonic_ns()
     launches0 = dict(_build.launch_counts)
     stop_event.clear()
+    status = None
+    feed_threads: List[threading.Thread] = []
     if rank == data_rank:
+        if ledger is not None:
+            # results of earlier rounds (a stage's work on what a cut-off
+            # round left queued) are stale; none of this round's exists yet
+            _drop_stale(ctx, dcn.CHANNEL_RESULTS, "result")
+        # skip confirmed-dead ranks, so a failover schedule reaches every
+        # survivor without stalling
+        with dead_lock:
+            gone = set(dead_ranks)
         ctx.cmd_broadcast(CMD_SCHED, [
             np.asarray(stage_layers, np.int32),
             np.asarray(stage_quant, np.int32),
             np.asarray(stage_ranks, np.int32),
-            np.asarray(rnd, np.int32)], exclude=ctx.dead_ranks())
+            np.asarray(rnd, np.int32)], exclude=gone)
     stage = None
     try:
         my_stages = [i for i, r in enumerate(stage_ranks) if r == rank]
@@ -1223,8 +2121,14 @@ def _dcn_round(args, ctx, rnd, stage_layers, stage_quant, stage_ranks,
             logger.info("rank %d not in schedule; idling", rank)
 
         if rank == data_rank:
-            for lb in labels:
-                label_queue.put(lb)
+            if ledger is None:
+                for lb in labels:
+                    label_queue.put(lb)
+                feed_items = list(enumerate(ubatches))
+            else:
+                # only unacknowledged microbatches are (re)fed; labels are
+                # delivered by the ledger in microbatch order
+                feed_items = ledger.pending()
             first_rank, last_rank = stage_ranks[0], stage_ranks[-1]
             try:
                 feed_tier = ctx.negotiate_edge_path(
@@ -1236,7 +2140,78 @@ def _dcn_round(args, ctx, rnd, stage_layers, stage_quant, stage_ranks,
                                "handshake failed (%s); keeping the socket "
                                "path", rank, first_rank, exc)
 
+            def death_hits_schedule() -> bool:
+                # a dead IDLE spare is recorded but must not tear down a
+                # healthy round; only a death among this round's stage
+                # ranks fails it over. A scheduled rank sitting in
+                # benched_ranks is lost too: restart@K:MS can re-exec the
+                # victim fast enough that its JOIN is admitted (dead ->
+                # benched) before this loop's next poll sees the death,
+                # and the fresh incarnation holds no stage state. Every
+                # call site pairs this with failover_event, so a benched
+                # rank fails a round only while a death episode is open.
+                with dead_lock:
+                    lost = set(dead_ranks) | set(benched_ranks)
+                    return bool(lost & set(stage_ranks))
+
+            def round_lost() -> bool:
+                return failover_event.is_set() and death_hits_schedule()
+
             def results_loop():
+                if ledger is not None:
+                    # failover mode: keep acking until the ledger is full
+                    # or the round is torn down — including the drain
+                    # window after a death, when survivors' in-flight
+                    # results are still arriving
+                    while not stop_event.is_set() \
+                            and not ledger.done.is_set():
+                        try:
+                            # the producing incarnation's epoch keys the
+                            # ledger's epoch-aware dedupe
+                            tensors, epoch, tctx = ctx.recv_tensors_traced(
+                                last_rank, timeout=0.5,
+                                channel=dcn.CHANNEL_RESULTS + parity)
+                        except queue.Empty:
+                            # a late result of the last round must not
+                            # park its reader in front of this round's
+                            ctx.drop_queued(dcn.CHANNEL_RESULTS
+                                            + dcn.CHANNEL_ROUND_PARITY
+                                            - parity)
+                            continue
+                        except ConnectionError:
+                            return
+                        mbid = _mbid_of(tensors[0])
+                        rid = (tctx.rid if tctx is not None
+                               else ledger.trace_of(mbid))
+                        try:
+                            with telemetry.span("results", "deliver",
+                                                mb=mbid, rid=rid):
+                                out = wire.wire_decode(tensors[1:], dtype,
+                                                       device="cpu")
+                                if nan_guard.nan_guard_enabled():
+                                    out = nan_guard.check_finite(
+                                        out, where="results", mb=mbid,
+                                        rid=rid)
+                                # the ledger keeps a host copy it owns,
+                                # never a view of the receive buffer
+                                if not ledger.ack(mbid, out.clone(),
+                                                  epoch=epoch,
+                                                  src=last_rank):
+                                    logger.info("failover: duplicate "
+                                                "result for microbatch "
+                                                "%d dropped", mbid)
+                                else:
+                                    # keeps the replay a mid-round death
+                                    # would trigger bounded to the unacked
+                                    # window
+                                    ledger.maybe_snapshot()
+                        except wire.WireCorruptError as exc:
+                            # the resent frame re-enters this loop and
+                            # acks by id: exactly-once holds
+                            _handle_corrupt_results(
+                                ctx, last_rank,
+                                dcn.CHANNEL_RESULTS + parity, exc)
+                    return
                 deadline = time.monotonic() + args.sched_timeout
                 for mbid in range(len(ubatches)):
                     # short polls, so an abort is seen within one
@@ -1261,33 +2236,34 @@ def _dcn_round(args, ctx, rnd, stage_layers, stage_quant, stage_ranks,
                             handle_results(wire.wire_decode(
                                 tensors, dtype, device="cpu"))
                     except wire.WireCorruptError as exc:
-                        dcn.FRAMES_CORRUPT.inc(peer=str(last_rank))
-                        logger.error("results: corrupt frame from rank %d "
-                                     "(%s); requesting resend", last_rank,
-                                     exc)
-                        try:
-                            ctx.request_resend(
-                                last_rank, dcn.CHANNEL_RESULTS + parity)
-                        except OSError as rexc:
-                            logger.error("resend request to rank %d "
-                                         "failed: %s", last_rank, rexc)
+                        # the resent frame is consumed by a later
+                        # iteration of this loop (the count stays whole)
+                        _handle_corrupt_results(
+                            ctx, last_rank, dcn.CHANNEL_RESULTS + parity,
+                            exc)
 
             def feed_loop():
                 # its own thread: a send backpressured by a stalled
                 # pipeline may block, and the main thread must stay free
                 # to abort
                 try:
-                    for mbid, u in enumerate(ubatches):
-                        if stop_event.is_set():
+                    for mbid, u in feed_items:
+                        if stop_event.is_set() or (ledger is not None
+                                                   and round_lost()):
                             return
                         tctx = None
                         if telemetry.enabled():
                             tctx = telemetry.TraceContext(
                                 f"r{rnd}.mb{mbid}", "batch",
                                 parent=f"feed.rank{rank}")
+                            if ledger is not None:
+                                ledger.record_trace(mbid, tctx.rid)
+                        frame = [np.asarray(u)]
+                        if ledger is not None:
+                            frame.insert(0, np.asarray(mbid, np.int64))
                         with telemetry.span("feed", f"mb{mbid}", mb=mbid,
                                             rid=tctx.rid if tctx else None):
-                            ctx.send_tensors(first_rank, [np.asarray(u)],
+                            ctx.send_tensors(first_rank, frame,
                                              channel=dcn.CHANNEL_FEED
                                              + parity, trace=tctx)
                 except OSError as exc:
@@ -1298,6 +2274,8 @@ def _dcn_round(args, ctx, rnd, stage_layers, stage_quant, stage_ranks,
                                               daemon=True)
             results_thread.start()
             feed_thread = threading.Thread(target=feed_loop, daemon=True)
+            feed_threads.append(feed_thread)
+            failed_over = False
             try:
                 tik = time.monotonic()
                 batch_total = sum(len(u) for u in ubatches)
@@ -1309,10 +2287,32 @@ def _dcn_round(args, ctx, rnd, stage_layers, stage_quant, stage_ranks,
                 while not complete and time.monotonic() < deadline \
                         and not stop_event.is_set() \
                         and stop_info[0] is None:
-                    complete = results_counter.wait_gte(target, timeout=0.5)
-                # the last results can land concurrently with an abort
-                complete = complete or results_counter.wait_gte(target,
-                                                                timeout=0)
+                    if ledger is not None:
+                        if round_lost():
+                            break
+                        complete = ledger.done.wait(timeout=0.5)
+                    else:
+                        complete = results_counter.wait_gte(target,
+                                                            timeout=0.5)
+                if ledger is not None:
+                    if not complete and round_lost():
+                        # drain the survivors: in-flight results keep
+                        # landing for a moment after the death; wait until
+                        # the ack stream goes quiet before tearing down
+                        quiet_at = ledger.acked_count
+                        drain_deadline = time.monotonic() + 5.0
+                        while time.monotonic() < drain_deadline:
+                            time.sleep(0.4)
+                            now_acked = ledger.acked_count
+                            if now_acked == quiet_at:
+                                break
+                            quiet_at = now_acked
+                        failed_over = not ledger.done.is_set()
+                    complete = ledger.done.is_set()
+                else:
+                    # the last results can land concurrently with an abort
+                    complete = complete or results_counter.wait_gte(
+                        target, timeout=0)
                 tok = time.monotonic()
             finally:
                 # CMD_STOP goes out even on failure, or the workers hang
@@ -1323,8 +2323,13 @@ def _dcn_round(args, ctx, rnd, stage_layers, stage_quant, stage_ranks,
             # stage that stopped pulling: it ends with the context
             results_thread.join(timeout=10 if complete else 1)
             feed_thread.join(timeout=10 if complete else 1)
-            if not complete:
-                delivered = results_counter.value - (target - batch_total)
+            if failed_over or (not complete and ledger is not None
+                               and round_lost()):
+                monitoring.flush()
+                status = "failover"
+            elif not complete:
+                delivered = (ledger.acked_count if ledger is not None else
+                             results_counter.value - (target - batch_total))
                 if stop_info[0] is not None:
                     raise RuntimeError(
                         f"pipeline aborted: rank {stop_info[0]} died "
@@ -1333,9 +2338,11 @@ def _dcn_round(args, ctx, rnd, stage_layers, stage_quant, stage_ranks,
                 raise RuntimeError(
                     f"pipeline delivered {delivered}/{batch_total} results "
                     f"within {args.sched_timeout}s")
-            print(f"round={rnd} latency_sec={tok - tik:.6f} "
-                  f"throughput_items_sec={batch_total / (tok - tik):.3f}")
-            _report(tik, tok, ubatches)
+            else:
+                print(f"round={rnd} latency_sec={tok - tik:.6f} "
+                      f"throughput_items_sec={batch_total / (tok - tik):.3f}")
+                _report(tik, tok, ubatches)
+                status = "ok"
         else:
             # this round ends at the first CMD_STOP after its schedule
             # arrived; poll so a locally seen death aborts promptly
@@ -1358,8 +2365,35 @@ def _dcn_round(args, ctx, rnd, stage_layers, stage_quant, stage_ranks,
                          time.monotonic_ns())
         if stage is not None:
             stage.stop()
+        if feed_threads and ledger is not None:
+            # a round cut off by a death leaves microbatches of its feed
+            # in the first stage's queue (and a feeder parked on it); the
+            # next round of the same parity would run them again
+            _drop_stale(ctx, dcn.CHANNEL_FEED + parity, "feed",
+                        feeder=feed_threads[0])
     print(f"rank={rank} round={rnd} kernel_launches="
           + json.dumps(_launch_delta(launches0), sort_keys=True), flush=True)
+    return status
+
+
+def _drop_stale(ctx, channel: int, what: str, feeder=None) -> None:
+    """Discard the frames waiting on `channel` (both round parities when
+    it is a base channel), first letting `feeder` (a thread parked on a
+    full local queue) put its last one and end (bounded: 2 s)."""
+    from .comm import dcn
+
+    channels = ([channel] if feeder is not None else
+                [channel, channel + dcn.CHANNEL_ROUND_PARITY])
+    dropped = 0
+    deadline = time.monotonic() + 2.0
+    while True:
+        dropped += sum(ctx.drop_queued(ch) for ch in channels)
+        if feeder is None or not feeder.is_alive() \
+                or time.monotonic() >= deadline:
+            break
+        feeder.join(timeout=0.1)
+    if dropped:
+        logger.info("dropped %d stale %s frame(s)", dropped, what)
 
 
 def _collect_write_spans(ctx, args) -> None:
@@ -1441,7 +2475,9 @@ def main_dcn(args) -> None:
                        acc_type='rank')
     monitoring.add_key(MONITORING_KEY_HB_RTT, work_type='ms',
                        acc_type='rank')
-    if args.trace_spans:
+    if args.trace_spans or args.on_peer_degraded == "quarantine":
+        # every rank records: the data rank merges the fleet's spans, and
+        # the peer-health scorer reads the span digests every rank serves
         telemetry.configure(rank=args.rank)
     trace_dir = (os.path.join(args.trace, f"rank{args.rank}")
                  if args.trace else None)

@@ -21,8 +21,10 @@ pure logic that closes the loop:
   rebalance (no oscillation on noisy windows).
 
 `sched/profiles.py results_from_measured` spreads measured stage times
-with `spread_layer_costs`. The multi-process driver that re-plans between
-rounds is not in the port yet.
+with `spread_layer_costs`; `expand_partition` re-cuts a contracted
+partition over restored capacity (`sched/failover.py plan_rejoin`, the
+DCN driver's `--on-peer-rejoin heal`). The DCN driver's `--rebalance
+auto` between rounds is not in the port yet.
 """
 from __future__ import annotations
 
@@ -116,6 +118,35 @@ def solve_partition(layer_costs: Sequence[float], n_stages: int,
         j = k
     partition.reverse()
     return partition, best[n_stages][n_layers]
+
+
+def expand_partition(partition: Sequence[Tuple[int, int]],
+                     n_stages: int,
+                     layer_costs: Optional[Sequence[float]] = None,
+                     align: int = 1) -> Partition:
+    """Re-cut `partition`'s layer span over MORE stages — the capacity-
+    restoring side of the closed loop (docs/FAULT_TOLERANCE.md healing):
+    a rank that died forced a contraction (scheduler re-solve over fewer
+    survivors); when it rejoins, the span is re-expanded onto the restored
+    capacity with the same bottleneck-minimizing DP the rebalancer uses.
+
+    `layer_costs` (one cost per layer, e.g. measured via
+    telemetry/feedback.py) weights the cuts; None = uniform layers.
+    Raises ValueError when `n_stages` is not an actual expansion or the
+    span cannot be split that many ways."""
+    if not partition:
+        raise ValueError("cannot expand an empty partition")
+    n_layers = partition[-1][1]
+    if n_stages <= len(partition):
+        raise ValueError(f"expansion needs more stages than the current "
+                         f"{len(partition)}, got {n_stages}")
+    if layer_costs is None:
+        layer_costs = [1.0] * n_layers
+    elif len(layer_costs) != n_layers:
+        raise ValueError(f"{len(layer_costs)} layer costs != "
+                         f"{n_layers} layers")
+    expanded, _ = solve_partition(layer_costs, n_stages, align=align)
+    return expanded
 
 
 @dataclasses.dataclass(frozen=True)

@@ -111,7 +111,6 @@ def test_runtime_refuses_naming_the_item(flag):
 
 @pytest.mark.parametrize("argv,item", [
     (["--platform", "cpu"], "--device"),
-    (["-c", "dcn", "--on-peer-death", "failover"], "A6"),
     (["-c", "spmd"], "A7")])
 def test_runtime_refuses_the_other_drivers(argv, item):
     assert item in _error(lambda: runtime.parse_args(["0", "2"] + argv))
@@ -123,20 +122,48 @@ DCN_FLAGS = {"-c": ["dcn"], "-D": ["1"],
              "--sched-timeout": ["5"], "--rounds": ["2"], "--wire-crc": [],
              "--heartbeat-interval": ["0.5"], "--heartbeat-miss": ["3"],
              "--stage-ckpt": ["ckpt"], "--stage-depth": ["1"],
-             "--on-peer-death": ["abort"]}
+             "--on-peer-death": ["abort"],
+             "--on-peer-rejoin": ["heal"],
+             "--on-peer-degraded": ["quarantine", "--rounds", "2"],
+             "--degraded-threshold": ["0.3"], "--degraded-confirm": ["1"],
+             "--degraded-readmit": ["3"]}
 
 
 @pytest.mark.parametrize("flag", sorted(DCN_FLAGS))
 def test_runtime_parses_the_dcn_flags(flag):
-    """Each DCN flag this slice ported parses (with -c dcn) and is off the
-    refused table; the fault-recovery flags that stay refused name A6b."""
+    """Each DCN flag the port runs parses (with -c dcn) and is off the
+    refused table; the control-half flags that stay refused name A6b."""
     assert flag not in runtime.REFUSED
     args = runtime.parse_args(["1", "2", "-c", "dcn", flag]
                               + DCN_FLAGS[flag])
     assert args.comm == "dcn" and args.rank == 1
-    for stays in ("--on-peer-rejoin", "--on-peer-degraded",
-                  "--rebalance-threshold", "--autoscale-ranks"):
-        assert runtime.REFUSED[stays][1].startswith("A6b")
+    for stays in ("--rebalance-threshold", "--autoscale-ranks"):
+        assert runtime.REFUSED[stays][1].startswith("A6b's control half")
+
+
+def test_runtime_parses_failover_with_the_fault_flags():
+    """--on-peer-death failover parses, with the rejoin and gray-failure
+    policies, at the JAX entry's defaults otherwise."""
+    args = runtime.parse_args(
+        ["0", "3", "-c", "dcn", "--on-peer-death", "failover",
+         "--on-peer-rejoin", "heal", "--on-peer-degraded", "quarantine",
+         "--rounds", "3"])
+    assert (args.on_peer_death, args.on_peer_rejoin,
+            args.on_peer_degraded) == ("failover", "heal", "quarantine")
+    assert (args.degraded_threshold, args.degraded_confirm,
+            args.degraded_readmit) == (0.4, 2, 2)
+    assert runtime.parse_args(["0", "2", "-c", "dcn"]).on_peer_rejoin \
+        == "spare"
+
+
+@pytest.mark.parametrize("argv", [
+    ["--on-peer-degraded", "quarantine"],
+    ["-c", "dcn", "--on-peer-degraded", "quarantine"]])
+def test_quarantine_compose_errors_are_the_jax_entry_s(argv, monkeypatch):
+    import runtime as jruntime
+    got = _error(lambda: runtime.parse_args(["0", "2"] + argv))
+    monkeypatch.setattr(sys, "argv", ["runtime.py", "0", "2"] + argv)
+    assert got == _error(jruntime.main)
 
 
 def test_runtime_takes_the_host_driver_aliases():

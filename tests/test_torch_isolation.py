@@ -118,9 +118,14 @@ OBSERVATORY_MODULES = ["serving/autoscale.py", "telemetry/report.py",
                        "telemetry/feedback.py", "trace_report.py"]
 
 
+# the DCN driver's fault plane: the failover planner, the chaos injector
+# and its harness
+FAULT_MODULES = ["sched/failover.py", "comm/chaos.py", "chaos_dcn.py"]
+
+
 @pytest.mark.parametrize("rel", SERVING_MODULES + DECODER_MODULES
                          + LOOP_AND_ROUTER_MODULES + DCN_MODULES
-                         + OBSERVATORY_MODULES)
+                         + OBSERVATORY_MODULES + FAULT_MODULES)
 def test_serving_modules_import_no_jax_anywhere(rel):
     """Each serving-slice module is scanned, and none imports `jax` or
     `pipeedge_tpu` (nor a root module that does), at module level or
