@@ -197,7 +197,7 @@ Phases, each of which raises on failure (nothing is caught):
      and the launches and device time per profiled wave tick of 4
      requests, dense and paged.
  13. Speculative decoding: gpt2-medium at full width and depth (seeded
-     npz, 1.4 GB f32) verifying, gamma 4, f32, [4, 128] prompts, 64 new
+     npz, 1.4 GB f32) verifying, gamma 4, f32, [4, 128] prompts, 32 new
      tokens, the drafts of (a) gpt2 (phase 6's npz) and (b) gpt2-medium
      itself with seeded noise on its last block's weight matrices (a
      draft that agrees on some proposals and not on others, so rounds
@@ -281,10 +281,10 @@ Phases, each of which raises on failure (nothing is caught):
      and the spans dump: `stage` x 2 and `results` x 1 per microbatch, no
      `wire`;
      (c) generate on `gpt2` `-pt 1,24,25,48` in process: `--kv-bits 8
-     --concurrent 4 -b 4 --prompt-len 192 --new-tokens 128 --max-len
+     --concurrent 4 -b 4 --prompt-len 192 --new-tokens 72 --max-len
      1024` (kernel-5 opt-in on), every request equal to its solo run and
      kernel 5 at 12 launches per decode wave; `--monitor`'s decode.csv
-     with 127 rows; `-sm/-sdt/-sd` over a profile of GPT-2 (48 sublayers,
+     with 71 rows; `-sm/-sdt/-sd` over a profile of GPT-2 (48 sublayers,
      f32, batch 4) that the port's profiler makes here, the cut
      block-aligned and printed;
      (d) two `gpt2` replicas as in-process servers (`--role replica`,
@@ -381,6 +381,34 @@ Phases, each of which raises on failure (nothing is caught):
      process of its fleet (a restarted incarnation included) outlives
      it; the four run at once, each its own fleet; the launches of each
      rank are the kernels line's `fault_plane_launches`.
+ 19. the DCN driver's control loop, one process and CUDA context per
+     rank: (a) alone, then the other four fleets at once; (a) ViT-Base
+     in 2 ranks on the skewed cut `-pt 1,8,9,48 -q 8,0 --rounds 6
+     --rebalance auto --rebalance-threshold 0.05 --rebalance-cooldown
+     0`: a `rebalance_round=` line, the stage that began with 40
+     sublayers holding fewer by the last round, every
+     round's logits within LOGIT_BOUND[8] of the single-shard forward,
+     each rank's kernel 1-3 launches per round equal to its stage's
+     shape, items/s per round; (b) 3 ranks, `-pt 1,24,25,48 -r 0,1 -q
+     0,0 --on-peer-death failover --autoscale-ranks auto --rounds 5`
+     with `--autoscale-rank-high` far below any stage's service time:
+     one `autoscale_rank direction=up ... ranks=0,1,2`, rank 2 building
+     a stage in every later round, every result equal to the
+     single-shard forward, kernel 3 launched once per block and
+     microbatch over the ranks and on rank 2 only after the scale-up;
+     (c) `revauct --comm dcn` over 3 ranks bidding as h100-0..2 from the
+     card's profiles (ViT-Large): the schedule equals `--comm local`'s,
+     every bidder released; (d) `generate --dcn-addrs` for `gpt2` in 2
+     ranks, [16, 192] + 32, at `--edge-bits 0` and 8: tokens/s, kernel 1
+     on rank 0 and kernel 2 on rank 1 once a step at 8 bits (none at 0;
+     kernel 3 none: a decode prefill attends through `_attend`), all 16
+     rows' ids (rank 0's `--save-ids`; the printed sample is row 0) at
+     bit 0 equal to the one-process decode's (which equals
+     `DecodePipeline.generate`), at 8 bits each row equal to a
+     one-process decode with the plain codec at the cut, or differing
+     first at a near-tie (`near_tie_rule`). The launches are the kernels
+     line's
+     `control_launches`.
 Phase 3 also holds kernel 5 (decode attention) against its plain version
 at the main path's shapes (windows of a [16, 1024, 12, 64] stage cache at
 buckets 256 and 512, and pos 1000 of the whole cache), pos 0 and W-1,
@@ -602,13 +630,14 @@ PAGED_SHORT = (8, 8)              # prompt length, new tokens: one page
 # Phase 13, speculative decoding: gpt2-medium (24 blocks, 1024 wide, 16
 # heads; seeded npz, 1.4 GB in f32) verifies what gpt2 (phase 6's npz)
 # drafts, gamma 4, f32, fp caches (the server refuses --draft-model with
-# --kv-bits), batch 4 x 128-token prompts, 64 new tokens, in host and in
+# --kv-bits), batch 4 x 128-token prompts, 32 new tokens, in host and in
 # device sync; then gpt2-medium as its own draft; then 4 speculative
 # requests through the server with --kv-pages; then the generate entry.
 SPEC_TARGET = "gpt2-medium"
 SPEC_DRAFT = DECODE_MODEL
 SPEC_GAMMA = 4
-SPEC_BATCH, SPEC_PROMPT, SPEC_NEW = 4, 128, 64
+# 32 new tokens (64 before phase 19 was added), for the script's time
+SPEC_BATCH, SPEC_PROMPT, SPEC_NEW = 4, 128, 32
 # the noisy self-draft: seeded N(0, 1) noise times SPEC_NOISE times each
 # matrix's own standard deviation, added to every weight matrix of the
 # last block
@@ -4463,7 +4492,10 @@ REVAUCT_SCHEDULERS = ("latency_ordered", "throughput_ordered")
 TRACE_ROUNDS = 2
 TRACE_ARGV = ["-pt", "1,21,22,48", "-q", "8,0", "-b", str(BATCH),
               "-u", str(UBATCH), "--measure-rounds", str(TRACE_ROUNDS)]
-CONCURRENT = (4, 4, 192, 128)     # requests, rows, prompt, new tokens
+# requests, rows, prompt, new tokens: 72 new tokens (128 before phase 19
+# was added), for the script's time; the decode still crosses from the
+# 256-row attend bucket into the 512-row one
+CONCURRENT = (4, 4, 192, 72)
 # sampled, so the concurrent requests differ: request r draws with seed r
 # and is held to the solo run with `--seed r`
 CONCURRENT_SAMPLING = ["--temperature", "0.8", "--top-k", "40"]
@@ -5310,7 +5342,7 @@ def dcn_fleet(argv, world: int, cwd: Path, env_extra=None,
         rounds, total = {}, None
         for ln in out.splitlines():
             if ln.startswith(f"rank={rank} round="):
-                head, counts = ln.split(" kernel_launches=")
+                head, counts = ln.split(" kernel_launches=", 1)
                 rounds[int(head.split("round=")[1])] = json.loads(counts)
             elif ln.startswith(f"rank={rank} kernel_launches="):
                 total = json.loads(ln.split("=", 2)[2])
@@ -6309,6 +6341,448 @@ def check_chaos_path(res, device_name: str) -> dict:
     return launches
 
 
+# --- phase 19: the DCN driver's control loop --------------------------------
+
+# (a) ViT-Base in 2 ranks on a deliberately skewed cut (stage 1 carries 40
+# of the 48 sublayers) under `--rebalance auto`: the re-cut needs two
+# consecutive windows blaming the same stage at a predicted gain over the
+# threshold (the default `--rebalance-confirm 1`). Round 0's window (first
+# CUDA uses) has blamed either stage, and the solver charges rank 0 a
+# large fixed cost, so a window's predicted gain on the card has ranged
+# 0.02-0.27: at the default 0.10 threshold, or in 4 rounds (2 windows
+# after round 0's), the re-cut was left to chance; 0.05 and 6 rounds
+CONTROL_SKEWED_PT = "1,8,9,48"
+CONTROL_REBALANCE_ROUNDS = 6
+CONTROL_REBALANCE_THRESHOLD = "0.05"
+# (b) 3 ranks, the 2-stage cut on ranks 0 and 1, rank 2 idle; up pressure
+# from a threshold (seconds of the bottleneck stage per microbatch) far
+# below any ViT-Base stage's, confirmed over 2 windows, expands onto rank
+# 2 at the second boundary: rounds 2-4 run 3 stages
+CONTROL_AUTOSCALE_PT = "1,24,25,48"
+CONTROL_AUTOSCALE_ROUNDS = 5
+CONTROL_RANK_HIGH = "0.0005"
+# (c) the reverse auction over 3 ranks of the card's profiles
+CONTROL_AUCTION_RANKS = 3
+# (d) GPT-2 in 2 ranks: batch, prompt, new tokens
+DCN_GEN = (16, 192, 32)
+DCN_GEN_BITS = (0, 8)
+
+
+def rank_stages(out: str) -> list:
+    """The (l, r) of each stage a rank built, in order (one per round it
+    carried a stage), from the registry's `stage i: layers [l, r]` lines."""
+    import re
+    return [(int(a), int(b)) for a, b in
+            re.findall(r"stage \d+: layers \[(\d+), (\d+)\]", out)]
+
+
+def control_rebalance(weights_file: Path, exact) -> dict:
+    """Phase 19a: the skewed fleet under `--rebalance auto`; the partition,
+    items/s and each rank's kernel 1-3 launches per round, each round's
+    logits against the single-shard forward."""
+    from pipeedge_tpu_torch.models import edge_arity
+    n_mb = BATCH // UBATCH
+    fleet = dcn_fleet(["-m", MODEL, "-M", str(weights_file), "-pt",
+                       CONTROL_SKEWED_PT, "-q", "8,0", "-r", "0,1", "-b",
+                       str(BATCH), "-u", str(UBATCH), "--rounds",
+                       str(CONTROL_REBALANCE_ROUNDS), "--rebalance", "auto",
+                       "--rebalance-threshold",
+                       CONTROL_REBALANCE_THRESHOLD,
+                       "--rebalance-cooldown", "0", "--save-results",
+                       "results.npz", "--sched-timeout", "300"], 2,
+                      BUILD_DIR / "control_rebalance")
+    with np.load(fleet["dirs"][0] / "results.npz") as f:
+        got = [f[f"arr_{i}"] for i in range(len(f.files))]
+    heads, tails = (rank_stages(fleet["ranks"][r]["out"]) for r in (0, 1))
+    want = [e.float().cpu().numpy() for e in exact]
+    scale = max(float(np.abs(w).max()) for w in want)
+    rounds = []
+    for k in range(CONTROL_REBALANCE_ROUNDS):
+        (l0, r0), (l1, r1) = heads[k], tails[k]
+        arity = edge_arity(r0)
+        outs = got[k * n_mb:(k + 1) * n_mb]
+        rounds.append(dict(
+            partition=[[l0, r0], [l1, r1]], n=len(outs),
+            rel_err=max(float(np.abs(o - w).max())
+                        for o, w in zip(outs, want)) / scale,
+            finite=all(bool(np.isfinite(o).all()) for o in outs),
+            items_per_s=fleet["report"].get(k, {}).get(
+                "throughput_items_sec"),
+            counts={r: {name: (fleet["ranks"][r]["rounds"].get(k) or {})
+                        .get(name) for name in ("fused_encode",
+                                                "fused_decode",
+                                                "fused_attention")}
+                    for r in (0, 1)},
+            expected_counts={
+                0: {"fused_encode": arity * n_mb, "fused_decode": 0,
+                    "fused_attention": stage_attention(l0, r0) * n_mb},
+                1: {"fused_encode": 0, "fused_decode": arity * n_mb,
+                    "fused_attention": stage_attention(l1, r1) * n_mb}}))
+    out0 = fleet["ranks"][0]["out"].splitlines()
+    lines = [ln for ln in out0 if ln.startswith("rebalance_round=")]
+    # the policy's reasons at each boundary (gain, streak, cooldown)
+    reasons = [ln.split(": ", 1)[-1] for ln in out0 if "rebalance: " in ln]
+    return dict(rounds=rounds, lines=lines, reasons=reasons,
+                seconds=fleet["seconds"])
+
+
+def control_autoscale(weights_file: Path, exact) -> dict:
+    """Phase 19b: 3 ranks, the 2-stage cut, `--autoscale-ranks auto` under
+    up pressure; the decisions, the stages per round, every round's
+    logits against the single-shard forward (raw edges), and each rank's
+    kernel-3 launches per round."""
+    n_mb = BATCH // UBATCH
+    fleet = dcn_fleet(["-m", MODEL, "-M", str(weights_file), "-pt",
+                       CONTROL_AUTOSCALE_PT, "-q", "0,0", "-r", "0,1", "-b",
+                       str(BATCH), "-u", str(UBATCH), "--rounds",
+                       str(CONTROL_AUTOSCALE_ROUNDS), "--on-peer-death",
+                       "failover", "--autoscale-ranks", "auto",
+                       "--autoscale-rank-high", CONTROL_RANK_HIGH,
+                       "--autoscale-rank-low", "0", "--save-results",
+                       "results.npz", "--sched-timeout", "300"], 3,
+                      BUILD_DIR / "control_autoscale")
+    with np.load(fleet["dirs"][0] / "results.npz") as f:
+        got = [f[f"arr_{i}"] for i in range(len(f.files))]
+    want = [e.float().cpu().numpy() for e in exact]
+    out0 = fleet["ranks"][0]["out"]
+    stages = {r: rank_stages(fleet["ranks"][r]["out"]) for r in (0, 1, 2)}
+    rounds = []
+    for k in range(CONTROL_AUTOSCALE_ROUNDS):
+        outs = got[k * n_mb:(k + 1) * n_mb]
+        rounds.append(dict(
+            n=len(outs),
+            equal=len(outs) == n_mb and all(
+                np.array_equal(o, w) for o, w in zip(outs, want)),
+            items_per_s=fleet["report"].get(k, {}).get(
+                "throughput_items_sec"),
+            attention={r: (fleet["ranks"][r]["rounds"].get(k) or {})
+                       .get("fused_attention") for r in (0, 1, 2)}))
+    return dict(
+        rounds=rounds, stages=stages,
+        decisions=[ln for ln in out0.splitlines()
+                   if ln.startswith(("autoscale_decision",
+                                     "autoscale_rank"))],
+        seconds=fleet["seconds"])
+
+
+def auction_rank(rank: int, addrs: str, cwd: Path) -> subprocess.Popen:
+    d = cwd / f"rank{rank}"
+    d.mkdir(parents=True, exist_ok=True)
+    return subprocess.Popen(
+        [sys.executable, "-m", "pipeedge_tpu_torch.revauct", str(rank),
+         str(CONTROL_AUCTION_RANKS), "-c", "dcn", "--dcn-addrs", addrs,
+         "--host", f"h100-{rank}", "--dev-type", SCHED_DEV_TYPE,
+         "-m", SCHED_MODEL, "-u", str(UBATCH), "--seed", "0",
+         "-sch", "throughput_ordered",
+         "-sm", str(H100_PROFILES / "models.yml"),
+         "-sdt", str(H100_PROFILES / "device_types.yml"),
+         "-sdnw", str(H100_PROFILES / "device_neighbors_world.yml")],
+        cwd=d, env=dict(os.environ, PYTHONPATH=str(ROOT)), text=True,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+
+
+def control_auction() -> dict:
+    """Phase 19c: `revauct --comm dcn` over 3 ranks (each bidding as one
+    host of the card's profiles) against `--comm local` over the same
+    hosts."""
+    from pipeedge_tpu_torch.sched import miniyaml
+    t0 = time.monotonic()
+    local = subprocess.run(
+        [sys.executable, "-m", "pipeedge_tpu_torch.revauct", "0",
+         str(CONTROL_AUCTION_RANKS), "-m", SCHED_MODEL, "-u", str(UBATCH),
+         "--seed", "0", "-sch", "throughput_ordered",
+         "-sm", str(H100_PROFILES / "models.yml"),
+         "-sdt", str(H100_PROFILES / "device_types.yml"),
+         "-sd", str(H100_PROFILES / "devices.yml"),
+         "-sdnw", str(H100_PROFILES / "device_neighbors_world.yml")],
+        cwd=ROOT, capture_output=True, text=True, timeout=300,
+        env=dict(os.environ, PYTHONPATH=str(ROOT)))
+    addrs = free_addrs(CONTROL_AUCTION_RANKS)
+    cwd = BUILD_DIR / "control_auction"
+    procs = [auction_rank(r, addrs, cwd)
+             for r in range(1, CONTROL_AUCTION_RANKS)]
+    procs.insert(0, auction_rank(0, addrs, cwd))
+    try:
+        outs = [p.communicate(timeout=300) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+    sched = miniyaml.loads(outs[0][0]) if procs[0].returncode == 0 else None
+    return dict(
+        local_rc=local.returncode, rcs=[p.returncode for p in procs],
+        local=miniyaml.loads(local.stdout) if local.returncode == 0
+        else local.stderr[-2000:],
+        dcn=sched if sched is not None else outs[0][1][-2000:],
+        released=["released by auctioneer" in err for _, err in outs[1:]],
+        seconds=time.monotonic() - t0)
+
+
+def dcn_generate_reference(weights_file: Path, bits: int) -> dict:
+    """The DCN fleet's computation in this process: both stages in
+    lockstep on the card, the edge through the plain codec at `bits`
+    (none at 0). Returns each row's tokens and, per step and row, the
+    top-2 logits, their tokens and the max |logit| (`near_tie_rule`); at
+    bit 0 also whether the tokens equal `DecodePipeline.generate`'s (the
+    one-process `generate`)."""
+    from pipeedge_tpu_torch.models import registry
+    from pipeedge_tpu_torch.ops import quant
+    from pipeedge_tpu_torch.parallel import decode
+    batch, prompt, new = DCN_GEN
+    cfg = registry.get_model_config(DECODE_MODEL)
+    family = registry.get_model_entry(DECODE_MODEL).family.FAMILY
+    ids = np.random.default_rng(0).integers(0, cfg.vocab_size,
+                                            size=(batch, prompt))
+    max_len = prompt + new
+    stages = []
+    for i, (l, r) in enumerate(DECODE_PARTITION):
+        _, params, sc = registry.module_shard_factory(
+            DECODE_MODEL, str(weights_file), l, r, stage=i, device="cuda")
+        pre, dec = decode.make_stage_fns(family, cfg, sc)
+        stages.append((params, pre, dec, decode.init_cache(
+            cfg, (r - l + 1) // 4, batch, max_len, device="cuda")))
+    tokens, top2, amax = [], [], []
+    data = torch.as_tensor(ids, dtype=torch.long, device="cuda")
+    for step in range(new):
+        pos = None if step == 0 else prompt + step - 1
+        for i, (params, pre, dec, cache) in enumerate(stages):
+            if i and bits:
+                data = quant.tensor_decode_outerdim(
+                    quant.tensor_encode_outerdim(data, bits))
+            data, _ = (pre(params, data, cache) if pos is None else
+                       dec(params, data, cache, pos,
+                           read_len=decode.attend_bucket(pos + 1, max_len)))
+        last = (data[:, -1] if pos is None else data[:, 0]).float()
+        top2.append(torch.topk(last, 2, dim=-1))
+        amax.append(last.abs().amax(dim=-1))
+        tokens.append(last.argmax(dim=-1))
+        data = tokens[-1][:, None]
+    out = np.concatenate([ids, torch.stack(tokens, 1).cpu().numpy()], 1)
+    res = dict(ids=out,
+               top2_values=torch.stack([t.values for t in top2], 1).cpu(),
+               top2_tokens=torch.stack([t.indices for t in top2], 1).cpu(),
+               max_abs=torch.stack(amax, 1).cpu())
+    if not bits:
+        pipe = decode.build_decode_pipeline(
+            DECODE_MODEL, DECODE_PARTITION, max_len=max_len,
+            model_file=str(weights_file), device="cuda")
+        res["equal_one_process"] = bool(np.array_equal(
+            pipe.generate(ids, new).cpu().numpy(), out))
+        del pipe
+    del stages
+    return res
+
+
+def dcn_generate_fleet(weights_file: Path, bits: int) -> dict:
+    """Phase 19d: `python -m pipeedge_tpu_torch.generate --dcn-addrs` in
+    2 ranks at edge bits `bits`: rank 0's report lines, every row it
+    generated (`--save-ids`) and each rank's launches."""
+    import re
+    batch, prompt, new = DCN_GEN
+    addrs = free_addrs(2)
+    cwd = BUILD_DIR / f"control_generate{bits}"
+    argv = ["-m", DECODE_MODEL, "-M", str(weights_file), "-pt",
+            ",".join(f"{l},{r}" for l, r in DECODE_PARTITION), "-b",
+            str(batch), "--prompt-len", str(prompt), "--new-tokens",
+            str(new), "--dcn-addrs", addrs, "--edge-bits", str(bits),
+            "--save-ids", "ids.npz"]
+    procs = []
+    for rank in (1, 0):
+        d = cwd / f"rank{rank}"
+        d.mkdir(parents=True, exist_ok=True)
+        with open(d / "out.log", "w") as log_file:
+            procs.append((rank, d, subprocess.Popen(
+                [sys.executable, "-m", "pipeedge_tpu_torch.generate", *argv,
+                 "--rank", str(rank)], cwd=d, stdout=log_file,
+                stderr=subprocess.STDOUT,
+                env=dict(os.environ, PYTHONPATH=str(ROOT)))))
+    t0 = time.monotonic()
+    try:
+        for _, _, p in procs:
+            p.wait(timeout=400)
+    finally:
+        reap(procs)
+    outs = {rank: rank_output(d) for rank, d, _ in procs}
+    res = dict(bits=bits, seconds=time.monotonic() - t0,
+               rcs={rank: p.returncode for rank, _, p in procs},
+               tail={rank: o[-3000:] for rank, o in outs.items()})
+    hit = re.search(r"sample continuation ids: (\[[\d, ]*\])", outs[0])
+    res["ids"] = json.loads(hit.group(1)) if hit else None
+    saved = cwd / "rank0" / "ids.npz"
+    res["rows"] = np.load(saved)["ids"] if saved.exists() else None
+    rate = re.search(r"= ([\d.]+) tok/s \(2 DCN ranks\)", outs[0])
+    res["tokens_per_s"] = float(rate.group(1)) if rate else None
+    res["launches"] = {}
+    for rank, out in outs.items():
+        line = [ln for ln in out.splitlines()
+                if ln.startswith(f"rank={rank} kernel_launches=")]
+        res["launches"][rank] = (json.loads(line[-1].split("=", 2)[2])
+                                 if line else None)
+    return res
+
+
+def control_path() -> dict:
+    """Phase 19: (a) alone (its windows must measure the skew, not the
+    other fleets' start-up on the host's cores), then (b)-(d) at once,
+    each its own fleet (they share the card and the host's cores, which
+    their times carry), then the references of (d) in this process."""
+    from concurrent.futures import ThreadPoolExecutor
+    from pipeedge_tpu_torch import runtime
+    vit_w = BUILD_DIR / f"{MODEL.replace('/', '_')}-random-seed0.npz"
+    gpt2_w = BUILD_DIR / f"{DECODE_MODEL.replace('/', '_')}-random-seed0.npz"
+    inputs, _ = runtime.load_batches(MODEL, BATCH, UBATCH,
+                                     torch.device("cuda"), torch.float32)
+    exact = single_shard_logits(MODEL, vit_w, inputs, "cuda")
+    t0 = time.monotonic()
+    res = {"a": control_rebalance(vit_w, exact)}
+    with ThreadPoolExecutor(2 + len(DCN_GEN_BITS)) as pool:
+        futs = {"b": pool.submit(control_autoscale, vit_w, exact),
+                "c": pool.submit(control_auction)}
+        for bits in DCN_GEN_BITS:
+            futs[f"d{bits}"] = pool.submit(dcn_generate_fleet, gpt2_w, bits)
+        res.update({name: f.result() for name, f in futs.items()})
+    res["fleets_seconds"] = time.monotonic() - t0
+    t0 = time.monotonic()
+    res["reference"] = {bits: dcn_generate_reference(gpt2_w, bits)
+                        for bits in DCN_GEN_BITS}
+    res["reference_seconds"] = time.monotonic() - t0
+    for name in ("a", "b", "c", "d0", "d8"):
+        log(f"phase 19{name}: {res[name]['seconds']:.1f} s")
+    return res
+
+
+def near_tie_rule(rows, ref: dict, prompt: int) -> dict:
+    """Every row of a DCN generation ([B, prompt + new]) against the
+    one-process decode with the plain codec at the cut: each row equal,
+    or, at its first differing step, the fleet's token is that decode's
+    second choice there and its top-2 logit gap is within 1e-4 of its
+    max |logit| (a near-tie that a one-ulp difference of the stage
+    outputs can flip; the row's later steps then follow another prefix
+    and are not compared). `differing` has each such row's step."""
+    want = ref["ids"]
+    if rows is None or rows.shape != want.shape \
+            or not np.array_equal(rows[:, :prompt], want[:, :prompt]):
+        return dict(equal=False, ok=False, rows=None if rows is None
+                    else list(rows.shape), differing=[])
+    differing = []
+    for b in range(want.shape[0]):
+        diff = np.flatnonzero(rows[b, prompt:] != want[b, prompt:])
+        if not diff.size:
+            continue
+        t = int(diff[0])
+        got = int(rows[b, prompt + t])
+        gap = float(ref["top2_values"][b, t, 0] - ref["top2_values"][b, t, 1])
+        bound = 1e-4 * float(ref["max_abs"][b, t])
+        second = int(ref["top2_tokens"][b, t, 1])
+        differing.append(dict(row=b, step=t, got=got,
+                              want=int(want[b, prompt + t]), second=second,
+                              top2_gap=gap, bound=bound,
+                              ok=second == got and gap <= bound))
+    return dict(equal=not differing, rows=list(rows.shape),
+                differing=differing, ok=all(d["ok"] for d in differing))
+
+
+def check_control_path(res, device_name: str) -> dict:
+    """Every check of phase 19; returns each kernel's launches per rank
+    and round (the kernels line's `control_launches`)."""
+    from pipeedge_tpu_torch.models import registry
+    n_mb = BATCH // UBATCH
+    a, b, c = res["a"], res["b"], res["c"]
+    for k, r in enumerate(a["rounds"]):
+        log(f"control rebalance round {k}: " + json.dumps(
+            {**r, "card": device_name}, sort_keys=True))
+        if r["n"] != n_mb or not r["finite"]:
+            raise AssertionError(f"control rebalance round {k}: {r['n']} "
+                                 f"results, finite={r['finite']}")
+        if not 0 < r["rel_err"] <= LOGIT_BOUND[8]:
+            raise AssertionError(f"control rebalance round {k}: logit "
+                                 f"error {r['rel_err']} not in (0, "
+                                 f"{LOGIT_BOUND[8]}]")
+        if r["counts"] != r["expected_counts"]:
+            raise AssertionError(f"control rebalance round {k}: launches "
+                                 f"{r['counts']} != {r['expected_counts']}")
+    log("control rebalance: " + json.dumps(
+        {"lines": a["lines"], "reasons": a["reasons"]}))
+    first, last = a["rounds"][0]["partition"], a["rounds"][-1]["partition"]
+    held = first[1][1] - first[1][0] + 1
+    if not a["lines"] or last[1][1] - last[1][0] + 1 >= held:
+        raise AssertionError(f"control rebalance: the stage of {held} "
+                             f"sublayers was not re-cut ({first} -> "
+                             f"{last}; {a['lines']}; the policy: "
+                             f"{a['reasons']})")
+    log("control autoscale: " + json.dumps(
+        {"decisions": b["decisions"], "stages": b["stages"],
+         "rounds": b["rounds"], "card": device_name}, sort_keys=True))
+    ups = [ln for ln in b["decisions"] if ln.startswith(
+        "autoscale_rank direction=up")]
+    if len(ups) != 1 or "ranks=0,1,2" not in ups[0]:
+        raise AssertionError(f"control autoscale: no scale-up onto rank 2: "
+                             f"{b['decisions']}")
+    up_round = int(ups[0].split("round=")[1].split()[0])
+    if not b["stages"][2] or \
+            len(b["stages"][2]) != CONTROL_AUTOSCALE_ROUNDS - up_round - 1:
+        raise AssertionError(f"control autoscale: rank 2 built "
+                             f"{b['stages'][2]} after the scale-up at "
+                             f"round {up_round}")
+    blocks = registry.get_model_config(MODEL).num_hidden_layers
+    for k, r in enumerate(b["rounds"]):
+        if r["n"] != n_mb or not r["equal"]:
+            raise AssertionError(f"control autoscale round {k}: not equal "
+                                 "to the single-shard forward")
+        if bool(r["attention"][2]) != (k > up_round):
+            raise AssertionError(f"control autoscale round {k}: rank 2's "
+                                 f"kernel-3 launches {r['attention'][2]}")
+        if sum(v or 0 for v in r["attention"].values()) != blocks * n_mb:
+            raise AssertionError(f"control autoscale round {k}: kernel-3 "
+                                 f"launches {r['attention']} are not one "
+                                 "per block and microbatch")
+    log("control auction: " + json.dumps({k: c[k] for k in (
+        "local_rc", "rcs", "dcn", "released", "seconds")}))
+    if c["local_rc"] != 0 or c["rcs"] != [0] * CONTROL_AUCTION_RANKS or \
+            c["dcn"] != c["local"] or not all(c["released"]):
+        raise AssertionError(f"control auction: dcn {c['dcn']} != local "
+                             f"{c['local']} (rcs {c['rcs']}, released "
+                             f"{c['released']})")
+    batch, prompt, new = DCN_GEN
+    gen = {}
+    for bits in DCN_GEN_BITS:
+        d, ref = res[f"d{bits}"], res["reference"][bits]
+        expected = {r: {"fused_encode": new * 2 if bits and r == 0 else 0,
+                        "fused_decode": new * 2 if bits and r == 1 else 0,
+                        "fused_attention": 0} for r in (0, 1)}
+        launches = {r: {k: (d["launches"][r] or {}).get(k) for k in
+                        expected[r]} for r in (0, 1)}
+        rule = near_tie_rule(d["rows"], ref, prompt)
+        gen[bits] = dict(tokens_per_s=d["tokens_per_s"], launches=launches,
+                         rule=rule, seconds=d["seconds"])
+        log(f"control generate {bits}-bit: " + json.dumps(
+            {**gen[bits], "card": device_name}, sort_keys=True))
+        if d["rcs"] != {0: 0, 1: 0} or d["ids"] is None \
+                or d["rows"] is None:
+            raise AssertionError(f"control generate {bits}-bit: ranks "
+                                 f"exited {d['rcs']}:\n{d['tail']}")
+        if d["ids"] != d["rows"][0, prompt:].tolist():
+            raise AssertionError(f"control generate {bits}-bit: the printed "
+                                 f"sample {d['ids']} is not row 0 of the "
+                                 "saved ids")
+        if launches != expected:
+            raise AssertionError(f"control generate {bits}-bit: launches "
+                                 f"{launches} != {expected}")
+        if bits == 0 and not (rule["equal"] and rule["ok"]
+                              and ref["equal_one_process"]):
+            raise AssertionError(f"control generate 0-bit: the fleet's ids "
+                                 f"differ from the one-process run: {rule}")
+        if not rule["ok"]:
+            raise AssertionError(f"control generate {bits}-bit: the ids "
+                                 f"differ beyond a near-tie: {rule}")
+    return {"rebalance": {f"round{k}": r["counts"]
+                          for k, r in enumerate(a["rounds"])},
+            "autoscale_attention": {f"round{k}": r["attention"]
+                                    for k, r in enumerate(b["rounds"])},
+            "generate": {bits: g["launches"] for bits, g in gen.items()}}
+
+
 def main() -> int:
     import argparse
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -6467,6 +6941,11 @@ def main() -> int:
     chaos_launches = check_chaos_path(chaos_res, device_name)
     phase_done("phase 18")
 
+    # phase 19: the DCN driver's control loop
+    control_res = control_path()
+    control_launches = check_control_path(control_res, device_name)
+    phase_done("phase 19")
+
     if args.ab_entry_parent is not None:
         ab_entry(args.ab_entry_parent)
         phase_done("ab entry")
@@ -6490,6 +6969,25 @@ def main() -> int:
                 f"rank{r}": c[name]
                 for r, c in dcn_res["deit"]["counts"].items()},
             "local_tier": dcn_res["local"]["counts"][name]}
+
+    def control_launches_of(name):
+        """Phase 19's launches of one kernel in each rank's process: (a)
+        per round, (b) kernel 3 per round, (d) over each generation's
+        warm-up and timed runs, by edge bits."""
+        out = {"rebalance": {rnd: {f"rank{r}": c[name] for r, c in
+                                   per_rank.items()}
+                             for rnd, per_rank in
+                             control_launches["rebalance"].items()}}
+        if name == "fused_attention":
+            out["autoscale"] = {rnd: {f"rank{r}": v for r, v in
+                                      per_rank.items()}
+                                for rnd, per_rank in control_launches[
+                                    "autoscale_attention"].items()}
+        out["dcn_generate"] = {f"bits{bits}": {f"rank{r}": c[name] for r, c
+                                                in per_rank.items()}
+                               for bits, per_rank in
+                               control_launches["generate"].items()}
+        return out
 
     def fault_launches(name):
         """Phase 18's launches of one kernel in each rank's process (its
@@ -6522,7 +7020,8 @@ def main() -> int:
                 # launches per pass of 8 microbatches on phase 8 (7 edges)
                 deit_launches=deit_res["fixed"][bit]["counts"][name],
                 dcn_launches=dcn_launches(name),
-                **({"fault_plane_launches": fault_launches(name)}
+                **({"fault_plane_launches": fault_launches(name),
+                    "control_launches": control_launches_of(name)}
                    if bit == 8 else {}),
                 # every policy bitwidth on phase 8's edge
                 policy_bits_ms={r["bit"]: r[f"{name[6:]}_ms"]
@@ -6562,6 +7061,7 @@ def main() -> int:
         deit_launches=deit_res["fixed"][8]["counts"]["fused_attention"],
         dcn_launches=dcn_launches("fused_attention"),
         fault_plane_launches=fault_launches("fused_attention"),
+        control_launches=control_launches_of("fused_attention"),
         bert_launches=bert_res["fixed"][8]["counts"]["fused_attention"],
         # phase 10: the scheduled ViT-Large entry (all rounds), and the
         # profiler's runs of ViT-Base and ViT-Large

@@ -39,16 +39,33 @@ blocks, as decoding needs:
     python -m pipeedge_tpu_torch.generate -m gpt2 -b 4 \\
         -sm models.yml -sdt device_types.yml -sd devices.yml
 
-The JAX entry's flags for other device layouts are refused at parse time
-with the ROADMAP item that ports them (`REFUSED`): `--edge-bits`,
-`--dcn-addrs` and `--rank` (the DCN fleet, A6b), `--tp`, `--sp`, `--ep`
-and `--spmd-wave` (the multi-GPU axes, A7).
+`--dcn-addrs h:p,h:p,... --rank R [--edge-bits B]` decodes across OS
+processes over TCP (`comm/dcn.py`), one stage per rank: every rank runs
+the same command with its own `--rank`, so the step count is known
+fleet-wide. Per step the hidden state hops rank to rank on CHANNEL_DATA
+(encoded on the card by the codec's encode kernel at 4 and 8 bits,
+decoded by its decode kernel) and the last rank returns the next-token
+logits to rank 0 on CHANNEL_RESULTS. With `ADAPTIVE_QUANT` set, each
+rank but the last adapts its own output edge's bits, `--edge-bits` being
+the start. Rank 0 prints the report lines; every rank prints `rank=R
+kernel_launches=`:
+
+    python -m pipeedge_tpu_torch.generate -m gpt2 -pt 1,24,25,48 \\
+        --dcn-addrs 127.0.0.1:29600,127.0.0.1:29601 --rank 1 --edge-bits 8 &
+    python -m pipeedge_tpu_torch.generate -m gpt2 -pt 1,24,25,48 \\
+        --dcn-addrs 127.0.0.1:29600,127.0.0.1:29601 --rank 0 --edge-bits 8
+
+A JAX rank (`tools/generate.py` with the same flags) takes either place.
+The JAX entry's flags for the multi-GPU axes are refused at parse time
+with the ROADMAP item that ports them (`REFUSED`): `--tp`, `--sp`, `--ep`
+and `--spmd-wave` (A7).
 """
 from __future__ import annotations
 
 import argparse
 import json
 import logging
+import os
 import time
 from typing import Optional, Sequence
 
@@ -63,12 +80,8 @@ from .sched.scheduler import sched_pipeline
 
 # `tools/generate.py` flags this entry refuses, each with the ROADMAP
 # item that ports it: flag -> (argparse keywords, item)
-_DCN = "A6b, generate over the DCN transport"
 _AXES = "A7, the multi-GPU axes"
 REFUSED = {
-    "--edge-bits": ({"type": int}, _DCN),
-    "--dcn-addrs": ({}, _DCN),
-    "--rank": ({"type": int}, _DCN),
     "--tp": ({"type": int}, _AXES),
     "--sp": ({"type": int}, _AXES),
     "--ep": ({"type": int}, _AXES),
@@ -152,6 +165,22 @@ def parse_args(argv: Optional[Sequence[str]] = None):
     parser.add_argument("--monitor", action="store_true",
                         help="record per-step heartbeats to decode.csv "
                              "(overwrites an existing decode.csv in cwd)")
+    parser.add_argument("--rank", default=0, type=int,
+                        help="this process's rank in a DCN fleet")
+    parser.add_argument("--edge-bits", default=0, type=int,
+                        choices=[0, 2, 4, 6, 8, 16],
+                        help="quantize the DCN stage edges (QuantPipe "
+                             "activation compression; needs --dcn-addrs)")
+    parser.add_argument("--dcn-addrs", default=None, type=str,
+                        help="comma-separated host:port per rank: run the "
+                             "pipeline across OS processes over TCP (stage "
+                             "i on rank i; launch the same command on every "
+                             "rank with its own --rank)")
+    parser.add_argument("--save-ids", default=None, metavar="NPZ",
+                        help="also write every generated row's ids (key "
+                             "`ids`, [B, prompt + new]; [N, B, ...] with "
+                             "--concurrent) to NPZ; in a DCN fleet rank 0 "
+                             "writes them")
     parser.add_argument("-sm", "--sched-models-file", default=None)
     parser.add_argument("-sdt", "--sched-dev-types-file", default=None)
     parser.add_argument("-sd", "--sched-dev-file", default=None)
@@ -178,16 +207,26 @@ def parse_args(argv: Optional[Sequence[str]] = None):
     if args.beams and args.prefill_ubatch:
         parser.error("--prefill-ubatch applies to greedy/sampled "
                      "generation, not --beams")
-    if args.shared_prefix and (args.beams or args.prefill_ubatch):
+    if args.edge_bits and args.dcn_addrs is None:
+        parser.error("--edge-bits applies to DCN stage edges or the SPMD "
+                     "wave prefill hops; pass --dcn-addrs or --spmd-wave")
+    if args.shared_prefix and (args.beams or args.prefill_ubatch
+                               or args.dcn_addrs is not None):
         parser.error("--shared-prefix composes with plain, speculative, "
                      "or --concurrent greedy/sampled generation only "
                      "(not --beams/--spmd-wave/--prefill-ubatch/"
                      "--dcn-addrs)")
     if args.shared_prefix and not 0 < args.shared_prefix < args.prompt_len:
         parser.error(f"--shared-prefix must be in (0, {args.prompt_len})")
+    if args.dcn_addrs is not None and (args.kv_bits or args.monitor
+                                       or args.beams or args.prefill_ubatch):
+        parser.error("--dcn-addrs does not compose with --tp/--sp/--ep/"
+                     "--kv-bits/--monitor/--beams/--prefill-ubatch in "
+                     "this demo")
     if args.draft_model and (args.temperature > 0 or args.top_k
                              or args.beams or args.concurrent
                              or args.monitor or args.prefill_ubatch
+                             or args.dcn_addrs is not None
                              or args.kv_bits):
         parser.error("--draft-model is greedy-exact speculative "
                      "decoding; it does not compose with sampling/"
@@ -280,6 +319,146 @@ def run_concurrent(args, pipe, ids: np.ndarray, p_len: int,
     return np.stack(outs)
 
 
+def run_dcn(args, cfg, partition, max_len: int, dtype) -> Optional[np.ndarray]:
+    """Pipelined decoding across OS processes over TCP (`tools/generate.py
+    run_dcn`): stage i runs on rank i, and every rank runs the same step
+    count, so no control plane is needed. A stage's output edge is
+    encoded on its device (`wire_encode_device`: kernel 1 at 4 and 8
+    bits) and decoded on the next rank's (kernel 2). Each rank but the
+    last owns one output edge; with `ADAPTIVE_QUANT` set it adapts that
+    edge's bits on its own `send` telemetry window (`--edge-bits` is the
+    start), and the consumer needs no coordination: the bits ride the
+    wire header. Returns rank 0's ids [B, prompt + new], None elsewhere."""
+    from . import resolve_device
+    from . import runtime as runtime_mod
+    from .comm import dcn, wire
+
+    world = len(partition)
+    rank = args.rank
+    if not 0 <= rank < world:
+        raise SystemExit(f"--rank {rank} outside the {world}-stage partition")
+    total = registry.get_model_layers(args.model_name)
+    decode.validate_partition(partition, total)
+    decode.validate_capacity(cfg, max_len, args.prompt_len, args.new_tokens)
+    device = resolve_device(args.device)
+    addrs = dcn.parse_rank_addrs(args.dcn_addrs, world, 29600)
+    l, r = partition[rank]
+    _, params, sc = registry.module_shard_factory(
+        args.model_name, args.model_file, l, r, stage=rank, dtype=dtype,
+        device=device)
+    family = registry.get_model_entry(args.model_name).family.FAMILY
+    prefill_fn, decode_fn = decode.make_stage_fns(family, cfg, sc)
+    pick = decode.make_token_picker(args.temperature, args.top_k)
+    prompt = args.prompt_len
+    ids = prompt_ids(args, cfg)
+    launches0 = dict(_build.launch_counts)
+
+    # this rank's output-edge bits and adaptive policy (the runtime's DCN
+    # ranks use the same state and callback)
+    edge = adaptive = None
+    if world > 1 and not sc.is_last:
+        edge = runtime_mod._EdgeQuantState(args.edge_bits)
+        if os.getenv(runtime_mod.ENV_ADAPTIVE_QUANT):
+            window = runtime_mod.get_window_size()
+            monitoring.init(runtime_mod.MONITORING_KEY_SEND, window,
+                            work_type="Mbits")
+            monitoring.add_key(runtime_mod.MONITORING_KEY_RECV,
+                               work_type="Mbits")
+            adaptive = runtime_mod._make_adaptive_callback(
+                [edge], window, [runtime_mod.MONITORING_KEY_SEND])
+    step_beat = [0]
+    result = None
+    try:
+        with dcn.DistDcnContext(world, rank, addrs) as ctx:
+            if adaptive is not None:
+                runtime_mod._register_dcn_monitor_hooks(ctx)
+
+            def stage_step(data, pos, cache):
+                if not sc.is_first:
+                    data = wire.wire_decode(ctx.recv_tensors(rank - 1),
+                                            dtype, device=device)
+                # bucketed attend window: pos is fleet-lockstep, so every
+                # rank picks the same bucket on its own
+                if pos is None:
+                    out, cache = prefill_fn(params, data, cache)
+                else:
+                    out, cache = decode_fn(
+                        params, data, cache, pos,
+                        read_len=decode.attend_bucket(pos + 1, max_len,
+                                                      args.attend_floor))
+                if not sc.is_last:
+                    ctx.send_tensors(rank + 1, wire.wire_encode_device(
+                        out, edge.quant_bit).finalize())
+                    if adaptive is not None:
+                        adaptive(step_beat[0], out)
+                        step_beat[0] += 1
+                elif world > 1:
+                    # the last position's logits back to rank 0
+                    last = out[:, -1] if pos is None else out[:, 0]
+                    ctx.send_tensors(0, [last.float().cpu().numpy()],
+                                     channel=dcn.CHANNEL_RESULTS)
+                return out
+
+            def run_once(new_tokens):
+                """One fleet-lockstep generation (prefill and steps);
+                returns rank 0's tokens."""
+                cache = decode.init_cache(cfg, (r - l + 1) // 4,
+                                          args.batch_size, max_len, dtype,
+                                          device=device)
+                gen = None
+                if args.temperature > 0.0 and rank == 0:
+                    gen = torch.Generator(device=device)
+                    gen.manual_seed(args.seed)
+                tokens = []
+
+                def next_token(out, pos):
+                    if world > 1:
+                        logits = torch.as_tensor(
+                            ctx.recv_tensors(world - 1,
+                                             channel=dcn.CHANNEL_RESULTS)[0],
+                            device=device)
+                    else:
+                        logits = out[:, prompt - 1] if pos is None \
+                            else out[:, 0]
+                    return pick(logits.float(), gen)
+
+                first = (torch.as_tensor(ids, dtype=torch.long,
+                                         device=device)
+                         if sc.is_first else None)
+                out = stage_step(first, None, cache)
+                if rank == 0:
+                    tokens.append(next_token(out, None))
+                for step in range(1, new_tokens):
+                    pos = prompt + step - 1
+                    data = tokens[-1][:, None] if sc.is_first else None
+                    out = stage_step(data, pos, cache)
+                    if rank == 0:
+                        tokens.append(next_token(out, pos))
+                return tokens
+
+            # warm up with the full token budget, so every attend bucket
+            # the timed run crosses has run once
+            run_once(args.new_tokens)
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+            tik = time.monotonic()
+            tokens = run_once(args.new_tokens)
+            if rank == 0:
+                result = np.concatenate(
+                    [ids, torch.stack(tokens, dim=1).cpu().numpy()], axis=1)
+                print_summary(args, time.monotonic() - tik, result,
+                              f"{world} DCN ranks")
+    finally:
+        if adaptive is not None:
+            monitoring.finish()
+    runtime_mod.emit_line(
+        f"rank={rank} kernel_launches="
+        + json.dumps({k: v - launches0.get(k, 0)
+                      for k, v in _build.launch_counts.items()},
+                     sort_keys=True))
+    return result
+
+
 def run(args) -> np.ndarray:
     """Build the pipeline, warm it up, time one generation and print the
     report lines; returns the generated ids [B, prompt_len + new_tokens]
@@ -295,6 +474,8 @@ def run(args) -> np.ndarray:
     max_len = args.max_len or args.prompt_len + args.new_tokens
     if args.draft_model and args.max_len is None:
         max_len += args.gamma   # verify spans write past the last token
+    if args.dcn_addrs is not None:
+        return run_dcn(args, cfg, partition, max_len, dtype)
     pipe = decode.build_decode_pipeline(
         args.model_name, partition, max_len=max_len,
         dtype=dtype, cache_bits=args.kv_bits,
@@ -378,7 +559,11 @@ def main(argv: Optional[Sequence[str]] = None) -> np.ndarray:
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s %(levelname)s %(name)s: "
                                "%(message)s")
-    return run(parse_args(argv))
+    args = parse_args(argv)
+    result = run(args)
+    if args.save_ids and result is not None:
+        np.savez(args.save_ids, ids=result)
+    return result
 
 
 if __name__ == "__main__":

@@ -1,11 +1,10 @@
-"""Pipeline reverse-auction scheduler CLI of the port (`--comm local`).
+"""Pipeline reverse-auction scheduler CLI of the port.
 
-The single-controller half of the repository's `revauct.py`: every
-device of the local profile files bids its memory-feasible shards (from
-its timing profile) and its neighbour bandwidths; the auctioneer filters
-and orders the bids and runs the latency-, throughput- or host-count-
-optimizing scheduler (`sched/revauct.py`), printing the 1-indexed
-schedule YAML that `runtime.py -pt` takes:
+The repository's `revauct.py`: every device bids its memory-feasible
+shards (from its timing profile) and its neighbour bandwidths; the
+auctioneer filters and orders the bids and runs the latency-,
+throughput- or host-count-optimizing scheduler (`sched/revauct.py`),
+printing the 1-indexed schedule YAML that `runtime.py -pt` takes:
 
     python -m pipeedge_tpu_torch.revauct 0 4 \\
         -m google/vit-large-patch16-224 -u 8 \\
@@ -14,21 +13,31 @@ schedule YAML that `runtime.py -pt` takes:
         -sd pipeedge_tpu_torch/profiles/h100/devices.yml \\
         -sdnw pipeedge_tpu_torch/profiles/h100/device_neighbors_world.yml
 
-Bids fan out through a thread pool, the shape of PipeEdge's RPC
-fan-out without network bring-up; hosts in the YAML play the role of
-ranks. The distributed auction (`--comm dcn`, one process per rank over
-the DCN command plane) is refused: it waits for the port's DCN driver
-(ROADMAP A6b). No PyYAML: the port's `sched/miniyaml.py` reads and writes
-the files.
+`--comm local` (the default) fans the bids out through a thread pool in
+one process; hosts in the YAML play the role of ranks. `--comm dcn` is
+PipeEdge's own deployment: one process per rank over the DCN command
+plane (`comm/dcn.py`). Rank 0 is the auctioneer and a bidder; it sends
+CMD_BID to every rank, each bidder answers on CHANNEL_BIDS from its own
+profile files only, and CMD_STOP releases them on every exit path:
+
+    python -m pipeedge_tpu_torch.revauct R 3 -c dcn --host hR \\
+        --dev-type h100 --dcn-addrs h:p0,h:p1,h:p2 -sm ... -sdt ... -sdnw ...
+
+No PyYAML: the port's `sched/miniyaml.py` reads and writes the files.
 """
 from __future__ import annotations
 
 import argparse
+import json
 import logging
+import queue
 import random
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from typing import Optional, Sequence, Tuple
+
+import numpy as np
 
 from . import sched
 from .models import registry
@@ -182,6 +191,104 @@ def main_local(args) -> Optional[list]:
     return out
 
 
+def main_dcn(args) -> Optional[list]:
+    """Distributed auction over the DCN command plane: rank-local bids,
+    PipeEdge's deployment shape (one process per device, revauct.py:168-
+    180). Rank 0 is the auctioneer and a bidder; it prints and returns
+    the schedule (None on a bidder)."""
+    from .comm import CMD_BID, CMD_STOP, dcn
+
+    cfg = _load_cfg(args)
+    bid_req_q: "queue.Queue" = queue.Queue()
+    stop_ev = threading.Event()
+
+    def handler(cmd, tensors):
+        if cmd == CMD_BID:
+            bid_req_q.put(tensors)
+        elif cmd == CMD_STOP:
+            stop_ev.set()
+
+    addrs = dcn.parse_rank_addrs(args.dcn_addrs, args.worldsize, args.port)
+    with dcn.DistDcnContext(args.worldsize, args.rank, addrs,
+                            cmd_handler=handler) as ctx:
+        if args.rank != 0:
+            _bid_dcn(args, cfg, ctx, bid_req_q, stop_ev)
+            return None
+        # the auction request (PipeEdge's rpc_async fan-out,
+        # revauct.py:171-174); rank 0 bids locally
+        try:
+            ctx.cmd_broadcast(CMD_BID, [
+                np.frombuffer(args.model_name.encode(), np.uint8),
+                np.asarray(args.ubatch_size, np.int32),
+                np.frombuffer(DTYPE.encode(), np.uint8)])
+        except ConnectionError as exc:
+            # release the bidders that are up before failing
+            ctx.cmd_broadcast(CMD_STOP, best_effort=True)
+            raise RuntimeError(
+                f"auction request undeliverable: {exc}") from None
+        try:
+            bids_in_order = [bid_latency_for_host(
+                args.host, args.dev_type, cfg, args.model_name,
+                args.ubatch_size, DTYPE)]
+            for rank in range(1, args.worldsize):
+                try:
+                    blob = ctx.recv_tensors(rank,
+                                            timeout=args.auction_timeout,
+                                            channel=dcn.CHANNEL_BIDS)
+                except (queue.Empty, ConnectionError) as exc:
+                    raise RuntimeError(
+                        f"no bid from rank {rank} within "
+                        f"{args.auction_timeout}s ({exc.__class__.__name__}"
+                        f"); is it up and bidding?") from None
+                bid = json.loads(bytes(blob[0]).decode())
+                bids_in_order.append(
+                    (bid['host'],
+                     (bid['shards'], bid['costs'], bid['neighbors'])))
+        finally:
+            # even on a failed collection (a bidder died), release the
+            # others, which would otherwise wait out their timeout
+            ctx.cmd_broadcast(CMD_STOP, best_effort=True)
+    if args.data_host is None:
+        args.data_host = args.host
+    out = schedule(args, cfg['yml_models'][args.model_name], bids_in_order)
+    logger.info("Schedule:")
+    print(miniyaml.dumps(out, sort_keys=False))
+    return out
+
+
+def _bid_dcn(args, cfg, ctx, bid_req_q, stop_ev) -> None:
+    """A bidder: wait for the request and answer from the local profiles
+    only (this process never sees the other ranks' device files)."""
+    from .comm import dcn
+
+    try:
+        tensors = bid_req_q.get(timeout=args.auction_timeout)
+    except queue.Empty:
+        raise RuntimeError(
+            f"rank {args.rank}: no CMD_BID within {args.auction_timeout}s; "
+            "is the auctioneer up?") from None
+    model = bytes(np.asarray(tensors[0])).decode()
+    ubatch_size = int(np.asarray(tensors[1]))
+    dtype = bytes(np.asarray(tensors[2])).decode()
+    host, payload = bid_latency_for_host(
+        args.host, args.dev_type, cfg, model, ubatch_size, dtype)
+    blob = json.dumps({'host': host, 'shards': payload[0],
+                       'costs': payload[1],
+                       'neighbors': payload[2]}).encode()
+    try:
+        ctx.send_tensors(0, [np.frombuffer(blob, np.uint8)],
+                         channel=dcn.CHANNEL_BIDS)
+    except OSError as exc:
+        raise RuntimeError(
+            f"rank {args.rank}: could not deliver bid to the auctioneer "
+            f"({exc}); is rank 0 still up?") from None
+    if stop_ev.wait(timeout=args.auction_timeout):
+        logger.info("rank %d: released by auctioneer", args.rank)
+    else:
+        logger.warning("rank %d: no CMD_STOP within %ss; exiting",
+                       args.rank, args.auction_timeout)
+
+
 def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     parser = argparse.ArgumentParser(
         description="Pipeline Reverse Auction Scheduler (PyTorch port)",
@@ -190,21 +297,36 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                         help="this node's rank (0 = auctioneer)")
     parser.add_argument("worldsize", type=int,
                         help="number of devices to auction over")
-    parser.add_argument("-c", "--comm", default="local",
+    netcfg = parser.add_argument_group('Network configuration (--comm dcn)')
+    netcfg.add_argument("-c", "--comm", default="local",
                         choices=["local", "dcn"],
-                        help="bid fan-out: a local thread pool; dcn is "
-                             "not ported yet (ROADMAP A6b)")
+                        help="bid fan-out: local thread pool (single "
+                             "controller) or distributed rank-local bids "
+                             "over the DCN command plane")
+    netcfg.add_argument("--dcn-addrs", type=str, default=None,
+                        help="comma-separated host:port per rank")
+    netcfg.add_argument("--port", type=int, default=29500,
+                        help="base port when --dcn-addrs is unset "
+                             "(rank i listens on port+i)")
+    netcfg.add_argument("--auction-timeout", type=float, default=120.0)
     devcfg = parser.add_argument_group('Device configuration')
     devcfg.add_argument("-sm", "--sched-models-file", default='models.yml')
     devcfg.add_argument("-sdt", "--sched-dev-types-file",
                         default='device_types.yml')
     devcfg.add_argument("-sd", "--sched-dev-file", default='devices.yml',
-                        help="device types to hosts mapping YAML file")
+                        help="device types to hosts mapping YAML file "
+                             "(--comm local only)")
     devcfg.add_argument("-sdnw", "--sched-dev-neighbors-world",
                         default='device_neighbors_world.yml')
+    devcfg.add_argument("--host", type=str, default=None,
+                        help="this bidder's hostname (--comm dcn); default "
+                             "rank<N>")
+    devcfg.add_argument("--dev-type", type=str, default=None,
+                        help="this bidder's device type name in its local "
+                             "device_types file (--comm dcn)")
     devcfg.add_argument("-D", "--data-host", type=str, default=None,
                         help="host where inputs are loaded and outputs "
-                             "processed; default: the first host")
+                             "processed; default: first host / auctioneer")
     modcfg = parser.add_argument_group('Model configuration')
     modcfg.add_argument("-m", "--model-name", type=str,
                         default="google/vit-base-patch16-224",
@@ -223,16 +345,18 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     schcfg.add_argument("--seed", type=int, default=None,
                         help="seed the device-order shuffle")
     args = parser.parse_args(argv)
-    if args.comm == "dcn":
-        parser.error("--comm dcn is not ported to pipeedge_tpu_torch yet "
-                     "(ROADMAP A6b, the auction over the DCN transport); "
-                     "--comm local runs the same auction in one process")
+    if args.host is None:
+        args.host = f"rank{args.rank}"
+    if args.comm == "dcn" and not args.dev_type:
+        parser.error("--comm dcn requires --dev-type (this bidder's entry "
+                     "in its local device_types file)")
     return args
 
 
 def main(argv: Optional[Sequence[str]] = None) -> Optional[list]:
     logging.basicConfig(format='%(message)s', level=logging.INFO)
-    return main_local(parse_args(argv))
+    args = parse_args(argv)
+    return main_dcn(args) if args.comm == "dcn" else main_local(args)
 
 
 if __name__ == "__main__":

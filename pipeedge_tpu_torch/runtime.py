@@ -101,9 +101,25 @@ The DCN driver's fault plane, as in `runtime.py`:
 `python -m pipeedge_tpu_torch.chaos_dcn` launches such a fleet with one
 fault armed in one rank (`comm/chaos.py`) and times its recovery.
 
+The DCN driver's control loop, as in `runtime.py`: at each round
+boundary the data rank pulls every stage rank's span digest once
+(`_collect_fleet_digests`) and each consumer reads the window since its
+own last look:
+
+- `--rebalance auto` (with `--rebalance-threshold/-cooldown/-confirm`)
+  re-solves the partition from the stages' measured service times
+  (`sched/rebalance.py`) and re-cuts the remaining rounds (the
+  `rebalance_round=` line);
+- `--autoscale-ranks auto|advise` (with `--autoscale-min/-max/-confirm/
+  -cooldown/-rank-high/-rank-low`) runs `serving/autoscale.py`'s
+  controller over pipeline stages: up pressure expands onto idle ranks,
+  down pressure contracts the span by one stage and benches a rank (the
+  `autoscale_decision` and `autoscale_rank` lines).
+
+Both, and the peer-health scorer, force span recording on every rank.
+
 The flags of `runtime.py` that this entry does not run are refused at
 parse time, each naming the ROADMAP item that ports it (`REFUSED`): the
-DCN driver's rebalancer and rank autoscaler (A6b's control half), the
 multi-device axes' (A7), `--platform` (the port's switch is `--device`)
 and the dataset flags (the real datasets need a download).
 """
@@ -114,6 +130,7 @@ import json
 import logging
 import os
 import queue
+import sys
 import threading
 import time
 from typing import List, Optional, Sequence, Tuple
@@ -192,6 +209,12 @@ benched_ranks: set = set()
 # silently readmit a quarantined straggler; only probation readmission
 # (health/scorer.py) removes entries here.
 quarantined_ranks: set = set()
+# capacity-benched ranks (guarded by dead_lock): alive ranks the capacity
+# controller (--autoscale-ranks) parked as spares because the pipeline is
+# over-provisioned. Kept apart from benched_ranks and quarantined_ranks so
+# a heal or a readmission never re-seats a capacity decision; only the
+# controller's own scale-up removes entries here.
+autoscaled_ranks: set = set()
 # a death landed mid-round: the data rank ends the round, re-schedules over
 # the survivors, and replays the unacknowledged microbatches
 failover_event = threading.Event()
@@ -230,6 +253,9 @@ _FAILOVER_EVENTS = prom.REGISTRY.counter(
     "mid-run peer deaths entering the failover path")
 _PEER_DEATHS = prom.REGISTRY.counter(
     "pipeedge_peer_deaths_total", "peer deaths observed (any mode)")
+_REBALANCE_EVENTS = prom.REGISTRY.counter(
+    "pipeedge_rebalance_events_total",
+    "accepted telemetry-driven partition rebalances (--rebalance auto)")
 _REJOINS = prom.REGISTRY.counter(
     "pipeedge_rejoins_total",
     "peers re-admitted through the JOIN handshake after a confirmed death")
@@ -251,30 +277,18 @@ _HB_RTT = prom.REGISTRY.gauge(
 # `runtime.py` flags this entry refuses, each with the ROADMAP item that
 # ports it (so no flag is silently ignored): flag -> (argparse keywords,
 # item)
-_REBALANCE = "A6b's control half, the DCN rebalancer between rounds"
 _AXES = "A7, the multi-GPU axes"
-_AUTOSCALE = "A6b's control half, the DCN rank autoscaler"
 _DATASET = ("A7 small pieces: the real datasets need a download, so the "
             "port runs the synthetic inputs only")
 _INT, _FLOAT, _STR, _SWITCH = ({"type": int}, {"type": float}, {},
                                {"action": "store_true"})
 REFUSED = {
-    "--rebalance-threshold": (_FLOAT, _REBALANCE),
-    "--rebalance-cooldown": (_INT, _REBALANCE),
-    "--rebalance-confirm": (_INT, _REBALANCE),
     "--spmd-dp": (_INT, _AXES),
     "--spmd-tp": (_INT, _AXES),
     "--spmd-sp": (_INT, _AXES),
     "--spmd-sp-kind": (_STR, _AXES),
     "--stage-tp": (_INT, _AXES),
     "--tp-quant-bits": (_INT, _AXES),
-    "--autoscale-ranks": (_STR, _AUTOSCALE),
-    "--autoscale-min": (_INT, _AUTOSCALE),
-    "--autoscale-max": (_INT, _AUTOSCALE),
-    "--autoscale-confirm": (_INT, _AUTOSCALE),
-    "--autoscale-cooldown": (_FLOAT, _AUTOSCALE),
-    "--autoscale-rank-high": (_FLOAT, _AUTOSCALE),
-    "--autoscale-rank-low": (_FLOAT, _AUTOSCALE),
     "--dataset-root": (_STR, _DATASET),
     "--dataset-split": (_STR, _DATASET),
     "--dataset-indices-tsv": (_STR, _DATASET),
@@ -410,9 +424,53 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     parser.add_argument("-H", "--hosts", type=str,
                         help="comma-delimited hosts for schedule mapping")
     parser.add_argument("--rebalance", default="off", choices=["off", "auto"],
-                        help="auto: between measure rounds, adapt the "
+                        help="auto, dcn: the data rank re-solves the layer "
+                             "partition at each round boundary from the "
+                             "stages' measured service times (span "
+                             "digests) and applies it with the next "
+                             "CMD_SCHED; pass it to every rank. auto, "
+                             "host: between measure rounds, adapt the "
                              "microbatch size to the measured steady-state "
                              "stage time vs fill/drain overhead")
+    parser.add_argument("--rebalance-threshold", type=float, default=0.10,
+                        help="least predicted relative bottleneck gain "
+                             "before a re-partition is applied")
+    parser.add_argument("--rebalance-cooldown", type=int, default=1,
+                        help="full rounds to wait after a rebalance before "
+                             "considering another")
+    parser.add_argument("--rebalance-confirm", type=int, default=1,
+                        help="extra consecutive windows that must blame the "
+                             "same bottleneck stage before a re-partition "
+                             "(0 = act on the first actionable window)")
+    parser.add_argument("--autoscale-ranks", default="off",
+                        choices=["off", "advise", "auto"],
+                        help="dcn: closed-loop capacity control over the "
+                             "partition at round boundaries "
+                             "(serving/autoscale.py's controller): up "
+                             "pressure expands onto idle ranks "
+                             "(sched/failover.py plan_rejoin), down "
+                             "pressure contracts the span by one stage and "
+                             "benches the rank with the fewest layers. "
+                             "advise logs decisions without acting; auto "
+                             "acts (needs --on-peer-death failover). Data "
+                             "rank drives; forces span recording on")
+    parser.add_argument("--autoscale-min", type=int, default=2,
+                        help="stage-count floor the controller never "
+                             "contracts below")
+    parser.add_argument("--autoscale-max", type=int, default=0,
+                        help="stage-count ceiling (0 = world size)")
+    parser.add_argument("--autoscale-confirm", type=int, default=2,
+                        help="consecutive same-direction measured windows "
+                             "before a capacity decision")
+    parser.add_argument("--autoscale-cooldown", type=float, default=0.0,
+                        help="seconds between capacity decisions "
+                             "(reversals double it)")
+    parser.add_argument("--autoscale-rank-high", type=float, default=0.75,
+                        help="bottleneck stage service seconds per "
+                             "microbatch that count as up pressure")
+    parser.add_argument("--autoscale-rank-low", type=float, default=0.05,
+                        help="bottleneck service seconds below which the "
+                             "pipeline counts as over-provisioned")
     parser.add_argument("--save-results", type=str, default=None,
                         metavar="NPZ",
                         help="save every delivered result microbatch (in "
@@ -463,8 +521,23 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     n_rounds = max(len(v.split(";")) for v in
                    (args.partition or "", args.quant or "",
                     args.rank_order or ""))
+    # runtime.py's composition errors, word for word
+    pt_rounds = args.partition.split(";") if args.partition else [None]
+    if args.rebalance == "auto":
+        if len(set(pt_rounds)) > 1:
+            # rounds must repeat the same workload: a re-cut would
+            # silently overwrite deliberately distinct partitions
+            parser.error("--rebalance auto cannot combine with distinct "
+                         "';'-separated partitions")
+        if args.stage_ckpt:
+            parser.error("--rebalance auto cannot combine with "
+                         "--stage-ckpt (the checkpoint manifest pins the "
+                         "partition)")
+        if dcn and args.rounds == 1 and n_rounds == 1:
+            parser.error("--rebalance auto needs round boundaries to "
+                         "re-plan at: pass --rounds N (or ';'-separated "
+                         "schedule rounds)")
     if args.on_peer_degraded == "quarantine":
-        # runtime.py's composition errors, word for word
         if not dcn:
             parser.error("--on-peer-degraded quarantine applies to the "
                          "dcn driver (per-process ranks)")
@@ -472,6 +545,23 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
             parser.error("--on-peer-degraded quarantine acts at round "
                          "boundaries: pass --rounds N (or ';'-separated "
                          "schedule rounds)")
+    if args.autoscale_ranks != "off":
+        if not dcn:
+            parser.error("--autoscale-ranks applies to the dcn driver "
+                         "(per-process ranks)")
+        if args.rounds == 1 and n_rounds == 1:
+            parser.error("--autoscale-ranks acts at round boundaries: "
+                         "pass --rounds N (or ';'-separated schedule "
+                         "rounds)")
+        if args.autoscale_ranks == "auto" \
+                and args.on_peer_death != "failover":
+            parser.error("--autoscale-ranks auto needs --on-peer-death "
+                         "failover: a planned bench rides the failover "
+                         "re-plan cascade (advise mode only observes)")
+        if args.autoscale_min < 1:
+            parser.error("--autoscale-min must be >= 1")
+        if args.autoscale_confirm < 1:
+            parser.error("--autoscale-confirm must be >= 1")
     if not dcn:
         for flag, given in (("--stage-ckpt", args.stage_ckpt),
                             ("--rounds", args.rounds != 1)):
@@ -507,14 +597,11 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
             if 1 < k != n_rounds:
                 parser.error(f"{opt}: {k} ';'-rounds given but {n_rounds} "
                              f"rounds defined; give 1 or {n_rounds}")
-        if args.rebalance == "auto":
-            parser.error(f"--rebalance auto on the dcn driver is not ported "
-                         f"to pipeedge_tpu_torch yet (ROADMAP {_REBALANCE})")
     if args.dataset_name != "synthetic":
         parser.error(f"--dataset-name {args.dataset_name} needs a download "
                      "(the dataset, and its tokenizer or image processor); "
                      "the port runs the synthetic inputs only")
-    if args.rebalance == "auto" and args.measure_rounds <= 1:
+    if args.rebalance == "auto" and not dcn and args.measure_rounds <= 1:
         parser.error("--rebalance auto on the host driver adapts the "
                      "microbatch size BETWEEN measure rounds: pass "
                      "--measure-rounds N > 1")
@@ -1429,6 +1516,181 @@ def _estimates_from_digests(cur_digests, sched, prev_digests: dict,
     return est
 
 
+def _consider_rebalance(ctx, args, policy, sched, prev_digests: dict,
+                        rnd: int, cur_digests=None):
+    """One closed-loop decision at a round boundary (data rank only, as
+    `runtime.py _consider_rebalance`): measure this round's window from
+    the boundary's shared digest snapshot and ask the policy
+    (`sched/rebalance.py`) whether re-solving the partition with the
+    measured profile is worth a re-schedule. Returns the accepted
+    Proposal or None; an unmeasurable round keeps the partition."""
+    stage_layers = sched[0]
+    t0 = time.monotonic_ns()
+    # cur_digests None: the boundary's one shared sweep already failed,
+    # fleet-wide, so no second sweep here
+    est = _estimates_from_digests(cur_digests, sched, prev_digests)
+    if est is None:
+        logger.info("rebalance: no measurable window; keeping partition")
+        return None
+    proposal = policy.consider(list(stage_layers), est, rnd)
+    now = time.monotonic_ns()
+    telemetry.record("rebalance", "plan", t0, now)
+    if proposal is None:
+        return None
+    # one instant per accepted re-partition: the span report's
+    # `rebalance_events` counts these
+    telemetry.record("rebalance", "apply", now, now)
+    _REBALANCE_EVENTS.inc()
+    logger.warning("rebalance: round %d partition %s -> %s (predicted "
+                   "bottleneck %.4fs -> %.4fs, gain %.1f%%)", rnd,
+                   list(stage_layers), proposal.partition,
+                   proposal.bottleneck_before_s,
+                   proposal.bottleneck_after_s, 100 * proposal.gain)
+    # machine-parseable line
+    print(f"rebalance_round={rnd} "
+          f"partition={','.join(f'{l},{r}' for l, r in proposal.partition)} "
+          f"predicted_gain={proposal.gain:.4f}", flush=True)
+    return proposal
+
+
+def _consider_autoscale(ctx, args, a_state: dict, sched, schedules,
+                        sched_idx: int, world_size: int, rnd: int,
+                        cur_digests=None) -> None:
+    """One capacity decision at a round boundary (data rank only, as
+    `runtime.py _consider_autoscale`; `--autoscale-ranks`). The engine is
+    `serving/autoscale.py`'s CapacityController, its unit pipeline
+    stages. The signal is the boundary's shared digest window as
+    per-stage service estimates: up pressure when the bottleneck stage's
+    service time per microbatch reaches `--autoscale-rank-high`, down
+    pressure at or below `--autoscale-rank-low`.
+
+    Scale-up is a planned rejoin: `plan_rejoin(sched, None, ...)` expands
+    onto idle ranks, capacity-benched ones included, written over the
+    remaining rounds. Scale-down contracts the span over one stage fewer
+    and drops the rank carrying the fewest layers (never the data rank)
+    into `autoscaled_ranks`, so later failover re-plans keep it benched;
+    a contraction that cannot run renders as a `held` decision."""
+    from .sched import failover as failover_sched
+    from .sched import rebalance
+    from .serving import autoscale as autoscale_mod
+
+    est = _estimates_from_digests(cur_digests, sched,
+                                  a_state["prev_digests"])
+    with dead_lock:
+        dead_now = set(dead_ranks)
+    # state before the lazy controller construction: the controller
+    # probes size_fn() at __init__, and the closures read a_state at call
+    # time
+    a_state.update(sched=sched, schedules=schedules, sched_idx=sched_idx,
+                   dead=dead_now, last_apply=None)
+
+    if a_state.get("controller") is None:
+        max_size = (min(args.autoscale_max, world_size)
+                    if args.autoscale_max else world_size)
+
+        def _classify(pol, sig):
+            b = sig.get("bottleneck_s")
+            if b is None:
+                return 0     # unmeasurable window: streaks reset
+            if b >= args.autoscale_rank_high:
+                return 1
+            if b <= args.autoscale_rank_low:
+                return -1
+            return 0
+
+        def _plan(direction, cur, target):
+            sched_now = a_state["sched"]
+            dead = a_state["dead"]
+            if direction == "up":
+                planned = failover_sched.plan_rejoin(sched_now, None,
+                                                     world_size, dead)
+                if planned is None:
+                    return {"ok": False,
+                            "reason": "no idle survivor to expand onto"}
+                return {"ok": True, "planned": planned}
+            # scale-down: merge the span over `target` stages and drop the
+            # victim from the placement (benching through the failover
+            # cascade alone would hand the stage straight back to it as
+            # the last-resort spare)
+            stage_layers, _q, stage_ranks = sched_now
+            candidates = [(hi - lo + 1, i)
+                          for i, (lo, hi) in enumerate(stage_layers)
+                          if stage_ranks[i] != args.rank
+                          and stage_ranks[i] not in dead]
+            if not candidates:
+                return {"ok": False,
+                        "reason": "no benchable stage (data rank holds "
+                                  "the only one)"}
+            _, idx = min(candidates)
+            victim = stage_ranks[idx]
+            try:
+                contracted, _ = rebalance.solve_partition(
+                    [1.0] * stage_layers[-1][1], target)
+            except ValueError as exc:
+                return {"ok": False,
+                        "reason": f"contraction to {target} stage(s) "
+                                  f"unsolvable: {exc}"}
+            new_ranks = [r for r in stage_ranks if r != victim]
+            if len(new_ranks) != target:
+                return {"ok": False,
+                        "reason": f"placement mismatch: {len(new_ranks)} "
+                                  f"survivors for {target} stage(s)"}
+            return {"ok": True, "victim": victim,
+                    "planned": (list(contracted), [0] * target, new_ranks)}
+
+        def _apply(plan):
+            scheds = a_state["schedules"]
+            planned = plan["planned"]
+            for j in range(a_state["sched_idx"] + 1, len(scheds)):
+                scheds[j] = (list(planned[0]), list(planned[1]),
+                             list(planned[2]))
+            if "victim" not in plan:                    # scale-up
+                with dead_lock:
+                    for r_new in planned[2]:
+                        autoscaled_ranks.discard(r_new)
+                a_state["last_apply"] = ("up", planned[2])
+            else:                                       # scale-down
+                with dead_lock:
+                    autoscaled_ranks.add(plan["victim"])
+                a_state["last_apply"] = ("down", plan["victim"])
+
+        a_state["controller"] = autoscale_mod.CapacityController(
+            autoscale_mod.CapacityPolicy(
+                min_size=args.autoscale_min,
+                max_size=max(max_size, args.autoscale_min),
+                confirm=args.autoscale_confirm,
+                cooldown_s=args.autoscale_cooldown),
+            mode=args.autoscale_ranks,
+            size_fn=lambda: len(a_state["sched"][0]),
+            plan_fn=_plan, apply_fn=_apply,
+            classify_fn=_classify, label="stages")
+
+    signals = {"size": len(sched[0]), "brownout_level": 0}
+    if est:
+        svc = [e.service_s for e in est.values()]
+        bott = max(svc)
+        signals["bottleneck_s"] = bott
+        # the steady-state bubble ratio: the share of the fleet's
+        # stage-seconds spent waiting on the bottleneck
+        signals["bubble_frac"] = (1.0 - sum(svc) / (len(svc) * bott)
+                                  if bott > 0 else 0.0)
+    d = a_state["controller"].tick(signals)
+    if d is None:
+        return
+    # machine-parseable decision line
+    print(f"{d.line()} round={rnd}", flush=True)
+    applied = a_state["last_apply"]
+    if applied is None:
+        return
+    kind, detail = applied
+    if kind == "up":
+        print(f"autoscale_rank direction=up round={rnd} "
+              f"ranks={','.join(str(r) for r in detail)}", flush=True)
+    else:
+        print(f"autoscale_rank direction=down round={rnd} "
+              f"victim={detail}", flush=True)
+
+
 def _consider_peer_health(ctx, args, hstate: dict, sched, next_sched,
                           world_size: int, rnd: int,
                           cur_digests=None) -> None:
@@ -1501,7 +1763,8 @@ def _consider_peer_health(ctx, args, hstate: dict, sched, next_sched,
 
     with dead_lock:
         dead_now = set(dead_ranks)
-        bench_now = set(benched_ranks) | set(quarantined_ranks)
+        bench_now = (set(benched_ranks) | set(quarantined_ranks)
+                     | set(autoscaled_ranks))
     # score every rank carrying a stage this round PLUS every quarantined
     # rank (still beating — its RTT drives readmission)
     for peer in sorted((set(stage_ranks) | set(quarantined_ranks))
@@ -1688,6 +1951,15 @@ def _handle_corrupt_results(ctx, src: int, channel: int, exc) -> None:
 def _mbid_of(t) -> int:
     """The microbatch id a failover frame leads with (a 0-d int64)."""
     return int(np.asarray(t).reshape(-1)[0])
+
+
+def emit_line(line: str) -> None:
+    """Print one machine-read line in a single write: `print` writes the
+    text and its newline apart, and with stdout unbuffered another
+    thread's log record (stderr into the same file) can land between
+    them, after the line's JSON."""
+    sys.stdout.write(line + "\n")
+    sys.stdout.flush()
 
 
 def _launch_delta(before: dict) -> dict:
@@ -1923,8 +2195,8 @@ def run_pipeline_dcn(args, schedules, ubatches, labels) -> None:
                            stage_ranks, [], [], dtype, results_target,
                            stop_base=stop_base)
                 rnd += 1
-    print(f"rank={rank} kernel_launches="
-          + json.dumps(_launch_delta(launches0), sort_keys=True), flush=True)
+    emit_line(f"rank={rank} kernel_launches="
+              + json.dumps(_launch_delta(launches0), sort_keys=True))
 
 
 def _drive_rounds(args, ctx, schedules, ubatches, labels, dtype,
@@ -1932,11 +2204,24 @@ def _drive_rounds(args, ctx, schedules, ubatches, labels, dtype,
     """The data rank's round loop (`runtime.py run_pipeline_dcn`): each
     schedule round runs once, or, when a stage rank dies under failover,
     until a round over the re-planned survivors completes it from the
-    ledger. At each completed boundary before the last: the peer-health
-    decision, then the heal. The merged span trace is written whatever
-    happens (`--trace-spans`)."""
+    ledger. At each completed boundary before the last, from one shared
+    sweep of the fleet's span digests: the rebalance (`--rebalance
+    auto`, re-cutting the remaining rounds), the peer-health decision,
+    the heal, then the capacity decision (`--autoscale-ranks`). The
+    merged span trace is written whatever happens (`--trace-spans`)."""
     world_size = args.worldsize
     failover_mode = args.on_peer_death == "failover"
+    # closed-loop rebalancer: re-partition the remaining rounds from this
+    # round's measured per-stage timings, applied through the CMD_SCHED
+    # broadcast that failover uses
+    rebalancer = None
+    prev_digests: dict = {}
+    if args.rebalance == "auto":
+        from .sched import rebalance as rebalance_sched
+        rebalancer = rebalance_sched.RebalancePolicy(
+            threshold=args.rebalance_threshold,
+            cooldown=args.rebalance_cooldown,
+            confirm=args.rebalance_confirm)
     # peer-health plane (gray failures): active whenever the fleet
     # records spans — `--on-peer-degraded quarantine` forces them on
     # (main_dcn); with `ignore` and --trace-spans the scorer still runs
@@ -1955,6 +2240,11 @@ def _drive_rounds(args, ctx, schedules, ubatches, labels, dtype,
         health_mod.set_scorer(h_scorer)
         health_state = {"scorer": h_scorer, "prev_digests": {},
                         "prev_retries": {}}
+    # the capacity loop's pipeline half (--autoscale-ranks): its
+    # controller is built at the first boundary, from the same windows
+    a_state = None
+    if args.autoscale_ranks != "off" and world_size > 1:
+        a_state = {"prev_digests": {}, "controller": None}
     schedules = [tuple(s) for s in schedules]
     try:
         rnd = 0
@@ -1970,7 +2260,9 @@ def _drive_rounds(args, ctx, schedules, ubatches, labels, dtype,
                 failover_event.clear()
                 with dead_lock:
                     dead_now = set(dead_ranks)
-                    bench_now = set(benched_ranks) | set(quarantined_ranks)
+                    bench_now = (set(benched_ranks)
+                                 | set(quarantined_ranks)
+                                 | set(autoscaled_ranks))
                 if dead_now or bench_now:
                     # a later round may still name a rank that died earlier
                     # (or rejoined un-healed, or was quarantined): remap
@@ -2002,6 +2294,30 @@ def _drive_rounds(args, ctx, schedules, ubatches, labels, dtype,
                         fo_t0 = None
                         del _failover_detect_ns[:]
                     if sched_idx + 1 < len(schedules):
+                        # one digest sweep per boundary, shared: each
+                        # consumer differences it against its own
+                        # baseline (the digests are cumulative)
+                        digests = None
+                        if rebalancer is not None \
+                                or health_state is not None \
+                                or a_state is not None:
+                            digests = _collect_fleet_digests(ctx, args,
+                                                             sched[2])
+                        if rebalancer is not None:
+                            proposal = _consider_rebalance(
+                                ctx, args, rebalancer, sched, prev_digests,
+                                rnd - 1, cur_digests=digests)
+                            if proposal is not None:
+                                # re-cut the remaining rounds; their quant
+                                # and rank specs stand, and a death before
+                                # they run still goes through the
+                                # per-round failover re-plan
+                                for j in range(sched_idx + 1,
+                                               len(schedules)):
+                                    _, q_j, r_j = schedules[j]
+                                    schedules[j] = (
+                                        [tuple(p) for p in
+                                         proposal.partition], q_j, r_j)
                         if health_state is not None:
                             # gray-failure decision at the boundary: the
                             # round is fully drained, so a quarantine is a
@@ -2009,15 +2325,21 @@ def _drive_rounds(args, ctx, schedules, ubatches, labels, dtype,
                             _consider_peer_health(
                                 ctx, args, health_state, sched,
                                 schedules[sched_idx + 1], world_size,
-                                rnd - 1,
-                                cur_digests=_collect_fleet_digests(
-                                    ctx, args, sched[2]))
+                                rnd - 1, cur_digests=digests)
                         if args.on_peer_rejoin == "heal" \
                                 and _heal_state["pending"]:
                             # capacity came back mid-run: restore (or
                             # re-expand) before the next round's broadcast
                             _maybe_heal(args, sched, world_size, rnd,
                                         schedules, sched_idx)
+                        if a_state is not None:
+                            # the capacity decision last: its scale-up
+                            # rewrite lands after any heal, so the
+                            # remaining rounds reflect both
+                            _consider_autoscale(
+                                ctx, args, a_state, sched, schedules,
+                                sched_idx, world_size, rnd - 1,
+                                cur_digests=digests)
                     break
                 if fo_t0 is None:
                     # FIRST detection of this episode
@@ -2038,7 +2360,9 @@ def _drive_rounds(args, ctx, schedules, ubatches, labels, dtype,
                 failover_event.clear()
                 with dead_lock:
                     dead_now = set(dead_ranks)
-                    bench_now = set(benched_ranks) | set(quarantined_ranks)
+                    bench_now = (set(benched_ranks)
+                                 | set(quarantined_ranks)
+                                 | set(autoscaled_ranks))
                 if _heal_state["pre_failure"] is None:
                     # the schedule running when the episode's death hit:
                     # what --on-peer-rejoin heal restores
@@ -2371,8 +2695,8 @@ def _dcn_round(args, ctx, rnd, stage_layers, stage_quant, stage_ranks,
             # next round of the same parity would run them again
             _drop_stale(ctx, dcn.CHANNEL_FEED + parity, "feed",
                         feeder=feed_threads[0])
-    print(f"rank={rank} round={rnd} kernel_launches="
-          + json.dumps(_launch_delta(launches0), sort_keys=True), flush=True)
+    emit_line(f"rank={rank} round={rnd} kernel_launches="
+              + json.dumps(_launch_delta(launches0), sort_keys=True))
     return status
 
 
@@ -2475,9 +2799,12 @@ def main_dcn(args) -> None:
                        acc_type='rank')
     monitoring.add_key(MONITORING_KEY_HB_RTT, work_type='ms',
                        acc_type='rank')
-    if args.trace_spans or args.on_peer_degraded == "quarantine":
+    if args.trace_spans or args.rebalance == "auto" \
+            or args.on_peer_degraded == "quarantine" \
+            or args.autoscale_ranks != "off":
         # every rank records: the data rank merges the fleet's spans, and
-        # the peer-health scorer reads the span digests every rank serves
+        # the rebalancer, the peer-health scorer and the capacity
+        # controller read the span digests every rank serves
         telemetry.configure(rank=args.rank)
     trace_dir = (os.path.join(args.trace, f"rank{args.rank}")
                  if args.trace else None)

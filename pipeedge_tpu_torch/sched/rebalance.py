@@ -24,7 +24,8 @@ pure logic that closes the loop:
 with `spread_layer_costs`; `expand_partition` re-cuts a contracted
 partition over restored capacity (`sched/failover.py plan_rejoin`, the
 DCN driver's `--on-peer-rejoin heal`). The DCN driver's `--rebalance
-auto` between rounds is not in the port yet.
+auto` (`runtime.py _consider_rebalance`) runs `RebalancePolicy` at
+each round boundary.
 """
 from __future__ import annotations
 

@@ -12,10 +12,10 @@ capacity through existing actuators:
   registry SUSPECT and earns traffic through the readmit confirmation)
   or gracefully drain one through the drain + KV-prefix-migration path,
   then retire the process.
-- **pipeline level** (the JAX `runtime.py --autoscale-ranks`): expand a
-  contracted partition onto benched spares at a round boundary. The
-  port's runtime refuses that flag until its failover re-plan is ported
-  (ROADMAP A6b); `classify_fn`/`plan_fn`/`apply_fn` are its seams.
+- **pipeline level** (`runtime.py -c dcn --autoscale-ranks`): expand a
+  contracted partition onto benched spares at a round boundary, or
+  contract it by one stage; the runtime's `_consider_autoscale` drives
+  this class through its `classify_fn`/`plan_fn`/`apply_fn` seams.
 
 Every decision survives the same discipline before it moves anything:
 

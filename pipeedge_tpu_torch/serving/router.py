@@ -412,6 +412,15 @@ class ReplicaRegistry:
                     self._affinity.popitem(last=False)
             return choice.name
 
+    def has_routable(self, exclude: Iterable[str] = ()) -> bool:
+        """Whether `pick(exclude=...)` has a replica to choose (a healthy
+        or suspect one outside `exclude`), without choosing it."""
+        shut = set(exclude)
+        with self._lock:
+            return any(r.state in (REPLICA_HEALTHY, REPLICA_SUSPECT)
+                       and r.name not in shut
+                       for r in self._replicas.values())
+
     def affinity_owner(self, tokens: Sequence[int]) -> Optional[str]:
         key = self._affinity_key(tokens)
         with self._lock:
@@ -814,9 +823,11 @@ class DecodeRouter:
             finally:
                 self.registry.done(name)
             if status == 503 and retries_left > 0 \
-                    and len(tried) + 1 < len(self.registry.names()):
+                    and self.registry.has_routable(tried + [name]):
                 # shed here does not mean shed everywhere: spend one
-                # retry on a different replica before surfacing it
+                # retry on a different routable replica before surfacing
+                # it (a dead or drained one would turn the shed into
+                # "no routable replica")
                 tried.append(name)
                 retries_left -= 1
                 attempt += 1
@@ -950,8 +961,8 @@ class DecodeRouter:
                         if kind == "refusal":
                             code, headers, rbody = item
                             if code == 503 and retries_left > 0 \
-                                    and len(tried) + 1 \
-                                    < len(self.registry.names()):
+                                    and self.registry.has_routable(
+                                        tried + [name]):
                                 # shed here != shed everywhere: spend a
                                 # retry on a different replica first
                                 failure = "shed"

@@ -19,8 +19,9 @@ the partition with:
   acted on.
 
 `digest_from_spans` runs the same extraction over a merged trace file:
-`python -m pipeedge_tpu_torch.trace_report --emit-profiles`. The DCN
-runtime's `--rebalance auto`, the other consumer, waits for ROADMAP A6b.
+`python -m pipeedge_tpu_torch.trace_report --emit-profiles`; the DCN
+runtime's `--rebalance auto` and `--autoscale-ranks` read it at every
+round boundary.
 """
 from __future__ import annotations
 

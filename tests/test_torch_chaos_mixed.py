@@ -17,6 +17,7 @@ import numpy as np
 import pytest
 
 from pipeedge_tpu_torch import chaos_dcn
+from test_torch_chaos_dcn import failed_over
 # the fixtures too (the unfaulted all-JAX fleet and the exact forward)
 from test_torch_dcn_mixed import (  # noqa: F401
     JAX, PORT_CPU, exact, jax_fleet, weights)
@@ -82,7 +83,7 @@ def assert_near_jax_fleet(got, jax_results, exact_results):
 def test_port_data_rank_fails_over_a_jax_victim(weights, jax_fleet, exact,
                                                 tmp_path):
     outs, got = failover_fleet(tmp_path, weights, [PORT_CPU, JAX, JAX])
-    assert "entering failover" in outs[0] and "moves rank 1 -> 2" in outs[0]
+    assert failed_over(outs[0]) and "moves rank 1 -> 2" in outs[0]
     assert "unacknowledged microbatch" in outs[0]
     assert "chaos: killing this process before send 3" in outs[1]
     assert_near_jax_fleet(got, jax_fleet, exact)

@@ -78,11 +78,13 @@ class _OutReader:
 
 
 def _run_fleet(tmp_path, opts, world, env_extra=None, per_rank_dirs=False,
-               timeout=90, cmds=None):
+               timeout=90, cmds=None, rank_env=None):
     """Launch a `world`-rank fleet (workers in the background, the data
     rank in the foreground) and collect every rank's output. `cmds[r]`
-    overrides rank r's command (a JAX rank in a mixed fleet). Returns
-    (data CompletedProcess, [worker output by rank], rank dirs)."""
+    overrides rank r's command (a JAX rank in a mixed fleet), and
+    `rank_env[r]` adds to rank r's environment (a fault armed in one
+    rank). Returns (data CompletedProcess, [worker output by rank], rank
+    dirs)."""
     argv = opts + ["--dcn-addrs", _addrs(world)]
     env = _env(env_extra)
     dirs = []
@@ -99,7 +101,8 @@ def _run_fleet(tmp_path, opts, world, env_extra=None, per_rank_dirs=False,
         with open(logs[r], "w") as log:
             workers.append(subprocess.Popen(
                 (cmd(r) or PORT + ["--device", "cpu"]) + [str(r), str(world)]
-                + argv, cwd=dirs[r], env=env, stdout=log,
+                + argv, cwd=dirs[r],
+                env=dict(env, **(rank_env or {}).get(r, {})), stdout=log,
                 stderr=subprocess.STDOUT))
     try:
         data = subprocess.run(

@@ -79,8 +79,7 @@ def test_compose_errors_are_the_jax_entry_s(case, monkeypatch):
     assert got == want
 
 
-GEN_REFUSED = {"--edge-bits": ["8"], "--dcn-addrs": ["127.0.0.1:1"],
-               "--rank": ["1"], "--tp": ["2"], "--sp": ["2"], "--ep": ["2"],
+GEN_REFUSED = {"--tp": ["2"], "--sp": ["2"], "--ep": ["2"],
                "--spmd-wave": []}
 
 
@@ -89,9 +88,27 @@ def test_generate_refuses_naming_the_item(flag):
     assert set(GEN_REFUSED) == set(generate.REFUSED)
     msg = _error(lambda: generate.parse_args(
         BASE + [flag] + GEN_REFUSED[flag]))
-    item = "A6" if flag in ("--edge-bits", "--dcn-addrs", "--rank") else "A7"
     assert msg.startswith(f"{flag} is not ported to pipeedge_tpu_torch yet "
-                          f"(ROADMAP {item}")
+                          "(ROADMAP A7")
+
+
+# generate's DCN flags, each with a value (the DCN fleet itself runs in
+# tests/test_torch_generate_dcn.py)
+GEN_DCN = {"--edge-bits": ["8", "--dcn-addrs", "127.0.0.1:1,127.0.0.1:2"],
+           "--dcn-addrs": ["127.0.0.1:1,127.0.0.1:2"],
+           "--rank": ["1", "--dcn-addrs", "127.0.0.1:1,127.0.0.1:2"]}
+
+
+@pytest.mark.parametrize("flag", sorted(GEN_DCN))
+def test_generate_parses_the_dcn_flags(flag):
+    """Each DCN flag of the JAX entry parses and is off the refused
+    table; the values reach the DCN path."""
+    assert flag not in generate.REFUSED
+    args = generate.parse_args(BASE + ["-pt", "1,4,5,8", flag]
+                               + GEN_DCN[flag])
+    assert args.dcn_addrs == "127.0.0.1:1,127.0.0.1:2"
+    assert (args.rank, args.edge_bits) == (
+        1 if flag == "--rank" else 0, 8 if flag == "--edge-bits" else 0)
 
 
 def _refused_value(flag):
@@ -116,7 +133,9 @@ def test_runtime_refuses_the_other_drivers(argv, item):
     assert item in _error(lambda: runtime.parse_args(["0", "2"] + argv))
 
 
-# each flag of the DCN driver that the port runs, with a value
+# each flag of the DCN driver that the port runs, with a value (the
+# rebalance and autoscale fleets run in tests/test_torch_rebalance_dcn.py
+# and tests/test_torch_autoscale_dcn.py)
 DCN_FLAGS = {"-c": ["dcn"], "-D": ["1"],
              "--dcn-addrs": ["127.0.0.1:1,127.0.0.1:2"], "-P": ["29700"],
              "--sched-timeout": ["5"], "--rounds": ["2"], "--wire-crc": [],
@@ -126,19 +145,28 @@ DCN_FLAGS = {"-c": ["dcn"], "-D": ["1"],
              "--on-peer-rejoin": ["heal"],
              "--on-peer-degraded": ["quarantine", "--rounds", "2"],
              "--degraded-threshold": ["0.3"], "--degraded-confirm": ["1"],
-             "--degraded-readmit": ["3"]}
+             "--degraded-readmit": ["3"],
+             "--rebalance": ["auto", "--rounds", "2"],
+             "--rebalance-threshold": ["0.2"],
+             "--rebalance-cooldown": ["0"], "--rebalance-confirm": ["0"],
+             "--autoscale-ranks": ["auto", "--on-peer-death", "failover",
+                                   "--rounds", "2"],
+             "--autoscale-min": ["1"], "--autoscale-max": ["3"],
+             "--autoscale-confirm": ["1"], "--autoscale-cooldown": ["0.5"],
+             "--autoscale-rank-high": ["0.3"],
+             "--autoscale-rank-low": ["0.01"]}
 
 
 @pytest.mark.parametrize("flag", sorted(DCN_FLAGS))
 def test_runtime_parses_the_dcn_flags(flag):
     """Each DCN flag the port runs parses (with -c dcn) and is off the
-    refused table; the control-half flags that stay refused name A6b."""
+    refused table; the multi-GPU flags that stay refused name A7."""
     assert flag not in runtime.REFUSED
     args = runtime.parse_args(["1", "2", "-c", "dcn", flag]
                               + DCN_FLAGS[flag])
     assert args.comm == "dcn" and args.rank == 1
-    for stays in ("--rebalance-threshold", "--autoscale-ranks"):
-        assert runtime.REFUSED[stays][1].startswith("A6b's control half")
+    for stays in ("--stage-tp", "--spmd-dp"):
+        assert runtime.REFUSED[stays][1].startswith("A7")
 
 
 def test_runtime_parses_failover_with_the_fault_flags():

@@ -123,9 +123,16 @@ OBSERVATORY_MODULES = ["serving/autoscale.py", "telemetry/report.py",
 FAULT_MODULES = ["sched/failover.py", "comm/chaos.py", "chaos_dcn.py"]
 
 
+# the DCN driver's control loop: the load generator the serving chaos
+# targets drive (the rebalancer, the rank autoscaler, the DCN auction and
+# DCN generate live in runtime.py, revauct.py and generate.py, above)
+CONTROL_MODULES = ["loadgen.py"]
+
+
 @pytest.mark.parametrize("rel", SERVING_MODULES + DECODER_MODULES
                          + LOOP_AND_ROUTER_MODULES + DCN_MODULES
-                         + OBSERVATORY_MODULES + FAULT_MODULES)
+                         + OBSERVATORY_MODULES + FAULT_MODULES
+                         + CONTROL_MODULES)
 def test_serving_modules_import_no_jax_anywhere(rel):
     """Each serving-slice module is scanned, and none imports `jax` or
     `pipeedge_tpu` (nor a root module that does), at module level or
@@ -143,6 +150,12 @@ def test_serving_modules_import_no_jax_anywhere(rel):
         names = ([a.name for a in node.names] if isinstance(node, ast.Import)
                  else [node.module])
         assert not {n.split(".")[0] for n in names} & FORBIDDEN
+
+
+def test_port_imports_nothing_of_tools():
+    """The repository's `tools/` scripts import the JAX package: the port
+    keeps its own copies (`loadgen.py`) and imports none of them."""
+    assert not _bad_imports(_port_files(), forbidden={"tools"})
 
 
 def test_scan_flags_an_import_inside_a_function(tmp_path):

@@ -210,7 +210,12 @@ def test_neighbors_world_file_loads_like_pyyaml():
 
 
 def test_cli_refuses_dcn(capsys):
+    """`--comm dcn` runs (tests/test_torch_revauct_dcn.py), but, as in the
+    JAX CLI, not without this bidder's device type."""
     with pytest.raises(SystemExit) as exc:
         tcli.parse_args(["0", "2", "-c", "dcn"])
     assert exc.value.code == 2
-    assert "ROADMAP A6" in capsys.readouterr().err
+    assert "--comm dcn requires --dev-type (this bidder's entry in its " \
+        "local device_types file)" in capsys.readouterr().err
+    args = tcli.parse_args(["1", "2", "-c", "dcn", "--dev-type", "t"])
+    assert (args.comm, args.host, args.port) == ("dcn", "rank1", 29500)

@@ -229,7 +229,80 @@ def _drain_trace(m):
                          ids=lambda f: f.__name__.strip("_"))
 def test_decisions_equal_jax_router(scenario):
     got, want = scenario(trouter), scenario(jrouter)
+    if scenario is _dispatch_trace:
+        # the port's one departure (fault F7): request 2 is shed by both
+        # live replicas while r0 is dead. The JAX router counts the dead
+        # r0 as a replica left to try and answers "no routable replica";
+        # the port surfaces the second shed. Every post is the same.
+        shed = (503, {"error": "shed", "shed": True},
+                [("Retry-After", "7"), ("X-PipeEdge-Rid", "cli"),
+                 ("X-PipeEdge-Replica", "r2")])
+        assert got[0][1] == shed
+        assert want[0][1] == (503, {"error": "no routable replica",
+                                    "no_replica": True},
+                              [("Retry-After", "1"),
+                               ("X-PipeEdge-Rid", "cli")])
+        got = ([got[0][0], want[0][1], *got[0][2:]], *got[1:])
     assert got == want
+
+
+def _with_dead(m, answers):
+    """A 3-replica router whose r0 is dead; r1 and r2 answer `/generate`
+    with the scripted (status, body) in turn."""
+    answers = list(answers)
+    posts = []
+
+    def post(url, path, payload, timeout, headers=None):
+        posts.append(url)
+        status, body = answers.pop(0)
+        return status, body, ([("Retry-After", "7")] if status == 503
+                              else [])
+
+    rt = m.DecodeRouter({f"r{i}": f"http://t:{i}" for i in range(3)},
+                        policy=_policy(m, route_retries=2), post_fn=post)
+    rt.registry.mark_failed("r0")
+    return rt, posts
+
+
+@pytest.mark.parametrize("second", [(503, {"error": "shed", "shed": True}),
+                                    (200, {"ids": [[4]]})],
+                         ids=["shed", "ok"])
+def test_shed_retry_skips_a_dead_replica(second):
+    """A shed is retried once on another routable replica and surfaced
+    when none is left: a dead replica is not one (F7)."""
+    shed = (503, {"error": "shed", "shed": True})
+    rt, posts = _with_dead(trouter, [shed, second])
+    status, body, headers = rt.dispatch({"ids": [4], "new_tokens": 1})
+    assert (status, body) == second and len(posts) == 2
+    assert "http://t:0" not in posts
+    if status == 503:
+        assert ("Retry-After", "7") in headers
+    # with only one live replica the shed is surfaced without a retry
+    rt2, posts2 = _with_dead(trouter, [shed])
+    rt2.registry.mark_failed("r2")
+    assert rt2.dispatch({"ids": [4], "new_tokens": 1})[:2] == shed
+    assert posts2 == ["http://t:1"]
+
+
+def test_stream_shed_retry_skips_a_dead_replica():
+    """The streaming path: r1 sheds, r0 is dead, so the shed reaches the
+    client with its Retry-After instead of "no routable replica"."""
+    class Scripted(trouter.DecodeRouter):
+        def __init__(self, **kw):
+            super().__init__({"r0": "u0", "r1": "u1"}, **kw)
+            self.to = []
+
+        def _stream_from(self, name, payload, rid=None, hop=0):
+            self.to.append(name)
+            yield ("refusal", (503, [("Retry-After", "3")], {"shed": True}))
+
+    rt = Scripted(policy=_policy(trouter))
+    rt.registry.mark_failed("r0")
+    items = list(rt.stream({"ids": [1], "new_tokens": 3, "stream": True}))
+    assert rt.to == ["r1"]
+    assert items[-1] == ("line", {"shed": True})
+    assert items[0][:2] == ("status", 503)
+    assert ("Retry-After", "3") in items[0][2]
 
 
 def test_router_module_is_model_free():
