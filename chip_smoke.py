@@ -197,7 +197,7 @@ Phases, each of which raises on failure (nothing is caught):
      and the launches and device time per profiled wave tick of 4
      requests, dense and paged.
  13. Speculative decoding: gpt2-medium at full width and depth (seeded
-     npz, 1.4 GB f32) verifying, gamma 4, f32, [4, 128] prompts, 32 new
+     npz, 1.4 GB f32) verifying, gamma 4, f32, [4, 128] prompts, 16 new
      tokens, the drafts of (a) gpt2 (phase 6's npz) and (b) gpt2-medium
      itself with seeded noise on its last block's weight matrices (a
      draft that agrees on some proposals and not on others, so rounds
@@ -221,19 +221,19 @@ Phases, each of which raises on failure (nothing is caught):
      of its `load_params` (`card_params`; not the JAX package's numpy
      stream, which the CPU tests hold), shared by every pipeline, oracle
      and server of the model, and freed before the next model:
-     The Llama-family models run at LLAMA_BLOCKS (8) of their 32 blocks,
+     The Llama-family models run at LLAMA_BLOCKS (4) of their 32 blocks,
      at full width (the script's time):
-     (a) Llama-3-8B, f32, `build_pipeline` `-pt 1,16,17,32`,
+     (a) Llama-3-8B, f32, `build_pipeline` `-pt 1,8,9,16`,
      16 sequences of 128 tokens in microbatches of 8, edge bits 0, 8 and
      4: bit 0 equal to the single-shard forward, 8 and 4 within the
-     stated bounds, 8 kernel-3 launches and one encode and one decode
+     stated bounds, 4 kernel-3 launches and one encode and one decode
      per microbatch; one profiled 8-bit microbatch;
      (b) the same weights and cut through `DecodePipeline.generate`,
      batch 4, a 512-token prompt, 128 new tokens, fp and int8 caches (the
      kernel-5 opt-in set: no launch, a Llama step never asks the gate),
      timed; the fp cache's prefill and each step replayed, timed, its
      logits within FAMILY_FP_BOUND of the forward over the same 640
-     tokens (8 kernel-3 launches); one profiled decode step;
+     tokens (4 kernel-3 launches); one profiled decode step;
      (c) the in-process server, `--kv-bits 8 --kv-pages 512
      --kv-page-size 16 --chunked-prefill 64`, wave and stage executors:
      8 concurrent clients (2 streamed, 4 plain, 2 sharers of a 128-token
@@ -245,7 +245,7 @@ Phases, each of which raises on failure (nothing is caught):
      tokens (the steps cross the 4096-token window) on an fp cache, each
      step within FAMILY_FP_BOUND of the forward over the 4106 tokens,
      which takes the masked route (no kernel-3 launch); the forward over
-     the first 4096 tokens launches kernel 3 8 times and agrees with it;
+     the first 4096 tokens launches kernel 3 4 times and agrees with it;
      (e) Llama-2-7B (MHA), bf16: generate [4, 512] + 128 on fp
      and int8 caches, timed, no kernel-5 launch;
      (f) `pipeedge/gpt2-moe-8e`, f32: the pipeline `-pt 1,24,25,48` at
@@ -334,7 +334,8 @@ Phases, each of which raises on failure (nothing is caught):
      (d) (a)'s fleet at `-q 8,0` with `--heartbeat-interval 0.5
      --heartbeat-miss 3` on a longer batch, rank 1 SIGKILLed 1 s after
      rank 0's first edge frame: the data rank exits non-zero naming rank
-     1 within 30 s, and no process of the fleet is left.
+     1 within 30 s, and no process of the fleet is left ((d) runs beside
+     (b), for the script's time).
      Each sub-run's seconds are printed.
  17. the routed fleet's observatory and capacity loop: the router entry
      with one int8 `gpt2` replica (phase 15e's flags on the paged KV
@@ -385,7 +386,7 @@ Phases, each of which raises on failure (nothing is caught):
      rank: (a) alone, then the other four fleets at once; (a) ViT-Base
      in 2 ranks on the skewed cut `-pt 1,8,9,48 -q 8,0 --rounds 6
      --rebalance auto --rebalance-threshold 0.05 --rebalance-cooldown
-     0`: a `rebalance_round=` line, the stage that began with 40
+     6`: a `rebalance_round=` line, the stage that began with 40
      sublayers holding fewer by the last round, every
      round's logits within LOGIT_BOUND[8] of the single-shard forward,
      each rank's kernel 1-3 launches per round equal to its stage's
@@ -409,6 +410,35 @@ Phases, each of which raises on failure (nothing is caught):
      first at a near-tie (`near_tie_rule`). The launches are the kernels
      line's
      `control_launches`.
+ 20. disaggregated serving, GPT-2 at full width and depth (phase 6's
+     weights) on the paged KV plane (`--kv-pages 1024 --kv-page-size
+     16`, fp cache, the wave executor): (a) in this process, 8 requests
+     of [1, 192] + 64 new tokens, streamed by 4 clients at a time,
+     colocated and through `--disaggregate local`, `wire --kv-ship-bits
+     0` and `wire --kv-ship-bits 8`: at 0 bits every answer equal to its
+     colocated solo run, at 8 bits each held by `near_tie_rule` to a
+     one-process decode with the plain codec on the shipped K/V rows;
+     prefills shipped equal to the requests routed, none colocated, no
+     page leaked; kernels 1 and 2 launched 4 times each per shipped
+     request at 8 bits and never at 0; then a `--disaggregate process`
+     server (2 prefill worker processes, ship bits 8): 3 single leases
+     (each rank's first, timed), the same traffic, every lease shipped
+     (no re-dispatch, fallback or colocated pass), the workers' kernel 1
+     and the server's kernel 2 launches read from their exit lines (4
+     per lease each), nothing left running; one traced request per ship
+     path (the prompt pass, the ship, the install, the first decode
+     step, the card synchronized between them) and kernels 1 and 2 at
+     the ship's shape [6, 1, 192, 12, 64] against the plain codec;
+     (b) `python -m pipeedge_tpu_torch.chaos_dcn --target serve-disagg
+     --chaos kill@2 --expect disagg --device cuda` on the same weights at
+     ship bits 8 (run beside phase 18's cases, and the process-mode
+     server's start-up and the references beside phase 19's fleets
+     (b)-(d), for the script's time): nothing lost or errored, no page leaked, the fault
+     path engaged, the victim readmitted, no process left, the workers'
+     kernel 1 and the server's kernel 2 launches read from their lines.
+     Printed per run: first-token p50/p95, tokens/s, ship bytes, lease
+     outcomes, `recovery_s`; the launches are the kernels line's
+     `disagg_launches`.
 Phase 3 also holds kernel 5 (decode attention) against its plain version
 at the main path's shapes (windows of a [16, 1024, 12, 64] stage cache at
 buckets 256 and 512, and pos 1000 of the whole cache), pos 0 and W-1,
@@ -602,9 +632,11 @@ SERVE_KINDS = (["stream"] * 4 + ["prefix"] * 4 + ["eos"] * 2 + ["batched"]
                + ["plain"] * 5)
 SERVE_FP_KINDS = ["stream", "prefix", "eos", "plain"]
 SERVE_PROMPT = (64, 256)          # prompt lengths drawn from [64, 256]
-SERVE_NEW = (16, 48)              # new tokens drawn from [16, 48]
+# new tokens drawn from [8, 24], and the batched request's 32 ((16, 48)
+# and 64 until PR 17's review round), for the script's time
+SERVE_NEW = (8, 24)
 SERVE_PREFIX_LEN = 128
-SERVE_BATCHED = (4, 128, 64)      # rows, prompt length, new tokens
+SERVE_BATCHED = (4, 128, 32)      # rows, prompt length, new tokens
 SERVE_PROFILE_TICKS = 4           # profiled wave ticks of 4 requests
 SERVE_PROFILE_NEW = 64            # ... with 64 new tokens each
 SERVE_DISPATCH_OPS = 20000        # one-element adds per dispatching thread
@@ -630,14 +662,15 @@ PAGED_SHORT = (8, 8)              # prompt length, new tokens: one page
 # Phase 13, speculative decoding: gpt2-medium (24 blocks, 1024 wide, 16
 # heads; seeded npz, 1.4 GB in f32) verifies what gpt2 (phase 6's npz)
 # drafts, gamma 4, f32, fp caches (the server refuses --draft-model with
-# --kv-bits), batch 4 x 128-token prompts, 32 new tokens, in host and in
+# --kv-bits), batch 4 x 128-token prompts, 16 new tokens, in host and in
 # device sync; then gpt2-medium as its own draft; then 4 speculative
 # requests through the server with --kv-pages; then the generate entry.
 SPEC_TARGET = "gpt2-medium"
 SPEC_DRAFT = DECODE_MODEL
 SPEC_GAMMA = 4
-# 32 new tokens (64 before phase 19 was added), for the script's time
-SPEC_BATCH, SPEC_PROMPT, SPEC_NEW = 4, 128, 32
+# 16 new tokens (64 before phase 19 was added, 32 before phase 20), for
+# the script's time
+SPEC_BATCH, SPEC_PROMPT, SPEC_NEW = 4, 128, 16
 # the noisy self-draft: seeded N(0, 1) noise times SPEC_NOISE times each
 # matrix's own standard deviation, added to every weight matrix of the
 # last block
@@ -646,7 +679,7 @@ SPEC_NOISE = 0.1
 # its 1200 s limit on a slow host (PR 13)
 SPEC_PAIRS = 1
 SPEC_SERVE = 4                    # speculative requests through the server
-SPEC_SERVE_NEW = 32
+SPEC_SERVE_NEW = 16               # 32 before phase 20, as SPEC_NEW
 
 # Phase 14, the decoder families at full width (module docstring). The
 # weights are drawn on the card (`card_params`); every pipeline, oracle
@@ -660,8 +693,9 @@ MOE = "pipeedge/gpt2-moe-8e"
 # `cut_llama_depth`): at 32 the whole script with phase 17 took 889.2 s
 # on the H100 (NVIDIA H100 80GB HBM3, 700.00 W), too near its 1200 s
 # limit on a slower host, so PR 14 cut them to 16; with phase 18 a host
-# 1.4x slower reached 932 s by the end of phase 15 (PR 15), so 8
-LLAMA_BLOCKS = 8
+# 1.4x slower reached 932 s by the end of phase 15 (PR 15), so 8; with
+# phase 20 (PR 17), 4
+LLAMA_BLOCKS = 4
 FAMILY_PARTITION = [(1, 2 * LLAMA_BLOCKS), (2 * LLAMA_BLOCKS + 1,
                                             4 * LLAMA_BLOCKS)]
 MOE_PARTITION = [(1, 24), (25, 48)]
@@ -2663,17 +2697,24 @@ def sched_path(card: str, profiles_out=None) -> dict:
                                                       path.read_text())
             log(f"profiles written to {profiles_out}")
 
-    res["baseline"] = {}
-    for name, argv in (("config 1", ["0", "1"]),
-                       ("config 2", ["0", "2", "-pt", BASELINE_PARTITION])):
-        e = run_entry(argv + ["-m", MODEL, "-M", str(weights[MODEL]),
-                              "-b", str(BATCH), "-u", str(UBATCH),
-                              "--device", device], {},
-                      weights_dir / "monitor")
-        blocks = registry.get_model_config(MODEL).num_hidden_layers
+    # BASELINE configs 1 and 2 at once, each its own process and
+    # monitoring directory (one after the other until PR 17: phase 20's
+    # room; their items/s are logged, not gated)
+    from concurrent.futures import ThreadPoolExecutor
+    configs = {"config 1": ["0", "1"],
+               "config 2": ["0", "2", "-pt", BASELINE_PARTITION]}
+    with ThreadPoolExecutor(len(configs)) as pool:
+        futs = {name: pool.submit(
+            run_entry, argv + ["-m", MODEL, "-M", str(weights[MODEL]),
+                               "-b", str(BATCH), "-u", str(UBATCH),
+                               "--device", device], {},
+            weights_dir / "monitor" / name.replace(" ", ""))
+            for name, argv in configs.items()}
+        res["baseline"] = {name: f.result() for name, f in futs.items()}
+    blocks = registry.get_model_config(MODEL).num_hidden_layers
+    for e in res["baseline"].values():
         e["expected"] = {"fused_attention": blocks * n_mb,
                          "fused_encode": 0, "fused_decode": 0}
-        res["baseline"][name] = e
     return res
 
 
@@ -2762,6 +2803,12 @@ def serve_oracle(pipe, reqs, prefix_ids) -> dict:
         want[i] = solo
     torch.cuda.synchronize()
     return want
+
+
+def http_json_url(url: str, timeout: float = 60):
+    import urllib.request
+    with urllib.request.urlopen(url, timeout=timeout) as resp:
+        return json.loads(resp.read())
 
 
 def http_json(port: int, path: str, obj=None, timeout: float = 600):
@@ -4492,10 +4539,11 @@ REVAUCT_SCHEDULERS = ("latency_ordered", "throughput_ordered")
 TRACE_ROUNDS = 2
 TRACE_ARGV = ["-pt", "1,21,22,48", "-q", "8,0", "-b", str(BATCH),
               "-u", str(UBATCH), "--measure-rounds", str(TRACE_ROUNDS)]
-# requests, rows, prompt, new tokens: 72 new tokens (128 before phase 19
-# was added), for the script's time; the decode still crosses from the
-# 256-row attend bucket into the 512-row one
-CONCURRENT = (4, 4, 192, 72)
+# requests, rows, prompt, new tokens: a 240-token prompt and 24 new tokens
+# (192 and 72 until PR 17, 192 and 128 before phase 19 was added), for the
+# script's time; the decode still crosses from the 256-row attend bucket
+# into the 512-row one (at its 17th token)
+CONCURRENT = (4, 4, 240, 24)
 # sampled, so the concurrent requests differ: request r draws with seed r
 # and is held to the solo run with `--seed r`
 CONCURRENT_SAMPLING = ["--temperature", "0.8", "--top-k", "40"]
@@ -5677,7 +5725,9 @@ def dcn_abort_path(weights_file: Path) -> dict:
 
 
 def dcn_path(card: str, host: dict) -> dict:
-    """Phase 16 (a)-(d) on the card; each sub-run's seconds printed."""
+    """Phase 16 (a)-(d) on the card, (d) beside (b) (the script's time; one
+    after the other until PR 17); each sub-run's seconds printed."""
+    from concurrent.futures import ThreadPoolExecutor
     from pipeedge_tpu_torch.models import deit, vit
     from pipeedge_tpu_torch.models import registry
     res = {"seconds": {}}
@@ -5689,20 +5739,20 @@ def dcn_path(card: str, host: dict) -> dict:
     res["vit"] = dcn_vit_path(vit_w, host=host)
     res["seconds"]["a"] = time.monotonic() - t0
     log(f"phase 16a: {res['seconds']['a']:.1f} s")
-    t0 = time.monotonic()
+    def timed_run(name, fn, *args):
+        t0 = time.monotonic()
+        out = fn(*args)
+        res["seconds"][name] = time.monotonic() - t0
+        log(f"phase 16{name}: {res['seconds'][name]:.1f} s")
+        return out
+
     deit_w = write_random_checkpoint(deit, DEIT_MODEL, BUILD_DIR)
-    res["deit"] = dcn_deit_path(deit_w)
-    res["seconds"]["b"] = time.monotonic() - t0
-    log(f"phase 16b: {res['seconds']['b']:.1f} s")
-    t0 = time.monotonic()
+    with ThreadPoolExecutor(1) as pool:
+        abort = pool.submit(timed_run, "d", dcn_abort_path, vit_w)
+        res["deit"] = timed_run("b", dcn_deit_path, deit_w)
+        res["abort"] = abort.result()
     want = res["vit"]["results"][BATCH // UBATCH:2 * (BATCH // UBATCH)]
-    res["local"] = dcn_local_path(vit_w, want)
-    res["seconds"]["c"] = time.monotonic() - t0
-    log(f"phase 16c: {res['seconds']['c']:.1f} s")
-    t0 = time.monotonic()
-    res["abort"] = dcn_abort_path(vit_w)
-    res["seconds"]["d"] = time.monotonic() - t0
-    log(f"phase 16d: {res['seconds']['d']:.1f} s")
+    res["local"] = timed_run("c", dcn_local_path, vit_w, want)
     res["card"] = card
     return res
 
@@ -6235,19 +6285,24 @@ def chaos_case(name: str, weights_file: Path) -> dict:
                 results=results, seconds=seconds)
 
 
-def chaos_path(want) -> dict:
+def chaos_path(want, alongside=None) -> dict:
     """Phase 18: the cases of CHAOS_CASES, all at once (each its own fleet
     on its own ports; they share the card and the host's cores, which
     their times carry); `want` is phase 16a's round 2 (the unfaulted fleet
-    at this cut and bits)."""
+    at this cut and bits). `alongside`, a callable, runs with them (phase
+    20(b), the chaos harness's serve-disagg case: the script's time); its
+    result is `res["alongside"]`."""
     from concurrent.futures import ThreadPoolExecutor
     from pipeedge_tpu_torch.models import edge_arity
     weights_file = BUILD_DIR / f"{MODEL.replace('/', '_')}-random-seed0.npz"
     res = {"want": want, "arity": edge_arity(PARTITION[0][1])}
-    with ThreadPoolExecutor(len(CHAOS_CASES)) as pool:
+    with ThreadPoolExecutor(len(CHAOS_CASES) + 1) as pool:
         futures = {name: pool.submit(chaos_case, name, weights_file)
                    for name in CHAOS_CASES}
+        extra = pool.submit(alongside) if alongside is not None else None
         res["cases"] = {name: f.result() for name, f in futures.items()}
+        if extra is not None:
+            res["alongside"] = extra.result()
     for name, case in res["cases"].items():
         log(f"phase 18 {name}: {case['seconds']:.1f} s")
     return res
@@ -6354,6 +6409,15 @@ def check_chaos_path(res, device_name: str) -> dict:
 CONTROL_SKEWED_PT = "1,8,9,48"
 CONTROL_REBALANCE_ROUNDS = 6
 CONTROL_REBALANCE_THRESHOLD = "0.05"
+# The first re-cut holds for the rest of the run (cooldown 0 until PR 17's
+# review round). Both ranks share one card, so once the skew is gone a
+# window blames whichever rank the card's time slicing delayed, and with
+# no cooldown the partition followed that noise: 8 -> 17 -> 13, 8 -> 17
+# -> 11, and once on to the cut after sublayer 1, where the 8-bit edge
+# alone puts the logits 0.108 of max |logit| from the exact forward
+# (`--edge-cut-sweep`: cuts 1 and 2 above LOGIT_BOUND[8], every other cut
+# within 0.028) and the 40-sublayer stage had grown to 47.
+CONTROL_REBALANCE_COOLDOWN = str(CONTROL_REBALANCE_ROUNDS)
 # (b) 3 ranks, the 2-stage cut on ranks 0 and 1, rank 2 idle; up pressure
 # from a threshold (seconds of the bottleneck stage per microbatch) far
 # below any ViT-Base stage's, confirmed over 2 windows, expands onto rank
@@ -6388,7 +6452,8 @@ def control_rebalance(weights_file: Path, exact) -> dict:
                        str(CONTROL_REBALANCE_ROUNDS), "--rebalance", "auto",
                        "--rebalance-threshold",
                        CONTROL_REBALANCE_THRESHOLD,
-                       "--rebalance-cooldown", "0", "--save-results",
+                       "--rebalance-cooldown",
+                       CONTROL_REBALANCE_COOLDOWN, "--save-results",
                        "results.npz", "--sched-timeout", "300"], 2,
                       BUILD_DIR / "control_rebalance")
     with np.load(fleet["dirs"][0] / "results.npz") as f:
@@ -6424,6 +6489,33 @@ def control_rebalance(weights_file: Path, exact) -> dict:
     reasons = [ln.split(": ", 1)[-1] for ln in out0 if "rebalance: " in ln]
     return dict(rounds=rounds, lines=lines, reasons=reasons,
                 seconds=fleet["seconds"])
+
+
+def edge_cut_sweep() -> list:
+    """`--edge-cut-sweep`: ViT-Base in 2 stages with an 8-bit edge at every
+    cut, in this process; each cut's logit error against the single-shard
+    forward as phase 19(a) measures it (max |error| over max |exact|, on
+    phase 19's seeded weights and batch)."""
+    from pipeedge_tpu_torch import runtime
+    from pipeedge_tpu_torch.models import edge_arity, registry, vit
+    from pipeedge_tpu_torch.parallel.pipeline import build_pipeline
+    weights = write_random_checkpoint(vit, MODEL, BUILD_DIR)
+    inputs, _ = runtime.load_batches(MODEL, BATCH, UBATCH,
+                                     torch.device("cuda"), torch.float32)
+    exact = single_shard_logits(MODEL, weights, inputs, "cuda")
+    scale = max(float(e.abs().max()) for e in exact)
+    rows, total = [], registry.get_model_layers(MODEL)
+    for cut in range(1, total):
+        pipe = build_pipeline(MODEL, [(1, cut), (cut + 1, total)],
+                              model_file=str(weights), device="cuda",
+                              quant_bits=[8, 0])
+        outs, _ = pipe.run(inputs)
+        err = max(float((o - e).abs().max()) for o, e in zip(outs, exact))
+        rows.append(dict(cut=cut, arity=edge_arity(cut),
+                         rel_err=err / scale,
+                         within_bound=err / scale <= LOGIT_BOUND[8]))
+        del pipe
+    return rows
 
 
 def control_autoscale(weights_file: Path, exact) -> dict:
@@ -6622,11 +6714,13 @@ def dcn_generate_fleet(weights_file: Path, bits: int) -> dict:
     return res
 
 
-def control_path() -> dict:
+def control_path(alongside=None) -> dict:
     """Phase 19: (a) alone (its windows must measure the skew, not the
     other fleets' start-up on the host's cores), then (b)-(d) at once,
     each its own fleet (they share the card and the host's cores, which
-    their times carry), then the references of (d) in this process."""
+    their times carry), with the references of (d) in this process (in
+    turn until PR 17). `alongside`, a callable, runs with (b)-(d) (phase
+    20's prelude, the script's time); its result is `res["alongside"]`."""
     from concurrent.futures import ThreadPoolExecutor
     from pipeedge_tpu_torch import runtime
     vit_w = BUILD_DIR / f"{MODEL.replace('/', '_')}-random-seed0.npz"
@@ -6636,17 +6730,24 @@ def control_path() -> dict:
     exact = single_shard_logits(MODEL, vit_w, inputs, "cuda")
     t0 = time.monotonic()
     res = {"a": control_rebalance(vit_w, exact)}
-    with ThreadPoolExecutor(2 + len(DCN_GEN_BITS)) as pool:
+
+    def references():
+        t_ref = time.monotonic()
+        out = {bits: dcn_generate_reference(gpt2_w, bits)
+               for bits in DCN_GEN_BITS}
+        res["reference_seconds"] = time.monotonic() - t_ref
+        return out
+
+    with ThreadPoolExecutor(4 + len(DCN_GEN_BITS)) as pool:
         futs = {"b": pool.submit(control_autoscale, vit_w, exact),
-                "c": pool.submit(control_auction)}
+                "c": pool.submit(control_auction),
+                "reference": pool.submit(references)}
         for bits in DCN_GEN_BITS:
             futs[f"d{bits}"] = pool.submit(dcn_generate_fleet, gpt2_w, bits)
+        if alongside is not None:
+            futs["alongside"] = pool.submit(alongside)
         res.update({name: f.result() for name, f in futs.items()})
     res["fleets_seconds"] = time.monotonic() - t0
-    t0 = time.monotonic()
-    res["reference"] = {bits: dcn_generate_reference(gpt2_w, bits)
-                        for bits in DCN_GEN_BITS}
-    res["reference_seconds"] = time.monotonic() - t0
     for name in ("a", "b", "c", "d0", "d8"):
         log(f"phase 19{name}: {res[name]['seconds']:.1f} s")
     return res
@@ -6783,6 +6884,595 @@ def check_control_path(res, device_name: str) -> dict:
             "generate": {bits: g["launches"] for bits, g in gen.items()}}
 
 
+# --- phase 20: disaggregated serving -----------------------------------------
+
+# GPT-2 at full width and depth (phase 6's npz), fp cache on 1024 pages of
+# 16 tokens, the wave executor and phase 11's brownout watermarks (far above
+# this traffic, so no rung turns shipping off): 8 requests of [1, 192] + 64
+# new tokens, streamed by 4 clients at a time, colocated and then through
+# `--disaggregate local`, `wire` at ship bits 0 and 8 in this process, then
+# `process` (2 prefill workers, ship bits 8) as its own server; then the
+# chaos harness's serve-disagg target on the same weights at ship bits 8
+DISAGG_FLAGS = ["-m", DECODE_MODEL, "-pt", "1,24,25,48", "--max-len", "1024",
+                "-t", "float32", "--kv-pages", "1024", "--kv-page-size",
+                "16", "--brownout-p95-high", "600", "--brownout-p95-low",
+                "300"]
+DISAGG_TRAFFIC = (8, 192, 64)      # requests, prompt length, new tokens
+DISAGG_CLIENTS = 4
+DISAGG_RUNS = (("colocated", "off", 0), ("local", "local", 0),
+               ("wire0", "wire", 0), ("wire8", "wire", 8))
+DISAGG_PREFILL_RANKS = 2
+# process mode: single requests of one new token before the traffic, each
+# a lease alone (round robin: rank 2's first, rank 1's first, rank 2's
+# second), so each rank's first lease is timed apart from a warm one
+DISAGG_FIRST_LEASES = 3
+DISAGG_TRACE_REPS = 5              # traced requests per ship path (medians)
+
+
+def disagg_prompts(vocab: int, n: int, seed: int = 20) -> list:
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, vocab, size=DISAGG_TRAFFIC[1]).tolist()
+            for _ in range(n)]
+
+
+def disagg_references(pipe, prompts, new: int) -> dict:
+    """Each prompt solo through `pipe.generate` (the colocated answer),
+    and the 8-bit ship's one-process decode: the prompt pass, its K/V
+    rows through the plain codec at 8 bits, the first token from the
+    exact logits, then greedy steps; per step and row the top-2 logits,
+    their tokens and the max |logit| (`near_tie_rule`)."""
+    from pipeedge_tpu_torch.ops import quant
+    solo, ids8, top2, amax = [], [], [], []
+    with torch.inference_mode():
+        for p in prompts:
+            ids = torch.as_tensor([p], dtype=torch.long, device=pipe.device)
+            solo.append(pipe.generate(ids, new).cpu().numpy())
+            out, caches = pipe._prefill(ids)
+            s = ids.shape[1]
+            for cache in caches:
+                for name in ("k", "v"):
+                    rows = cache[name][:, :, :s].contiguous()
+                    cache[name][:, :, :s] = quant.tensor_decode_outerdim(
+                        quant.tensor_encode_outerdim(rows, 8))
+            last, toks, t2, am = out[:, -1].float(), [], [], []
+            for step in range(new):
+                if step:
+                    data = toks[-1][:, None]
+                    for i, st in enumerate(pipe.stages):
+                        data, caches[i] = pipe._decode_step(
+                            st, data, caches[i], s + step - 1)
+                    last = data[:, -1].float()
+                t2.append(torch.topk(last, 2, dim=-1))
+                am.append(last.abs().amax(dim=-1))
+                toks.append(last.argmax(dim=-1))
+            ids8.append(np.concatenate(
+                [np.asarray([p]), torch.stack(toks, 1).cpu().numpy()], 1))
+            top2.append(t2)
+            amax.append(torch.stack(am, 1).cpu())
+    ref8 = dict(
+        ids=np.concatenate(ids8),
+        top2_values=torch.cat([torch.stack([t.values for t in t2], 1).cpu()
+                               for t2 in top2]),
+        top2_tokens=torch.cat([torch.stack([t.indices for t in t2], 1).cpu()
+                               for t2 in top2]),
+        max_abs=torch.cat(amax))
+    return dict(solo=np.concatenate(solo), ref8=ref8)
+
+
+def disagg_clients(port: int, prompts, new: int) -> list:
+    """The traffic: every prompt streamed, DISAGG_CLIENTS at a time; per
+    request its ids, the server's first-token ms and the client's clock."""
+    import queue
+    import threading
+    import urllib.request
+    todo: "queue.Queue" = queue.Queue()
+    for i, p in enumerate(prompts):
+        todo.put((i, p))
+    out: list = [None] * len(prompts)
+
+    def client():
+        while True:
+            try:
+                i, p = todo.get_nowait()
+            except queue.Empty:
+                return
+            t0 = time.monotonic()
+            try:
+                req = urllib.request.Request(
+                    f"http://127.0.0.1:{port}/generate",
+                    data=json.dumps({"ids": [p], "new_tokens": new,
+                                     "stream": True}).encode())
+                with urllib.request.urlopen(req, timeout=600) as resp:
+                    last = [ln for ln in resp.read().decode().splitlines()
+                            if ln.strip()][-1]
+                final = json.loads(last)
+                out[i] = dict(ids=final["ids"][0],
+                              first_token_ms=final["first_token_ms"])
+            except Exception as exc:   # noqa: BLE001 — the check reports it
+                out[i] = dict(error=repr(exc))
+            out[i].update(t0=t0, t1=time.monotonic())
+
+    threads = [threading.Thread(target=client)
+               for _ in range(DISAGG_CLIENTS)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    return out
+
+
+def disagg_summary(out: list, prompt: int) -> dict:
+    """Answers [n, prompt + new] (None for a failed request), errors,
+    first-token p50/p95, tokens/s over the traffic's wall."""
+    done = [o for o in out if "ids" in o]
+    first = [o["first_token_ms"] for o in done]
+    wall = max(o["t1"] for o in out) - min(o["t0"] for o in out)
+    tokens = sum(len(o["ids"]) - prompt for o in done)
+    return dict(
+        answers=(np.asarray([o["ids"] for o in out])
+                 if len(done) == len(out) else None),
+        errors=[o["error"] for o in out if "error" in o],
+        first_token_ms_p50=float(np.percentile(first, 50)) if first else None,
+        first_token_ms_p95=float(np.percentile(first, 95)) if first else None,
+        wall_s=wall, tokens=tokens, tok_per_s=tokens / wall)
+
+
+DISAGG_COUNTERS = (("prefills", "pipeedge_kv_prefills_total", {}),
+                   ("ship_bytes_local", "pipeedge_kv_ship_bytes_total",
+                    {"path": "local"}),
+                   ("ship_bytes_wire", "pipeedge_kv_ship_bytes_total",
+                    {"path": "wire"}),
+                   ("colocated", "pipeedge_kv_prefill_colocated_total", {}))
+
+
+def disagg_serve(pipe, args, prompts, warm, new: int, label: str) -> dict:
+    """The traffic through the port's HTTP front end over `pipe` with the
+    flags `args` (its prefill fleet built by the entry's
+    `build_prefill_fleet`), after one request of prompt `warm` (a new
+    executor thread's first stage-steps pay for its first library
+    calls); the launch counts set to 0 just before the clients start and
+    read just after the last one returns; the fleet's counters as deltas
+    of /metrics (the registry outlives a server)."""
+    import threading
+    from pipeedge_tpu_torch import serve, telemetry
+    from pipeedge_tpu_torch.ops import _build
+
+    telemetry.configure(rank=0)
+    fleet, _, _ = serve.build_prefill_fleet(args, pipe)
+    service = serve.make_service(args, pipe, prefill_fleet=fleet)
+    httpd = serve.Server(("127.0.0.1", 0),
+                         serve.make_handler(service, args.model_name))
+    port = httpd.server_address[1]
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    try:
+        http_json(port, "/generate", {"ids": [warm], "new_tokens": 2})
+        before = http_json(port, "/metrics")
+        torch.cuda.synchronize()
+        _build.reset_launch_counts()
+        out = disagg_clients(port, prompts, new)
+        torch.cuda.synchronize()
+        counts = dict(_build.launch_counts)
+        after = http_json(port, "/metrics")
+        kv = http_json(port, "/healthz")["serving"]["kv"]
+        pool = service.kv_backend.pool.stats()
+        cached = service.kv_backend.trie.stats()["pages_cached"]
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        service.stop()
+    res = dict(label=label, disaggregate=args.disaggregate,
+               ship_bits=args.kv_ship_bits, requests=len(prompts),
+               counts=counts, leaked=kv["leaked"],
+               disaggregated=kv["disaggregated"],
+               pool_whole=(pool["pages_free"] + cached == pool["pages_total"]
+                           and pool["owners"] == 0),
+               **disagg_summary(out, len(prompts[0])))
+    for key, family, labels in DISAGG_COUNTERS:
+        res[key] = serve_metric(after, family, **labels) - serve_metric(
+            before, family, **labels)
+    return res
+
+
+def disagg_trace(pipe, bits: int, prompt, local: bool = False) -> dict:
+    """Where one disaggregated request's time goes, on the host's clock
+    with the card synchronized at each boundary: the prompt pass on the
+    prefill pipeline, the ship (`wire`: encode and read back, the
+    loopback socket, the decode onto the card; `local`: none), the
+    install (`admit`: pages, rows, the first token) and the first decode
+    step through the page tables. Medians over DISAGG_TRACE_REPS."""
+    from pipeedge_tpu_torch.kv import PagedKvBackend, ship
+    from pipeedge_tpu_torch.parallel import batcher
+    from pipeedge_tpu_torch.parallel.decode import build_decode_pipeline
+    from pipeedge_tpu_torch.telemetry import metrics as prom
+    prefill = build_decode_pipeline(
+        DECODE_MODEL, DECODE_PARTITION, max_len=DECODE_MAX_LEN,
+        stage_params=[st["params"] for st in pipe.stages],
+        device=pipe.device)
+    kv = PagedKvBackend(pipe, 64, 16, registry=prom.Registry())
+
+    def clock():
+        torch.cuda.synchronize()
+        return time.perf_counter()
+
+    segs: dict = {}
+    sizes = []
+    with ship.device_stream(pipe.device):
+        for rep in range(DISAGG_TRACE_REPS + 1):
+            t = [clock()]
+            ids = torch.as_tensor([prompt], dtype=torch.long,
+                                  device=pipe.device)
+            out, caches = prefill._prefill(ids)
+            logits = out[:, -1]
+            t.append(clock())
+            s = ids.shape[1]
+            if local:
+                handle = {"stage_rows": [{n: c[n][:, :, :s] for n in "kv"}
+                                         for c in caches],
+                          "logits": logits, "prompt_len": s}
+                t += [t[-1]] * 3
+            else:
+                blob = ship.frames_to_bytes(ship.encode_kv_ship(
+                    caches, s, logits, bits=bits))
+                t.append(clock())
+                back = ship.frames_from_bytes(ship.ship_over_socket(blob))
+                t.append(clock())
+                handle = ship.decode_kv_ship(back, pipe.dtype,
+                                             device=pipe.device)
+                t.append(clock())
+                sizes.append(len(blob))
+            req = batcher._build_request(pipe, f"trace{rep}", [prompt], 2,
+                                         0.0, 0, 0, None, None, None,
+                                         shipped=handle)
+            kind, data = kv.admit(req)
+            t.append(clock())
+            for i in range(len(pipe.stages)):
+                data = kv.run_stage(i, req, data, kind)
+            req.tokens.append(batcher._pick(req, data))
+            t.append(clock())
+            kv.release(req)
+            if rep:              # the first is a warm-up
+                for name, a, b in (("prefill", 0, 1), ("encode", 1, 2),
+                                   ("socket", 2, 3), ("decode", 3, 4),
+                                   ("install", 4, 5),
+                                   ("first_step", 5, 6)):
+                    segs.setdefault(name, []).append((t[b] - t[a]) * 1e3)
+    res = {f"{name}_ms": float(np.median(v)) for name, v in segs.items()}
+    res["ship_ms"] = res["encode_ms"] + res["socket_ms"] + res["decode_ms"]
+    res["ship_mb"] = (float(np.median(sizes)) / 1e6) if sizes else 0.0
+    del prefill, kv
+    return res
+
+
+def disagg_codec(pipe, prompt) -> dict:
+    """Kernels 1 and 2 at the ship's shape (one stage's K rows of one
+    prompt, [6, 1, 192, 12, 64] f32) against the plain codec: words,
+    scale, shift and decoded values equal, each timed beside the plain
+    version with its bound."""
+    from pipeedge_tpu_torch.ops import fused_quant
+    from pipeedge_tpu_torch.ops import quant as quant_ops
+    with torch.inference_mode():
+        ids = torch.as_tensor([prompt], dtype=torch.long,
+                              device=pipe.device)
+        _, caches = pipe._prefill(ids)
+        rows = caches[0]["k"][:, :, :ids.shape[1]].contiguous()
+        del caches
+        enc = fused_quant.fused_encode_outerdim(rows, 8)
+        plain = quant_ops.tensor_encode_outerdim(rows, 8)
+        dec = fused_quant.fused_decode_outerdim(enc)
+        equal = bool(torch.equal(enc.data, plain.data)
+                     and torch.equal(enc.scale, plain.scale)
+                     and torch.equal(enc.shift, plain.shift)
+                     and torch.equal(dec,
+                                     quant_ops.tensor_decode_outerdim(plain)))
+        shape = list(rows.shape)
+        return dict(
+            shape=shape, equal_plain=equal,
+            max_abs_err=float((dec - quant_ops.tensor_decode_outerdim(
+                plain)).abs().max()),
+            encode_ms=time_ms(lambda: fused_quant.fused_encode_outerdim(
+                rows, 8)),
+            plain_encode_ms=time_ms(
+                lambda: quant_ops.tensor_encode_outerdim(rows, 8)),
+            decode_ms=time_ms(lambda: fused_quant.fused_decode_outerdim(enc)),
+            plain_decode_ms=time_ms(
+                lambda: quant_ops.tensor_decode_outerdim(enc)),
+            bound_ms=codec_bytes(shape, 8) / HBM_BYTES_PER_S * 1e3,
+            bound_by="bytes")
+
+
+class DisaggProcess:
+    """`python -m pipeedge_tpu_torch.serve --disaggregate process` with
+    DISAGG_PREFILL_RANKS workers at ship bits 8 on phase 6's weights, its
+    output lines stamped as they come; the server, its workers and their
+    respawns carry the chaos harness's fleet tag, so `stop` reaps
+    whatever is left."""
+
+    def __init__(self, weights: Path):
+        import atexit
+        import uuid
+        from pipeedge_tpu_torch import chaos_dcn
+        self.tag = uuid.uuid4().hex
+        self.stopped = None
+        # a phase that fails between the start-up and the run (phase 19's
+        # checks, say) still leaves no process of this fleet behind
+        atexit.register(self.stop)
+        self.port = int(free_addrs(1).rsplit(":", 1)[1])
+        self.t0 = time.monotonic()
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "pipeedge_tpu_torch.serve",
+             *DISAGG_FLAGS, "-M", str(weights), "--disaggregate", "process",
+             "--prefill-ranks", str(DISAGG_PREFILL_RANKS),
+             "--kv-ship-bits", "8", "--port", str(self.port)],
+            env=chaos_dcn.fleet_env(self.tag), text=True,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, cwd=ROOT)
+        self.reader = chaos_dcn.TimedReader(self.proc)
+
+    def wait_ready(self, timeout: float = 600.0) -> float:
+        deadline = time.monotonic() + timeout
+        while time.monotonic() < deadline:
+            hit = self.reader.first("serving ")
+            if hit is not None:
+                return hit[0] - self.t0
+            if self.proc.poll() is not None:
+                raise AssertionError("disaggregated server exited: " + "\n"
+                                     .join(ln for _, ln in self.reader.lines))
+            time.sleep(0.2)
+        raise AssertionError("disaggregated server never came up")
+
+    def run(self, prompts, first_prompts, new: int) -> dict:
+        res = dict(startup_s=self.wait_ready())
+        first = []
+        for p in first_prompts:
+            t0 = time.monotonic()
+            http_json(self.port, "/generate", {"ids": [p], "new_tokens": 1})
+            first.append((time.monotonic() - t0) * 1e3)
+        res["first_lease_ms"] = first
+        res.update(disagg_summary(disagg_clients(self.port, prompts, new),
+                                  len(prompts[0])))
+        res["healthz_kv"] = http_json(self.port, "/healthz")["serving"]["kv"]
+        prefill = res["healthz_kv"]["prefill"]
+        res.update(leases=prefill["leases"], leaked=res["healthz_kv"]["leaked"],
+                   colocated=sum(prefill["colocated"].values()))
+        # card memory: each worker's allocator (its /healthz), and the
+        # card's use less this process's reservation (`disagg_path` takes
+        # out what is left once the fleet is gone)
+        res["memory_mib"] = {
+            f"prefill r{r}": {k.replace("_bytes", "_mib"): v / 2**20
+                              for k, v in (http_json_url(
+                                  w["http_url"] + "/healthz")[
+                                  "device_memory"] or {}).items()}
+            for r, w in prefill["workers"].items()}
+        if torch.cuda.is_available():
+            free, total = torch.cuda.mem_get_info()
+            res["memory_mib"]["card_in_use_mib"] = (
+                total - free - torch.cuda.memory_reserved()) / 2**20
+        return res
+
+    def stop(self) -> dict:
+        from pipeedge_tpu_torch import chaos_dcn
+        if self.stopped is not None:
+            return self.stopped
+        if self.proc.poll() is None:
+            self.proc.terminate()
+        try:
+            rc = self.proc.wait(timeout=120)
+        except subprocess.TimeoutExpired:
+            self.proc.kill()
+            rc = self.proc.wait()
+        survivors = chaos_dcn.reap_fleet(self.tag, 30.0)
+        self.reader.join()
+        self.stopped = dict(rc=rc, survivors=survivors,
+                            launches=chaos_dcn.server_launches(self.reader))
+        return self.stopped
+
+
+def disagg_chaos(weights: Path, device: str = "cuda") -> dict:
+    """Phase 20(b): the chaos harness's serve-disagg target on the card,
+    `kill@2` on prefill worker rank 1 at ship bits 8; its record."""
+    t0 = time.monotonic()
+    proc = subprocess.run(
+        [sys.executable, "-m", "pipeedge_tpu_torch.chaos_dcn", "--target",
+         "serve-disagg", "--chaos", "kill@2", "--expect", "disagg",
+         "--device", device, "-m", DECODE_MODEL, "-pt",
+         ",".join(f"{l},{r}" for l, r in DECODE_PARTITION),
+         "-M", str(weights), "--kv-ship-bits", "8", "--timeout", "600"],
+        capture_output=True, text=True, timeout=900, cwd=ROOT,
+        env=dict(os.environ, PYTHONPATH=str(ROOT) + os.pathsep
+                 + os.environ.get("PYTHONPATH", "")))
+    lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("{")]
+    return dict(rc=proc.returncode, seconds=time.monotonic() - t0,
+                record=json.loads(lines[-1]) if lines else None,
+                stderr_tail=proc.stderr[-3000:])
+
+
+def disagg_prelude(device: str = "cuda", chaos=None) -> dict:
+    """Phase 20's untimed start: (b), the chaos case, in a thread (unless
+    its result `chaos` is given: `main` runs it beside phase 18's cases);
+    the process-mode server's start-up; this process's decode pipeline
+    and the references. `main` runs it beside phase 19's fleets (b)-(d),
+    the script's time: its work shares the host and the card with them,
+    and none of it is timed."""
+    from concurrent.futures import ThreadPoolExecutor
+    from pipeedge_tpu_torch import serve
+    from pipeedge_tpu_torch.models import registry
+    t0 = time.monotonic()
+    cfg = registry.get_model_config(DECODE_MODEL)
+    weights = BUILD_DIR / f"{DECODE_MODEL.replace('/', '_')}-random-seed0.npz"
+    with ThreadPoolExecutor(1) as pool:
+        pending = (pool.submit(disagg_chaos, weights, device)
+                   if chaos is None else None)
+        process = DisaggProcess(weights)
+        try:
+            pipe = serve.build_pipeline(serve.parse_args(
+                DISAGG_FLAGS + ["-M", str(weights)]))
+            prompts = disagg_prompts(cfg.vocab_size, DISAGG_TRAFFIC[0])
+            ref = disagg_references(pipe, prompts, DISAGG_TRAFFIC[2])
+            process.wait_ready()
+        except BaseException:
+            process.stop()
+            raise
+        return dict(weights=weights, process=process, pipe=pipe,
+                    prompts=prompts, ref=ref,
+                    chaos=chaos if pending is None else pending.result(),
+                    seconds=time.monotonic() - t0)
+
+
+def disagg_path(card: str, device: str = "cuda", prelude=None) -> dict:
+    """Phase 20: disaggregated serving, after `disagg_prelude` (run here
+    when not given): the timed in-process runs, each alone on the card
+    with the process-mode server idle, then the process run, the traced
+    requests and the codec at the ship's shape."""
+    from pipeedge_tpu_torch import serve
+    from pipeedge_tpu_torch.models import registry
+    t0 = time.monotonic()
+    pre = disagg_prelude(device) if prelude is None else prelude
+    n, prompt_len, new = DISAGG_TRAFFIC
+    cfg = registry.get_model_config(DECODE_MODEL)
+    first_prompts = disagg_prompts(cfg.vocab_size, DISAGG_FIRST_LEASES,
+                                   seed=21)
+    warm = disagg_prompts(cfg.vocab_size, 1, seed=22)[0]
+    pipe, prompts, process = pre["pipe"], pre["prompts"], pre["process"]
+    res: dict = {"card": card, "runs": {}, "chaos": pre["chaos"],
+                 "ref": pre["ref"], "prelude_s": pre["seconds"]}
+    try:
+        for label, mode, bits in DISAGG_RUNS:
+            args = serve.parse_args(DISAGG_FLAGS + [
+                "-M", str(pre["weights"]), "--disaggregate", mode,
+                "--kv-ship-bits", str(bits)])
+            res["runs"][label] = disagg_serve(pipe, args, prompts, warm,
+                                              new, label)
+            log("disagg run " + json.dumps(
+                {k: v for k, v in res["runs"][label].items()
+                 if k != "answers"}, sort_keys=True))
+        res["runs"]["process"] = process.run(prompts, first_prompts, new)
+    finally:
+        res["process_stop"] = process.stop()
+    if device == "cuda":
+        # the card's use by the server and its workers together (CUDA
+        # contexts included): what it was with them up, less what it is
+        # now they are gone, this process's reservation taken out of both
+        free, total = torch.cuda.mem_get_info()
+        mem = res["runs"]["process"]["memory_mib"]
+        mem["server and workers"] = mem.pop("card_in_use_mib") - (
+            total - free - torch.cuda.memory_reserved()) / 2**20
+    res["trace"] = {label: disagg_trace(pipe, bits, prompts[0],
+                                        local=label == "local")
+                    for label, bits in (("local", 0), ("wire0", 0),
+                                        ("wire8", 8))}
+    res["codec"] = disagg_codec(pipe, prompts[0])
+    del pipe, pre
+    free_card()
+    res["seconds"] = time.monotonic() - t0
+    return res
+
+
+def check_disagg_path(res, device_name: str) -> dict:
+    """Every check of phase 20; returns each kernel's launches on the
+    driven paths (the kernels line's `disagg_launches`)."""
+    n, prompt_len, new = DISAGG_TRAFFIC
+    ship_expected = 2 * len(DECODE_PARTITION)    # K and V per stage
+    solo, ref8 = res["ref"]["solo"], res["ref"]["ref8"]
+    log(f"phase 20 timeline: the prelude {res['prelude_s']:.1f} s, (b) "
+        f"{res['chaos']['seconds']:.1f} s, the rest {res['seconds']:.1f} s")
+    problems = []
+    for label, run in res["runs"].items():
+        summary = {k: run.get(k) for k in (
+            "first_token_ms_p50", "first_token_ms_p95", "tok_per_s",
+            "wall_s", "tokens", "prefills", "ship_bytes_wire",
+            "ship_bytes_local", "colocated", "counts", "leaked",
+            "leases", "first_lease_ms", "memory_mib", "startup_s")}
+        log(f"disagg {label}: " + json.dumps(summary | {
+            "card": device_name}, sort_keys=True))
+        if run["errors"] or run["answers"] is None:
+            problems.append(f"{label}: errors {run['errors']}")
+            continue
+        if label in ("wire8", "process"):
+            rule = near_tie_rule(run["answers"], ref8, prompt_len)
+            run["near_tie"] = rule
+            if not rule["ok"]:
+                problems.append(f"{label}: answers against the 8-bit "
+                                f"ship's decode: {rule}")
+        elif not np.array_equal(run["answers"], solo):
+            bad = [i for i in range(n)
+                   if not np.array_equal(run["answers"][i], solo[i])]
+            problems.append(f"{label}: requests {bad} differ from their "
+                            "colocated solo runs")
+    for label, mode, bits in DISAGG_RUNS:
+        run = res["runs"][label]
+        codec = {k: run["counts"][k] for k in ("fused_encode",
+                                                "fused_decode")}
+        routed = n if mode != "off" else 0
+        want_codec = ship_expected * n if bits else 0
+        if run["prefills"] != routed or run["colocated"] != 0 \
+                or set(codec.values()) != {want_codec} \
+                or run["leaked"] or not run["pool_whole"] \
+                or run["disaggregated"] != (mode != "off"):
+            problems.append(
+                f"{label}: prefills shipped {run['prefills']} of {routed} "
+                f"routed, colocated {run['colocated']}, kernel 1/2 "
+                f"launches {codec} (want {want_codec} each), leaked "
+                f"{run['leaked']}, pool whole {run['pool_whole']}")
+    proc, stop = res["runs"]["process"], res["process_stop"]
+    prefill = proc["healthz_kv"]["prefill"]
+    routed = n + DISAGG_FIRST_LEASES
+    workers = {k: v for k, v in stop["launches"].items()
+               if k.startswith("prefill")}
+    encodes = {k: v["fused_encode"] for k, v in workers.items()}
+    server = stop["launches"].get("server", {})
+    if prefill["leases"] != {"shipped": routed, "redispatched": 0,
+                             "corrupt_retry": 0, "fallback": 0} \
+            or sum(prefill["colocated"].values()) \
+            or len(workers) != DISAGG_PREFILL_RANKS \
+            or sum(encodes.values()) != ship_expected * routed \
+            or not all(encodes.values()) \
+            or server.get("fused_decode") != ship_expected * routed \
+            or server.get("fused_encode") \
+            or proc["healthz_kv"]["leaked"] or stop["rc"] != 0 \
+            or stop["survivors"]:
+        problems.append(
+            f"process: leases {prefill['leases']} of {routed} routed, "
+            f"colocated {prefill['colocated']}, workers' kernel 1 "
+            f"{encodes}, server's launches {server}, leaked "
+            f"{proc['healthz_kv']['leaked']}, rc {stop['rc']}, survivors "
+            f"{stop['survivors']}")
+    codec = res["codec"]
+    log("disagg ship codec: " + json.dumps(codec | {"card": device_name}))
+    if not codec["equal_plain"]:
+        problems.append(f"ship codec at 8 bits not equal to the plain "
+                        f"codec: {codec}")
+    log("disagg trace: " + json.dumps(res["trace"] | {"card": device_name},
+                                      sort_keys=True))
+    chaos = res["chaos"]
+    rec = chaos["record"] or {}
+    log("disagg chaos: " + json.dumps(
+        {"rc": chaos["rc"], "seconds": chaos["seconds"], **rec,
+         "card": device_name}, sort_keys=True))
+    launches = rec.get("kernel_launches") or {}
+    chaos_encodes = {k: v["fused_encode"] for k, v in launches.items()
+                     if k.startswith("prefill")}
+    engaged = (rec.get("leases", {}).get("redispatched", 0)
+               + rec.get("leases", {}).get("fallback", 0)
+               + sum((rec.get("colocated") or {}).values())) > 0
+    if chaos["rc"] != 0 or rec.get("errors") != 0 or rec.get("lost") != 0 \
+            or rec.get("pages_leaked") != 0 or not engaged \
+            or not rec.get("readmitted") or rec.get("survivors") \
+            or not any(chaos_encodes.values()) \
+            or not launches.get("server", {}).get("fused_decode"):
+        problems.append(f"chaos serve-disagg: rc {chaos['rc']}, record "
+                        f"{rec}, stderr {chaos['stderr_tail']}")
+    if problems:
+        raise AssertionError("phase 20: " + "; ".join(problems))
+    return {"wire8_in_process": {k: res["runs"]["wire8"]["counts"][k]
+                                 for k in ("fused_encode", "fused_decode")},
+            "process_workers": encodes,
+            "process_server": server.get("fused_decode"),
+            "chaos_workers": chaos_encodes,
+            "chaos_server": launches["server"]["fused_decode"],
+            "ship_codec": {k: codec[k] for k in (
+                "shape", "encode_ms", "plain_encode_ms", "decode_ms",
+                "plain_decode_ms", "bound_ms", "bound_by", "max_abs_err")}}
+
+
 def main() -> int:
     import argparse
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -6796,11 +7486,21 @@ def main() -> int:
     parser.add_argument("--profiles-out", type=Path, default=None,
                         help="also write phase 10's profiles and scheduler "
                              "files into this directory")
+    parser.add_argument("--edge-cut-sweep", action="store_true",
+                        help="only print phase 19(a)'s 8-bit edge error at "
+                             "every 2-stage cut of ViT-Base, and exit")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "False)", file=sys.stderr)
         return 2
+    if args.edge_cut_sweep:
+        log(card_line())
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        for row in edge_cut_sweep():
+            log("edge cut " + json.dumps(row))
+        return 0
     from pipeedge_tpu_torch.ops import _build
 
     started = time.monotonic()
@@ -6935,16 +7635,28 @@ def main() -> int:
     check_autoscale_path(auto_res, device_name)
     phase_done("phase 17")
 
-    # phase 18: the DCN driver's fault plane, through the chaos harness
+    # phase 18: the DCN driver's fault plane, through the chaos harness;
+    # phase 20(b), the harness's serve-disagg case, runs beside its cases
+    gpt2_w = BUILD_DIR / f"{DECODE_MODEL.replace('/', '_')}-random-seed0.npz"
     chaos_res = chaos_path(dcn_res["vit"]["results"][BATCH // UBATCH:
-                                                     2 * (BATCH // UBATCH)])
+                                                     2 * (BATCH // UBATCH)],
+                           alongside=lambda: disagg_chaos(gpt2_w))
     chaos_launches = check_chaos_path(chaos_res, device_name)
     phase_done("phase 18")
 
-    # phase 19: the DCN driver's control loop
-    control_res = control_path()
+    # phase 19: the DCN driver's control loop; phase 20's untimed prelude
+    # (the process-mode server's start-up, the references) runs beside
+    # its fleets (b)-(d)
+    disagg_chaos_res = chaos_res.pop("alongside")
+    control_res = control_path(
+        alongside=lambda: disagg_prelude(chaos=disagg_chaos_res))
     control_launches = check_control_path(control_res, device_name)
     phase_done("phase 19")
+
+    # phase 20: disaggregated serving
+    disagg_res = disagg_path(card, prelude=control_res.pop("alongside"))
+    disagg_launches = check_disagg_path(disagg_res, device_name)
+    phase_done("phase 20")
 
     if args.ab_entry_parent is not None:
         ab_entry(args.ab_entry_parent)
@@ -6996,6 +7708,22 @@ def main() -> int:
                        for r, c in per_rank.items()}
                 for case, per_rank in chaos_launches.items()}
 
+    def disagg_launches_of(name):
+        """Phase 20's launches of one codec kernel: the in-process `wire`
+        server at 8 bits, the process mode's workers (kernel 1) or server
+        (kernel 2) from their exit lines, the same in the chaos case, and
+        the kernel at the ship's shape."""
+        side = "workers" if name == "fused_encode" else "server"
+        codec = disagg_launches["ship_codec"]
+        op = name[6:]
+        return {"wire8_in_process": disagg_launches["wire8_in_process"][name],
+                "process": disagg_launches[f"process_{side}"],
+                "chaos": disagg_launches[f"chaos_{side}"],
+                "ship_shape": codec["shape"],
+                "ship_ms": codec[f"{op}_ms"],
+                "ship_plain_ms": codec[f"plain_{op}_ms"],
+                "ship_bound_ms": codec["bound_ms"]}
+
     kernels = []
     # one row per codec kernel and bit width, each with the launches of
     # the main path's run at that edge width
@@ -7021,7 +7749,10 @@ def main() -> int:
                 deit_launches=deit_res["fixed"][bit]["counts"][name],
                 dcn_launches=dcn_launches(name),
                 **({"fault_plane_launches": fault_launches(name),
-                    "control_launches": control_launches_of(name)}
+                    "control_launches": control_launches_of(name),
+                    # phase 20: the driven KV ship at 8 bits (kernel 1 on
+                    # the prefill side, kernel 2 on the decode side)
+                    "disagg_launches": disagg_launches_of(name)}
                    if bit == 8 else {}),
                 # every policy bitwidth on phase 8's edge
                 policy_bits_ms={r["bit"]: r[f"{name[6:]}_ms"]

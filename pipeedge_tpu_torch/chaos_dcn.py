@@ -62,7 +62,19 @@ the port's load generator (`loadgen.py`):
   python -m pipeedge_tpu_torch.chaos_dcn --device cpu --target autoscale \\
       --expect steady
 
-`serve-disagg` is refused (ROADMAP A5.3b).
+The disaggregated-serving ship edge (`--target serve-disagg`): a
+`--disaggregate process` server (the port's `serve.py`, two prefill
+worker processes by default) under a shared-prefix burst, with the chaos
+spec armed on prefill worker rank 1's first incarnation
+(`PIPEEDGE_PREFILL_CHAOS`). Gates: nothing lost or errored (re-dispatch
+or colocated fallback), the fault path engaged, no page leaked, the
+victim respawned and readmitted (epoch + 1 JOIN), no process left. The
+record also carries each process's `kernel_launches` (the server's and
+each worker's last incarnation's exit line); `--kv-ship-bits 8` ships
+the 8-bit codec's frames:
+
+  python -m pipeedge_tpu_torch.chaos_dcn --device cpu \\
+      --target serve-disagg --chaos kill@2 --expect disagg
 """
 from __future__ import annotations
 
@@ -96,12 +108,13 @@ KILL_WAIT_S = 5.0
 BURST_NEW_TOKENS = 24
 # the --expect values each target accepts; the first is its default
 TARGET_EXPECTS = {"runtime": ("recover", "abort", "heal", "quarantine"),
+                  "serve-disagg": ("disagg",),
                   "router-fleet": ("router",),
                   "autoscale": ("scale", "steady")}
-
-_REFUSED_TARGETS = {
-    "serve-disagg": "A5.3b, the disaggregated prefill fleet",
-}
+# the burst rate each serving target offers by default (req/s): the JAX
+# tool's 3 for serve-disagg; 20 for router-fleet (BURST_NEW_TOKENS says
+# why it departs from the JAX tool's 3)
+DEFAULT_QPS = {"serve-disagg": 3.0, "router-fleet": 20.0}
 
 
 def _free_ports(n):
@@ -112,7 +125,7 @@ def _free_ports(n):
     return ports
 
 
-class _TimedReader:
+class TimedReader:
     """Drain a process's stdout, stamping each line's arrival time."""
 
     def __init__(self, proc):
@@ -195,12 +208,13 @@ def parse_args(argv=None):
                    choices=["runtime", "serve-disagg", "router-fleet",
                             "autoscale"],
                    help="runtime: a DCN fleet of the port's runtime; "
+                        "serve-disagg: a --disaggregate process server "
+                        "with chaos on a prefill worker's ship edge; "
                         "router-fleet: a --role router replica fleet with "
                         "a mid-burst replica SIGKILL; autoscale: a "
                         "1-replica-floor fleet in --autoscale auto under a "
                         "load ramp (--expect scale) or flat control load "
-                        "(--expect steady); serve-disagg is not ported "
-                        "yet")
+                        "(--expect steady)")
     p.add_argument("--world", type=int, default=3)
     p.add_argument("--victim", type=int, default=1,
                    help="rank DCN_CHAOS is armed in (must not be the "
@@ -223,9 +237,9 @@ def parse_args(argv=None):
                         "partition must heal (finite "
                         "time_to_full_capacity_s); quarantine: the run "
                         "must complete AND the peer-health plane must "
-                        "quarantine the victim; router (router-fleet), "
-                        "scale (autoscale's default), steady: the serving "
-                        "targets' gates")
+                        "quarantine the victim; disagg (serve-disagg), "
+                        "router (router-fleet), scale (autoscale's "
+                        "default), steady: the serving targets' gates")
     p.add_argument("--on-peer-death", default="failover",
                    choices=["abort", "failover"])
     p.add_argument("--on-peer-rejoin", default="spare",
@@ -276,17 +290,24 @@ def parse_args(argv=None):
     p.add_argument("--verbose", action="store_true",
                    help="replay every rank's output lines to stderr")
     p.add_argument("--kv-pages", type=int, default=96,
-                   help="router-fleet/autoscale: each replica's page pool")
+                   help="serving targets: each server's page pool")
     p.add_argument("--kv-page-size", type=int, default=8)
-    p.add_argument("--qps", type=float, default=20.0,
-                   help="router-fleet: offered burst rate (the JAX tool's "
-                        "3 req/s leave the victim idle at the kill on a "
-                        "CPU, as BURST_NEW_TOKENS says)")
+    p.add_argument("--qps", type=float, default=None,
+                   help="serve-disagg/router-fleet: offered burst rate "
+                        "(default 3 and 20 req/s: router-fleet's departs "
+                        "from the JAX tool's 3, which leave the victim "
+                        "idle at the kill on a CPU, as BURST_NEW_TOKENS "
+                        "says)")
     p.add_argument("--duration", type=float, default=8.0,
-                   help="router-fleet/autoscale: load seconds")
+                   help="serving targets: load seconds")
     p.add_argument("--shared-spec", default="shared:16:24:2",
-                   help="router-fleet: the load's shared-prefix prompt "
-                        "distribution")
+                   help="serve-disagg/router-fleet: the load's "
+                        "shared-prefix prompt distribution")
+    p.add_argument("--prefill-ranks", type=int, default=2,
+                   help="serve-disagg: prefill worker processes")
+    p.add_argument("--kv-ship-bits", type=int, default=0, choices=[0, 8],
+                   help="serve-disagg: the server's --kv-ship-bits (8: "
+                        "the codec's 8-bit KV frames)")
     p.add_argument("--replicas", type=int, default=2,
                    help="router-fleet: supervised replicas (autoscale: "
                         "the ceiling)")
@@ -300,10 +321,8 @@ def parse_args(argv=None):
                         "queues a tiny-GPT-2 replica of the port on a "
                         "CPU, so nothing scales)")
     args = p.parse_args(argv)
-    if args.target in _REFUSED_TARGETS:
-        p.error(f"--target {args.target} is not ported to "
-                f"pipeedge_tpu_torch yet (ROADMAP "
-                f"{_REFUSED_TARGETS[args.target]})")
+    if args.qps is None:
+        args.qps = DEFAULT_QPS.get(args.target, 0.0)
     expects = TARGET_EXPECTS[args.target]
     if args.expect is None:
         args.expect = expects[0]
@@ -336,10 +355,20 @@ def _launches(reader, rank: int):
     return json.loads(hit[1].split("=", 2)[2]) if hit else None
 
 
+def fleet_env(tag: str) -> dict:
+    """The environment of a serving target's process: the package's own
+    checkout first on PYTHONPATH, and the fleet tag the reaper finds."""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    path = os.environ.get("PYTHONPATH")
+    return dict(os.environ, PYTHONPATH=root + (os.pathsep + path
+                                               if path else ""),
+                **{ENV_FLEET_TAG: tag})
+
+
 class _RouterFleet:
     """A `python -m pipeedge_tpu_torch.serve --role router` process and
     the replicas it spawns, all tagged for the reaper; its lines are
-    stamped by a `_TimedReader`."""
+    stamped by a `TimedReader`."""
 
     def __init__(self, args, flags):
         import urllib.request
@@ -347,11 +376,7 @@ class _RouterFleet:
         self.port = _free_ports(1)[0]
         self.url = f"http://127.0.0.1:{self.port}"
         self.tag = uuid.uuid4().hex
-        root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-        path = os.environ.get("PYTHONPATH")
-        env = dict(os.environ, PYTHONPATH=root + (os.pathsep + path
-                                                  if path else ""),
-                   **{ENV_FLEET_TAG: self.tag})
+        env = fleet_env(self.tag)
         cmd = [sys.executable, "-m", "pipeedge_tpu_torch.serve",
                "--role", "router", "--device", args.device,
                "-m", args.model_name, "-pt", args.partition,
@@ -363,7 +388,7 @@ class _RouterFleet:
         self.proc = subprocess.Popen(cmd, env=env, text=True,
                                      stdout=subprocess.PIPE,
                                      stderr=subprocess.STDOUT)
-        self.reader = _TimedReader(self.proc)
+        self.reader = TimedReader(self.proc)
 
     def get_json(self, path, timeout=10.0, base=None):
         with self._urlopen(f"{base or self.url}{path}",
@@ -434,6 +459,178 @@ class _RouterFleet:
             for t, line in self.reader.lines:
                 print(f"[router +{t - self.t0:7.3f}] {line}",
                       file=sys.stderr)
+
+
+def server_launches(reader) -> dict:
+    """The serve-disagg server's `kernel_launches=` exit line and each
+    prefill worker's (its last incarnation's; a killed one prints none),
+    teed through the server's output as `[prefill rR] ...`."""
+    out = {}
+    for _, line in reader.lines:
+        if line.startswith("kernel_launches="):
+            out["server"] = json.loads(line.split("=", 1)[1])
+        elif " exiting (" in line and "kernel_launches=" in line:
+            rank = line.split("prefill worker rank ", 1)[1].split()[0]
+            out[f"prefill r{rank}"] = json.loads(
+                line.split("kernel_launches=", 1)[1])
+    return out
+
+
+def run_serve_disagg(args) -> int:
+    """The disaggregated-serving chaos experiment (`tools/chaos_dcn.py
+    run_serve_disagg`): a `--disaggregate process` server under a
+    shared-prefix burst while `--chaos` is armed on prefill worker rank
+    1's ship edge. Gates: every request completes (lease re-dispatch or
+    colocated fallback: zero lost, zero errors), the fault path engaged,
+    page accounting closes with zero leaks, the killed worker is
+    respawned and readmitted (DCN_EPOCH + 1 JOIN), and no process of the
+    fleet outlives the case. Prints one JSON line with the fault window's
+    goodput and recovery_s."""
+    import urllib.request
+
+    from . import loadgen
+
+    port = _free_ports(1)[0]
+    url = f"http://127.0.0.1:{port}"
+    tag = uuid.uuid4().hex
+    env = dict(fleet_env(tag), PIPEEDGE_PREFILL_CHAOS=args.chaos,
+               PIPEEDGE_PREFILL_CHAOS_RANK="1")
+    env.setdefault("DCN_CONNECT_TIMEOUT", "30")
+    cmd = [sys.executable, "-m", "pipeedge_tpu_torch.serve",
+           "--device", args.device,
+           "-m", args.model_name, "-pt", args.partition,
+           "--max-len", "64", "-t", "float32", "--port", str(port),
+           "--kv-pages", str(args.kv_pages),
+           "--kv-page-size", str(args.kv_page_size),
+           "--disaggregate", "process",
+           "--prefill-ranks", str(args.prefill_ranks),
+           "--prefill-lease-timeout", "5",
+           "--prefill-heartbeat-interval", "0.5",
+           "--kv-ship-bits", str(args.kv_ship_bits)]
+    if args.model_file:
+        cmd += ["-M", os.path.abspath(args.model_file)]
+    t0 = time.monotonic()
+    proc = subprocess.Popen(cmd, env=env, text=True,
+                            stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT)
+    reader = TimedReader(proc)
+
+    def healthz(timeout=10.0):
+        with urllib.request.urlopen(f"{url}/healthz",
+                                    timeout=timeout) as resp:
+            return json.loads(resp.read())
+
+    record = {"target": "serve-disagg", "chaos": args.chaos,
+              "prefill_ranks": args.prefill_ranks,
+              "expect": args.expect}
+    try:
+        deadline = time.monotonic() + args.timeout
+        while time.monotonic() < deadline:
+            if proc.poll() is not None:
+                raise RuntimeError("the server died during startup")
+            try:
+                healthz(timeout=5)
+                break
+            except OSError:
+                time.sleep(0.5)
+        else:
+            raise RuntimeError("the server never became healthy")
+        # warm-up: the burst's exact shapes, one lease on each worker (the
+        # fleet's round robin), so the fault window measures the protocol
+        # and not a worker's first prompt pass
+        shared_max = loadgen.spec_max_len(args.shared_spec)
+        for n in {shared_max, 6}:
+            req = urllib.request.Request(
+                f"{url}/generate",
+                data=json.dumps({"ids": [[7] * n],
+                                 "new_tokens": 2}).encode(),
+                headers={"Content-Type": "application/json"})
+            with urllib.request.urlopen(req, timeout=120) as resp:
+                resp.read()
+        # the burst: the armed chaos fires at the victim's Kth ship send.
+        # A watcher stamps the readmission as it happens, so a worker that
+        # respawns mid-burst does not have its recovery_s aliased to the
+        # rest of the burst
+        recovered_at = [None]
+        watch_stop = threading.Event()
+
+        def watch_readmission():
+            seen_down = False
+            while not watch_stop.is_set() and recovered_at[0] is None:
+                try:
+                    live = healthz(timeout=5)["serving"]["kv"][
+                        "prefill"]["live"]
+                except OSError:
+                    watch_stop.wait(0.3)
+                    continue
+                if len(live) < args.prefill_ranks:
+                    seen_down = True
+                elif seen_down:
+                    recovered_at[0] = time.monotonic()
+                    return
+                watch_stop.wait(0.2)
+
+        watcher = threading.Thread(target=watch_readmission,
+                                   daemon=True, name="readmit-watch")
+        watcher.start()
+        report = loadgen.run_load(
+            f"{url}/generate", args.duration, args.qps,
+            mix={"interactive": 1.0}, new_tokens=4,
+            prompt_len=args.shared_spec, seed=7, arrival="poisson")
+        died = reader.first("died")   # the supervisor's death line
+        recover_deadline = time.monotonic() + 60
+        while recovered_at[0] is None \
+                and time.monotonic() < recover_deadline:
+            time.sleep(0.3)
+        watch_stop.set()
+        watcher.join(timeout=10)
+        kv = healthz()["serving"]["kv"]
+        prefill = kv["prefill"]
+        record.update({
+            "requests": report["requests"],
+            "lost": report["client_dropped"],
+            "errors": report["totals"]["error"],
+            "shed": report["totals"]["shed"],
+            "fault_window_goodput_rps": round(sum(
+                c["goodput_rps"] for c in report["classes"].values()), 3),
+            "leases": prefill["leases"],
+            "colocated": prefill.get("colocated"),
+            "zombies_dropped": prefill["zombies_dropped_total"],
+            "ship_corrupt": prefill["ship_corrupt_total"],
+            "pages_leaked": kv["leaked"],
+            "live_ranks": prefill["live"],
+            "worker_epochs": {r: w["epoch"] for r, w in
+                              prefill.get("workers", {}).items()},
+            "recovery_s": (round(recovered_at[0] - died[0], 3)
+                           if recovered_at[0] and died else None),
+            "readmitted": recovered_at[0] is not None,
+            "total_s": round(time.monotonic() - t0, 3),
+        })
+    finally:
+        if proc.poll() is None:
+            proc.terminate()
+            try:
+                proc.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait()
+        record["survivors"] = reap_fleet(tag, REAP_GRACE_S)
+        reader.join()
+        record["kernel_launches"] = server_launches(reader)
+    print(json.dumps(record), flush=True)
+    if args.verbose:
+        for t, line in reader.lines:
+            print(f"[serve +{t - t0:7.3f}] {line}", file=sys.stderr)
+    # the disagg gate: nothing lost, nothing errored, the fault path
+    # engaged (re-dispatch, fallback or colocated), zero leaked pages, and
+    # the victim readmitted after its respawn
+    engaged = (record["leases"]["redispatched"]
+               + record["leases"]["fallback"]
+               + sum((record["colocated"] or {}).values())) > 0
+    ok = (record["errors"] == 0 and record["lost"] == 0
+          and record["pages_leaked"] == 0 and engaged
+          and record["readmitted"])
+    return 0 if ok and not record["survivors"] else 1
 
 
 def run_router_fleet(args) -> int:
@@ -658,6 +855,8 @@ def run_autoscale(args) -> int:
 
 def main(argv=None) -> int:
     args = parse_args(argv)
+    if args.target == "serve-disagg":
+        return run_serve_disagg(args)
     if args.target == "router-fleet":
         return run_router_fleet(args)
     if args.target == "autoscale":
@@ -682,11 +881,7 @@ def main(argv=None) -> int:
     if args.model_file:
         common += ["-M", os.path.abspath(args.model_file)]
     tag = uuid.uuid4().hex
-    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    path = os.environ.get("PYTHONPATH")
-    env = dict(os.environ, PYTHONPATH=root + (os.pathsep + path
-                                              if path else ""),
-               **{ENV_FLEET_TAG: tag})
+    env = fleet_env(tag)
     env.setdefault("DCN_CONNECT_TIMEOUT", "30")
     if args.reconnect_grace > 0:
         env["DCN_RECONNECT_GRACE"] = str(args.reconnect_grace)
@@ -713,7 +908,7 @@ def main(argv=None) -> int:
                     else args.arm.get(rank))
             extra = {"DCN_CHAOS": spec} if spec is not None else None
             procs[rank] = launch(rank, extra)
-            readers[rank] = _TimedReader(procs[rank])
+            readers[rank] = TimedReader(procs[rank])
         deadline = t0 + args.timeout
         data = procs[0]
         while time.monotonic() < deadline and data.poll() is None:

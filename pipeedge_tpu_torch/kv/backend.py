@@ -35,11 +35,15 @@ arena's read-modify-write (gather -> stage function -> scatter) is
 serialized under one arena lock. On the card every executor thread
 enqueues on the device's default stream, so the hold is host-side only.
 
+Disaggregated prefill (`shipped=`): a prefill fleet ran the prompt pass
+elsewhere (`kv/disagg.py`, `kv/fleet.py`); `admit` charges the request's
+pages, adopts them in the owner ledger, and `_install_shipped` writes the
+shipped rows into the gathered view, scatters the touched pages and picks
+the first token from the shipped logits with the request's own generator.
+
 Prefix migration (the router's drain): `export_prefix` snapshots the
 trie's pages of a prompt prefix as exact `kv/ship.py` frames (fp caches
-only), `install_prefix` lands such frames in this
-pool and trie. Not ported yet: installing a prefill fleet's shipped KV
-(`shipped=`, ROADMAP A5.3b), which raises.
+only), `install_prefix` lands such frames in this pool and trie.
 """
 from __future__ import annotations
 
@@ -53,15 +57,6 @@ from ..telemetry import metrics as prom
 from ..utils.threads import make_lock
 from .pool import KvPagePool, pages_for
 from .prefix import PrefixTrie
-
-# the ROADMAP item that ports the shipped-KV install
-_DISAGG = "ROADMAP A5.3b, the prefill supervisors"
-
-
-def _ship_refusal(what: str, item: str) -> ValueError:
-    return ValueError(f"{what}: KV shipping is not ported to "
-                      f"pipeedge_tpu_torch yet ({item})")
-
 
 class PagedKvBackend:
     """The executors' cache provider: page tables instead of dense slots,
@@ -121,24 +116,26 @@ class PagedKvBackend:
 
     def admit(self, req, block: bool = False) -> Tuple[str, object]:
         """Seed the request's page tables; returns `(kind, data)` for its
-        first stage-0 dispatch: ("prefill", ids) for a fresh prompt, or
-        ("span", suffix_ids) when the trie matched a prefix."""
+        first stage-0 dispatch: ("prefill", ids) for a fresh prompt,
+        ("span", suffix_ids) when the trie matched a prefix, ("step",
+        token) when shipped KV was installed (the prompt pass already ran
+        on the prefill fleet), or ("done", None) when the shipped first
+        token already completes the request."""
         if getattr(req, "prefix", None) is not None:
             raise ValueError(
                 "paged KV replaces hand-passed prefix handles (the "
                 "prefix trie shares prompts automatically); submit the "
                 "full prompt instead")
-        if getattr(req, "shipped", None) is not None:
-            return self._install_shipped(req, req.shipped)
         batch, prompt_len = req.ids.shape[0], req.prompt_len
         per_row = self.pool.pages_needed(prompt_len, req.new_tokens)
+        shipped = getattr(req, "shipped", None)
         tokens = None
         if batch == 1:
             host = getattr(req, "host_ids", None)
             tokens = (np.asarray(host)[0] if host is not None
                       else req.ids[0].cpu().numpy()).tolist()
         shared_pids: List[int] = []
-        if tokens is not None:
+        if shipped is None and tokens is not None:
             shared_pids = self.trie.lookup(tokens,
                                            max_tokens=prompt_len - 1)
         shared = len(shared_pids)
@@ -162,17 +159,83 @@ class PagedKvBackend:
             "tokens": tokens, "published": False,
         }
         # leak audit: the owner ledger mirrors this request's page
-        # references from the instant they exist
+        # references from the instant they exist, so a submitter that
+        # dies anywhere past this point (the install's failure path
+        # included) is reclaimable by the orphan sweep
         self.pool.adopt(req.rid, req.kvstate["owned"])
+        if shipped is not None:
+            try:
+                return self._install_shipped(req, shipped)
+            except BaseException:
+                # a malformed handle must not leak the pages just charged
+                # (the executor rolls back its slot, not ours)
+                self.release(req)
+                raise
         if shared:
             return "span", req.ids[:, shared * self.page_size:]
         return "prefill", req.ids
 
     def _install_shipped(self, req, handle) -> Tuple[str, object]:
-        """Land a prefill fleet's shipped KV rows in the request's pages
-        (the decode side of disaggregation)."""
-        del req, handle
-        raise _ship_refusal("shipped KV", _DISAGG)
+        """Write a prefill fleet's shipped KV rows into this request's
+        pages and pick the first token from the shipped last-stage logits:
+        the decode side of disaggregation (`kv/ship.py` moved the rows;
+        this lands them). Runs on the executors' stream, in inference
+        mode (their stage context)."""
+        ks = req.kvstate
+        if ks.get("install_result") is not None:
+            # idempotence fence: a second install (a ship delivered twice
+            # above the lease fence) neither re-scatters pages nor
+            # appends a second first token
+            return ks["install_result"]
+        plen = int(handle["prompt_len"])
+        rows = handle["stage_rows"]
+        if plen != req.prompt_len:
+            raise ValueError(f"shipped KV covers {plen} prompt tokens; "
+                             f"request prompt is {req.prompt_len}")
+        if len(rows) != self._n_stages:
+            raise ValueError(f"shipped KV has {len(rows)} stages; this "
+                             f"pipeline has {self._n_stages}")
+        batch = req.ids.shape[0]
+        writes = [(b, j) for b in range(batch)
+                  for j in range(pages_for(plen, self.page_size))]
+        with telemetry.span("kv", "install", rid=str(req.rid)):
+            with self._arena_lock:
+                for i in range(self._n_stages):
+                    view = self.pool.gather(i, ks["table"], ks["index"])
+                    if set(rows[i]) != set(view):
+                        raise ValueError(
+                            f"shipped KV leaves {sorted(rows[i])} do not "
+                            f"match this pipeline's cache leaves "
+                            f"{sorted(view)} (cache_bits mismatch?)")
+                    for name, arr in rows[i].items():
+                        arr = torch.as_tensor(arr)
+                        if arr.shape[1] != batch:
+                            raise ValueError(
+                                f"shipped KV batch {arr.shape[1]} != "
+                                f"request batch {batch}")
+                        view[name][:, :, :plen] = arr.to(
+                            device=view[name].device,
+                            dtype=view[name].dtype)
+                    self.pool.scatter(i, ks["table"], view, writes)
+        if tokens_publishable(req):
+            self._publish(req)
+        # the prefill fleet ships LOGITS, not a token: the pick stays on
+        # the decode side with the request's own generator, so a request
+        # gets the same tokens disaggregated as colocated
+        logits = torch.as_tensor(handle["logits"]).to(
+            device=self.pipe.device, dtype=torch.float32)
+        token = req.pick(logits, req.gen)
+        req.tokens.append(token)
+        if req.on_token is not None:
+            req.on_token(0, token)
+        done = len(req.tokens) >= req.new_tokens
+        if not done and req.eos_token is not None:
+            hit = token.cpu().numpy() == req.eos_token
+            req.rows_done = hit
+            done = bool(hit.all())
+        result = ("done", None) if done else ("step", token[:, None])
+        ks["install_result"] = result
+        return result
 
     # -- the stage-step indirection --------------------------------------
 

@@ -15,12 +15,20 @@ package's, so a bundle either package encodes decodes in the other.
 `/kv/export` and `/kv/import` carry (base64 around it).
 
 Logits always ship exact: quantizing the pick's input would change
-tokens. The socket half (`ship_over_socket`) and the disaggregated
-prefill that ships whole requests wait for ROADMAP A5.3b.
+tokens.
+
+The socket half: `ship_over_socket` rounds one blob through a real
+loopback socket pair (length-prefixed, a feeder thread at the far end),
+the path `kv/disagg.py`'s `wire` prefill fleet ships whole requests
+through. `SHIP_PATHS` names the in-process prefill fleet's transports.
 """
 from __future__ import annotations
 
+import contextlib
 import io
+import socket
+import struct
+import threading
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
@@ -34,6 +42,20 @@ from ..comm import wire
 KV_SHIP_MAGIC = -7
 KV_SHIP_VERSION = 1
 _LEAVES = ("k", "v")     # fp cache leaves, in shipped order
+
+SHIP_PATHS = ("local", "wire")
+
+
+@contextlib.contextmanager
+def device_stream(device: torch.device):
+    """Where ship work runs: the device's default stream on a GPU (the
+    serving executors enqueue there, so a handle made or decoded in
+    another thread is ordered before its install) and inference mode
+    (thread-local, so every thread that touches a handle enters it)."""
+    stream = (torch.cuda.stream(torch.cuda.default_stream(device))
+              if device.type == "cuda" else contextlib.nullcontext())
+    with stream, torch.inference_mode():
+        yield
 
 
 def encode_kv_ship(caches: Sequence[Dict], prompt_len: int, logits,
@@ -134,3 +156,39 @@ def frames_to_bytes(tensors: Sequence[np.ndarray]) -> bytes:
 def frames_from_bytes(blob: bytes) -> List[np.ndarray]:
     with np.load(io.BytesIO(blob), allow_pickle=False) as z:
         return [z[f"t{i}"] for i in range(len(z.files))]
+
+
+def ship_over_socket(blob: bytes) -> bytes:
+    """Round one blob through a real loopback socket pair (length-
+    prefixed), a writer thread feeding the far end: the bytes leave and
+    re-enter the process through the socket machinery, so framing and
+    CRC faults surface here, not on a multi-host fleet."""
+    a, b = socket.socketpair()
+    try:
+        def feed():
+            with a:
+                a.sendall(struct.pack("!Q", len(blob)))
+                a.sendall(blob)
+
+        t = threading.Thread(target=feed, daemon=True,
+                             name="kv-ship-feeder")
+        t.start()
+        with b:
+            need = struct.unpack("!Q", _read_exact(b, 8))[0]
+            out = _read_exact(b, need)
+        t.join(timeout=60)
+        return out
+    finally:
+        for s in (a, b):
+            try:
+                s.close()
+            except OSError:
+                pass
+
+
+def _read_exact(sock: socket.socket, n: int) -> bytes:
+    # the exact-read primitive is comm/dcn.py's (recv_into, no flattening
+    # copy), imported here so that importing the ship codec never pulls
+    # the DCN runtime in
+    from ..comm.dcn import _recv_exact
+    return bytes(_recv_exact(sock, n))

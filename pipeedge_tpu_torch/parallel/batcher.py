@@ -50,8 +50,12 @@ What the port does its own way, and why:
   same stage function, scatter of the written private pages), admission
   waits on pages (the wave batcher's pending head; the stage workers'
   submitter) and `max_active` defaults to the pool's page count.
-  Shipped prefill (`shipped=`) waits for ROADMAP A5.3b and raises. The
-  JAX executors' `sp_degree` refusal has no counterpart: the port's
+- **Shipped prefill** (`shipped=`, paged executors only): a prefill
+  fleet's handle (`kv/disagg.py`, `kv/fleet.py`) is installed at
+  admission (`kv.admit`, on the executors' stream, in inference mode),
+  which picks the first token from the shipped logits; the request then
+  starts at its first decode step, or is done. The JAX executors'
+  `sp_degree` refusal has no counterpart: the port's
   `DecodePipeline` has no sequence-parallel prefill until ROADMAP A7.
 """
 from __future__ import annotations
@@ -92,13 +96,6 @@ del _ex
 # the stage-step kinds an executor dispatches ("span": a prefix-seeded
 # suffix prompt pass; "chunk": one slice of a chunked prompt pass)
 KINDS = ("prefill", "span", "chunk", "step")
-
-
-def _shipped_refusal() -> ValueError:
-    return ValueError("shipped KV: disaggregated prefill is not ported to "
-                      "pipeedge_tpu_torch yet (ROADMAP A5.3b with A6, the "
-                      "prefill supervisors); the port's executors run "
-                      "every prompt pass themselves")
 
 
 def _on_device_stream(pipe: DecodePipeline):
@@ -154,6 +151,10 @@ class _Request:
     # the prompt on the host when the caller gave it there (the prefix
     # trie keys pages by token content without a readback)
     host_ids: Optional[np.ndarray] = None
+    # a prefill fleet's ship handle (kv/disagg.py): the prompt pass
+    # already ran elsewhere; admission installs the KV rows and decoding
+    # starts at the first decode step
+    shipped: Optional[Dict] = None
     # chunked prefill: `chunk_rest` holds the prompt tokens not yet
     # dispatched, `chunk_off` the in-flight chunk's absolute cache offset,
     # `chunk_next` the next chunk's offset, and `chunk_final` whether the
@@ -185,8 +186,6 @@ def _build_request(pipe: DecodePipeline, rid, ids, new_tokens: int,
     `_Request` — the shared admission contract of the wave batcher and
     the stage-worker executor (the JAX package's errors, and one
     generator discipline, so token streams match across executors)."""
-    if shipped is not None:
-        raise _shipped_refusal()
     host_ids = None
     if not isinstance(ids, torch.Tensor):
         ids = host_ids = np.asarray(ids)
@@ -203,6 +202,9 @@ def _build_request(pipe: DecodePipeline, rid, ids, new_tokens: int,
     if prefix is not None:
         # reject handles built by an incompatible pipeline up front
         pipe.check_prefix(prefix)
+    if shipped is not None and prefix is not None:
+        raise ValueError("shipped KV already covers the whole prompt; "
+                         "it does not compose with a prefix handle")
     prompt_len = ids.shape[1] + (prefix["len"] if prefix else 0)
     validate_capacity(pipe.cfg, pipe.max_len, prompt_len, new_tokens)
     gen = None
@@ -217,7 +219,7 @@ def _build_request(pipe: DecodePipeline, rid, ids, new_tokens: int,
         pad_token=eos_token if pad_token is None else pad_token,
         on_token=on_token, cancel=cancel,
         deadline=None if deadline is None else float(deadline),
-        host_ids=host_ids)
+        host_ids=host_ids, shipped=shipped)
 
 
 def _seed_caches(pipe: DecodePipeline, req: _Request) -> str:
@@ -450,10 +452,17 @@ class ContinuousBatcher:
         is the [B] device tensor). `cancel` (an is_set()-style flag)
         completes the request at its next pick with the tokens decoded so
         far. `deadline` (absolute `time.monotonic()` seconds) is checked
-        at every decode-step boundary; expiry fires `cancel`. `shipped`
-        waits for ROADMAP A5.3b and raises."""
+        at every decode-step boundary; expiry fires `cancel`.
+
+        `shipped` (paged-KV executors only) is a prefill fleet's ship
+        handle (`kv/disagg.py`): the prompt pass already ran elsewhere, so
+        admission installs the KV rows into this request's pages and
+        decoding starts at the first decode step."""
         if rid in self.results or rid in self._live_rids:
             raise ValueError(f"duplicate request id {rid!r}")
+        if shipped is not None and self.kv is None:
+            raise ValueError("shipped KV needs a paged-KV backend "
+                             "(ContinuousBatcher(kv=...))")
         req = _build_request(self.pipe, rid, ids, new_tokens, temperature,
                              top_k, seed, eos_token, pad_token, prefix,
                              on_token=on_token, cancel=cancel,
@@ -481,6 +490,14 @@ class ContinuousBatcher:
                     break       # head-of-line: wait for page releases
                 self.pending.popleft()
                 kind, data = self.kv.admit(req)
+                if req.tokens:
+                    # a shipped install picked the first token in admit
+                    self.stats["tokens"] += int(req.ids.shape[0])
+                if kind == "done":
+                    self.kv.release(req)
+                    self.results[req.rid] = _finalize_tokens(req)
+                    self._live_rids.discard(req.rid)
+                    continue
             else:
                 self.pending.popleft()
                 kind, data = _seed_caches(self.pipe, req), req.ids
@@ -702,9 +719,13 @@ class StageWorkerExecutor:
                deadline: Optional[float] = None,
                shipped: Optional[Dict] = None) -> None:
         """Admit one request (same argument contract as
-        `ContinuousBatcher.submit`). BLOCKS while `max_active` requests
-        are in flight — admission backpressure is the caller's thread; a
-        paged executor also blocks on PAGE availability."""
+        `ContinuousBatcher.submit`, a prefill fleet's `shipped` handle
+        included). BLOCKS while `max_active` requests are in flight —
+        admission backpressure is the caller's thread; a paged executor
+        also blocks on PAGE availability."""
+        if shipped is not None and self.kv is None:
+            raise ValueError("shipped KV needs a paged-KV backend "
+                             "(StageWorkerExecutor(kv=...))")
         req = _build_request(self.pipe, rid, ids, new_tokens, temperature,
                              top_k, seed, eos_token, pad_token, prefix,
                              on_token=on_token, cancel=cancel,
@@ -738,10 +759,30 @@ class StageWorkerExecutor:
             try:
                 if self.kv is not None:
                     # page admission blocks like the slot semaphore does:
-                    # completions release pages
-                    kind, data = self.kv.admit(req, block=True)
+                    # completions release pages. A shipped install runs
+                    # stage work in this thread: on the executors' stream
+                    with _stage_context(self.pipe):
+                        kind, data = self.kv.admit(req, block=True)
+                    if req.tokens and kind != "done":
+                        # a shipped install's first token was picked in
+                        # admit: count it as the wave batcher does
+                        with self._lock:
+                            self.stats["tokens"] += int(req.ids.shape[0])
                 else:
                     kind, data = _seed_caches(self.pipe, req), req.ids
+                if kind == "done":
+                    # a shipped install whose first token completed the
+                    # request: it never touches the pipeline
+                    arr = _finalize_tokens(req)
+                    self.kv.release(req)
+                    with self._lock:
+                        self.stats["tokens"] += int(req.ids.shape[0])
+                        self.results[rid] = arr
+                        self._live.discard(rid)
+                        self.active -= 1
+                        self._lock.notify_all()
+                    self._slots.release()
+                    return
                 kind, data = _maybe_chunk(req, kind, data,
                                           self.chunk_tokens)
                 if kind == "chunk":

@@ -112,10 +112,30 @@ controller's `autoscale` block:
         --max-active 4 --autoscale auto --autoscale-min 1 \
         --autoscale-max 2 --fleet-scrape-interval 0.5 --port 8321
 
-Not ported yet, and refused at parse time with the ROADMAP item that
-ports them: disaggregated prefill (`REFUSED`). Without `--kv-pages`, a
-`prefix_id` names a dense `precompute_prefix` handle (and, with a draft
-model, the draft's too).
+Disaggregated prefill (`--disaggregate local|wire|process`, needs
+`--kv-pages`): prompt passes run on a prefill fleet and their KV rows land
+in the decode executor's pages, so a long prompt no longer stretches
+every other request's inter-token latency. `local` runs them on a
+dedicated pipeline in this process that shares the decode pipeline's
+weights and hands the tensors over; `wire` ships real bytes through the
+v2 codec and a loopback socket (`--kv-ship-bits 8`: the codec's encode
+kernel on the prefill side, its decode kernel here); `process` spawns
+`--prefill-ranks` worker processes (`python -m
+pipeedge_tpu_torch.prefill_worker`, DCN ranks 1..N, this process rank 0)
+behind the lease/ack protocol of `kv/fleet.py` (re-dispatch, bounded
+re-ship, colocated fallback), respawning a dead worker with the next
+epoch. A prompt the prefix trie covers to within one page, brownout rung
+4, and `PrefillUnavailable` run it colocated
+(`pipeedge_kv_prefill_colocated_total{reason}`); `/healthz` carries
+`kv.disaggregated` and `kv.prefill` (the fleet's leases and workers):
+
+    python -m pipeedge_tpu_torch.serve -m gpt2 -pt 1,24,25,48 \\
+        --max-len 1024 -t float32 --kv-pages 1024 --kv-page-size 16 \\
+        --disaggregate process --prefill-ranks 2 --kv-ship-bits 8
+
+Every flag of `tools/serve.py` is ported (`REFUSED` is empty). Without
+`--kv-pages`, a `prefix_id` names a dense `precompute_prefix` handle
+(and, with a draft model, the draft's too).
 """
 from __future__ import annotations
 
@@ -136,7 +156,8 @@ import torch
 
 from . import health as peer_health
 from . import telemetry
-from .kv import KvPagePool, PagedKvBackend, ship
+from .kv import (KvPagePool, PagedKvBackend, PrefillFleet,
+                 PrefillUnavailable, RemotePrefillFleet, ship)
 from .models import registry
 from .ops import _build
 from .parallel import batcher as batcher_mod
@@ -158,20 +179,10 @@ REQUEST_OUTCOMES = ("ok", "shed", "deadline", "degraded", "error")
 # tracing client) passes it here; the server mints `q<n>` only when absent
 RID_HEADER = "X-PipeEdge-Rid"
 
-# `tools/serve.py` flags this entry accepts and refuses, each with the
-# ROADMAP item that ports it (so no flag is silently ignored):
-# flag -> (argparse keywords, ROADMAP item)
-_DISAGG = "A5.3b, the prefill supervisors over the port's DCN"
-REFUSED = {
-    "--disaggregate": ({}, _DISAGG),
-    "--prefill-ranks": ({"type": int}, _DISAGG),
-    "--prefill-lease-timeout": ({"type": float}, _DISAGG),
-    "--prefill-attempts": ({"type": int}, _DISAGG),
-    "--no-prefill-respawn": ({"action": "store_true"}, _DISAGG),
-    "--prefill-heartbeat-interval": ({"type": float}, _DISAGG),
-    "--prefill-concurrency": ({"type": int}, _DISAGG),
-    "--kv-ship-bits": ({"type": int}, _DISAGG),
-}
+# `tools/serve.py` flags this entry refuses, each with the ROADMAP item
+# that ports it (so no flag is silently ignored):
+# flag -> (argparse keywords, ROADMAP item). Every flag is ported now.
+REFUSED: dict = {}
 
 
 def _header_rid(headers) -> Optional[str]:
@@ -248,7 +259,8 @@ class _Service:
                  chunked_prefill=0, step_join=False,
                  prefill_budget=None, clamp_chunk_tokens=0,
                  slo_objective=0.99, slo_burn_fast=30.0,
-                 slo_burn_slow=300.0, slo_burn_threshold=10.0):
+                 slo_burn_slow=300.0, slo_burn_threshold=10.0,
+                 prefill_fleet=None, prefill_supervisor=None):
         self.pipe = pipe
         self.spec = spec
         self.executor = executor
@@ -256,7 +268,10 @@ class _Service:
         # -- paged KV plane (kv/) ---------------------------------------
         # kv_pages > 0 swaps the executors' dense per-request cache slots
         # for page tables over one shared pool (+ the prefix trie);
-        # admission then runs on a KV TOKEN budget
+        # admission then runs on a KV TOKEN budget. The optional prefill
+        # fleet (--disaggregate) runs prompt passes on its OWN pipeline or
+        # processes and ships KV pages in, so decode waves never share
+        # stage time with prefills
         self.kv_backend = None
         if kv_pages:
             self.kv_backend = PagedKvBackend(pipe, kv_pages, kv_page_size)
@@ -267,6 +282,22 @@ class _Service:
                 spec.attach_paged(self.kv_backend,
                                   KvPagePool(spec.draft, kv_pages,
                                              kv_page_size))
+        self.prefill_fleet = prefill_fleet
+        self.prefill_supervisor = prefill_supervisor
+        self.m_prefill_colocated = None
+        if prefill_fleet is not None and self.kv_backend is None:
+            raise ValueError("--disaggregate needs --kv-pages (shipped "
+                             "KV lands in the paged pool)")
+        if prefill_fleet is not None:
+            # colocated-fallback accounting: "unavailable" = every prefill
+            # rank and retry exhausted; "brownout" = the colocate_prefill
+            # rung turned shipping off
+            self.m_prefill_colocated = prom.REGISTRY.counter(
+                "pipeedge_kv_prefill_colocated_total",
+                "prompt passes run colocated in the decode executor "
+                "while disaggregation was configured, by reason")
+            for reason in ("unavailable", "brownout"):
+                self.m_prefill_colocated.declare(reason=reason)
         self.cond = make_condition("serve.results")
         # -- /metrics + healthz counters (one source of truth) ----------
         # healthz's stats read the registry instruments back (stats()),
@@ -804,10 +835,19 @@ class _Service:
             }
         if self.kv_backend is not None:
             s["kv"] = self.kv_backend.snapshot()
-            s["kv"]["disaggregated"] = False    # ROADMAP A5.3b
+            s["kv"]["disaggregated"] = self.prefill_fleet is not None
             # the leak audit's health surface: page references the
             # orphan sweep reclaimed (0 = no leaks)
             s["kv"]["leaked"] = s["kv"]["pool"]["leaked"]
+            fleet_snapshot = getattr(self.prefill_fleet, "snapshot", None)
+            if fleet_snapshot is not None:
+                s["kv"]["prefill"] = fleet_snapshot()
+                s["kv"]["prefill"]["colocated"] = {
+                    r: int(self.m_prefill_colocated.value(reason=r))
+                    for r in ("unavailable", "brownout")}
+            if self.prefill_supervisor is not None:
+                s["kv"].setdefault("prefill", {})["workers"] = \
+                    self.prefill_supervisor.snapshot()
         return s
 
     def generate_speculative(self, ids, new_tokens, prefix_id=None,
@@ -1093,6 +1133,8 @@ class _Service:
         # the trace rid doubles as the EXECUTOR request id
         if rid is None:
             rid = self.mint_rid()
+        if self.prefill_fleet is not None and kw.get("shipped") is None:
+            self._route_prefill(ids, kw, rid)
         if self.exec is not None:
             with self.cond:
                 self._check_dead()
@@ -1109,6 +1151,34 @@ class _Service:
                 self._check_dead()
                 self.cond.wait()
             return self.batcher.results.pop(rid)
+
+    def _route_prefill(self, ids, kw, rid) -> None:
+        """Disaggregated: the prompt pass runs on the prefill fleet and
+        its KV lands in this request's pages (`kw["shipped"]`), so the
+        decode executor only runs decode steps. It runs colocated instead
+        under brownout rung 4, when the prefix trie covers the prompt to
+        within one page (a short suffix span is cheaper in place than
+        re-prefilled and re-shipped), or when no prefill rank could take
+        it (`PrefillUnavailable`: the request survives with the same
+        tokens; only the isolation degrades)."""
+        if self.brownout is not None \
+                and not self.brownout.allow_disaggregate():
+            self.m_prefill_colocated.inc(reason="brownout")
+            self.flight.note("prefill_colocated", rid=rid,
+                             reason="brownout")
+            return
+        if len(ids) == 1:
+            toks = [int(t) for t in ids[0]]
+            matched = self.kv_backend.shared_prompt_tokens(toks)
+            if matched > 0 and matched >= len(toks) \
+                    - self.kv_backend.page_size:
+                return
+        try:
+            kw["shipped"] = self.prefill_fleet.prefill(ids, rid=rid)
+        except PrefillUnavailable as exc:
+            self.m_prefill_colocated.inc(reason="unavailable")
+            self.flight.note("prefill_colocated", rid=rid,
+                             reason="unavailable", error=str(exc))
 
     def stats(self):
         """Lock-free best-effort snapshot for /healthz."""
@@ -1141,6 +1211,13 @@ class _Service:
         elif self.worker is not None:
             self.worker.join()
         self._governor.join()
+        # the ship plane goes LAST: in-flight prefills were failed fast by
+        # the executor stop above
+        close = getattr(self.prefill_fleet, "close", None)
+        if close is not None:
+            close()
+        if self.prefill_supervisor is not None:
+            self.prefill_supervisor.stop()
 
 
 def make_handler(service, model_name):
@@ -1572,6 +1649,42 @@ def build_parser() -> argparse.ArgumentParser:
                    help="re-drive the admission queue at every decode-"
                         "step boundary, so queued requests join mid-"
                         "generation instead of at the next completion")
+    p.add_argument("--disaggregate", default="off",
+                   choices=["off", "local", "wire", "process"],
+                   help="split serving into a prefill fleet and a decode "
+                        "fleet (needs --kv-pages): prompt passes run on "
+                        "a DEDICATED pipeline and ship finished KV pages "
+                        "into the decode executor — 'local' hands the "
+                        "tensors over in-process, 'wire' pushes real bytes "
+                        "through the v2 codec + a loopback socket "
+                        "(see --kv-ship-bits), 'process' spawns REAL "
+                        "separate prefill worker processes over DCN "
+                        "sockets with the fault-tolerant lease/ack ship "
+                        "protocol (retry, re-dispatch, colocated "
+                        "fallback)")
+    p.add_argument("--prefill-ranks", default=1, type=int,
+                   help="worker processes of --disaggregate process "
+                        "(leases re-dispatch across them on faults)")
+    p.add_argument("--prefill-lease-timeout", default=30.0, type=float,
+                   help="seconds a dispatched prompt pass may go "
+                        "unacked before it re-dispatches")
+    p.add_argument("--prefill-attempts", default=3, type=int,
+                   help="total lease dispatches per prompt before the "
+                        "request degrades to colocated prefill")
+    p.add_argument("--no-prefill-respawn", action="store_true",
+                   help="do not respawn dead prefill workers (default: "
+                        "respawn with DCN_EPOCH+1 and readmit via JOIN)")
+    p.add_argument("--prefill-heartbeat-interval", default=1.0,
+                   type=float,
+                   help="ship-plane heartbeat interval (0 disables; "
+                        "catches hung workers whose sockets stay open)")
+    p.add_argument("--kv-ship-bits", default=0, type=int, choices=[0, 8],
+                   help="quantize shipped KV pages on the wire (the "
+                        "codec's 8-bit quads, 4x fewer bytes; 0 = exact, "
+                        "the token-parity setting)")
+    p.add_argument("--prefill-concurrency", default=2, type=int,
+                   help="in-flight prompt passes the prefill fleet runs "
+                        "concurrently")
     p.add_argument("--governor-interval", default=0.25, type=float)
     p.add_argument("--trace-spans", default=None, metavar="OUT",
                    help="write the request/stage spans as Perfetto-"
@@ -1698,6 +1811,9 @@ def parse_args(argv: Optional[Sequence[str]] = None):
             p.error(f"{flag} is not ported to pipeedge_tpu_torch yet "
                     f"(ROADMAP {item})")
     # the JAX server's composition checks, before any model build
+    if args.disaggregate != "off" and not args.kv_pages:
+        p.error("--disaggregate needs --kv-pages (shipped KV lands in "
+                "the paged pool)")
     if args.chunked_prefill < 0:
         p.error("--chunked-prefill must be >= 0")
     if args.chunked_prefill and not args.kv_pages:
@@ -1713,6 +1829,10 @@ def parse_args(argv: Optional[Sequence[str]] = None):
                 "span verification is not bit-identical to serial "
                 "int8 steps)")
     if args.role == "router":
+        if args.disaggregate != "off":
+            p.error("--role router does not compose with --disaggregate "
+                    "yet (run disaggregation inside each replica is a "
+                    "scoped follow-up; see docs/SERVING.md)")
         if args.replica_addrs is None and args.replicas < 1:
             p.error("--replicas must be >= 1 (or pass --replica-addrs)")
         if args.hedge_ms < 0:
@@ -1775,9 +1895,12 @@ def build_draft_pipeline(args, stage_params=None):
         device=args.device)
 
 
-def make_service(args, pipe, draft=None) -> _Service:
+def make_service(args, pipe, draft=None, prefill_fleet=None,
+                 prefill_supervisor=None) -> _Service:
     """The `_Service` the flags describe, over `pipe` (and, with
-    `--draft-model`, over `draft`, built from the flags when not given)."""
+    `--draft-model`, over `draft`, built from the flags when not given;
+    with `--disaggregate`, over the prefill fleet `build_prefill_fleet`
+    made)."""
     if args.inject_stall:
         _inject_stall(pipe, args.inject_stall, build_parser())
     spec = None
@@ -1813,32 +1936,100 @@ def make_service(args, pipe, draft=None) -> _Service:
                     slo_objective=args.slo_objective,
                     slo_burn_fast=args.slo_burn_fast,
                     slo_burn_slow=args.slo_burn_slow,
-                    slo_burn_threshold=args.slo_burn_threshold)
+                    slo_burn_threshold=args.slo_burn_threshold,
+                    prefill_fleet=prefill_fleet,
+                    prefill_supervisor=prefill_supervisor)
 
 
-class ReplicaSupervisor:
-    """The decode replicas behind `--role router`: each rank is a full
-    `python -m pipeedge_tpu_torch.serve --role replica` process on its
-    own port, supervised: a dead replica respawns with the next epoch
-    (env `DCN_EPOCH`) after a crash-loop backoff, and the router's health
-    polls readmit it once it proves itself. `restart(rank)` is the drain
-    endgame; `add_rank`/`retire_rank` are the autoscaler's actuators.
-    Port of the JAX server's replica supervisor."""
+def build_prefill_fleet(args, pipe):
+    """`--disaggregate`'s prefill fleet over the decode pipeline `pipe`:
+    `(fleet, supervisor, ship_ctx)`, all None when off.
+
+    `local`/`wire`: a `PrefillFleet` over a DEDICATED fp-cache pipeline
+    that shares `pipe`'s loaded weights (one copy on the card). `process`:
+    `--prefill-ranks` worker processes (ranks 1..N of a DCN world whose
+    rank 0 is this process), supervised and respawned, behind a
+    `RemotePrefillFleet` that decodes shipped handles on `pipe`'s
+    device."""
+    if args.disaggregate == "off":
+        return None, None, None
+    dtype = torch.bfloat16 if args.dtype == "bfloat16" else torch.float32
+    if args.disaggregate != "process":
+        # its prompt passes never contend with the decode executor's
+        # stage-steps for one pipeline's caches
+        prefill_pipe = build_decode_pipeline(
+            args.model_name, args.partition, max_len=args.max_len,
+            dtype=dtype, attend_floor=args.attend_floor,
+            stage_params=[st["params"] for st in pipe.stages],
+            device=pipe.device)
+        return PrefillFleet(prefill_pipe, path=args.disaggregate,
+                            ship_bits=args.kv_ship_bits,
+                            max_concurrent=args.prefill_concurrency), \
+            None, None
+    from .comm import dcn
+    world = 1 + args.prefill_ranks
+    addrs = [(args.host, port) for port in _free_ports(world, args.host)]
+    worker_cmd = [
+        str(world), "--dcn-addrs",
+        ",".join(f"{h}:{port}" for h, port in addrs),
+        "-m", args.model_name, "--max-len", str(args.max_len),
+        "-t", args.dtype, "--attend-floor", str(args.attend_floor),
+        "--heartbeat-interval", str(args.prefill_heartbeat_interval),
+        "--device", pipe.device.type]
+    if args.partition:
+        worker_cmd += ["-pt", ",".join(f"{l},{r}"
+                                       for l, r in args.partition)]
+    if args.model_file:
+        worker_cmd += ["-M", os.path.abspath(args.model_file)]
+    # per-worker observability listeners (GET /metrics, /healthz,
+    # /debug/spans): /healthz names each worker's http_url
+    pf_http = dict(zip(range(1, world),
+                       _free_ports(args.prefill_ranks, args.host)))
+    supervisor = PrefillWorkerSupervisor(
+        worker_cmd, ranks=range(1, world),
+        respawn=not args.no_prefill_respawn, http_ports=pf_http)
+    ship_ctx = dcn.DistDcnContext(world, 0, addrs)
+    try:
+        ship_ctx.init()
+        supervisor.wait_ready(timeout=600.0)
+        fleet = RemotePrefillFleet(
+            ship_ctx, ranks=range(1, world), dtype=dtype,
+            ship_bits=args.kv_ship_bits,
+            lease_timeout_s=args.prefill_lease_timeout,
+            max_attempts=args.prefill_attempts,
+            max_concurrent=max(1, args.prefill_concurrency),
+            heartbeat_interval=args.prefill_heartbeat_interval,
+            device=pipe.device)
+    except BaseException:
+        supervisor.stop()
+        ship_ctx.shutdown()
+        raise
+    return fleet, supervisor, ship_ctx
+
+
+class WorkerSupervisor:
+    """Spawns and supervises a fleet of child worker PROCESSES: respawn on
+    death with crash-loop backoff and an epoch bump per incarnation (env
+    `DCN_EPOCH`). Subclasses name the fleet (`LABEL`/`TAG`) and give the
+    per-rank argv and ready-line contract: `PrefillWorkerSupervisor` runs
+    the prefill fleet of `--disaggregate process`, `ReplicaSupervisor`
+    the decode replicas of `--role router`. Port of the JAX server's
+    supervisor base."""
+
+    LABEL = "worker"       # log name ("prefill worker rank 1 died")
+    TAG = "worker"         # stdout tee prefix ("[worker r1] ...")
 
     RESPAWN_DELAY_S = 0.5
     RESPAWN_BACKOFF_MAX_S = 30.0
     FAST_DEATH_S = 5.0     # an incarnation dying this fast escalates
 
-    def __init__(self, base_cmd, host, ports, respawn=True):
-        self._base_cmd = list(base_cmd)
-        self._host = host
-        self._ports = list(ports)
-        self.ranks = tuple(range(len(self._ports)))
+    def __init__(self, ranks, respawn=True):
+        self.ranks = tuple(ranks)
         self.respawn = bool(respawn)
         self._procs = {}                  # rank -> Popen
         self._epoch = {r: 0 for r in self.ranks}
         self._ready = {r: threading.Event() for r in self.ranks}
-        # crash-loop protection: a replica that dies FAST (startup
+        # crash-loop protection: a worker that dies FAST (startup
         # failure) doubles its respawn delay up to the cap; an
         # incarnation that lived a while resets the backoff
         self._backoff = {r: self.RESPAWN_DELAY_S for r in self.ranks}
@@ -1849,26 +2040,26 @@ class ReplicaSupervisor:
         # the rejoin stays fenced against every dead incarnation
         self._retired = set()
         self._stop = threading.Event()
-        self._lock = make_lock("serve.replica_sup")
+        self._lock = make_lock(f"serve.{self.TAG}_sup")
         self._watchers = []
         for r in self.ranks:
             self._spawn(r)
         self._supervisor = threading.Thread(target=self._watch_loop,
                                             daemon=True,
-                                            name="replica-supervisor")
+                                            name=f"{self.TAG}-supervisor")
         self._supervisor.start()
 
-    # -- the replica's argv/env/ready-line contract ----------------------
+    # -- the per-fleet contract (subclasses) -----------------------------
 
     def _argv(self, rank):
-        return [sys.executable, "-m", "pipeedge_tpu_torch.serve"] \
-            + self._base_cmd + ["--host", self._host,
-                                "--port", str(self._ports[rank])]
+        raise NotImplementedError
 
     def _env(self, rank):
         env = dict(os.environ)
+        # every incarnation carries its epoch: a respawned worker's
+        # JOIN/readmission is fenced against its dead predecessor
         env["DCN_EPOCH"] = str(self._epoch[rank])
-        # the package's own checkout first, wherever the router runs from
+        # the package's own checkout first, wherever the server runs from
         root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
         env["PYTHONPATH"] = os.pathsep.join(
             [root] + [p for p in env.get("PYTHONPATH", "").split(os.pathsep)
@@ -1876,18 +2067,11 @@ class ReplicaSupervisor:
         return env
 
     def _is_ready(self, rank, line):
-        # the replica's own "serving ... on HOST:PORT" line
-        return (line.startswith("serving ")
-                and f" on {self._host}:{self._ports[rank]}" in line)
+        raise NotImplementedError
 
     def _on_add_rank(self, rank):
-        # a resurrected rank reuses its old port (the listener is gone:
-        # nothing holds it); a brand-new rank gets a fresh one
-        while len(self._ports) <= rank:
-            self._ports += _free_ports(1, self._host)
-
-    def url_of(self, rank):
-        return f"http://{self._host}:{self._ports[rank]}"
+        """Subclass hook: provision per-rank resources (a port) BEFORE the
+        new rank's first spawn."""
 
     # -- lifecycle -------------------------------------------------------
 
@@ -1905,17 +2089,20 @@ class ReplicaSupervisor:
             self._procs[rank] = proc
             self._spawned_at[rank] = time.monotonic()
         t = threading.Thread(target=self._pump, args=(rank, proc),
-                             daemon=True, name=f"replica-out-r{rank}")
+                             daemon=True, name=f"{self.TAG}-out-r{rank}")
         t.start()
+        # pump threads exit when their worker's stdout closes: prune the
+        # finished ones so a long-lived server keeps no record per respawn
         self._watchers = [w for w in self._watchers if w.is_alive()]
         self._watchers.append(t)
-        print(f"decode replica rank {rank} spawned "
+        print(f"{self.LABEL} rank {rank} spawned "
               f"(pid={proc.pid}, epoch={self._epoch[rank]})", flush=True)
 
     def _pump(self, rank, proc):
-        # tee the replica's output through this process's stdout, prefixed
+        # tee the worker's output through this process's stdout, prefixed:
+        # the chaos harness keys on the workers' ready and exit lines
         for line in proc.stdout:
-            print(f"[replica r{rank}] {line}", end="", flush=True)
+            print(f"[{self.TAG} r{rank}] {line}", end="", flush=True)
             if self._is_ready(rank, line):
                 self._ready[rank].set()
 
@@ -1940,7 +2127,7 @@ class ReplicaSupervisor:
                         self._backoff[rank] = self.RESPAWN_DELAY_S
                     self._respawn_after[rank] = now + self._backoff[rank]
                     dead_pending.add(rank)
-                    print(f"decode replica rank {rank} died "
+                    print(f"{self.LABEL} rank {rank} died "
                           f"(rc={proc.returncode}; respawn backoff "
                           f"{self._backoff[rank]:g}s)", flush=True)
                     if not self.respawn:
@@ -1961,7 +2148,7 @@ class ReplicaSupervisor:
             if not self._ready[rank].wait(
                     max(0.0, deadline - time.monotonic())):
                 raise RuntimeError(
-                    f"decode replica rank {rank} never became ready "
+                    f"{self.LABEL} rank {rank} never became ready "
                     f"within {timeout}s")
 
     def restart(self, rank):
@@ -2023,7 +2210,7 @@ class ReplicaSupervisor:
             except subprocess.TimeoutExpired:
                 proc.kill()
                 proc.wait(timeout=5)
-        print(f"decode replica rank {rank} retired "
+        print(f"{self.LABEL} rank {rank} retired "
               f"(epoch={self._epoch[rank]})", flush=True)
         return True
 
@@ -2052,6 +2239,98 @@ class ReplicaSupervisor:
             except subprocess.TimeoutExpired:
                 proc.kill()
                 proc.wait(timeout=5)
+        # the workers' last lines (their kernel_launches=) reach this
+        # process's stdout before it goes on to exit
+        for t in self._watchers:
+            t.join(timeout=5)
+
+
+class PrefillWorkerSupervisor(WorkerSupervisor):
+    """The prefill fleet of `--disaggregate process` (`python -m
+    pipeedge_tpu_torch.prefill_worker` ranks 1..N of the ship plane's DCN
+    world). A worker that dies (crash, OOM, chaos kill) is respawned with
+    `DCN_EPOCH` incremented, so its JOIN clears the decode side's death
+    fence and the fleet readmits it. Chaos: `PIPEEDGE_PREFILL_CHAOS` (a
+    `DCN_CHAOS` spec) arms deterministic faults in ONE worker's env
+    (`PIPEEDGE_PREFILL_CHAOS_RANK`, default 1) for the first incarnation
+    only: respawns come up clean, as with the restart@K:MS contract."""
+
+    LABEL = "prefill worker"
+    TAG = "prefill"
+
+    def __init__(self, worker_cmd, ranks, respawn=True, http_ports=None):
+        self._cmd = list(worker_cmd)      # after the rank, per rank
+        # rank -> observability HTTP port (each worker serves /metrics +
+        # /debug/spans there, so the fleet collector and trace_report
+        # --fleet reach prefill processes too)
+        self._http_ports = dict(http_ports or {})
+        super().__init__(ranks, respawn=respawn)
+
+    def _argv(self, rank):
+        argv = [sys.executable, "-m", "pipeedge_tpu_torch.prefill_worker",
+                str(rank)] + self._cmd
+        port = self._http_ports.get(rank)
+        if port:
+            argv += ["--http-port", str(port)]
+        return argv
+
+    def snapshot(self):
+        out = super().snapshot()
+        for rank, port in self._http_ports.items():
+            rec = out.get(str(rank))
+            if rec is not None:
+                rec["http_url"] = f"http://127.0.0.1:{port}"
+        return out
+
+    def _env(self, rank):
+        env = super()._env(rank)
+        chaos = os.getenv("PIPEEDGE_PREFILL_CHAOS")
+        chaos_rank = int(os.getenv("PIPEEDGE_PREFILL_CHAOS_RANK", "1"))
+        if chaos and rank == chaos_rank and self._epoch[rank] == 0:
+            env["DCN_CHAOS"] = chaos
+        return env
+
+    def _is_ready(self, rank, line):
+        # the exact machine line only: a bare substring ("ready") would
+        # also match a model-build warning and release wait_ready early
+        return line.startswith(f"prefill worker rank {rank} ready")
+
+
+class ReplicaSupervisor(WorkerSupervisor):
+    """The decode replicas behind `--role router`: each rank is a full
+    `python -m pipeedge_tpu_torch.serve --role replica` process on its
+    own port. A dead replica respawns with the next epoch after a
+    crash-loop backoff, and the router's health polls readmit it once it
+    proves itself. `restart(rank)` is the drain endgame;
+    `add_rank`/`retire_rank` are the autoscaler's actuators."""
+
+    LABEL = "decode replica"
+    TAG = "replica"
+
+    def __init__(self, base_cmd, host, ports, respawn=True):
+        self._base_cmd = list(base_cmd)
+        self._host = host
+        self._ports = list(ports)
+        super().__init__(range(len(self._ports)), respawn=respawn)
+
+    def _argv(self, rank):
+        return [sys.executable, "-m", "pipeedge_tpu_torch.serve"] \
+            + self._base_cmd + ["--host", self._host,
+                                "--port", str(self._ports[rank])]
+
+    def _is_ready(self, rank, line):
+        # the replica's own "serving ... on HOST:PORT" line
+        return (line.startswith("serving ")
+                and f" on {self._host}:{self._ports[rank]}" in line)
+
+    def _on_add_rank(self, rank):
+        # a resurrected rank reuses its old port (the listener is gone:
+        # nothing holds it); a brand-new rank gets a fresh one
+        while len(self._ports) <= rank:
+            self._ports += _free_ports(1, self._host)
+
+    def url_of(self, rank):
+        return f"http://{self._host}:{self._ports[rank]}"
 
 
 def _exit_once(*_):
@@ -2442,16 +2721,34 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
         _run_router(args)
         return
     pipe = build_pipeline(args)
+    # SIGTERM unwinds through the finally below: the executors and the
+    # prefill workers stop, the trace is written and the process exits 0
+    signal.signal(signal.SIGTERM, _exit_once)
+    prefill_fleet, prefill_supervisor, ship_ctx = \
+        build_prefill_fleet(args, pipe)
     # spans are always on in serving processes: GET /debug/spans drains
     # the ring without pre-arming; --trace-spans controls only the
     # shutdown trace dump
     telemetry.configure(rank=0)
-    service = make_service(args, pipe)
-    server = Server((args.host, args.port),
-                    make_handler(service, args.model_name))
-    # SIGTERM unwinds through the finally below: the executors stop, the
-    # trace is written and the process exits 0
-    signal.signal(signal.SIGTERM, _exit_once)
+    service = None
+    try:
+        service = make_service(args, pipe, prefill_fleet=prefill_fleet,
+                               prefill_supervisor=prefill_supervisor)
+        if isinstance(prefill_fleet, RemotePrefillFleet):
+            # ship-plane faults (lease timeouts, zombie drops, worker
+            # deaths and readmissions) land in the flight recorder's ring
+            prefill_fleet.flight_note = service.flight.note
+        server = Server((args.host, args.port),
+                        make_handler(service, args.model_name))
+    except BaseException:
+        if service is not None:
+            service.stop()
+        elif prefill_supervisor is not None:
+            prefill_fleet.close()
+            prefill_supervisor.stop()
+        if ship_ctx is not None:
+            ship_ctx.shutdown()
+        raise
     print(f"serving {args.model_name} ({len(pipe.stages)} stages, "
           f"{args.executor} executor) on {args.host}:{args.port}",
           flush=True)
@@ -2460,10 +2757,16 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     finally:
         server.server_close()
         service.stop()
+        if ship_ctx is not None:
+            ship_ctx.shutdown()
         # the kernels this process launched (a replica behind a router
-        # prints it through the router's output when it is retired)
-        print("kernel_launches=" + json.dumps(_build.launch_counts,
-                                              sort_keys=True), flush=True)
+        # prints it through the router's output when it is retired), in
+        # one write: `print` writes the text and its newline apart, and a
+        # handler thread's error report (stderr, the same pipe under a
+        # supervisor) could land between them, after the line's JSON
+        sys.stdout.write("kernel_launches=" + json.dumps(
+            _build.launch_counts, sort_keys=True) + "\n")
+        sys.stdout.flush()
         if args.trace_spans and telemetry.recorder() is not None:
             from .telemetry import chrome_trace
             chrome_trace.dump_trace(telemetry.recorder().snapshot(),

@@ -18,8 +18,10 @@ one set of HF-layout random weights loaded into both:
 - the port's own contracts: each run equals its own solo `generate`
   (sampled requests too, per seed), a prefix handle's caches are
   unchanged by the requests that use it, a dead or stopped worker fails
-  its waiters, shipped prefill refuses (the paged plane has its own
-  file, `test_torch_kv_plane.py`), and many
+  its waiters, a shipped prefill handle runs on the paged plane and is
+  refused, with the JAX executors' errors, without one or beside a prefix
+  handle (the paged plane and disaggregation have their own files,
+  `test_torch_kv_plane.py` and `test_torch_disagg.py`), and many
   concurrent clients on the stage workers keep every result exact.
 
 Tokens are compared exactly; no logits are compared here.
@@ -436,19 +438,48 @@ def test_sampled_request_equals_solo_generate(pipes, executor):
 
 
 def test_paged_plane_and_shipped_refused(pipes):
-    """Both executors take the paged plane (`kv=`); shipped prefill KV
-    is refused on either cache provider, naming its ROADMAP item."""
-    from pipeedge_tpu_torch.kv import PagedKvBackend
+    """Both executors take the paged plane (`kv=`) and a prefill fleet's
+    `shipped=` handle on it, answering the JAX greedy run. Without a
+    paged backend, and beside a prefix handle, `shipped=` is refused with
+    the JAX executors' errors."""
+    from pipeedge_tpu_torch.kv import PagedKvBackend, PrefillFleet
     from pipeedge_tpu_torch.telemetry import metrics as prom
     pipe = pipes["fp"]["torch"]
-    for cls in (tbatcher.ContinuousBatcher, tbatcher.StageWorkerExecutor):
+    ids = _traffic()["a"]["ids"]
+    want = np.asarray(pipes["fp"]["jax"].generate(ids, 3))
+    fleet = PrefillFleet(pipe, registry=prom.Registry())
+    prefix = pipe.precompute_prefix(ids[0, :3])
+    for cls, jcls in ((tbatcher.ContinuousBatcher, jbatcher.ContinuousBatcher),
+                      (tbatcher.StageWorkerExecutor,
+                       jbatcher.StageWorkerExecutor)):
+        jex = jcls(pipes["fp"]["jax"])
+        try:
+            with pytest.raises(ValueError) as jerr:
+                jex.submit("x", ids, 2, shipped={})
+        finally:
+            if jcls is jbatcher.StageWorkerExecutor:
+                jex.stop()
         for kv in (None, PagedKvBackend(pipe, 16, 4,
                                         registry=prom.Registry())):
             ex = cls(pipe, kv=kv)
             try:
                 assert ex.kv is kv
-                with pytest.raises(ValueError, match="ROADMAP A5.3b"):
-                    ex.submit("x", _traffic()["a"]["ids"], 2, shipped={})
+                if kv is None:
+                    with pytest.raises(ValueError) as err:
+                        ex.submit("x", ids, 2, shipped=fleet.prefill(ids))
+                    assert str(err.value) == str(jerr.value)
+                    assert "shipped KV needs a paged-KV backend" \
+                        in str(err.value)
+                    continue
+                with pytest.raises(ValueError, match="shipped KV already "
+                                   "covers the whole prompt; it does not "
+                                   "compose with a prefix handle"):
+                    ex.submit("p", ids[:, 3:], 2, prefix=prefix,
+                              shipped=fleet.prefill(ids))
+                ex.submit("x", ids, 3, shipped=fleet.prefill(ids))
+                got = (ex.run()["x"] if cls is tbatcher.ContinuousBatcher
+                       else ex.wait("x", timeout=120))
+                np.testing.assert_array_equal(got, want)
             finally:
                 if cls is tbatcher.StageWorkerExecutor:
                     ex.stop()

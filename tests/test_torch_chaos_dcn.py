@@ -123,23 +123,26 @@ def test_no_spare_capacity_aborts_naming_rank(tmp_path):
 
 
 def test_harness_refuses_the_unported_targets(capsys):
-    """serve-disagg stays refused; the serving fleet's targets parse, on
-    the tiny GPT-2 and with their own --expect defaults, and refuse
-    another target's --expect (tests/test_torch_chaos_serving.py runs
-    them)."""
+    """Every target of the JAX tool is ported: serve-disagg and the
+    serving fleet's targets parse, on the tiny GPT-2 and with their own
+    --expect defaults and burst rates (serve-disagg at the JAX tool's 3
+    req/s), and refuse another target's --expect
+    (tests/test_torch_chaos_serving.py runs them)."""
     from pipeedge_tpu_torch import chaos_dcn
-    with pytest.raises(SystemExit) as exc:
-        chaos_dcn.parse_args(["--target", "serve-disagg"])
-    assert exc.value.code == 2
-    assert "--target serve-disagg is not ported to pipeedge_tpu_torch " \
-           "yet (ROADMAP A5.3b" in capsys.readouterr().err
-    for target, expect in (("router-fleet", "router"),
-                           ("autoscale", "scale")):
+    for target, expect, qps in (("serve-disagg", "disagg", 3.0),
+                                ("router-fleet", "router", 20.0),
+                                ("autoscale", "scale", 0.0)):
         args = chaos_dcn.parse_args(["--target", target])
-        assert (args.model_name, args.expect) == ("pipeedge/test-tiny-gpt2",
-                                                  expect)
+        assert (args.model_name, args.expect, args.qps) == (
+            "pipeedge/test-tiny-gpt2", expect, qps)
+    args = chaos_dcn.parse_args(["--target", "serve-disagg", "--chaos",
+                                 "kill@2", "--kv-ship-bits", "8"])
+    assert (args.prefill_ranks, args.kv_pages, args.kv_page_size,
+            args.kv_ship_bits, args.shared_spec) == (
+        2, 96, 8, 8, "shared:16:24:2")
     for target, wrong in (("router-fleet", "scale"), ("autoscale", "heal"),
-                          ("runtime", "steady")):
+                          ("runtime", "steady"),
+                          ("serve-disagg", "router")):
         with pytest.raises(SystemExit):
             chaos_dcn.parse_args(["--target", target, "--expect", wrong])
         assert f"--target {target} takes --expect" \

@@ -26,7 +26,14 @@ port harness's defaults (the commands its docstring gives).
 - autoscale --expect steady: a flat 1 req/s against the 1-replica floor;
   the controller ticks and decides nothing, the fleet stays at the
   floor, nothing is lost, errored or leaked.
+- serve-disagg (`--chaos kill@2 --expect disagg`, the JAX tool's
+  defaults: 2 prefill workers, 3 req/s for 8 s): prefill worker rank 1
+  dies at its second ship; nothing is lost or errored, the lease
+  re-dispatched (or fell back), no page leaked, the victim came back at
+  epoch 1 and was readmitted, no process is left, and the record carries
+  the JAX harness's keys.
 """
+import ast
 import json
 import os
 import subprocess
@@ -84,3 +91,42 @@ def test_autoscale_ramp_scales_up_and_back(tmp_path):
     assert rec["final_size"] == rec["floor"] == 1
     assert rec["errors"] == rec["lost"] == rec["pages_leaked"] == 0
     assert rec["survivors"] == []
+
+
+def _jax_record_keys(function):
+    """The keys `tools/chaos_dcn.py`'s `function` puts in its record (its
+    `record = {...}` and `record.update({...})` literals)."""
+    with open(os.path.join(REPO, "tools", "chaos_dcn.py")) as f:
+        tree = ast.parse(f.read())
+    fn = next(n for n in tree.body
+              if isinstance(n, ast.FunctionDef) and n.name == function)
+    keys = set()
+    for node in ast.walk(fn):
+        if isinstance(node, ast.Assign) and isinstance(node.value, ast.Dict) \
+                and any(getattr(t, "id", None) == "record"
+                        for t in node.targets):
+            keys |= {k.value for k in node.value.keys}
+        elif isinstance(node, ast.Call) \
+                and isinstance(node.func, ast.Attribute) \
+                and node.func.attr == "update" \
+                and getattr(node.func.value, "id", None) == "record":
+            keys |= {k.value for k in node.args[0].keys}
+    return keys
+
+
+def test_serve_disagg_survives_a_prefill_worker_kill(tmp_path):
+    rc, rec, err = _harness(tmp_path, "--target", "serve-disagg",
+                            "--chaos", "kill@2", "--expect", "disagg",
+                            "--verbose")
+    assert rc == 0, (json.dumps(rec), err[-4000:])
+    assert set(rec) - {"survivors", "kernel_launches"} \
+        == _jax_record_keys("run_serve_disagg")
+    assert rec["errors"] == rec["lost"] == rec["pages_leaked"] == 0
+    assert rec["leases"]["redispatched"] + rec["leases"]["fallback"] >= 1
+    assert rec["readmitted"] and rec["recovery_s"] is not None
+    assert rec["worker_epochs"]["1"] == 1 and rec["live_ranks"] == [1, 2]
+    assert rec["survivors"] == []
+    # the server's and each worker's exit line (the victim's last
+    # incarnation is the respawned one)
+    assert {"server", "prefill r1", "prefill r2"} <= set(
+        rec["kernel_launches"])

@@ -129,10 +129,15 @@ FAULT_MODULES = ["sched/failover.py", "comm/chaos.py", "chaos_dcn.py"]
 CONTROL_MODULES = ["loadgen.py"]
 
 
+# disaggregated prefill: the in-process prefill fleet, the cross-process
+# lease protocol and the prefill worker entry
+DISAGG_MODULES = ["kv/disagg.py", "kv/fleet.py", "prefill_worker.py"]
+
+
 @pytest.mark.parametrize("rel", SERVING_MODULES + DECODER_MODULES
                          + LOOP_AND_ROUTER_MODULES + DCN_MODULES
                          + OBSERVATORY_MODULES + FAULT_MODULES
-                         + CONTROL_MODULES)
+                         + CONTROL_MODULES + DISAGG_MODULES)
 def test_serving_modules_import_no_jax_anywhere(rel):
     """Each serving-slice module is scanned, and none imports `jax` or
     `pipeedge_tpu` (nor a root module that does), at module level or
@@ -273,6 +278,16 @@ def test_build_pipeline_without_device_raises_without_gpu():
         build_pipeline("pipeedge/test-tiny-vit", [(1, 4), (5, 8)])
     with pytest.raises(RuntimeError, match="cuda"):
         pipeedge_tpu_torch.resolve_device(None)
+
+
+def test_remote_prefill_fleet_without_device_raises_without_gpu():
+    """The decode side of the prefill fleet decodes shipped handles on the
+    card unless told otherwise."""
+    if torch.cuda.is_available():
+        pytest.skip("this host has a GPU: the default device is valid")
+    from pipeedge_tpu_torch.kv import RemotePrefillFleet
+    with pytest.raises(RuntimeError, match="cuda"):
+        RemotePrefillFleet(None, ranks=[1], dtype=torch.float32)
 
 
 def test_generate_without_device_raises_without_gpu():

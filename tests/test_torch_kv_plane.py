@@ -20,8 +20,10 @@ both packages:
   `generate` (fp and int8 caches, chunked prefill and step-join too);
   sampled requests equal to the port's own solo runs per seed (sampling
   differs between the packages by design, ROADMAP §C);
-- the JAX backend's ship-dependent methods raising, naming their
-  ROADMAP items.
+- the ship-dependent methods: nothing cached exports nothing, a malformed
+  prefix or shipped handle is refused alike by both backends, and a
+  shipped handle installs (disaggregation has its own file,
+  `test_torch_disagg.py`).
 
 Tokens and gathered leaves are compared exactly.
 """
@@ -615,7 +617,10 @@ def test_ship_dependent_methods_name_their_items(pipes):
     """The router's prefix migration is ported (kv/ship.py frames; held in
     tests/test_torch_wire.py): with nothing cached both backends export
     None and refuse a malformed handle alike. The shipped-KV install of
-    disaggregated prefill still names its item."""
+    disaggregated prefill refuses a handle of the wrong stage count with
+    the JAX backend's error, returning the pages it charged, and installs
+    a well-formed one (the first token picked at admission)."""
+    from pipeedge_tpu_torch.kv import PrefillFleet
     kv = _backend(pipes["fp"]["torch"])
     jkv = _jbackend(pipes["fp"]["jax"])
     assert kv.export_prefix([1, 2, 3, 4]) is None
@@ -624,8 +629,29 @@ def test_ship_dependent_methods_name_their_items(pipes):
     for backend in (kv, jkv):
         with pytest.raises(ValueError, match="multiple of page_size"):
             backend.install_prefix([1, 2, 3, 4], bad)
-    with pytest.raises(ValueError, match="ROADMAP A5.3b"):
-        kv._install_shipped(object(), {})
+    ids = _prompts(1)[0]
+    errors = []
+    for backend, mod in ((kv, tbatcher), (jkv, jbatcher)):
+        pipe = backend.pipe
+        req = mod._build_request(pipe, "x", ids, 4, 0.0, 0, 0, None, None,
+                                 None, shipped={"prompt_len": 6,
+                                                "stage_rows": [], "logits":
+                                                np.zeros((1, 8))})
+        with pytest.raises(ValueError) as err:
+            backend.admit(req)
+        errors.append(str(err.value))
+        assert backend.pool.free_pages == backend.pool.n_pages
+    assert errors[0] == errors[1] == \
+        "shipped KV has 0 stages; this pipeline has 2"
+    pipe = pipes["fp"]["torch"]
+    handle = PrefillFleet(pipe, registry=prom.Registry()).prefill(ids)
+    req = tbatcher._build_request(pipe, "ok", ids, 4, 0.0, 0, 0, None,
+                                  None, None, shipped=handle)
+    with torch.inference_mode():
+        kind, token = kv.admit(req)
+    assert kind == "step" and len(req.tokens) == 1
+    assert torch.equal(token[:, 0], req.tokens[0])
+    kv.release(req)
 
 
 def test_orphan_sweep_reclaims_a_dead_submitters_pages(pipe):

@@ -25,8 +25,11 @@ file is given. It is held to:
   concurrent requests equal to its solo run through a dense executor
   that chunks as the server does (fp and int8 caches, both executors),
   and on fp to the JAX `DecodePipeline`'s greedy run;
-- its own contracts: deadline 504s under `--inject-stall`, every refused
-  flag failing at parse time with its ROADMAP item, `--device cuda`
+- disaggregated prefill (`--disaggregate wire`): the JAX server's tokens,
+  `kv` key sets in /healthz and `pipeedge_kv_*` families in /metrics, and
+  its parse errors for the family's flags;
+- its own contracts: deadline 504s under `--inject-stall`, every flag of
+  the JAX server parsing (`serve.REFUSED` is empty), `--device cuda`
   raising on a host without a GPU, and the entry serving one request and
   exiting 0 on SIGTERM as a subprocess, writing its `--trace-spans`
   trace.
@@ -97,7 +100,9 @@ class _PortServer:
         args = serve.parse_args(BASE + ["--device", "cpu",
                                         "--governor-interval", "0.05",
                                         *argv])
-        self.service = serve.make_service(args, serve.build_pipeline(args))
+        pipe = serve.build_pipeline(args)
+        fleet, _, _ = serve.build_prefill_fleet(args, pipe)
+        self.service = serve.make_service(args, pipe, prefill_fleet=fleet)
         self.httpd = serve.Server(("127.0.0.1", 0),
                                   serve.make_handler(self.service, MODEL))
         self.port = self.httpd.server_address[1]
@@ -431,19 +436,21 @@ def test_deadline_504_under_inject_stall(tmp_path, capsys):
         srv.close()
 
 
-REFUSED_VALUES = {"store_true": [], int: ["2"], float: ["1.5"],
-                  None: ["router"]}
+# each flag the disaggregation slice took off `serve.REFUSED` (which is
+# empty now), with a value other than its default
+DISAGG_FLAGS = {"--disaggregate": ["wire", "--kv-pages", "8"],
+                "--prefill-ranks": ["2"], "--prefill-lease-timeout": ["1.5"],
+                "--prefill-attempts": ["2"], "--no-prefill-respawn": [],
+                "--prefill-heartbeat-interval": ["0.25"],
+                "--prefill-concurrency": ["3"], "--kv-ship-bits": ["8"]}
 
 
-@pytest.mark.parametrize("flag", sorted(serve.REFUSED))
-def test_refused_flags_error_at_parse_time(flag, capsys):
-    kw, item = serve.REFUSED[flag]
-    value = REFUSED_VALUES[kw.get("action", kw.get("type"))]
-    with pytest.raises(SystemExit) as err:
-        serve.parse_args(BASE + [flag, *value])
-    assert err.value.code == 2
-    msg = capsys.readouterr().err
-    assert f"{flag} is not ported" in msg and f"ROADMAP {item}" in msg
+@pytest.mark.parametrize("flag", sorted(DISAGG_FLAGS))
+def test_disaggregation_flags_parse(flag):
+    assert not serve.REFUSED
+    args = serve.parse_args(BASE + [flag, *DISAGG_FLAGS[flag]])
+    dest = flag.lstrip("-").replace("-", "_")
+    assert getattr(args, dest) != serve.build_parser().get_default(dest)
 
 
 def test_accepted_flags_parse():
@@ -669,14 +676,18 @@ PARSE_ERRORS = [["--chunked-prefill", "-1"],
                 ["--prefill-budget", "2"],
                 ["--kv-pages", "8", "--chunked-prefill", "4",
                  "--prefill-budget", "0"],
-                ["--draft-model", MODEL, "--kv-bits", "8"]]
+                ["--draft-model", MODEL, "--kv-bits", "8"],
+                ["--disaggregate", "process"],
+                ["--role", "router", "--kv-pages", "8",
+                 "--disaggregate", "wire"]]
 
 
 @pytest.mark.fleet
 @pytest.mark.parametrize("bad", PARSE_ERRORS,
                          ids=["chunk-negative", "chunk-without-pages",
                               "budget-without-chunk", "budget-zero",
-                              "draft-with-int8"])
+                              "draft-with-int8", "disagg-without-pages",
+                              "router-with-disagg"])
 def test_paged_parse_errors_match_jax(bad, capsys):
     with pytest.raises(SystemExit) as err:
         serve.parse_args(BASE + bad)
@@ -793,3 +804,63 @@ def test_tiny_llama_served_equals_solo(llama_jax_oracle, tmp_path, executor,
         httpd.server_close()
         service.stop()
         thread.join(timeout=30)
+
+
+# ---------------------------------------------------------------------------
+# disaggregated prefill at the server
+# ---------------------------------------------------------------------------
+
+DISAGG = ["--kv-pages", "32", "--kv-page-size", "4", "--disaggregate",
+          "wire"]
+
+
+@pytest.fixture(scope="module")
+def jax_disagg_server():
+    """`tools/serve.py --disaggregate wire` on the same model and pages."""
+    port = _free_port()
+    env = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=REPO)
+    proc, _ = _spawn([sys.executable, os.path.join(REPO, "tools",
+                                                   "serve.py"),
+                      *BASE, *DISAGG, "--port", str(port)], env)
+    yield port
+    proc.terminate()
+    proc.wait(timeout=30)
+
+
+@pytest.mark.fleet
+def test_disaggregated_server_matches_jax(jax_disagg_server, oracles):
+    """A `--disaggregate wire --device cpu` server answers the JAX
+    server's tokens (the JAX greedy runs), shipping each prompt it does
+    not hold in its trie, and its /healthz `kv` block and
+    `pipeedge_kv_*` /metrics families have the JAX server's key sets and
+    label sets."""
+    srv = _PortServer(DISAGG)
+    try:
+        bodies = [{"ids": _ids(81, (1, 7)), "new_tokens": 5},
+                  {"ids": _ids(82, (1, 9)), "new_tokens": 4}]
+        for body in bodies:
+            want = np.asarray(oracles["fp"].generate(
+                np.asarray(body["ids"]), body["new_tokens"]))
+            for port in (srv.port, jax_disagg_server):
+                np.testing.assert_array_equal(
+                    np.asarray(_post(port, "/generate", body)["ids"]), want)
+        fleet = srv.service.prefill_fleet
+        assert fleet.m_prefills.value() == 2
+        assert fleet.m_ship_bytes.value(path="wire") > 0
+        got, want = _get(srv.port, "/healthz"), _get(jax_disagg_server,
+                                                      "/healthz")
+        kv, jkv = got["serving"]["kv"], want["serving"]["kv"]
+        assert kv["disaggregated"] is jkv["disaggregated"] is True
+        for key_of in (lambda k: k, lambda k: k["pool"],
+                       lambda k: k["prefix"]):
+            assert sorted(key_of(kv)) == sorted(key_of(jkv))
+        assert kv["leaked"] == 0
+        fams, jfams = ({name: labels for name, labels in _families(
+            _get(port, "/metrics")).items()
+            if name.startswith("pipeedge_kv_")}
+            for port in (srv.port, jax_disagg_server))
+        assert fams == jfams
+        assert {"pipeedge_kv_prefills_total", "pipeedge_kv_ship_bytes_total",
+                "pipeedge_kv_prefill_colocated_total"} <= set(fams)
+    finally:
+        srv.close()
