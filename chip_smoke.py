@@ -439,6 +439,36 @@ Phases, each of which raises on failure (nothing is caught):
      Printed per run: first-token p50/p95, tokens/s, ship bytes, lease
      outcomes, `recovery_s`; the launches are the kernels line's
      `disagg_launches`.
+ 21. the tensor-parallel axis (`parallel/{mesh,tensor}.py`,
+     `ops/qcollectives.py`), the shards sharing the one card:
+     (a) a ViT-Base block (seeded on the card) over 2 and 4 shards
+     (`make_tp_block_fn`) within TP_BLOCK_TOL of the unsharded block,
+     every shard's output equal, kernel 3 once per shard; `qpsum` at 8
+     and 4 bits over 2 and 4 shards of [8, 197, 768] addends, each
+     shard's result equal bit for bit to the same ring through the plain
+     codec on the card and within `qpsum_error_bound` of the exact sum,
+     n^2 encodes and 2n(n-1) decodes a call; kernels 1 and 2 at the
+     ring's chunk shapes ([2364, 256], [1182, 256], and the Llama-3-8B
+     prompt's [16384, 256]) against the plain codec (the ring's one
+     block per item and the edge's 8-block cluster both), kernel 3 at a
+     shard's [8, 197, 6, 64] and kernel 5 over a shard's 6 heads, each
+     timed beside its plain version and bound;
+     (b) beside phase 16's (b) and (d): `runtime -c dcn` ViT-Base in 2
+     ranks at `-pt 1,24,25,48 --stage-tp 2`, one fleet at
+     `--tp-quant-bits 0` with an exact edge (logits within
+     TP_DCN_FP_BOUND of the single-shard forward, argmax equal) and one
+     at `--tp-quant-bits 8` with an 8-bit edge (within LOGIT_BOUND[8]),
+     every rank's launches per kernel (96 kernel-3, 384 + 8 encodes and
+     decodes at 8 bits), the 8-bit fleet traced (`--trace-spans`) and
+     its stage-tagged collective bytes read from `trace_report`'s
+     `collectives` section;
+     (c) `generate --tp 2` against `--tp 1`: GPT-2 `-pt 1,24,25,48`
+     [16, 192] + 64 through the entry on fp and int8 caches (kernel 5
+     per shard, 12 x 2 launches a decode step), Llama-3-8B at
+     LLAMA_BLOCKS in process (GQA kv heads split, the vocab-split head)
+     [4, 512] + 32, each generation held by `near_tie_rule` to the
+     `--tp 1` pipeline's greedy decode; tokens/s and device kernels per
+     decode step at both degrees.
 Phase 3 also holds kernel 5 (decode attention) against its plain version
 at the main path's shapes (windows of a [16, 1024, 12, 64] stage cache at
 buckets 256 and 512, and pos 1000 of the whole cache), pos 0 and W-1,
@@ -3520,7 +3550,9 @@ def spec_path(card: str,
     """Phase 13 (module docstring): gpt2-medium verifying the drafts of
     gpt2 and of its noisy self, host and device sync timed in pairs,
     then as its own draft, then speculative requests through the paged
-    server, then the generate entry."""
+    server; the generate entry runs beside them from the moment the
+    weights are written, for the script's time."""
+    from concurrent.futures import ThreadPoolExecutor
     from pipeedge_tpu_torch import serve
     from pipeedge_tpu_torch.models import gpt2, registry
     from pipeedge_tpu_torch.parallel.decode import build_decode_pipeline
@@ -3535,6 +3567,10 @@ def spec_path(card: str,
             np.savez(files[model], **gpt2.random_npz_weights(
                 registry.get_model_config(model), seed=0))
     res["weights_s"] = time.monotonic() - t0
+    entry_pool = ThreadPoolExecutor(1)
+    entry = entry_pool.submit(generate_entry, [
+        "-m", SPEC_TARGET, "-M", str(files[SPEC_TARGET]), "--draft-model",
+        SPEC_DRAFT, "--gamma", str(SPEC_GAMMA)])
     max_len = 1024
     target = build_decode_pipeline(SPEC_TARGET, None, max_len=max_len,
                                    model_file=str(files[SPEC_TARGET]),
@@ -3606,9 +3642,8 @@ def spec_path(card: str,
     log("spec serve " + json.dumps(served))
     del target, draft
     torch.cuda.empty_cache()
-    res["entry"] = generate_entry(
-        ["-m", SPEC_TARGET, "-M", str(files[SPEC_TARGET]), "--draft-model",
-         SPEC_DRAFT, "--gamma", str(SPEC_GAMMA)])
+    res["entry"] = entry.result()
+    entry_pool.shutdown()
     log("spec entry " + json.dumps(res["entry"]))
     return res
 
@@ -5643,7 +5678,8 @@ def dcn_local_path(weights_file: Path, want) -> dict:
     args = argparse.Namespace(model_name=MODEL, model_file=str(weights_file),
                               device="cuda", data_rank=0, sched_timeout=60,
                               stage_depth=0, stage_ckpt=None, wire_crc=False,
-                              on_peer_death="abort")
+                              on_peer_death="abort", stage_tp=1,
+                              tp_quant_bits=0)
     layers, quant, ranks = PARTITION, [8, 0], [0, 1]
     inputs, _ = runtime.load_batches(MODEL, BATCH, UBATCH,
                                      torch.device("cpu"), torch.float32)
@@ -5724,9 +5760,11 @@ def dcn_abort_path(weights_file: Path) -> dict:
                 tail=out[-1500:])
 
 
-def dcn_path(card: str, host: dict) -> dict:
-    """Phase 16 (a)-(d) on the card, (d) beside (b) (the script's time; one
-    after the other until PR 17); each sub-run's seconds printed."""
+def dcn_path(card: str, host: dict, alongside=None) -> dict:
+    """Phase 16 (a)-(d) on the card, (d) beside (b) for the script's
+    time; each sub-run's seconds printed.
+    `alongside`, a callable, runs beside (b) and (d) (phase 21b's fleets);
+    its result is `res["alongside"]`."""
     from concurrent.futures import ThreadPoolExecutor
     from pipeedge_tpu_torch.models import deit, vit
     from pipeedge_tpu_torch.models import registry
@@ -5747,10 +5785,13 @@ def dcn_path(card: str, host: dict) -> dict:
         return out
 
     deit_w = write_random_checkpoint(deit, DEIT_MODEL, BUILD_DIR)
-    with ThreadPoolExecutor(1) as pool:
+    with ThreadPoolExecutor(2) as pool:
         abort = pool.submit(timed_run, "d", dcn_abort_path, vit_w)
+        beside = None if alongside is None else pool.submit(alongside)
         res["deit"] = timed_run("b", dcn_deit_path, deit_w)
         res["abort"] = abort.result()
+        if beside is not None:
+            res["alongside"] = beside.result()
     want = res["vit"]["results"][BATCH // UBATCH:2 * (BATCH // UBATCH)]
     res["local"] = timed_run("c", dcn_local_path, vit_w, want)
     res["card"] = card
@@ -5937,6 +5978,24 @@ def autoscale_path() -> dict:
     res: dict = {}
     t_phase = time.monotonic()
     r0_pid = None
+
+    def solo_runs():
+        """Every request's solo int8 run in this process on kernel 5, while
+        the router and r0 start, for the script's time; the load starts
+        once they are done."""
+        t_solo = time.monotonic()
+        oracle = serve.build_pipeline(serve.parse_args(base))
+        _build.reset_launch_counts()
+        want = {(k, i): oracle.generate(
+            torch.as_tensor(r["ids"], device="cuda"), r["new"]).cpu().numpy()
+            for k in range(2) for i, r in enumerate(sets[k])}
+        torch.cuda.synchronize()
+        res["solo_s"] = time.monotonic() - t_solo
+        return want, _build.launch_counts["decode_attention"]
+
+    from concurrent.futures import ThreadPoolExecutor
+    solo_pool = ThreadPoolExecutor(1)
+    solo = solo_pool.submit(solo_runs)
     # the loop's flags last: they override the serving flags' --max-active
     router = RouterProc([*base, *AUTOSCALE_FLAGS], timeout=600)
     try:
@@ -5959,6 +6018,9 @@ def autoscale_path() -> dict:
         first = first_out[0]
         res["first"] = {"replica": first["final"].get("replica"),
                         "rid": first["final"].get("rid")}
+        t_wait = time.monotonic()
+        want, res["solo_launches"] = solo.result()
+        res["solo_wait_s"] = time.monotonic() - t_wait
         # (a) the ramp up
         seen = {"t_pressure": None, "t_spawn": None, "t_readmit": None,
                 "size": 0, "r1_pid": None}
@@ -6105,27 +6167,14 @@ def autoscale_path() -> dict:
             "[replica r1] kernel_launches=")), None)
         res["r1_launches"] = (json.loads(launches.split("=", 1)[1])
                               if launches else None)
-        # every answer against its request's solo int8 run, in this
-        # process on kernel 5
-        args = serve.parse_args(base)
-        oracle = serve.build_pipeline(args)
-        want = {}
-        res["mismatched"] = []
-        _build.reset_launch_counts()
-        for k, i, final in [(0, 0, first["final"])] + [
-                (a[0], a[1], a[2]) for a in answers]:
-            if (k, i) not in want:
-                r = sets[k][i]
-                want[(k, i)] = oracle.generate(
-                    torch.as_tensor(r["ids"], device="cuda"),
-                    r["new"]).cpu().numpy()
-            if not np.array_equal(np.asarray(final.get("ids")),
-                                  want[(k, i)]):
-                res["mismatched"].append((k, i))
+        # every answer against its request's solo int8 run (`solo_runs`)
+        res["mismatched"] = [
+            (k, i) for k, i, final in [(0, 0, first["final"])] + [
+                (a[0], a[1], a[2]) for a in answers]
+            if not np.array_equal(np.asarray(final.get("ids")), want[(k, i)])]
         res["solo_runs"] = len(want)
-        res["solo_launches"] = _build.launch_counts["decode_attention"]
-        del oracle
     finally:
+        solo_pool.shutdown()
         res["router_rc"] = router.close()
         res["replicas_gone"] = wait_until(router.replicas_gone, 30)
         res["r0_gone"] = r0_pid is not None and wait_until(
@@ -7473,6 +7522,572 @@ def check_disagg_path(res, device_name: str) -> dict:
                 "plain_decode_ms", "bound_ms", "bound_by", "max_abs_err")}}
 
 
+# --- phase 21: the tensor-parallel axis ---------------------------------------
+
+# (a) ViT-Base blocks over 2 and 4 shards on the one card; the quantized
+# all-reduce at 8 and 4 bits; kernels 1 and 2 at the ring's chunk shapes
+# (a [8, 197, 768] addend split n ways in rows of DEFAULT_BLOCK = 256)
+# and the Llama-3-8B prompt's [4, 512, 4096] at n = 2, kernel 3 at a
+# shard's [8, 197, 6, 64] and kernel 5 over a shard's 6 heads
+TP_DEGREES = (2, 4)
+TP_BITS = (8, 4)
+# a TP block against the unsharded one: the JAX package's tolerance for
+# the same comparison (tests/test_tensor_parallel.py); the row-parallel
+# products are summed across shards, in another order than one matmul
+TP_BLOCK_TOL = dict(rtol=2e-4, atol=2e-5)
+# (b) runtime -c dcn: ViT-Base in 2 ranks cut at a block boundary, 2
+# shards a rank on the one card, at --tp-quant-bits 0 (exact edge) and 8
+# (8-bit edge). At bits 0 the logits against the single-shard forward:
+# 12 blocks each summing their row-parallel products in another order,
+# a few f32 ulps an op, held to phase 6's fp decode bound (1e-4 of max
+# |logit|) and the same argmax; at 8 bits LOGIT_BOUND[8]
+TP_DCN_PT = "1,24,25,48"
+TP_DCN_FP_BOUND = 1e-4
+# (c) generate --tp 2 against --tp 1: GPT-2 through the entry, fp and
+# int8 caches (kernel 5 per shard), and Llama-3-8B at LLAMA_BLOCKS in
+# process (GQA kv heads split, the vocab-split head)
+TP_GEN = (16, 192, 64)            # batch, prompt, new tokens
+TP_LLAMA_GEN = (4, 512, 32)
+
+
+@contextlib.contextmanager
+def plain_codec():
+    """The quantized collectives' encode and decode through the plain
+    codec (`ops/quant.py`) instead of kernels 1 and 2, for the time of the
+    block: the same ring on the card, to hold the kernels' ring to."""
+    from pipeedge_tpu_torch.ops import fused_quant, quant
+    saved = fused_quant.encode_outerdim, fused_quant.decode_outerdim
+    fused_quant.encode_outerdim = (
+        lambda x, bit, mode="original", cluster=None:
+        quant.tensor_encode_outerdim(x, bit, mode))
+    fused_quant.decode_outerdim = quant.tensor_decode_outerdim
+    try:
+        yield
+    finally:
+        fused_quant.encode_outerdim, fused_quant.decode_outerdim = saved
+
+
+def plain_ring_ms(group, addends, bit: int) -> float:
+    """Device time of the quantized all-reduce through the plain codec."""
+    from pipeedge_tpu_torch.ops import qcollectives
+    with plain_codec():
+        return time_ms(lambda: qcollectives.qpsum(group, addends, bit),
+                       iters=5, reps=5)
+
+
+def launch_delta(before: dict) -> dict:
+    from pipeedge_tpu_torch.ops import _build
+    return {k: v - before.get(k, 0) for k, v in _build.launch_counts.items()}
+
+
+def tp_kernels_path(dev, gen) -> dict:
+    """Phase 21a: a ViT-Base block over 2 and 4 shards against the
+    unsharded block; `qpsum` at 8 and 4 bits against the same ring through
+    the plain codec on the card (bit for bit, per shard) and the exact
+    sum (`qpsum_error_bound`); kernels 1 and 2 at the ring's chunk shapes,
+    kernel 3 at a shard's heads and kernel 5 over a shard's heads, each
+    timed beside its plain version and its bound."""
+    import torch.nn.functional as F
+    from pipeedge_tpu_torch.models import registry, vit
+    from pipeedge_tpu_torch.ops import _build, attention, qcollectives
+    from pipeedge_tpu_torch.ops import decode_attention as da
+    from pipeedge_tpu_torch.ops import fused_quant, quant
+    from pipeedge_tpu_torch.parallel import decode
+    from pipeedge_tpu_torch.parallel import tensor as tp
+    from pipeedge_tpu_torch.parallel.mesh import ShardGroup, devices_for
+
+    cfg = registry.get_model_config(MODEL)
+    d, it = cfg.hidden_size, cfg.intermediate_size
+
+    def mat(*shape, mean=0.0):
+        return torch.empty(shape, device=dev).normal_(mean, 0.02,
+                                                      generator=gen)
+
+    def lin(n_in, n_out):
+        return {"w": mat(n_in, n_out), "b": mat(n_out)}
+
+    block = {"ln_before": {"scale": mat(d, mean=1.0), "bias": mat(d)},
+             "q": lin(d, d), "k": lin(d, d), "v": lin(d, d),
+             "attn_out": lin(d, d),
+             "ln_after": {"scale": mat(d, mean=1.0), "bias": mat(d)},
+             "mlp_up": lin(d, it), "mlp_down": lin(it, d)}
+    x = torch.randn((UBATCH, 197, d), generator=gen, device=dev)
+    with torch.inference_mode():
+        exact = x
+        for sub in range(4):
+            exact = vit.sublayer(block, sub, exact, cfg)
+    res = {"blocks": [], "qpsum": [], "ring": [], "attention": None,
+           "decode_attention": None}
+    for n in TP_DEGREES:
+        group = ShardGroup(devices_for(n, "cuda"))
+        fn = tp.make_tp_block_fn(cfg, group)
+        sharded = tp.shard_block_params(cfg, block, group)
+        xs = group.replicate(x)
+        before = dict(_build.launch_counts)
+        got = fn(sharded, xs)
+        torch.cuda.synchronize()
+        counts = launch_delta(before)
+        err = float((got[0] - exact).abs().max())
+        ok = bool(torch.allclose(got[0], exact, **TP_BLOCK_TOL))
+        res["blocks"].append(dict(
+            n=n, shape=list(x.shape), max_abs_err=err,
+            rel_err=err / float(exact.abs().max()), close=ok,
+            shards_equal=all(torch.equal(g, got[0]) for g in got[1:]),
+            counts=counts, ms=time_ms(lambda: fn(sharded, xs), iters=5,
+                                      reps=5)))
+        log("tp block " + json.dumps(res["blocks"][-1]))
+        addends = [torch.randn((UBATCH, 197, d), generator=gen,
+                               device=dev) for _ in range(n)]
+        summed = group.psum(addends)[0]
+        absrange = max(float(a.max() - a.min()) for a in addends)
+        for bit in TP_BITS:
+            qcollectives.reset_trace_tally()
+            before = dict(_build.launch_counts)
+            out = qcollectives.qpsum(group, addends, bit)
+            torch.cuda.synchronize()
+            counts = launch_delta(before)
+            with plain_codec():
+                ref = qcollectives.qpsum(group, addends, bit)
+            torch.cuda.synchronize()
+            bound = qcollectives.qpsum_error_bound(absrange, bit, n)
+            err = max(float((o - summed).abs().max()) for o in out)
+            res["qpsum"].append(dict(
+                n=n, bit=bit, shape=list(summed.shape),
+                equal_plain_ring=all(torch.equal(o, r)
+                                     for o, r in zip(out, ref)),
+                max_abs_err=err, error_bound=bound, counts=counts,
+                # a shard encodes each reduce-scatter hop's payload and its
+                # reduced chunk once, and decodes every hop of both rings
+                expected_counts={"fused_encode": n * n,
+                                 "fused_decode": 2 * (n - 1) * n},
+                tally=qcollectives.trace_tally(),
+                ms=time_ms(lambda: qcollectives.qpsum(group, addends, bit),
+                           iters=5, reps=5),
+                plain_ms=plain_ring_ms(group, addends, bit),
+                exact_psum_ms=time_ms(lambda: group.psum(addends), iters=5,
+                                      reps=5)))
+            qcollectives.reset_trace_tally()
+            log("tp qpsum " + json.dumps(res["qpsum"][-1]))
+    # kernels 1 and 2 at the ring's [m / 256, 256] chunks: ViT-Base's
+    # [8, 197, 768] addend at n = 2 and 4, the Llama-3-8B prompt's
+    # [4, 512, 4096] at n = 2
+    block_len = qcollectives.DEFAULT_BLOCK
+    for name, m, n in (("vitb", UBATCH * 197 * d, 2),
+                       ("vitb", UBATCH * 197 * d, 4),
+                       ("llama3_prompt", 4 * 512 * 4096, 2)):
+        rows = -(-m // (n * block_len))
+        chunk = torch.randn((rows, block_len), generator=gen, device=dev)
+        for bit in TP_BITS:
+            enc = fused_quant.fused_encode_outerdim(
+                chunk, bit, cluster=qcollectives.RING_CLUSTER)
+            ref = quant.tensor_encode_outerdim(chunk, bit)
+            dec = fused_quant.fused_decode_outerdim(enc)
+            dref = quant.tensor_decode_outerdim(ref)
+            torch.cuda.synchronize()
+            equal = all(torch.equal(getattr(enc, f), getattr(ref, f))
+                        for f in ("data", "scale", "shift")) \
+                and torch.equal(dec, dref)
+            # the ring's encode (RING_CLUSTER blocks per item) beside the
+            # edge's (ENCODE_CLUSTER)
+            ring = qcollectives.RING_CLUSTER
+            edge = fused_quant.fused_encode_outerdim(
+                chunk, bit, cluster=fused_quant.ENCODE_CLUSTER)
+            equal_edge = all(torch.equal(getattr(edge, f), getattr(ref, f))
+                             for f in ("data", "scale", "shift"))
+            nbytes = codec_bytes((rows, block_len), bit)
+            row = dict(
+                case=f"{name} n={n}", shape=[rows, block_len], bit=bit,
+                equal_plain=equal, edge_cluster_equal_plain=equal_edge,
+                encode_ms=time_ms(lambda: fused_quant.fused_encode_outerdim(
+                    chunk, bit, cluster=ring)),
+                cluster=ring, edge_cluster=fused_quant.ENCODE_CLUSTER,
+                edge_cluster_encode_ms=time_ms(
+                    lambda: fused_quant.fused_encode_outerdim(
+                        chunk, bit, cluster=fused_quant.ENCODE_CLUSTER)),
+                plain_encode_ms=time_ms(
+                    lambda: quant.tensor_encode_outerdim(chunk, bit)),
+                decode_ms=time_ms(
+                    lambda: fused_quant.fused_decode_outerdim(enc)),
+                plain_decode_ms=time_ms(
+                    lambda: quant.tensor_decode_outerdim(ref)),
+                bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+                max_abs_err=float((dec - dref).abs().max()))
+            res["ring"].append(row)
+            log("tp ring codec " + json.dumps(row))
+    # kernel 3 at a shard's heads: ViT-Base's 12 heads over 2 shards
+    flip = (0, 2, 1, 3)
+    q, k, v = (torch.randn((UBATCH, 197, 6, 64), generator=gen, device=dev)
+               for _ in range(3))
+    got = attention.fused_attention(q, k, v)
+    want = attention.attention_reference(
+        q.permute(flip), k.permute(flip), v.permute(flip)).permute(flip)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, **ATTN_TOL[torch.float32])
+    bound, bound_by = attention_bound_ms(UBATCH, 6, 197, 64, torch.float32,
+                                         False)
+    res["attention"] = dict(
+        shape=[UBATCH, 197, 6, 64], dtype="float32",
+        max_abs_err=float((got - want).abs().max()),
+        ms=time_ms(lambda: attention.fused_attention(q, k, v)),
+        plain_ms=time_ms(lambda: attention.attention_reference(
+            q.permute(flip), k.permute(flip), v.permute(flip))),
+        library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+            q.permute(flip), k.permute(flip), v.permute(flip))),
+        bound_ms=bound, bound_by=bound_by)
+    log("tp attention " + json.dumps(res["attention"]))
+    # kernel 5 over a shard's 6 heads: a bucket-256 window of GPT-2's
+    # [16, 1024, 6, 64] shard cache at pos 200
+    b, w, h, hd, pos = DECODE_BATCH, 256, 6, 64, 200
+    cache = {}
+    for tag in ("k", "v"):
+        rows_ = torch.randn((b, DECODE_MAX_LEN, h, hd), generator=gen,
+                            device=dev)
+        cache[tag], cache[tag + "_scale"], cache[tag + "_shift"] = \
+            decode._quantize_rows(rows_)
+    win = {key: val[:, :w] for key, val in cache.items()}
+    qd, k_new, v_new = (torch.randn((b, 1, h, hd), generator=gen,
+                                    device=dev) for _ in range(3))
+    args = (qd, win["k"], win["k_scale"], win["k_shift"], win["v"],
+            win["v_scale"], win["v_shift"], k_new, v_new, pos)
+    got = da.int8_decode_attention(*args, variant=2)
+    want = da.decode_attention_reference(*args)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, **DECODE_ATTN_TOL[torch.float32])
+    bound, bound_by = decode_bound_ms(b, h, hd, pos, torch.float32)
+    res["decode_attention"] = dict(
+        shape=[b, w, h, hd], pos=pos, dtype="float32",
+        max_abs_err=float((got - want).abs().max()),
+        ms=time_ms(lambda: da.int8_decode_attention(*args, variant=2)),
+        plain_ms=time_ms(lambda: da.decode_attention_reference(*args)),
+        bound_ms=bound, bound_by=bound_by, library_ms=None)
+    log("tp decode_attention " + json.dumps(res["decode_attention"]))
+    return res
+
+
+def check_tp_kernels(res, device_name: str) -> None:
+    problems = []
+    for r in res["blocks"]:
+        want = {"fused_attention": r["n"], "fused_encode": 0,
+                "fused_decode": 0, "int8_matmul": 0, "decode_attention": 0}
+        if not (r["close"] and r["shards_equal"]) or r["counts"] != want:
+            problems.append(f"tp block n={r['n']}: {r}")
+    for r in res["qpsum"]:
+        want = r["expected_counts"]
+        if not r["equal_plain_ring"] or r["max_abs_err"] > r["error_bound"] \
+                or r["max_abs_err"] == 0 \
+                or any(r["counts"][k] != v for k, v in want.items()):
+            problems.append(f"tp qpsum n={r['n']} bit {r['bit']}: "
+                            f"{ {k: v for k, v in r.items() if k != 'tally'} }")
+    for r in res["ring"]:
+        if not r["equal_plain"] or not r["edge_cluster_equal_plain"]:
+            problems.append(f"tp ring codec {r['case']} bit {r['bit']}: "
+                            "not equal to the plain codec")
+    if problems:
+        raise AssertionError("phase 21a: " + "; ".join(problems))
+    log(f"phase 21a checks held ({device_name})")
+
+
+def tp_dcn_fleet(weights_file: Path, tp_bits: int, edge_bits: int,
+                 exact) -> dict:
+    """One phase-21b fleet: ViT-Base in 2 ranks, `--stage-tp 2
+    --tp-quant-bits tp_bits`, edge at `edge_bits`; the 8-bit one also
+    traced (`--trace-spans` on every rank) and read by `trace_report`."""
+    traced = tp_bits > 0
+    argv = ["-m", MODEL, "-M", str(weights_file), "-pt", TP_DCN_PT, "-q",
+            f"{edge_bits},0", "-r", "0,1", "-b", str(BATCH), "-u",
+            str(UBATCH), "--stage-tp", "2", "--tp-quant-bits", str(tp_bits),
+            "--save-results", "results.npz", "--sched-timeout", "300"]
+    if traced:
+        argv += ["--trace-spans", "spans.json"]
+    fleet = dcn_fleet(argv, 2, BUILD_DIR / f"tp_dcn{tp_bits}")
+    with np.load(fleet["dirs"][0] / "results.npz") as f:
+        outs = [f[f"arr_{i}"] for i in range(len(f.files))]
+    want = [e.float().cpu().numpy() for e in exact]
+    scale = max(float(np.abs(w).max()) for w in want)
+    n_mb = BATCH // UBATCH
+    blocks = 6                       # each rank's stage: 24 sublayers
+    calls = 2 * blocks               # all-reduces per microbatch
+    codec = 2 * (2 - 1) * 2 * calls if tp_bits else 0
+    edge = n_mb if edge_bits else 0
+    expected = {r: {"fused_attention": 2 * blocks * n_mb,
+                    "fused_encode": codec * n_mb + (edge if r == 0 else 0),
+                    "fused_decode": codec * n_mb + (edge if r == 1 else 0),
+                    "int8_matmul": 0, "decode_attention": 0}
+                for r in (0, 1)}
+    res = dict(tp_bits=tp_bits, edge_bits=edge_bits, n=len(outs),
+               shape=list(outs[0].shape) if outs else None,
+               finite=all(bool(np.isfinite(o).all()) for o in outs),
+               rel_err=max(float(np.abs(o - w).max())
+                           for o, w in zip(outs, want)) / scale,
+               argmax_equal=all(np.array_equal(o.argmax(-1), w.argmax(-1))
+                                for o, w in zip(outs, want)),
+               counts={r: fleet["ranks"][r]["total"] for r in (0, 1)},
+               expected_counts=expected, seconds=fleet["seconds"],
+               items_per_s=fleet["report"].get(0, {}).get(
+                   "throughput_items_sec"),
+               split_logged=all(
+                   "block(s) TP-split over 2 shards on cuda:0, cuda:0"
+                   in fleet["ranks"][r]["out"] for r in (0, 1)))
+    if traced:
+        rep = subprocess.run(
+            [sys.executable, "-m", "pipeedge_tpu_torch.trace_report",
+             str(fleet["dirs"][0] / "spans.json")], cwd=ROOT,
+            env=dict(os.environ, PYTHONPATH=str(ROOT)), capture_output=True,
+            text=True, timeout=120)
+        lines = rep.stdout.strip().splitlines()
+        res["collectives"] = (json.loads(lines[-1]).get("collectives")
+                              if rep.returncode == 0 and lines else None)
+        res["trace_report_rc"] = rep.returncode
+        # per stage: `calls` all-reduces of one [8, 197, 768] footprint a
+        # microbatch, each 2 ring hops of one encoded chunk
+        from pipeedge_tpu_torch.ops import qcollectives
+        m = UBATCH * 197 * 768
+        chunk = qcollectives.DEFAULT_BLOCK * -(-m // (
+            2 * qcollectives.DEFAULT_BLOCK))
+        res["expected_stage_bytes"] = n_mb * calls * 2 * \
+            qcollectives._enc_bytes_per_chunk(chunk, qcollectives
+                                              .DEFAULT_BLOCK, tp_bits)
+    return res
+
+
+def tp_dcn_path(weights_file: Path) -> dict:
+    """Phase 21b: the two fleets at once (beside phase 16's (b) and (d))."""
+    from concurrent.futures import ThreadPoolExecutor
+    from pipeedge_tpu_torch import runtime
+    t0 = time.monotonic()
+    inputs, _ = runtime.load_batches(MODEL, BATCH, UBATCH,
+                                     torch.device("cuda"), torch.float32)
+    exact = single_shard_logits(MODEL, weights_file, inputs, "cuda")
+    with ThreadPoolExecutor(2) as pool:
+        futs = {bits: pool.submit(tp_dcn_fleet, weights_file, bits, bits,
+                                  exact) for bits in (0, 8)}
+        res = {f"bits{bits}": f.result() for bits, f in futs.items()}
+    res["seconds"] = time.monotonic() - t0
+    return res
+
+
+def check_tp_dcn(res, device_name: str) -> dict:
+    """Phase 21b's gates; returns each rank's launches per fleet."""
+    problems = []
+    for key in ("bits0", "bits8"):
+        r = res[key]
+        log(f"tp dcn {key}: " + json.dumps(
+            {k: v for k, v in r.items() if k != "collectives"}
+            | {"card": device_name}, sort_keys=True, default=str))
+        if r["n"] != BATCH // UBATCH or not r["finite"] \
+                or r["shape"] != [UBATCH, 1000] or not r["split_logged"]:
+            problems.append(f"{key}: {r['n']} results of shape {r['shape']}"
+                            f", finite={r['finite']}, split logged="
+                            f"{r['split_logged']}")
+        if r["counts"] != r["expected_counts"]:
+            problems.append(f"{key}: launches {r['counts']} != "
+                            f"{r['expected_counts']}")
+    r0, r8 = res["bits0"], res["bits8"]
+    if not (r0["rel_err"] <= TP_DCN_FP_BOUND and r0["argmax_equal"]):
+        problems.append(f"bits 0: logit error {r0['rel_err']} over "
+                        f"{TP_DCN_FP_BOUND} or argmax differs "
+                        f"({r0['argmax_equal']})")
+    if not 0 < r8["rel_err"] <= LOGIT_BOUND[8]:
+        problems.append(f"bits 8: logit error {r8['rel_err']} not in "
+                        f"(0, {LOGIT_BOUND[8]}]")
+    col = r8.get("collectives") or {}
+    log("tp dcn collectives " + json.dumps(col, sort_keys=True))
+    per = col.get("per_stage", {})
+    if set(per) != {"stage0", "stage1"} or any(
+            s["wire_bytes"] != r8["expected_stage_bytes"]
+            for s in per.values()) or set(col.get("by_kind", {})) \
+            != {"psum8"}:
+        problems.append(f"bits 8: trace_report's collectives section "
+                        f"{col} (rc {r8.get('trace_report_rc')}), each "
+                        f"stage expected {r8['expected_stage_bytes']} "
+                        "bytes of psum8")
+    if problems:
+        raise AssertionError("phase 21b: " + "; ".join(problems))
+    return {key: res[key]["counts"] for key in ("bits0", "bits8")}
+
+
+def greedy_reference(pipe, ids, new: int) -> dict:
+    """`pipe`'s greedy decode of `ids` step by step, with each step's top-2
+    logits, their tokens and max |logit| per row (`near_tie_rule`)."""
+    data, caches = pipe._prefill(torch.as_tensor(ids, device="cuda"))
+    last = data[:, -1].float()
+    tokens, top2, amax = [], [], []
+    for step in range(new):
+        top2.append(torch.topk(last, 2, dim=-1))
+        amax.append(last.abs().amax(dim=-1))
+        tokens.append(last.argmax(dim=-1))
+        if step + 1 < new:
+            last = decode_step(pipe, caches, tokens[-1],
+                               ids.shape[1] + step).float()
+    return dict(ids=np.concatenate(
+        [np.asarray(ids), torch.stack(tokens, 1).cpu().numpy()], 1),
+        top2_values=torch.stack([t.values for t in top2], 1).cpu(),
+        top2_tokens=torch.stack([t.indices for t in top2], 1).cpu(),
+        max_abs=torch.stack(amax, 1).cpu())
+
+
+def tp_generate_entry(argv, int8: bool) -> dict:
+    """`pipeedge_tpu_torch.generate.main(ARGV)` in this process (the
+    decode-attention opt-in set for an int8 cache): its ids, tokens/s
+    and the kernels it launched (warm-up included)."""
+    import io
+    import re
+    from pipeedge_tpu_torch import generate
+    from pipeedge_tpu_torch.ops import _build
+    saved = os.environ.get("PIPEEDGE_INT8_DECODE_ATTEND")
+    os.environ["PIPEEDGE_INT8_DECODE_ATTEND"] = "1" if int8 else "0"
+    out = io.StringIO()
+    before = dict(_build.launch_counts)
+    try:
+        with contextlib.redirect_stdout(out):
+            ids = generate.main(argv)
+    finally:
+        if saved is None:
+            os.environ.pop("PIPEEDGE_INT8_DECODE_ATTEND")
+        else:
+            os.environ["PIPEEDGE_INT8_DECODE_ATTEND"] = saved
+    rate = re.search(r"= ([\d.]+) tok/s \(([^)]*)\)", out.getvalue())
+    return dict(ids=ids, tok_per_s=float(rate.group(1)) if rate else None,
+                label=rate.group(2) if rate else None,
+                counts=launch_delta(before))
+
+
+def tp_generate_path(card: str) -> dict:
+    """Phase 21c: `generate --tp 2` against `--tp 1` for GPT-2 (the entry,
+    fp and int8 caches) and Llama-3-8B at LLAMA_BLOCKS (in process, the
+    weights drawn on the card); each held by `near_tie_rule` to the `--tp
+    1` pipeline's greedy decode, tokens/s and device kernels per decode
+    step at both degrees."""
+    from types import SimpleNamespace
+    from pipeedge_tpu_torch import generate
+    from pipeedge_tpu_torch.models import registry
+    from pipeedge_tpu_torch.parallel import decode
+    from pipeedge_tpu_torch.parallel.mesh import ShardGroup, devices_for
+    t0 = time.monotonic()
+    res = {"card": card, "gpt2": {}}
+    batch, prompt, new = TP_GEN
+    weights = BUILD_DIR / f"{DECODE_MODEL.replace('/', '_')}-random-seed0.npz"
+    pt = ",".join(f"{l},{r}" for l, r in DECODE_PARTITION)
+    cfg = registry.get_model_config(DECODE_MODEL)
+    ids = generate.prompt_ids(SimpleNamespace(batch_size=batch,
+                                              prompt_len=prompt), cfg)
+    # the references' weights, loaded once: every pipeline below shares
+    # them (the tp 2 pipelines split copies of their blocks)
+    stage_params = [registry.module_shard_factory(
+        DECODE_MODEL, str(weights), l, r, stage=i, device="cuda")[1]
+        for i, (l, r) in enumerate(DECODE_PARTITION)]
+    for kv in (0, 8):
+        runs = {tp: tp_generate_entry(
+            ["-m", DECODE_MODEL, "-M", str(weights), "-pt", pt, "-b",
+             str(batch), "--prompt-len", str(prompt), "--new-tokens",
+             str(new), "--kv-bits", str(kv), "--tp", str(tp)], bool(kv))
+            for tp in (1, 2)}
+        pipes = {tp: decode.build_decode_pipeline(
+            DECODE_MODEL, DECODE_PARTITION, max_len=prompt + new,
+            stage_params=stage_params, device="cuda", cache_bits=kv,
+            int8_decode_attend=1 if kv else 0,
+            mesh=ShardGroup(devices_for(2, "cuda")) if tp == 2 else None)
+            for tp in (1, 2)}
+        ref = greedy_reference(pipes[1], ids, new)
+        step_kernels = {}
+        for tp, pipe in pipes.items():
+            _, caches = pipe._prefill(torch.as_tensor(ids, device="cuda"))
+            tok = torch.zeros(batch, dtype=torch.long, device="cuda")
+            step_kernels[tp] = device_launches(
+                lambda: decode_step(pipe, caches, tok, prompt))
+        res["gpt2"][f"kv{kv}"] = dict(
+            tok_per_s={tp: r["tok_per_s"] for tp, r in runs.items()},
+            labels={tp: r["label"] for tp, r in runs.items()},
+            counts={tp: r["counts"] for tp, r in runs.items()},
+            tp1_equal_reference=bool(np.array_equal(runs[1]["ids"],
+                                                    ref["ids"])),
+            rule=near_tie_rule(runs[2]["ids"], ref, prompt),
+            kernels_per_step=step_kernels,
+            # the warm-up's one decode step and the timed run's new - 1
+            steps=new)
+        log(f"tp generate gpt2 kv{kv}: " + json.dumps(
+            res["gpt2"][f"kv{kv}"], default=str))
+        del pipes
+    del stage_params
+    free_card()
+    batch, prompt, new = TP_LLAMA_GEN
+    with cut_llama_depth():
+        entry = registry.get_model_entry(LLAMA3)
+        whole, gb = draw_model(LLAMA3, torch.float32, 0)
+        views = [shard_view(whole, LLAMA3, l, r) for l, r in
+                 FAMILY_PARTITION]
+        max_len = prompt + new
+        pipes = {tp: decode.DecodePipeline(
+            entry.family.FAMILY, entry.config, FAMILY_PARTITION, views,
+            max_len=max_len, device="cuda",
+            mesh=ShardGroup(devices_for(2, "cuda")) if tp == 2 else None)
+            for tp in (1, 2)}
+        llama_ids = torch.from_numpy(np.random.default_rng(21).integers(
+            0, entry.config.vocab_size, size=(batch, prompt))).to("cuda")
+        out = {"gb": gb, "tok_per_s": {}, "kernels_per_step": {}}
+        got = {}
+        for tp, pipe in pipes.items():
+            pipe.generate(llama_ids[:, :8], 2)          # warm-up
+            torch.cuda.synchronize()
+            t1 = time.monotonic()
+            got[tp] = pipe.generate(llama_ids, new).cpu().numpy()
+            out["tok_per_s"][tp] = batch * new / (time.monotonic() - t1)
+            _, caches = pipe._prefill(llama_ids)
+            tok = torch.zeros(batch, dtype=torch.long, device="cuda")
+            out["kernels_per_step"][tp] = device_launches(
+                lambda: decode_step(pipe, caches, tok, prompt))
+            del caches
+        ref = greedy_reference(pipes[1], llama_ids.cpu().numpy(), new)
+        out["tp1_equal_reference"] = bool(np.array_equal(got[1],
+                                                         ref["ids"]))
+        out["rule"] = near_tie_rule(got[2], ref, prompt)
+        out["vocab_split"] = bool(decode._tp_shards_head(entry.config, 2))
+        out["kv_heads_per_shard"] = entry.config.kv_heads // 2
+        res["llama3"] = out
+        log("tp generate llama3: " + json.dumps(out, default=str))
+        del pipes, views, whole
+    free_card()
+    res["seconds"] = time.monotonic() - t0
+    return res
+
+
+def check_tp_generate(res, device_name: str) -> dict:
+    """Phase 21c's gates; returns kernel 5's launches per entry run."""
+    problems = []
+    n_blocks = 12
+    for key, r in res["gpt2"].items():
+        int8 = key == "kv8"
+        for tp in (1, 2):
+            want = {"fused_attention": 0, "fused_encode": 0,
+                    "fused_decode": 0, "int8_matmul": 0,
+                    "decode_attention": n_blocks * tp * r["steps"]
+                    if int8 else 0}
+            if r["counts"][tp] != want:
+                problems.append(f"gpt2 {key} tp {tp}: launches "
+                                f"{r['counts'][tp]} != {want}")
+        if not r["tp1_equal_reference"] or not r["rule"]["ok"]:
+            problems.append(f"gpt2 {key}: tp 1 equal to its reference "
+                            f"{r['tp1_equal_reference']}, tp 2 "
+                            f"{r['rule']}")
+        if ", tp 2" not in (r["labels"][2] or ""):
+            problems.append(f"gpt2 {key}: report label {r['labels']}")
+    llama = res["llama3"]
+    if not llama["tp1_equal_reference"] or not llama["rule"]["ok"] \
+            or not llama["vocab_split"]:
+        problems.append(f"llama3: {llama}")
+    if problems:
+        raise AssertionError("phase 21c: " + "; ".join(problems))
+    log(f"tp generate tokens/s (tp 1 -> tp 2): gpt2 fp "
+        f"{res['gpt2']['kv0']['tok_per_s']}, int8 "
+        f"{res['gpt2']['kv8']['tok_per_s']}, llama3 "
+        f"{llama['tok_per_s']}; device kernels per decode step: gpt2 fp "
+        f"{res['gpt2']['kv0']['kernels_per_step']}, int8 "
+        f"{res['gpt2']['kv8']['kernels_per_step']}, llama3 "
+        f"{llama['kernels_per_step']} ({device_name})")
+    return {key: {f"tp{tp}": r["counts"][tp]["decode_attention"]
+                  for tp in (1, 2)} for key, r in res["gpt2"].items()}
+
+
 def main() -> int:
     import argparse
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -7624,10 +8239,16 @@ def main() -> int:
     check_router_spawn_path(spawn_res, device_name)
     phase_done("phase 15e")
 
-    # phase 16: PipeEdge's own transport, one process per rank
+    # phase 16: PipeEdge's own transport, one process per rank; phase
+    # 21(b), the tensor-parallel fleets, beside its (b) and (d)
+    vit_w = BUILD_DIR / f"{MODEL.replace('/', '_')}-random-seed0.npz"
     dcn_res = dcn_path(card, host={bit: results[bit]["items_per_s"]
-                                   for bit in (0, 8, 4)})
+                                   for bit in (0, 8, 4)},
+                       alongside=lambda: tp_dcn_path(vit_w))
     check_dcn_path(dcn_res, device_name)
+    tp_dcn_res = dcn_res.pop("alongside")
+    tp_dcn_launches = check_tp_dcn(tp_dcn_res, device_name)
+    log(f"phase 21b (beside phase 16): {tp_dcn_res['seconds']:.1f} s")
     phase_done("phase 16")
 
     # phase 17: the routed fleet's observatory and capacity loop
@@ -7657,6 +8278,14 @@ def main() -> int:
     disagg_res = disagg_path(card, prelude=control_res.pop("alongside"))
     disagg_launches = check_disagg_path(disagg_res, device_name)
     phase_done("phase 20")
+
+    # phase 21: the tensor-parallel axis ((b) ran beside phase 16)
+    tp_res = tp_kernels_path(dev, gen)
+    check_tp_kernels(tp_res, device_name)
+    phase_done("phase 21a")
+    tp_gen_res = tp_generate_path(card)
+    tp_gen_launches = check_tp_generate(tp_gen_res, device_name)
+    phase_done("phase 21c")
 
     if args.ab_entry_parent is not None:
         ab_entry(args.ab_entry_parent)
@@ -7724,6 +8353,25 @@ def main() -> int:
                 "ship_plain_ms": codec[f"plain_{op}_ms"],
                 "ship_bound_ms": codec["bound_ms"]}
 
+    def tp_codec(name, bit):
+        """Phase 21: the codec kernel at the quantized all-reduce's chunk
+        shapes, and its launches there (a's in-process qpsum per shard
+        count, b's fleet at --tp-quant-bits 8 per rank)."""
+        op = name[6:]
+        keys = ("shape", f"{op}_ms", f"plain_{op}_ms", "bound_ms",
+                "bound_by") + (("cluster", "edge_cluster_encode_ms")
+                               if op == "encode" else ())
+        return dict(
+            tp_ring={r["case"]: {k: r[k] for k in keys}
+                     for r in tp_res["ring"] if r["bit"] == bit},
+            tp_launches={
+                "qpsum": {f"n{r['n']}": r["counts"][name]
+                          for r in tp_res["qpsum"] if r["bit"] == bit},
+                **({"stage_tp_fleet": {
+                    f"rank{r}": c[name]
+                    for r, c in tp_dcn_launches["bits8"].items()}}
+                   if bit == 8 else {})})
+
     kernels = []
     # one row per codec kernel and bit width, each with the launches of
     # the main path's run at that edge width
@@ -7754,6 +8402,7 @@ def main() -> int:
                     # the prefill side, kernel 2 on the decode side)
                     "disagg_launches": disagg_launches_of(name)}
                    if bit == 8 else {}),
+                **tp_codec(name, bit),
                 # every policy bitwidth on phase 8's edge
                 policy_bits_ms={r["bit"]: r[f"{name[6:]}_ms"]
                                 for r in policy_rows
@@ -7817,6 +8466,15 @@ def main() -> int:
             "fused_attention"] for run in revauct_res["runs"]},
         traced_entry_launches=trace_res["traced"]["kernel_launches"][
             "fused_attention"],
+        # phase 21: a shard's heads, the TP blocks' launches (2 and 4
+        # shards) and each rank's of the --stage-tp fleets
+        tp_shard=tp_res["attention"],
+        tp_launches={"blocks": {f"n{r['n']}": r["counts"]["fused_attention"]
+                                for r in tp_res["blocks"]},
+                     "stage_tp_fleets": {
+                         key: {f"rank{r}": c["fused_attention"]
+                               for r, c in per_rank.items()}
+                         for key, per_rank in tp_dcn_launches.items()}},
         cases={f"{r['layout']} {r['shape']} {r['dtype']}"
                f"{' causal' if r['causal'] else ''}": {
                    key: r[key] for key in ("ms", "plain_ms", "library_ms",
@@ -7887,6 +8545,10 @@ def main() -> int:
         autoscaled_replica_launches=auto_res["r1_launches"][
             "decode_attention"],
         autoscale_solo_launches=auto_res["solo_launches"],
+        # phase 21c: a shard's 6 heads, and the generate entry's int8
+        # runs at --tp 1 and 2 (warm-up included)
+        tp_shard=tp_res["decode_attention"],
+        tp_generate_launches=tp_gen_launches["kv8"],
         cases={name: {k: r[k] for k in (
             "shape", "pos", "dtype", "ms", "ms_l2_cold", "plain_ms",
             "bound_ms", "bound_by", "dequant_route_ms",

@@ -56,9 +56,19 @@ kernel_launches=`:
         --dcn-addrs 127.0.0.1:29600,127.0.0.1:29601 --rank 0 --edge-bits 8
 
 A JAX rank (`tools/generate.py` with the same flags) takes either place.
-The JAX entry's flags for the multi-GPU axes are refused at parse time
-with the ROADMAP item that ports them (`REFUSED`): `--tp`, `--sp`, `--ep`
-and `--spmd-wave` (A7).
+
+`--tp N` runs each stage Megatron tensor-parallel over N shards
+(`parallel/mesh.py ShardGroup`, `DecodePipeline(mesh=)`): heads and the
+KV cache split across the shards, the LM head vocab-split when N divides
+the vocabulary. The shards sit on cards `0..N-1` round-robin, so on a
+one-card host they share it; `--device cpu` puts them on the CPU:
+
+    python -m pipeedge_tpu_torch.generate -m gpt2 -pt 1,24,25,48 --tp 2 \\
+        -b 16 --prompt-len 192 --new-tokens 64 --kv-bits 8
+
+The JAX entry's flags for the other multi-GPU axes are refused at parse
+time with the ROADMAP item that ports them (`REFUSED`): `--sp` (A7c),
+`--ep` (A7b) and `--spmd-wave` (A7e).
 """
 from __future__ import annotations
 
@@ -80,12 +90,11 @@ from .sched.scheduler import sched_pipeline
 
 # `tools/generate.py` flags this entry refuses, each with the ROADMAP
 # item that ports it: flag -> (argparse keywords, item)
-_AXES = "A7, the multi-GPU axes"
 REFUSED = {
-    "--tp": ({"type": int}, _AXES),
-    "--sp": ({"type": int}, _AXES),
-    "--ep": ({"type": int}, _AXES),
-    "--spmd-wave": ({"action": "store_true"}, _AXES),
+    "--sp": ({"type": int}, "A7c, sequence parallelism"),
+    "--ep": ({"type": int}, "A7b, expert parallelism and tp x ep"),
+    "--spmd-wave": ({"action": "store_true"},
+                    "A7e, the SPMD wave decoder"),
 }
 MONITOR_KEY = "decode"
 
@@ -187,16 +196,21 @@ def parse_args(argv: Optional[Sequence[str]] = None):
     parser.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                         help="cuda runs the hand-written kernels; cpu their "
                              "plain versions")
+    parser.add_argument("--tp", default=1, type=int,
+                        help="Megatron tensor-parallel degree per stage "
+                             "(head-sharded KV cache; the shards share the "
+                             "cards round-robin)")
     for flag, (kw, item) in REFUSED.items():
         parser.add_argument(flag, default=argparse.SUPPRESS,
                             help=f"not ported yet (ROADMAP {item})", **kw)
     args = parser.parse_args(argv)
-    for flag, (_, item) in REFUSED.items():
-        if hasattr(args, flag.lstrip("-").replace("-", "_")):
-            parser.error(f"{flag} is not ported to pipeedge_tpu_torch yet "
-                         f"(ROADMAP {item})")
-    # the JAX entry's composition errors, word for word (some name its
-    # flags that are refused above)
+    # the refused flags at the JAX entry's defaults, for the composition
+    # errors below (a refused flag that was given is refused after them)
+    given = [flag for flag in REFUSED
+             if hasattr(args, flag.lstrip("-").replace("-", "_"))]
+    sp, ep = getattr(args, "sp", 1), getattr(args, "ep", 1)
+    spmd_wave = getattr(args, "spmd_wave", False)
+    # the JAX entry's composition errors, word for word
     if args.new_tokens < 1:
         parser.error("--new-tokens must be >= 1")
     if args.beams and args.temperature > 0:
@@ -207,10 +221,11 @@ def parse_args(argv: Optional[Sequence[str]] = None):
     if args.beams and args.prefill_ubatch:
         parser.error("--prefill-ubatch applies to greedy/sampled "
                      "generation, not --beams")
-    if args.edge_bits and args.dcn_addrs is None:
+    if args.edge_bits and args.dcn_addrs is None and not spmd_wave:
         parser.error("--edge-bits applies to DCN stage edges or the SPMD "
                      "wave prefill hops; pass --dcn-addrs or --spmd-wave")
-    if args.shared_prefix and (args.beams or args.prefill_ubatch
+    if args.shared_prefix and (args.beams or spmd_wave
+                               or args.prefill_ubatch
                                or args.dcn_addrs is not None):
         parser.error("--shared-prefix composes with plain, speculative, "
                      "or --concurrent greedy/sampled generation only "
@@ -218,11 +233,42 @@ def parse_args(argv: Optional[Sequence[str]] = None):
                      "--dcn-addrs)")
     if args.shared_prefix and not 0 < args.shared_prefix < args.prompt_len:
         parser.error(f"--shared-prefix must be in (0, {args.prompt_len})")
-    if args.dcn_addrs is not None and (args.kv_bits or args.monitor
-                                       or args.beams or args.prefill_ubatch):
+    if args.shared_prefix and sp > 1 and args.shared_prefix % sp:
+        parser.error(f"--shared-prefix {args.shared_prefix} must divide "
+                     f"by --sp {sp} (the prefix is what the sp "
+                     "prefill runs on)")
+    if spmd_wave and (args.concurrent or args.beams or args.monitor
+                      or args.prefill_ubatch or args.tp > 1 or sp > 1
+                      or ep > 1 or args.kv_bits
+                      or args.dcn_addrs is not None):
+        parser.error("--spmd-wave does not compose with --concurrent/"
+                     "--beams/--monitor/--prefill-ubatch/--tp/--sp/--ep/"
+                     "--kv-bits/--dcn-addrs")
+    if args.dcn_addrs is not None and (
+            args.tp > 1 or sp > 1 or ep > 1 or args.kv_bits
+            or args.monitor or args.beams or args.prefill_ubatch):
         parser.error("--dcn-addrs does not compose with --tp/--sp/--ep/"
                      "--kv-bits/--monitor/--beams/--prefill-ubatch in "
                      "this demo")
+    if args.tp > 1 or sp > 1 or ep > 1:
+        need = args.tp * ep if args.tp > 1 and ep > 1 else max(args.tp, sp,
+                                                               ep)
+        # the tp shards share the cards round-robin (parallel/mesh.py),
+        # so only a host without one is short of devices (--sp and --ep
+        # are refused below)
+        if args.tp > 1 and args.device == "cuda" \
+                and torch.cuda.device_count() < 1:
+            parser.error(f"--tp/--sp/--ep {need} needs {need} devices, "
+                         f"only {torch.cuda.device_count()} visible")
+        if sp > 1 and (args.tp > 1 or ep > 1):
+            parser.error("--sp is mutually exclusive with --tp/--ep in "
+                         "this demo")
+        if sp > 1 and args.prompt_len % sp:
+            parser.error(f"--prompt-len {args.prompt_len} must divide by "
+                         f"--sp {sp}")
+    for flag in given:
+        parser.error(f"{flag} is not ported to pipeedge_tpu_torch yet "
+                     f"(ROADMAP {REFUSED[flag][1]})")
     if args.draft_model and (args.temperature > 0 or args.top_k
                              or args.beams or args.concurrent
                              or args.monitor or args.prefill_ubatch
@@ -476,14 +522,20 @@ def run(args) -> np.ndarray:
         max_len += args.gamma   # verify spans write past the last token
     if args.dcn_addrs is not None:
         return run_dcn(args, cfg, partition, max_len, dtype)
+    mesh = None
+    if args.tp > 1:
+        from .parallel.mesh import ShardGroup, devices_for
+        mesh = ShardGroup(devices_for(args.tp, args.device))
     pipe = decode.build_decode_pipeline(
         args.model_name, partition, max_len=max_len,
         dtype=dtype, cache_bits=args.kv_bits,
         attend_floor=args.attend_floor, model_file=args.model_file,
-        device=args.device)
+        device=args.device, mesh=mesh)
     ids = prompt_ids(args, cfg)
     p_len = args.shared_prefix
     label = f"{len(partition)} stages"
+    if mesh is not None:
+        label += f", tp {mesh.size}"
     spec = None
     if p_len:
         ids[:, :p_len] = ids[0, :p_len]

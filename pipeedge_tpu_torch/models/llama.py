@@ -1,7 +1,8 @@
 """Llama model family: RoPE / RMSNorm / SwiGLU / grouped-query attention.
 
-Port of the single-device half of `pipeedge_tpu/models/llama.py` (its
-tensor- and sequence-parallel hooks wait for ROADMAP A7). It carries
+Port of `pipeedge_tpu/models/llama.py` with its tensor-parallel hooks
+(`tp_cached_block_step`, `tp_finalize`; its sequence-parallel prefill
+waits for ROADMAP A7c). It carries
 Llama-2, Llama-3 and Mistral (the Llama block with a sliding window over
 the last `cfg.sliding_window` positions) in the 4-sublayer cut of every
 other family:
@@ -203,10 +204,42 @@ def cached_block_step(p: Dict, x: torch.Tensor, bcache, pos: int,
     return _block_tail(p, x, ctx, cfg)
 
 
+def tp_cached_block_step(group, ps, xs, bcaches, pos: int,
+                         cfg: TransformerConfig, prefill: bool,
+                         read_len=None):
+    """The tensor-parallel KV-cached Llama block over a shard group: the
+    forward Megatron body (`parallel/tensor.py _tp_llama_block_local`, one
+    copy of the projection/all-reduce/SwiGLU numerics) with each shard's
+    attention core swapped for a cache-attend over its head slice of the
+    GQA cache, `bcaches[i]`. Heads and kv heads divide by the group size."""
+    from ..parallel.decode import _cache_update_and_read
+    from ..parallel.tensor import _tp_llama_block_local
+
+    s = xs[0].shape[1]
+
+    def cache_attend(i, q, k_new, v_new):
+        k, v, keep = _cache_update_and_read(bcaches[i], k_new, v_new, pos,
+                                            prefill, q.dtype,
+                                            read_len=read_len)
+        return _gqa_attend(q, k, v, cfg, keep=keep,
+                           q_pos=_abs_q_pos(pos, s, q.device))
+
+    return _tp_llama_block_local(group, ps, xs, cfg, qkv_to_ctx=cache_attend,
+                                 pos_ids=pos + torch.arange(s))
+
+
+def tp_finalize(group, pfs, xs, cfg: TransformerConfig) -> torch.Tensor:
+    """The vocab-split LM head under tp (the shared helper, RMSNorm)."""
+    from ..parallel.decode import tp_vocab_head_finalize
+    return tp_vocab_head_finalize(group, pfs, xs, cfg, norm_fn=rms_norm)
+
+
 FAMILY = FamilySpec(name="llama", embed=embed, sublayer=sublayer,
                     finalize=finalize, cached_block_step=cached_block_step,
                     decode_embed=decode_embed, span_embed=span_embed,
-                    position_dependent_attention=True)
+                    position_dependent_attention=True,
+                    tp_cached_block_step=tp_cached_block_step,
+                    tp_finalize=tp_finalize)
 
 
 # --- weight loading -------------------------------------------------------

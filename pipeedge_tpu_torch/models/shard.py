@@ -35,9 +35,10 @@ class FamilySpec:
     """The functions that define a model family. The optional decode
     hooks plug a decoder into `parallel/decode.py`: `cached_block_step`
     replaces the GPT-2-shaped block step, `decode_embed` and `span_embed`
-    the wte + wpe embeddings of one token and of a K-token span. The
-    tensor- and sequence-parallel hooks of the JAX spec wait for ROADMAP
-    A7."""
+    the wte + wpe embeddings of one token and of a K-token span;
+    `tp_cached_block_step` and `tp_finalize` are their tensor-parallel
+    counterparts (`parallel/decode.py make_tp_stage_fns`). The sequence-
+    parallel hook of the JAX spec waits for ROADMAP A7c."""
     name: str
     embed: Callable[[Dict, Any, TransformerConfig], torch.Tensor]
     sublayer: Callable[[Dict, int, ShardData, TransformerConfig], ShardData]
@@ -51,6 +52,12 @@ class FamilySpec:
     # attention reads absolute positions (RoPE): chunk-local attention
     # overrides (sequence-parallel cores) would rotate at wrong offsets
     position_dependent_attention: bool = False
+    # (group, shard params, xs, shard caches, pos, cfg, prefill,
+    # read_len=None) -> xs: the cached block step over a tp shard group
+    tp_cached_block_step: Any = None
+    # (group, shard final params, xs, cfg) -> logits on shard 0: the
+    # vocab-split LM head
+    tp_finalize: Any = None
     # sublayers that LEAD with a dense and accept an 8-bit wire
     # `QuantizedTensor` as the payload's first tensor (the int8
     # stage-seam tunnel, parallel/pipeline.py + ops/int8_matmul.py)

@@ -23,7 +23,7 @@ either (`FUSED_BITS`), and take the plain ops on every device.
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -57,9 +57,13 @@ def _check_bit(bit: int) -> None:
         raise ValueError(f"fused codec supports bits {FUSED_BITS}, got {bit}")
 
 
-def fused_encode_outerdim(x: torch.Tensor, bit: int) -> quant_ops.QuantizedTensor:
+def fused_encode_outerdim(x: torch.Tensor, bit: int,
+                          cluster: Optional[int] = None
+                          ) -> quant_ops.QuantizedTensor:
     """Per-item encode, bits 4 and 8: the CUDA kernel for a CUDA tensor,
-    the plain ops for a CPU tensor."""
+    the plain ops for a CPU tensor. `cluster` caps the blocks per item
+    (`encode_slices`; ENCODE_CLUSTER when None): the words are the same
+    at any cap."""
     _check_bit(bit)
     if x.device.type == "cpu":
         return quant_ops.tensor_encode_outerdim(x, bit)
@@ -70,7 +74,8 @@ def fused_encode_outerdim(x: torch.Tensor, bit: int) -> quant_ops.QuantizedTenso
     n = math.prod(shape[1:])
     flat = x.reshape(b, n).to(torch.float32).contiguous()
     words = quant_ops.packed_words(n, bit)
-    blocks, slice_len = encode_slices(n, ENCODE_CLUSTER)
+    blocks, slice_len = encode_slices(
+        n, ENCODE_CLUSTER if cluster is None else cluster)
     data = torch.empty((b, words), dtype=torch.int32, device=x.device)
     scale = torch.empty((b,), dtype=torch.float32, device=x.device)
     shift = torch.empty((b,), dtype=torch.float32, device=x.device)
@@ -119,12 +124,14 @@ def fused_decode_outerdim(enc: quant_ops.QuantizedTensor) -> torch.Tensor:
     return out
 
 
-def encode_outerdim(x: torch.Tensor, bit: int,
-                    mode: str = "original") -> quant_ops.QuantizedTensor:
+def encode_outerdim(x: torch.Tensor, bit: int, mode: str = "original",
+                    cluster: Optional[int] = None
+                    ) -> quant_ops.QuantizedTensor:
     """Per-outer-item encode: the codec kernel for bits 4 and 8 in
-    'original' mode, else the plain ops; bit-identical either way."""
+    'original' mode (`cluster` as `fused_encode_outerdim`'s), else the
+    plain ops; bit-identical either way."""
     if bit in FUSED_BITS and mode == "original":
-        return fused_encode_outerdim(x, bit)
+        return fused_encode_outerdim(x, bit, cluster=cluster)
     return quant_ops.tensor_encode_outerdim(x, bit, mode)
 
 

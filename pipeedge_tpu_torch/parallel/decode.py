@@ -1,11 +1,12 @@
 """Autoregressive KV-cache decoding through the pipeline (the decoders).
 
-Port of the single-device path of `pipeedge_tpu/parallel/decode.py`
-(the tensor-, sequence- and expert-parallel variants are not ported).
-The block step, the single-token and the span embeddings come from the
-family (`FamilySpec` hooks: the Llama family supplies its own), with the
-GPT-2-shaped ones of this module as the defaults; the switch-MoE GPT-2's
-block tail routes through `parallel/expert.py`.
+Port of `pipeedge_tpu/parallel/decode.py`: the single-device path and
+the tensor-parallel one (the sequence- and expert-parallel variants wait
+for ROADMAP A7b and A7c). The block step, the single-token and the span
+embeddings come from the family (`FamilySpec` hooks: the Llama family
+supplies its own), with the GPT-2-shaped ones of this module as the
+defaults; the switch-MoE GPT-2's block tail routes through
+`parallel/expert.py`.
 
 - **Static caches, written in place**: each stage holds one [n_blocks, B,
   max_len, H, Dh] K and V buffer (plus per-(position, head) scale/shift
@@ -33,6 +34,17 @@ block tail routes through `parallel/expert.py`.
   (`_resolve_int8_optin`), and is off by default. A family's own block
   step (Llama) never asks the gate, as in the JAX package.
 
+- **Tensor parallelism** (`DecodePipeline(mesh=ShardGroup)`,
+  `make_tp_stage_fns`): each stage's blocks run the Megatron body of
+  `parallel/tensor.py` over the group with the attention core swapped for
+  a cache-attend over a head-sharded cache: shard i holds heads
+  [i*H/n, (i+1)*H/n) of every K/V buffer and, for an int8 cache, of the
+  per-head scale/shift rows, so each shard quantizes and attends its own
+  heads (kernel 5 per shard on the route chosen at construction). A
+  stage's cache is then the list of its shards' caches. The embedding
+  runs on shard 0, and the LM head is vocab-split when the group size
+  divides the vocabulary (`_tp_shards_head`), else it runs on shard 0.
+
 Eager functions replace the jitted stage programs; `read_len` stays an
 explicit argument. Greedy decoding and beam search match the JAX
 `DecodePipeline` token for token on the same weights; sampling draws
@@ -58,21 +70,29 @@ Cache = Dict[str, torch.Tensor]   # {'k': [L, B, T, H, Dh], 'v': ...}
 # int8 variant adds per-(block, batch, position, head) scale/shift rows:
 #   {'k': int8, 'v': int8, 'k_scale'/'k_shift'/'v_scale'/'v_shift': [L, B, T, H]}
 
-# the multi-device decode variants wait for ROADMAP A7
-_MESH_ARGS = ("mesh", "sp_mesh", "ep_mesh", "tp_ep_mesh")
+# the decode variants over other mesh axes, each with the ROADMAP A7
+# sub-item that ports it
+_MESH_ARGS = {
+    "sp_mesh": "A7c, sequence parallelism",
+    "ep_mesh": "A7b, expert parallelism and tp x ep",
+    "tp_ep_mesh": "A7b, expert parallelism and tp x ep",
+}
 
 
 def init_cache(cfg: TransformerConfig, n_blocks: int, batch: int,
                max_len: int, dtype=torch.float32, cache_bits: int = 0,
-               *, device: DeviceLike) -> Cache:
+               *, device: DeviceLike, kv_heads: Optional[int] = None
+               ) -> Cache:
     """Zeroed stacked KV cache for `n_blocks` blocks on `device` (a
     required keyword: a cache the caller did not place would land on the
     host unnoticed).
 
     `cache_bits=8` stores K/V as int8 with per-(position, head) affine
     scales: cache reads dominate a decode step's memory traffic, so int8
-    halves it against bfloat16. The head axis is `cfg.kv_heads`."""
-    shape = (n_blocks, batch, max_len, cfg.kv_heads, cfg.head_dim)
+    halves it against bfloat16. The head axis is `cfg.kv_heads`, or
+    `kv_heads` (a tensor-parallel shard's slice of them)."""
+    shape = (n_blocks, batch, max_len, kv_heads or cfg.kv_heads,
+             cfg.head_dim)
     if cache_bits == 0:
         return {"k": torch.zeros(shape, dtype=dtype, device=device),
                 "v": torch.zeros(shape, dtype=dtype, device=device)}
@@ -274,8 +294,20 @@ def _attention_core(p: Dict, x: torch.Tensor, bcache: Cache, pos: int,
     construction-time resolution (`_resolve_int8_optin`)."""
     normed = layer_norm(p["ln_before"], x, cfg.layer_norm_eps)
     q, k_new, v_new = _qkv(p, normed, cfg)
+    return _cache_attend(bcache, q, k_new, v_new, pos, cfg, prefill,
+                         read_len=read_len, int8_optin=int8_optin)
+
+
+def _cache_attend(bcache: Cache, q: torch.Tensor, k_new: torch.Tensor,
+                  v_new: torch.Tensor, pos: int, cfg: TransformerConfig,
+                  prefill: bool, read_len: Optional[int] = None,
+                  int8_optin: int = 0) -> torch.Tensor:
+    """Write the new K/V rows into `bcache` and attend the window: through
+    kernel 5 on an int8 single-token step the opt-in routes, else the
+    dequantize-then-attend route. -> [B, S, H * Dh] over q's heads (all of
+    them, or a tensor-parallel shard's)."""
     variant = (None if prefill
-               else _use_int8_decode_kernel(bcache, x.shape[1], cfg,
+               else _use_int8_decode_kernel(bcache, q.shape[1], cfg,
                                             int8_optin))
     if variant is not None:
         w = _attend_width(bcache, read_len)
@@ -391,6 +423,175 @@ def _make_stage_run(family, cfg: TransformerConfig,
     return run
 
 
+def _block_step_tp(group, ps: Sequence[Dict], xs: Sequence[torch.Tensor],
+                   bcaches: Sequence[Cache], pos: int,
+                   cfg: TransformerConfig, prefill: bool, act=gelu_new,
+                   ffn_delta=None, read_len: Optional[int] = None,
+                   int8_optin: int = 0) -> List[torch.Tensor]:
+    """The Megatron tensor-parallel block step: the projection/all-reduce/
+    MLP body of `parallel/tensor.py` with each shard's attention core
+    swapped for a cache-attend over its head slice `bcaches[i]` (kernel 5
+    where the int8 route is opted in). `ffn_delta` replaces the dense MLP
+    (the tp x ep MoE composition)."""
+    from .tensor import _tp_block_local
+
+    def cache_attend(i, q, k_new, v_new):
+        return _cache_attend(bcaches[i], q, k_new, v_new, pos, cfg, prefill,
+                             read_len=read_len, int8_optin=int8_optin)
+
+    return _tp_block_local(group, ps, xs, cfg, act=act, causal=True,
+                           qkv_to_ctx=cache_attend, ffn_delta=ffn_delta)
+
+
+def _tp_shards_head(cfg: TransformerConfig, n: int) -> bool:
+    """Vocab-split the LM head when the tp degree divides the vocabulary:
+    at decode the head matmul is a third of GPT-2's per-token FLOPs. A
+    non-divisible combination (gpt2's 50257 at tp 2/4/8) keeps the head
+    whole, on shard 0."""
+    return cfg.vocab_size > 0 and n > 1 and cfg.vocab_size % n == 0
+
+
+def tp_param_specs(params: Dict, cfg: TransformerConfig, n: int) -> Dict:
+    """The split rules of one decode stage's params under Megatron TP of
+    degree `n` (`parallel/tensor.py`: the axis that splits, None for a
+    whole leaf): blocks per the family table, the embeddings whole, the
+    LM head vocab-split when `_tp_shards_head`."""
+    from .tensor import family_tp_plan
+
+    def whole(tree):
+        return {k: whole(v) if isinstance(v, dict) else None
+                for k, v in tree.items()}
+
+    table, _ = family_tp_plan(cfg)
+    specs = {k: whole(v) for k, v in params.items() if k != "blocks"}
+    specs["blocks"] = table
+    if "final" in params and "head" in params["final"] \
+            and _tp_shards_head(cfg, n):
+        specs["final"]["head"] = {"w": 1, "b": 0}
+    return specs
+
+
+def shard_stage_params(params: Dict, cfg: TransformerConfig,
+                       group) -> Dict:
+    """One decode stage's params over `group` by `tp_param_specs`: the
+    embeddings on shard 0 (the embedding runs there), each block as a
+    per-shard list, the final params as a per-shard list when the head is
+    vocab-split, else on shard 0."""
+    from .tensor import split_leaf
+
+    n = group.size
+    specs = tp_param_specs(params, cfg, n)
+
+    def take(p, s, i):
+        if isinstance(p, dict):
+            return {k: take(v, s[k], i) for k, v in p.items()}
+        return split_leaf(p, s, n, i, group.devices[i])
+
+    out = {}
+    if "embeddings" in params:
+        out["embeddings"] = params_to(params["embeddings"],
+                                      device=group.devices[0])
+    out["blocks"] = [[take(bp, specs["blocks"], i) for i in range(n)]
+                     for bp in stage_blocks(params)]
+    if "final" in params:
+        out["final"] = ([take(params["final"], specs["final"], i)
+                         for i in range(n)] if _tp_shards_head(cfg, n)
+                        else params_to(params["final"],
+                                       device=group.devices[0]))
+    return out
+
+
+def tp_vocab_head_finalize(group, pfs: Sequence[Dict],
+                           xs: Sequence[torch.Tensor],
+                           cfg: TransformerConfig, norm_fn) -> torch.Tensor:
+    """The vocab-split LM head, shared by the tp decode stages: `norm_fn`
+    (layer_norm for GPT-2, rms_norm for Llama) on each shard, the head
+    matmul giving each shard's logit slice, and one gather in shard order
+    restoring the full [B, S, V] on shard 0."""
+    def local(i, pf, x):
+        return dense(pf["head"], norm_fn(pf["ln"], x, cfg.layer_norm_eps))
+
+    return group.gather(group.map(local, pfs, xs), dim=-1)
+
+
+def init_tp_cache(cfg: TransformerConfig, n_blocks: int, batch: int,
+                  max_len: int, group, dtype=torch.float32,
+                  cache_bits: int = 0) -> List[Cache]:
+    """A stage cache split over `group` (JAX `tp_cache_specs`): shard i's
+    leaves on its device hold heads [i*kv/n, (i+1)*kv/n) of the K/V
+    buffers [L, B, T, H, Dh] and of the per-head scale/shift rows
+    [L, B, T, H], so each shard quantizes and dequantizes its own
+    heads."""
+    local = cfg.kv_heads // group.size
+    return [init_cache(cfg, n_blocks, batch, max_len, dtype, cache_bits,
+                       device=d, kv_heads=local) for d in group.devices]
+
+
+def make_tp_stage_fns(family, cfg: TransformerConfig,
+                      shard_config: ShardConfig, group, int8_optin=None):
+    """The tensor-parallel `make_stage_fns`: the stage's blocks run over
+    `group` with the head-sharded cache and the two-all-reduce Megatron
+    body. `params` come from `shard_stage_params`, the cache from
+    `init_tp_cache` (a per-shard list); `data` and the output live on
+    shard 0's device."""
+    n = group.size
+    if cfg.num_attention_heads % n or cfg.kv_heads % n:
+        raise ValueError(f"tp={n} requires head count "
+                         f"({cfg.num_attention_heads}) and kv head count "
+                         f"({cfg.kv_heads}) divisible by tp")
+    if cfg.n_experts:
+        raise NotImplementedError(
+            "tensor-parallel decode does not cover MoE blocks (experts "
+            "shard over 'ep', not 'tp') — use make_tp_ep_stage_fns / "
+            "DecodePipeline(tp_ep_mesh=...) for the tp x ep composition")
+    if family.tp_cached_block_step is None \
+            and family.cached_block_step is not None:
+        raise NotImplementedError(
+            f"tensor-parallel decode pairs the default (GPT-2-shaped) "
+            f"cached step with the Megatron body; the {family.name} "
+            "family supplies a custom cached block step but no tp variant "
+            "(forward TP — make_tp_block_fn / --spmd-tp — does cover it)")
+    plan = plan_shard(shard_config)
+    if plan.head is not None or plan.tail is not None:
+        raise ValueError("decode requires a block-aligned partition "
+                         f"(layers [{shard_config.layer_start}, "
+                         f"{shard_config.layer_end}] cut mid-block)")
+    block_fn = family.tp_cached_block_step or functools.partial(
+        _block_step_tp, int8_optin=_resolve_int8_optin(int8_optin))
+    fin = None
+    if _tp_shards_head(cfg, n):
+        fin = family.tp_finalize or functools.partial(
+            tp_vocab_head_finalize, norm_fn=layer_norm)
+    tok_embed = family.decode_embed or single_token_embed
+    tok_span_embed = family.span_embed or span_embed
+
+    @torch.inference_mode()
+    def run(params, data, cache, pos, prefill, read_len=None):
+        if prefill and read_len is None:
+            read_len = data.shape[1]
+        if shard_config.is_first:
+            if prefill:
+                data = family.embed(params["embeddings"], data, cfg)
+            elif data.dim() == 2 and data.shape[1] > 1:
+                data = tok_span_embed(params["embeddings"], data, pos)
+            else:
+                data = tok_embed(params["embeddings"], data, pos)
+        xs = group.replicate(data)
+        for b, bps in enumerate(params["blocks"]):
+            bcaches = [{k: c[b] for k, c in shard.items()} for shard in cache]
+            xs = block_fn(group, bps, xs, bcaches, pos, cfg, prefill,
+                          read_len=read_len)
+        if not shard_config.is_last:
+            return xs[0], cache
+        if fin is not None:
+            return fin(group, params["final"], xs, cfg), cache
+        return family.finalize(params["final"], xs[0], cfg), cache
+
+    prefill_fn = functools.partial(run, pos=0, prefill=True)
+    decode_fn = functools.partial(run, prefill=False)
+    return prefill_fn, decode_fn
+
+
 def validate_partition(partition: Sequence[Tuple[int, int]],
                        total: int) -> None:
     """Require `partition` to contiguously cover [1, total] in order."""
@@ -432,17 +633,34 @@ def validate_capacity(cfg: TransformerConfig, max_len: int,
                          f"exceeds max_len {max_len}")
 
 
-def _repeat_batch(cache: Cache, k: int) -> Cache:
+def _repeat_batch(cache, k: int):
     """Tile the batch axis (axis 1 of [L, B, ...] leaves) k times into new
     tensors: beam b of batch i occupies row i*k + b. A copy even at k = 1,
-    since the steps that follow write in place."""
+    since the steps that follow write in place. A tensor-parallel stage's
+    cache (a list of shard caches) is tiled shard by shard."""
+    if isinstance(cache, list):
+        return [_repeat_batch(c, k) for c in cache]
     return {name: x.repeat_interleave(k, dim=1) for name, x in cache.items()}
 
 
-def _gather_batch(cache: Cache, rows: torch.Tensor) -> Cache:
+def _gather_batch(cache, rows: torch.Tensor):
     """Reorder the batch axis of cache leaves by `rows` [B*k], into new
-    tensors (two beams may share a parent row)."""
-    return {name: x.index_select(1, rows) for name, x in cache.items()}
+    tensors (two beams may share a parent row); shard by shard for a
+    tensor-parallel stage."""
+    if isinstance(cache, list):
+        return [_gather_batch(c, rows) for c in cache]
+    return {name: x.index_select(1, rows.to(x.device))
+            for name, x in cache.items()}
+
+
+def _cat_batch(caches: Sequence):
+    """Concatenate caches of batch chunks on the batch axis (shard by shard
+    for a tensor-parallel stage)."""
+    if isinstance(caches[0], list):
+        return [_cat_batch([c[i] for c in caches])
+                for i in range(len(caches[0]))]
+    return {name: torch.cat([c[name] for c in caches], dim=1)
+            for name in caches[0]}
 
 
 def _pick_token(logits: torch.Tensor, generator: Optional[torch.Generator],
@@ -500,28 +718,29 @@ def build_decode_pipeline(model_name: str,
 class DecodePipeline:
     """Host-driven pipelined decoding over block-aligned stages, on one
     device (`cuda` unless told otherwise; every stage's params and cache
-    live there).
+    live there), or with `mesh` (a `parallel/mesh.py ShardGroup`) each
+    stage tensor-parallel over the group's devices (`make_tp_stage_fns`;
+    the pipeline's device is shard 0's).
 
     `stage_params[i]` are forward-pipeline shard params (what
-    `module_shard_factory` builds); caches are per stage. The multi-device
-    meshes of the JAX class are not ported (ROADMAP A7): passing one
-    raises."""
+    `module_shard_factory` builds); caches are per stage. The sequence-
+    and expert-parallel meshes of the JAX class are not ported yet:
+    passing one raises, naming its ROADMAP item."""
 
     def __init__(self, family, cfg: TransformerConfig,
                  partition: Sequence[Tuple[int, int]],
                  stage_params: Sequence[Dict], max_len: int,
                  device: DeviceLike = None, dtype=torch.float32,
                  cache_bits: int = 0, attend_floor: int = 64,
-                 int8_decode_attend=None, **mesh_kw):
+                 int8_decode_attend=None, mesh=None, **mesh_kw):
         for name, value in mesh_kw.items():
             if name not in _MESH_ARGS:
                 raise TypeError(f"DecodePipeline got an unexpected "
                                 f"argument {name!r}")
             if value is not None:
                 raise ValueError(
-                    f"{name}: tensor-, sequence- and expert-parallel "
-                    "decoding are not ported to pipeedge_tpu_torch yet "
-                    "(ROADMAP A7, the multi-GPU axes)")
+                    f"{name} is not ported to pipeedge_tpu_torch yet "
+                    f"(ROADMAP {_MESH_ARGS[name]})")
         total = 4 * cfg.num_hidden_layers
         validate_partition(partition, total)
         validate_capacity(cfg, max_len)
@@ -529,7 +748,19 @@ class DecodePipeline:
             raise ValueError(f"attend_floor must be >= 1, got {attend_floor}")
         self.cfg = cfg
         self.max_len = max_len
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        if mesh is not None:
+            from .mesh import ShardGroup
+            if not isinstance(mesh, ShardGroup):
+                raise TypeError(f"mesh must be a parallel.mesh.ShardGroup, "
+                                f"not {type(mesh).__name__}")
+            self.device = mesh.devices[0]
+            if device is not None and resolve_device(device).type \
+                    != self.device.type:
+                raise ValueError(f"device {device} is not the kind of the "
+                                 f"tp mesh's devices {mesh}")
+        else:
+            self.device = resolve_device(device)
         self.dtype = dtype
         self.cache_bits = cache_bits
         self.attend_floor = attend_floor
@@ -539,19 +770,29 @@ class DecodePipeline:
         self.stages = []
         for i, (l, r) in enumerate(partition):
             sc = ShardConfig(l, r, is_first=l == 1, is_last=r == total)
-            pre, dec = make_stage_fns(family, cfg, sc,
-                                      int8_optin=self.int8_decode_optin)
-            self.stages.append({
-                "prefill": pre, "decode": dec,
-                "params": params_to(stage_params[i], device=self.device),
-                "n_blocks": (r - l + 1) // 4})
+            if mesh is not None:
+                pre, dec = make_tp_stage_fns(
+                    family, cfg, sc, mesh, int8_optin=self.int8_decode_optin)
+                params = shard_stage_params(stage_params[i], cfg, mesh)
+            else:
+                pre, dec = make_stage_fns(family, cfg, sc,
+                                          int8_optin=self.int8_decode_optin)
+                params = params_to(stage_params[i], device=self.device)
+            self.stages.append({"prefill": pre, "decode": dec,
+                                "params": params,
+                                "n_blocks": (r - l + 1) // 4})
 
     def _read_len(self, pos: int, span: int = 1) -> int:
         """Attend window of a decode/span step whose last query row sits
         at pos + span - 1."""
         return attend_bucket(pos + span, self.max_len, self.attend_floor)
 
-    def _fresh_caches(self, batch: int) -> List[Cache]:
+    def _fresh_caches(self, batch: int) -> List:
+        if self.mesh is not None:
+            return [init_tp_cache(self.cfg, st["n_blocks"], batch,
+                                  self.max_len, self.mesh, self.dtype,
+                                  cache_bits=self.cache_bits)
+                    for st in self.stages]
         return [init_cache(self.cfg, st["n_blocks"], batch, self.max_len,
                            self.dtype, cache_bits=self.cache_bits,
                            device=self.device) for st in self.stages]
@@ -589,8 +830,7 @@ class DecodePipeline:
             data, caches = run_stages(ids[c0:c0 + prefill_ubatch])
             outs.append(data)
             chunk_caches.append(caches)
-        merged = [{name: torch.cat([cc[i][name] for cc in chunk_caches],
-                                   dim=1) for name in chunk_caches[0][i]}
+        merged = [_cat_batch([cc[i] for cc in chunk_caches])
                   for i in range(len(self.stages))]
         return torch.cat(outs, dim=0), merged
 
@@ -636,7 +876,8 @@ class DecodePipeline:
                 tuple(st["n_blocks"] for st in self.stages),
                 self.max_len, self.cache_bits,
                 str(self.dtype).replace("torch.", ""),
-                self.cfg.kv_heads, self.cfg.head_dim)
+                self.cfg.kv_heads, self.cfg.head_dim,
+                self.mesh.size if self.mesh is not None else 1)
 
     def check_prefix(self, prefix: Dict) -> None:
         """Validate a `precompute_prefix` handle against this pipeline's
@@ -651,7 +892,7 @@ class DecodePipeline:
                 "prefix handle was built by an incompatible pipeline: "
                 f"handle sig {sig} vs this pipeline {self._prefix_sig()} "
                 "(fields: version, per-stage block counts, max_len, "
-                "cache_bits, dtype, kv_heads, head_dim)")
+                "cache_bits, dtype, kv_heads, head_dim, tp degree)")
 
     @torch.inference_mode()
     def generate(self, ids, new_tokens: int, temperature: float = 0.0,

@@ -1,0 +1,158 @@
+"""The shard group: one named mesh axis over an explicit list of devices.
+
+The port's counterpart of a one-axis `jax.sharding.Mesh` together with
+`utils/jax_compat.shard_map` over it. JAX runs a tensor-parallel block as
+one program per device under `shard_map`, with `psum` and `ppermute`
+between them; here one process holds the N shards (a single controller)
+and drives them in lock step, each shard's work on its own device:
+
+- `map(fn, *per_shard_args)` runs `fn` once per shard, under that shard's
+  device (`torch.cuda.device`), so its allocations and kernel launches go
+  to that device and its current stream. Work on different cards runs
+  concurrently: the host only enqueues it.
+- `ring_forward(xs)` is `ppermute` with perm `[(i, i + 1 mod n)]`: shard
+  i's value moves to shard i + 1's device (`Tensor.to(..., non_blocking=
+  True)`, a peer-to-peer copy between cards, ordered against both
+  devices' current streams by PyTorch; on one card the tensor itself).
+- `psum` and `all_gather` are exact and deterministic: the shards' values
+  meet on shard 0's device and are summed or concatenated in shard order,
+  and every shard gets that one result (the same tensor for shards that
+  share a device, so callers never write into a collective's result).
+
+Why one process and not a `torch.distributed` group: JAX's `--stage-tp`
+is one process over its own local devices, and NCCL refuses two ranks on
+one card ("Duplicate GPU detected"), so a process group could not run on
+a one-card host at all. When more shards are asked for than the host has
+cards, the shards share the cards round-robin (`devices_for`), as two
+`-c dcn` ranks share one card. The CPU runs the same code on `[cpu] * n`.
+"""
+from __future__ import annotations
+
+import contextlib
+import logging
+from typing import Callable, List, Sequence
+
+import torch
+
+from ..ops.quant import QuantizedTensor
+
+logger = logging.getLogger(__name__)
+
+
+def devices_for(n: int, device) -> List[torch.device]:
+    """The devices of an `n`-shard group on `device`'s kind: `cuda:i %
+    device_count()` (logged when shards must share a card), or `[cpu] *
+    n`."""
+    dev = torch.device(device)
+    if n < 1:
+        raise ValueError(f"a shard group needs at least one shard, got {n}")
+    if dev.type == "cpu":
+        return [torch.device("cpu")] * n
+    if dev.type != "cuda":
+        raise ValueError(f"shard groups run on cuda or cpu, not {dev}")
+    count = torch.cuda.device_count()
+    if count < 1:
+        raise RuntimeError("a cuda shard group needs a GPU; "
+                           "torch.cuda.device_count() is 0")
+    if n > count:
+        logger.info("%d shards share %d card(s) round-robin", n, count)
+    return [torch.device("cuda", i % count) for i in range(n)]
+
+
+def _to(x, device: torch.device):
+    """Move a tensor or a `QuantizedTensor` (the ring's encoded payload)."""
+    if isinstance(x, QuantizedTensor):
+        return QuantizedTensor(data=_to(x.data, device),
+                               scale=_to(x.scale, device),
+                               shift=_to(x.shift, device), shape=x.shape,
+                               bit=x.bit)
+    return x.to(device, non_blocking=True)
+
+
+class ShardGroup:
+    """One mesh axis named `axis` over `devices`, one shard per entry."""
+
+    def __init__(self, devices: Sequence, axis: str = "tp"):
+        self.devices = [torch.device(d) for d in devices]
+        if not self.devices:
+            raise ValueError("a shard group needs at least one device")
+        if any(d.type == "cuda" and d.index is None for d in self.devices):
+            raise ValueError("give each cuda device its index")
+        self.axis = axis
+
+    @property
+    def size(self) -> int:
+        return len(self.devices)
+
+    def axis_size(self, axis: str) -> int:
+        """`jax.lax.axis_size`: the shard count of this group's axis."""
+        if axis != self.axis:
+            raise ValueError(f"this group's axis is {self.axis!r}, "
+                             f"not {axis!r}")
+        return self.size
+
+    def __repr__(self) -> str:
+        return (f"ShardGroup({self.axis!r}, "
+                f"{[str(d) for d in self.devices]})")
+
+    def on(self, i: int):
+        """The context that makes shard `i`'s device current."""
+        dev = self.devices[i]
+        return (torch.cuda.device(dev) if dev.type == "cuda"
+                else contextlib.nullcontext())
+
+    def map(self, fn: Callable, *per_shard_args) -> list:
+        """[fn(i, *args_i) for each shard i] under shard i's device; each
+        of `per_shard_args` is a list with one entry per shard."""
+        for args in per_shard_args:
+            if len(args) != self.size:
+                raise ValueError(f"{len(args)} per-shard values for "
+                                 f"{self.size} shards")
+        out = []
+        for i in range(self.size):
+            with self.on(i):
+                out.append(fn(i, *(a[i] for a in per_shard_args)))
+        return out
+
+    def replicate(self, x) -> list:
+        """`x` on every shard's device (`P()` in_specs)."""
+        return [_to(x, d) for d in self.devices]
+
+    def ring_forward(self, xs: Sequence) -> list:
+        """`ppermute(perm=[(i, i+1 mod n)])`: entry j of the result is
+        shard j - 1's value, on shard j's device."""
+        n = self.size
+        return [_to(xs[(j - 1) % n], self.devices[j]) for j in range(n)]
+
+    def _from_root(self, value) -> list:
+        """`value` (on shard 0's device) on every shard's device, copied
+        once per distinct device."""
+        copies = {}
+        out = []
+        for d in self.devices:
+            if d not in copies:
+                copies[d] = _to(value, d)
+            out.append(copies[d])
+        return out
+
+    def psum(self, xs: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+        """Exact all-reduce: sum in shard order on shard 0's device."""
+        root = self.devices[0]
+        total = xs[0]
+        for x in xs[1:]:
+            total = total + _to(x, root)
+        return self._from_root(total)
+
+    def gather(self, xs: Sequence[torch.Tensor], dim: int = 0,
+               tiled: bool = True) -> torch.Tensor:
+        """The shards' values on shard 0's device, in shard order:
+        concatenated along `dim` (`tiled`) or stacked on a new axis."""
+        root = self.devices[0]
+        parts = [_to(x, root) for x in xs]
+        return (torch.cat(parts, dim=dim) if tiled
+                else torch.stack(parts, dim=dim))
+
+    def all_gather(self, xs: Sequence[torch.Tensor], dim: int = 0,
+                   tiled: bool = True) -> List[torch.Tensor]:
+        """Exact all-gather: `gather`'s result on every shard."""
+        return self._from_root(self.gather(xs, dim=dim, tiled=tiled))

@@ -118,10 +118,22 @@ own last look:
 
 Both, and the peer-health scorer, force span recording on every rank.
 
+`--stage-tp N [--tp-quant-bits 4|8]` on every `-c dcn` rank runs each
+stage's blocks Megatron tensor-parallel over N shards (`_make_tp_stage`,
+`parallel/tensor.py` over a `parallel/mesh.py ShardGroup`): the
+pipeline runs over DCN between ranks, tensor parallelism within each
+rank, on cards 0..N-1 round-robin (so shards share a one-card host's
+card; `--device cpu` puts them on the CPU). Stages must be block-aligned
+(the schedulers re-cut at multiples of 4), and `--tp-quant-bits` makes
+the two all-reduces of every block the quantized ring of
+`ops/qcollectives.py`, whose wire footprint each rank folds into
+stage-tagged `collective` spans and `pipeedge_collective_bits_total` at
+the end of each round.
+
 The flags of `runtime.py` that this entry does not run are refused at
 parse time, each naming the ROADMAP item that ports it (`REFUSED`): the
-multi-device axes' (A7), `--platform` (the port's switch is `--device`)
-and the dataset flags (the real datasets need a download).
+SPMD driver's (A7d), `--platform` (the port's switch is `--device`) and
+the dataset flags (the real datasets need a download).
 """
 from __future__ import annotations
 
@@ -277,18 +289,16 @@ _HB_RTT = prom.REGISTRY.gauge(
 # `runtime.py` flags this entry refuses, each with the ROADMAP item that
 # ports it (so no flag is silently ignored): flag -> (argparse keywords,
 # item)
-_AXES = "A7, the multi-GPU axes"
+_SPMD = "A7d, the SPMD pipeline (-c spmd)"
 _DATASET = ("A7 small pieces: the real datasets need a download, so the "
             "port runs the synthetic inputs only")
 _INT, _FLOAT, _STR, _SWITCH = ({"type": int}, {"type": float}, {},
                                {"action": "store_true"})
 REFUSED = {
-    "--spmd-dp": (_INT, _AXES),
-    "--spmd-tp": (_INT, _AXES),
-    "--spmd-sp": (_INT, _AXES),
-    "--spmd-sp-kind": (_STR, _AXES),
-    "--stage-tp": (_INT, _AXES),
-    "--tp-quant-bits": (_INT, _AXES),
+    "--spmd-dp": (_INT, _SPMD),
+    "--spmd-tp": (_INT, _SPMD),
+    "--spmd-sp": (_INT, _SPMD),
+    "--spmd-sp-kind": (_STR, _SPMD),
     "--dataset-root": (_STR, _DATASET),
     "--dataset-split": (_STR, _DATASET),
     "--dataset-indices-tsv": (_STR, _DATASET),
@@ -471,6 +481,20 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     parser.add_argument("--autoscale-rank-low", type=float, default=0.05,
                         help="bottleneck service seconds below which the "
                              "pipeline counts as over-provisioned")
+    parser.add_argument("--stage-tp", type=int, default=1,
+                        help="shard each dcn stage's blocks Megatron-style "
+                             "over N shards (block-aligned stages): "
+                             "pipeline across ranks over DCN, tensor "
+                             "parallelism within each rank (the shards "
+                             "share the cards round-robin)")
+    parser.add_argument("--tp-quant-bits", type=int, default=0,
+                        choices=[0, 8, 4],
+                        help="bitwidth of the intra-stage TP collectives "
+                             "(EQuARX-style quantized all-reduce, "
+                             "ops/qcollectives.py): 0 = exact all-reduce; "
+                             "8/4 = block-scaled int8/int4 ring collectives "
+                             "with an f32 accumulator. Gates every "
+                             "tensor.py psum site (--stage-tp)")
     parser.add_argument("--save-results", type=str, default=None,
                         metavar="NPZ",
                         help="save every delivered result microbatch (in "
@@ -515,7 +539,7 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                      "cpu")
     if args.comm == "spmd":
         parser.error(f"-c spmd is not ported to pipeedge_tpu_torch yet "
-                     f"(ROADMAP {_AXES}); the port runs the host and dcn "
+                     f"(ROADMAP {_SPMD}); the port runs the host and dcn "
                      "drivers")
     dcn = args.comm == "dcn"
     n_rounds = max(len(v.split(";")) for v in
@@ -562,6 +586,35 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
             parser.error("--autoscale-min must be >= 1")
         if args.autoscale_confirm < 1:
             parser.error("--autoscale-confirm must be >= 1")
+    if args.tp_quant_bits and args.stage_tp <= 1:
+        parser.error("--tp-quant-bits gates intra-stage TP/SP "
+                     "collectives, but no TP axis is active: pass "
+                     "--spmd-tp/--spmd-sp > 1 (--comm spmd) or "
+                     "--stage-tp > 1 (--comm dcn)")
+    if args.stage_tp > 1 and not dcn:
+        parser.error("--stage-tp requires --comm dcn (per-rank local TP; "
+                     "use the spmd driver's mesh axes for single-controller "
+                     "tp)")
+    if args.stage_tp > 1:
+        # at parse time, not mid-round after the schedule broadcast (a
+        # late failure on one rank strands the rest of the fleet)
+        cfg = registry.get_model_config(args.model_name)
+        if cfg.num_attention_heads % args.stage_tp \
+                or cfg.intermediate_size % args.stage_tp \
+                or cfg.kv_heads % args.stage_tp:
+            parser.error(
+                f"--stage-tp {args.stage_tp} must divide attention heads "
+                f"({cfg.num_attention_heads}), kv heads ({cfg.kv_heads}), "
+                f"and intermediate size ({cfg.intermediate_size}) of "
+                f"{args.model_name}")
+        for spec in pt_rounds:
+            if not spec:
+                continue
+            nums = [int(x) for x in spec.split(',')]
+            for l, r in zip(nums[::2], nums[1::2]):
+                if (l - 1) % 4 or r % 4:
+                    parser.error(f"--stage-tp requires block-aligned "
+                                 f"stages; [{l}, {r}] cuts mid-block")
     if not dcn:
         for flag, given in (("--stage-ckpt", args.stage_ckpt),
                             ("--rounds", args.rounds != 1)):
@@ -1119,6 +1172,77 @@ def _stream_scope(stream):
         else contextlib.nullcontext()
 
 
+def _stage_align(args) -> int:
+    """The granularity, in sublayers, of every cut the schedulers make at
+    run time: whole blocks (4) under --stage-tp, else any sublayer."""
+    return 4 if args.stage_tp > 1 else 1
+
+
+def _make_tp_stage(args, l: int, r: int, stage: int, dtype, restored,
+                   device):
+    """Stage [l, r] with its blocks Megatron-TP-split over `--stage-tp`
+    shards on this rank (`runtime.py _make_tp_stage`): pipeline over DCN
+    across ranks, tensor parallelism within the rank. The shards sit on
+    `device`'s kind, cards round-robin (`parallel/mesh.py devices_for`).
+
+    Returns `(fn, params, group)` with the stage's `fn(params, payload)`
+    convention; the split block params live in the closure, so `params`
+    is empty. The payload enters on shard 0's device and the output is
+    shard 0's."""
+    from .models.shard import params_to
+    from .parallel import tensor as tp
+    from .parallel.mesh import ShardGroup, devices_for
+
+    n_tp = args.stage_tp
+    entry = registry.get_model_entry(args.model_name)
+    cfg = entry.config
+    if cfg.num_attention_heads % n_tp or cfg.intermediate_size % n_tp \
+            or cfg.kv_heads % n_tp:
+        raise RuntimeError(
+            f"--stage-tp {n_tp} must divide attention heads "
+            f"({cfg.num_attention_heads}), kv heads ({cfg.kv_heads}), "
+            f"and intermediate size ({cfg.intermediate_size})")
+    if (l - 1) % 4 or r % 4:
+        raise RuntimeError(f"--stage-tp requires block-aligned stages; "
+                           f"[{l}, {r}] cuts mid-block")
+    group = ShardGroup(devices_for(n_tp, device))
+    # the whole stage stays on the host; each block is split onto the
+    # shards and dropped, so the card holds only the shards
+    _, params, shard_cfg = registry.module_shard_factory(
+        args.model_name, args.model_file, l, r, stage=stage, dtype=dtype,
+        device="cpu", params=restored)
+    block_fn = tp.make_tp_block_fn(cfg, group)
+    blocks = list(params.get("blocks", ()))
+    params["blocks"] = None
+    sharded_blocks = []
+    for b, bp in enumerate(blocks):
+        sharded_blocks.append(tp.shard_block_params(cfg, bp, group))
+        blocks[b] = None
+    family = entry.family.FAMILY
+    root = group.devices[0]
+    embed_p = (params_to(params["embeddings"], device=root)
+               if shard_cfg.is_first else None)
+    final_p = (params_to(params["final"], device=root)
+               if shard_cfg.is_last else None)
+    logger.info("stage %d: %d block(s) TP-split over %d shards on %s",
+                stage, len(sharded_blocks), n_tp,
+                ", ".join(str(d) for d in group.devices))
+
+    @torch.inference_mode()
+    def stage_fn(_params, x):
+        if shard_cfg.is_first:
+            x = family.embed(embed_p, x, cfg)
+        xs = group.replicate(x)
+        for bp in sharded_blocks:
+            xs = block_fn(bp, xs)
+        x = xs[0]
+        if shard_cfg.is_last:
+            x = family.finalize(final_p, x, cfg)
+        return x
+
+    return stage_fn, {}, group
+
+
 def build_dcn_stage(args, ctx, rnd: int, i: int,
                     stage_layers: Sequence[Tuple[int, int]],
                     stage_quant: Sequence[int], stage_ranks: Sequence[int],
@@ -1152,9 +1276,15 @@ def build_dcn_stage(args, ctx, rnd: int, i: int,
                                           i, (l, r))
         restored = ckpt_utils.load_stage_checkpoint(args.stage_ckpt, i,
                                                     dtype=dtype)
-    fn, params, _ = registry.module_shard_factory(
-        args.model_name, args.model_file, l, r, stage=i, dtype=dtype,
-        device=device, params=restored)
+    if args.stage_tp > 1:
+        fn, params, group = _make_tp_stage(args, l, r, i, dtype, restored,
+                                           device)
+        # the stage's input enters on shard 0's device
+        device = group.devices[0]
+    else:
+        fn, params, _ = registry.module_shard_factory(
+            args.model_name, args.model_file, l, r, stage=i, dtype=dtype,
+            device=device, params=restored)
     last = len(stage_layers) - 1
     is_first, is_last = i == 0, i == last
     out_bit = stage_quant[i] if i < last else 0
@@ -1203,6 +1333,12 @@ def build_dcn_stage(args, ctx, rnd: int, i: int,
                        "(%s); keeping the socket path", rank, rank_dst, exc)
     mb_seq = [0]
     ubatch_idx = [0]
+    # this round's quantized TP collectives, folded after each microbatch
+    # into stage-tagged spans (recorded before the microbatch's result can
+    # reach the data rank, so a span collection at the end of the run
+    # finds them) and summed here for the round's log line
+    tp_fold = ({"calls": 0, "wire_bits_total": 0, "raw_bits_total": 0}
+               if args.stage_tp > 1 and args.tp_quant_bits else None)
 
     def dispatch_cb(tensors):
         mbid = None
@@ -1238,6 +1374,12 @@ def build_dcn_stage(args, ctx, rnd: int, i: int,
                                                  mb=mb)
             with telemetry.span("compute", f"stage{i}", stage=i, mb=mb):
                 out = fn(params, payload)
+                if tp_fold is not None:
+                    from .ops import qcollectives
+                    summary = qcollectives.record_collectives(stage=i)
+                    qcollectives.reset_trace_tally()
+                    for key in tp_fold:
+                        tp_fold[key] += summary[key]
                 pending = wire.wire_encode_device(
                     out, edge.quant_bit if edge is not None else 0,
                     crc=wire_crc)
@@ -1271,7 +1413,7 @@ def build_dcn_stage(args, ctx, rnd: int, i: int,
                      if isinstance(frame, wire.DeviceFrame) else tagged)
         return frame
 
-    return dcn.DcnPipelineStage(
+    stage = dcn.DcnPipelineStage(
         ctx, rank_src, rank_dst, dispatch_cb=dispatch_cb,
         readback_cb=readback_cb, stage=i,
         # failover frames lead with the global microbatch id: the stage's
@@ -1282,6 +1424,8 @@ def build_dcn_stage(args, ctx, rnd: int, i: int,
                       else dcn.CHANNEL_DATA) + parity,
         send_channel=(dcn.CHANNEL_RESULTS if is_last
                       else dcn.CHANNEL_DATA) + parity)
+    stage.tp_collectives = tp_fold
+    return stage
 
 
 ENV_LEDGER_SNAPSHOT = "DCN_LEDGER_SNAPSHOT"  # acks between ledger
@@ -1602,8 +1746,9 @@ def _consider_autoscale(ctx, args, a_state: dict, sched, schedules,
             sched_now = a_state["sched"]
             dead = a_state["dead"]
             if direction == "up":
-                planned = failover_sched.plan_rejoin(sched_now, None,
-                                                     world_size, dead)
+                planned = failover_sched.plan_rejoin(
+                    sched_now, None, world_size, dead,
+                    align=_stage_align(args))
                 if planned is None:
                     return {"ok": False,
                             "reason": "no idle survivor to expand onto"}
@@ -1625,7 +1770,8 @@ def _consider_autoscale(ctx, args, a_state: dict, sched, schedules,
             victim = stage_ranks[idx]
             try:
                 contracted, _ = rebalance.solve_partition(
-                    [1.0] * stage_layers[-1][1], target)
+                    [1.0] * stage_layers[-1][1], target,
+                    align=_stage_align(args))
             except ValueError as exc:
                 return {"ok": False,
                         "reason": f"contraction to {target} stage(s) "
@@ -1873,7 +2019,8 @@ def _maybe_heal(args, sched, world_size: int, rnd: int,
     with dead_lock:
         dead_now = set(dead_ranks)
     pre = _heal_state["pre_failure"]
-    healed = failover_sched.plan_rejoin(sched, pre, world_size, dead_now)
+    healed = failover_sched.plan_rejoin(sched, pre, world_size, dead_now,
+                                        align=_stage_align(args))
     if healed is None:
         logger.info("heal: capacity not restorable yet (dead=%s); the "
                     "rejoined rank stays a spare", sorted(dead_now))
@@ -2221,7 +2368,7 @@ def _drive_rounds(args, ctx, schedules, ubatches, labels, dtype,
         rebalancer = rebalance_sched.RebalancePolicy(
             threshold=args.rebalance_threshold,
             cooldown=args.rebalance_cooldown,
-            confirm=args.rebalance_confirm)
+            confirm=args.rebalance_confirm, align=_stage_align(args))
     # peer-health plane (gray failures): active whenever the fleet
     # records spans — `--on-peer-degraded quarantine` forces them on
     # (main_dcn); with `ignore` and --trace-spans the scorer still runs
@@ -2434,6 +2581,10 @@ def _dcn_round(args, ctx, rnd, stage_layers, stage_quant, stage_ranks,
         if my_stages:
             assert len(my_stages) == 1, \
                 "one stage per rank (reference p2p semantics)"
+            if args.stage_tp > 1 and args.tp_quant_bits:
+                # this round's folds count this round's collectives only
+                from .ops import qcollectives
+                qcollectives.reset_trace_tally()
             stage = build_dcn_stage(args, ctx, rnd, my_stages[0],
                                     stage_layers, stage_quant, stage_ranks,
                                     dtype)
@@ -2689,6 +2840,16 @@ def _dcn_round(args, ctx, rnd, stage_layers, stage_quant, stage_ranks,
                          time.monotonic_ns())
         if stage is not None:
             stage.stop()
+            totals = stage.tp_collectives
+            if totals is not None:
+                # the round's quantized-collective wire footprint (each
+                # microbatch's was folded into stage-tagged spans already)
+                wire_bits = totals["wire_bits_total"]
+                logger.info("rank %d stage %d quantized collectives "
+                            "(--tp-quant-bits %d): %s", rank, my_stages[0],
+                            args.tp_quant_bits, dict(totals, wire_reduction=(
+                                round(totals["raw_bits_total"] / wire_bits,
+                                      3) if wire_bits else None)))
         if feed_threads and ledger is not None:
             # a round cut off by a death leaves microbatches of its feed
             # in the first stage's queue (and a feeder parked on it); the
@@ -2771,6 +2932,10 @@ def dcn_schedules(args) -> List[Tuple[List[Tuple[int, int]], List[int],
 def main_dcn(args) -> None:
     """`-c dcn`: this process is one rank of the fleet."""
     global _results_sink
+    if args.tp_quant_bits:
+        # one process-wide switch, read by every TP block's all-reduce
+        from .parallel import tensor as tp
+        tp.set_tp_quant_bits(args.tp_quant_bits)
     if args.wire_crc:
         # one process-wide switch, read by the transport and the codec
         from .comm.wire import ENV_WIRE_CRC

@@ -247,9 +247,12 @@ def test_validation_errors(weights):
         make(attend_floor=0)
     with pytest.raises(ValueError, match="cache_bits"):
         tdec.init_cache(CFG, 2, 1, 8, cache_bits=4, device="cpu")
-    for mesh_arg in ("mesh", "sp_mesh", "ep_mesh", "tp_ep_mesh"):
+    for mesh_arg in ("sp_mesh", "ep_mesh", "tp_ep_mesh"):
         with pytest.raises(ValueError, match="ROADMAP A7"):
             make(**{mesh_arg: object()})
+    # the tensor-parallel mesh is a shard group (tests/test_torch_generate_tp.py)
+    with pytest.raises(TypeError, match="ShardGroup"):
+        make(mesh=object())
     with pytest.raises(TypeError):
         make(devices=["cpu"])
     with pytest.raises(ValueError, match="pos_next"):

@@ -3,9 +3,11 @@ and `-sm/-sdt/-sd`, and the flags both entries refuse.
 
 - Every composition error of `pipeedge_tpu_torch.generate` is the JAX
   entry's (`tools/generate.py`), word for word, on the same command line.
-- The flags that need another device layout are refused at parse time,
-  naming their ROADMAP item: generate's DCN and multi-device flags, and
-  `runtime.py`'s flags the port's runtime does not run.
+- The flags that need a layout the port does not run yet are refused at
+  parse time, naming their ROADMAP item: generate's `--sp`, `--ep` and
+  `--spmd-wave`, and `runtime.py`'s flags the port's runtime does not
+  run; the tensor-parallel flags (`--tp`, `--stage-tp`,
+  `--tp-quant-bits`) parse.
 - `--concurrent N` on the tiny GPT-2: every request's tokens equal its
   solo run (fp and int8 caches, with and without a shared prefix).
 - `--monitor` writes `new_tokens - 1` heartbeat rows to decode.csv.
@@ -79,8 +81,7 @@ def test_compose_errors_are_the_jax_entry_s(case, monkeypatch):
     assert got == want
 
 
-GEN_REFUSED = {"--tp": ["2"], "--sp": ["2"], "--ep": ["2"],
-               "--spmd-wave": []}
+GEN_REFUSED = {"--sp": ["2"], "--ep": ["2"], "--spmd-wave": []}
 
 
 @pytest.mark.parametrize("flag", sorted(GEN_REFUSED))
@@ -90,6 +91,31 @@ def test_generate_refuses_naming_the_item(flag):
         BASE + [flag] + GEN_REFUSED[flag]))
     assert msg.startswith(f"{flag} is not ported to pipeedge_tpu_torch yet "
                           "(ROADMAP A7")
+
+
+# the multi-GPU flags the port runs, with a value (the tensor-parallel
+# decode itself runs in tests/test_torch_generate_tp.py and the stage fleet
+# in tests/test_torch_stage_tp_dcn.py)
+TP_FLAGS = {
+    "generate --tp": (lambda: generate.parse_args(
+        BASE + ["--tp", "2", "--device", "cpu"]), ("tp", 2)),
+    "runtime --stage-tp": (lambda: runtime.parse_args(
+        ["0", "2", "-c", "dcn", "-m", "pipeedge/test-tiny-vit",
+         "-pt", "1,4,5,8", "--stage-tp", "2"]), ("stage_tp", 2)),
+    "runtime --tp-quant-bits": (lambda: runtime.parse_args(
+        ["0", "2", "-c", "dcn", "-m", "pipeedge/test-tiny-vit",
+         "--stage-tp", "2", "--tp-quant-bits", "4"]), ("tp_quant_bits", 4)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(TP_FLAGS))
+def test_tensor_parallel_flags_parse(case):
+    """The tensor-parallel flags of both entries parse, are off the refused
+    tables and reach the arguments."""
+    parse, (dest, value) = TP_FLAGS[case]
+    flag = case.split()[1]
+    assert flag not in generate.REFUSED and flag not in runtime.REFUSED
+    assert getattr(parse(), dest) == value
 
 
 # generate's DCN flags, each with a value (the DCN fleet itself runs in
@@ -165,7 +191,7 @@ def test_runtime_parses_the_dcn_flags(flag):
     args = runtime.parse_args(["1", "2", "-c", "dcn", flag]
                               + DCN_FLAGS[flag])
     assert args.comm == "dcn" and args.rank == 1
-    for stays in ("--stage-tp", "--spmd-dp"):
+    for stays in ("--spmd-tp", "--spmd-dp"):
         assert runtime.REFUSED[stays][1].startswith("A7")
 
 

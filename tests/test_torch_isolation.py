@@ -134,10 +134,16 @@ CONTROL_MODULES = ["loadgen.py"]
 DISAGG_MODULES = ["kv/disagg.py", "kv/fleet.py", "prefill_worker.py"]
 
 
+# the tensor-parallel axis: the shard group, the Megatron blocks and the
+# quantized collectives
+TP_MODULES = ["parallel/mesh.py", "parallel/tensor.py",
+              "ops/qcollectives.py"]
+
+
 @pytest.mark.parametrize("rel", SERVING_MODULES + DECODER_MODULES
                          + LOOP_AND_ROUTER_MODULES + DCN_MODULES
                          + OBSERVATORY_MODULES + FAULT_MODULES
-                         + CONTROL_MODULES + DISAGG_MODULES)
+                         + CONTROL_MODULES + DISAGG_MODULES + TP_MODULES)
 def test_serving_modules_import_no_jax_anywhere(rel):
     """Each serving-slice module is scanned, and none imports `jax` or
     `pipeedge_tpu` (nor a root module that does), at module level or
