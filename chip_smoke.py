@@ -229,10 +229,10 @@ Phases, each of which raises on failure (nothing is caught):
      stated bounds, 4 kernel-3 launches and one encode and one decode
      per microbatch; one profiled 8-bit microbatch;
      (b) the same weights and cut through `DecodePipeline.generate`,
-     batch 4, a 512-token prompt, 128 new tokens, fp and int8 caches (the
+     batch 4, a 512-token prompt, 64 new tokens, fp and int8 caches (the
      kernel-5 opt-in set: no launch, a Llama step never asks the gate),
      timed; the fp cache's prefill and each step replayed, timed, its
-     logits within FAMILY_FP_BOUND of the forward over the same 640
+     logits within FAMILY_FP_BOUND of the forward over the same 576
      tokens (4 kernel-3 launches); one profiled decode step;
      (c) the in-process server, `--kv-bits 8 --kv-pages 512
      --kv-page-size 16 --chunked-prefill 64`, wave and stage executors:
@@ -246,15 +246,15 @@ Phases, each of which raises on failure (nothing is caught):
      step within FAMILY_FP_BOUND of the forward over the 4106 tokens,
      which takes the masked route (no kernel-3 launch); the forward over
      the first 4096 tokens launches kernel 3 4 times and agrees with it;
-     (e) Llama-2-7B (MHA), bf16: generate [4, 512] + 128 on fp
+     (e) Llama-2-7B (MHA), bf16: generate [4, 512] + 64 on fp
      and int8 caches, timed, no kernel-5 launch;
      (f) `pipeedge/gpt2-moe-8e`, f32: the pipeline `-pt 1,24,25,48` at
      edge bits 0 and 8 (12 kernel-3 launches per microbatch; bit 8 equal
      to the stages' forward with the plain codec at the cut, and the
      tokens before their sequence's first rerouted token within
      LOGIT_BOUND of the exact forward), the expert load of each block,
-     generate [16, 192] + 128 on an int8 cache of 1024 rows (phase 6's
-     windows) with the kernel-5 opt-in 'auto' (12 launches per decode
+     generate [16, 192] + 64 on an int8 cache of 1024 rows (phase 6's
+     cache) with the kernel-5 opt-in 'auto' (12 launches per decode
      step), then the kernel route and the dequantize route in lockstep
      under one routing (`RoutingPin`), within DECODE_ROUTE_BOUND, and 4
      requests through the in-process server (1024 rows), each equal to
@@ -269,9 +269,10 @@ Phases, each of which raises on failure (nothing is caught):
  15. the rest of PipeEdge's loop and the replica router:
      (a) `python -m pipeedge_tpu_torch.revauct` over the committed
      `pipeedge_tpu_torch/profiles/h100/` (ViT-Large, `-u 8`, latency- and
-     throughput-ordered, seed 0, side by side): each schedule covers
-     [1, 96] and runs through the runtime entry with raw edges, its saved
-     logits equal to the single-shard forward bit for bit (kernel 3 at 24
+     throughput-ordered, seed 0, side by side; beside phase 14(g),
+     neither reading a rate): each schedule covers [1, 96] and
+     runs through the runtime entry with raw edges, its saved logits
+     equal to the single-shard forward bit for bit (kernel 3 at 24
      launches per microbatch);
      (b) the ViT-Base runtime entry (`-pt 1,21,22,48 -q 8,0 -b 64 -u 8`,
      2 rounds) without and with `--trace DIR --trace-spans OUT` (each its
@@ -469,6 +470,38 @@ Phases, each of which raises on failure (nothing is caught):
      [4, 512] + 32, each generation held by `near_tie_rule` to the
      `--tp 1` pipeline's greedy decode; tokens/s and device kernels per
      decode step at both degrees.
+ 22. expert and sequence parallelism (`parallel/{expert,sequence}.py`,
+     `DecodePipeline(ep_mesh/tp_ep_mesh/sp_mesh)`), the shards sharing
+     the one card:
+     (a) `ep_ffn_delta` at the MoE GPT-2's widths (768 / 3072, 8
+     experts, [16, 192] tokens) over 2 and 4 shards against the single
+     device (equal, or within EP_DELTA_BOUND; each shard's delta exactly
+     0 off its kept tokens, dropped tokens 0); the ring and Ulysses cores
+     at Llama-3-8B's heads (32 / 8 kv / 128) over [1, 4096] causal, sp 2,
+     against kernel 3 and the plain full attention (ATTN_TOL), Ulysses
+     with 2 kernel-3 launches, the ring none; Ulysses under Mistral-7B's
+     window (4096) over [1, 8192] against a plain windowed attention, no
+     kernel-3 launch; kernel 3 at a Ulysses head group [1, 4096, 16, 128]
+     f32 causal beside its plain version, SDPA and its bound;
+     (b) the MoE GPT-2 (weights drawn on the card, handed to the entry)
+     through `generate -pt 1,24,25,48 -b 16 --prompt-len 192
+     --new-tokens 64 --max-len 1024` at `--ep 2 --kv-bits 8` with the
+     decode-attention opt-in (kernel 5, 12 blocks x 2 shards a step) and
+     `--tp 2 --ep 2` (4 shards), each held by `near_tie_rule` to the ep
+     1 pipeline's greedy decode over the same whole-window attends;
+     tokens/s, ms and device kernels per step at ep 1 and on the mesh;
+     the grid in process at `set_tp_quant_bits(8)` (a prefill and two
+     steps) within LOGIT_BOUND[8] of the exact grid, with n^2 encodes and
+     2n(n-1) decodes per attention all-reduce of each ep column; kernels
+     1 and 2 at the grid's ring chunks and kernel 5 at an ep shard's
+     whole window, timed;
+     (c) Llama-3-8B at LLAMA_BLOCKS (`-pt 1,8,9,16`) [1, 4096] + 32
+     through `generate --sp 2` (the ring core), held by `near_tie_rule`
+     to the sp 1 pipeline's greedy decode; in process the ring and
+     Ulysses prefills against sp 1's (last-position logits within
+     SP_LOGIT_BOUND, the gathered cache within SP_CACHE_BOUND of its
+     route), kernel 3 launched 2 per block by Ulysses only, Ulysses'
+     tokens by the same rule; prefill ms at sp 1 and 2.
 Phase 3 also holds kernel 5 (decode attention) against its plain version
 at the main path's shapes (windows of a [16, 1024, 12, 64] stage cache at
 buckets 256 and 512, and pos 1000 of the whole cache), pos 0 and W-1,
@@ -732,12 +765,15 @@ MOE_PARTITION = [(1, 24), (25, 48)]
 # sequences, microbatch, tokens; 32 sequences until the script passed
 # 1000 s of its limit (PR 13)
 FAMILY_FWD = (16, 8, 128)
-FAMILY_DECODE = (4, 512, 128)     # batch, prompt, new tokens
+# batch, prompt, new tokens (cut from 128 new tokens to make room for
+# phase 22)
+FAMILY_DECODE = (4, 512, 64)
 LLAMA_MAX_LEN = 640
 MISTRAL_DECODE = (4090, 16)       # prompt, new tokens: steps cross 4096
-MOE_DECODE = (16, 192, 128)       # batch, prompt, new tokens; max_len is
-                                  # DECODE_MAX_LEN, so kernel 5 sees
-                                  # phase 6's windows
+MOE_DECODE = (16, 192, 64)        # batch, prompt, new tokens (cut from
+                                  # 128, as FAMILY_DECODE); max_len is
+                                  # DECODE_MAX_LEN, so kernel 5 sees phase
+                                  # 6's cache
 # fp decode logits against the forward over the same tokens, as a share
 # of max |logit| (f32 on both sides). Phase 6 holds GPT-2 (12 blocks,
 # inner widths 768 / 3072) at 1e-4; here 32 blocks of inner widths 4096 /
@@ -1137,14 +1173,16 @@ def int8_bound_ms(m, k, n, block_k):
                                        else "bytes")
 
 
-def device_launches(fn) -> int:
+def device_launches(fn, host_copies: bool = False):
     """Kernels one `fn()` call puts on the device (torch.profiler). The
     tracer can miss a kernel in the first sessions of a process (on the
     H100 the encode went uncounted in a first session, and once in a
     second), and never counts one that was not launched, since every
     session starts after a synchronize. So sessions repeat until two in a
     row agree on a count above 0 (at most DEVICE_LAUNCH_SESSIONS), and
-    the count is the largest seen."""
+    the count is the largest seen. With `host_copies`, also the copies
+    between host and device (`Memcpy HtoD` / `DtoH` events) of that
+    session: (kernels, copies)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     counts = []
@@ -1154,11 +1192,15 @@ def device_launches(fn) -> int:
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             fn()
             torch.cuda.synchronize()
-        counts.append(sum(1 for e in prof.events()
-                          if e.device_type == DeviceType.CUDA))
-        if len(counts) >= 2 and counts[-1] == counts[-2] > 0:
+        events = [e for e in prof.events()
+                  if e.device_type == DeviceType.CUDA]
+        counts.append((len(events), sum(1 for e in events
+                                        if "HtoD" in e.name
+                                        or "DtoH" in e.name)))
+        if len(counts) >= 2 and counts[-1][0] == counts[-2][0] > 0:
             break
-    return max(counts)
+    most = max(counts)
+    return most if host_copies else most[0]
 
 
 def check_int8_matmul(dev, gen):
@@ -4501,19 +4543,31 @@ def cut_llama_depth():
 
 
 def families_path(card: str, device_name: str,
-                  weights_dir: Path = ROOT / "pipeedge_tpu_torch" / "_build"
-                  ) -> dict:
+                  weights_dir: Path = ROOT / "pipeedge_tpu_torch" / "_build",
+                  alongside=None) -> dict:
     """Phase 14 (module docstring), gated as it goes; each model is freed
     before the next is drawn. Returns what the kernels line and PERF.md
-    read."""
+    read. `alongside`, a callable, runs beside (g)'s entries (phase 15a,
+    whose results, like (g)'s, read no rate); its result is
+    `out["alongside"]`."""
+    from concurrent.futures import ThreadPoolExecutor
     pm = ["--postmortem-dir", str(weights_dir / "postmortems")]
     t0 = time.monotonic()
     out = {}
+
+    def entries():
+        with ThreadPoolExecutor(1) as pool:
+            beside = None if alongside is None else pool.submit(alongside)
+            res = {"entries": family_entries(weights_dir)}
+            if beside is not None:
+                res["alongside"] = beside.result()
+        return res
+
     for name, run in (("a-c", lambda: llama3_path(card, device_name, pm)),
                       ("d", lambda: mistral_path(device_name)),
                       ("e", lambda: llama2_path(device_name)),
                       ("f", lambda: moe_path(card, device_name, pm)),
-                      ("g", lambda: {"entries": family_entries(weights_dir)})):
+                      ("g", entries)):
         with cut_llama_depth():
             out |= run()
         free_card()
@@ -7580,6 +7634,76 @@ def launch_delta(before: dict) -> dict:
     return {k: v - before.get(k, 0) for k, v in _build.launch_counts.items()}
 
 
+def ring_codec_row(case: str, m: int, n: int, bit: int, dev, gen) -> dict:
+    """Kernels 1 and 2 at the quantized all-reduce's chunk of an m-value
+    addend over n shards ([m / (n * 256), 256] rounded up) against the
+    plain codec, the ring's one block per item and the edge's cluster
+    both, each timed beside the plain codec and the bound."""
+    from pipeedge_tpu_torch.ops import fused_quant, qcollectives, quant
+    block_len = qcollectives.DEFAULT_BLOCK
+    rows = -(-m // (n * block_len))
+    chunk = torch.randn((rows, block_len), generator=gen, device=dev)
+    ring = qcollectives.RING_CLUSTER
+    enc = fused_quant.fused_encode_outerdim(chunk, bit, cluster=ring)
+    ref = quant.tensor_encode_outerdim(chunk, bit)
+    dec = fused_quant.fused_decode_outerdim(enc)
+    dref = quant.tensor_decode_outerdim(ref)
+    edge = fused_quant.fused_encode_outerdim(
+        chunk, bit, cluster=fused_quant.ENCODE_CLUSTER)
+    torch.cuda.synchronize()
+    fields = ("data", "scale", "shift")
+    return dict(
+        case=case, shape=[rows, block_len], bit=bit,
+        equal_plain=all(torch.equal(getattr(enc, f), getattr(ref, f))
+                        for f in fields) and torch.equal(dec, dref),
+        edge_cluster_equal_plain=all(torch.equal(getattr(edge, f),
+                                                 getattr(ref, f))
+                                     for f in fields),
+        encode_ms=time_ms(lambda: fused_quant.fused_encode_outerdim(
+            chunk, bit, cluster=ring)),
+        cluster=ring, edge_cluster=fused_quant.ENCODE_CLUSTER,
+        edge_cluster_encode_ms=time_ms(
+            lambda: fused_quant.fused_encode_outerdim(
+                chunk, bit, cluster=fused_quant.ENCODE_CLUSTER)),
+        plain_encode_ms=time_ms(
+            lambda: quant.tensor_encode_outerdim(chunk, bit)),
+        decode_ms=time_ms(lambda: fused_quant.fused_decode_outerdim(enc)),
+        plain_decode_ms=time_ms(lambda: quant.tensor_decode_outerdim(ref)),
+        bound_ms=codec_bytes((rows, block_len), bit) / HBM_BYTES_PER_S * 1e3,
+        bound_by="bytes", max_abs_err=float((dec - dref).abs().max()))
+
+
+def decode_kernel_row(b: int, w: int, h: int, hd: int, pos: int, dev,
+                      gen) -> dict:
+    """Kernel 5 (variant 2) over a w-row window of a [b, DECODE_MAX_LEN,
+    h, hd] int8 cache at `pos` against its plain version, timed beside it
+    and the bound."""
+    from pipeedge_tpu_torch.ops import decode_attention as da
+    from pipeedge_tpu_torch.parallel import decode
+    cache = {}
+    for tag in ("k", "v"):
+        rows_ = torch.randn((b, DECODE_MAX_LEN, h, hd), generator=gen,
+                            device=dev)
+        cache[tag], cache[tag + "_scale"], cache[tag + "_shift"] = \
+            decode._quantize_rows(rows_)
+    win = {key: val[:, :w] for key, val in cache.items()}
+    qd, k_new, v_new = (torch.randn((b, 1, h, hd), generator=gen,
+                                    device=dev) for _ in range(3))
+    args = (qd, win["k"], win["k_scale"], win["k_shift"], win["v"],
+            win["v_scale"], win["v_shift"], k_new, v_new, pos)
+    got = da.int8_decode_attention(*args, variant=2)
+    want = da.decode_attention_reference(*args)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, **DECODE_ATTN_TOL[torch.float32])
+    bound, bound_by = decode_bound_ms(b, h, hd, pos, torch.float32)
+    return dict(
+        shape=[b, w, h, hd], pos=pos, dtype="float32",
+        max_abs_err=float((got - want).abs().max()),
+        ms=time_ms(lambda: da.int8_decode_attention(*args, variant=2)),
+        plain_ms=time_ms(lambda: da.decode_attention_reference(*args)),
+        bound_ms=bound, bound_by=bound_by, library_ms=None)
+
+
 def tp_kernels_path(dev, gen) -> dict:
     """Phase 21a: a ViT-Base block over 2 and 4 shards against the
     unsharded block; `qpsum` at 8 and 4 bits against the same ring through
@@ -7590,9 +7714,6 @@ def tp_kernels_path(dev, gen) -> dict:
     import torch.nn.functional as F
     from pipeedge_tpu_torch.models import registry, vit
     from pipeedge_tpu_torch.ops import _build, attention, qcollectives
-    from pipeedge_tpu_torch.ops import decode_attention as da
-    from pipeedge_tpu_torch.ops import fused_quant, quant
-    from pipeedge_tpu_torch.parallel import decode
     from pipeedge_tpu_torch.parallel import tensor as tp
     from pipeedge_tpu_torch.parallel.mesh import ShardGroup, devices_for
 
@@ -7671,49 +7792,13 @@ def tp_kernels_path(dev, gen) -> dict:
     # kernels 1 and 2 at the ring's [m / 256, 256] chunks: ViT-Base's
     # [8, 197, 768] addend at n = 2 and 4, the Llama-3-8B prompt's
     # [4, 512, 4096] at n = 2
-    block_len = qcollectives.DEFAULT_BLOCK
     for name, m, n in (("vitb", UBATCH * 197 * d, 2),
                        ("vitb", UBATCH * 197 * d, 4),
                        ("llama3_prompt", 4 * 512 * 4096, 2)):
-        rows = -(-m // (n * block_len))
-        chunk = torch.randn((rows, block_len), generator=gen, device=dev)
         for bit in TP_BITS:
-            enc = fused_quant.fused_encode_outerdim(
-                chunk, bit, cluster=qcollectives.RING_CLUSTER)
-            ref = quant.tensor_encode_outerdim(chunk, bit)
-            dec = fused_quant.fused_decode_outerdim(enc)
-            dref = quant.tensor_decode_outerdim(ref)
-            torch.cuda.synchronize()
-            equal = all(torch.equal(getattr(enc, f), getattr(ref, f))
-                        for f in ("data", "scale", "shift")) \
-                and torch.equal(dec, dref)
-            # the ring's encode (RING_CLUSTER blocks per item) beside the
-            # edge's (ENCODE_CLUSTER)
-            ring = qcollectives.RING_CLUSTER
-            edge = fused_quant.fused_encode_outerdim(
-                chunk, bit, cluster=fused_quant.ENCODE_CLUSTER)
-            equal_edge = all(torch.equal(getattr(edge, f), getattr(ref, f))
-                             for f in ("data", "scale", "shift"))
-            nbytes = codec_bytes((rows, block_len), bit)
-            row = dict(
-                case=f"{name} n={n}", shape=[rows, block_len], bit=bit,
-                equal_plain=equal, edge_cluster_equal_plain=equal_edge,
-                encode_ms=time_ms(lambda: fused_quant.fused_encode_outerdim(
-                    chunk, bit, cluster=ring)),
-                cluster=ring, edge_cluster=fused_quant.ENCODE_CLUSTER,
-                edge_cluster_encode_ms=time_ms(
-                    lambda: fused_quant.fused_encode_outerdim(
-                        chunk, bit, cluster=fused_quant.ENCODE_CLUSTER)),
-                plain_encode_ms=time_ms(
-                    lambda: quant.tensor_encode_outerdim(chunk, bit)),
-                decode_ms=time_ms(
-                    lambda: fused_quant.fused_decode_outerdim(enc)),
-                plain_decode_ms=time_ms(
-                    lambda: quant.tensor_decode_outerdim(ref)),
-                bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
-                max_abs_err=float((dec - dref).abs().max()))
-            res["ring"].append(row)
-            log("tp ring codec " + json.dumps(row))
+            res["ring"].append(ring_codec_row(f"{name} n={n}", m, n, bit,
+                                              dev, gen))
+            log("tp ring codec " + json.dumps(res["ring"][-1]))
     # kernel 3 at a shard's heads: ViT-Base's 12 heads over 2 shards
     flip = (0, 2, 1, 3)
     q, k, v = (torch.randn((UBATCH, 197, 6, 64), generator=gen, device=dev)
@@ -7737,29 +7822,8 @@ def tp_kernels_path(dev, gen) -> dict:
     log("tp attention " + json.dumps(res["attention"]))
     # kernel 5 over a shard's 6 heads: a bucket-256 window of GPT-2's
     # [16, 1024, 6, 64] shard cache at pos 200
-    b, w, h, hd, pos = DECODE_BATCH, 256, 6, 64, 200
-    cache = {}
-    for tag in ("k", "v"):
-        rows_ = torch.randn((b, DECODE_MAX_LEN, h, hd), generator=gen,
-                            device=dev)
-        cache[tag], cache[tag + "_scale"], cache[tag + "_shift"] = \
-            decode._quantize_rows(rows_)
-    win = {key: val[:, :w] for key, val in cache.items()}
-    qd, k_new, v_new = (torch.randn((b, 1, h, hd), generator=gen,
-                                    device=dev) for _ in range(3))
-    args = (qd, win["k"], win["k_scale"], win["k_shift"], win["v"],
-            win["v_scale"], win["v_shift"], k_new, v_new, pos)
-    got = da.int8_decode_attention(*args, variant=2)
-    want = da.decode_attention_reference(*args)
-    torch.cuda.synchronize()
-    torch.testing.assert_close(got, want, **DECODE_ATTN_TOL[torch.float32])
-    bound, bound_by = decode_bound_ms(b, h, hd, pos, torch.float32)
-    res["decode_attention"] = dict(
-        shape=[b, w, h, hd], pos=pos, dtype="float32",
-        max_abs_err=float((got - want).abs().max()),
-        ms=time_ms(lambda: da.int8_decode_attention(*args, variant=2)),
-        plain_ms=time_ms(lambda: da.decode_attention_reference(*args)),
-        bound_ms=bound, bound_by=bound_by, library_ms=None)
+    res["decode_attention"] = decode_kernel_row(DECODE_BATCH, 256, 6, 64,
+                                                200, dev, gen)
     log("tp decode_attention " + json.dumps(res["decode_attention"]))
     return res
 
@@ -8088,6 +8152,596 @@ def check_tp_generate(res, device_name: str) -> dict:
                   for tp in (1, 2)} for key, r in res["gpt2"].items()}
 
 
+# Phase 22: expert and sequence parallelism, the shards sharing the one
+# card. (a) in process at full width: `ep_ffn_delta` at the MoE GPT-2's
+# widths over EP_TOKENS tokens, the ring and Ulysses cores at Llama-3-8B's
+# heads over SP_ATTN tokens, Ulysses under Mistral-7B's window over
+# SP_WINDOW_ATTN tokens; (b) the MoE GPT-2 through `generate --ep 2
+# --kv-bits 8` and `--tp 2 --ep 2` (EP_GEN), then the tp x ep grid at 8
+# quantized bits in process; (c) Llama-3-8B at LLAMA_BLOCKS through
+# `generate --sp 2` (SP_GEN, the ring core) and in process with both
+# cores.
+EP_DEGREES = (2, 4)
+EP_TOKENS = (16, 192)             # the MoE GPT-2 decode path's prompt
+SP_ATTN = (1, 4096)               # batch, tokens over sp 2
+SP_WINDOW_ATTN = (1, 8192)        # twice Mistral-7B's window of 4096
+# ep_ffn_delta against the single-device delta, as a share of max
+# |delta|. The routing is the same function of the same tokens, so the
+# kept table is too, and each token's delta comes from one shard (the
+# others add exact zeros: checked). The shards run the experts' GEMMs
+# batched over E/n experts where one device batches all E; cuBLAS may
+# pick another kernel for another batch count, summing the 768- and
+# 3072-long products in another order: a few f32 ulps.
+EP_DELTA_BOUND = 1e-6
+EP_GEN = (16, 192, 64)            # batch, prompt, new tokens
+EP_MAX_LEN = 1024
+SP_GEN = (1, 4096, 32)
+# sp 2's prefill against sp 1's, as a share of the max |value|: the
+# last position's logits, and the gathered K/V rows by route. The ring
+# attends through f32 einsums over 2048-row blocks, sp 1 over all 4096
+# rows (another order: 8.5e-6 of max |K/V| measured on an NVIDIA H100
+# 80GB HBM3 at 700 W). Ulysses attends through kernel 3, whose f32
+# products are 3xTF32 (each within ~2^-21 of f32, as FAMILY_FP_BOUND
+# says), and the 4 blocks' residual stream carries that into the next
+# blocks' K/V: 3.05e-5 measured there, so its cache is held at the
+# logits' bound
+SP_LOGIT_BOUND = 1e-4
+SP_CACHE_BOUND = {"ring": 1e-5, "ulysses": 1e-4}
+
+
+@contextlib.contextmanager
+def card_weights(model: str, whole: dict):
+    """The entry's weights for `model` drawn on the card: for the time of
+    the block, the registry's shard factory takes each stage's params as
+    views of `whole` (no host draw, no checkpoint file), as
+    `cut_llama_depth` hands the entry its depth."""
+    from pipeedge_tpu_torch.models import registry
+    real = registry.module_shard_factory
+
+    def factory(name, model_file, l, r, **kw):
+        if name == model:
+            kw["params"] = shard_view(whole, model, l, r)
+        return real(name, model_file, l, r, **kw)
+
+    registry.module_shard_factory = factory
+    try:
+        yield
+    finally:
+        registry.module_shard_factory = real
+
+
+def wall_ms(fn, n: int = 3) -> float:
+    """Host milliseconds of one `fn()` (warmed, synchronized): for the
+    host-dispatched collectives, whose device work is a small share."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / n
+
+
+def windowed_reference(q, k, v, window: int, rows: int = 1024):
+    """Plain causal attention of q [B, S, H, D] over k/v [B, S, KV, D]
+    with query q attending keys in (q - window, q], in blocks of `rows`
+    queries (the whole [S, S] score matrix would not fit twice)."""
+    import math
+    b, s, h, d = q.shape
+    k = k.repeat_interleave(h // k.shape[2], dim=2).float()
+    v = v.repeat_interleave(h // v.shape[2], dim=2).float()
+    out = torch.empty_like(q)
+    pos = torch.arange(s, device=q.device)
+    for r0 in range(0, s, rows):
+        qb = q[:, r0:r0 + rows].float()
+        qp = pos[r0:r0 + rows, None]
+        keep = (pos[None, :] <= qp) & (pos[None, :] > qp - window)
+        scores = torch.einsum("bqhd,bkhd->bhqk", qb, k) / math.sqrt(d)
+        probs = torch.softmax(scores.masked_fill(~keep, -math.inf), -1)
+        out[:, r0:r0 + rows] = torch.einsum("bhqk,bkhd->bqhd", probs, v)
+    return out
+
+
+def ep_sp_kernels_path(dev, gen) -> dict:
+    """Phase 22a (see EP_DEGREES): each case's error against its
+    references, kernel 3's launches in it and its time; kernel 3 at the
+    Ulysses head group [1, 4096, 16, 128] f32 causal beside its plain
+    version, SDPA and its bound."""
+    import torch.nn.functional as F
+    from pipeedge_tpu_torch.models import registry
+    from pipeedge_tpu_torch.models.layers import gelu_new
+    from pipeedge_tpu_torch.ops import _build, attention
+    from pipeedge_tpu_torch.parallel import expert, sequence
+    from pipeedge_tpu_torch.parallel.mesh import ShardGroup, devices_for
+
+    cfg = registry.get_model_config(MOE)
+    d, it, e = cfg.hidden_size, cfg.intermediate_size, cfg.n_experts
+
+    def mat(*shape):
+        return torch.empty(shape, device=dev).normal_(0, 0.02, generator=gen)
+
+    params = {"router": {"w": mat(d, e), "b": mat(e)},
+              "experts": {"mlp_up": {"w": mat(e, d, it), "b": mat(e, it)},
+                          "mlp_down": {"w": mat(e, it, d), "b": mat(e, d)}}}
+    b, s = EP_TOKENS
+    x = torch.randn((b, s, d), generator=gen, device=dev)
+    tokens = x.reshape(-1, d)
+    res = {"ep": [], "sp": [], "window": None, "ulysses_kernel": None}
+    with torch.inference_mode():
+        want = expert.moe_ffn_delta(params, x, e, cfg.capacity_factor,
+                                    act=gelu_new)
+        capacity = expert.moe_capacity(b * s, e, cfg.capacity_factor)
+        expert_of, gate, keep, kept = expert._routing(
+            params["router"], tokens, e, capacity)
+        routed = torch.zeros(b * s, dtype=torch.bool, device=dev)
+        routed[keep[kept]] = True
+        scale = float(want.abs().max())
+        for n in EP_DEGREES:
+            group = ShardGroup(devices_for(n, "cuda"), "ep")
+            shards = expert.shard_moe_params(params, group)
+            xs = group.replicate(x)
+            got = expert.ep_ffn_delta(group, shards, xs, e,
+                                      cfg.capacity_factor, act=gelu_new)
+            # each shard's own delta is exactly 0 off the tokens its
+            # experts kept: the capacity slots that point at arbitrary
+            # rows (index_add_'s atomics on the card) add only zeros
+            e_local = e // n
+            zeros_off_shard = True
+            for i, sh in enumerate(shards):
+                rows = slice(i * e_local, (i + 1) * e_local)
+                local = expert._scatter_expert_deltas(
+                    sh["experts"], tokens, gate, keep[rows], kept[rows],
+                    gelu_new)
+                mine = routed & (expert_of // e_local == i)
+                zeros_off_shard &= bool((local[~mine] == 0).all())
+            torch.cuda.synchronize()
+            err = max(float((g - want).abs().max()) for g in got)
+            res["ep"].append(dict(
+                n=n, tokens=b * s, width=[d, it], experts=e,
+                capacity=capacity, dropped=int((~routed).sum()),
+                equal=all(torch.equal(g, want) for g in got),
+                max_abs_err=err, rel_err=err / scale,
+                zeros_off_shard=zeros_off_shard,
+                dropped_rows_zero=all(bool((g[~routed.reshape(b, s)] == 0)
+                                           .all()) for g in got),
+                ms=wall_ms(lambda: expert.ep_ffn_delta(
+                    group, shards, xs, e, cfg.capacity_factor,
+                    act=gelu_new)),
+                single_device_ms=wall_ms(lambda: expert.moe_ffn_delta(
+                    params, x, e, cfg.capacity_factor, act=gelu_new))))
+            log("ep ffn " + json.dumps(res["ep"][-1]))
+            del shards, xs, got
+    del params, want
+    flip = (0, 2, 1, 3)
+    lcfg = registry.get_model_config(LLAMA3)
+    h, kv, hd = lcfg.num_attention_heads, lcfg.kv_heads, lcfg.head_dim
+    group = ShardGroup(devices_for(2, "cuda"), "sp")
+    sb, ss = SP_ATTN
+    q = torch.randn((sb, ss, h, hd), generator=gen, device=dev)
+    k, v = (torch.randn((sb, ss, kv, hd), generator=gen, device=dev)
+            for _ in range(2))
+    kr, vr = (t.repeat_interleave(h // kv, dim=2) for t in (k, v))
+    with torch.inference_mode():
+        plain = attention.attention_reference(
+            q.permute(flip), kr.permute(flip), vr.permute(flip),
+            True).permute(flip)
+        whole_k3 = attention.fused_attention(q, kr, vr, causal=True)
+        for kind in ("ring", "ulysses"):
+            fn = sequence.make_sequence_parallel_attention(group, kind,
+                                                           causal=True)
+            before = dict(_build.launch_counts)
+            out = fn(q, k, v)
+            torch.cuda.synchronize()
+            counts = launch_delta(before)
+            res["sp"].append(dict(
+                kind=kind, shape=[sb, ss, h, kv, hd], sp=2,
+                max_abs_err_plain=float((out - plain).abs().max()),
+                max_abs_err_kernel3=float((out - whole_k3).abs().max()),
+                close=bool(torch.allclose(out, plain,
+                                          **ATTN_TOL[torch.float32])
+                           and torch.allclose(out, whole_k3,
+                                              **ATTN_TOL[torch.float32])),
+                kernel3_launches=counts["fused_attention"],
+                ms=wall_ms(lambda: fn(q, k, v))))
+            log("sp attention " + json.dumps(res["sp"][-1]))
+            del out
+        del plain, whole_k3
+        # kernel 3 at a Ulysses shard's head group, K/V repeated
+        qh, kh, vh = (t[:, :, :h // 2].contiguous() for t in (q, kr, vr))
+        got = attention.fused_attention(qh, kh, vh, causal=True)
+        ref = attention.attention_reference(
+            qh.permute(flip), kh.permute(flip), vh.permute(flip),
+            True).permute(flip)
+        torch.cuda.synchronize()
+        bound, bound_by = attention_bound_ms(sb, h // 2, ss, hd,
+                                             torch.float32, True)
+        res["ulysses_kernel"] = dict(
+            shape=[sb, ss, h // 2, hd], dtype="float32", causal=True,
+            max_abs_err=float((got - ref).abs().max()),
+            close=bool(torch.allclose(got, ref, **ATTN_TOL[torch.float32])),
+            ms=time_ms(lambda: attention.fused_attention(qh, kh, vh,
+                                                         causal=True),
+                       iters=5, reps=5),
+            plain_ms=time_ms(lambda: attention.attention_reference(
+                qh.permute(flip), kh.permute(flip), vh.permute(flip), True),
+                iters=3, reps=3),
+            library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+                qh.permute(flip), kh.permute(flip), vh.permute(flip),
+                is_causal=True), iters=5, reps=5),
+            bound_ms=bound, bound_by=bound_by)
+        log("ulysses kernel 3 " + json.dumps(res["ulysses_kernel"]))
+        del q, k, v, kr, vr, qh, kh, vh, got, ref
+        free_card()
+        # Ulysses under Mistral-7B's window: the blockwise route, no kernel
+        window = registry.get_model_config(MISTRAL).sliding_window
+        wb, ws = SP_WINDOW_ATTN
+        q = torch.randn((wb, ws, h, hd), generator=gen, device=dev)
+        k, v = (torch.randn((wb, ws, kv, hd), generator=gen, device=dev)
+                for _ in range(2))
+        fn = sequence.make_sequence_parallel_attention(
+            group, "ulysses", causal=True, window=window)
+        before = dict(_build.launch_counts)
+        out = fn(q, k, v)
+        torch.cuda.synchronize()
+        counts = launch_delta(before)
+        ref = windowed_reference(q, k, v, window)
+        res["window"] = dict(
+            shape=[wb, ws, h, kv, hd], window=window, sp=2,
+            max_abs_err=float((out - ref).abs().max()),
+            close=bool(torch.allclose(out, ref, **ATTN_TOL[torch.float32])),
+            kernel3_launches=counts["fused_attention"],
+            ms=wall_ms(lambda: fn(q, k, v), n=1))
+        log("ulysses window " + json.dumps(res["window"]))
+        del q, k, v, out, ref
+    free_card()
+    return res
+
+
+def check_ep_sp_kernels(res, device_name: str) -> None:
+    problems = []
+    for r in res["ep"]:
+        if not (r["equal"] or r["rel_err"] <= EP_DELTA_BOUND) \
+                or not r["zeros_off_shard"] or not r["dropped_rows_zero"]:
+            problems.append(f"ep n={r['n']}: {r}")
+    for r in res["sp"]:
+        want = 2 if r["kind"] == "ulysses" else 0
+        if not r["close"] or r["kernel3_launches"] != want:
+            problems.append(f"sp {r['kind']}: {r} (kernel 3 launches "
+                            f"expected {want})")
+    if not res["ulysses_kernel"]["close"]:
+        problems.append(f"kernel 3 at the Ulysses head group: "
+                        f"{res['ulysses_kernel']}")
+    w = res["window"]
+    if not w["close"] or w["kernel3_launches"] != 0:
+        problems.append(f"ulysses under a window: {w}")
+    if problems:
+        raise AssertionError("phase 22a: " + "; ".join(problems))
+    log(f"phase 22a checks held ({device_name})")
+
+
+def step_profile(pipe, ids, pos: int, steps: int = 3) -> dict:
+    """Host ms per decode step (median of `steps`, synchronized), the
+    device kernels of one step and its copies between host and device,
+    after a prefill of `ids`."""
+    _, caches = pipe._prefill(torch.as_tensor(ids, device="cuda"))
+    tok = torch.zeros(ids.shape[0], dtype=torch.long, device="cuda")
+    times = []
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        decode_step(pipe, caches, tok, pos)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    kernels, copies = device_launches(
+        lambda: decode_step(pipe, caches, tok, pos), host_copies=True)
+    return dict(step_ms=statistics.median(times), kernels=kernels,
+                host_copies=copies)
+
+
+def timed_tok_per_s(pipe, ids, new: int) -> float:
+    """Tokens/s of `pipe.generate` after a two-token warm-up, as the
+    entry times its run."""
+    pipe.generate(ids, 2)
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    pipe.generate(ids, new)
+    torch.cuda.synchronize()
+    return ids.shape[0] * new / (time.monotonic() - t0)
+
+
+def ep_generate_path(card: str, dev, gen) -> dict:
+    """Phase 22b: the MoE GPT-2 (weights drawn on the card, handed to the
+    entry) through `generate --ep 2 --kv-bits 8` (the decode-attention
+    opt-in set) and `--tp 2 --ep 2`, each held by `near_tie_rule` to the
+    `--ep 1` pipeline's greedy decode over the same whole-window attends;
+    tokens/s, ms and device kernels per decode step at ep 1 and on each
+    mesh; then the grid in process at 8 quantized bits against the exact
+    grid, its codec launches against the prediction; kernels 1 and 2 at
+    the grid's ring chunks and kernel 5 at an ep shard's whole window,
+    each timed beside its plain version and bound."""
+    from types import SimpleNamespace
+    from pipeedge_tpu_torch import generate
+    from pipeedge_tpu_torch.models import registry
+    from pipeedge_tpu_torch.ops import _build, qcollectives
+    from pipeedge_tpu_torch.parallel import decode
+    from pipeedge_tpu_torch.parallel import tensor as tp
+    from pipeedge_tpu_torch.parallel.mesh import ShardGrid, ShardGroup, devices_for
+
+    t0 = time.monotonic()
+    batch, prompt, new = EP_GEN
+    entry = registry.get_model_entry(MOE)
+    cfg = entry.config
+    whole, gb = draw_model(MOE, torch.float32, 3)
+    views = [shard_view(whole, MOE, l, r) for l, r in MOE_PARTITION]
+    ids = generate.prompt_ids(SimpleNamespace(batch_size=batch,
+                                              prompt_len=prompt), cfg)
+    pt = ",".join(f"{l},{r}" for l, r in MOE_PARTITION)
+    argv = ["-m", MOE, "-pt", pt, "-b", str(batch), "--prompt-len",
+            str(prompt), "--new-tokens", str(new), "--max-len",
+            str(EP_MAX_LEN)]
+    cases = {"ep2_kv8": (8, ["--kv-bits", "8", "--ep", "2"],
+                         lambda: {"ep_mesh": ShardGroup(
+                             devices_for(2, "cuda"), "ep")}),
+             "tp2_ep2": (0, ["--tp", "2", "--ep", "2"],
+                         lambda: {"tp_ep_mesh": ShardGrid(
+                             devices_for(4, "cuda"), 2, 2)})}
+
+    def pipe(kv, **mesh):
+        # ep 1 at the ep steps' whole window (attend_floor = max_len)
+        return decode.DecodePipeline(
+            entry.family.FAMILY, cfg, MOE_PARTITION, views,
+            max_len=EP_MAX_LEN, device="cuda", cache_bits=kv,
+            int8_decode_attend=1 if kv else 0, attend_floor=EP_MAX_LEN,
+            **mesh)
+
+    # placement: the grid's cells all sit on the one card, and a ring hop
+    # or a replication to a device a tensor is on is the tensor itself
+    grid_devs = ShardGrid(devices_for(4, "cuda"), 2, 2)
+    probe = torch.ones(4, device="cuda")
+    res = {"card": card, "gb": gb, "placement": dict(
+        devices=[str(d) for d in grid_devs.devices],
+        hops_are_the_tensor=all(
+            t is probe for t in grid_devs.tp_group(0).ring_forward(
+                [probe, probe]) + grid_devs.replicate(probe)))}
+    for key, (kv, flags, mesh) in cases.items():
+        with card_weights(MOE, whole):
+            run = tp_generate_entry(argv + flags, bool(kv))
+        ref_pipe = pipe(kv)
+        ref = greedy_reference(ref_pipe, ids, new)
+        mesh_pipe = pipe(kv, **mesh())
+        res[key] = dict(
+            label=run["label"], counts=run["counts"],
+            tok_per_s=run["tok_per_s"],
+            ep1_tok_per_s=timed_tok_per_s(ref_pipe, ids, new),
+            rule=near_tie_rule(run["ids"], ref, prompt),
+            step={"ep1": step_profile(ref_pipe, ids, prompt),
+                  "mesh": step_profile(mesh_pipe, ids, prompt)},
+            # the warm-up's one decode step and the timed run's new - 1
+            steps=new)
+        log(f"ep generate {key}: " + json.dumps(res[key], default=str))
+        del ref_pipe, mesh_pipe, ref
+        free_card()
+    # the grid at 8 quantized bits against the exact grid: a prefill and
+    # two decode steps, kernels 1 and 2 counted
+    grid = pipe(0, tp_ep_mesh=ShardGrid(devices_for(4, "cuda"), 2, 2))
+    toks = torch.zeros(batch, dtype=torch.long, device="cuda")
+
+    def passes():
+        data, caches = grid._prefill(torch.as_tensor(ids, device="cuda"))
+        out = [data[:, -1]]
+        for s in range(2):
+            out.append(decode_step(grid, caches, toks, prompt + s))
+        return out
+
+    # top-1 routing is discontinuous: the 8-bit ring's error can flip a
+    # near-tie between two experts, and a rerouted token takes another
+    # expert's whole delta, an error of the model, not of the codec (as
+    # phase 14's 8-bit MoE edge). So the quantized passes replay the
+    # exact passes' routing (`RoutingPin`); the tokens they would route
+    # otherwise are counted and printed
+    with RoutingPin() as pin:
+        pin.start(True)
+        exact = passes()
+        pin.start(False)
+        tp.set_tp_quant_bits(8)
+        try:
+            qcollectives.reset_trace_tally()
+            before = dict(_build.launch_counts)
+            quant = passes()
+            torch.cuda.synchronize()
+            counts = launch_delta(before)
+        finally:
+            tp.set_tp_quant_bits(0)
+            qcollectives.reset_trace_tally()
+        rerouted = int(pin.rerouted)
+    n_tp = 2
+    # per pass: each block's attention all-reduce in each of the 2 ep
+    # columns (the FFN's is the exact ep all-reduce): n^2 encodes and
+    # 2n(n-1) decodes a qpsum
+    calls = 3 * cfg.num_hidden_layers * 2
+    scale = max(float(e.abs().max()) for e in exact)
+    res["quant8"] = dict(
+        rel_err=max(float((q - e).abs().max()) for q, e in zip(quant, exact))
+        / scale, counts=counts, rerouted_tokens=rerouted,
+        expected_counts={"fused_encode": calls * n_tp * n_tp,
+                         "fused_decode": calls * 2 * (n_tp - 1) * n_tp},
+        qpsum_calls=calls)
+    log("ep generate tp x ep 8 bits: " + json.dumps(res["quant8"]))
+    del grid, views, whole, exact, quant
+    free_card()
+    # the tp all-reduce's chunks of a decode step's and the prompt's
+    # addends over the grid's 2 tp shards
+    d = cfg.hidden_size
+    res["codec"] = [ring_codec_row(f"tp x ep {what}", m, n_tp, 8, dev, gen)
+                    for what, m in (("step", batch * d),
+                                    ("prefill", batch * prompt * d))]
+    for row in res["codec"]:
+        log("ep generate ring codec " + json.dumps(row))
+    # an ep shard's step attends the whole cache (the ep steps take no
+    # bucket): pos 200 of a 1024-row window, every head
+    res["decode_attention"] = decode_kernel_row(
+        batch, EP_MAX_LEN, cfg.num_attention_heads, cfg.head_dim, 200, dev,
+        gen)
+    log("ep generate decode_attention " + json.dumps(
+        res["decode_attention"]))
+    res["seconds"] = time.monotonic() - t0
+    return res
+
+
+def check_ep_generate(res, device_name: str) -> dict:
+    """Phase 22b's gates; returns each run's launches."""
+    problems = []
+    blocks = 12
+    kinds = ("fused_attention", "fused_encode", "fused_decode",
+             "int8_matmul")
+    r = res["ep2_kv8"]
+    want = {k: 0 for k in kinds} | {
+        "decode_attention": blocks * 2 * r["steps"]}
+    if r["counts"] != want or not r["rule"]["ok"] \
+            or ", ep 2" not in (r["label"] or ""):
+        problems.append(f"ep 2 int8: launches {r['counts']} (want {want}), "
+                        f"{r['rule']}, label {r['label']}")
+    r = res["tp2_ep2"]
+    want = {k: 0 for k in kinds} | {"decode_attention": 0}
+    if r["counts"] != want or not r["rule"]["ok"] \
+            or ", tp 2 x ep 2" not in (r["label"] or ""):
+        problems.append(f"tp 2 x ep 2: launches {r['counts']} (want {want})"
+                        f", {r['rule']}, label {r['label']}")
+    for key in ("ep2_kv8", "tp2_ep2"):
+        if res[key]["step"]["mesh"]["host_copies"]:
+            problems.append(f"{key}: a decode step copies through the host "
+                            f"{res[key]['step']['mesh']['host_copies']} "
+                            "times")
+    if not res["placement"]["hops_are_the_tensor"]:
+        problems.append(f"placement: {res['placement']}")
+    q = res["quant8"]
+    if not 0 < q["rel_err"] <= LOGIT_BOUND[8] or any(
+            q["counts"][k] != v for k, v in q["expected_counts"].items()):
+        problems.append(f"tp x ep at 8 bits: {q}")
+    for row in res["codec"]:
+        if not row["equal_plain"] or not row["edge_cluster_equal_plain"]:
+            problems.append(f"ring codec {row['case']}: not equal to the "
+                            "plain codec")
+    if problems:
+        raise AssertionError("phase 22b: " + "; ".join(problems))
+    log(f"ep generate tokens/s (ep 1 -> mesh): ep 2 int8 "
+        f"{res['ep2_kv8']['ep1_tok_per_s']:.1f} -> "
+        f"{res['ep2_kv8']['tok_per_s']}, tp 2 x ep 2 "
+        f"{res['tp2_ep2']['ep1_tok_per_s']:.1f} -> "
+        f"{res['tp2_ep2']['tok_per_s']}; per step "
+        f"{ {k: res[k]['step'] for k in ('ep2_kv8', 'tp2_ep2')} } "
+        f"({device_name})")
+    return {k: res[k]["counts"] for k in ("ep2_kv8", "tp2_ep2")} | {
+        "quant8": res["quant8"]["counts"]}
+
+
+def sp_prefill_path(card: str) -> dict:
+    """Phase 22c: Llama-3-8B at LLAMA_BLOCKS (weights drawn on the card,
+    handed to the entry) through `generate --sp 2` (the ring core), held
+    by `near_tie_rule` to the sp 1 pipeline's greedy decode; in process
+    the ring and Ulysses prefills against sp 1's (last-position logits,
+    the gathered cache), kernel 3's launches in each, the Ulysses
+    pipeline's tokens by the same rule; prefill ms at sp 1 and 2."""
+    from types import SimpleNamespace
+    from pipeedge_tpu_torch import generate
+    from pipeedge_tpu_torch.models import registry
+    from pipeedge_tpu_torch.ops import _build
+    from pipeedge_tpu_torch.parallel import decode
+    from pipeedge_tpu_torch.parallel.mesh import ShardGroup, devices_for
+
+    t0 = time.monotonic()
+    batch, prompt, new = SP_GEN
+    res = {"card": card, "kinds": {}}
+    with cut_llama_depth():
+        entry = registry.get_model_entry(LLAMA3)
+        cfg = entry.config
+        whole, res["gb"] = draw_model(LLAMA3, torch.float32, 0)
+        views = [shard_view(whole, LLAMA3, l, r) for l, r in
+                 FAMILY_PARTITION]
+        ids = generate.prompt_ids(SimpleNamespace(batch_size=batch,
+                                                  prompt_len=prompt), cfg)
+        ids_t = torch.as_tensor(ids, device="cuda")
+        pt = ",".join(f"{l},{r}" for l, r in FAMILY_PARTITION)
+        with card_weights(LLAMA3, whole):
+            run = tp_generate_entry(
+                ["-m", LLAMA3, "-pt", pt, "-b", str(batch), "--prompt-len",
+                 str(prompt), "--new-tokens", str(new), "--sp", "2"], False)
+
+        def pipe(**mesh):
+            return decode.DecodePipeline(
+                entry.family.FAMILY, cfg, FAMILY_PARTITION, views,
+                max_len=prompt + new, device="cuda", **mesh)
+
+        def prefill(p):
+            """The last position's logits, the caches, the prefill's ms
+            and its kernel launches (after a short warm-up)."""
+            p._prefill(ids_t[:, :64])
+            torch.cuda.synchronize()
+            before = dict(_build.launch_counts)
+            t1 = time.perf_counter()
+            logits, caches = p._prefill(ids_t)
+            torch.cuda.synchronize()
+            return (logits[:, -1], caches,
+                    (time.perf_counter() - t1) * 1e3, launch_delta(before))
+
+        ref_pipe = pipe()
+        ref = greedy_reference(ref_pipe, ids, new)
+        base, base_caches, res["sp1_prefill_ms"], _ = prefill(ref_pipe)
+        del ref_pipe
+        scale = float(base.abs().max())
+        res["entry"] = dict(label=run["label"], counts=run["counts"],
+                            tok_per_s=run["tok_per_s"],
+                            rule=near_tie_rule(run["ids"], ref, prompt))
+        log("sp generate entry: " + json.dumps(res["entry"]))
+        for kind in ("ring", "ulysses"):
+            p = pipe(sp_mesh=ShardGroup(devices_for(2, "cuda"), "sp"),
+                     sp_kind=kind)
+            logits, caches, ms, counts = prefill(p)
+            cache_err = max(
+                float((c[t] - bc[t]).abs().max() / bc[t].abs().max())
+                for c, bc in zip(caches, base_caches) for t in ("k", "v"))
+            out = dict(prefill_ms=ms, counts=counts,
+                       logit_rel_err=float((logits - base).abs().max())
+                       / scale, cache_rel_err=cache_err)
+            del logits, caches
+            if kind == "ulysses":
+                got = p.generate(ids_t, new).cpu().numpy()
+                out["rule"] = near_tie_rule(got, ref, prompt)
+            res["kinds"][kind] = out
+            log(f"sp prefill {kind}: " + json.dumps(out, default=str))
+            del p
+            free_card()
+        del whole, views, base, base_caches
+    free_card()
+    res["seconds"] = time.monotonic() - t0
+    return res
+
+
+def check_sp_prefill(res, device_name: str) -> dict:
+    """Phase 22c's gates; returns kernel 3's launches per prefill."""
+    problems = []
+    e = res["entry"]
+    if any(e["counts"].values()) or not e["rule"]["ok"] \
+            or ", sp 2" not in (e["label"] or ""):
+        problems.append(f"entry --sp 2: {e}")
+    for kind, r in res["kinds"].items():
+        want = 2 * LLAMA_BLOCKS if kind == "ulysses" else 0
+        if r["counts"]["fused_attention"] != want \
+                or r["logit_rel_err"] > SP_LOGIT_BOUND \
+                or r["cache_rel_err"] > SP_CACHE_BOUND[kind] \
+                or not r.get("rule", {"ok": True})["ok"]:
+            problems.append(f"{kind}: {r} (kernel 3 launches expected "
+                            f"{want})")
+    if problems:
+        raise AssertionError("phase 22c: " + "; ".join(problems))
+    log(f"sp prefill ms: sp 1 {res['sp1_prefill_ms']:.1f}, ring "
+        f"{res['kinds']['ring']['prefill_ms']:.1f}, ulysses "
+        f"{res['kinds']['ulysses']['prefill_ms']:.1f}; entry --sp 2 "
+        f"{e['tok_per_s']} tok/s ({device_name})")
+    return {kind: r["counts"]["fused_attention"]
+            for kind, r in res["kinds"].items()}
+
+
 def main() -> int:
     import argparse
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -8217,15 +8871,16 @@ def main() -> int:
 
     phase_done("phase 13")
 
-    # phase 14: the decoder families at full width
-    fam = families_path(card, device_name)
+    # phase 14: the decoder families at full width; phase 15a, the reverse
+    # auction, beside its (g)
+    fam = families_path(card, device_name, alongside=revauct_path)
+    revauct_res = fam.pop("alongside")
 
     phase_done("phase 14")
 
     # phase 15: the rest of PipeEdge's loop and the replica router
-    revauct_res = revauct_path()
     check_revauct_path(revauct_res, device_name)
-    phase_done("phase 15a")
+    phase_done("phase 15a (beside 14g)")
     trace_res = tracing_path()
     check_tracing_path(trace_res, device_name)
     phase_done("phase 15b")
@@ -8286,6 +8941,17 @@ def main() -> int:
     tp_gen_res = tp_generate_path(card)
     tp_gen_launches = check_tp_generate(tp_gen_res, device_name)
     phase_done("phase 21c")
+
+    # phase 22: expert and sequence parallelism
+    ep_sp_res = ep_sp_kernels_path(dev, gen)
+    check_ep_sp_kernels(ep_sp_res, device_name)
+    phase_done("phase 22a")
+    ep_gen_res = ep_generate_path(card, dev, gen)
+    ep_gen_launches = check_ep_generate(ep_gen_res, device_name)
+    phase_done("phase 22b")
+    sp_res = sp_prefill_path(card)
+    sp_launches = check_sp_prefill(sp_res, device_name)
+    phase_done("phase 22c")
 
     if args.ab_entry_parent is not None:
         ab_entry(args.ab_entry_parent)
@@ -8372,6 +9038,18 @@ def main() -> int:
                     for r, c in tp_dcn_launches["bits8"].items()}}
                    if bit == 8 else {})})
 
+    def tp_ep_codec(name):
+        """Phase 22b: the codec kernel at the tp x ep grid's ring chunks,
+        and its launches in the grid's 3 passes at 8 quantized bits."""
+        op = name[6:]
+        keys = ("shape", f"{op}_ms", f"plain_{op}_ms", "bound_ms",
+                "bound_by")
+        return dict(
+            ring={r["case"]: {k: r[k] for k in keys}
+                  for r in ep_gen_res["codec"]},
+            launches=ep_gen_launches["quant8"][name],
+            expected_launches=ep_gen_res["quant8"]["expected_counts"][name])
+
     kernels = []
     # one row per codec kernel and bit width, each with the launches of
     # the main path's run at that edge width
@@ -8403,6 +9081,7 @@ def main() -> int:
                     "disagg_launches": disagg_launches_of(name)}
                    if bit == 8 else {}),
                 **tp_codec(name, bit),
+                **({"tp_ep": tp_ep_codec(name)} if bit == 8 else {}),
                 # every policy bitwidth on phase 8's edge
                 policy_bits_ms={r["bit"]: r[f"{name[6:]}_ms"]
                                 for r in policy_rows
@@ -8475,6 +9154,15 @@ def main() -> int:
                          key: {f"rank{r}": c["fused_attention"]
                                for r, c in per_rank.items()}
                          for key, per_rank in tp_dcn_launches.items()}},
+        # phase 22: a Ulysses shard's head group (kernel 3's function on
+        # the card), its launches in 22a's core (2 shards) and per 22c
+        # prefill (4 blocks x 2 shards), none under a window
+        ulysses_head_group=ep_sp_res["ulysses_kernel"],
+        ulysses_launches={
+            "core_sp2": next(r["kernel3_launches"] for r in ep_sp_res["sp"]
+                             if r["kind"] == "ulysses"),
+            "llama3_prefill_sp2": sp_launches["ulysses"],
+            "windowed_core": ep_sp_res["window"]["kernel3_launches"]},
         cases={f"{r['layout']} {r['shape']} {r['dtype']}"
                f"{' causal' if r['causal'] else ''}": {
                    key: r[key] for key in ("ms", "plain_ms", "library_ms",
@@ -8549,6 +9237,10 @@ def main() -> int:
         # runs at --tp 1 and 2 (warm-up included)
         tp_shard=tp_res["decode_attention"],
         tp_generate_launches=tp_gen_launches["kv8"],
+        # phase 22b: an ep shard's whole-window step, and `generate --ep 2
+        # --kv-bits 8` (warm-up included: 12 blocks x 2 shards a step)
+        ep_shard=ep_gen_res["decode_attention"],
+        ep_generate_launches=ep_gen_launches["ep2_kv8"]["decode_attention"],
         cases={name: {k: r[k] for k in (
             "shape", "pos", "dtype", "ms", "ms_l2_cold", "plain_ms",
             "bound_ms", "bound_by", "dequant_route_ms",

@@ -66,9 +66,22 @@ one-card host they share it; `--device cpu` puts them on the CPU:
     python -m pipeedge_tpu_torch.generate -m gpt2 -pt 1,24,25,48 --tp 2 \\
         -b 16 --prompt-len 192 --new-tokens 64 --kv-bits 8
 
-The JAX entry's flags for the other multi-GPU axes are refused at parse
-time with the ROADMAP item that ports them (`REFUSED`): `--sp` (A7c),
-`--ep` (A7b) and `--spmd-wave` (A7e).
+`--ep N` splits an MoE model's experts over N shards
+(`DecodePipeline(ep_mesh=)`, attention and the cache replicated);
+`--tp N --ep M` runs the tp x ep grid of N * M shards (`tp_ep_mesh=`,
+`parallel/mesh.py ShardGrid`): attention tensor-parallel, experts
+expert-parallel. `--sp N` runs the prompt pass sequence-parallel over N
+shards (the ring core, `sp_mesh=`; the prompt length must divide by N)
+and the decode steps on the first. Their shards share the cards
+round-robin as `--tp`'s do:
+
+    python -m pipeedge_tpu_torch.generate -m pipeedge/gpt2-moe-8e \\
+        -pt 1,24,25,48 --tp 2 --ep 2 -b 16 --prompt-len 192 --new-tokens 64
+    python -m pipeedge_tpu_torch.generate -m meta-llama/Meta-Llama-3-8B \\
+        --sp 2 -b 1 --prompt-len 4096 --new-tokens 32
+
+The JAX entry's `--spmd-wave` (ROADMAP A7e) is refused at parse time
+with its ROADMAP item (`REFUSED`).
 """
 from __future__ import annotations
 
@@ -91,8 +104,6 @@ from .sched.scheduler import sched_pipeline
 # `tools/generate.py` flags this entry refuses, each with the ROADMAP
 # item that ports it: flag -> (argparse keywords, item)
 REFUSED = {
-    "--sp": ({"type": int}, "A7c, sequence parallelism"),
-    "--ep": ({"type": int}, "A7b, expert parallelism and tp x ep"),
     "--spmd-wave": ({"action": "store_true"},
                     "A7e, the SPMD wave decoder"),
 }
@@ -200,6 +211,15 @@ def parse_args(argv: Optional[Sequence[str]] = None):
                         help="Megatron tensor-parallel degree per stage "
                              "(head-sharded KV cache; the shards share the "
                              "cards round-robin)")
+    parser.add_argument("--sp", default=1, type=int,
+                        help="sequence-parallel PREFILL degree (causal ring "
+                             "attention over the prompt; decode steps stay "
+                             "single-device)")
+    parser.add_argument("--ep", default=1, type=int,
+                        help="expert-parallel degree for MoE models "
+                             "(experts split over the shards per stage); "
+                             "with --tp the tp x ep grid (attention "
+                             "tp-split, experts ep-split)")
     for flag, (kw, item) in REFUSED.items():
         parser.add_argument(flag, default=argparse.SUPPRESS,
                             help=f"not ported yet (ROADMAP {item})", **kw)
@@ -208,7 +228,7 @@ def parse_args(argv: Optional[Sequence[str]] = None):
     # errors below (a refused flag that was given is refused after them)
     given = [flag for flag in REFUSED
              if hasattr(args, flag.lstrip("-").replace("-", "_"))]
-    sp, ep = getattr(args, "sp", 1), getattr(args, "ep", 1)
+    sp, ep = args.sp, args.ep
     spmd_wave = getattr(args, "spmd_wave", False)
     # the JAX entry's composition errors, word for word
     if args.new_tokens < 1:
@@ -253,11 +273,9 @@ def parse_args(argv: Optional[Sequence[str]] = None):
     if args.tp > 1 or sp > 1 or ep > 1:
         need = args.tp * ep if args.tp > 1 and ep > 1 else max(args.tp, sp,
                                                                ep)
-        # the tp shards share the cards round-robin (parallel/mesh.py),
-        # so only a host without one is short of devices (--sp and --ep
-        # are refused below)
-        if args.tp > 1 and args.device == "cuda" \
-                and torch.cuda.device_count() < 1:
+        # the shards share the cards round-robin (parallel/mesh.py), so
+        # only a host without one is short of devices
+        if args.device == "cuda" and torch.cuda.device_count() < 1:
             parser.error(f"--tp/--sp/--ep {need} needs {need} devices, "
                          f"only {torch.cuda.device_count()} visible")
         if sp > 1 and (args.tp > 1 or ep > 1):
@@ -505,6 +523,27 @@ def run_dcn(args, cfg, partition, max_len: int, dtype) -> Optional[np.ndarray]:
     return result
 
 
+def mesh_args(args):
+    """The pipeline's mesh for `--tp/--sp/--ep` (`tools/generate.py`'s
+    choice: the tp x ep grid when both are above 1, else the one axis
+    given) over `devices_for`, and its report label."""
+    from .parallel.mesh import ShardGrid, ShardGroup, devices_for
+    if args.tp > 1 and args.ep > 1:
+        grid = ShardGrid(devices_for(args.tp * args.ep, args.device),
+                         args.tp, args.ep)
+        return {"tp_ep_mesh": grid}, f", tp {args.tp} x ep {args.ep}"
+    if args.tp > 1:
+        return ({"mesh": ShardGroup(devices_for(args.tp, args.device))},
+                f", tp {args.tp}")
+    if args.sp > 1:
+        return ({"sp_mesh": ShardGroup(devices_for(args.sp, args.device),
+                                       "sp")}, f", sp {args.sp}")
+    if args.ep > 1:
+        return ({"ep_mesh": ShardGroup(devices_for(args.ep, args.device),
+                                       "ep")}, f", ep {args.ep}")
+    return {}, ""
+
+
 def run(args) -> np.ndarray:
     """Build the pipeline, warm it up, time one generation and print the
     report lines; returns the generated ids [B, prompt_len + new_tokens]
@@ -522,20 +561,15 @@ def run(args) -> np.ndarray:
         max_len += args.gamma   # verify spans write past the last token
     if args.dcn_addrs is not None:
         return run_dcn(args, cfg, partition, max_len, dtype)
-    mesh = None
-    if args.tp > 1:
-        from .parallel.mesh import ShardGroup, devices_for
-        mesh = ShardGroup(devices_for(args.tp, args.device))
+    meshes, label = mesh_args(args)
     pipe = decode.build_decode_pipeline(
         args.model_name, partition, max_len=max_len,
         dtype=dtype, cache_bits=args.kv_bits,
         attend_floor=args.attend_floor, model_file=args.model_file,
-        device=args.device, mesh=mesh)
+        device=args.device, **meshes)
     ids = prompt_ids(args, cfg)
     p_len = args.shared_prefix
-    label = f"{len(partition)} stages"
-    if mesh is not None:
-        label += f", tp {mesh.size}"
+    label = f"{len(partition)} stages" + label
     spec = None
     if p_len:
         ids[:, :p_len] = ids[0, :p_len]

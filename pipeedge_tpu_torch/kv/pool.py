@@ -91,7 +91,7 @@ class KvPagePool:
     layout, dtype, cache_bits) and the device the arenas live on. Arena
     leaves mirror `init_cache`'s leaves with the batch axis replaced by
     the page axis. Tensor-, sequence- and expert-parallel pipelines are
-    refused (the port's `DecodePipeline` has none until ROADMAP A7).
+    refused: they keep their sharded dense caches.
 
     Thread model: page accounting (free list, refcounts, owners) lives
     under one condition; `release` notifies, so a blocking `alloc` wakes

@@ -1,8 +1,8 @@
 """Llama model family: RoPE / RMSNorm / SwiGLU / grouped-query attention.
 
 Port of `pipeedge_tpu/models/llama.py` with its tensor-parallel hooks
-(`tp_cached_block_step`, `tp_finalize`; its sequence-parallel prefill
-waits for ROADMAP A7c). It carries
+(`tp_cached_block_step`, `tp_finalize`) and its sequence-parallel
+prefill block (`sp_prefill_block_step`). It carries
 Llama-2, Llama-3 and Mistral (the Llama block with a sliding window over
 the last `cfg.sliding_window` positions) in the 4-sublayer cut of every
 other family:
@@ -234,12 +234,35 @@ def tp_finalize(group, pfs, xs, cfg: TransformerConfig) -> torch.Tensor:
     return tp_vocab_head_finalize(group, pfs, xs, cfg, norm_fn=rms_norm)
 
 
+def sp_prefill_block_step(ps, xs, bcache, cfg: TransformerConfig, group,
+                          core, cache_gather):
+    """The sequence-parallel Llama prefill block over the shards' chunks
+    [B, S/n, D]: q and k are rotated at their global positions (shard i's
+    chunk starts at i * S/n) before the sp core, so the chunk-local core
+    needs no positions. The cores are GQA-aware: unrepeated K/V ride the
+    ring or the all-to-all, and the cache gathers the unrepeated post-RoPE
+    rows the decode steps read. A window needs nothing here: the core has
+    it bound, and the decode steps mask their own (`_window_keep`)."""
+    def project(i, p, x):
+        s_local = x.shape[1]
+        pos = i * s_local + torch.arange(s_local, device=x.device)
+        return _qkv_rope(p, rms_norm(p["ln_before"], x, cfg.layer_norm_eps),
+                         cfg, pos)
+
+    q, k, v = (list(t) for t in zip(*group.map(project, ps, xs)))
+    ctx = core(group, q, k, v, causal=True)
+    cache_gather(bcache, k, v)
+    return group.map(lambda i, p, x, c: _block_tail(
+        p, x, c.reshape(*x.shape[:2], -1), cfg), ps, xs, ctx)
+
+
 FAMILY = FamilySpec(name="llama", embed=embed, sublayer=sublayer,
                     finalize=finalize, cached_block_step=cached_block_step,
                     decode_embed=decode_embed, span_embed=span_embed,
                     position_dependent_attention=True,
                     tp_cached_block_step=tp_cached_block_step,
-                    tp_finalize=tp_finalize)
+                    tp_finalize=tp_finalize,
+                    sp_prefill_block_step=sp_prefill_block_step)
 
 
 # --- weight loading -------------------------------------------------------

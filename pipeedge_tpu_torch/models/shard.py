@@ -37,8 +37,9 @@ class FamilySpec:
     replaces the GPT-2-shaped block step, `decode_embed` and `span_embed`
     the wte + wpe embeddings of one token and of a K-token span;
     `tp_cached_block_step` and `tp_finalize` are their tensor-parallel
-    counterparts (`parallel/decode.py make_tp_stage_fns`). The sequence-
-    parallel hook of the JAX spec waits for ROADMAP A7c."""
+    counterparts (`parallel/decode.py make_tp_stage_fns`), and
+    `sp_prefill_block_step` the sequence-parallel prompt pass's block
+    (`make_sp_prefill_fn`)."""
     name: str
     embed: Callable[[Dict, Any, TransformerConfig], torch.Tensor]
     sublayer: Callable[[Dict, int, ShardData, TransformerConfig], ShardData]
@@ -58,6 +59,10 @@ class FamilySpec:
     # (group, shard final params, xs, cfg) -> logits on shard 0: the
     # vocab-split LM head
     tp_finalize: Any = None
+    # (shard params, xs, bcache, cfg, group, core, cache_gather) -> xs:
+    # one block over the sp shards' chunks, its K/V rows handed to
+    # cache_gather(bcache, k_chunks, v_chunks)
+    sp_prefill_block_step: Any = None
     # sublayers that LEAD with a dense and accept an 8-bit wire
     # `QuantizedTensor` as the payload's first tensor (the int8
     # stage-seam tunnel, parallel/pipeline.py + ops/int8_matmul.py)

@@ -54,9 +54,9 @@ What the port does its own way, and why:
   fleet's handle (`kv/disagg.py`, `kv/fleet.py`) is installed at
   admission (`kv.admit`, on the executors' stream, in inference mode),
   which picks the first token from the shipped logits; the request then
-  starts at its first decode step, or is done. The JAX executors'
-  `sp_degree` refusal has no counterpart: the port's
-  `DecodePipeline` has no sequence-parallel prefill until ROADMAP A7.
+  starts at its first decode step, or is done.
+- **Sequence-parallel pipelines** are refused by both executors, in the
+  JAX executors' words: an sp prefill is a whole-pipeline pass.
 """
 from __future__ import annotations
 
@@ -379,6 +379,10 @@ class ContinuousBatcher:
                  kv=None, chunk_tokens: int = 0,
                  prefill_budget: Optional[int] = None,
                  step_join: bool = False, on_step=None):
+        if pipe.sp_degree != 1:
+            raise ValueError("continuous batching drives per-request decode "
+                             "waves; sp prefill is a whole-pipeline pass "
+                             "(prefill each request solo instead)")
         self.pipe = pipe
         self.n_stages = len(pipe.stages)
         # paged-KV backend (kv/backend.py): requests hold page tables over
@@ -666,6 +670,9 @@ class StageWorkerExecutor:
                  max_active: Optional[int] = None, kv=None,
                  chunk_tokens: int = 0, step_join: bool = False,
                  on_step=None):
+        if pipe.sp_degree != 1:
+            raise ValueError("stage workers drive per-request decode "
+                             "waves; sp prefill is a whole-pipeline pass")
         self.pipe = pipe
         self.n_stages = len(pipe.stages)
         # paged-KV backend: page-table caches + token-bounded admission

@@ -1,8 +1,8 @@
 """Autoregressive KV-cache decoding through the pipeline (the decoders).
 
 Port of `pipeedge_tpu/parallel/decode.py`: the single-device path and
-the tensor-parallel one (the sequence- and expert-parallel variants wait
-for ROADMAP A7b and A7c). The block step, the single-token and the span
+its tensor-, expert- and sequence-parallel variants. The block step, the
+single-token and the span
 embeddings come from the family (`FamilySpec` hooks: the Llama family
 supplies its own), with the GPT-2-shaped ones of this module as the
 defaults; the switch-MoE GPT-2's block tail routes through
@@ -64,20 +64,11 @@ from ..models import ShardConfig, plan_shard
 from ..models.layers import TransformerConfig, dense, gelu_new, layer_norm
 from ..models.shard import params_to
 from ..ops import decode_attention
-from .expert import moe_ffn_delta
+from .expert import ep_ffn_delta, moe_ffn_delta
 
 Cache = Dict[str, torch.Tensor]   # {'k': [L, B, T, H, Dh], 'v': ...}
 # int8 variant adds per-(block, batch, position, head) scale/shift rows:
 #   {'k': int8, 'v': int8, 'k_scale'/'k_shift'/'v_scale'/'v_shift': [L, B, T, H]}
-
-# the decode variants over other mesh axes, each with the ROADMAP A7
-# sub-item that ports it
-_MESH_ARGS = {
-    "sp_mesh": "A7c, sequence parallelism",
-    "ep_mesh": "A7b, expert parallelism and tp x ep",
-    "tp_ep_mesh": "A7b, expert parallelism and tp x ep",
-}
-
 
 def init_cache(cfg: TransformerConfig, n_blocks: int, batch: int,
                max_len: int, dtype=torch.float32, cache_bits: int = 0,
@@ -271,12 +262,18 @@ def _cache_update_and_read(bcache: Cache, k_new: torch.Tensor,
     return k, v, k_pos <= q_pos
 
 
+def _attn_out(p: Dict, x: torch.Tensor, ctx: torch.Tensor,
+              cfg: TransformerConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Output projection + residual, and the FFN's LayerNorm of it."""
+    x = dense(p["attn_out"], ctx) + x
+    return x, layer_norm(p["ln_after"], x, cfg.layer_norm_eps)
+
+
 def _block_tail(p: Dict, x: torch.Tensor, ctx: torch.Tensor,
                 cfg: TransformerConfig) -> torch.Tensor:
     """Post-attention half of a GPT-2 block: output projection + residual,
     FFN + residual (the routed switch-FFN for an MoE config)."""
-    x = dense(p["attn_out"], ctx) + x
-    normed = layer_norm(p["ln_after"], x, cfg.layer_norm_eps)
+    x, normed = _attn_out(p, x, ctx, cfg)
     if cfg.n_experts:
         # capacity routing is not causal: a step routes only its own
         # tokens, so a capacity-bounded model's cached step is not the
@@ -389,11 +386,7 @@ def make_stage_fns(family, cfg: TransformerConfig, shard_config: ShardConfig,
 
 def _make_stage_run(family, cfg: TransformerConfig,
                     shard_config: ShardConfig, int8_optin=None):
-    plan = plan_shard(shard_config)
-    if plan.head is not None or plan.tail is not None:
-        raise ValueError("decode requires a block-aligned partition "
-                         f"(layers [{shard_config.layer_start}, "
-                         f"{shard_config.layer_end}] cut mid-block)")
+    _check_block_aligned(shard_config)
     # the family's cached block (llama: RoPE/GQA/SwiGLU), else the
     # GPT-2-shaped step with the int8-kernel opt-in resolved here, once
     block_fn = family.cached_block_step or functools.partial(
@@ -423,24 +416,31 @@ def _make_stage_run(family, cfg: TransformerConfig,
     return run
 
 
-def _block_step_tp(group, ps: Sequence[Dict], xs: Sequence[torch.Tensor],
-                   bcaches: Sequence[Cache], pos: int,
-                   cfg: TransformerConfig, prefill: bool, act=gelu_new,
-                   ffn_delta=None, read_len: Optional[int] = None,
-                   int8_optin: int = 0) -> List[torch.Tensor]:
-    """The Megatron tensor-parallel block step: the projection/all-reduce/
-    MLP body of `parallel/tensor.py` with each shard's attention core
-    swapped for a cache-attend over its head slice `bcaches[i]` (kernel 5
-    where the int8 route is opted in). `ffn_delta` replaces the dense MLP
-    (the tp x ep MoE composition)."""
-    from .tensor import _tp_block_local
-
+def _cache_attender(bcaches: Sequence[Cache], pos: int,
+                    cfg: TransformerConfig, prefill: bool,
+                    read_len: Optional[int], int8_optin: int):
+    """`qkv_to_ctx(i, q, k, v)` of the tp bodies: shard i's cache-attend
+    over its head slice `bcaches[i]` (kernel 5 where the int8 route is
+    opted in)."""
     def cache_attend(i, q, k_new, v_new):
         return _cache_attend(bcaches[i], q, k_new, v_new, pos, cfg, prefill,
                              read_len=read_len, int8_optin=int8_optin)
+    return cache_attend
 
+
+def _block_step_tp(group, ps: Sequence[Dict], xs: Sequence[torch.Tensor],
+                   bcaches: Sequence[Cache], pos: int,
+                   cfg: TransformerConfig, prefill: bool, act=gelu_new,
+                   read_len: Optional[int] = None,
+                   int8_optin: int = 0) -> List[torch.Tensor]:
+    """The Megatron tensor-parallel block step: the projection/all-reduce/
+    MLP body of `parallel/tensor.py` with each shard's attention core
+    swapped for a cache-attend over its head slice `bcaches[i]`."""
+    from .tensor import _tp_block_local
     return _tp_block_local(group, ps, xs, cfg, act=act, causal=True,
-                           qkv_to_ctx=cache_attend, ffn_delta=ffn_delta)
+                           qkv_to_ctx=_cache_attender(
+                               bcaches, pos, cfg, prefill, read_len,
+                               int8_optin))
 
 
 def _tp_shards_head(cfg: TransformerConfig, n: int) -> bool:
@@ -516,15 +516,66 @@ def tp_vocab_head_finalize(group, pfs: Sequence[Dict],
 
 def init_tp_cache(cfg: TransformerConfig, n_blocks: int, batch: int,
                   max_len: int, group, dtype=torch.float32,
-                  cache_bits: int = 0) -> List[Cache]:
+                  cache_bits: int = 0, tp: Optional[int] = None
+                  ) -> List[Cache]:
     """A stage cache split over `group` (JAX `tp_cache_specs`): shard i's
     leaves on its device hold heads [i*kv/n, (i+1)*kv/n) of the K/V
     buffers [L, B, T, H, Dh] and of the per-head scale/shift rows
-    [L, B, T, H], so each shard quantizes and dequantizes its own
-    heads."""
-    local = cfg.kv_heads // group.size
+    [L, B, T, H], so each shard quantizes and dequantizes its own heads.
+    On a `ShardGrid` pass `tp`: cell (i, j) holds tp slice i (the cache
+    is split over tp and replicated over ep)."""
+    n = tp or group.size
+    local = cfg.kv_heads // n
     return [init_cache(cfg, n_blocks, batch, max_len, dtype, cache_bits,
                        device=d, kv_heads=local) for d in group.devices]
+
+
+def _check_block_aligned(shard_config: ShardConfig) -> None:
+    plan = plan_shard(shard_config)
+    if plan.head is not None or plan.tail is not None:
+        raise ValueError("decode requires a block-aligned partition "
+                         f"(layers [{shard_config.layer_start}, "
+                         f"{shard_config.layer_end}] cut mid-block)")
+
+
+def _make_sharded_run(family, cfg: TransformerConfig,
+                      shard_config: ShardConfig, cells, block_fn, fin=None):
+    """(prefill_fn, decode_fn) of a stage whose blocks run over `cells` (a
+    shard group or grid): the embedding runs on the first cell, its output
+    is replicated to every cell, each block is `block_fn(cells, ps, xs,
+    caches, pos, cfg, prefill, read_len=)` over the per-cell params and
+    caches, and the head runs on the first cell (`fin` over every cell
+    when the head is split). `data` and the output live on the first
+    cell's device."""
+    _check_block_aligned(shard_config)
+    tok_embed = family.decode_embed or single_token_embed
+    tok_span_embed = family.span_embed or span_embed
+
+    @torch.inference_mode()
+    def run(params, data, cache, pos, prefill, read_len=None):
+        if prefill and read_len is None:
+            read_len = data.shape[1]
+        if shard_config.is_first:
+            if prefill:
+                data = family.embed(params["embeddings"], data, cfg)
+            elif data.dim() == 2 and data.shape[1] > 1:
+                data = tok_span_embed(params["embeddings"], data, pos)
+            else:
+                data = tok_embed(params["embeddings"], data, pos)
+        xs = cells.replicate(data)
+        for b, bps in enumerate(params["blocks"]):
+            bcaches = [{k: c[b] for k, c in shard.items()} for shard in cache]
+            xs = block_fn(cells, bps, xs, bcaches, pos, cfg, prefill,
+                          read_len=read_len)
+        if not shard_config.is_last:
+            return xs[0], cache
+        if fin is not None:
+            return fin(cells, params["final"], xs, cfg), cache
+        return family.finalize(params["final"], xs[0], cfg), cache
+
+    prefill_fn = functools.partial(run, pos=0, prefill=True)
+    decode_fn = functools.partial(run, prefill=False)
+    return prefill_fn, decode_fn
 
 
 def make_tp_stage_fns(family, cfg: TransformerConfig,
@@ -551,45 +602,238 @@ def make_tp_stage_fns(family, cfg: TransformerConfig,
             f"cached step with the Megatron body; the {family.name} "
             "family supplies a custom cached block step but no tp variant "
             "(forward TP — make_tp_block_fn / --spmd-tp — does cover it)")
-    plan = plan_shard(shard_config)
-    if plan.head is not None or plan.tail is not None:
-        raise ValueError("decode requires a block-aligned partition "
-                         f"(layers [{shard_config.layer_start}, "
-                         f"{shard_config.layer_end}] cut mid-block)")
     block_fn = family.tp_cached_block_step or functools.partial(
         _block_step_tp, int8_optin=_resolve_int8_optin(int8_optin))
     fin = None
     if _tp_shards_head(cfg, n):
         fin = family.tp_finalize or functools.partial(
             tp_vocab_head_finalize, norm_fn=layer_norm)
-    tok_embed = family.decode_embed or single_token_embed
-    tok_span_embed = family.span_embed or span_embed
+    return _make_sharded_run(family, cfg, shard_config, group, block_fn,
+                             fin=fin)
+
+
+def _block_step_ep(group, ps: Sequence[Dict], xs: Sequence[torch.Tensor],
+                   bcaches: Sequence[Cache], pos: int,
+                   cfg: TransformerConfig, prefill: bool,
+                   read_len: Optional[int] = None,
+                   int8_optin: int = 0) -> List[torch.Tensor]:
+    """The expert-parallel MoE block step: each shard's cached attention
+    over its own replica of the cache (`_attention_core`, kernel 5 on the
+    opted-in int8 route) and output projection, then the routed FFN with
+    the experts split over `group` (`ep_ffn_delta`)."""
+    def attention(i, p, x, bc):
+        ctx = _attention_core(p, x, bc, pos, cfg, prefill,
+                              read_len=read_len, int8_optin=int8_optin)
+        return _attn_out(p, x, ctx, cfg)
+
+    hs, normed = zip(*group.map(attention, ps, xs, bcaches))
+    deltas = ep_ffn_delta(group, [p["moe"] for p in ps], normed,
+                          cfg.n_experts, cfg.capacity_factor, act=gelu_new)
+    return group.map(lambda i, h, dl: h + dl, hs, deltas)
+
+
+def _block_step_tp_ep(grid, ps: Sequence[Dict], xs: Sequence[torch.Tensor],
+                      bcaches: Sequence[Cache], pos: int,
+                      cfg: TransformerConfig, prefill: bool, act,
+                      read_len: Optional[int] = None) -> List[torch.Tensor]:
+    """The tp x ep MoE block step over a `ShardGrid` (per-cell lists in
+    grid order): each ep column's Megatron attention half over its tp
+    group and head slice of the cache, then each tp row's routed FFN with
+    the experts split over its ep group. Routing sees the whole token set
+    on every cell, so the capacity semantics are the single device's."""
+    from .tensor import _tp_attention
+
+    hs = [None] * grid.size
+    for j in range(grid.ep):
+        cells = [grid.cell(i, j) for i in range(grid.tp)]
+        out = _tp_attention(
+            grid.tp_group(j), [ps[c] for c in cells], [xs[c] for c in cells],
+            cfg, causal=True, qkv_to_ctx=_cache_attender(
+                [bcaches[c] for c in cells], pos, cfg, prefill, read_len,
+                int8_optin=0))
+        for c, h in zip(cells, out):
+            hs[c] = h
+    ys = [None] * grid.size
+    for i in range(grid.tp):
+        cells = [grid.cell(i, j) for j in range(grid.ep)]
+        group = grid.ep_group(i)
+        rps, rhs = [ps[c] for c in cells], [hs[c] for c in cells]
+        normed = group.map(lambda k, p, h: layer_norm(
+            p["ln_after"], h, cfg.layer_norm_eps), rps, rhs)
+        deltas = ep_ffn_delta(group, [p["moe"] for p in rps], normed,
+                              cfg.n_experts, cfg.capacity_factor, act=act)
+        for c, h, dl in zip(cells, rhs, deltas):
+            ys[c] = h + dl
+    return ys
+
+
+def make_ep_stage_fns(family, cfg: TransformerConfig,
+                      shard_config: ShardConfig, group, axis: str = "ep",
+                      int8_optin=None):
+    """The expert-parallel `make_stage_fns` of an MoE stage: the routed
+    FFN's experts split over `group` (its axis `axis`), attention and the
+    cache replicated (experts hold an MoE decoder's parameter mass).
+    `params` from `shard_moe_stage_params`, the cache one replica per
+    shard; the int8 decode-attend route is the pipeline's resolved
+    opt-in."""
+    if not cfg.n_experts:
+        raise ValueError("make_ep_stage_fns requires an MoE config "
+                         "(cfg.n_experts > 0)")
+    n = group.axis_size(axis)
+    if cfg.n_experts % n:
+        raise ValueError(f"ep={n} must divide n_experts ({cfg.n_experts})")
+    return _make_sharded_run(
+        family, cfg, shard_config, group, functools.partial(
+            _block_step_ep, int8_optin=_resolve_int8_optin(int8_optin)))
+
+
+def make_tp_ep_stage_fns(family, cfg: TransformerConfig,
+                         shard_config: ShardConfig, grid,
+                         tp_axis: str = "tp", ep_axis: str = "ep"):
+    """The MoE serving composition over a `ShardGrid`: attention tensor-
+    parallel over `tp_axis` and experts expert-parallel over `ep_axis`.
+    Exact against the single device up to the tp all-reduce's summation
+    order: routing sees the whole (replicated) token set and the expert
+    all-reduce adds one nonzero term per token. The cache is head-split
+    over tp and replicated over ep (`init_tp_cache(..., tp=)`); the
+    embeddings, router and LM head are whole. An int8 cache is refused by
+    the pipeline, as in the JAX package."""
+    from .tensor import family_tp_ep_plan
+
+    if not cfg.n_experts:
+        raise ValueError("make_tp_ep_stage_fns requires an MoE config "
+                         "(cfg.n_experts > 0); use make_tp_stage_fns for "
+                         "dense models")
+    ntp, nep = grid.axis_size(tp_axis), grid.axis_size(ep_axis)
+    if cfg.num_attention_heads % ntp:
+        raise ValueError(f"tp={ntp} requires head count "
+                         f"({cfg.num_attention_heads}) divisible by tp")
+    if cfg.n_experts % nep:
+        raise ValueError(f"ep={nep} must divide n_experts "
+                         f"({cfg.n_experts})")
+    _, act = family_tp_ep_plan(cfg)
+    return _make_sharded_run(family, cfg, shard_config, grid,
+                             functools.partial(_block_step_tp_ep, act=act))
+
+
+def shard_moe_stage_params(params: Dict, cfg: TransformerConfig,
+                           cells) -> Dict:
+    """One MoE decode stage's params over `cells` (an ep `ShardGroup`, or
+    a `ShardGrid`): each block a per-cell list whose cell (i, j) holds tp
+    slice i of the attention leaves (the family's table of
+    `family_tp_ep_plan`; whole on an ep group) and expert slab j
+    (`shard_moe_params`), the router whole; the embeddings and final
+    params on the first cell. Slices are cut once, on the grid's first
+    column and row, and moved to each cell's device, so cells that share
+    a device share them."""
+    from .expert import shard_moe_params
+    from .mesh import ShardGrid
+    from .tensor import _shard_by_specs, family_tp_ep_plan
+
+    grid = isinstance(cells, ShardGrid)
+    ep = cells.ep if grid else cells.size
+    specs = family_tp_ep_plan(cfg)[0] if grid else None
+    blocks = []
+    for bp in stage_blocks(params):
+        att = {k: v for k, v in bp.items() if k != "moe"}
+        att_shards = _shard_by_specs(att, {k: specs[k] for k in att},
+                                     cells.tp_group(0)) if grid else [att]
+        moe_shards = shard_moe_params(bp["moe"], cells.ep_group(0)
+                                      if grid else cells)
+        blocks.append([
+            dict(params_to(att_shards[c // ep], device=dev),
+                 moe=params_to(moe_shards[c % ep], device=dev))
+            for c, dev in enumerate(cells.devices)])
+    out = {k: params_to(v, device=cells.devices[0])
+           for k, v in params.items() if k in ("embeddings", "final")}
+    out["blocks"] = blocks
+    return out
+
+
+def make_sp_prefill_fn(family, cfg: TransformerConfig,
+                       shard_config: ShardConfig, group, axis: str = "sp",
+                       sp_kind: str = "ring"):
+    """The sequence-parallel prompt pass of a decode stage:
+    `prefill(shard_params, data, cache) -> (out, cache)`, `shard_params`
+    the stage's params on each shard's device. The prompt's activations
+    split over `group` (its axis `axis`) and each block attends through
+    the causal core `sp_kind` picks (`parallel/sequence.py
+    resolve_sp_core`; a sliding-window family binds its window into it);
+    each block's K/V rows are gathered in shard order into the stage
+    cache on shard 0's device, so the per-token decode steps run there
+    unchanged. Stage edges carry the per-shard chunks; the last stage
+    gathers the hidden state and runs the head on shard 0.
+
+    Needs a block-aligned stage and a prompt the sp degree divides. An
+    MoE stage is covered when routing is dropless (capacity_factor >=
+    n_experts: a per-token gate, exact chunk by chunk)."""
+    from .sequence import resolve_sp_core
+
+    if cfg.n_experts and cfg.capacity_factor < cfg.n_experts:
+        raise NotImplementedError(
+            "sequence-parallel prefill covers dropless MoE only "
+            "(capacity_factor >= n_experts); capacity-bounded routing "
+            "is sequence-global and would change drop semantics per chunk")
+    fam_sp_block = family.sp_prefill_block_step
+    if family.position_dependent_attention and fam_sp_block is None:
+        raise NotImplementedError(
+            f"sequence-parallel prefill does not cover the {family.name} "
+            "family (its attention is position-dependent — RoPE — and it "
+            "supplies no sp_prefill_block_step hook to pre-rotate at "
+            "global chunk positions)")
+    _check_block_aligned(shard_config)
+    n = group.axis_size(axis)
+    core = resolve_sp_core(sp_kind, cfg.num_attention_heads, n,
+                           window=cfg.sliding_window or None)
+
+    def cache_gather(bcache: Cache, k_new, v_new) -> None:
+        """Write the shards' K/V chunks, gathered in shard order, into the
+        stage cache's rows [0, S)."""
+        for t, news in (("k", k_new), ("v", v_new)):
+            full = group.gather(news, dim=1)
+            bcache[t][:, :full.shape[1]] = full.to(bcache[t].dtype)
+
+    def default_block(ps, xs, bcache, cfg_, group_, core_, gather):
+        """One GPT-2-shaped block over the local chunks [B, S/n, D]."""
+        def project(i, p, x):
+            return _qkv(p, layer_norm(p["ln_before"], x,
+                                      cfg_.layer_norm_eps), cfg_)
+
+        q, k, v = (list(t) for t in zip(*group_.map(project, ps, xs)))
+        ctx = core_(group_, q, k, v, causal=True)
+        gather(bcache, k, v)
+        return group_.map(lambda i, p, x, c: _block_tail(
+            p, x, c.reshape(*x.shape[:2], -1), cfg_), ps, xs, ctx)
+
+    block = fam_sp_block or default_block
+
+    def sp_embed(ps, ids):
+        """Each shard's chunk of the prompt at its global positions (the
+        learned position table only where the family has one)."""
+        chunk = ids.shape[1] // n
+
+        def local(i, p):
+            pe = p["embeddings"]
+            rows = slice(i * chunk, (i + 1) * chunk)
+            out = pe["wte"][ids[:, rows].to(pe["wte"].device).long()]
+            if "wpe" in pe:
+                out = out + pe["wpe"][rows][None]
+            return out
+        return group.map(local, ps)
 
     @torch.inference_mode()
-    def run(params, data, cache, pos, prefill, read_len=None):
-        if prefill and read_len is None:
-            read_len = data.shape[1]
-        if shard_config.is_first:
-            if prefill:
-                data = family.embed(params["embeddings"], data, cfg)
-            elif data.dim() == 2 and data.shape[1] > 1:
-                data = tok_span_embed(params["embeddings"], data, pos)
-            else:
-                data = tok_embed(params["embeddings"], data, pos)
-        xs = group.replicate(data)
-        for b, bps in enumerate(params["blocks"]):
-            bcaches = [{k: c[b] for k, c in shard.items()} for shard in cache]
-            xs = block_fn(group, bps, xs, bcaches, pos, cfg, prefill,
-                          read_len=read_len)
-        if not shard_config.is_last:
-            return xs[0], cache
-        if fin is not None:
-            return fin(group, params["final"], xs, cfg), cache
-        return family.finalize(params["final"], xs[0], cfg), cache
+    def prefill(ps, data, cache):
+        xs = sp_embed(ps, data) if shard_config.is_first else data
+        for b in range(len(ps[0]["blocks"])):
+            bcache = {k: c[b] for k, c in cache.items()}
+            xs = block([p["blocks"][b] for p in ps], xs, bcache, cfg, group,
+                       core, cache_gather)
+        if shard_config.is_last:
+            return family.finalize(ps[0]["final"], group.gather(xs, dim=1),
+                                   cfg), cache
+        return xs, cache
 
-    prefill_fn = functools.partial(run, pos=0, prefill=True)
-    decode_fn = functools.partial(run, prefill=False)
-    return prefill_fn, decode_fn
+    return prefill
 
 
 def validate_partition(partition: Sequence[Tuple[int, int]],
@@ -697,7 +941,8 @@ def build_decode_pipeline(model_name: str,
     """Registry-driven `DecodePipeline`: model lookup, per-stage weight
     loading (`module_shard_factory`) and the position-capacity clamp in
     one place. `stage_params` supplies already-loaded per-stage params;
-    extra kwargs (`int8_decode_attend=`) pass through."""
+    extra kwargs (`int8_decode_attend=`, the meshes `mesh=`, `sp_mesh=`,
+    `ep_mesh=`, `tp_ep_mesh=`, `sp_kind=` and the axes) pass through."""
     from ..models import registry
     cfg = registry.get_model_config(model_name)
     total = registry.get_model_layers(model_name)
@@ -718,90 +963,155 @@ def build_decode_pipeline(model_name: str,
 class DecodePipeline:
     """Host-driven pipelined decoding over block-aligned stages, on one
     device (`cuda` unless told otherwise; every stage's params and cache
-    live there), or with `mesh` (a `parallel/mesh.py ShardGroup`) each
-    stage tensor-parallel over the group's devices (`make_tp_stage_fns`;
-    the pipeline's device is shard 0's).
+    live there), or with one mesh over several shards, the pipeline's
+    device being its first shard's:
+
+    - `mesh` (a `parallel/mesh.py ShardGroup`): each stage tensor-parallel
+      over the group (`make_tp_stage_fns`);
+    - `ep_mesh` (a `ShardGroup` whose axis is `ep_axis`): each MoE stage's
+      experts split over the group (`make_ep_stage_fns`);
+    - `tp_ep_mesh` (a `ShardGrid`): attention over its tp axis and experts
+      over its `ep_axis` (`make_tp_ep_stage_fns`);
+    - `sp_mesh` (a `ShardGroup` whose axis is `sp_axis`): the prompt pass
+      sequence-parallel with the `sp_kind` core (`make_sp_prefill_fn`),
+      the decode steps on the first shard's device.
 
     `stage_params[i]` are forward-pipeline shard params (what
-    `module_shard_factory` builds); caches are per stage. The sequence-
-    and expert-parallel meshes of the JAX class are not ported yet:
-    passing one raises, naming its ROADMAP item."""
+    `module_shard_factory` builds); caches are per stage (per shard on a
+    tp, ep or tp x ep mesh)."""
 
     def __init__(self, family, cfg: TransformerConfig,
                  partition: Sequence[Tuple[int, int]],
                  stage_params: Sequence[Dict], max_len: int,
                  device: DeviceLike = None, dtype=torch.float32,
                  cache_bits: int = 0, attend_floor: int = 64,
-                 int8_decode_attend=None, mesh=None, **mesh_kw):
-        for name, value in mesh_kw.items():
-            if name not in _MESH_ARGS:
-                raise TypeError(f"DecodePipeline got an unexpected "
-                                f"argument {name!r}")
-            if value is not None:
-                raise ValueError(
-                    f"{name} is not ported to pipeedge_tpu_torch yet "
-                    f"(ROADMAP {_MESH_ARGS[name]})")
+                 int8_decode_attend=None, mesh=None, sp_mesh=None,
+                 sp_axis: str = "sp", sp_kind: str = "ring", ep_mesh=None,
+                 ep_axis: str = "ep", tp_ep_mesh=None):
+        from .mesh import ShardGrid, ShardGroup
         total = 4 * cfg.num_hidden_layers
         validate_partition(partition, total)
         validate_capacity(cfg, max_len)
+        # the JAX constructor's composition errors, word for word
+        if sp_mesh is not None and (mesh is not None or cache_bits):
+            raise ValueError("sp_mesh (sequence-parallel prefill) does not "
+                             "compose with tp mesh/int8 cache/devices")
+        if ep_mesh is not None and (mesh is not None or sp_mesh is not None):
+            raise ValueError("ep_mesh (expert-parallel MoE decode) does not "
+                             "compose with tp/sp meshes or devices")
+        if tp_ep_mesh is not None and (mesh is not None or ep_mesh is not None
+                                       or sp_mesh is not None or cache_bits):
+            raise ValueError("tp_ep_mesh (tp x ep MoE decode) replaces the "
+                             "single-axis meshes; it does not compose with "
+                             "mesh/ep_mesh/sp_mesh, int8 cache, or devices")
         if attend_floor < 1:
             raise ValueError(f"attend_floor must be >= 1, got {attend_floor}")
+        for name, value, kind in (("mesh", mesh, ShardGroup),
+                                  ("sp_mesh", sp_mesh, ShardGroup),
+                                  ("ep_mesh", ep_mesh, ShardGroup),
+                                  ("tp_ep_mesh", tp_ep_mesh, ShardGrid)):
+            if value is not None and not isinstance(value, kind):
+                raise TypeError(f"{name} must be a parallel.mesh."
+                                f"{kind.__name__}, not "
+                                f"{type(value).__name__}")
         self.cfg = cfg
         self.max_len = max_len
-        self.mesh = mesh
-        if mesh is not None:
-            from .mesh import ShardGroup
-            if not isinstance(mesh, ShardGroup):
-                raise TypeError(f"mesh must be a parallel.mesh.ShardGroup, "
-                                f"not {type(mesh).__name__}")
-            self.device = mesh.devices[0]
+        self.mesh, self.sp_mesh = mesh, sp_mesh
+        self.ep_mesh, self.tp_ep_mesh = ep_mesh, tp_ep_mesh
+        lead = next((m for m in (mesh, sp_mesh, ep_mesh, tp_ep_mesh)
+                     if m is not None), None)
+        if lead is not None:
+            self.device = lead.devices[0]
             if device is not None and resolve_device(device).type \
                     != self.device.type:
                 raise ValueError(f"device {device} is not the kind of the "
-                                 f"tp mesh's devices {mesh}")
+                                 f"mesh's devices {lead}")
         else:
             self.device = resolve_device(device)
         self.dtype = dtype
         self.cache_bits = cache_bits
         self.attend_floor = attend_floor
+        self.sp_degree = sp_mesh.axis_size(sp_axis) if sp_mesh else 1
+        # the shard layout of each stage's cache (the prefix stamp's field)
+        self._shard_layout = (
+            ("tp", mesh.size) if mesh is not None else
+            ("ep", ep_mesh.axis_size(ep_axis)) if ep_mesh is not None else
+            ("tp", tp_ep_mesh.tp, "ep", tp_ep_mesh.ep)
+            if tp_ep_mesh is not None else ())
+        # bucketed attend windows ride the plain and tp steps; the ep and
+        # tp x ep steps attend the whole window, as in the JAX package
+        self._bucketed = ep_mesh is None and tp_ep_mesh is None
         # resolved ONCE here (arg > env > QuantizeCompute) and bound into
         # the stage functions: later env/config changes don't reach them
         self.int8_decode_optin = _resolve_int8_optin(int8_decode_attend)
+        optin = self.int8_decode_optin
         self.stages = []
         for i, (l, r) in enumerate(partition):
             sc = ShardConfig(l, r, is_first=l == 1, is_last=r == total)
+            stage = {"n_blocks": (r - l + 1) // 4}
             if mesh is not None:
-                pre, dec = make_tp_stage_fns(
-                    family, cfg, sc, mesh, int8_optin=self.int8_decode_optin)
+                pre, dec = make_tp_stage_fns(family, cfg, sc, mesh,
+                                             int8_optin=optin)
                 params = shard_stage_params(stage_params[i], cfg, mesh)
+            elif ep_mesh is not None:
+                pre, dec = make_ep_stage_fns(family, cfg, sc, ep_mesh,
+                                             axis=ep_axis, int8_optin=optin)
+                params = shard_moe_stage_params(stage_params[i], cfg,
+                                                ep_mesh)
+            elif tp_ep_mesh is not None:
+                pre, dec = make_tp_ep_stage_fns(family, cfg, sc, tp_ep_mesh,
+                                                ep_axis=ep_axis)
+                params = shard_moe_stage_params(stage_params[i], cfg,
+                                                tp_ep_mesh)
             else:
-                pre, dec = make_stage_fns(family, cfg, sc,
-                                          int8_optin=self.int8_decode_optin)
+                pre, dec = make_stage_fns(family, cfg, sc, int8_optin=optin)
                 params = params_to(stage_params[i], device=self.device)
-            self.stages.append({"prefill": pre, "decode": dec,
-                                "params": params,
-                                "n_blocks": (r - l + 1) // 4})
+                if sp_mesh is not None:
+                    pre = make_sp_prefill_fn(family, cfg, sc, sp_mesh,
+                                             axis=sp_axis, sp_kind=sp_kind)
+                    # the prompt pass's params on each shard's device
+                    # (the same tensors where a shard shares the device)
+                    stage["prefill_params"] = [
+                        params_to(params, device=d) for d in sp_mesh.devices]
+            stage.update(prefill=pre, decode=dec, params=params)
+            self.stages.append(stage)
 
-    def _read_len(self, pos: int, span: int = 1) -> int:
+    def _read_len(self, pos: int, span: int = 1) -> Optional[int]:
         """Attend window of a decode/span step whose last query row sits
-        at pos + span - 1."""
+        at pos + span - 1 (None: the whole window, on an ep or tp x ep
+        pipeline)."""
+        if not self._bucketed:
+            return None
         return attend_bucket(pos + span, self.max_len, self.attend_floor)
 
     def _fresh_caches(self, batch: int) -> List:
-        if self.mesh is not None:
-            return [init_tp_cache(self.cfg, st["n_blocks"], batch,
-                                  self.max_len, self.mesh, self.dtype,
-                                  cache_bits=self.cache_bits)
-                    for st in self.stages]
-        return [init_cache(self.cfg, st["n_blocks"], batch, self.max_len,
-                           self.dtype, cache_bits=self.cache_bits,
-                           device=self.device) for st in self.stages]
+        def stage_cache(st):
+            args = (self.cfg, st["n_blocks"], batch, self.max_len)
+            if self.mesh is not None:
+                return init_tp_cache(*args, self.mesh, self.dtype,
+                                     cache_bits=self.cache_bits)
+            if self.tp_ep_mesh is not None:
+                return init_tp_cache(*args, self.tp_ep_mesh, self.dtype,
+                                     tp=self.tp_ep_mesh.tp)
+            if self.ep_mesh is not None:
+                # one replica per shard, each attended on its device
+                return [init_cache(*args, self.dtype,
+                                   cache_bits=self.cache_bits, device=d)
+                        for d in self.ep_mesh.devices]
+            return init_cache(*args, self.dtype, cache_bits=self.cache_bits,
+                              device=self.device)
+        return [stage_cache(st) for st in self.stages]
 
     def _decode_step(self, st, data, cache: Cache, pos: int, span: int = 1):
         """Run one stage's decode function at host-known `pos` with its
         attend bucket. `span` > 1 runs a K-token span [pos, pos+K)."""
         return st["decode"](st["params"], data, cache, pos,
                             read_len=self._read_len(pos, span))
+
+    def _check_sp_divides(self, length: int, what: str) -> None:
+        if length % self.sp_degree:
+            raise ValueError(f"{what} length {length} not divisible by "
+                             f"the sp prefill degree {self.sp_degree}")
 
     def _prefill(self, ids: torch.Tensor,
                  prefill_ubatch: Optional[int] = None):
@@ -813,8 +1123,8 @@ class DecodePipeline:
         def run_stages(data):
             caches = self._fresh_caches(data.shape[0])
             for i, st in enumerate(self.stages):
-                data, caches[i] = st["prefill"](st["params"], data,
-                                                caches[i])
+                data, caches[i] = st["prefill"](
+                    st.get("prefill_params", st["params"]), data, caches[i])
             return data, caches
 
         if prefill_ubatch is None or prefill_ubatch >= batch:
@@ -865,6 +1175,7 @@ class DecodePipeline:
         if ids.shape[0] != 1:
             raise ValueError("a shared prefix is one sequence; got batch "
                              f"{ids.shape[0]}")
+        self._check_sp_divides(ids.shape[1], "prefix")
         _, caches = self._prefill(ids)
         return {"caches": caches, "len": ids.shape[1],
                 "sig": self._prefix_sig()}
@@ -876,8 +1187,7 @@ class DecodePipeline:
                 tuple(st["n_blocks"] for st in self.stages),
                 self.max_len, self.cache_bits,
                 str(self.dtype).replace("torch.", ""),
-                self.cfg.kv_heads, self.cfg.head_dim,
-                self.mesh.size if self.mesh is not None else 1)
+                self.cfg.kv_heads, self.cfg.head_dim, self._shard_layout)
 
     def check_prefix(self, prefix: Dict) -> None:
         """Validate a `precompute_prefix` handle against this pipeline's
@@ -892,7 +1202,7 @@ class DecodePipeline:
                 "prefix handle was built by an incompatible pipeline: "
                 f"handle sig {sig} vs this pipeline {self._prefix_sig()} "
                 "(fields: version, per-stage block counts, max_len, "
-                "cache_bits, dtype, kv_heads, head_dim, tp degree)")
+                "cache_bits, dtype, kv_heads, head_dim, shard layout)")
 
     @torch.inference_mode()
     def generate(self, ids, new_tokens: int, temperature: float = 0.0,
@@ -915,6 +1225,8 @@ class DecodePipeline:
         if new_tokens <= 0:
             return ids
         validate_capacity(self.cfg, self.max_len, prompt_len, new_tokens)
+        if prefix is None:
+            self._check_sp_divides(prompt_len, "prompt")
         pick = make_token_picker(temperature, top_k)
         gen = None
         if temperature > 0.0:
@@ -966,6 +1278,7 @@ class DecodePipeline:
         if beams == 1:
             return self.generate(ids, new_tokens)
         validate_capacity(self.cfg, self.max_len, prompt_len, new_tokens)
+        self._check_sp_divides(prompt_len, "prompt")
 
         data, caches = self._prefill(ids)
         caches = [_repeat_batch(c, beams) for c in caches]

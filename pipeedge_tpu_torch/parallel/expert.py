@@ -1,8 +1,8 @@
-"""The switch-routed FFN of the MoE decoders, on one device.
+"""The switch-routed FFN of the MoE decoders, on one device and with its
+experts split over an expert-parallel shard group.
 
-Port of the single-device half of `pipeedge_tpu/parallel/expert.py`
-(the expert-parallel `ep_*` functions wait for ROADMAP A7). Routing is
-Switch Transformer top-1:
+Port of `pipeedge_tpu/parallel/expert.py`. Routing is Switch Transformer
+top-1:
 
 - router logits [T, E] -> softmax in f32 -> each token's expert and gate
   weight (its probability);
@@ -18,16 +18,26 @@ Switch Transformer top-1:
 (`models/gpt2.py` sublayer 2, `parallel/decode.py` `_block_tail`); the
 experts run as two batched matmuls over [E, C] gathered token rows, the
 torch counterpart of the JAX package's `vmap` over the expert axis.
+
+Expert parallelism (`ep_ffn_delta`, `make_ep_ffn_fn`) runs over a
+`parallel/mesh.py ShardGroup`, per-shard lists in and out, as the JAX
+functions run per device under `shard_map`: every shard routes the whole
+(replicated) token set, computes the rows of the global [E, C] tables
+that belong to its E/n experts, and one exact all-reduce adds the
+shards' deltas. Top-1 routing gives each token one expert, so the sum
+adds one nonzero term per token and equals the single-device delta.
 """
 from __future__ import annotations
 
 import math
-from typing import Dict
+from typing import Dict, List, Sequence
 
 import numpy as np
 import torch
 
 from ..models.layers import TransformerConfig, gelu
+from ..models.shard import params_to
+from .tensor import split_leaf
 
 
 def init_moe_params(cfg: TransformerConfig, n_experts: int,
@@ -129,3 +139,95 @@ def reference_moe_ffn(params: Dict, x: torch.Tensor, n_experts: int,
         ye = up @ ex["mlp_down"]["w"][e] + ex["mlp_down"]["b"][e]
         out[ids] = ye * gate[ids][:, None] + tokens[ids]
     return out.reshape(b, s, d)
+
+
+def _ep_local(group, ps: Sequence[Dict], xs: Sequence[torch.Tensor], *,
+              n_experts: int, capacity: int, act=gelu) -> List[torch.Tensor]:
+    """The per-shard body of `make_ep_ffn_fn`: local experts, tokens
+    replicated; each shard computes its experts' capacity slots and one
+    all-reduce combines them. -> x + delta per shard."""
+    b, s, d = xs[0].shape
+    tokens = [x.reshape(-1, d) for x in xs]
+    combined = _ep_routed_delta(group, ps, tokens, n_experts, capacity, act)
+    return group.map(lambda i, t, c: (t + c).reshape(b, s, d), tokens,
+                     combined)
+
+
+def _ep_routed_delta(group, ps: Sequence[Dict],
+                     tokens: Sequence[torch.Tensor], n_experts: int,
+                     capacity: int, act) -> List[torch.Tensor]:
+    """Route each shard's token rows [T, D] (the same set on every
+    shard), then `_ep_delta_from_routing`."""
+    def route(i, p, t):
+        _, gate, keep, kept = _routing(p["router"], t, n_experts, capacity)
+        return gate, keep, kept
+
+    routed = group.map(route, ps, tokens)
+    return _ep_delta_from_routing(group, ps, tokens, routed, n_experts, act)
+
+
+def _ep_delta_from_routing(group, ps: Sequence[Dict],
+                           tokens: Sequence[torch.Tensor], routed,
+                           n_experts: int, act) -> List[torch.Tensor]:
+    """Each shard's expert rows of the global routing tables (`routed[i]`
+    = its (gate, keep, kept)) -> its local deltas (the shared
+    `_scatter_expert_deltas`) -> an exact all-reduce over the group."""
+    e_local = n_experts // group.size
+
+    def local(i, p, t, r):
+        gate, keep, kept = r
+        rows = slice(i * e_local, (i + 1) * e_local)
+        return _scatter_expert_deltas(p["experts"], t, gate, keep[rows],
+                                      kept[rows], act)
+
+    return group.psum(group.map(local, ps, tokens, routed))
+
+
+def ep_ffn_delta(group, ps: Sequence[Dict], normed: Sequence[torch.Tensor],
+                 n_experts: int, capacity_factor: float, *,
+                 act) -> List[torch.Tensor]:
+    """The expert-parallel `moe_ffn_delta` over `group`: `ps[i]` is shard
+    i's MoE params (`shard_moe_params`), `normed[i]` its copy of the
+    [B, S, D] activations. Equal to the single-device delta: top-1
+    routing means the all-reduce adds one nonzero term per token."""
+    b, s, d = normed[0].shape
+    capacity = moe_capacity(b * s, n_experts, capacity_factor)
+    tokens = [x.reshape(-1, d) for x in normed]
+    delta = _ep_routed_delta(group, ps, tokens, n_experts, capacity, act)
+    return group.map(lambda i, dl, x: dl.reshape(b, s, d).to(x.dtype),
+                     delta, normed)
+
+
+def make_ep_ffn_fn(cfg: TransformerConfig, group, n_experts: int,
+                   capacity_factor: float = 1.25, *, act):
+    """`fn(sharded_params, x) -> x`: the switch FFN with its experts split
+    over `group` (`sharded_params` from `shard_moe_params`; `x` [B, S, D]
+    replicated to every shard, the output read from shard 0). The
+    capacity derives from the call's token count."""
+    del cfg
+    n = group.size
+    if n_experts % n:
+        raise ValueError(f"n_experts ({n_experts}) must divide by the ep "
+                         f"axis size ({n})")
+
+    @torch.inference_mode()
+    def fn(sharded_params: Sequence[Dict], x: torch.Tensor) -> torch.Tensor:
+        b, s, _ = x.shape
+        capacity = moe_capacity(b * s, n_experts, capacity_factor)
+        return _ep_local(group, sharded_params, group.replicate(x),
+                         n_experts=n_experts, capacity=capacity, act=act)[0]
+
+    return fn
+
+
+def shard_moe_params(params: Dict, group) -> List[Dict]:
+    """MoE params over `group`, one dict per shard: the router whole on
+    every shard's device (shared by shards on one device), the expert
+    slabs split on their leading axis (shard i holds experts [i*E/n,
+    (i+1)*E/n))."""
+    n = group.size
+    return [{"router": params_to(params["router"], device=dev),
+             "experts": {name: {k: split_leaf(v, 0, n, i, dev)
+                                for k, v in leaf.items()}
+                         for name, leaf in params["experts"].items()}}
+            for i, dev in enumerate(group.devices)]

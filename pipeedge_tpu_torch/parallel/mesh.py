@@ -18,6 +18,16 @@ and drives them in lock step, each shard's work on its own device:
   meet on shard 0's device and are summed or concatenated in shard order,
   and every shard gets that one result (the same tensor for shards that
   share a device, so callers never write into a collective's result).
+- `all_to_all(xs, split_dim, concat_dim)` is JAX's tiled `lax.all_to_all`:
+  shard i gets chunk i of every shard's value, concatenated in shard
+  order, each chunk moved by the ring's hop.
+
+`ShardGrid` is the two-axis mesh of the tp x ep composition: devices in
+the JAX mesh's order (`np.array(devices).reshape(tp, ep)`), each ep
+column a tp `ShardGroup` and each tp row an ep one. A shard that shares a
+device with another shares its replicated tensors (`Tensor.to` a device
+the tensor is on returns the tensor), so on one card a replicated weight
+is held once.
 
 Why one process and not a `torch.distributed` group: JAX's `--stage-tp`
 is one process over its own local devices, and NCCL refuses two ranks on
@@ -156,3 +166,69 @@ class ShardGroup:
                    tiled: bool = True) -> List[torch.Tensor]:
         """Exact all-gather: `gather`'s result on every shard."""
         return self._from_root(self.gather(xs, dim=dim, tiled=tiled))
+
+    def all_to_all(self, xs: Sequence[torch.Tensor], split_dim: int,
+                   concat_dim: int) -> List[torch.Tensor]:
+        """Tiled `lax.all_to_all`: each shard's value splits into n chunks
+        along `split_dim`; shard i receives chunk i of every shard's value,
+        concatenated along `concat_dim` in shard order, on its device."""
+        n = self.size
+        if xs[0].shape[split_dim] % n:
+            raise ValueError(f"axis {split_dim} of {tuple(xs[0].shape)} "
+                             f"does not split {n} ways")
+        chunks = [x.chunk(n, dim=split_dim) for x in xs]
+        return [torch.cat([_to(chunks[j][i], self.devices[i])
+                           for j in range(n)], dim=concat_dim)
+                for i in range(n)]
+
+
+class ShardGrid:
+    """The tp x ep mesh: `tp * ep` devices, cell (i, j) = `devices[i * ep
+    + j]` (tp index i, ep index j), as `np.array(devices).reshape(tp, ep)`
+    lays out the JAX mesh. Cells are listed in that order wherever a
+    per-cell list is passed."""
+
+    axes = ("tp", "ep")
+
+    def __init__(self, devices: Sequence, tp: int, ep: int):
+        if tp < 1 or ep < 1 or len(devices) != tp * ep:
+            raise ValueError(f"a {tp} x {ep} grid needs {tp * ep} devices, "
+                             f"got {len(devices)}")
+        self.devices = [torch.device(d) for d in devices]
+        self.tp, self.ep = tp, ep
+        # each ep column's tp group, each tp row's ep group
+        self._columns = [ShardGroup(self.devices[j::ep], "tp")
+                         for j in range(ep)]
+        self._rows = [ShardGroup(self.devices[i * ep:(i + 1) * ep], "ep")
+                      for i in range(tp)]
+
+    @property
+    def size(self) -> int:
+        return len(self.devices)
+
+    def axis_size(self, axis: str) -> int:
+        """`jax.lax.axis_size` of either axis."""
+        if axis not in self.axes:
+            raise ValueError(f"this grid's axes are {self.axes}, "
+                             f"not {axis!r}")
+        return self.tp if axis == "tp" else self.ep
+
+    def __repr__(self) -> str:
+        return (f"ShardGrid(tp={self.tp}, ep={self.ep}, "
+                f"{[str(d) for d in self.devices]})")
+
+    def cell(self, i: int, j: int) -> int:
+        """The flat index of cell (tp i, ep j)."""
+        return i * self.ep + j
+
+    def tp_group(self, j: int) -> ShardGroup:
+        """Ep column j's tp group: cells (0, j) .. (tp - 1, j)."""
+        return self._columns[j]
+
+    def ep_group(self, i: int) -> ShardGroup:
+        """Tp row i's ep group: cells (i, 0) .. (i, ep - 1)."""
+        return self._rows[i]
+
+    def replicate(self, x) -> list:
+        """`x` on every cell's device."""
+        return [_to(x, d) for d in self.devices]

@@ -53,8 +53,8 @@ def _device_rounds_eligible(pipe) -> Optional[str]:
     device, else the reason they cannot (the JAX package's refusals:
     per-stage device placement moves data between devices through the
     host, and tp / ep / tp x ep meshes re-place params and caches). The
-    port's `DecodePipeline` runs on one device and has none of these
-    until ROADMAP A7, so its pipelines are eligible."""
+    port's stages carry no per-stage device, so the meshes refuse; a
+    sequence-parallel pipeline decodes on one device and is eligible."""
     if any(st.get("device") is not None for st in pipe.stages):
         return "per-stage device placement"
     if getattr(pipe, "mesh", None) is not None:

@@ -144,19 +144,17 @@ def _heads(y: torch.Tensor, n_heads: int) -> torch.Tensor:
     return y.reshape(b, s, n_heads, -1)
 
 
-def _tp_block_local(group: ShardGroup, ps: Sequence[Dict],
-                    xs: Sequence[torch.Tensor], cfg: TransformerConfig,
-                    act=gelu, causal: bool = False, qkv_to_ctx=None,
-                    ffn_delta=None) -> List[torch.Tensor]:
-    """The pre-LN block body over the group: local head/hidden slices +
-    two all-reduces. Serves ViT/DeiT as-is and GPT-2 via act=gelu_new +
-    causal=True.
+def _tp_attention(group: ShardGroup, ps: Sequence[Dict],
+                  xs: Sequence[torch.Tensor], cfg: TransformerConfig,
+                  causal: bool = False, qkv_to_ctx=None
+                  ) -> List[torch.Tensor]:
+    """The attention half of the pre-LN block over the group: local heads,
+    the row-parallel output projection, one all-reduce and the residual.
 
     `qkv_to_ctx(i, q, k, v) -> ctx` ([b, s, h_local * hd]) replaces shard
     i's attention core over its local heads: how KV-cache decoding plugs
-    its cache-attend into this same projection/all-reduce/MLP body
-    (parallel/decode.py). `ffn_delta(i, p, normed) -> delta` replaces the
-    dense MLP (the tp x ep MoE composition's hook)."""
+    its cache-attend into this same projection/all-reduce body
+    (parallel/decode.py)."""
     heads_local = cfg.num_attention_heads // group.size
 
     def attention(i, p, x):
@@ -173,11 +171,22 @@ def _tp_block_local(group: ShardGroup, ps: Sequence[Dict],
         return _partial(ctx, p["attn_out"]["w"])
 
     attn = tp_psum(group, group.map(attention, ps, xs))
-    xs = group.map(lambda i, p, x, a: (a + p["attn_out"]["b"]).to(x.dtype)
-                   + x, ps, xs, attn)
-    if ffn_delta is not None:
-        return group.map(lambda i, p, x: x + ffn_delta(
-            i, p, layer_norm(p["ln_after"], x, cfg.layer_norm_eps)), ps, xs)
+    return group.map(lambda i, p, x, a: (a + p["attn_out"]["b"]).to(x.dtype)
+                     + x, ps, xs, attn)
+
+
+def _tp_block_local(group: ShardGroup, ps: Sequence[Dict],
+                    xs: Sequence[torch.Tensor], cfg: TransformerConfig,
+                    act=gelu, causal: bool = False, qkv_to_ctx=None
+                    ) -> List[torch.Tensor]:
+    """The pre-LN block body over the group: local head/hidden slices +
+    two all-reduces. Serves ViT/DeiT as-is and GPT-2 via act=gelu_new +
+    causal=True; `qkv_to_ctx` as in `_tp_attention`. The tp x ep MoE
+    block (parallel/decode.py `_block_step_tp_ep`) runs `_tp_attention`
+    and then the expert-parallel FFN: its all-reduce spans the grid's ep
+    columns, so it cannot run inside one column's body."""
+    xs = _tp_attention(group, ps, xs, cfg, causal=causal,
+                       qkv_to_ctx=qkv_to_ctx)
 
     def mlp(i, p, x):
         normed = layer_norm(p["ln_after"], x, cfg.layer_norm_eps)
@@ -287,7 +296,7 @@ def family_tp_ep_plan(cfg: TransformerConfig):
     """Family dispatch for the tp x ep MoE composition: returns (the
     attention split table over tp, the FFN activation). The attention half
     of an MoE block splits exactly like its dense family's; the routed
-    FFN splits over 'ep' (ROADMAP A7b ports its consumer)."""
+    FFN splits over 'ep' (parallel/decode.py make_tp_ep_stage_fns)."""
     if not cfg.n_experts:
         raise ValueError("family_tp_ep_plan requires an MoE config "
                          "(cfg.n_experts > 0); use family_tp_plan")

@@ -30,6 +30,7 @@ from pipeedge_tpu_torch.models.convert import params_from_jax
 from pipeedge_tpu_torch.models.shard import shard_apply
 from pipeedge_tpu_torch.ops import _build
 from pipeedge_tpu_torch.parallel import decode as tdec
+from pipeedge_tpu_torch.parallel.mesh import ShardGroup, devices_for
 
 MODEL = "pipeedge/test-tiny-gpt2"
 CFG = treg.get_model_config(MODEL)
@@ -247,9 +248,15 @@ def test_validation_errors(weights):
         make(attend_floor=0)
     with pytest.raises(ValueError, match="cache_bits"):
         tdec.init_cache(CFG, 2, 1, 8, cache_bits=4, device="cpu")
+    # the other mesh axes are shard groups and a grid (their decoding runs
+    # in tests/test_torch_moe_parallel.py and tests/test_torch_sp_prefill.py)
     for mesh_arg in ("sp_mesh", "ep_mesh", "tp_ep_mesh"):
-        with pytest.raises(ValueError, match="ROADMAP A7"):
+        with pytest.raises(TypeError, match="parallel.mesh.Shard"):
             make(**{mesh_arg: object()})
+    assert make(sp_mesh=ShardGroup(devices_for(2, "cpu"), "sp")
+                ).sp_degree == 2
+    with pytest.raises(ValueError, match="requires an MoE config"):
+        make(ep_mesh=ShardGroup(devices_for(2, "cpu"), "ep"))
     # the tensor-parallel mesh is a shard group (tests/test_torch_generate_tp.py)
     with pytest.raises(TypeError, match="ShardGroup"):
         make(mesh=object())

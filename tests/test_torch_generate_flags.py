@@ -4,9 +4,9 @@ and `-sm/-sdt/-sd`, and the flags both entries refuse.
 - Every composition error of `pipeedge_tpu_torch.generate` is the JAX
   entry's (`tools/generate.py`), word for word, on the same command line.
 - The flags that need a layout the port does not run yet are refused at
-  parse time, naming their ROADMAP item: generate's `--sp`, `--ep` and
-  `--spmd-wave`, and `runtime.py`'s flags the port's runtime does not
-  run; the tensor-parallel flags (`--tp`, `--stage-tp`,
+  parse time, naming their ROADMAP item: generate's `--spmd-wave`, and
+  `runtime.py`'s flags the port's runtime does not run; the multi-GPU
+  flags the port runs (`--tp`, `--sp`, `--ep`, `--stage-tp`,
   `--tp-quant-bits`) parse.
 - `--concurrent N` on the tiny GPT-2: every request's tokens equal its
   solo run (fp and int8 caches, with and without a shared prefix).
@@ -81,12 +81,19 @@ def test_compose_errors_are_the_jax_entry_s(case, monkeypatch):
     assert got == want
 
 
-GEN_REFUSED = {"--sp": ["2"], "--ep": ["2"], "--spmd-wave": []}
+GEN_REFUSED = {"--spmd-wave": []}
+# the flags that left the refused table, each with a value: they parse
+GEN_PORTED = {"--sp": ["2"], "--ep": ["2"]}
 
 
-@pytest.mark.parametrize("flag", sorted(GEN_REFUSED))
+@pytest.mark.parametrize("flag", sorted(GEN_PORTED) + sorted(GEN_REFUSED))
 def test_generate_refuses_naming_the_item(flag):
     assert set(GEN_REFUSED) == set(generate.REFUSED)
+    if flag in GEN_PORTED:
+        args = generate.parse_args(BASE + [flag] + GEN_PORTED[flag]
+                                   + ["--device", "cpu"])
+        assert getattr(args, flag[2:]) == 2
+        return
     msg = _error(lambda: generate.parse_args(
         BASE + [flag] + GEN_REFUSED[flag]))
     assert msg.startswith(f"{flag} is not ported to pipeedge_tpu_torch yet "
@@ -94,11 +101,16 @@ def test_generate_refuses_naming_the_item(flag):
 
 
 # the multi-GPU flags the port runs, with a value (the tensor-parallel
-# decode itself runs in tests/test_torch_generate_tp.py and the stage fleet
-# in tests/test_torch_stage_tp_dcn.py)
+# decode itself runs in tests/test_torch_generate_tp.py, the stage fleet
+# in tests/test_torch_stage_tp_dcn.py, --ep and --tp x --ep in
+# tests/test_torch_moe_parallel.py, --sp in tests/test_torch_sp_prefill.py)
 TP_FLAGS = {
     "generate --tp": (lambda: generate.parse_args(
         BASE + ["--tp", "2", "--device", "cpu"]), ("tp", 2)),
+    "generate --sp": (lambda: generate.parse_args(
+        BASE + ["--sp", "2", "--device", "cpu"]), ("sp", 2)),
+    "generate --ep": (lambda: generate.parse_args(
+        BASE + ["--tp", "2", "--ep", "2", "--device", "cpu"]), ("ep", 2)),
     "runtime --stage-tp": (lambda: runtime.parse_args(
         ["0", "2", "-c", "dcn", "-m", "pipeedge/test-tiny-vit",
          "-pt", "1,4,5,8", "--stage-tp", "2"]), ("stage_tp", 2)),

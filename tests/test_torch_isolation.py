@@ -139,11 +139,16 @@ DISAGG_MODULES = ["kv/disagg.py", "kv/fleet.py", "prefill_worker.py"]
 TP_MODULES = ["parallel/mesh.py", "parallel/tensor.py",
               "ops/qcollectives.py"]
 
+# the sequence axis: the ring and Ulysses cores (the expert-parallel FFN
+# is parallel/expert.py, among the decoder modules)
+SP_MODULES = ["parallel/sequence.py"]
+
 
 @pytest.mark.parametrize("rel", SERVING_MODULES + DECODER_MODULES
                          + LOOP_AND_ROUTER_MODULES + DCN_MODULES
                          + OBSERVATORY_MODULES + FAULT_MODULES
-                         + CONTROL_MODULES + DISAGG_MODULES + TP_MODULES)
+                         + CONTROL_MODULES + DISAGG_MODULES + TP_MODULES
+                         + SP_MODULES)
 def test_serving_modules_import_no_jax_anywhere(rel):
     """Each serving-slice module is scanned, and none imports `jax` or
     `pipeedge_tpu` (nor a root module that does), at module level or
