@@ -30,7 +30,8 @@ Phases, each of which raises on failure (nothing is caught):
        14's causal head dim 128 (Llama-3-8B [8, 128, 32, 128] f32 and
        bf16, the decode checks' forwards [4, 640, 32, 128] f32 and bf16,
        [4, 512, 32, 128] f32, Mistral-7B [1, 4096, 32, 128] f32 and
-       bf16) and the MoE GPT-2's causal [8, 128, 12, 64] f32, within
+       bf16) and the MoE GPT-2's causal [8, 128, 12, 64] f32, and phase
+       23's [4, 197, 6, 64], [8, 64, 16, 64] and [4, 64, 8, 64] f32, within
        the tolerances stated below, each timed beside SDPA;
      - the plain codec on the card at every bitwidth an adaptive policy
        can pick (32, 16, 10, 8, 6, 5, 4, 3, 2) at the edges of phases 8
@@ -502,6 +503,26 @@ Phases, each of which raises on failure (nothing is caught):
      SP_LOGIT_BOUND, the gathered cache within SP_CACHE_BOUND of its
      route), kernel 3 launched 2 per block by Ulysses only, Ulysses'
      tokens by the same rule; prefill ms at sp 1 and 2.
+ 23. the SPMD pipeline driver (`parallel/spmd.py`) through `python -m
+     pipeedge_tpu_torch.runtime ... -c spmd`, in this process (each run
+     the entry's warm-up and timed batch of 64 in microbatches of 8), the
+     mesh's shards sharing the one card: (a) ViT-Base (phase 4's npz) at
+     `-pt 1,12,13,24,25,36,37,48` (4 stages of 3 blocks) at `-q 0`, equal
+     bit for bit to the host driver's exact run at that cut, at `-q
+     8,8,8,0` within LOGIT_BOUND[8] and at `-q 8,4,0,0` within
+     LOGIT_BOUND[4] of it, neither equal; (b) `--spmd-dp 2 --spmd-tp 2`
+     at `-pt 1,24,25,48`, `--tp-quant-bits 0` within SPMD_TP_BOUND and 8
+     within LOGIT_BOUND[8] of the exact run, then one run at 8 bits
+     through the API with every `qpsum` within `qpsum_error_bound` of its
+     exact sum and equal to the entry's outputs; (c) BERT-Large (weights
+     drawn on the card) at `-pt 1,48,49,96` unsharded, then `--spmd-dp 2
+     --spmd-sp 2` with the ring and the Ulysses core, each within
+     SPMD_SP_BOUND of the unsharded run. Every run's launches equal the
+     prediction (`spmd_launches`: only the valid stage-steps run): kernel
+     3 96 per run in (a), 384 in (b), 192 unsharded, 0 ring and 768
+     Ulysses in (c); kernels 1 and 2 8 per quantized edge in (a), n^2 =
+     4 encodes and 2n(n-1) = 4 decodes per `qpsum` in (b) at 8 bits (384
+     all-reduces a run). Printed: each run's items/s and seconds.
 Phase 3 also holds kernel 5 (decode attention) against its plain version
 at the main path's shapes (windows of a [16, 1024, 12, 64] stage cache at
 buckets 256 and 512, and pos 1000 of the whole cache), pos 0 and W-1,
@@ -1059,7 +1080,13 @@ def check_attention(dev, gen):
              ("bshd", (4, 512, 32, 128), torch.float32, True),
              ("bshd", (1, 4096, 32, 128), torch.float32, True),
              ("bshd", (1, 4096, 32, 128), torch.bfloat16, True),
-             ("bshd", (8, 128, 12, 64), torch.float32, True)]
+             ("bshd", (8, 128, 12, 64), torch.float32, True),
+             # phase 23: a dp x tp cell's ViT-Base shard (4 rows, 6
+             # heads), BERT-Large (16 heads, 64 tokens) whole and as a
+             # dp x sp cell's Ulysses head group (4 rows, 8 heads)
+             ("bshd", (4, 197, 6, 64), torch.float32, False),
+             ("bshd", (8, 64, 16, 64), torch.float32, False),
+             ("bshd", (4, 64, 8, 64), torch.float32, False)]
     for layout, shape, dtype, causal in cases:
         q, k, v = (torch.randn(shape, generator=gen, device=dev).to(dtype)
                    for _ in range(3))
@@ -3817,7 +3844,7 @@ def card_params(model: str, dtype=torch.float32, seed: int = 0) -> dict:
     """A whole model's parameters drawn on the card with a seeded CUDA
     generator, in the structure the family's `load_params` builds (a list
     of per-block dicts): N(0, 0.02) matrices, norm scales N(1, 0.02),
-    zero linear biases. This is not the JAX package's numpy stream
+    zero linear biases (the Llama, GPT-2 and BERT structures). This is not the JAX package's numpy stream
     (`init_params`, which the CPU tests hold to the JAX package): 8e9 f64
     normals drawn on the host would take minutes. The LM head of the
     MoE GPT-2 is tied to `wte` (a transposed view), the Llama head is its
@@ -3838,6 +3865,22 @@ def card_params(model: str, dtype=torch.float32, seed: int = 0) -> dict:
     def lin(n_in, n_out):
         return {"w": mat(n_in, n_out), "b": zeros(n_out)}
 
+    if cfg.model_type == "bert":
+        def norm():
+            return {"scale": mat(d, mean=1.0), "bias": mat(d)}
+
+        blocks = [{"q": lin(d, d), "k": lin(d, d), "v": lin(d, d),
+                   "attn_out": lin(d, d), "attn_ln": norm(),
+                   "mlp_up": lin(d, it), "mlp_down": lin(it, d),
+                   "out_ln": norm()} for _ in range(cfg.num_hidden_layers)]
+        final = {"pooler": lin(d, d)}
+        if cfg.num_labels:
+            final["head"] = lin(d, cfg.num_labels)
+        return {"embeddings": {"word": mat(vocab, d),
+                               "pos": mat(cfg.max_position_embeddings, d),
+                               "type": mat(cfg.type_vocab_size, d),
+                               "ln": norm()},
+                "blocks": blocks, "final": final}
     if cfg.model_type == "llama":
         kv = cfg.kv_heads * cfg.head_dim
 
@@ -8742,6 +8785,252 @@ def check_sp_prefill(res, device_name: str) -> dict:
             for kind, r in res["kinds"].items()}
 
 
+# phase 23: the SPMD pipeline driver through the runtime entry, in this
+# process, at the README's meshes: ViT-Base in 4 stages of 3 blocks at
+# edge bits 0 / 8 / mixed; dp 2 x tp 2 at 2 stages; BERT-Large dp 2 x sp 2
+SPMD_PT = "1,12,13,24,25,36,37,48"
+SPMD_BITS = ("0,0,0,0", "8,8,8,0", "8,4,0,0")
+SPMD_TP_PT = "1,24,25,48"
+SPMD_TP_BITS = (0, 8)
+BERT_LARGE = "bert-large-uncased"
+SPMD_SP_PT = "1,48,49,96"
+SPMD_SP_KINDS = ("ring", "ulysses")
+# a whole model's logits under a tp mesh: row-parallel partial sums in
+# another order than one matmul's, through 12 blocks (phase 21b's bound)
+SPMD_TP_BOUND = TP_DCN_FP_BOUND
+# sp cores against the unsharded attention over 24 blocks: phase 22's
+# sp prefill bound (the ring streams in f32 einsums, Ulysses through
+# kernel 3's 3xTF32, the unsharded run through kernel 3 over all tokens)
+SPMD_SP_BOUND = SP_LOGIT_BOUND
+
+
+def spmd_entry(argv, name: str) -> dict:
+    """`python -m pipeedge_tpu_torch.runtime` with `argv`, in this
+    process (its output captured and logged), in `_build/spmd/`: its
+    report line, launches (counts set to 0 just before: the entry's
+    warm-up and timed runs), saved results and seconds."""
+    import io
+    from pipeedge_tpu_torch import runtime
+    from pipeedge_tpu_torch.ops import _build
+
+    work = BUILD_DIR / "spmd"
+    work.mkdir(parents=True, exist_ok=True)
+    saved = work / f"{name}.npz"
+    out = io.StringIO()
+    _build.reset_launch_counts()
+    t0 = time.monotonic()
+    with contextlib.chdir(work), contextlib.redirect_stdout(out):
+        runtime.main(argv + ["--save-results", str(saved)])
+    seconds = time.monotonic() - t0
+    lines = out.getvalue().splitlines()
+    for line in lines:
+        log(f"[{name}] {line}")
+    report = next(ln for ln in lines if ln.startswith("latency_sec="))
+    with np.load(saved) as z:
+        results = [z[f"arr_{i}"] for i in range(len(z.files))]
+    return dict(name=name, seconds=seconds,
+                latency_s=float(report.split()[0].split("=")[1]),
+                items_per_s=float(report.split("throughput_items_sec=")[1]),
+                counts=dict(_build.launch_counts), results=results)
+
+
+def rel_err(got: list, want: list) -> float:
+    scale = max(float(np.abs(w).max()) for w in want)
+    return max(float(np.abs(g - w).max()) for g, w in zip(got, want)) / scale
+
+
+@contextlib.contextmanager
+def qpsum_bounds(stats: dict):
+    """Every `qpsum` call in the block: its result on each shard against
+    the exact sum of the same addends, over `qpsum_error_bound` of the
+    addends' widest 256-value block range (`stats["worst"]`, one sync at
+    the end; above 1 breaks the bound)."""
+    from pipeedge_tpu_torch.ops import qcollectives
+    real = qcollectives.qpsum
+    ratios = []
+
+    def checked(group, xs, bit, **kw):
+        out = real(group, xs, bit, **kw)
+        block = kw.get("block", qcollectives.DEFAULT_BLOCK)
+        exact = group.psum(xs)[0].float()
+        blocks = [torch.nn.functional.pad(
+            x.reshape(-1).float(), (0, -x.numel() % block))
+            .reshape(-1, block) for x in xs]
+        width = torch.stack([(r.amax(dim=1) - r.amin(dim=1)).max()
+                             .to(exact.device) for r in blocks]).max()
+        # the bound is linear in the range: evaluated on the card, no sync
+        at0 = qcollectives.qpsum_error_bound(0.0, bit, group.size, block)
+        at1 = qcollectives.qpsum_error_bound(1.0, bit, group.size, block)
+        bound = at0 + (at1 - at0) * width
+        err = torch.stack([(o.float().to(exact.device) - exact).abs().max()
+                           for o in out]).max()
+        ratios.append(err / bound)
+        return out
+
+    qcollectives.qpsum = checked
+    try:
+        yield
+    finally:
+        qcollectives.qpsum = real
+        stats["calls"] = len(ratios)
+        stats["worst"] = float(torch.stack(ratios).max()) if ratios else None
+
+
+def spmd_launches(blocks: int, inner: int, dp: int, quant_edges: int,
+                  qpsum_calls: int, n: int = 2) -> dict:
+    """Phase 23's predicted launches of one run of UBATCH-item
+    microbatches (valid stage-steps only, `parallel/spmd.py`): kernel 3
+    once per block, microbatch, dp cell and inner shard (tp shards and
+    Ulysses' head groups; pass inner 0 for the ring, which launches
+    none); kernels 1 and 2 once per quantized edge and microbatch; a
+    `qpsum` over n shards n^2 encodes and 2n(n - 1) decodes."""
+    m = BATCH // UBATCH
+    return {"fused_attention": blocks * m * dp * inner,
+            "fused_encode": quant_edges * m + qpsum_calls * n * n,
+            "fused_decode": quant_edges * m + qpsum_calls * 2 * n * (n - 1),
+            "int8_matmul": 0, "decode_attention": 0}
+
+
+def spmd_path(card: str) -> dict:
+    """Phase 23: `runtime -c spmd` through the entry in this process.
+    (a) ViT-Base (phase 4's npz) in 4 stages of 3 blocks at edge bits 0,
+    8 and [8, 4], beside the host driver's exact run at the same cut (its
+    warm second round); (b)
+    dp 2 x tp 2 at 2 stages, `--tp-quant-bits` 0 and 8, and one more run
+    at 8 bits through the API with every `qpsum` held to its bound; (c)
+    BERT-Large (weights drawn on the card) at 2 stages unsharded, then dp
+    2 x sp 2 with the ring and the Ulysses core."""
+    from pipeedge_tpu_torch import runtime
+    from pipeedge_tpu_torch.models import registry
+    from pipeedge_tpu_torch.parallel import spmd
+    from pipeedge_tpu_torch.parallel import tensor as tp
+    from pipeedge_tpu_torch.parallel.mesh import devices_for
+
+    t0 = time.monotonic()
+    vit_w = BUILD_DIR / f"{MODEL.replace('/', '_')}-random-seed0.npz"
+    vit = ["-m", MODEL, "-M", str(vit_w), "-b", str(BATCH), "-u",
+           str(UBATCH)]
+    res = {"card": card, "a": {}, "b": {}, "c": {}}
+    # the host driver's second round is its warm one, as the SPMD entry
+    # times its run after a warm-up
+    res["host"] = spmd_entry(["0", "4", "-pt", SPMD_PT, "--measure-rounds",
+                              "2"] + vit, "host")
+    res["host"]["results"] = res["host"]["results"][-(BATCH // UBATCH):]
+    for q in SPMD_BITS:
+        res["a"][q] = spmd_entry(["0", "4", "-c", "spmd", "-pt", SPMD_PT,
+                                  "-q", q] + vit, f"a_q{q.replace(',', '')}")
+    for bits in SPMD_TP_BITS:
+        res["b"][bits] = spmd_entry(
+            ["0", "8", "-c", "spmd", "-pt", SPMD_TP_PT, "--spmd-dp", "2",
+             "--spmd-tp", "2", "--tp-quant-bits", str(bits)] + vit,
+            f"b_tp{bits}")
+    # the 8-bit all-reduces of one run, each against its bound
+    entry = registry.get_model_entry(MODEL)
+    layers = [(1, 24), (25, 48)]
+    mesh = spmd.make_pipeline_mesh(2, dp=2, tp=2,
+                                   devices=devices_for(8, "cuda"))
+    stages = [registry.module_shard_factory(
+        MODEL, str(vit_w), l, r, stage=i,
+        device=mesh.cell(0, i).devices[0])[1]
+        for i, (l, r) in enumerate(layers)]
+    pipe = spmd.build_spmd_pipeline(entry.family.FAMILY, entry.config,
+                                    layers, stages, mesh)
+    inputs, _ = runtime.load_batches(MODEL, BATCH, UBATCH,
+                                     torch.device("cuda"), torch.float32)
+    bound = {}
+    tp.set_tp_quant_bits(8)
+    try:
+        with qpsum_bounds(bound):
+            out = pipe.run(torch.stack(inputs)).cpu().numpy()
+    finally:
+        tp.set_tp_quant_bits(0)
+    bound["equal_to_entry"] = all(
+        np.array_equal(o, e) for o, e in zip(out, res["b"][8]["results"]))
+    res["qpsum_bound"] = bound
+    log("qpsum bounds: " + json.dumps(bound))
+    del pipe, stages
+    free_card()
+    # (c) BERT-Large, the entry's stages viewing weights drawn on the card
+    whole = card_params(BERT_LARGE)
+    bert = ["-m", BERT_LARGE, "-pt", SPMD_SP_PT, "-b", str(BATCH), "-u",
+            str(UBATCH), "-c", "spmd"]
+    with card_weights(BERT_LARGE, whole):
+        res["c"]["unsharded"] = spmd_entry(["0", "2"] + bert, "c_sp1")
+        for kind in SPMD_SP_KINDS:
+            res["c"][kind] = spmd_entry(
+                ["0", "8"] + bert + ["--spmd-dp", "2", "--spmd-sp", "2",
+                                     "--spmd-sp-kind", kind], f"c_{kind}")
+    del whole
+    free_card()
+    res["seconds"] = time.monotonic() - t0
+    return res
+
+
+def check_spmd_path(res, device_name: str) -> dict:
+    """Phase 23's gates; returns each run's launches per run (the entry
+    runs twice: warm-up and timed)."""
+    problems = []
+    exact = res["host"]["results"]
+    launches = {}
+
+    def gate(case: str, run: dict, want: dict, ok: bool, **numbers):
+        per_run = {k: v / 2 for k, v in run["counts"].items()}
+        launches[case] = per_run
+        good = ok and per_run == {k: float(v) for k, v in want.items()} \
+            and all(np.all(np.isfinite(r)) for r in run["results"])
+        row = dict(case=case, items_per_s=run["items_per_s"],
+                   seconds=run["seconds"], launches_per_run=per_run,
+                   expected=want, ok=good, **numbers)
+        log("spmd " + json.dumps(row))
+        if not good:
+            problems.append(f"{case}: {row}")
+
+    for q, run in res["a"].items():
+        bits = [int(b) for b in q.split(",")[:-1]]
+        err = rel_err(run["results"], exact)
+        equal = all(np.array_equal(r, e) for r, e in
+                    zip(run["results"], exact))
+        if not any(bits):
+            ok = equal            # the same functions as the host's stages
+        else:
+            ok = not equal and err <= LOGIT_BOUND[min(b for b in bits if b)]
+        gate(f"a -q {q}", run, spmd_launches(12, 1, 1, sum(
+            b in (4, 8) for b in bits), 0), ok, rel_err=err, equal=equal,
+            shape=list(run["results"][0].shape))
+    for bits, run in res["b"].items():
+        err = rel_err(run["results"], exact)
+        calls = 12 * 2 * 2 * (BATCH // UBATCH) if bits else 0
+        if bits:
+            qb = res["qpsum_bound"]
+            ok = (err <= LOGIT_BOUND[8] and qb["calls"] == calls
+                  and qb["worst"] <= 1.0 and qb["equal_to_entry"])
+        else:
+            ok = err <= SPMD_TP_BOUND
+        gate(f"b dp2 tp2 --tp-quant-bits {bits}", run,
+             spmd_launches(12, 2, 2, 0, calls), ok, rel_err=err,
+             **({"qpsum_bound": res["qpsum_bound"]} if bits else {}))
+    base = res["c"]["unsharded"]
+    gate("c bert-large unsharded", base, spmd_launches(24, 1, 1, 0, 0),
+         list(base["results"][0].shape) == [UBATCH, 1024])
+    for kind in SPMD_SP_KINDS:
+        run = res["c"][kind]
+        err = rel_err(run["results"], base["results"])
+        gate(f"c dp2 sp2 {kind}", run,
+             spmd_launches(24, 2 if kind == "ulysses" else 0, 2, 0, 0),
+             err <= SPMD_SP_BOUND, rel_err=err)
+    if problems:
+        raise AssertionError("phase 23: " + "; ".join(problems))
+    log(f"spmd: host {res['host']['items_per_s']:.1f} items/s at {SPMD_PT}; "
+        + ", ".join(f"{case} {res[k1][k2]['items_per_s']:.1f}"
+                    for case, k1, k2 in (
+                        ("a q0", "a", SPMD_BITS[0]), ("a q8", "a", SPMD_BITS[1]),
+                        ("a q84", "a", SPMD_BITS[2]), ("b tp0", "b", 0),
+                        ("b tp8", "b", 8), ("c sp1", "c", "unsharded"),
+                        ("c ring", "c", "ring"), ("c ulysses", "c", "ulysses")))
+        + f" items/s; phase 23 {res['seconds']:.1f} s ({device_name})")
+    return launches
+
+
 def main() -> int:
     import argparse
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -8953,6 +9242,15 @@ def main() -> int:
     sp_launches = check_sp_prefill(sp_res, device_name)
     phase_done("phase 22c")
 
+    # phase 23: the SPMD pipeline driver through the runtime entry
+    spmd_res = spmd_path(card)
+    spmd_runs = check_spmd_path(spmd_res, device_name)
+    phase_done("phase 23")
+
+    def spmd_launches_of(name):
+        """Phase 23's launches of one kernel per run of 8 microbatches."""
+        return {case: counts[name] for case, counts in spmd_runs.items()}
+
     if args.ab_entry_parent is not None:
         ab_entry(args.ab_entry_parent)
         phase_done("ab entry")
@@ -9081,7 +9379,9 @@ def main() -> int:
                     "disagg_launches": disagg_launches_of(name)}
                    if bit == 8 else {}),
                 **tp_codec(name, bit),
-                **({"tp_ep": tp_ep_codec(name)} if bit == 8 else {}),
+                **({"tp_ep": tp_ep_codec(name),
+                    "spmd_launches": spmd_launches_of(name)}
+                   if bit == 8 else {}),
                 # every policy bitwidth on phase 8's edge
                 policy_bits_ms={r["bit"]: r[f"{name[6:]}_ms"]
                                 for r in policy_rows
@@ -9163,6 +9463,9 @@ def main() -> int:
                              if r["kind"] == "ulysses"),
             "llama3_prefill_sp2": sp_launches["ulysses"],
             "windowed_core": ep_sp_res["window"]["kernel3_launches"]},
+        # phase 23: each SPMD run (tp shards and Ulysses head groups per
+        # dp cell; none from the ring core)
+        spmd_launches=spmd_launches_of("fused_attention"),
         cases={f"{r['layout']} {r['shape']} {r['dtype']}"
                f"{' causal' if r['causal'] else ''}": {
                    key: r[key] for key in ("ms", "plain_ms", "library_ms",

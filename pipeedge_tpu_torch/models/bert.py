@@ -27,8 +27,9 @@ import torch
 import torch.nn.functional as F
 
 from . import ShardConfig
-from .layers import TransformerConfig, dense, gelu, layer_norm, self_attention
-from .shard import FamilySpec, build_shard_params
+from ..ops.attention import fused_attention
+from .layers import TransformerConfig, dense, gelu, layer_norm, qkv_heads
+from .shard import FamilySpec, build_shard_params, sp_block_apply
 
 __all__ = ["FAMILY", "load_params", "init_params", "random_npz_weights"]
 
@@ -45,12 +46,16 @@ def embed(p: Dict, input_ids: torch.Tensor,
     return layer_norm(p["ln"], word + pos + ttype, cfg.layer_norm_eps)
 
 
+def project(p: Dict, x: torch.Tensor, cfg: TransformerConfig):
+    """Sublayer 0 up to its attention core: q, k, v heads of the raw x."""
+    return qkv_heads(p, x, cfg.num_attention_heads)
+
+
 def sublayer(p: Dict, sub: int, data, cfg: TransformerConfig):
     """One of the 4 schedulable sublayers."""
     if sub == 0:
-        ctx = self_attention({"q": p["q"], "k": p["k"], "v": p["v"]}, data,
-                             cfg.num_attention_heads)
-        return (ctx, data)
+        ctx = fused_attention(*project(p, data, cfg))
+        return (ctx.reshape(data.shape), data)
     if sub == 1:
         ctx, skip = data
         return layer_norm(p["attn_ln"], dense(p["attn_out"], ctx) + skip,
@@ -73,8 +78,14 @@ def finalize(p: Dict, hidden: torch.Tensor,
     return pooled
 
 
+def sp_block_step(ps, xs, cfg: TransformerConfig, group, core):
+    """One block over the sp shards' sequence chunks (`sp_block_apply`)."""
+    return sp_block_apply(sublayer, ps, xs, cfg, group, core,
+                          lambda i, p, x: project(p, x, cfg))
+
+
 FAMILY = FamilySpec(name="bert", embed=embed, sublayer=sublayer,
-                    finalize=finalize)
+                    finalize=finalize, sp_block_step=sp_block_step)
 
 
 def _a(x, dtype) -> torch.Tensor:

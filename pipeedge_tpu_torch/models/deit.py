@@ -18,7 +18,7 @@ import torch
 from . import ShardConfig
 from .layers import TransformerConfig, dense, layer_norm, patchify
 from .shard import FamilySpec, build_shard_params
-from .vit import sublayer  # block math shared with ViT
+from .vit import sp_block_step, sublayer  # block math shared with ViT
 
 __all__ = ["FAMILY", "load_params", "init_params", "hf_to_npz_weights",
            "random_npz_weights"]
@@ -49,7 +49,8 @@ def finalize(p: Dict, hidden: torch.Tensor,
 
 
 FAMILY = FamilySpec(name="deit", embed=embed, sublayer=sublayer,
-                    finalize=finalize, wire_subs=(1, 3))
+                    finalize=finalize, sp_block_step=sp_block_step,
+                    wire_subs=(1, 3))
 
 
 def _a(x, dtype) -> torch.Tensor:

@@ -16,7 +16,7 @@ sublayer 3 is the parameter-free residual add.
 
 Parameters reuse the ViT sublayer names (ln_before/q/k/v/attn_out/
 ln_after/mlp_up/mlp_down). The causal attention core is
-`ops.attention.fused_attention` (kernel 3) through `layers.self_attention`.
+`ops.attention.fused_attention` (kernel 3) over sublayer 0's `project`.
 
 Weights: HF `GPT2LMHeadModel`/`GPT2Model` state-dict npz. HF stores these
 as `Conv1D`, kernels already [in, out]; the fused `c_attn` [D, 3D] kernel
@@ -32,8 +32,9 @@ import numpy as np
 import torch
 
 from . import ShardConfig
-from .layers import TransformerConfig, dense, gelu_new, layer_norm, self_attention
-from .shard import FamilySpec, build_shard_params
+from ..ops.attention import fused_attention
+from .layers import TransformerConfig, dense, gelu_new, layer_norm, qkv_heads
+from .shard import FamilySpec, build_shard_params, sp_block_apply
 
 SUBLAYER_PARAMS = {
     0: ("ln_before", "q", "k", "v"),
@@ -59,13 +60,17 @@ def embed(p: Dict, input_ids: torch.Tensor,
     return p["wte"][input_ids.long()] + p["wpe"][:seq_len][None]
 
 
+def project(p: Dict, x: torch.Tensor, cfg: TransformerConfig):
+    """Sublayer 0 up to its causal attention core: ln_1, q, k, v heads."""
+    normed = layer_norm(p["ln_before"], x, cfg.layer_norm_eps)
+    return qkv_heads(p, normed, cfg.num_attention_heads)
+
+
 def sublayer(p: Dict, sub: int, data, cfg: TransformerConfig):
     """One of the 4 schedulable sublayers (pre-LN block, causal attention)."""
     if sub == 0:
-        normed = layer_norm(p["ln_before"], data, cfg.layer_norm_eps)
-        ctx = self_attention({"q": p["q"], "k": p["k"], "v": p["v"]}, normed,
-                             cfg.num_attention_heads, causal=True)
-        return (ctx, data)
+        ctx = fused_attention(*project(p, data, cfg), causal=True)
+        return (ctx.reshape(data.shape), data)
     if sub == 1:
         ctx, skip = data
         return dense(p["attn_out"], ctx) + skip
@@ -92,8 +97,16 @@ def finalize(p: Dict, hidden: torch.Tensor,
     return dense(p["head"], hidden)
 
 
+def sp_block_step(ps, xs, cfg: TransformerConfig, group, core):
+    """One block over the sp shards' sequence chunks (`sp_block_apply`),
+    the core causal at global positions. A routed FFN is sequence-global
+    under a capacity, so `parallel/spmd.py` refuses MoE configs with sp."""
+    return sp_block_apply(sublayer, ps, xs, cfg, group, core,
+                          lambda i, p, x: project(p, x, cfg), causal=True)
+
+
 FAMILY = FamilySpec(name="gpt2", embed=embed, sublayer=sublayer,
-                    finalize=finalize)
+                    finalize=finalize, sp_block_step=sp_block_step)
 
 
 # --- weight loading -------------------------------------------------------

@@ -182,6 +182,19 @@ def dense(p, x: torch.Tensor, tag: Optional[str] = None) -> torch.Tensor:
     return y.reshape(*x.shape[:-1], w.shape[-1])
 
 
+def qkv_heads(p, x: torch.Tensor, num_heads: int,
+              tag_prefix: Optional[str] = None):
+    """The projection step of a self-attention: q, k, v [B, S, H, D/H]
+    of x [B, S, D]. `tag_prefix` tags the projections (`<prefix>.q` etc.)
+    for the int8 compute path (see `dense`)."""
+    b, s, d = x.shape
+    hd = d // num_heads
+    tags = {n: f"{tag_prefix}.{n}" if tag_prefix else None
+            for n in ("q", "k", "v")}
+    return tuple(dense(p[n], x, tag=tags[n]).reshape(b, s, num_heads, hd)
+                 for n in ("q", "k", "v"))
+
+
 def self_attention(p, x: torch.Tensor, num_heads: int,
                    causal: bool = False,
                    tag_prefix: Optional[str] = None) -> torch.Tensor:
@@ -189,16 +202,14 @@ def self_attention(p, x: torch.Tensor, num_heads: int,
 
     Matches HF `ViTSelfAttention`: returns the concatenated per-head
     context; the output projection lives in the next sublayer. The
-    softmax(QK^T)V core is `fused_attention` (module docstring).
-    `tag_prefix` tags the q/k/v projections (`<prefix>.q` etc.) for the
-    int8 compute path (see `dense`)."""
+    softmax(QK^T)V core is `fused_attention` (module docstring). The JAX
+    package swaps the core through a `core_fn` hook; a core that spans
+    shards cannot run inside one shard's call, so here the
+    sequence-parallel blocks run `qkv_heads` per shard, the core over the
+    group and the block's remaining sublayers per shard
+    (`models/shard.py sp_block_apply`)."""
     b, s, d = x.shape
-    hd = d // num_heads
-    tags = {n: f"{tag_prefix}.{n}" if tag_prefix else None
-            for n in ("q", "k", "v")}
-    q = dense(p["q"], x, tag=tags["q"]).reshape(b, s, num_heads, hd)
-    k = dense(p["k"], x, tag=tags["k"]).reshape(b, s, num_heads, hd)
-    v = dense(p["v"], x, tag=tags["v"]).reshape(b, s, num_heads, hd)
+    q, k, v = qkv_heads(p, x, num_heads, tag_prefix)
     return fused_attention(q, k, v, causal=causal).reshape(b, s, d)
 
 

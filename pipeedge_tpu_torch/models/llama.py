@@ -2,7 +2,8 @@
 
 Port of `pipeedge_tpu/models/llama.py` with its tensor-parallel hooks
 (`tp_cached_block_step`, `tp_finalize`) and its sequence-parallel
-prefill block (`sp_prefill_block_step`). It carries
+block (`sp_block_step`, the SPMD pipeline's; `sp_prefill_block_step`,
+the decode prefill's, gathers the K/V rows into the cache). It carries
 Llama-2, Llama-3 and Mistral (the Llama block with a sliding window over
 the last `cfg.sliding_window` positions) in the 4-sublayer cut of every
 other family:
@@ -234,15 +235,15 @@ def tp_finalize(group, pfs, xs, cfg: TransformerConfig) -> torch.Tensor:
     return tp_vocab_head_finalize(group, pfs, xs, cfg, norm_fn=rms_norm)
 
 
-def sp_prefill_block_step(ps, xs, bcache, cfg: TransformerConfig, group,
-                          core, cache_gather):
-    """The sequence-parallel Llama prefill block over the shards' chunks
-    [B, S/n, D]: q and k are rotated at their global positions (shard i's
-    chunk starts at i * S/n) before the sp core, so the chunk-local core
-    needs no positions. The cores are GQA-aware: unrepeated K/V ride the
-    ring or the all-to-all, and the cache gathers the unrepeated post-RoPE
-    rows the decode steps read. A window needs nothing here: the core has
-    it bound, and the decode steps mask their own (`_window_keep`)."""
+def sp_block_step(ps, xs, cfg: TransformerConfig, group, core,
+                  on_kv=None):
+    """The sequence-parallel Llama block over the shards' chunks [B, S/n,
+    D]: q and k are rotated at their global positions (shard i's chunk
+    starts at i * S/n) before the sp core, so the chunk-local core needs
+    no positions. The cores are GQA-aware: unrepeated K/V ride the ring or
+    the all-to-all. A window needs nothing here: the core has it bound.
+    `on_kv(ks, vs)` receives the shards' unrepeated post-RoPE K/V rows
+    (the prefill's cache gather); an SPMD pipeline's block passes none."""
     def project(i, p, x):
         s_local = x.shape[1]
         pos = i * s_local + torch.arange(s_local, device=x.device)
@@ -251,9 +252,20 @@ def sp_prefill_block_step(ps, xs, bcache, cfg: TransformerConfig, group,
 
     q, k, v = (list(t) for t in zip(*group.map(project, ps, xs)))
     ctx = core(group, q, k, v, causal=True)
-    cache_gather(bcache, k, v)
+    if on_kv is not None:
+        on_kv(k, v)
     return group.map(lambda i, p, x, c: _block_tail(
         p, x, c.reshape(*x.shape[:2], -1), cfg), ps, xs, ctx)
+
+
+def sp_prefill_block_step(ps, xs, bcache, cfg: TransformerConfig, group,
+                          core, cache_gather):
+    """The sequence-parallel Llama prefill block (`sp_block_step`), its
+    K/V rows gathered into the stage cache `bcache`: the unrepeated
+    post-RoPE rows the decode steps read, which mask their own window
+    (`_window_keep`)."""
+    return sp_block_step(ps, xs, cfg, group, core,
+                         on_kv=lambda k, v: cache_gather(bcache, k, v))
 
 
 FAMILY = FamilySpec(name="llama", embed=embed, sublayer=sublayer,
@@ -262,7 +274,8 @@ FAMILY = FamilySpec(name="llama", embed=embed, sublayer=sublayer,
                     position_dependent_attention=True,
                     tp_cached_block_step=tp_cached_block_step,
                     tp_finalize=tp_finalize,
-                    sp_prefill_block_step=sp_prefill_block_step)
+                    sp_prefill_block_step=sp_prefill_block_step,
+                    sp_block_step=sp_block_step)
 
 
 # --- weight loading -------------------------------------------------------

@@ -37,9 +37,10 @@ class FamilySpec:
     replaces the GPT-2-shaped block step, `decode_embed` and `span_embed`
     the wte + wpe embeddings of one token and of a K-token span;
     `tp_cached_block_step` and `tp_finalize` are their tensor-parallel
-    counterparts (`parallel/decode.py make_tp_stage_fns`), and
+    counterparts (`parallel/decode.py make_tp_stage_fns`),
     `sp_prefill_block_step` the sequence-parallel prompt pass's block
-    (`make_sp_prefill_fn`)."""
+    (`make_sp_prefill_fn`) and `sp_block_step` its uncached form, the
+    block of an SPMD pipeline's sp stage (`parallel/spmd.py`)."""
     name: str
     embed: Callable[[Dict, Any, TransformerConfig], torch.Tensor]
     sublayer: Callable[[Dict, int, ShardData, TransformerConfig], ShardData]
@@ -63,6 +64,9 @@ class FamilySpec:
     # one block over the sp shards' chunks, its K/V rows handed to
     # cache_gather(bcache, k_chunks, v_chunks)
     sp_prefill_block_step: Any = None
+    # (shard params, xs, cfg, group, core) -> xs: one block over the sp
+    # shards' sequence chunks [B, S/n, D], no cache
+    sp_block_step: Any = None
     # sublayers that LEAD with a dense and accept an 8-bit wire
     # `QuantizedTensor` as the payload's first tensor (the int8
     # stage-seam tunnel, parallel/pipeline.py + ops/int8_matmul.py)
@@ -94,6 +98,27 @@ def shard_apply(family: FamilySpec, cfg: TransformerConfig,
     if shard_config.is_last:
         data = family.finalize(params["final"], data, cfg)
     return data
+
+
+def sp_block_apply(sublayer, ps, xs, cfg: TransformerConfig, group, core,
+                   project, causal: bool = False) -> list:
+    """One full block over the sp shards' sequence chunks `xs` [B, S/n,
+    D], in the three steps a single controller needs around a core that
+    spans the group: `project(i, p, x) -> (q, k, v)` on each shard
+    (sublayer 0 up to its core), `core(group, qs, ks, vs, causal=...)`
+    over the group (`parallel/sequence.py resolve_sp_core`), then
+    sublayers 1-3 on each shard on the (context, residual) payload. Every
+    step but the core is token-local, so the chunks never meet."""
+    q, k, v = (list(t) for t in zip(*group.map(project, ps, xs)))
+    ctx = core(group, q, k, v, causal=causal)
+
+    def tail(i, p, x, c):
+        data = (c.reshape(*x.shape[:2], -1), x)
+        for sub in (1, 2, 3):
+            data = sublayer(p, sub, data, cfg)
+        return data
+
+    return group.map(tail, ps, xs, ctx)
 
 
 def build_shard_params(shard_config: ShardConfig,

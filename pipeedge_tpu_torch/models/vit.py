@@ -25,11 +25,13 @@ from typing import Dict, Mapping
 import numpy as np
 import torch
 
+from ..ops.attention import fused_attention
 from ..ops.int8_matmul import wire_dense
 from ..ops.quant import QuantizedTensor
 from . import ShardConfig
-from .layers import TransformerConfig, dense, gelu, layer_norm, patchify, self_attention
-from .shard import FamilySpec, build_shard_params
+from .layers import (TransformerConfig, dense, gelu, layer_norm, patchify,
+                     qkv_heads)
+from .shard import FamilySpec, build_shard_params, sp_block_apply
 
 def embed(p: Dict, pixel_values: torch.Tensor,
           cfg: TransformerConfig) -> torch.Tensor:
@@ -45,14 +47,17 @@ def embed(p: Dict, pixel_values: torch.Tensor,
     return hidden + p["pos"].to(hidden.dtype)
 
 
+def project(p: Dict, x: torch.Tensor, cfg: TransformerConfig):
+    """Sublayer 0 up to its attention core: ln_before, then q, k, v heads."""
+    normed = layer_norm(p["ln_before"], x, cfg.layer_norm_eps)
+    return qkv_heads(p, normed, cfg.num_attention_heads, tag_prefix="attn")
+
+
 def sublayer(p: Dict, sub: int, data, cfg: TransformerConfig):
     """One of the 4 schedulable sublayers."""
     if sub == 0:
-        normed = layer_norm(p["ln_before"], data, cfg.layer_norm_eps)
-        ctx = self_attention({"q": p["q"], "k": p["k"], "v": p["v"]},
-                             normed, cfg.num_attention_heads,
-                             tag_prefix="attn")
-        return (ctx, data)
+        ctx = fused_attention(*project(p, data, cfg))
+        return (ctx.reshape(data.shape), data)
     if sub == 1:
         ctx, skip = data
         if isinstance(ctx, QuantizedTensor):
@@ -78,8 +83,15 @@ def finalize(p: Dict, hidden: torch.Tensor,
     return hidden
 
 
+def sp_block_step(ps, xs, cfg: TransformerConfig, group, core):
+    """One block over the sp shards' sequence chunks (`sp_block_apply`)."""
+    return sp_block_apply(sublayer, ps, xs, cfg, group, core,
+                          lambda i, p, x: project(p, x, cfg))
+
+
 FAMILY = FamilySpec(name="vit", embed=embed, sublayer=sublayer,
-                    finalize=finalize, wire_subs=(1, 3))
+                    finalize=finalize, sp_block_step=sp_block_step,
+                    wire_subs=(1, 3))
 
 
 # --- weight loading -------------------------------------------------------

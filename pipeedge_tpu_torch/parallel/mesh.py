@@ -22,6 +22,13 @@ and drives them in lock step, each shard's work on its own device:
   shard i gets chunk i of every shard's value, concatenated in shard
   order, each chunk moved by the ring's hop.
 
+`PipelineMesh` is the SPMD pipeline's mesh (`parallel/spmd.py`):
+logical positions laid out `(dp, stage, inner)` as the JAX
+`make_pipeline_mesh` reshapes `jax.devices()`, each `(dp, stage)` cell's
+inner axis a `ShardGroup` ('tp' or 'sp', one shard without one), and a
+stage hop `Tensor.to(next stage's device, non_blocking=True)`: the ring's
+idiom without the wrap-around, the tensor itself on one card.
+
 `ShardGrid` is the two-axis mesh of the tp x ep composition: devices in
 the JAX mesh's order (`np.array(devices).reshape(tp, ep)`), each ep
 column a tp `ShardGroup` and each tp row an ep one. A shard that shares a
@@ -40,7 +47,7 @@ from __future__ import annotations
 
 import contextlib
 import logging
-from typing import Callable, List, Sequence
+from typing import Callable, List, Optional, Sequence
 
 import torch
 
@@ -232,3 +239,50 @@ class ShardGrid:
     def replicate(self, x) -> list:
         """`x` on every cell's device."""
         return [_to(x, d) for d in self.devices]
+
+
+class PipelineMesh:
+    """The `('dp', 'stage'[, inner])` mesh of an SPMD pipeline over
+    `devices`, one per logical position in `(dp, stage, inner)` order;
+    `positions[k]` names the logical device (the index into the caller's
+    device list) of entry k, so `-r` shows where each stage went. `shape`
+    lists the axes as the JAX mesh's does: the inner axis only when it has
+    more than one shard."""
+
+    def __init__(self, devices: Sequence, dp: int, n_stages: int,
+                 inner: int = 1, inner_axis: str = "tp",
+                 positions: Optional[Sequence[int]] = None):
+        self.devices = [torch.device(d) for d in devices]
+        if len(self.devices) != dp * n_stages * inner:
+            raise ValueError(f"a {dp} x {n_stages} x {inner} pipeline mesh "
+                             f"needs {dp * n_stages * inner} devices, got "
+                             f"{len(self.devices)}")
+        self.dp, self.n_stages, self.inner = dp, n_stages, inner
+        self.inner_axis = inner_axis
+        self.positions = (list(range(len(self.devices))) if positions is None
+                          else list(positions))
+        self._cells = [[ShardGroup(self.devices[
+            (d * n_stages + s) * inner:(d * n_stages + s + 1) * inner],
+            inner_axis) for s in range(n_stages)] for d in range(dp)]
+
+    @property
+    def shape(self) -> dict:
+        out = {"dp": self.dp, "stage": self.n_stages}
+        if self.inner > 1:
+            out[self.inner_axis] = self.inner
+        return out
+
+    def __repr__(self) -> str:
+        return (f"PipelineMesh({self.shape}, "
+                f"{[str(d) for d in self.devices]})")
+
+    def cell(self, d: int, s: int) -> ShardGroup:
+        """Dp cell d's stage s: its inner shards as a group."""
+        return self._cells[d][s]
+
+    def hop(self, xs: Sequence, d: int, s: int) -> list:
+        """`ppermute` along 'stage' from s to s + 1 in dp cell d: inner
+        shard i's value (a tensor or a `QuantizedTensor`) on stage s + 1's
+        shard i's device."""
+        return [_to(x, dev)
+                for x, dev in zip(xs, self._cells[d][s + 1].devices)]

@@ -373,14 +373,17 @@ def build_pipeline(model_name: str, partition: Sequence[Tuple[int, int]],
                    device: DeviceLike = None,
                    quant_bits: Optional[Sequence[int]] = None,
                    dtype=None, max_inflight: int = 0,
-                   stage_params: Optional[Sequence[Dict]] = None
+                   stage_params: Optional[Sequence[Dict]] = None,
+                   devices: Optional[Sequence[DeviceLike]] = None
                    ) -> HostPipeline:
     """Build a host-driven pipeline from a model partition.
 
     `partition` is the stage-layers list [[l0, r0], [l1, r1], ...];
     `quant_bits[i]` quantizes the edge leaving stage i (`-q`). Every stage
     runs on `device` (default `cuda`, which raises on a host without a
-    GPU), each on its own stream.
+    GPU), each on its own stream; with `devices`, stage i runs on
+    `devices[i % len(devices)]` (round-robin, as the JAX driver places
+    them; the runtime's `-r` picks the list).
 
     Int8 tunnel: when the active `QuantizeCompute` config has `tunnel`
     set, a stage whose first sublayer leads with a dense
@@ -393,7 +396,8 @@ def build_pipeline(model_name: str, partition: Sequence[Tuple[int, int]],
     from ..models import registry
     from ..models.layers import quantize_compute
 
-    dev = resolve_device(device)
+    devs = ([resolve_device(device)] if devices is None
+            else [resolve_device(d) for d in devices])
     if dtype is None:
         dtype = torch.float32
     if quant_bits is None:
@@ -402,6 +406,7 @@ def build_pipeline(model_name: str, partition: Sequence[Tuple[int, int]],
     qc = quantize_compute()
     stages = []
     for i, (layer_start, layer_end) in enumerate(partition):
+        dev = devs[i % len(devs)]
         fn, params, _ = registry.module_shard_factory(
             model_name, model_file, layer_start, layer_end, stage=i,
             dtype=dtype, device=dev,

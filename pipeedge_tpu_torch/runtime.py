@@ -1,4 +1,5 @@
-"""Pipeline-parallel inference runtime of the port: the `-c host` driver.
+"""Pipeline-parallel inference runtime of the port: the host, SPMD and DCN
+drivers.
 
 The host loop of the repository's `runtime.py`, on PyTorch:
 
@@ -22,9 +23,13 @@ schedules it: the native `sched-pipeline` (built from `native/` into
         -H h100-0,h100-1,h100-2,h100-3
 
 (`pipeedge_tpu_torch/profiles/h100/` holds the card's own files), and the
-run logs the stage-to-layer and stage-to-host mapping it chose. The host
-pipeline has one device: every stage runs on it, whatever host the
-schedule names, and `-r` takes only the identity order. `--save-results NPZ` writes every delivered microbatch,
+run logs the stage-to-layer and stage-to-host mapping it chose. The
+single-controller drivers see `worldsize` logical devices (the JAX
+runtime's `jax.devices()`), logical device k on `cuda:k % device_count()`
+(`parallel/mesh.py devices_for`), so on one card every one is `cuda:0`;
+the host driver places stage i on logical device `r_i % worldsize` of
+`-r` (default the identity order), round-robin as `runtime.py` does.
+`--save-results NPZ` writes every delivered microbatch,
 in delivery order, and `--rebalance auto` re-splits the batch between
 measure rounds to the microbatch size the measured cadence favours.
 
@@ -54,6 +59,26 @@ Tracing, as in `runtime.py`: `--trace DIR` records the run in one
 (`stage` per stage dispatch, `results` per retired microbatch, `wire`
 per cross-device copy) and writes them as Chrome trace JSON to OUT
 (`telemetry/chrome_trace.py`).
+
+The SPMD driver, `-c spmd` (`parallel/spmd.py`), runs a block-aligned
+partition as one program over a `(dp, stage[, tp|sp])` mesh of those
+logical devices, as `runtime.py -c spmd` does:
+
+    python -m pipeedge_tpu_torch.runtime 0 4 -c spmd \
+        -pt 1,12,13,24,25,36,37,48 -q 8,8,8,0
+    python -m pipeedge_tpu_torch.runtime 0 8 -c spmd -pt 1,24,25,48 \
+        --spmd-dp 2 --spmd-tp 2 [--tp-quant-bits 8]
+    python -m pipeedge_tpu_torch.runtime 0 8 -c spmd -m bert-large-uncased \
+        -pt 1,48,49,96 --spmd-dp 2 --spmd-sp 2 [--spmd-sp-kind ulysses]
+
+It runs the batch once to warm up and once timed, prints the report
+lines, `kernel_launches=` and `edge_bits=`, and under `--tp-quant-bits`
+folds the run's quantized-collective tally once (a `quantized
+collectives` log line, `collective` spans, the bits counter). The mesh
+needs stages x dp x (tp or sp) logical devices; `-r` places stage i at
+logical device `r_i % worldsize` (distinct, and only without the dp, tp
+and sp axes). A mid-block cut falls back to the host driver with
+`runtime.py`'s warning.
 
 PipeEdge's own deployment, `-c dcn`: one process per rank, the stages'
 activations between them over framed TCP (`comm/dcn.py`), as
@@ -132,8 +157,8 @@ the end of each round.
 
 The flags of `runtime.py` that this entry does not run are refused at
 parse time, each naming the ROADMAP item that ports it (`REFUSED`): the
-SPMD driver's (A7d), `--platform` (the port's switch is `--device`) and
-the dataset flags (the real datasets need a download).
+dataset flags (the real datasets need a download); `--platform` is
+refused too (the port's switch is `--device`).
 """
 from __future__ import annotations
 
@@ -288,17 +313,11 @@ _HB_RTT = prom.REGISTRY.gauge(
 
 # `runtime.py` flags this entry refuses, each with the ROADMAP item that
 # ports it (so no flag is silently ignored): flag -> (argparse keywords,
-# item)
-_SPMD = "A7d, the SPMD pipeline (-c spmd)"
+# item). Only the dataset flags are left: they need a download
 _DATASET = ("A7 small pieces: the real datasets need a download, so the "
             "port runs the synthetic inputs only")
-_INT, _FLOAT, _STR, _SWITCH = ({"type": int}, {"type": float}, {},
-                               {"action": "store_true"})
+_STR, _SWITCH = {}, {"action": "store_true"}
 REFUSED = {
-    "--spmd-dp": (_INT, _SPMD),
-    "--spmd-tp": (_INT, _SPMD),
-    "--spmd-sp": (_INT, _SPMD),
-    "--spmd-sp-kind": (_STR, _SPMD),
     "--dataset-root": (_STR, _DATASET),
     "--dataset-split": (_STR, _DATASET),
     "--dataset-indices-tsv": (_STR, _DATASET),
@@ -362,8 +381,8 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                              "bitwidths (';'-separated per round)")
     parser.add_argument("-r", "--rank-order", type=str, default=None,
                         help="comma-delimited stage-to-rank mapping (';' per "
-                             "round, dcn); the host pipeline has one "
-                             "device, so it takes only the identity order")
+                             "round, dcn); the host and spmd drivers place "
+                             "stage i on logical device r_i % worldsize")
     parser.add_argument("-D", "--data-rank", type=int, default=0,
                         help="rank that drives data and results (dcn)")
     parser.add_argument("--dcn-addrs", type=str, default=None,
@@ -481,6 +500,22 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     parser.add_argument("--autoscale-rank-low", type=float, default=0.05,
                         help="bottleneck service seconds below which the "
                              "pipeline counts as over-provisioned")
+    parser.add_argument("--spmd-dp", type=int, default=1,
+                        help="data-parallel mesh axis for the spmd driver "
+                             "(devices needed = stages x dp x (tp or sp))")
+    parser.add_argument("--spmd-tp", type=int, default=1,
+                        help="Megatron tensor-parallel mesh axis for the "
+                             "spmd driver: blocks stage-sharded AND "
+                             "tp-sharded in one program")
+    parser.add_argument("--spmd-sp", type=int, default=1,
+                        help="sequence-parallel mesh axis for the spmd "
+                             "driver: activations sequence-sharded, exact "
+                             "ring attention per block (long-context "
+                             "pipelines); exclusive with --spmd-tp")
+    parser.add_argument("--spmd-sp-kind", default="ring",
+                        choices=["ring", "ulysses"],
+                        help="sp attention core: K/V ring rotation or "
+                             "Ulysses all-to-all head resharding")
     parser.add_argument("--stage-tp", type=int, default=1,
                         help="shard each dcn stage's blocks Megatron-style "
                              "over N shards (block-aligned stages): "
@@ -494,7 +529,9 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                              "ops/qcollectives.py): 0 = exact all-reduce; "
                              "8/4 = block-scaled int8/int4 ring collectives "
                              "with an f32 accumulator. Gates every "
-                             "tensor.py psum site (--stage-tp)")
+                             "tensor.py psum site (--spmd-tp, --stage-tp) "
+                             "and the sequence-parallel gather "
+                             "(--spmd-sp)")
     parser.add_argument("--save-results", type=str, default=None,
                         metavar="NPZ",
                         help="save every delivered result microbatch (in "
@@ -510,8 +547,9 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     parser.add_argument("-c", "--comm", default="host",
                         choices=["host", "spmd", "dcn", "p2p", "rpc"],
                         help="pipeline driver: host (p2p and rpc are its "
-                             "aliases) or dcn (one process per rank); spmd "
-                             "is not ported yet")
+                             "aliases), spmd (one program over a dp x stage "
+                             "x tp|sp mesh, block-aligned) or dcn (one "
+                             "process per rank)")
     parser.add_argument("--trace", type=str, default=None, metavar="DIR",
                         help="record the run in one torch.profiler session "
                              "and write it to DIR/trace.json (dcn: "
@@ -537,10 +575,6 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
         parser.error("--platform is the JAX package's backend switch; "
                      "the port runs on --device cuda (default) or --device "
                      "cpu")
-    if args.comm == "spmd":
-        parser.error(f"-c spmd is not ported to pipeedge_tpu_torch yet "
-                     f"(ROADMAP {_SPMD}); the port runs the host and dcn "
-                     "drivers")
     dcn = args.comm == "dcn"
     n_rounds = max(len(v.split(";")) for v in
                    (args.partition or "", args.quant or "",
@@ -548,6 +582,10 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     # runtime.py's composition errors, word for word
     pt_rounds = args.partition.split(";") if args.partition else [None]
     if args.rebalance == "auto":
+        if args.comm == "spmd":
+            parser.error("--rebalance auto applies to the dcn driver "
+                         "(partition re-solve) and the host driver "
+                         "(adaptive microbatching), not spmd")
         if len(set(pt_rounds)) > 1:
             # rounds must repeat the same workload: a re-cut would
             # silently overwrite deliberately distinct partitions
@@ -586,7 +624,10 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
             parser.error("--autoscale-min must be >= 1")
         if args.autoscale_confirm < 1:
             parser.error("--autoscale-confirm must be >= 1")
-    if args.tp_quant_bits and args.stage_tp <= 1:
+    has_tp_sites = (args.stage_tp > 1
+                    or (args.comm == "spmd"
+                        and (args.spmd_tp > 1 or args.spmd_sp > 1)))
+    if args.tp_quant_bits and not has_tp_sites:
         parser.error("--tp-quant-bits gates intra-stage TP/SP "
                      "collectives, but no TP axis is active: pass "
                      "--spmd-tp/--spmd-sp > 1 (--comm spmd) or "
@@ -625,13 +666,6 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
         if args.rank != 0:
             parser.error("the host driver is a single controller: rank "
                          "must be 0")
-        if args.rank_order:
-            order = [int(r) for r in args.rank_order.split(",")]
-            if order != list(range(len(order))):
-                parser.error(f"-r {args.rank_order}: the host pipeline runs "
-                             "every stage on its one device, so a rank "
-                             "order other than 0,1,...,N-1 would place "
-                             "nothing")
     else:
         if not 0 <= args.rank < args.worldsize:
             parser.error(f"rank {args.rank} is outside the world of "
@@ -749,9 +783,10 @@ def get_pipeline_sched(world_size: int, hosts: Optional[List[str]],
     return stage_layers, stage_quant, stage_ranks
 
 
-def _schedule(args) -> Tuple[List[Tuple[int, int]], List[int]]:
-    """The run's stage layers and stage output bits, from the CLI."""
-    stage_layers, stage_quant, _ = get_pipeline_sched(
+def _schedule(args) -> Tuple[List[Tuple[int, int]], List[int], List[int]]:
+    """The run's stage layers, stage output bits and stage ranks, from the
+    CLI."""
+    stage_layers, stage_quant, stage_ranks = get_pipeline_sched(
         args.worldsize, args.hosts.split(",") if args.hosts else None,
         _pairs(args.partition) if args.partition else None,
         [int(q) for q in args.quant.split(",")] if args.quant else None,
@@ -759,10 +794,15 @@ def _schedule(args) -> Tuple[List[Tuple[int, int]], List[int]]:
         if args.rank_order else None,
         args.model_name, args.ubatch_size, args.sched_models_file,
         args.sched_dev_types_file, args.sched_dev_file, dtype=args.dtype)
-    # one device: the ranks (and hosts) name the schedule, not a placement
-    logger.info("Scheduling: all %d stage(s) run on the one %s device",
-                len(stage_layers), args.device)
-    return stage_layers, stage_quant
+    return stage_layers, stage_quant, stage_ranks
+
+
+def logical_devices(args) -> List[torch.device]:
+    """The single-controller drivers' devices: `worldsize` logical ones,
+    the k-th on `cuda:k % device_count()` (or the CPU), as `jax.devices()`
+    lists the JAX runtime's."""
+    from .parallel.mesh import devices_for
+    return devices_for(args.worldsize, resolve_device(args.device))
 
 
 def get_window_size() -> int:
@@ -961,16 +1001,24 @@ def edge_bits(pipe: host_pipeline.HostPipeline) -> List[int]:
 
 
 def run_pipeline_host(args, stage_layers: Sequence[Tuple[int, int]],
-                      stage_quant: Sequence[int]) -> dict:
+                      stage_quant: Sequence[int],
+                      stage_ranks: Optional[Sequence[int]] = None) -> dict:
     """Build the pipeline, stream the batch `--measure-rounds` times under
     the open monitoring session and print the report lines; returns the
-    last round's stats. With `--rebalance auto` the batch is re-split
-    between rounds (`adapt_microbatches`); with `--save-results` every
-    delivered microbatch of every round is saved, in delivery order."""
+    last round's stats. Stage i runs on logical device `stage_ranks[i] %
+    worldsize` (`logical_devices`; default the identity order). With
+    `--rebalance auto` the batch is re-split between rounds
+    (`adapt_microbatches`); with `--save-results` every delivered
+    microbatch of every round is saved, in delivery order."""
     dtype = torch.bfloat16 if args.dtype == "bfloat16" else torch.float32
+    devices = logical_devices(args)
+    ranks = stage_ranks or range(len(stage_layers))
+    placed = [devices[r % len(devices)] for r in ranks]
+    logger.info("Scheduling: stage-to-device placement: %s",
+                [str(d) for d in placed])
     pipe = host_pipeline.build_pipeline(
         args.model_name, stage_layers, model_file=args.model_file,
-        device=args.device, quant_bits=stage_quant, dtype=dtype)
+        devices=placed, quant_bits=stage_quant, dtype=dtype)
     inputs, labels = load_batches(args.model_name, args.batch_size,
                                   args.ubatch_size, pipe.stages[0].device,
                                   dtype)
@@ -1007,6 +1055,96 @@ def run_pipeline_host(args, stage_layers: Sequence[Tuple[int, int]],
                                           sort_keys=True))
     print("edge_bits=" + json.dumps(edge_bits(pipe)))
     return stats
+
+
+def run_pipeline_spmd(args, stage_layers: Sequence[Tuple[int, int]],
+                      stage_quant: Sequence[int],
+                      stage_ranks: Sequence[int]) -> None:
+    """`-c spmd`: the block-aligned partition as one `SpmdPipeline` over a
+    `(dp, stage[, tp|sp])` mesh of the logical devices, with the JAX
+    driver's checks and messages. Runs the batch once to warm up and once
+    timed, reports, prints `kernel_launches=` and `edge_bits=`, and folds
+    the quantized-collective tally once."""
+    from .ops import qcollectives
+    from .parallel import spmd
+    from .parallel import tensor as tp
+
+    entry = registry.get_model_entry(args.model_name)
+    dtype = torch.bfloat16 if args.dtype == "bfloat16" else torch.float32
+    n_stages = len(stage_layers)
+    # conflict checks on the raw arguments, before any stage weights load
+    if stage_ranks and list(stage_ranks) != list(range(n_stages)) \
+            and (args.spmd_dp > 1 or args.spmd_tp > 1 or args.spmd_sp > 1):
+        raise RuntimeError("-r stage ranks cannot combine with "
+                           "--spmd-dp/--spmd-tp/--spmd-sp mesh axes")
+    if args.spmd_tp > 1 and args.spmd_sp > 1:
+        raise RuntimeError("--spmd-tp and --spmd-sp are mutually exclusive "
+                           "(Megatron TP assumes a full local sequence)")
+    need = n_stages * args.spmd_dp * max(args.spmd_tp, args.spmd_sp)
+    devices = logical_devices(args)
+    have = len(devices)
+    if need > have:
+        raise RuntimeError(
+            f"mesh needs {need} devices (stages x dp x tp|sp = "
+            f"{n_stages} x {args.spmd_dp} x "
+            f"{max(args.spmd_tp, args.spmd_sp)}) but only {have} available")
+    ranks = None
+    if stage_ranks and list(stage_ranks) != list(range(n_stages)):
+        mapped = [r % len(devices) for r in stage_ranks]
+        if len(set(mapped)) != n_stages:
+            raise RuntimeError(
+                f"-r stage ranks {list(stage_ranks)} map to non-distinct "
+                f"devices {mapped} on {len(devices)} available devices; "
+                "spmd mode needs one distinct device per stage (drop -r "
+                "for the default identity order)")
+        ranks = mapped
+    mesh = spmd.make_pipeline_mesh(n_stages, dp=args.spmd_dp,
+                                   tp=args.spmd_tp, sp=args.spmd_sp,
+                                   devices=devices, stage_ranks=ranks)
+    logger.info("SPMD mesh %s at logical devices %s", mesh.shape,
+                mesh.positions)
+    qcollectives.reset_trace_tally()
+    stage_params = [registry.module_shard_factory(
+        args.model_name, args.model_file, l, r, stage=i, dtype=dtype,
+        device=mesh.cell(0, i).devices[0])[1]
+        for i, (l, r) in enumerate(stage_layers)]
+    pipe = spmd.build_spmd_pipeline(
+        entry.family.FAMILY, entry.config, stage_layers, stage_params, mesh,
+        quant_bit=list(stage_quant) if stage_quant else 0,
+        sp_kind=args.spmd_sp_kind)
+    inputs, labels = load_batches(args.model_name, args.batch_size,
+                                  args.ubatch_size,
+                                  mesh.cell(0, 0).devices[0], dtype)
+    stacked = torch.stack(inputs)
+    for lb in labels:
+        label_queue.put(lb)
+    # one process-wide switch, read by every TP block's all-reduce and
+    # the sp gather: set for this run, the caller's value restored after
+    prev_bits = tp.get_tp_quant_bits()
+    tp.set_tp_quant_bits(args.tp_quant_bits)
+    try:
+        pipe.run(stacked).cpu()  # warm-up (the kernel build, cuBLAS)
+        tik = time.monotonic()
+        outputs = pipe.run(stacked).cpu()
+        tok = time.monotonic()
+    finally:
+        tp.set_tp_quant_bits(prev_bits)
+    for out in outputs:
+        handle_results(out)
+    _report(tik, tok, inputs)
+    if args.tp_quant_bits:
+        # every call of this run (warm-up included) was tallied as it ran
+        summary = qcollectives.record_collectives()
+        logger.info("quantized collectives (--tp-quant-bits %d): %s",
+                    args.tp_quant_bits, summary)
+    if args.save_results:
+        np.savez(args.save_results,
+                 *[o.detach().float().numpy() for o in outputs])
+        logger.info("saved %d result microbatch(es) to %s", len(outputs),
+                    args.save_results)
+    print("kernel_launches=" + json.dumps(_build.launch_counts,
+                                          sort_keys=True))
+    print("edge_bits=" + json.dumps(list(pipe.stage_bits[:-1])))
 
 
 def adapt_microbatches(pipe: host_pipeline.HostPipeline, stats: dict,
@@ -2992,13 +3130,26 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     if args.comm == "dcn":
         main_dcn(args)
         return
-    stage_layers, stage_quant = _schedule(args)
+    stage_layers, stage_quant, stage_ranks = _schedule(args)
+    comm = args.comm
+    if comm == "spmd":
+        from .parallel import spmd
+        try:
+            spmd.partition_to_blocks(stage_layers)
+        except ValueError as exc:
+            logger.warning("%s; falling back to host driver", exc)
+            comm = "host"
     if args.trace_spans:
         telemetry.configure(rank=0)
     init_monitoring(get_window_size())
     try:
         with tracing.trace(args.trace):
-            run_pipeline_host(args, stage_layers, stage_quant)
+            if comm == "spmd":
+                run_pipeline_spmd(args, stage_layers, stage_quant,
+                                  stage_ranks)
+            else:
+                run_pipeline_host(args, stage_layers, stage_quant,
+                                  stage_ranks)
     finally:
         monitoring.finish()
     if args.trace_spans and telemetry.recorder() is not None:

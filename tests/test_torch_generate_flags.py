@@ -7,7 +7,7 @@ and `-sm/-sdt/-sd`, and the flags both entries refuse.
   parse time, naming their ROADMAP item: generate's `--spmd-wave`, and
   `runtime.py`'s flags the port's runtime does not run; the multi-GPU
   flags the port runs (`--tp`, `--sp`, `--ep`, `--stage-tp`,
-  `--tp-quant-bits`) parse.
+  `--tp-quant-bits`, `--spmd-dp/-tp/-sp/-sp-kind`) parse.
 - `--concurrent N` on the tiny GPT-2: every request's tokens equal its
   solo run (fp and int8 caches, with and without a shared prefix).
 - `--monitor` writes `new_tokens - 1` heartbeat rows to decode.csv.
@@ -117,6 +117,18 @@ TP_FLAGS = {
     "runtime --tp-quant-bits": (lambda: runtime.parse_args(
         ["0", "2", "-c", "dcn", "-m", "pipeedge/test-tiny-vit",
          "--stage-tp", "2", "--tp-quant-bits", "4"]), ("tp_quant_bits", 4)),
+    # the SPMD driver's mesh axes (its runs: tests/test_torch_spmd.py and
+    # tests/test_torch_runtime_spmd.py)
+    "runtime --spmd-dp": (lambda: runtime.parse_args(
+        ["0", "4", "-c", "spmd", "--spmd-dp", "2"]), ("spmd_dp", 2)),
+    "runtime --spmd-tp": (lambda: runtime.parse_args(
+        ["0", "4", "-c", "spmd", "--spmd-tp", "2", "--tp-quant-bits",
+         "8"]), ("spmd_tp", 2)),
+    "runtime --spmd-sp": (lambda: runtime.parse_args(
+        ["0", "4", "-c", "spmd", "--spmd-sp", "2"]), ("spmd_sp", 2)),
+    "runtime --spmd-sp-kind": (lambda: runtime.parse_args(
+        ["0", "4", "-c", "spmd", "--spmd-sp", "2", "--spmd-sp-kind",
+         "ulysses"]), ("spmd_sp_kind", "ulysses")),
 }
 
 
@@ -165,8 +177,7 @@ def test_runtime_refuses_naming_the_item(flag):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--platform", "cpu"], "--device"),
-    (["-c", "spmd"], "A7")])
+    (["--platform", "cpu"], "--device")])
 def test_runtime_refuses_the_other_drivers(argv, item):
     assert item in _error(lambda: runtime.parse_args(["0", "2"] + argv))
 
@@ -203,8 +214,7 @@ def test_runtime_parses_the_dcn_flags(flag):
     args = runtime.parse_args(["1", "2", "-c", "dcn", flag]
                               + DCN_FLAGS[flag])
     assert args.comm == "dcn" and args.rank == 1
-    for stays in ("--spmd-tp", "--spmd-dp"):
-        assert runtime.REFUSED[stays][1].startswith("A7")
+    assert generate.REFUSED["--spmd-wave"][1].startswith("A7e")
 
 
 def test_runtime_parses_failover_with_the_fault_flags():

@@ -143,12 +143,15 @@ TP_MODULES = ["parallel/mesh.py", "parallel/tensor.py",
 # is parallel/expert.py, among the decoder modules)
 SP_MODULES = ["parallel/sequence.py"]
 
+# the SPMD pipeline driver (its mesh is in parallel/mesh.py, above)
+SPMD_MODULES = ["parallel/spmd.py"]
+
 
 @pytest.mark.parametrize("rel", SERVING_MODULES + DECODER_MODULES
                          + LOOP_AND_ROUTER_MODULES + DCN_MODULES
                          + OBSERVATORY_MODULES + FAULT_MODULES
                          + CONTROL_MODULES + DISAGG_MODULES + TP_MODULES
-                         + SP_MODULES)
+                         + SP_MODULES + SPMD_MODULES)
 def test_serving_modules_import_no_jax_anywhere(rel):
     """Each serving-slice module is scanned, and none imports `jax` or
     `pipeedge_tpu` (nor a root module that does), at module level or

@@ -239,7 +239,6 @@ def test_rebalance_auto_runs_and_keeps_every_item(tmp_path, monkeypatch):
     (["--rebalance", "auto"], "--measure-rounds"),
     (["--dataset-name", "ImageNet"], "download"),
     (["--dataset-name", "CoLA"], "download"),
-    (["-pt", "1,4,5,8", "-r", "1,0"], "one device"),
 ])
 def test_cli_refusals(argv, message, capsys):
     with pytest.raises(SystemExit):
@@ -250,4 +249,4 @@ def test_cli_refusals(argv, message, capsys):
 def test_identity_rank_order_is_accepted():
     args = runtime.parse_args(["0", "2", "-m", MODEL, "-pt", "1,4,5,8",
                                "-r", "0,1", "--device", "cpu"])
-    assert runtime._schedule(args) == ([(1, 4), (5, 8)], [0, 0])
+    assert runtime._schedule(args) == ([(1, 4), (5, 8)], [0, 0], [0, 1])
