@@ -234,7 +234,8 @@ Phases, each of which raises on failure (nothing is caught):
      kernel-5 opt-in set: no launch, a Llama step never asks the gate),
      timed; the fp cache's prefill and each step replayed, timed, its
      logits within FAMILY_FP_BOUND of the forward over the same 576
-     tokens (4 kernel-3 launches); one profiled decode step;
+     tokens (4 kernel-3 launches); one profiled decode step; then phase
+     24(e), the wave decoder on these weights;
      (c) the in-process server, `--kv-bits 8 --kv-pages 512
      --kv-page-size 16 --chunked-prefill 64`, wave and stage executors:
      8 concurrent clients (2 streamed, 4 plain, 2 sharers of a 128-token
@@ -346,7 +347,7 @@ Phases, each of which raises on failure (nothing is caught):
      (AUTOSCALE_FLAGS): (a) 16 closed-loop streamed clients (phase 15e's
      prompt and token draws) queue on r0 until exactly one
      `autoscale_spawn replica=r1 rank=1 epoch=0`, the health polls
-     readmit r1, fresh prompts reach it and it answers 8 times;
+     readmit r1, fresh prompts reach it and it answers 4 times;
      `pipeedge_fleet_actual_size` reaches 2; (c) at quiescence, both
      replicas live, `GET /fleet`'s per-class `requests_total` and
      `ok_total` equal the sums over the replicas' own /metrics; (b) the
@@ -523,6 +524,36 @@ Phases, each of which raises on failure (nothing is caught):
      Ulysses in (c); kernels 1 and 2 8 per quantized edge in (a), n^2 =
      4 encodes and 2n(n-1) = 4 decodes per `qpsum` in (b) at 8 bits (384
      all-reduces a run). Printed: each run's items/s and seconds.
+ 24. the SPMD wave decoder (`parallel/spmd_decode.py`): GPT-2 at full
+     width and depth (phase 6's npz) in 4 stages of 3 blocks on the one
+     card, R = 4 slots of batch 4, 64-token prompts (all opening with
+     the same 32 tokens, (d)'s prefix), 32 new tokens:
+     (a) every slot of the greedy wave equal to its solo
+     `DecodePipeline.generate` on the card token for token (the same [4,
+     ...] shapes, so the same kernels and cuBLAS calls), and of the
+     sampled wave (temperature 0.9, top-k 40, slot r seeded 24 + r) to
+     its solo run with that seed; the walk R x K stage-steps a wave;
+     (b) the host syncs of a greedy walk counted under
+     `torch.cuda.set_sync_debug_mode("warn")`: none (the counter sees
+     the one sync of a readback);
+     (c) `generate --spmd-wave` in this process at `--edge-bits 0` and
+     8, beside `--concurrent 4` on the same prompts (the 0-bit wave's
+     ids equal its), kernels 1 and 2 launched 2 x R x (K - 1) = 24
+     times each at 8 bits (warm-up and timed prefill waves), 0 at 0
+     bits; in process, each slot's first-token logits at 8 bits within
+     LOGIT_BOUND[8] of the exact wave's (12 launches of each);
+     (d) a prefix-seeded wave (32 shared prompt tokens) against the
+     monolithic wave at edge bits 0 and 8, by `slot_rule` at WAVE_TIE
+     (equal, or a near tie at the first difference, as `spec_rule`
+     says), the first-token
+     logits within WAVE_TIE; `SpmdSpeculativeDecoder` (gamma 4) with the
+     whole gpt2 as a self-draft (acceptance 1.0, tokens equal to the
+     greedy wave's) and with phase 13's noisy self-draft (by `slot_rule`);
+     (e) inside phase 14, on Llama-3-8B's card-drawn weights at
+     LLAMA_BLOCKS in its 2 stages: the greedy wave of 2 slots [2, 64] +
+     16 equal to each slot's solo run.
+     Printed: tokens/s of the wave, the solo runs one after another, the
+     entries and the speculative waves.
 Phase 3 also holds kernel 5 (decode attention) against its plain version
 at the main path's shapes (windows of a [16, 1024, 12, 64] stage cache at
 buckets 256 and 512, and pos 1000 of the whole cache), pos 0 and W-1,
@@ -953,6 +984,13 @@ def codec_input(shape, kind, gen, dev):
     return x
 
 
+# phase 24: the wave decoder's hops, a slot's [B, S_p, D] prompt hop, the
+# prefix wave's [1, 32, D] and the suffix span wave's [B, 32, D]
+WAVE_EDGES = ((4, 64, 768), (4, 32, 768), (1, 32, 768))
+# the codec shapes timed beside their plain version and bound
+TIMED_EDGES = ((8, 197, 768), (8, 128, 4096)) + WAVE_EDGES
+
+
 def check_codec(dev, gen):
     from pipeedge_tpu_torch.ops import fused_quant, quant
     rows = {}
@@ -962,15 +1000,16 @@ def check_codec(dev, gen):
     # reciprocal division and its __fdiv_rn fallback (csrc div_rn)
     # [6, 151296] / [6, 37]: NaN, +-inf and an overflowing range
     # [65537, 37]: more items than one grid axis takes
-    for shape, kind in (((8, 197, 768), "zero_item"), ((3, 37), "zero_item"),
-                        ((2, 151296 * 4), "zero_item"),
-                        ((2, 151296 * 4 + 5), "zero_item"),
-                        ((64, 197 * 768), "scaled"),
-                        ((6, 151296), "nonfinite"), ((6, 37), "nonfinite"),
-                        ((65537, 37), "plain"),
-                        ((8, 197, 768), "plain"),
-                        # phase 14: a Llama-3-8B / Mistral-7B edge
-                        ((8, 128, 4096), "plain")):
+    cases = (((8, 197, 768), "zero_item"), ((3, 37), "zero_item"),
+             ((2, 151296 * 4), "zero_item"),
+             ((2, 151296 * 4 + 5), "zero_item"),
+             ((64, 197 * 768), "scaled"),
+             ((6, 151296), "nonfinite"), ((6, 37), "nonfinite"),
+             ((65537, 37), "plain"),
+             ((8, 197, 768), "plain"),
+             # phase 14: a Llama-3-8B / Mistral-7B edge
+             ((8, 128, 4096), "plain"))
+    for shape, kind in cases + tuple((s, "plain") for s in WAVE_EDGES):
         for bit in (8, 4):
             x = codec_input(shape, kind, gen, dev)
             enc = fused_quant.fused_encode_outerdim(x, bit)
@@ -995,7 +1034,7 @@ def check_codec(dev, gen):
             enc_err = max(float((enc.scale - ref.scale).abs().max()),
                           float((enc.shift - ref.shift).abs().max()))
             log(f"codec {shape} bit {bit} {kind}: bit-identical")
-            if shape in ((8, 197, 768), (8, 128, 4096)) and kind == "plain":
+            if kind == "plain" and shape in TIMED_EDGES:
                 nbytes = codec_bytes(shape, bit)
                 kernels = {name: device_launches(fn) for name, fn in (
                     ("fused_encode",
@@ -1008,12 +1047,14 @@ def check_codec(dev, gen):
                 # the other cluster size the design allows (16 blocks per
                 # item, a non-portable cluster), timed beside the chosen one
                 chosen = fused_quant.ENCODE_CLUSTER
-                fused_quant.ENCODE_CLUSTER = 16
-                try:
-                    cluster16_ms = time_ms(
-                        lambda: fused_quant.fused_encode_outerdim(x, bit))
-                finally:
-                    fused_quant.ENCODE_CLUSTER = chosen
+                cluster16_ms = None
+                if shape not in WAVE_EDGES:
+                    fused_quant.ENCODE_CLUSTER = 16
+                    try:
+                        cluster16_ms = time_ms(
+                            lambda: fused_quant.fused_encode_outerdim(x, bit))
+                    finally:
+                        fused_quant.ENCODE_CLUSTER = chosen
                 # the main path's edge keyed (name, bit), others with
                 # their shape
                 key = () if shape == (8, 197, 768) else (shape,)
@@ -3568,10 +3609,11 @@ class CountedVerify:
         return self.pipe.extend(tokens, caches, pos)
 
 
-def noisy_draft(target, max_len: int, eps: float, seed: int = 0):
-    """`target` (one stage) as its own draft, with seeded noise of
-    relative size `eps` on every weight matrix of its last block; every
-    other parameter is the target's own tensor."""
+def noisy_draft(target, max_len: int, eps: float, seed: int = 0,
+                model: str = SPEC_TARGET):
+    """`target` (one stage of `model`) as its own draft, with seeded noise
+    of relative size `eps` on every weight matrix of its last block;
+    every other parameter is the target's own tensor."""
     from pipeedge_tpu_torch.parallel.decode import build_decode_pipeline
     gen = torch.Generator(device=target.device)
     gen.manual_seed(seed)
@@ -3585,7 +3627,7 @@ def noisy_draft(target, max_len: int, eps: float, seed: int = 0):
                 w.shape, generator=gen, device=w.device, dtype=w.dtype)
     blocks[-1] = last
     params["blocks"] = blocks
-    return build_decode_pipeline(SPEC_TARGET, None, max_len=max_len,
+    return build_decode_pipeline(model, None, max_len=max_len,
                                  stage_params=[params],
                                  device=target.device)
 
@@ -4456,6 +4498,10 @@ def llama3_path(card: str, device_name: str, pm) -> dict:
     check_family_decode(LLAMA3, dec, FAMILY_FP_BOUND, LLAMA_BLOCKS,
                         device_name)
     out["llama3_decode"] = dec
+    free_card()
+    # phase 24(e): the wave decoder on these weights
+    out["llama3_wave"] = llama_wave(whole)
+    check_llama_wave(out["llama3_wave"], device_name)
     free_card()
     out["llama3_serve"] = family_serve(card, LLAMA3, whole,
                                        LLAMA_SERVE_FLAGS + pm,
@@ -5987,7 +6033,9 @@ AUTOSCALE_FLAGS = ["--replicas", "1", "--max-active", "4", "--no-brownout",
                    "--autoscale-cooldown", "2", "--autoscale-dwell-down",
                    "6"]
 AUTOSCALE_CLIENTS = 16     # closed-loop clients: 4 active, 12 queued on r0
-AUTOSCALE_R1_ANSWERS = 8   # answers from r1 before the load stops
+# answers from r1 before the load stops: 4 (one round of its 4 active
+# slots; 8 until PR 21 made room for phase 24)
+AUTOSCALE_R1_ANSWERS = 4
 AUTOSCALE_LOAD_S = 120.0   # the most the ramp up may take
 AUTOSCALE_DOWN_S = 60.0    # the most the ramp down may take after it
 
@@ -9031,6 +9079,356 @@ def check_spmd_path(res, device_name: str) -> dict:
     return launches
 
 
+# --- phase 24: the SPMD wave decoder ----------------------------------------
+
+# Phase 24, the wave decoder (`parallel/spmd_decode.py`, `generate
+# --spmd-wave`): GPT-2 at full width and depth (phase 6's npz) in 4 stages
+# of 3 blocks on the one card, R = 4 request slots of batch 4, 64-token
+# prompts, 32 new tokens, f32 and fp caches (the wave takes no
+# --kv-bits, as in JAX); the caches hold a verify span past the last token
+WAVE_PT = "1,12,13,24,25,36,37,48"
+WAVE_PARTITION = [(1, 12), (13, 24), (25, 36), (37, 48)]
+WAVE_SLOTS, WAVE_BATCH, WAVE_PROMPT, WAVE_NEW = 4, 4, 64, 32
+WAVE_GAMMA = 4
+WAVE_MAX_LEN = WAVE_PROMPT + WAVE_NEW + WAVE_GAMMA
+WAVE_SAMPLING = dict(temperature=0.9, top_k=40)
+WAVE_SEED = 24                    # slot r samples with seed WAVE_SEED + r
+WAVE_PREFIX = 32                  # (d): the prompts' shared first tokens
+# (d): a row whose tokens differ from its reference must first differ at
+# a near tie (`spec_rule` over the exact serial logits along the
+# reference): its token the reference's second choice, their top-2 gap
+# within this share of max |logit|. 0 bits: a prefix and a monolithic
+# prompt pass (a verify span and serial steps) multiply matrices of other
+# shapes, a few ulp apart: the DCN near-tie bound (`near_tie_rule`). 8
+# bits: the prefix path quantizes the prefix's rows and the suffix's
+# apart, the monolithic path the whole prompt's rows together, so their
+# hops round differently: the 8-bit edge's bound.
+WAVE_TIE = {0: 1e-4, 8: LOGIT_BOUND[8]}
+# (e) Llama-3-8B at LLAMA_BLOCKS blocks in phase 14's 2 stages: 2 slots,
+# batch, prompt, new tokens
+LLAMA_WAVE = (2, 64, 16)
+# what each synchronizing call warns under set_sync_debug_mode("warn")
+# (the mode's own notice says "synchronizing operations" too)
+SYNC_WARNING = "called a synchronizing CUDA operation"
+
+
+def count_syncs(fn) -> tuple:
+    """fn()'s result, and the warnings of the synchronizing calls it made
+    (`torch.cuda.set_sync_debug_mode("warn")` for its time)."""
+    import warnings
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return out, [str(w.message) for w in caught
+                 if SYNC_WARNING in str(w.message)]
+
+
+def first_token_logits(wave, ids, prefix=None) -> torch.Tensor:
+    """Each slot's first-token logits [R, B, V] through the prompt pass
+    `generate` runs (the prefill wave, or the span wave at a prefix
+    handle's offset), with no token picked."""
+    slots, batch, _ = ids.shape
+    out = torch.empty((slots, batch, wave.cfg.vocab_size), device=wave.last)
+
+    def finish(r, logits):
+        out[r] = logits[:, -1].float()
+
+    with torch.inference_mode():
+        caches = (wave._fresh_caches(slots * batch) if prefix is None
+                  else wave._tile_prefix(prefix, slots * batch))
+        wave._fill_wave(list(ids.to(wave.first)), caches, batch, finish,
+                        pos=None if prefix is None else prefix["len"])
+    return out
+
+
+def logit_rel(got: torch.Tensor, want: torch.Tensor) -> float:
+    return float((got - want).abs().max() / want.abs().max())
+
+
+def slot_rule(got, want, prompt: int, reference, bound: float) -> dict:
+    """`spec_rule` for each slot of ids [R, B, prompt + N] that differs
+    from `want`: `reference(r)` gives its serial logits along want[r]'s
+    continuation (asked only then), and a near tie is a top-2 gap within
+    `bound` x their max |logit|."""
+    rows = []
+    for r in range(want.shape[0]):
+        if np.array_equal(got[r], want[r]):
+            continue
+        serial = reference(r)
+        rule = spec_rule(got[r], want[r], prompt, serial,
+                         bound * float(serial.abs().max()))
+        rows += [dict(row, slot=r) for row in rule["differing"]]
+    return dict(equal=not rows, differing=rows,
+                ok=all(row["near_tie"] for row in rows))
+
+
+def wave_entry(argv, name: str) -> dict:
+    """`python -m pipeedge_tpu_torch.generate` with `argv` in this process
+    (its output captured and logged): its ids, tokens/s, seconds and
+    launches (counts set to 0 just before: warm-up and timed run)."""
+    import io
+    from pipeedge_tpu_torch import generate
+    from pipeedge_tpu_torch.ops import _build
+
+    out = io.StringIO()
+    _build.reset_launch_counts()
+    t0 = time.monotonic()
+    with contextlib.redirect_stdout(out):
+        ids = generate.main(argv)
+    seconds = time.monotonic() - t0
+    lines = out.getvalue().splitlines()
+    for line in lines:
+        log(f"[{name}] {line}")
+    report = next(ln for ln in lines if ln.startswith("generated"))
+    return dict(name=name, seconds=seconds, ids=ids, report=report,
+                tok_per_s=float(report.split(" = ")[1].split()[0]),
+                counts=dict(_build.launch_counts))
+
+
+def wave_path(card: str) -> dict:
+    """Phase 24 (a)-(d) (module docstring); (e) runs inside phase 14."""
+    from pipeedge_tpu_torch.models import registry
+    from pipeedge_tpu_torch.ops import _build
+    from pipeedge_tpu_torch.parallel import decode, spmd
+    from pipeedge_tpu_torch.parallel.spmd_decode import (
+        SpmdDecodePipeline, SpmdSpeculativeDecoder)
+
+    t0 = time.monotonic()
+    weights = BUILD_DIR / f"{DECODE_MODEL.replace('/', '_')}-random-seed0.npz"
+    entry = registry.get_model_entry(DECODE_MODEL)
+    cfg, family = entry.config, entry.family.FAMILY
+    slots, batch, prompt, new = (WAVE_SLOTS, WAVE_BATCH, WAVE_PROMPT,
+                                 WAVE_NEW)
+    # phase 6's weights read once: every pipeline, draft and entry below
+    # takes views of them (`card_weights`), so no stage reads the file
+    # again
+    total = 4 * cfg.num_hidden_layers
+    whole = registry.module_shard_factory(DECODE_MODEL, str(weights), 1,
+                                          total, device="cuda")[1]
+    mesh = spmd.make_pipeline_mesh(len(WAVE_PARTITION))
+    stages = [shard_view(whole, DECODE_MODEL, l, r)
+              for l, r in WAVE_PARTITION]
+    wave = SpmdDecodePipeline(family, cfg, WAVE_PARTITION, stages, mesh,
+                              max_len=WAVE_MAX_LEN)
+    wave8 = SpmdDecodePipeline(family, cfg, WAVE_PARTITION, stages, mesh,
+                               max_len=WAVE_MAX_LEN, edge_bits=8)
+    host = decode.DecodePipeline(family, cfg, WAVE_PARTITION, stages,
+                                 max_len=WAVE_MAX_LEN, device="cuda")
+    # every prompt opens with the same WAVE_PREFIX tokens, (d)'s prefix
+    ids = torch.from_numpy(np.random.default_rng(24).integers(
+        0, cfg.vocab_size, size=(slots, batch, prompt))).to("cuda")
+    ids[:, :, :WAVE_PREFIX] = ids[0, 0, :WAVE_PREFIX]
+    seeds = [WAVE_SEED + r for r in range(slots)]
+    res = {"card": card}
+    wave.generate(ids, 2).cpu()                     # warm-ups
+    host.generate(ids[0], 2).cpu()
+
+    # (a) every slot against its solo run, greedy and sampled
+    greedy, wave_s = timed(lambda: wave.generate(ids, new))
+    stats = dict(wave.stats)
+    solo, solo_s = [], 0.0
+    for r in range(slots):
+        out, secs = timed(lambda: host.generate(ids[r], new))
+        solo.append(out)
+        solo_s += secs
+    sampled = wave.generate(ids, new, seeds=seeds,
+                            **WAVE_SAMPLING).cpu().numpy()
+    tokens = slots * batch * new
+    res["a"] = dict(
+        greedy_equal=[bool(np.array_equal(greedy[r], solo[r]))
+                      for r in range(slots)],
+        sampled_equal=[bool(np.array_equal(sampled[r], host.generate(
+            ids[r], new, seed=seeds[r], **WAVE_SAMPLING).cpu().numpy()))
+            for r in range(slots)],
+        sampled_differs_from_greedy=not np.array_equal(sampled, greedy),
+        stats=stats, wave_s=wave_s, solo_s=solo_s,
+        wave_tok_per_s=tokens / wave_s, solo_tok_per_s=tokens / solo_s,
+        shape=list(greedy.shape))
+    log("wave (a) " + json.dumps(res["a"]))
+
+    # (b) host syncs inside a greedy walk, ids already on the card; the
+    # counter must see the one sync of a readback
+    walked, syncs = count_syncs(lambda: wave.generate(ids, new))
+    _, probe = count_syncs(lambda: torch.ones(1, device="cuda").item())
+    res["b"] = dict(syncs=len(syncs), kinds=sorted(set(syncs))[:4],
+                    readback_probe=len(probe),
+                    equal=bool(np.array_equal(walked.cpu().numpy(), greedy)))
+    log("wave (b) " + json.dumps(res["b"]))
+
+    # (c) the entry at edge bits 0 and 8 beside --concurrent, and the
+    # 8-bit first-token logits in process
+    argv = ["-m", DECODE_MODEL, "-M", str(weights), "-pt", WAVE_PT, "-b",
+            str(batch), "--prompt-len", str(prompt), "--new-tokens",
+            str(new)]
+    with card_weights(DECODE_MODEL, whole):
+        res["c"] = {f"wave{bits}": wave_entry(
+            argv + ["--spmd-wave", "--edge-bits", str(bits)], f"wave{bits}")
+            for bits in (0, 8)}
+        res["c"]["concurrent"] = wave_entry(
+            argv + ["--concurrent", str(slots)], "concurrent")
+    exact = first_token_logits(wave, ids)
+    _build.reset_launch_counts()
+    q8 = first_token_logits(wave8, ids)
+    torch.cuda.synchronize()
+    res["c"]["first_token"] = dict(
+        counts=dict(_build.launch_counts),
+        rel_err=[logit_rel(q8[r], exact[r]) for r in range(slots)])
+    log("wave (c) " + json.dumps(
+        {k: ({kk: v[kk] for kk in ("tok_per_s", "seconds", "counts")}
+             if "ids" in v else v) for k, v in res["c"].items()}))
+
+    # (d) a prefix-seeded wave against the monolithic one at 0 and 8 bits;
+    # the speculative wave with a self-draft and a perturbed draft
+    def serial(want):
+        return lambda r: serial_logits(host, ids[r], want[r][:, prompt:])
+
+    suffix = ids[:, :, WAVE_PREFIX:]
+    res["d"] = {}
+    for bits, w in ((0, wave), (8, wave8)):
+        handle = w.precompute_prefix(ids[0, 0, :WAVE_PREFIX])
+        # the monolithic wave: (a)'s greedy at 0 bits
+        mono = greedy if not bits else w.generate(ids, new).cpu().numpy()
+        got = np.concatenate([ids[:, :, :WAVE_PREFIX].cpu().numpy(),
+                              w.generate(suffix, new, prefix=handle)
+                              .cpu().numpy()], axis=2)
+        res["d"][f"prefix{bits}"] = dict(
+            rule=slot_rule(got, mono, prompt, serial(mono), WAVE_TIE[bits]),
+            first_token_rel_err=logit_rel(
+                first_token_logits(w, suffix, prefix=handle),
+                exact if not bits else q8))
+    draft = decode.DecodePipeline(family, cfg, [(1, total)], [whole],
+                                  max_len=WAVE_MAX_LEN, device="cuda")
+    for name, d_pipe in (("self", draft), ("noisy", noisy_draft(
+            draft, WAVE_MAX_LEN, SPEC_NOISE, model=DECODE_MODEL))):
+        spec = SpmdSpeculativeDecoder(wave, d_pipe, gamma=WAVE_GAMMA)
+        spec.generate(ids, 2).cpu()                 # warm-up
+        got, secs = timed(lambda: spec.generate(ids, new))
+        res["d"][f"spec_{name}"] = dict(
+            acceptance=spec.last_acceptance_rate, seconds=secs,
+            tok_per_s=tokens / secs,
+            rule=slot_rule(got, greedy, prompt, serial(greedy),
+                          WAVE_TIE[0]))
+    log("wave (d) " + json.dumps(res["d"]))
+    del wave, wave8, host, draft, stages, whole
+    free_card()
+    res["seconds"] = time.monotonic() - t0
+    return res
+
+
+def check_wave_path(res, llama: dict, device_name: str) -> dict:
+    """Phase 24's gates ((e) is gated in phase 14); returns the codec
+    kernels' launches of (c)."""
+    problems = []
+    a, b, c, d = res["a"], res["b"], res["c"], res["d"]
+    slots, k = WAVE_SLOTS, len(WAVE_PARTITION)
+    steps = slots * k * WAVE_NEW
+    ticks = (slots + k - 1) + (WAVE_NEW - 1) * slots + k - 1
+    if not (all(a["greedy_equal"]) and all(a["sampled_equal"])
+            and a["sampled_differs_from_greedy"]
+            and a["stats"] == {"ticks": ticks, "stage_steps": steps}
+            and a["shape"] == [slots, WAVE_BATCH, WAVE_PROMPT + WAVE_NEW]):
+        problems.append(f"(a) {a}")
+    if b["syncs"] or b["readback_probe"] != 1 or not b["equal"]:
+        problems.append(f"(b) {b}")
+    quant = 2 * slots * (k - 1)       # warm-up and timed prefill waves
+    for bits in (0, 8):
+        counts = c[f"wave{bits}"]["counts"]
+        want = quant if bits else 0
+        if counts["fused_encode"] != want or counts["fused_decode"] != want \
+                or counts["fused_attention"] or counts["decode_attention"]:
+            problems.append(f"(c) wave{bits} launches {counts}")
+    conc = c["concurrent"]["ids"]
+    if not all(np.array_equal(c["wave0"]["ids"][r], conc[r])
+               for r in range(slots)):
+        problems.append("(c) the 0-bit wave entry differs from "
+                        "--concurrent")
+    first = c["first_token"]
+    if not all(0.0 < e <= LOGIT_BOUND[8] for e in first["rel_err"]) \
+            or first["counts"]["fused_encode"] != slots * (k - 1) \
+            or first["counts"]["fused_decode"] != slots * (k - 1):
+        problems.append(f"(c) 8-bit first token {first}")
+    for bits in (0, 8):
+        case = d[f"prefix{bits}"]
+        if not case["rule"]["ok"] \
+                or case["first_token_rel_err"] > WAVE_TIE[bits]:
+            problems.append(f"(d) prefix{bits} {case}")
+    spec = d["spec_self"]
+    if spec["acceptance"] != 1.0 or not spec["rule"]["equal"]:
+        problems.append(f"(d) self-draft {spec}")
+    if not d["spec_noisy"]["rule"]["ok"]:
+        problems.append(f"(d) noisy draft {d['spec_noisy']}")
+    if problems:
+        raise AssertionError("phase 24: " + "; ".join(problems))
+    log("wave: " + json.dumps({
+        "wave_tok_per_s": a["wave_tok_per_s"],
+        "solo_tok_per_s": a["solo_tok_per_s"],
+        "entry_tok_per_s": {key: c[key]["tok_per_s"] for key in (
+            "wave0", "wave8", "concurrent")},
+        "spec_tok_per_s": {key: d[key]["tok_per_s"] for key in (
+            "spec_self", "spec_noisy")},
+        "spec_noisy_acceptance": d["spec_noisy"]["acceptance"],
+        "first_token_rel_err_8bit": max(first["rel_err"]),
+        "prefix_equal": {bits: d[f"prefix{bits}"]["rule"]["equal"]
+                         for bits in (0, 8)},
+        "syncs": b["syncs"], "llama3_wave": {
+            key: llama[key] for key in ("equal", "wave_tok_per_s",
+                                        "solo_tok_per_s")},
+        "seconds": res["seconds"], "card": device_name}))
+    return {name: {f"entry_bits{bits}": c[f"wave{bits}"]["counts"][name]
+                   for bits in (0, 8)}
+            | {"first_token_bits8": first["counts"][name]}
+            for name in ("fused_encode", "fused_decode")}
+
+
+def llama_wave(whole: dict) -> dict:
+    """Phase 24(e), inside phase 14's Llama-3-8B block: the wave over
+    `whole`'s views in phase 14's 2 stages, greedy, against each slot's
+    solo `DecodePipeline` run on the same views."""
+    from pipeedge_tpu_torch.models import registry
+    from pipeedge_tpu_torch.parallel import decode
+    from pipeedge_tpu_torch.parallel.spmd_decode import SpmdDecodePipeline
+
+    entry = registry.get_model_entry(LLAMA3)
+    cfg, family = entry.config, entry.family.FAMILY
+    batch, prompt, new = LLAMA_WAVE
+    slots = len(FAMILY_PARTITION)
+    views = [shard_view(whole, LLAMA3, l, r) for l, r in FAMILY_PARTITION]
+    wave = SpmdDecodePipeline(family, cfg, FAMILY_PARTITION, views,
+                              max_len=prompt + new)
+    host = decode.DecodePipeline(family, cfg, FAMILY_PARTITION, views,
+                                 max_len=prompt + new, device="cuda")
+    ids = torch.from_numpy(np.random.default_rng(25).integers(
+        0, cfg.vocab_size, size=(slots, batch, prompt))).to("cuda")
+    wave.generate(ids, 2).cpu()                     # warm-ups
+    host.generate(ids[0], 2).cpu()
+    got, wave_s = timed(lambda: wave.generate(ids, new))
+    solo, solo_s = [], 0.0
+    for r in range(slots):
+        out, secs = timed(lambda: host.generate(ids[r], new))
+        solo.append(out)
+        solo_s += secs
+    tokens = slots * batch * new
+    return dict(equal=[bool(np.array_equal(got[r], solo[r]))
+                       for r in range(slots)],
+                stats=dict(wave.stats), shape=list(got.shape),
+                wave_tok_per_s=tokens / wave_s,
+                solo_tok_per_s=tokens / solo_s)
+
+
+def check_llama_wave(res: dict, device_name: str) -> None:
+    batch, prompt, new = LLAMA_WAVE
+    slots = len(FAMILY_PARTITION)
+    log("llama3 wave " + json.dumps(res | {"card": device_name}))
+    if not all(res["equal"]) \
+            or res["shape"] != [slots, batch, prompt + new] \
+            or res["stats"]["stage_steps"] != slots * slots * new:
+        raise AssertionError(f"phase 24(e): {res}")
+
+
 def main() -> int:
     import argparse
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -9247,6 +9645,12 @@ def main() -> int:
     spmd_runs = check_spmd_path(spmd_res, device_name)
     phase_done("phase 23")
 
+    # phase 24: the SPMD wave decoder ((e) ran inside phase 14)
+    wave_res = wave_path(card)
+    wave_launches = check_wave_path(wave_res, fam["llama3_wave"],
+                                    device_name)
+    phase_done("phase 24")
+
     def spmd_launches_of(name):
         """Phase 23's launches of one kernel per run of 8 microbatches."""
         return {case: counts[name] for case, counts in spmd_runs.items()}
@@ -9380,7 +9784,10 @@ def main() -> int:
                    if bit == 8 else {}),
                 **tp_codec(name, bit),
                 **({"tp_ep": tp_ep_codec(name),
-                    "spmd_launches": spmd_launches_of(name)}
+                    "spmd_launches": spmd_launches_of(name),
+                    # phase 24(c): the wave entry's warm-up and timed
+                    # prefill waves, and one in-process prefill wave
+                    "wave_launches": wave_launches[name]}
                    if bit == 8 else {}),
                 # every policy bitwidth on phase 8's edge
                 policy_bits_ms={r["bit"]: r[f"{name[6:]}_ms"]
@@ -9392,6 +9799,11 @@ def main() -> int:
                             for k in ("shape", "ms", "plain_ms", "bound_ms",
                                       "bound_by", "max_abs_err")},
                 llama3_launches=fam["llama3_forward"][bit]["counts"][name],
+                # phase 24: the wave decoder's prompt, prefix and span hops
+                wave_edges={"x".join(map(str, shape)): {
+                    k: codec_rows[(name, bit, shape)][k]
+                    for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                              "max_abs_err")} for shape in WAVE_EDGES},
                 **({"moe_launches": fam["moe_forward"][8]["counts"][name],
                     # phase 15: a direct check of the codec on KV shapes,
                     # 8-bit ship frames of the router's survivor (one per

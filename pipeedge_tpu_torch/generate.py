@@ -80,8 +80,20 @@ round-robin as `--tp`'s do:
     python -m pipeedge_tpu_torch.generate -m meta-llama/Meta-Llama-3-8B \\
         --sp 2 -b 1 --prompt-len 4096 --new-tokens 32
 
-The JAX entry's `--spmd-wave` (ROADMAP A7e) is refused at parse time
-with its ROADMAP item (`REFUSED`).
+`--spmd-wave` decodes K request slots (K = the stage count) as one wave
+over the stages (`parallel/spmd_decode.py SpmdDecodePipeline`): every
+slot the same prompts, slot r sampling with seed `--seed` + r, each
+slot's tokens equal to its solo run. Stage i sits on card `i %
+device_count()`, as `runtime -c spmd` places stages, so on a one-card
+host the stages share it; `--edge-bits 4|8` sends the prompt hops through
+the codec kernels. With `--draft-model` the plain wave runs and the draft
+is not used, as in the JAX entry:
+
+    python -m pipeedge_tpu_torch.generate -m gpt2 \\
+        -pt 1,12,13,24,25,36,37,48 --spmd-wave -b 4 --prompt-len 64 \\
+        --new-tokens 32 --edge-bits 8
+
+`REFUSED` lists the JAX entry's flags the port does not run; it is empty.
 """
 from __future__ import annotations
 
@@ -103,10 +115,7 @@ from .sched.scheduler import sched_pipeline
 
 # `tools/generate.py` flags this entry refuses, each with the ROADMAP
 # item that ports it: flag -> (argparse keywords, item)
-REFUSED = {
-    "--spmd-wave": ({"action": "store_true"},
-                    "A7e, the SPMD wave decoder"),
-}
+REFUSED: dict = {}
 MONITOR_KEY = "decode"
 
 
@@ -182,6 +191,11 @@ def parse_args(argv: Optional[Sequence[str]] = None):
                              "concurrent requests (each of -b sequences) "
                              "through the wave executor; tokens match "
                              "solo runs per request")
+    parser.add_argument("--spmd-wave", action="store_true",
+                        help="decode n_stages request slots as one wave "
+                             "over the stages (stage i on card i mod the "
+                             "card count), the tokens staying on the "
+                             "device; greedy or --temperature sampling")
     parser.add_argument("--monitor", action="store_true",
                         help="record per-step heartbeats to decode.csv "
                              "(overwrites an existing decode.csv in cwd)")
@@ -189,8 +203,10 @@ def parse_args(argv: Optional[Sequence[str]] = None):
                         help="this process's rank in a DCN fleet")
     parser.add_argument("--edge-bits", default=0, type=int,
                         choices=[0, 2, 4, 6, 8, 16],
-                        help="quantize the DCN stage edges (QuantPipe "
-                             "activation compression; needs --dcn-addrs)")
+                        help="quantize stage edges (QuantPipe activation "
+                             "compression): DCN wire frames with "
+                             "--dcn-addrs, or the [B, S, D] prompt hops "
+                             "with --spmd-wave")
     parser.add_argument("--dcn-addrs", default=None, type=str,
                         help="comma-separated host:port per rank: run the "
                              "pipeline across OS processes over TCP (stage "
@@ -199,7 +215,8 @@ def parse_args(argv: Optional[Sequence[str]] = None):
     parser.add_argument("--save-ids", default=None, metavar="NPZ",
                         help="also write every generated row's ids (key "
                              "`ids`, [B, prompt + new]; [N, B, ...] with "
-                             "--concurrent) to NPZ; in a DCN fleet rank 0 "
+                             "--concurrent, [K, B, ...] with --spmd-wave) "
+                             "to NPZ; in a DCN fleet rank 0 "
                              "writes them")
     parser.add_argument("-sm", "--sched-models-file", default=None)
     parser.add_argument("-sdt", "--sched-dev-types-file", default=None)
@@ -229,7 +246,7 @@ def parse_args(argv: Optional[Sequence[str]] = None):
     given = [flag for flag in REFUSED
              if hasattr(args, flag.lstrip("-").replace("-", "_"))]
     sp, ep = args.sp, args.ep
-    spmd_wave = getattr(args, "spmd_wave", False)
+    spmd_wave = args.spmd_wave
     # the JAX entry's composition errors, word for word
     if args.new_tokens < 1:
         parser.error("--new-tokens must be >= 1")
@@ -523,6 +540,43 @@ def run_dcn(args, cfg, partition, max_len: int, dtype) -> Optional[np.ndarray]:
     return result
 
 
+def run_spmd_wave(args, cfg, partition, max_len: int, dtype) -> np.ndarray:
+    """`--spmd-wave` (`tools/generate.py run_spmd_wave`): n_stages request
+    slots of `prompt_ids` through `SpmdDecodePipeline`, slot r sampling
+    with seed `--seed` + r; one warm-up with the same token budget, then
+    the timed call. Returns the ids [K, B, prompt_len + new_tokens]."""
+    from .parallel import spmd
+    from .parallel.spmd_decode import SpmdDecodePipeline
+
+    n_stages = len(partition)
+    mesh = spmd.make_pipeline_mesh(n_stages, device=args.device)
+    stage_params = [registry.module_shard_factory(
+        args.model_name, args.model_file, l, r, stage=i, dtype=dtype,
+        device=mesh.cell(0, i).devices[0])[1]
+        for i, (l, r) in enumerate(partition)]
+    wave = SpmdDecodePipeline(
+        registry.get_model_entry(args.model_name).family.FAMILY, cfg,
+        partition, stage_params, mesh, max_len=max_len, dtype=dtype,
+        edge_bits=args.edge_bits, attend_floor=args.attend_floor)
+    # the solo and --concurrent runs' prompts, one copy per request slot
+    wave_ids = np.stack([prompt_ids(args, cfg)] * n_stages)
+    kw = dict(temperature=args.temperature, top_k=args.top_k,
+              seeds=[args.seed + r for r in range(n_stages)])
+    wave.generate(wave_ids, args.new_tokens, **kw).cpu()    # warm-up
+    tik = time.monotonic()
+    out = wave.generate(wave_ids, args.new_tokens, **kw).cpu().numpy()
+    dt = time.monotonic() - tik
+    n_tok = n_stages * args.batch_size * args.new_tokens
+    print(f"generated {n_stages}x{args.batch_size}x{args.new_tokens} "
+          f"tokens in {dt:.3f}s = {n_tok / dt:.1f} tok/s "
+          f"({n_stages} stages, SPMD wave decode)")
+    print("sample continuation ids:",
+          out[0, 0, args.prompt_len:].tolist())
+    print("kernel_launches=" + json.dumps(_build.launch_counts,
+                                          sort_keys=True))
+    return out
+
+
 def mesh_args(args):
     """The pipeline's mesh for `--tp/--sp/--ep` (`tools/generate.py`'s
     choice: the tp x ep grid when both are above 1, else the one axis
@@ -547,7 +601,8 @@ def mesh_args(args):
 def run(args) -> np.ndarray:
     """Build the pipeline, warm it up, time one generation and print the
     report lines; returns the generated ids [B, prompt_len + new_tokens]
-    ([N, B, ...] with `--concurrent N`)."""
+    ([N, B, ...] with `--concurrent N`, [K, B, ...] with `--spmd-wave`
+    over K stages)."""
     cfg = registry.get_model_config(args.model_name)
     dtype = torch.bfloat16 if args.dtype == "bfloat16" else torch.float32
     if args.partition:
@@ -561,6 +616,8 @@ def run(args) -> np.ndarray:
         max_len += args.gamma   # verify spans write past the last token
     if args.dcn_addrs is not None:
         return run_dcn(args, cfg, partition, max_len, dtype)
+    if args.spmd_wave:
+        return run_spmd_wave(args, cfg, partition, max_len, dtype)
     meshes, label = mesh_args(args)
     pipe = decode.build_decode_pipeline(
         args.model_name, partition, max_len=max_len,

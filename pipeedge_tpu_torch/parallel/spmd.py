@@ -129,12 +129,14 @@ def make_pipeline_mesh(n_stages: int, dp: int = 1, tp: int = 1, sp: int = 1,
     return PipelineMesh(devices[:need], dp, n_stages, inner, inner_name)
 
 
-def _encode(h: torch.Tensor, bit: int):
-    """The edge payload of one shard's stage output at `bit`."""
+def encode_edge(h: torch.Tensor, bit: int):
+    """The edge payload of one shard's stage output at `bit`: kernel 1 at
+    4 and 8 bits, the plain codec at other widths, the tensor at 0 (the
+    SPMD pipeline's and the wave decoder's edges)."""
     return h if bit == 0 else fused_quant.encode_outerdim(h, bit)
 
 
-def _decode(payload, dtype: torch.dtype) -> torch.Tensor:
+def decode_edge(payload, dtype: torch.dtype) -> torch.Tensor:
     """The activation an edge payload carries, in the stage's dtype."""
     if isinstance(payload, QuantizedTensor):
         return fused_quant.decode_outerdim(payload).to(dtype)
@@ -198,7 +200,7 @@ class SpmdPipeline:
                                          inputs[m, d * rows:(d + 1) * rows])
                     else:
                         payloads, dtype = edges.pop((d, s))
-                        xs = group.map(lambda i, e: _decode(e, dtype),
+                        xs = group.map(lambda i, e: decode_edge(e, dtype),
                                        payloads)
                     for bp in params["blocks"][s][d]:
                         xs = block_fn(bp, xs, group)
@@ -207,7 +209,7 @@ class SpmdPipeline:
                                                        xs, group)
                     else:
                         bit = self.stage_bits[s]
-                        enc = group.map(lambda i, h: _encode(h, bit), xs)
+                        enc = group.map(lambda i, h: encode_edge(h, bit), xs)
                         edges[(d, s + 1)] = (mesh.hop(enc, d, s),
                                              xs[0].dtype)
         root = mesh.cell(0, n - 1).devices[0]

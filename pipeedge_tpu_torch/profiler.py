@@ -303,6 +303,8 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                         help="batch size")
     parser.add_argument("-t", "--dtype", default="float32",
                         choices=sorted(DTYPES), help="compute dtype")
+    parser.add_argument("-w", "--warmup", action="store_true", default=True,
+                        help="perform a warmup iteration")
     parser.add_argument("--no-warmup", action="store_false", dest="warmup",
                         help="time without the untimed warm-up run")
     parser.add_argument("-i", "--iterations", default=16, type=int,

@@ -576,10 +576,27 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                      "the port runs on --device cuda (default) or --device "
                      "cpu")
     dcn = args.comm == "dcn"
+    # runtime.py's driver-mode and composition errors, word for word and
+    # in its order
+    if args.stage_ckpt and not dcn:
+        parser.error("--stage-ckpt is a dcn-mode option (per-rank restore); "
+                     "single-controller drivers load via -M/--model-file")
+    if args.rank != 0 and not dcn:
+        return args             # main() warns and returns, exit 0
     n_rounds = max(len(v.split(";")) for v in
                    (args.partition or "", args.quant or "",
                     args.rank_order or ""))
-    # runtime.py's composition errors, word for word
+    if n_rounds > 1 and not dcn:
+        parser.error("';'-separated re-schedule rounds require --comm dcn")
+    if args.rounds < 1:
+        parser.error("--rounds must be >= 1")
+    if args.rounds > 1:
+        if not dcn:
+            parser.error("--rounds requires --comm dcn (use "
+                         "--measure-rounds for the host driver)")
+        if n_rounds > 1:
+            parser.error("--rounds cannot combine with ';'-separated "
+                         "re-schedule rounds (pick one)")
     pt_rounds = args.partition.split(";") if args.partition else [None]
     if args.rebalance == "auto":
         if args.comm == "spmd":
@@ -656,28 +673,13 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                 if (l - 1) % 4 or r % 4:
                     parser.error(f"--stage-tp requires block-aligned "
                                  f"stages; [{l}, {r}] cuts mid-block")
-    if not dcn:
-        for flag, given in (("--stage-ckpt", args.stage_ckpt),
-                            ("--rounds", args.rounds != 1)):
-            if given:
-                parser.error(f"{flag} is a -c dcn option")
-        if n_rounds > 1:
-            parser.error("';'-separated re-schedule rounds require -c dcn")
-        if args.rank != 0:
-            parser.error("the host driver is a single controller: rank "
-                         "must be 0")
-    else:
+    if dcn:
         if not 0 <= args.rank < args.worldsize:
             parser.error(f"rank {args.rank} is outside the world of "
                          f"{args.worldsize}")
         if not 0 <= args.data_rank < args.worldsize:
             parser.error(f"-D {args.data_rank} is outside the world of "
                          f"{args.worldsize}")
-        if args.rounds < 1:
-            parser.error("--rounds must be >= 1")
-        if args.rounds > 1 and n_rounds > 1:
-            parser.error("--rounds cannot combine with ';'-separated "
-                         "re-schedule rounds (pick one)")
         for opt, spec in (("-pt", args.partition), ("-q", args.quant),
                           ("-r", args.rank_order)):
             k = len(spec.split(";")) if spec else 1
@@ -3127,6 +3129,12 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
                         format="%(asctime)s %(levelname)s %(name)s: "
                                "%(message)s")
     args = parse_args(argv)
+    if args.rank != 0 and args.comm != "dcn":
+        logger.warning("Single-controller runtime: only rank 0 runs; "
+                       "rank %d exits immediately (all devices are driven "
+                       "from rank 0). Use --comm dcn for one-process-per-"
+                       "rank operation.", args.rank)
+        return
     if args.comm == "dcn":
         main_dcn(args)
         return

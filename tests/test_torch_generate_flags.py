@@ -4,9 +4,9 @@ and `-sm/-sdt/-sd`, and the flags both entries refuse.
 - Every composition error of `pipeedge_tpu_torch.generate` is the JAX
   entry's (`tools/generate.py`), word for word, on the same command line.
 - The flags that need a layout the port does not run yet are refused at
-  parse time, naming their ROADMAP item: generate's `--spmd-wave`, and
-  `runtime.py`'s flags the port's runtime does not run; the multi-GPU
-  flags the port runs (`--tp`, `--sp`, `--ep`, `--stage-tp`,
+  parse time, naming their ROADMAP item: `runtime.py`'s flags the port's
+  runtime does not run (generate's table is empty); the multi-GPU flags
+  the port runs (`--tp`, `--sp`, `--ep`, `--spmd-wave`, `--stage-tp`,
   `--tp-quant-bits`, `--spmd-dp/-tp/-sp/-sp-kind`) parse.
 - `--concurrent N` on the tiny GPT-2: every request's tokens equal its
   solo run (fp and int8 caches, with and without a shared prefix).
@@ -81,18 +81,22 @@ def test_compose_errors_are_the_jax_entry_s(case, monkeypatch):
     assert got == want
 
 
-GEN_REFUSED = {"--spmd-wave": []}
-# the flags that left the refused table, each with a value: they parse
-GEN_PORTED = {"--sp": ["2"], "--ep": ["2"]}
+GEN_REFUSED: dict = {}
+# the flags that left the refused table, each with its value and the
+# argument it reaches: they parse (the wave decoder itself runs in
+# tests/test_torch_generate_spmd_wave.py)
+GEN_PORTED = {"--sp": (["2"], 2), "--ep": (["2"], 2),
+              "--spmd-wave": ([], True)}
 
 
 @pytest.mark.parametrize("flag", sorted(GEN_PORTED) + sorted(GEN_REFUSED))
 def test_generate_refuses_naming_the_item(flag):
     assert set(GEN_REFUSED) == set(generate.REFUSED)
     if flag in GEN_PORTED:
-        args = generate.parse_args(BASE + [flag] + GEN_PORTED[flag]
+        value, want = GEN_PORTED[flag]
+        args = generate.parse_args(BASE + [flag] + value
                                    + ["--device", "cpu"])
-        assert getattr(args, flag[2:]) == 2
+        assert getattr(args, flag[2:].replace("-", "_")) == want
         return
     msg = _error(lambda: generate.parse_args(
         BASE + [flag] + GEN_REFUSED[flag]))
@@ -214,7 +218,7 @@ def test_runtime_parses_the_dcn_flags(flag):
     args = runtime.parse_args(["1", "2", "-c", "dcn", flag]
                               + DCN_FLAGS[flag])
     assert args.comm == "dcn" and args.rank == 1
-    assert generate.REFUSED["--spmd-wave"][1].startswith("A7e")
+    assert "--spmd-wave" not in generate.REFUSED
 
 
 def test_runtime_parses_failover_with_the_fault_flags():
