@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py [--ab-parent DIR] [--ab-entry-parent ROOT]
                           [--profiles-out DIR]
+    python3 chip_smoke.py --spmd-memory [ROOT]
 
 Phases, each of which raises on failure (nothing is caught):
   1. card and toolchain: `nvidia-smi` name and power limit, torch and CUDA;
@@ -33,6 +34,15 @@ Phases, each of which raises on failure (nothing is caught):
        bf16) and the MoE GPT-2's causal [8, 128, 12, 64] f32, and phase
        23's [4, 197, 6, 64], [8, 64, 16, 64] and [4, 64, 8, 64] f32, within
        the tolerances stated below, each timed beside SDPA;
+     - kernel 3's backward (`csrc/attention_bwd.cu`) against
+       `attention_backward_reference` on the same q, k, v, dO and the
+       forward kernel's o and LSE (the LSE itself against
+       `attention_lse_reference`), within ATTN_BWD_TOL of max |grad|, at
+       ViT-Base [8, 197, 12, 64] f32, GPT-2 causal [2, 1024, 12, 64] f32
+       and bf16, a Llama head group causal [1, 512, 32, 128] bf16 and the
+       tiny head dim 8 [8, 64, 4, 8] f32, each timed beside the plain
+       backward and SDPA's backward (its autograd call's kernels in a
+       CUDA graph, on the stream of its forward, as the kernel is timed);
      - the plain codec on the card at every bitwidth an adaptive policy
        can pick (32, 16, 10, 8, 6, 5, 4, 3, 2) at the edges of phases 8
        and 9, DeiT-B's [8, 198, 768] and BERT-Base's [8, 64, 768]: words,
@@ -121,12 +131,13 @@ Phases, each of which raises on failure (nothing is caught):
        microbatch's logits must equal, bit for bit, its replay through
        the same pipeline at the bits it travelled with (a second
        replay only for a microbatch whose first replay differs);
-     - `python -m pipeedge_tpu_torch.runtime` once, 8 stages, HEURISTIC;
+     - the runtime entry once through its `main` in this process, 8
+       stages, HEURISTIC;
   9. BERT-Base CoLA (`textattack/bert-base-uncased-CoLA`, BASELINE config
      4) at full width (vocab 30522, 2 labels, 64 int32 token ids per
-     item): `python -m pipeedge_tpu_torch.runtime 0 2 -m ... -pt
-     1,24,25,48 -q 8,0 -b 64 -u 8` as a subprocess (12 attention
-     launches per microbatch, one encode and one decode per microbatch);
+     item): the runtime entry `0 2 -m ... -pt 1,24,25,48 -q 8,0 -b 64 -u
+     8` through its `main` in this process (12 attention launches per
+     microbatch, one encode and one decode per microbatch);
      then in process, seeded weights in the HF npz keys, the 2-stage
      pipeline at bit 0 equal to the single-shard forward and at 8 bits
      within the stated bound, one profiled pass at 8 bits; then the tiny
@@ -142,9 +153,10 @@ Phases, each of which raises on failure (nothing is caught):
      card's memory in MiB, 450 GB/s of NVLink 4 in Mbit/s), devices.yml
      names four hosts, and the native `sched-pipeline` (built from
      `native/` by the port) must give 4 stages covering 1..96, one per
-     host. `python -m pipeedge_tpu_torch.runtime 0 4 -m
-     google/vit-large-patch16-224 -M ... -sm -sdt -sd -H ... -b 64 -u 8
-     --measure-rounds 2 --save-results ...` must exit 0, log the
+     host. The runtime entry `0 4 -m google/vit-large-patch16-224 -M
+     ... -sm -sdt -sd -H ... -b 64 -u 8 --measure-rounds 2
+     --save-results ...`, through its `main` in this process, must
+     return, log the
      scheduler's partition and hosts, launch kernel 3 24 times per
      microbatch and save logits equal, bit for bit, to the single-shard
      forward of the same weights on the same inputs. The scheduler's
@@ -152,7 +164,8 @@ Phases, each of which raises on failure (nothing is caught):
      time), the one-card prediction (over the sum of the stages' times)
      and the measured steady items/s are printed side by side. Then
      BASELINE configs 1 (`0 1`) and 2 (`-pt 1,24,25,48`) of ViT-Base
-     through the entry, rc 0 each. With `--profiles-out DIR` the
+     through the entry's `main` in this process, each one report line
+     and its launches. With `--profiles-out DIR` the
      profiles and scheduler files are also written to DIR, each opening
      with a comment line naming the card and its power limit.
  11. GPT-2 serving at full width (`pipeedge_tpu_torch/serve.py`, in
@@ -323,9 +336,10 @@ Phases, each of which raises on failure (nothing is caught):
      microbatch over both ranks); items/s per round beside phase 4's
      host pipeline, each edge's Mbit/s from `send.csv`/`recv.csv`;
      (b) DeiT-Base, 3 ranks (`-pt 1,16,17,32,33,48 -q 8,8,0 --wire-crc`):
-     an unconstrained fleet measures edge 0's rate on rank 0's send hook,
-     then HEURISTIC (WINDOW_SIZE ADAPTIVE_WINDOW) against ADAPTIVE_SHARE
-     times it: an edge moves off 8 bits, each microbatch's bits per edge
+     HEURISTIC (WINDOW_SIZE ADAPTIVE_WINDOW) against phase 8's constraint
+     (ADAPTIVE_SHARE times edge 0's items/s in process, beyond what a
+     socket edge carries): an edge moves off 8 bits, each microbatch's
+     bits per edge
      read from the frame bytes the receiving rank's recv hook recorded,
      each result equal to its replay through the host pipeline (clamp
      off) at those bits (REPLAY_BOUND as in phase 8), the codec launches
@@ -523,7 +537,8 @@ Phases, each of which raises on failure (nothing is caught):
      3 96 per run in (a), 384 in (b), 192 unsharded, 0 ring and 768
      Ulysses in (c); kernels 1 and 2 8 per quantized edge in (a), n^2 =
      4 encodes and 2n(n-1) = 4 decodes per `qpsum` in (b) at 8 bits (384
-     all-reduces a run). Printed: each run's items/s and seconds.
+     all-reduces a run). Printed: each run's items/s and seconds, and
+     the device memory allocated before it and at its peak.
  24. the SPMD wave decoder (`parallel/spmd_decode.py`): GPT-2 at full
      width and depth (phase 6's npz) in 4 stages of 3 blocks on the one
      card, R = 4 slots of batch 4, 64-token prompts (all opening with
@@ -554,6 +569,21 @@ Phases, each of which raises on failure (nothing is caught):
      16 equal to each slot's solo run.
      Printed: tokens/s of the wave, the solo runs one after another, the
      entries and the speculative waves.
+ 25. training on the card (`parallel/train.py`), through
+     `pipeedge_tpu_torch.train.main` in this process, seeded weights and
+     data as the entry draws them:
+     (a) ViT-Base in 2 stages (`-pt 1,24,25,48 -u 4 -b 8`, Adam, 5
+     steps): the loss falls; the first step's loss and gradients at `-b
+     2` on the card within TRAIN_GRAD_TOL of the same step on the CPU
+     (the plain path); a run of 3 steps that checkpoints and a run that
+     resumes from it for steps 4-5 end at the uninterrupted run's loss
+     (TRAIN_RESUME_TOL);
+     (b) GPT-2 in 4 stages at `--seq-len 1024` (microbatches [2, 1023]),
+     `--mixed-precision --remat`, SGD, 5 steps: the loss falls.
+     Kernel 3's backward launches blocks x M x dp a step in both, and its
+     forward as many, twice that under remat (`train_launches`).
+     Printed: steps/s, peak `torch.cuda.max_memory_allocated` and the
+     seconds of each run.
 Phase 3 also holds kernel 5 (decode attention) against its plain version
 at the main path's shapes (windows of a [16, 1024, 12, 64] stage cache at
 buckets 256 and 512, and pos 1000 of the whole cache), pos 0 and W-1,
@@ -568,7 +598,11 @@ checkout's root, e.g. the parent commit's unpacked under the gitignored
 `pipeedge_tpu_torch/_build/`), the ViT entry of the runtime (`-pt
 1,21,22,48 -q 8,0 -b 64 -u 8`, 5 rounds) then runs from that checkout and
 from this one in the order parent, this, this, parent, twice, and each
-run's items/s is printed.
+run's items/s is printed. `--spmd-memory [ROOT]` runs only phase
+23(b)'s dp 2 x tp 2 entry at `--tp-quant-bits 0`, with the port imported
+from the checkout at ROOT (default this one), and prints the device
+memory resident before it and at its peak: run once per checkout, in a
+process each, it compares versions.
 Then one `{"kernels": [...]}` JSON line and, last, the device line
 `{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}`.
 
@@ -579,6 +613,7 @@ from __future__ import annotations
 import contextlib
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -612,6 +647,13 @@ ATTN_PEAK_FLOPS = {torch.float32: ATTN_F32_FLOPS,
 # bf16, which may land one bf16 ulp (2^-8 relative) apart.
 ATTN_TOL = {torch.float32: dict(rtol=2e-4, atol=2e-5),
             torch.bfloat16: dict(rtol=1e-2, atol=1e-2)}
+# Kernel 3's backward against its plain version, each of dq, dk, dv as a
+# share of its own max |grad|: f32 (full f32 FMAs against f32 matmuls,
+# summed in other orders, from an LSE of 3xTF32 scores) 1e-4; bf16 (both
+# round one f32 result to bf16, 2^-8 relative) 2e-2. The kernel's LSE
+# against the plain log-sum-exp: 1e-3 absolute (base-2 units).
+ATTN_BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+ATTN_LSE_TOL = 1e-3
 
 # Quantized-edge logits against the exact single-shard logits, as a share
 # of max |exact logit|. The JAX package's own pipeline test bounds 8-bit
@@ -887,11 +929,13 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def time_ms(fn, iters: int = 20, reps: int = 7) -> float:
+def time_ms(fn, iters: int = 20, reps: int = 7, stream=None) -> float:
     """Device time of one `fn()` call: a CUDA graph of `iters` calls,
     replayed `reps` times between CUDA events; the median per call.
     Inputs stay in L2 between calls, as they are on the main path, where
-    the producer has just written them.
+    the producer has just written them. `stream`: the side stream to warm
+    up and capture on (an autograd backward launches on its forward's
+    stream, so timing one takes the stream its forward ran on).
 
     Cold L2: `fn` may be a list of callables, each over its own copy of
     the inputs (`cold_copies`); the captured calls then rotate over them
@@ -900,14 +944,14 @@ def time_ms(fn, iters: int = 20, reps: int = 7) -> float:
     cache window one full step after it last read it."""
     fns = fn if isinstance(fn, list) else [fn]
     iters = max(iters, len(fns))
-    side = torch.cuda.Stream()
+    side = torch.cuda.Stream() if stream is None else stream
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
         for f in fns * (3 if len(fns) == 1 else 1):
             f()
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with torch.cuda.graph(graph, stream=stream):
         for i in range(iters):
             fns[i % len(fns)]()
     graph.replay()
@@ -1170,6 +1214,99 @@ def check_attention(dev, gen):
                    library_ms=time_ms(library), bound_ms=bound,
                    bound_by=bound_by)
         log("attention " + json.dumps(row))
+        rows.append(row)
+    return rows
+
+
+# phase 3: kernel 3's backward at the training path's shapes: ViT-Base
+# (phase 25(a)), GPT-2 at S = 1024 in f32 and bf16 (25(b) runs bf16 at S =
+# 1023), a Llama head group at head dim 128 and the tiny head dim 8
+ATTN_BWD_CASES = [((8, 197, 12, 64), torch.float32, False),
+                  ((2, 1024, 12, 64), torch.float32, True),
+                  ((2, 1024, 12, 64), torch.bfloat16, True),
+                  ((1, 512, 32, 128), torch.bfloat16, True),
+                  ((8, 64, 4, 8), torch.float32, False)]
+
+
+def attention_bwd_bound_ms(b, h, s, d, dtype, causal):
+    """The backward's least time: q, k, v, o, dO and the LSE read once,
+    dq, dk, dv written once; five products of 2 x pairs x D flops per
+    head (P, dO V^T, dV, dQ, dK), at the peak of the inputs' type."""
+    elem = torch.tensor([], dtype=dtype).element_size()
+    nbytes = 8 * b * h * s * d * elem + 4 * b * h * s
+    pairs = s * (s + 1) // 2 if causal else s * s
+    flops = 10 * b * h * pairs * d
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = flops / ATTN_PEAK_FLOPS[dtype]
+    return max(t_bytes, t_ops) * 1e3, ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def check_attention_backward(dev, gen):
+    """Kernel 3's backward against `attention_backward_reference` on the
+    same inputs and the forward kernel's o and LSE (ATTN_BWD_CASES); each
+    timed beside the plain backward and SDPA's (the library yardstick,
+    called here only)."""
+    import torch.nn.functional as F
+    from pipeedge_tpu_torch.ops import attention
+    flip = (0, 2, 1, 3)
+    rows = []
+    for shape, dtype, causal in ATTN_BWD_CASES:
+        q, k, v, do = (torch.randn(shape, generator=gen, device=dev).to(dtype)
+                       for _ in range(4))
+        o, lse = attention.fused_attention_lse(q, k, v, causal)
+        lse_err = float((lse - attention.attention_lse_reference(
+            q.permute(flip), k.permute(flip), causal)).abs().max())
+
+        def kern():
+            return attention.fused_attention_backward(q, k, v, o, do, lse,
+                                                      causal)
+
+        def plain():
+            return attention.attention_backward_reference(
+                *(t.permute(flip) for t in (q, k, v, o, do)), lse, causal)
+
+        got = kern()
+        want = [w.permute(flip) for w in plain()]
+        torch.cuda.synchronize()
+        diffs = {name: float((g.float() - w.float()).abs().max())
+                 for name, g, w in zip(("dq", "dk", "dv"), got, want)}
+        errs = {name: diffs[name] / float(w.float().abs().max())
+                for name, w in zip(("dq", "dk", "dv"), want)}
+        if max(errs.values()) > ATTN_BWD_TOL[dtype] or \
+                lse_err > ATTN_LSE_TOL or \
+                not all(bool(torch.isfinite(g).all()) for g in got):
+            raise AssertionError(
+                f"attention backward {list(shape)} {dtype} causal={causal}: "
+                f"errors {errs} (limit {ATTN_BWD_TOL[dtype]} of max |grad|), "
+                f"lse {lse_err} (limit {ATTN_LSE_TOL})")
+        # SDPA's backward alone, on the stream its forward ran on, timed
+        # as the kernel is (a CUDA graph of the autograd call's kernels)
+        sdpa_stream = torch.cuda.Stream()
+        sdpa_stream.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(sdpa_stream):
+            leaves = [t.permute(flip).detach().requires_grad_(True)
+                      for t in (q, k, v)]
+            sdpa_out = F.scaled_dot_product_attention(*leaves,
+                                                      is_causal=causal)
+            sdpa_do = do.permute(flip)
+            sdpa_backend = sdpa_out.grad_fn.name()
+
+        def library():
+            return torch.autograd.grad(sdpa_out, leaves, sdpa_do,
+                                       retain_graph=True)
+
+        b, s, h, d = shape
+        bound, bound_by = attention_bwd_bound_ms(b, h, s, d, dtype, causal)
+        row = dict(shape=list(shape), dtype=str(dtype).replace("torch.", ""),
+                   causal=causal, max_abs_err=max(diffs.values()),
+                   rel_errs=errs, lse_max_abs_err=lse_err,
+                   ms=time_ms(kern), plain_ms=time_ms(plain),
+                   library_ms=time_ms(library, stream=sdpa_stream),
+                   library_op=sdpa_backend, bound_ms=bound,
+                   bound_by=bound_by)
+        del sdpa_out
+        log("attention backward " + json.dumps(row))
         rows.append(row)
     return rows
 
@@ -2396,12 +2533,13 @@ def deit_path(device: str, model: str = DEIT_MODEL,
 
     # the runtime entry itself, 8 stages, HEURISTIC against that constraint
     pt = ",".join(f"{l},{r}" for l, r in partition)
-    res["entry"] = run_entry(
+    res["entry"] = run_entry_here(
         ["0", str(len(partition)), "-m", model, "-pt", pt,
          "-q", ",".join(["8"] * edges + ["0"]), "-b", str(BATCH),
          "-u", str(UBATCH), "--device", torch.device(device).type],
-        {"ADAPTIVE_QUANT": "HEURISTIC", "WINDOW_SIZE": str(window),
-         "SEND_CONSTRAINT": repr(constraint)}, monitor_dir)
+        monitor_dir, {"ADAPTIVE_QUANT": "HEURISTIC",
+                      "WINDOW_SIZE": str(window),
+                      "SEND_CONSTRAINT": repr(constraint)})
     res["entry"]["expected"] = {"fused_attention": blocks * n_mb
                                 if on_card else 0}
     return res
@@ -2441,6 +2579,76 @@ def run_entry(argv, env_extra: dict, cwd: Path) -> dict:
         sched_log=[ln.split("Scheduling: ", 1)[1]
                    for ln in proc.stderr.splitlines()
                    if "Scheduling: stage-to-" in ln])
+
+
+def run_entry_here(argv, cwd: Path, env_extra=None) -> dict:
+    """`run_entry` without the process: `pipeedge_tpu_torch.runtime.main
+    (ARGV)` in this process, in `cwd` (its monitoring CSVs), with
+    `env_extra` set in the environment for the call (the entry reads its
+    adaptive-policy variables when it runs), its stdout and its logged
+    schedule read as `run_entry` reads them."""
+    import io
+    import logging
+    from pipeedge_tpu_torch import runtime
+    from pipeedge_tpu_torch.ops import _build
+    cwd.mkdir(parents=True, exist_ok=True)
+    sched, out = [], io.StringIO()
+
+    class Keep(logging.Handler):
+        def emit(self, record):
+            msg = record.getMessage()
+            if msg.startswith("Scheduling: stage-to-"):
+                sched.append(msg.split("Scheduling: ", 1)[1])
+
+    # the entry's records reach `keep` and no stream: a handler on the
+    # root makes the entry's logging.basicConfig a no-op, as its stderr
+    # was the subprocess's own
+    keep, rt_log = Keep(), logging.getLogger(runtime.__name__)
+    quiet = logging.NullHandler()
+    level = rt_log.level
+    rt_log.setLevel(logging.INFO)
+    rt_log.addHandler(keep)
+    logging.getLogger().addHandler(quiet)
+    here = os.getcwd()
+    env_extra = env_extra or {}
+    saved_env = {key: os.environ.get(key) for key in env_extra}
+    os.environ.update(env_extra)
+    _build.reset_launch_counts()   # the entry prints the process's tally
+    t0 = time.monotonic()
+    try:
+        os.chdir(cwd)
+        with contextlib.redirect_stdout(out):
+            runtime.main(argv)
+    finally:
+        os.chdir(here)
+        for key, value in saved_env.items():
+            if value is None:
+                os.environ.pop(key, None)
+            else:
+                os.environ[key] = value
+        rt_log.removeHandler(keep)
+        rt_log.setLevel(level)
+        logging.getLogger().removeHandler(quiet)
+    lines = out.getvalue().splitlines()
+    for line in lines:
+        log("runtime entry: " + line)
+
+    def value(prefix):
+        found = [json.loads(ln.split("=", 1)[1]) for ln in lines
+                 if ln.startswith(prefix + "=")]
+        return found[0] if len(found) == 1 else None
+
+    steady = [float(ln.split("=", 1)[1]) for ln in lines
+              if ln.startswith("steady_state_throughput_items_sec=")]
+    return dict(command=" ".join(
+        ["in process:"] + [f"{k}={v}" for k, v in env_extra.items()]
+        + ["-m", "pipeedge_tpu_torch.runtime"] + list(argv)),
+                seconds=time.monotonic() - t0,
+                kernel_launches=value("kernel_launches"),
+                edge_bits=value("edge_bits"),
+                report=[ln for ln in lines if ln.startswith("latency_sec=")],
+                steady_items_per_s=steady[-1] if steady else None,
+                sched_log=sched)
 
 
 def ab_entry(parent_root: Path) -> list:
@@ -2564,11 +2772,10 @@ def bert_path(device: str, model: str = BERT_MODEL, partition=BERT_PARTITION,
     n_mb = BATCH // UBATCH
     edge_tensors = sum(edge_arity(r) for _, r in partition[:-1])
     pt = ",".join(f"{l},{r}" for l, r in partition)
-    res = {"entry": run_entry(
+    res = {"entry": run_entry_here(
         ["0", str(len(partition)), "-m", model, "-pt", pt, "-q", "8,0",
          "-b", str(BATCH), "-u", str(UBATCH),
-         "--device", torch.device(device).type], {},
-        weights_dir / "monitor")}
+         "--device", torch.device(device).type], weights_dir / "monitor")}
     res["entry"]["expected"] = {
         "fused_attention": blocks * n_mb if on_card else 0,
         "fused_encode": edge_tensors * n_mb if on_card else 0,
@@ -2780,14 +2987,14 @@ def sched_path(card: str, profiles_out=None) -> dict:
         res["one_card_items_per_s"] = UBATCH / sum(stage_s)
 
         saved = tmp / "results.npz"
-        entry = run_entry(
+        entry = run_entry_here(
             ["0", str(len(SCHED_HOSTS)), "-m", SCHED_MODEL,
              "-M", str(weights[SCHED_MODEL]), "-sm", str(files["models"]),
              "-sdt", str(files["device_types"]),
              "-sd", str(files["devices"]), "-H", ",".join(SCHED_HOSTS),
              "-b", str(BATCH), "-u", str(UBATCH),
              "--measure-rounds", str(SCHED_ROUNDS),
-             "--save-results", str(saved), "--device", device], {},
+             "--save-results", str(saved), "--device", device],
             weights_dir / "monitor")
         blocks = registry.get_model_config(SCHED_MODEL).num_hidden_layers
         entry["expected"] = {
@@ -2837,20 +3044,16 @@ def sched_path(card: str, profiles_out=None) -> dict:
                                                       path.read_text())
             log(f"profiles written to {profiles_out}")
 
-    # BASELINE configs 1 and 2 at once, each its own process and
-    # monitoring directory (one after the other until PR 17: phase 20's
-    # room; their items/s are logged, not gated)
-    from concurrent.futures import ThreadPoolExecutor
+    # BASELINE configs 1 and 2 through the entry in this process, each
+    # with its own monitoring directory (a process each would spend most
+    # of its time starting up; their items/s are logged, not gated)
     configs = {"config 1": ["0", "1"],
                "config 2": ["0", "2", "-pt", BASELINE_PARTITION]}
-    with ThreadPoolExecutor(len(configs)) as pool:
-        futs = {name: pool.submit(
-            run_entry, argv + ["-m", MODEL, "-M", str(weights[MODEL]),
-                               "-b", str(BATCH), "-u", str(UBATCH),
-                               "--device", device], {},
-            weights_dir / "monitor" / name.replace(" ", ""))
-            for name, argv in configs.items()}
-        res["baseline"] = {name: f.result() for name, f in futs.items()}
+    res["baseline"] = {name: run_entry_here(
+        argv + ["-m", MODEL, "-M", str(weights[MODEL]), "-b", str(BATCH),
+                "-u", str(UBATCH), "--device", device],
+        weights_dir / "monitor" / name.replace(" ", ""))
+        for name, argv in configs.items()}
     blocks = registry.get_model_config(MODEL).num_hidden_layers
     for e in res["baseline"].values():
         e["expected"] = {"fused_attention": blocks * n_mb,
@@ -5710,14 +5913,18 @@ def frame_bits_table(shapes, bits, crc: bool) -> dict:
     return table
 
 
-def dcn_deit_path(weights_file: Path) -> dict:
+def dcn_deit_path(weights_file: Path, constraint: float) -> dict:
     """Phase 16b: DeiT-Base in 3 ranks with `--wire-crc`, every edge
-    starting at 8 bits: an unconstrained fleet measures edge 0's rate on
-    rank 0's send hook; then a fleet under ADAPTIVE_QUANT=HEURISTIC,
-    WINDOW_SIZE=ADAPTIVE_WINDOW and a SEND_CONSTRAINT of ADAPTIVE_SHARE
-    times that rate. Each microbatch's bits per edge come from the frame
-    bytes the receiving rank's recv hook recorded; each result is
-    replayed through the host pipeline (clamp off) at those bits."""
+    starting at 8 bits, under ADAPTIVE_QUANT=HEURISTIC, WINDOW_SIZE=
+    ADAPTIVE_WINDOW and a SEND_CONSTRAINT of `constraint` items/s: phase
+    8's, ADAPTIVE_SHARE times the items/s edge 0 of the same model carried
+    in process, more than a socket edge carries, so the policy must
+    compress (a fleet of its own measuring edge 0's socket rate would
+    cost a fleet's start-up for a number only this constraint reads). Each
+    microbatch's bits per edge
+    come from the frame bytes the receiving rank's recv hook recorded;
+    each result is replayed through the host pipeline (clamp off) at those
+    bits."""
     from pipeedge_tpu_torch import runtime
     from pipeedge_tpu_torch.models import edge_arity, registry
     from pipeedge_tpu_torch.parallel.pipeline import build_pipeline
@@ -5735,11 +5942,6 @@ def dcn_deit_path(weights_file: Path) -> dict:
             "-r", ",".join(str(r) for r in range(world)), "-b", str(BATCH),
             "-u", str(ubatch), "--wire-crc", "--save-results",
             "results.npz", "--sched-timeout", "300"]
-    free = dcn_fleet(argv, world, BUILD_DIR / "dcn_deit_free")
-    free_rows = read_csv(free["dirs"][0] / "send.csv")
-    ns = sum(float(r["Time (ns)"]) for r in free_rows)
-    edge0_items_s = len(free_rows) / (ns / 1e9) * ubatch
-    constraint = ADAPTIVE_SHARE * edge0_items_s
     run = dcn_fleet(argv, world, BUILD_DIR / "dcn_deit",
                     env_extra={"ADAPTIVE_QUANT": "HEURISTIC",
                                "WINDOW_SIZE": str(ADAPTIVE_WINDOW),
@@ -5789,14 +5991,10 @@ def dcn_deit_path(weights_file: Path) -> dict:
         expected_counts=expected, replay_equal=equal,
         replay_repeat_equal=repeat_equal, replay_rel_gap=max(gaps),
         finite=all(bool(np.isfinite(o).all()) for o in outs),
-        n=len(outs), edge0_items_s=edge0_items_s,
-        edge0_mbit_s=csv_mbit_s(free_rows),
-        send_constraint_items_s=constraint,
-        items_per_s={"unconstrained": free["report"][0][
-            "throughput_items_sec"], "adaptive": run["report"][0][
-            "throughput_items_sec"]},
-        seconds={"unconstrained": free["seconds"],
-                 "adaptive": run["seconds"]},
+        n=len(outs), send_constraint_items_s=constraint,
+        edge0_mbit_s=csv_mbit_s(read_csv(run["dirs"][0] / "send.csv")),
+        items_per_s={"adaptive": run["report"][0]["throughput_items_sec"]},
+        seconds={"adaptive": run["seconds"]},
         crc_checked="--wire-crc" in argv)
 
 
@@ -5903,9 +6101,11 @@ def dcn_abort_path(weights_file: Path) -> dict:
                 tail=out[-1500:])
 
 
-def dcn_path(card: str, host: dict, alongside=None) -> dict:
+def dcn_path(card: str, host: dict, deit_constraint: float,
+             alongside=None) -> dict:
     """Phase 16 (a)-(d) on the card, (d) beside (b) for the script's
-    time; each sub-run's seconds printed.
+    time; each sub-run's seconds printed. `deit_constraint`: (b)'s
+    SEND_CONSTRAINT (phase 8's).
     `alongside`, a callable, runs beside (b) and (d) (phase 21b's fleets);
     its result is `res["alongside"]`."""
     from concurrent.futures import ThreadPoolExecutor
@@ -5931,7 +6131,7 @@ def dcn_path(card: str, host: dict, alongside=None) -> dict:
     with ThreadPoolExecutor(2) as pool:
         abort = pool.submit(timed_run, "d", dcn_abort_path, vit_w)
         beside = None if alongside is None else pool.submit(alongside)
-        res["deit"] = timed_run("b", dcn_deit_path, deit_w)
+        res["deit"] = timed_run("b", dcn_deit_path, deit_w, deit_constraint)
         res["abort"] = abort.result()
         if beside is not None:
             res["alongside"] = beside.result()
@@ -8856,7 +9056,9 @@ def spmd_entry(argv, name: str) -> dict:
     """`python -m pipeedge_tpu_torch.runtime` with `argv`, in this
     process (its output captured and logged), in `_build/spmd/`: its
     report line, launches (counts set to 0 just before: the entry's
-    warm-up and timed runs), saved results and seconds."""
+    warm-up and timed runs), saved results, seconds, and the device
+    memory allocated before it (`resident_mib`) and at its peak
+    (`peak_mib`, weights included)."""
     import io
     from pipeedge_tpu_torch import runtime
     from pipeedge_tpu_torch.ops import _build
@@ -8865,11 +9067,15 @@ def spmd_entry(argv, name: str) -> dict:
     work.mkdir(parents=True, exist_ok=True)
     saved = work / f"{name}.npz"
     out = io.StringIO()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
     _build.reset_launch_counts()
     t0 = time.monotonic()
     with contextlib.chdir(work), contextlib.redirect_stdout(out):
         runtime.main(argv + ["--save-results", str(saved)])
     seconds = time.monotonic() - t0
+    peak = torch.cuda.max_memory_allocated()
     lines = out.getvalue().splitlines()
     for line in lines:
         log(f"[{name}] {line}")
@@ -8879,7 +9085,67 @@ def spmd_entry(argv, name: str) -> dict:
     return dict(name=name, seconds=seconds,
                 latency_s=float(report.split()[0].split("=")[1]),
                 items_per_s=float(report.split("throughput_items_sec=")[1]),
-                counts=dict(_build.launch_counts), results=results)
+                counts=dict(_build.launch_counts), results=results,
+                resident_mib=resident / 2**20, peak_mib=peak / 2**20)
+
+
+def spmd_memory(root: Path) -> dict:
+    """Phase 23(b)'s dp 2 x tp 2 pipeline with the port imported from the
+    checkout at `root` (this one or another version, to compare them),
+    device memory in MiB above what was allocated before: built through
+    the API as in phase 23(b), the stage parameters loaded (`loaded`),
+    the pipeline alone once the caller has dropped them (`held`), the
+    peak of two runs (`run_peak`); then the entry's run at
+    `--tp-quant-bits 0` (`spmd_entry`: the runtime keeps its stage
+    parameters through its run). The caller puts `root` first on
+    `sys.path` before the port's first import."""
+    import gc
+    import pipeedge_tpu_torch
+    from pipeedge_tpu_torch import runtime
+    from pipeedge_tpu_torch.models import registry, vit
+    from pipeedge_tpu_torch.parallel import spmd
+    from pipeedge_tpu_torch.parallel.mesh import devices_for
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    weights = BUILD_DIR / f"{MODEL.replace('/', '_')}-random-seed0.npz"
+    np.savez(weights, **vit.random_npz_weights(
+        registry.get_model_config(MODEL), seed=0))
+
+    def mib():
+        torch.cuda.synchronize()
+        return (torch.cuda.memory_allocated() - base) / 2**20
+
+    base = torch.cuda.memory_allocated()
+    entry = registry.get_model_entry(MODEL)
+    layers = [(1, 24), (25, 48)]
+    mesh = spmd.make_pipeline_mesh(2, dp=2, tp=2,
+                                   devices=devices_for(8, "cuda"))
+    stages = [registry.module_shard_factory(
+        MODEL, str(weights), l, r, stage=i,
+        device=mesh.cell(0, i).devices[0])[1]
+        for i, (l, r) in enumerate(layers)]
+    res = dict(package=str(Path(pipeedge_tpu_torch.__file__).parent),
+               loaded_mib=mib())
+    pipe = spmd.build_spmd_pipeline(entry.family.FAMILY, entry.config,
+                                    layers, stages, mesh)
+    del stages
+    gc.collect()
+    res["held_mib"] = mib()
+    inputs, _ = runtime.load_batches(MODEL, BATCH, UBATCH,
+                                     torch.device("cuda"), torch.float32)
+    stacked = torch.stack(inputs)
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(2):
+        pipe.run(stacked).cpu()
+    res["run_peak_mib"] = (torch.cuda.max_memory_allocated() - base) / 2**20
+    del pipe, stacked, inputs
+    gc.collect()
+    run = spmd_entry(["0", "8", "-c", "spmd", "-pt", SPMD_TP_PT,
+                      "--spmd-dp", "2", "--spmd-tp", "2", "--tp-quant-bits",
+                      "0", "-m", MODEL, "-M", str(weights), "-b", str(BATCH),
+                      "-u", str(UBATCH)], "memory_b_tp0")
+    return res | dict(entry_resident_mib=run["resident_mib"],
+                      entry_peak_mib=run["peak_mib"],
+                      entry_items_per_s=run["items_per_s"])
 
 
 def rel_err(got: list, want: list) -> float:
@@ -9028,7 +9294,8 @@ def check_spmd_path(res, device_name: str) -> dict:
             and all(np.all(np.isfinite(r)) for r in run["results"])
         row = dict(case=case, items_per_s=run["items_per_s"],
                    seconds=run["seconds"], launches_per_run=per_run,
-                   expected=want, ok=good, **numbers)
+                   expected=want, ok=good, resident_mib=run["resident_mib"],
+                   peak_mib=run["peak_mib"], **numbers)
         log("spmd " + json.dumps(row))
         if not good:
             problems.append(f"{case}: {row}")
@@ -9429,6 +9696,204 @@ def check_llama_wave(res: dict, device_name: str) -> None:
         raise AssertionError(f"phase 24(e): {res}")
 
 
+# --- phase 25: training on the card ---------------------------------------
+
+# Phase 25 (module docstring). (a) ViT-Base with Adam; the learning rate is
+# 1e-4, where Adam's first steps move every weight by about that much (the
+# entry's default 1e-3 is 5% of the init's 0.02 scale a step on 86M
+# weights). (b) GPT-2 with SGD at 0.1, where the head's first step lowers
+# the loss by about lr x |grad|^2 ~ 0.01 (at 1e-3 the descent would sit in
+# the printed loss's fourth decimal).
+TRAIN_VIT = ["-m", MODEL, "-pt", "1,24,25,48", "-u", "4", "-b", "8",
+             "--optimizer", "adam", "--lr", "1e-4"]
+TRAIN_GPT2 = ["-m", "gpt2", "-pt", "1,12,13,24,25,36,37,48", "-u", "4",
+              "-b", "2", "--seq-len", "1024", "--mixed-precision",
+              "--remat", "--optimizer", "sgd", "--lr", "0.1", "--steps",
+              "5"]
+TRAIN_STEPS = 5
+# The first step's gradients on the card against the CPU's, per leaf: max
+# |diff| <= 1e-3 of the leaf's max |grad| + 1e-5 of the largest gradient
+# of all (k's bias gets none, so its own scale is round-off); f32 both,
+# the card's products in f32 (TF32 off; kernel 3 in 3xTF32 and f32
+# FMAs), summed in other orders through 12 blocks. The loss: 1e-5
+# relative.
+TRAIN_GRAD_TOL = (1e-3, 1e-5)
+TRAIN_LOSS_RTOL = 1e-5
+# The resumed run's losses against the uninterrupted run's, in the
+# entry's printed 4 decimals: one unit of the last (the same steps on the
+# same state, so equal is expected; the allowance is the rounding's)
+TRAIN_RESUME_TOL = 1e-4
+
+
+def train_launches(blocks: int, ubatches: int, dp: int, steps: int,
+                   remat: bool) -> dict:
+    """Kernel 3's launches in `steps` training steps: the backward once
+    per block and stage-step (M x dp a block a step), the forward as many,
+    twice under remat (the backward re-runs each block's forward)."""
+    bwd = blocks * ubatches * dp * steps
+    return {"fused_attention": bwd * (2 if remat else 1),
+            "fused_attention_bwd": bwd}
+
+
+def train_entry(argv) -> dict:
+    """`pipeedge_tpu_torch.train.main(argv)` in this process: its summary,
+    the `step=` losses, kernel 3's launches, peak memory and seconds."""
+    import io
+    from pipeedge_tpu_torch import train as train_cli
+    from pipeedge_tpu_torch.ops import _build
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    out = io.StringIO()
+    t0 = time.monotonic()
+    with contextlib.redirect_stdout(out):
+        summary = train_cli.main(argv)
+    seconds = time.monotonic() - t0
+    text = out.getvalue()
+    log("train entry " + " ".join(argv) + "\n" + text.rstrip())
+    return dict(summary=summary, seconds=seconds,
+                losses=[float(x) for x in re.findall(r"loss=([0-9.]+)", text)],
+                resumed="resumed from" in text,
+                launches={**_build.launch_counts,
+                          **_build.grad_launch_counts},
+                peak_mib=torch.cuda.max_memory_allocated() / 2**20)
+
+
+def first_step_grads(device: str):
+    """Phase 25(a)'s first step at `-b 2` on `device`: the loss and each
+    canonical leaf's gradient (on the CPU)."""
+    from pipeedge_tpu_torch import train as train_cli
+    from pipeedge_tpu_torch.parallel import train
+    _, pipe, inputs, labels = train_cli.setup(
+        TRAIN_VIT[:6] + ["-b", "2", "--device", device])
+    loss, grads = train.value_and_grad(pipe, pipe.canonical, inputs, labels)
+    return float(loss), [g.detach().cpu() for g in grads]
+
+
+@contextlib.contextmanager
+def drawn_once(model: str):
+    """Within the block, `model`'s family draws each stage's seeded
+    weights once and hands every later run a copy: the same numbers (the
+    entry draws them with numpy per stage, seconds for ViT-Base) without
+    drawing them again."""
+    from pipeedge_tpu_torch.models import registry
+    from pipeedge_tpu_torch.parallel.train import tree_map
+    family = registry.get_model_entry(model).family
+    draw, drawn = family.init_params, {}
+
+    def init_params(cfg, shard_config, seed=0, dtype=torch.float32):
+        key = (shard_config, seed, dtype)
+        if key not in drawn:
+            drawn[key] = draw(cfg, shard_config, seed=seed, dtype=dtype)
+        return tree_map(torch.clone, drawn[key])
+
+    family.init_params = init_params
+    try:
+        yield
+    finally:
+        family.init_params = draw
+
+
+def train_path() -> dict:
+    """Phase 25 (a) and (b) (module docstring)."""
+    from pipeedge_tpu_torch.models import registry
+    with drawn_once(MODEL):
+        res = train_vit()
+    t0 = time.monotonic()
+    res["gpt2"] = train_entry(TRAIN_GPT2)
+    res["seconds"]["b"] = time.monotonic() - t0
+    log(f"phase 25b: {res['seconds']['b']:.1f} s")
+    vit_blocks = registry.get_model_config(MODEL).num_hidden_layers
+    gpt2_blocks = registry.get_model_config("gpt2").num_hidden_layers
+    res["expected"] = {
+        "vit": train_launches(vit_blocks, 4, 1, TRAIN_STEPS, False),
+        "gpt2": train_launches(gpt2_blocks, 4, 1, TRAIN_STEPS, True)}
+    return res
+
+
+def train_vit() -> dict:
+    """Phase 25(a): the 5-step run, the checkpointed 3 steps and the
+    resumed 2, and the first step at `-b 2` on the card and the CPU."""
+    import shutil
+    res = {"seconds": {}}
+    t0 = time.monotonic()
+    res["vit"] = train_entry(TRAIN_VIT + ["--steps", str(TRAIN_STEPS)])
+    ckpt = BUILD_DIR / "train_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    res["vit_first3"] = train_entry(TRAIN_VIT + ["--steps", "3",
+                                                 "--ckpt-dir", str(ckpt)])
+    res["vit_resumed"] = train_entry(TRAIN_VIT + [
+        "--steps", str(TRAIN_STEPS), "--ckpt-dir", str(ckpt)])
+    shutil.rmtree(ckpt, ignore_errors=True)
+    card_loss, card_grads = first_step_grads("cuda")
+    cpu_loss, cpu_grads = first_step_grads("cpu")
+    scale = max(float(g.abs().max()) for g in cpu_grads)
+    worst = 0.0
+    for g, w in zip(card_grads, cpu_grads):
+        limit = TRAIN_GRAD_TOL[0] * float(w.abs().max()) \
+            + TRAIN_GRAD_TOL[1] * scale
+        worst = max(worst, float((g - w).abs().max()) / limit)
+    res["first_step"] = dict(card_loss=card_loss, cpu_loss=cpu_loss,
+                             leaves=len(cpu_grads), worst_share=worst,
+                             max_grad=scale)
+    res["seconds"]["a"] = time.monotonic() - t0
+    log(f"phase 25a: {res['seconds']['a']:.1f} s")
+    return res
+
+
+def check_train_path(res, device_name: str) -> dict:
+    """Phase 25's gates; returns kernel 3's launches per run."""
+    problems = []
+    for key in ("vit", "gpt2"):
+        run = res[key]
+        losses = run["losses"]
+        s = run["summary"]
+        log(f"train {key}: " + json.dumps(dict(
+            losses=losses, steps_per_sec=s["steps_per_sec"],
+            wall_s=s["wall_s"], seconds=run["seconds"],
+            peak_mib=run["peak_mib"], launches=run["launches"],
+            expected=res["expected"][key], mesh=s["mesh"],
+            remat=s["remat"], mixed_precision=s["mixed_precision"],
+            card=device_name)))
+        if len(losses) != TRAIN_STEPS or not np.isfinite(losses).all() \
+                or not losses[-1] < losses[0]:
+            problems.append(f"{key}: losses {losses} do not fall")
+        want = res["expected"][key]
+        if any(run["launches"][k] != n for k, n in want.items()):
+            problems.append(f"{key}: kernel 3 launches {run['launches']} != "
+                            f"{want}")
+        if any(run["launches"][k] for k in ("fused_encode", "fused_decode",
+                                            "int8_matmul",
+                                            "decode_attention")):
+            problems.append(f"{key}: a kernel off the training path ran: "
+                            f"{run['launches']}")
+    first = res["first_step"]
+    log("train vit first step (-b 2, card against cpu): " + json.dumps(
+        {**first, "card": device_name}))
+    if first["worst_share"] > 1.0 or abs(first["card_loss"] - first[
+            "cpu_loss"]) > TRAIN_LOSS_RTOL * abs(first["cpu_loss"]):
+        problems.append(f"vit first step: gradients at {first['worst_share']}"
+                        f" of TRAIN_GRAD_TOL, loss {first['card_loss']} "
+                        f"against {first['cpu_loss']}")
+    resumed = res["vit_resumed"]
+    log("train vit resume: " + json.dumps(dict(
+        first3=res["vit_first3"]["losses"], resumed=resumed["losses"],
+        uninterrupted=res["vit"]["losses"])))
+    if not resumed["resumed"] or resumed["summary"]["steps"] != 2 or \
+            abs(resumed["losses"][-1] - res["vit"]["losses"][-1]) \
+            > TRAIN_RESUME_TOL or not np.allclose(
+                res["vit_first3"]["losses"], res["vit"]["losses"][:3],
+                rtol=0, atol=TRAIN_RESUME_TOL):
+        problems.append("vit resume: the resumed run's losses "
+                        f"{resumed['losses']} (resumed={resumed['resumed']})"
+                        f" are not the uninterrupted run's "
+                        f"{res['vit']['losses'][3:]}")
+    log("phase 25 seconds " + json.dumps(res["seconds"]))
+    if problems:
+        raise AssertionError("phase 25: " + "; ".join(problems))
+    return {key: res[key]["launches"] for key in ("vit", "gpt2")}
+
+
 def main() -> int:
     import argparse
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -9445,6 +9910,11 @@ def main() -> int:
     parser.add_argument("--edge-cut-sweep", action="store_true",
                         help="only print phase 19(a)'s 8-bit edge error at "
                              "every 2-stage cut of ViT-Base, and exit")
+    parser.add_argument("--spmd-memory", type=Path, nargs="?", const=ROOT,
+                        default=None, metavar="ROOT",
+                        help="only run phase 23(b)'s dp 2 x tp 2 run with "
+                             "the port of the checkout at ROOT (default "
+                             "this one), print its device memory, and exit")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -9456,6 +9926,12 @@ def main() -> int:
         torch.backends.cudnn.allow_tf32 = False
         for row in edge_cut_sweep():
             log("edge cut " + json.dumps(row))
+        return 0
+    if args.spmd_memory is not None:
+        log(card_line())
+        torch.backends.cuda.matmul.allow_tf32 = False
+        sys.path.insert(0, str(args.spmd_memory.resolve()))
+        log("spmd memory " + json.dumps(spmd_memory(args.spmd_memory)))
         return 0
     from pipeedge_tpu_torch.ops import _build
 
@@ -9495,6 +9971,7 @@ def main() -> int:
     for key, row in codec_rows.items():
         log(f"{key[0]} " + json.dumps(row))
     attn_rows = check_attention(dev, gen)
+    attn_bwd_rows = check_attention_backward(dev, gen)
     policy_rows = check_policy_bits(dev, gen)
     int8_rows = check_int8_matmul(dev, gen)
     dec_rows = check_decode_attention(dev, gen)
@@ -9586,6 +10063,8 @@ def main() -> int:
     vit_w = BUILD_DIR / f"{MODEL.replace('/', '_')}-random-seed0.npz"
     dcn_res = dcn_path(card, host={bit: results[bit]["items_per_s"]
                                    for bit in (0, 8, 4)},
+                       deit_constraint=deit_res["unconstrained"][
+                           "send_constraint_items_s"],
                        alongside=lambda: tp_dcn_path(vit_w))
     check_dcn_path(dcn_res, device_name)
     tp_dcn_res = dcn_res.pop("alongside")
@@ -9650,6 +10129,11 @@ def main() -> int:
     wave_launches = check_wave_path(wave_res, fam["llama3_wave"],
                                     device_name)
     phase_done("phase 24")
+
+    # phase 25: training on the card
+    train_res = train_path()
+    train_counts = check_train_path(train_res, device_name)
+    phase_done("phase 25")
 
     def spmd_launches_of(name):
         """Phase 23's launches of one kernel per run of 8 microbatches."""
@@ -9878,12 +10362,38 @@ def main() -> int:
         # phase 23: each SPMD run (tp shards and Ulysses head groups per
         # dp cell; none from the ring core)
         spmd_launches=spmd_launches_of("fused_attention"),
+        # phase 25: 5 training steps of each run (twice under remat)
+        train_launches={key: c["fused_attention"]
+                        for key, c in train_counts.items()},
         cases={f"{r['layout']} {r['shape']} {r['dtype']}"
                f"{' causal' if r['causal'] else ''}": {
                    key: r[key] for key in ("ms", "plain_ms", "library_ms",
                                            "bound_ms", "bound_by",
                                            "max_abs_err")}
                for r in attn_rows}))
+    # kernel 3's backward: the main path is phase 25(b)'s GPT-2 run
+    # (bf16, causal, microbatches [2, 1023, 12, 64]); its row is the
+    # phase-3 case at [2, 1024, 12, 64] bf16
+    bwd = next(r for r in attn_bwd_rows if r["shape"] == [2, 1024, 12, 64]
+               and r["dtype"] == "bfloat16")
+    kernels.append(dict(
+        name="fused_attention_bwd", route="cuda",
+        source="pipeedge_tpu_torch/csrc/attention_bwd.cu",
+        replaces=REPLACES["fused_attention"], gradient_of="fused_attention",
+        launches=train_counts["gpt2"]["fused_attention_bwd"],
+        max_abs_err=bwd["max_abs_err"], ms=bwd["ms"],
+        plain_ms=bwd["plain_ms"], bound_ms=bwd["bound_ms"],
+        bound_by=bwd["bound_by"], library_ms=bwd["library_ms"],
+        shape=bwd["shape"], dtype=bwd["dtype"], causal=True,
+        train_launches={key: c["fused_attention_bwd"]
+                        for key, c in train_counts.items()},
+        cases={f"{r['shape']} {r['dtype']}"
+               f"{' causal' if r['causal'] else ''}": {
+                   key: r[key] for key in (
+                       "ms", "plain_ms", "library_ms", "bound_ms",
+                       "bound_by", "max_abs_err", "rel_errs",
+                       "lse_max_abs_err")}
+               for r in attn_bwd_rows}))
     # the int8 path's own main path is run (c): every int8 launch of it
     timed = [r for r in int8_rows if "ms" in r]
     qkv = timed[0]

@@ -54,6 +54,13 @@
 // [B*H, S, D] layouts both run without a transpose; 16-byte copies need D,
 // the strides and the pointers aligned to 16 bytes, else each element is
 // copied on its own.
+//
+// For training, `pe_fused_attention_lse` also writes each row's log-sum-exp
+// of its scaled scores in base 2, f32 [B*H, S]: m + log2(l) from the very
+// running max m and sum l that normalised O (3xTF32 scores in f32), so the
+// backward (csrc/attention_bwd.cu) recomputes P = 2^(s * scale_log2 - lse)
+// against the softmax this kernel applied. `pe_fused_attention` passes a
+// null pointer and writes no LSE.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -273,8 +280,9 @@ __device__ __forceinline__ void online_softmax(
 template <int DP, int BK, int NW, int MT, int STAGES, int MINB, typename T>
 __global__ void __launch_bounds__(32 * NW, MINB)
 pe_attention_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                        const T* __restrict__ v, T* __restrict__ o, int H,
-                        int S, int D, int64_t sb, int64_t sh, int64_t ss,
+                        const T* __restrict__ v, T* __restrict__ o,
+                        float* __restrict__ lse, int H, int S, int D,
+                        int64_t sb, int64_t sh, int64_t ss,
                         float scale_log2, int causal, int vec) {
   constexpr bool kF32 = sizeof(T) == 4;
   constexpr int P = pitch<T, DP>();
@@ -489,11 +497,15 @@ pe_attention_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
   if (!active) return;
 #pragma unroll
   for (int mt = 0; mt < MT; ++mt) {
-    const float inv[2] = {1.f / quad_sum(l[mt][0]), 1.f / quad_sum(l[mt][1])};
+    const float sum[2] = {quad_sum(l[mt][0]), quad_sum(l[mt][1])};
+    const float inv[2] = {1.f / sum[0], 1.f / sum[1]};
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       const int row = r0 + mt * 16 + g + r * 8;
       if (row >= S) continue;
+      // m is the same in the quad's four lanes: the first one writes
+      if (lse != nullptr && t == 0)
+        lse[(int64_t)bh * S + row] = m[mt][r] + log2f(sum[r]);
       T* out = o + base + (int64_t)row * ss;
 #pragma unroll
       for (int n = 0; n < NO; ++n) {
@@ -523,9 +535,10 @@ pe_attention_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 template <int DP, int BK, int NW, int MT, int STAGES, int MINB, typename T>
-int launch(const void* q, const void* k, const void* v, void* o, int B,
-           int H, int S, int D, int64_t sb, int64_t sh, int64_t ss,
-           float scale_log2, int causal, int vec, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* o,
+           float* lse, int B, int H, int S, int D, int64_t sb, int64_t sh,
+           int64_t ss, float scale_log2, int causal, int vec,
+           cudaStream_t stream) {
   constexpr int smem = smem_bytes<T, DP, BK, STAGES>();
   auto kernel = pe_attention_mma_kernel<DP, BK, NW, MT, STAGES, MINB, T>;
   static bool configured = false;  // idempotent: a racing second set is fine
@@ -539,15 +552,15 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
   const dim3 grid((unsigned)(B * H), (unsigned)((S + BQ - 1) / BQ));
   kernel<<<grid, 32 * NW, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), H, S, D, sb, sh, ss,
-      scale_log2, causal, vec);
+      static_cast<const T*>(v), static_cast<T*>(o), lse, H, S, D, sb, sh,
+      ss, scale_log2, causal, vec);
   return 0;
 }
 
 template <typename T>
-int dispatch(const void* q, const void* k, const void* v, void* o, int B,
-             int H, int S, int D, int64_t sb, int64_t sh, int64_t ss,
-             float scale_log2, int causal, cudaStream_t s) {
+int dispatch(const void* q, const void* k, const void* v, void* o,
+             float* lse, int B, int H, int S, int D, int64_t sb, int64_t sh,
+             int64_t ss, float scale_log2, int causal, cudaStream_t s) {
   constexpr int EPC = 16 / (int)sizeof(T);
   const bool vec = D % EPC == 0 && sb % EPC == 0 && sh % EPC == 0 &&
                    ss % EPC == 0 &&
@@ -559,9 +572,9 @@ int dispatch(const void* q, const void* k, const void* v, void* o, int B,
   // warps NW, m16 row tiles per warp MT, ring stages, min blocks per SM)
 #define PE_ATTN_CASE(DP, BK, NW, MT, ST, MB)                               \
   if (D <= DP)                                                             \
-    return launch<DP, BK, NW, MT, ST, MB, T>(q, k, v, o, B, H, S, D, sb,   \
-                                             sh, ss, scale_log2, causal,  \
-                                             (int)vec, s);
+    return launch<DP, BK, NW, MT, ST, MB, T>(q, k, v, o, lse, B, H, S, D,  \
+                                             sb, sh, ss, scale_log2,      \
+                                             causal, (int)vec, s);
   if constexpr (sizeof(T) == 4) {
     PE_ATTN_CASE(32, 32, 4, 1, 2, 3)
     PE_ATTN_CASE(64, 32, 4, 1, 2, 3)
@@ -584,10 +597,12 @@ int dispatch(const void* q, const void* k, const void* v, void* o, int B,
 extern "C" {
 
 // q, k, v, o: element (b, h, s, d) at b*sb + h*sh + s*ss + d, all four with
-// the same strides. dtype 0 = f32, 1 = bf16. D <= 128.
-int pe_fused_attention(const void* q, const void* k, const void* v, void* o,
-                       int dtype, int B, int H, int S, int D, int64_t sb,
-                       int64_t sh, int64_t ss, int causal, void* stream) {
+// the same strides. dtype 0 = f32, 1 = bf16. D <= 128. lse: null, or f32
+// [B*H, S], each row's base-2 log-sum-exp of its scaled scores.
+int pe_fused_attention_lse(const void* q, const void* k, const void* v,
+                           void* o, void* lse, int dtype, int B, int H, int S,
+                           int D, int64_t sb, int64_t sh, int64_t ss,
+                           int causal, void* stream) {
   if (B <= 0 || H <= 0 || S <= 0 || D <= 0 || D > 128 ||
       (int64_t)B * H > 2147483647 || (S + 15) / 16 > 65535)
     return (int)cudaErrorInvalidValue;
@@ -595,16 +610,24 @@ int pe_fused_attention(const void* q, const void* k, const void* v, void* o,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   int rc;
   if (dtype == 0) {
-    rc = dispatch<float>(q, k, v, o, B, H, S, D, sb, sh, ss, scale_log2,
-                         causal, s);
+    rc = dispatch<float>(q, k, v, o, static_cast<float*>(lse), B, H, S, D,
+                         sb, sh, ss, scale_log2, causal, s);
   } else if (dtype == 1) {
-    rc = dispatch<__nv_bfloat16>(q, k, v, o, B, H, S, D, sb, sh, ss,
-                                 scale_log2, causal, s);
+    rc = dispatch<__nv_bfloat16>(q, k, v, o, static_cast<float*>(lse), B, H,
+                                 S, D, sb, sh, ss, scale_log2, causal, s);
   } else {
     rc = (int)cudaErrorInvalidValue;
   }
   if (rc) return rc;
   return (int)cudaGetLastError();
+}
+
+// The inference entry: no LSE.
+int pe_fused_attention(const void* q, const void* k, const void* v, void* o,
+                       int dtype, int B, int H, int S, int D, int64_t sb,
+                       int64_t sh, int64_t ss, int causal, void* stream) {
+  return pe_fused_attention_lse(q, k, v, o, nullptr, dtype, B, H, S, D, sb,
+                                sh, ss, causal, stream);
 }
 
 }  // extern "C"

@@ -9,6 +9,12 @@ port always gets a list of per-block dicts. The trees of every family
 carry across: the Llama blocks' leaves, and the MoE blocks' stacked
 expert leaves ([L, E, ...] under `blocks`, [E, ...] in a partial head or
 tail block).
+
+`train_tree_from_jax(tree)` carries a JAX SPMD pipeline's training tree
+(`pipe.params`: `embed`, `final`, `blocks` stacked [n_stages, max_b, ...]
+and zero-padded, `n_blocks`) across as the port's canonical tree
+(`SpmdPipeline.canonical`): each stage's real blocks as a list of
+per-block dicts, through `params_from_jax`.
 """
 from __future__ import annotations
 
@@ -52,3 +58,14 @@ def params_from_jax(tree: Dict) -> Dict:
             value = _unstack(value)
         out[key] = _tensors(value)
     return out
+
+
+def train_tree_from_jax(tree: Dict) -> Dict:
+    """Convert a JAX SPMD training tree (numpy leaves) to the port's
+    canonical tree {embed, final, blocks: [[block dict] per stage]}, each
+    stage's blocks cut to its `n_blocks` entry."""
+    blocks = [params_from_jax({"blocks": stage})["blocks"][:int(n)]
+              for stage, n in zip(_unstack(tree["blocks"]),
+                                  np.asarray(tree["n_blocks"]))]
+    return {"embed": _tensors(tree["embed"]), "final": _tensors(tree["final"]),
+            "blocks": blocks}

@@ -16,6 +16,15 @@ fallback: a failed build or launch raises.
 adds one where it launches its kernel (CUDA tensors only), so a run can
 show that its main path went through the kernels; the count is taken
 under a lock, since the serving executors launch from several threads.
+`grad_launch_counts` is the same for the backward kernels, which no TPU
+kernel has: `fused_attention_bwd`, one per call of kernel 3's backward
+entry (its two kernels). Each tally has a fixed key set, and the
+inference entries' `kernel_launches=` lines print the five TPU kernels'.
+
+Kernel 3 alone has a backward. The other wrappers call `refuse_grad` on
+their CUDA branch: a CUDA tensor that requires grad, with grad mode on,
+raises there instead of reaching a kernel whose output would carry no
+gradient (`cuts_graph` is the test).
 """
 from __future__ import annotations
 
@@ -29,6 +38,8 @@ import time
 from pathlib import Path
 from typing import Dict, List, Optional, Tuple
 
+import torch
+
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
@@ -39,6 +50,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 KERNELS = ("fused_encode", "fused_decode", "fused_attention", "int8_matmul",
            "decode_attention")
 launch_counts: Dict[str, int] = {name: 0 for name in KERNELS}
+GRAD_KERNELS = ("fused_attention_bwd",)
+grad_launch_counts: Dict[str, int] = {name: 0 for name in GRAD_KERNELS}
 
 # the most blocks a grid takes along y or z: a kernel whose grid carries
 # the items (the encode) or batch cells (the decode attention) there is
@@ -65,6 +78,13 @@ _SIGNATURES = {
     # causal, stream
     "pe_fused_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I,
                            _L, _L, _L, _I, _P],
+    # q, k, v, o, lse, then as pe_fused_attention
+    "pe_fused_attention_lse": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                               _L, _L, _L, _I, _P],
+    # q, k, v, o, dout, lse, delta, dq, dk, dv, dtype, B, H, S, D,
+    # stride_b, stride_h, stride_s, causal, stream
+    "pe_fused_attention_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+                               _I, _I, _I, _I, _L, _L, _L, _I, _P],
     # x, xs, wt, ws, out, M, N, K, bk, xs_row_stride, xs_col_stride, flip,
     # stream
     "pe_int8_matmul": [_P, _P, _P, _P, _P, _L, _L, _L, _L, _L, _L, _I, _P],
@@ -84,13 +104,35 @@ _SIGNATURES = {
 def count_launch(name: str) -> None:
     # under a lock: the serving executors launch from several threads, and
     # `+=` on a dict entry is a read and a write the GIL may split
+    tally = grad_launch_counts if name in GRAD_KERNELS else launch_counts
     with _count_lock:
-        launch_counts[name] += 1
+        tally[name] += 1
+
+
+def cuts_graph(*tensors) -> bool:
+    """True when grad mode is on and one of `tensors` (None skipped)
+    requires grad: a kernel without a backward would drop its gradient."""
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors)
+
+
+def refuse_grad(name: str, *tensors) -> None:
+    """Raise where `cuts_graph(*tensors)`: kernel `name` has no
+    backward."""
+    if cuts_graph(*tensors):
+        raise RuntimeError(
+            f"kernel {name} has no backward: a CUDA tensor that requires "
+            "grad would lose its gradient here (run it under "
+            "torch.no_grad(); training refuses quantized edges and int8 "
+            "compute)")
 
 
 def reset_launch_counts() -> None:
-    for name in launch_counts:
-        launch_counts[name] = 0
+    """Every count of both tallies to 0."""
+    with _count_lock:
+        for tally in (launch_counts, grad_launch_counts):
+            for name in tally:
+                tally[name] = 0
 
 
 def launch_chunks(n: int, size: int = MAX_GRID_YZ) -> List[Tuple[int, int]]:
@@ -195,5 +237,4 @@ def check(code: int, what: str) -> None:
 
 def stream_handle(device) -> int:
     """Raw handle of PyTorch's current stream on `device`."""
-    import torch
     return torch.cuda.current_stream(device).cuda_stream

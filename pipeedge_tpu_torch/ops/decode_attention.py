@@ -180,4 +180,6 @@ def int8_decode_attention(q, k_q, k_scale, k_shift, v_q, v_scale, v_shift,
     _check(*args)
     if q.device.type == "cpu":
         return decode_attention_reference(*args)
+    _build.refuse_grad("decode_attention", q, k_new, v_new, k_scale,
+                       k_shift, v_scale, v_shift)
     return _launch(*args)

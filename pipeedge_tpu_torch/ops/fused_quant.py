@@ -69,6 +69,7 @@ def fused_encode_outerdim(x: torch.Tensor, bit: int,
         return quant_ops.tensor_encode_outerdim(x, bit)
     if x.device.type != "cuda":
         raise ValueError(f"fused encode runs on cuda or cpu, not {x.device}")
+    _build.refuse_grad("fused_encode", x)
     shape = tuple(x.shape)
     b = shape[0]
     n = math.prod(shape[1:])
@@ -105,6 +106,7 @@ def fused_decode_outerdim(enc: quant_ops.QuantizedTensor) -> torch.Tensor:
         return quant_ops.tensor_decode_outerdim(enc)
     if dev.type != "cuda":
         raise ValueError(f"fused decode runs on cuda or cpu, not {dev}")
+    _build.refuse_grad("fused_decode", enc.scale, enc.shift)
     shape = tuple(enc.shape)
     b = shape[0]
     n = math.prod(shape[1:])

@@ -206,6 +206,7 @@ def matmul_q(x_q: torch.Tensor, x_scale: torch.Tensor, w_q: torch.Tensor,
         return matmul_reference(x_q, x_scale, w_q, w_scale, block_k)
     if dev.type != "cuda":
         raise ValueError(f"int8 matmul runs on cuda or cpu, not {dev}")
+    _build.refuse_grad("int8_matmul", x_scale, w_scale)
     if x_q.dtype != torch.int8 or w_q.dtype != torch.int8:
         raise ValueError(f"int8 matmul takes int8 codes, got {x_q.dtype} "
                          f"and {w_q.dtype}")
@@ -257,6 +258,8 @@ def int8_dense(x: torch.Tensor, w: torch.Tensor,
     activations to +/-alpha (an f32 threshold) before quantization, so a
     rare outlier does not stretch its block's scale; None skips the
     clip."""
+    if x.device.type == "cuda":
+        _build.refuse_grad("int8_matmul", x, w, b)
     orig_shape = x.shape
     k = orig_shape[-1]
     x2 = x.reshape(-1, k)
@@ -294,6 +297,8 @@ def wire_matmul(enc: quant_ops.QuantizedTensor, x_scale: torch.Tensor,
     n_per_item = math.prod(enc.shape[1:])
     dev = enc.data.device
     if dev.type == "cuda" and n_per_item % 4 == 0:
+        _build.refuse_grad("int8_matmul", x_scale, w_scale, enc.scale,
+                           enc.shift)
         m = items * n_per_item // k
         _check_shapes((m, k), x_scale, w_q, w_scale, block_k)
         x_bytes = enc.data.contiguous().view(torch.uint8).reshape(m, k)

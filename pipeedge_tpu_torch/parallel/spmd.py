@@ -51,12 +51,26 @@ once per stage-step and inner shard on every edge at 4 or 8 bits, so M x
 (quantized edges) x dp x inner each; plus the `qpsum`/`qall_gather`
 rings' launches under `--tp-quant-bits`. The eager port tallies each
 quantized collective call once (`ops/qcollectives.py`), where the JAX
-runtime multiplies its traced sites by 2 x ticks x blocks.
+runtime multiplies its traced sites by 2 x ticks x blocks. A training
+step (`parallel/train.py`) adds kernel 3's backward once per forward
+launch (`fused_attention_bwd`, M x blocks x dp x inner), and under
+`remat` the backward re-runs each block's forward, so kernel 3's forward
+launches twice per block per stage-step.
 
 `SpmdPipeline.forward(params, inputs)` takes the parameters explicitly
 (nothing in it runs under `inference_mode`), so a training step can
-differentiate through it; `run(inputs)` is the inference call. Block
-rematerialization (the JAX `remat`) belongs to training and is not here.
+differentiate through it; `run(inputs)` is the inference call.
+`canonical` is one copy of each logical parameter (embed, final and each
+stage's block list, each stage's leaves on its first dp cell's shard 0),
+read off the first dp cell's positions when training asks for it: their
+own tensors without a tp split (no copy), the tp shards concatenated
+under one (a new copy), so an inference pipeline holds no tree beside
+`params`. `place(tree)` derives every position's tensors from such a
+tree with differentiable moves and tp slices, so training updates the
+canonical copy and autograd sums the positions' gradients into it. With
+`remat` (the JAX name) and grad enabled, each block runs under
+`torch.utils.checkpoint` (non-reentrant): the backward keeps only the
+block boundaries and recomputes the rest; without grad nothing changes.
 """
 from __future__ import annotations
 
@@ -65,6 +79,7 @@ import logging
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..models import block_slices
 from ..models.layers import TransformerConfig
@@ -162,6 +177,7 @@ class SpmdPipeline:
     params: Dict
     stage_bits: Tuple[int, ...] = (0,)
     sp_kind: str = "ring"   # sp attention core: 'ring' | 'ulysses'
+    remat: bool = False     # checkpoint each block (training memory)
 
     @property
     def quant_bit(self) -> int:
@@ -173,6 +189,31 @@ class SpmdPipeline:
         with torch.inference_mode():
             return self.forward(self.params, inputs)
 
+    @property
+    def canonical(self) -> Dict:
+        """`embed`, `final` and `blocks[s][j]`, one copy each: the first
+        dp cell's tensors (shard 0's), or under tp its shards merged onto
+        shard 0's device, built anew at each read (module docstring)."""
+        params = self.params
+        blocks = [cells[0] for cells in params["blocks"]]
+        if self.mesh.inner > 1 and self.mesh.inner_axis == "tp":
+            from .tensor import merge_block_params
+            blocks = [[merge_block_params(self.cfg, shards)
+                       for shards in stage] for stage in blocks]
+        else:
+            blocks = [[shards[0] for shards in stage] for stage in blocks]
+        return {"embed": params["embed"][0], "final": params["final"][0],
+                "blocks": blocks}
+
+    def place(self, tree: Dict) -> Dict:
+        """Every position's parameters (the layout of `params`) from a
+        tree laid out as `canonical`, inside the autograd graph."""
+        n = self.n_stages
+        stages = [{"blocks": blocks} for blocks in tree["blocks"]]
+        stages[0]["embeddings"] = tree["embed"]
+        stages[n - 1]["final"] = tree["final"]
+        return _place(self.cfg, stages, self.mesh)
+
     def forward(self, params: Dict, inputs: torch.Tensor) -> torch.Tensor:
         """The pipeline over explicit `params` (the layout of
         `self.params`): every valid stage-step in tick order."""
@@ -183,6 +224,12 @@ class SpmdPipeline:
                              f"the dp mesh axis ({mesh.dp})")
         rows = batch // mesh.dp
         block_fn = self._block_fn()
+        if self.remat and torch.is_grad_enabled():
+            inner_fn = block_fn
+
+            def block_fn(ps, xs, group):
+                return checkpoint(inner_fn, ps, xs, group,
+                                  use_reentrant=False)
         # edge s: what stage s receives next, per dp cell: (per-shard
         # payloads, activation dtype)
         edges: Dict[Tuple[int, int], tuple] = {}
@@ -277,7 +324,8 @@ class SpmdPipeline:
 def build_spmd_pipeline(family: FamilySpec, cfg: TransformerConfig,
                         partition: Sequence[Tuple[int, int]],
                         stage_params: Sequence[Dict], mesh: PipelineMesh,
-                        quant_bit=0, sp_kind: str = "ring") -> SpmdPipeline:
+                        quant_bit=0, sp_kind: str = "ring",
+                        remat: bool = False) -> SpmdPipeline:
     """Assemble an `SpmdPipeline` from per-stage shard parameters.
 
     `stage_params[i]` is the parameter dict a family loader builds for
@@ -286,6 +334,7 @@ def build_spmd_pipeline(family: FamilySpec, cfg: TransformerConfig,
     its device: moved (a tensor already there is shared, so positions on
     one card hold one copy) or, under tp, Megatron-split once per distinct
     device list.
+    `remat` checkpoints each block under grad (module docstring).
 
     `quant_bit`: an int for every inter-stage edge, or a per-stage list
     whose entry i quantizes the edge leaving stage i (the runtime's `-q`;
@@ -332,7 +381,7 @@ def build_spmd_pipeline(family: FamilySpec, cfg: TransformerConfig,
                 n_stages, mesh.shape, list(stage_bits[:-1]))
     return SpmdPipeline(family=family, cfg=cfg, mesh=mesh, n_stages=n_stages,
                         params=_place(cfg, stage_params, mesh),
-                        stage_bits=stage_bits, sp_kind=sp_kind)
+                        stage_bits=stage_bits, sp_kind=sp_kind, remat=remat)
 
 
 def _place(cfg: TransformerConfig, stage_params: Sequence[Dict],

@@ -313,6 +313,24 @@ def shard_block_params(cfg: TransformerConfig, params: Dict,
     return _shard_by_specs(params, specs, group)
 
 
+def merge_block_params(cfg: TransformerConfig, shards: Sequence[Dict]
+                       ) -> Dict:
+    """One block's whole params from its `shard_block_params` shards, on
+    shard 0's device: each split leaf's shards concatenated along its
+    axis, a replicated leaf shard 0's own tensor."""
+    specs, _ = family_tp_plan(cfg)
+
+    def join(parts, spec):
+        if isinstance(parts[0], dict):
+            return {k: join([p[k] for p in parts], spec[k])
+                    for k in parts[0]}
+        if spec is None:
+            return parts[0]
+        return torch.cat([p.to(parts[0].device) for p in parts], dim=spec)
+
+    return join(list(shards), specs)
+
+
 def make_tp_block_fn(cfg: TransformerConfig, group: ShardGroup):
     """`fn(sharded_params, xs) -> xs` running one full transformer block
     with tensor parallelism over `group`: `sharded_params` from

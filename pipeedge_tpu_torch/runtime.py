@@ -1114,6 +1114,9 @@ def run_pipeline_spmd(args, stage_layers: Sequence[Tuple[int, int]],
         entry.family.FAMILY, entry.config, stage_layers, stage_params, mesh,
         quant_bit=list(stage_quant) if stage_quant else 0,
         sp_kind=args.spmd_sp_kind)
+    # the unsplit stage parameters go once placed: under tp the pipeline
+    # holds only their shards through the run
+    del stage_params
     inputs, labels = load_batches(args.model_name, args.batch_size,
                                   args.ubatch_size,
                                   mesh.cell(0, 0).devices[0], dtype)
