@@ -4,6 +4,7 @@
     python3 chip_smoke.py [--ab-parent DIR] [--ab-entry-parent ROOT]
                           [--profiles-out DIR]
     python3 chip_smoke.py --spmd-memory [ROOT]
+    python3 chip_smoke.py --mh-rates [ROOT]
 
 Phases, each of which raises on failure (nothing is caught):
   1. card and toolchain: `nvidia-smi` name and power limit, torch and CUDA;
@@ -102,8 +103,8 @@ Phases, each of which raises on failure (nothing is caught):
      - launch counts: 12 decode-attention launches per decode step in
        (ii), 127 x 12 = 1524 per generation, none in (i) and (iii);
      then one profiled decode step of (ii) and of (iii), and the entry
-     `python -m pipeedge_tpu_torch.generate ... --kv-bits 8` once with
-     PIPEEDGE_INT8_DECODE_ATTEND=1;
+     `pipeedge_tpu_torch.generate.main([... --kv-bits 8])` once in this
+     process with PIPEEDGE_INT8_DECODE_ATTEND=1;
   7. the tiny GPT-2 (`pipeedge/test-tiny-gpt2`, head dim 8, seeded random
      weights made in-process), two stages, batch 4, a 16-token prompt, 32
      new tokens, int8 cache, on the kernel route (ii) and the dequantize
@@ -290,8 +291,9 @@ Phases, each of which raises on failure (nothing is caught):
      equal to the single-shard forward bit for bit (kernel 3 at 24
      launches per microbatch);
      (b) the ViT-Base runtime entry (`-pt 1,21,22,48 -q 8,0 -b 64 -u 8`,
-     2 rounds) without and with `--trace DIR --trace-spans OUT` (each its
-     own process, so no profiler session of this script is open there):
+     2 rounds) without `--trace` in this process and with `--trace DIR
+     --trace-spans OUT` as a process of its own (no profiler session of
+     this script is open there):
      items/s of both, the trace written (a busy profiler fails here) and
      its device events naming kernel 3 and the codec's encode and decode,
      and the spans dump: `stage` x 2 and `results` x 1 per microbatch, no
@@ -316,8 +318,9 @@ Phases, each of which raises on failure (nothing is caught):
      the plain codec on the card, timed at that shape;
      (e) the router entry spawning two int8 `gpt2` replicas (`--replicas
      2`, kernel 5): one SIGKILLed in the middle of a burst of 16 streamed
-     requests, none lost, each equal to its solo int8 run in this process,
-     the dead replica respawned with the next epoch and readmitted, the
+     requests, none lost, each equal to its solo int8 run in this process
+     (run while the replica respawns), the dead replica respawned with the
+     next epoch and readmitted, the
      router and its replicas gone after SIGTERM; tokens/s and first-token
      and request latency p50/p95 through the router. (d) and (e) also
      fail if the router process holds a GPU device file.
@@ -584,6 +587,28 @@ Phases, each of which raises on failure (nothing is caught):
      forward as many, twice that under remat (`train_launches`).
      Printed: steps/s, peak `torch.cuda.max_memory_allocated` and the
      seconds of each run.
+ 26. the multi-process contexts (`comm.MultiHostContext`,
+     `global_devices()`, process-spanning meshes): two ranks of this
+     script (`--multihost-rank R`), each a process, share the one card
+     under `gloo` (NCCL refuses two ranks on one card), 4 positions each
+     on cuda:0, process-major. They start beside phase 25, load their
+     weights and wait for the phase. ViT-Base (phase 4's npz) in 4 stages
+     of 3 blocks, M = 4 microbatches of 8:
+     (a) dp 2 x 4 stages (one dp row a rank), 8-bit edges: each rank's
+     output equals the in-process `SpmdPipeline` of the same mesh (8
+     positions on cuda:0) bit for bit;
+     (b) dp 1 x 4 stages, stages 0-1 on rank 0 and 2-3 on rank 1, 8-bit
+     edges (kernel 1's words cross the process): equal bit for bit;
+     (c) 3 SGD steps on each layout: the ranks' losses agree to the
+     printed digit and lie within rtol 1e-5 of the in-process steps; the
+     first step's gradients within TRAIN_GRAD_TOL of the in-process ones;
+     (d) GPT-2 (phase 6's npz, 2 stages) greedy over a tp group of one
+     position in each rank: the tokens of the in-process tp 2 run.
+     Each rank prints its launches per leg (`rank=R leg=L
+     kernel_launches=`), held to `mh_expected`; a failed rank fails the
+     phase. Printed: items/s and steps/s beside the in-process runs', the
+     time of one gloo hop through the host (an 8-bit edge payload and an
+     f32 activation), the ranks' start-up and the phase's seconds.
 Phase 3 also holds kernel 5 (decode attention) against its plain version
 at the main path's shapes (windows of a [16, 1024, 12, 64] stage cache at
 buckets 256 and 512, and pos 1000 of the whole cache), pos 0 and W-1,
@@ -602,7 +627,9 @@ run's items/s is printed. `--spmd-memory [ROOT]` runs only phase
 23(b)'s dp 2 x tp 2 entry at `--tp-quant-bits 0`, with the port imported
 from the checkout at ROOT (default this one), and prints the device
 memory resident before it and at its peak: run once per checkout, in a
-process each, it compares versions.
+process each, it compares versions. `--mh-rates [ROOT]` does the same
+for phase 26's in-process legs, three times each: (a) and (b) items/s,
+(c) steps/s, (d) tokens/s.
 Then one `{"kernels": [...]}` JSON line and, last, the device line
 `{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}`.
 
@@ -2095,27 +2122,43 @@ def decode_main_path(device: str, model: str = DECODE_MODEL,
                          f"decode step ({run}), bucket "
                          f"{pk._read_len(pos)}, pos {pos}")
 
-    # the generate entry, once, with the kernel route chosen by the env
+    # the generate entry, once, in this process, with the kernel route
+    # chosen by the env (set for the call)
+    import io
+    import logging
+    from pipeedge_tpu_torch import generate
+    from pipeedge_tpu_torch.ops import _build
     pt = ",".join(f"{l},{r}" for l, r in partition)
-    cmd = [sys.executable, "-m", "pipeedge_tpu_torch.generate", "-m", model,
-           "-pt", pt, "-b", str(batch), "--prompt-len", str(prompt_len),
-           "--new-tokens", str(new_tokens), "--max-len", str(max_len),
-           "--attend-floor", str(floor), "--kv-bits", "8",
-           "--device", torch.device(device).type]
-    env = dict(os.environ, PIPEEDGE_INT8_DECODE_ATTEND="1")
+    argv = ["-m", model, "-pt", pt, "-b", str(batch), "--prompt-len",
+            str(prompt_len), "--new-tokens", str(new_tokens), "--max-len",
+            str(max_len), "--attend-floor", str(floor), "--kv-bits", "8",
+            "--device", torch.device(device).type]
+    saved = os.environ.get("PIPEEDGE_INT8_DECODE_ATTEND")
+    os.environ["PIPEEDGE_INT8_DECODE_ATTEND"] = "1"
+    # a handler on the root makes the entry's logging.basicConfig a no-op:
+    # the script's later phases keep their logging as it was
+    quiet, out = logging.NullHandler(), io.StringIO()
+    logging.getLogger().addHandler(quiet)
+    _build.reset_launch_counts()    # the entry prints the process's tally
     t0 = time.monotonic()
-    proc = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
-                          text=True, timeout=600)
-    if proc.returncode != 0:
-        raise RuntimeError(f"{' '.join(cmd)} exited {proc.returncode}:\n"
-                           f"{proc.stderr[-4000:]}")
-    lines = proc.stdout.splitlines()
+    try:
+        with contextlib.redirect_stdout(out):
+            generate.main(argv)
+    finally:
+        logging.getLogger().removeHandler(quiet)
+        if saved is None:
+            os.environ.pop("PIPEEDGE_INT8_DECODE_ATTEND")
+        else:
+            os.environ["PIPEEDGE_INT8_DECODE_ATTEND"] = saved
+    lines = out.getvalue().splitlines()
     for line in lines:
         log("generate entry: " + line)
     launches = [json.loads(ln.split("=", 1)[1]) for ln in lines
                 if ln.startswith("kernel_launches=")]
     res["entry"] = dict(
-        command=" ".join(cmd[1:]), seconds=time.monotonic() - t0,
+        command=" ".join(["in process: PIPEEDGE_INT8_DECODE_ATTEND=1", "-m",
+                          "pipeedge_tpu_torch.generate"] + argv),
+        seconds=time.monotonic() - t0,
         report=[ln for ln in lines if ln.startswith("generated ")],
         decode_attention=launches[0]["decode_attention"] if launches
         else None,
@@ -5034,9 +5077,10 @@ def trace_kernels(trace_file: Path) -> dict:
 
 
 def tracing_path() -> dict:
-    """Phase 15b: the runtime entry on ViT-Base without and with `--trace`
-    and `--trace-spans` (separate processes: no profiler session of this
-    script is open in them); the trace's device kernels and the spans."""
+    """Phase 15b: the runtime entry on ViT-Base without `--trace` in this
+    process (`run_entry_here`), and with `--trace` and `--trace-spans` as
+    a process of its own (no profiler session of this script is open
+    there); the trace's device kernels and the spans."""
     import shutil
     from pipeedge_tpu_torch.models import registry
     from pipeedge_tpu_torch.telemetry import chrome_trace
@@ -5047,7 +5091,7 @@ def tracing_path() -> dict:
     shutil.rmtree(trace_dir, ignore_errors=True)
     spans_file.unlink(missing_ok=True)
     base = ["0", "2", "-m", MODEL, "-M", str(weights), *TRACE_ARGV]
-    res = {"plain": run_entry(base, {}, BUILD_DIR / "monitor")}
+    res = {"plain": run_entry_here(base, BUILD_DIR / "monitor")}
     res["traced"] = run_entry(base + ["--trace", str(trace_dir),
                                       "--trace-spans", str(spans_file)],
                               {}, BUILD_DIR / "monitor")
@@ -5560,8 +5604,9 @@ def stream_client(port: int, i: int, body: dict, start, out: dict) -> None:
 def router_spawn_path() -> dict:
     """Phase 15e: the router entry spawning two int8 replicas; one is
     SIGKILLed in the middle of a burst of streamed requests: none lost,
-    each equal to its solo int8 run (kernel 5, in this process), the
-    dead replica respawned with the next epoch and readmitted."""
+    each equal to its solo int8 run (kernel 5, in this process, while the
+    respawned replica starts), the dead replica respawned with the next
+    epoch and readmitted."""
     import signal
     import threading
     from pipeedge_tpu_torch import serve
@@ -5607,29 +5652,35 @@ def router_spawn_path() -> dict:
         for t in threads:
             t.join()
         res["burst_s"] = max(o["t1"] for o in out.values()) - t0
-        res["readmitted"] = wait_until(
-            lambda: (router.health()["workers"]["0"]["epoch"] == 1
-                     and router.health()["fleet"]["r0"]["state"]
-                     == "healthy"), 180, step=0.25)
-        res["readmit_s"] = time.monotonic() - t_kill
+
+        def solo_runs():
+            """The solo int8 runs, in this process on kernel 5, while the
+            respawned replica starts (for the script's time)."""
+            oracle = serve.build_pipeline(serve.parse_args(base))
+            want = [oracle.generate(torch.as_tensor(r["ids"], device="cuda"),
+                                    r["new"]).cpu().numpy() for r in reqs]
+            del oracle
+            return want
+
+        from concurrent.futures import ThreadPoolExecutor
+        with ThreadPoolExecutor(1) as pool:
+            solo = pool.submit(solo_runs)
+            res["readmitted"] = wait_until(
+                lambda: (router.health()["workers"]["0"]["epoch"] == 1
+                         and router.health()["fleet"]["r0"]["state"]
+                         == "healthy"), 180, step=0.25)
+            res["readmit_s"] = time.monotonic() - t_kill
+            wants = solo.result()
         after = router.health()
         res["epochs"] = {k: v["epoch"] for k, v in after["workers"].items()}
         res["states"] = {k: v["state"] for k, v in after["fleet"].items()}
         res["respawned_pid_differs"] = after["workers"]["0"]["pid"] != victim
         res["router_touches_card"] = router.touches_card()
-        # the solo int8 runs, in this process on kernel 5
-        args = serve.parse_args(base)
-        oracle = serve.build_pipeline(args)
         res["errors"] = {i: o["error"] for i, o in out.items()
                          if "error" in o}
-        res["mismatched"] = []
-        for i, r in enumerate(reqs):
-            want = oracle.generate(torch.as_tensor(r["ids"], device="cuda"),
-                                   r["new"]).cpu().numpy()
-            if "ids" not in out[i] or not np.array_equal(
-                    np.asarray(out[i]["ids"]), want):
-                res["mismatched"].append(i)
-        del oracle
+        res["mismatched"] = [i for i, want in enumerate(wants)
+                             if "ids" not in out[i] or not np.array_equal(
+                                 np.asarray(out[i]["ids"]), want)]
         lat = [(o["t1"] - o["t0"]) * 1e3 for o in out.values() if "t1" in o]
         first = [(o["t_first"] - o["t0"]) * 1e3 for o in out.values()
                  if o.get("t_first") is not None]
@@ -6512,6 +6563,9 @@ def autoscale_path() -> dict:
             "[replica r1] kernel_launches=")), None)
         res["r1_launches"] = (json.loads(launches.split("=", 1)[1])
                               if launches else None)
+        # r1's last lines as the router printed them, for a failed check
+        res["r1_tail"] = [ln for ln in router.lines
+                          if "r1" in ln or "rank 1" in ln][-6:]
         # every answer against its request's solo int8 run (`solo_runs`)
         res["mismatched"] = [
             (k, i) for k, i, final in [(0, 0, first["final"])] + [
@@ -6600,7 +6654,8 @@ def check_autoscale_path(res, device_name: str) -> None:
             and res["solo_launches"] > 0):
         raise AssertionError(f"autoscale: kernel 5 launches: r1 "
                              f"{res['r1_launches']}, solo runs "
-                             f"{res['solo_launches']}")
+                             f"{res['solo_launches']}; r1's last lines "
+                             f"{res['r1_tail']}")
     if res["router_rc"] != 0 or not res["replicas_gone"] or not res["r0_gone"]:
         raise AssertionError(f"autoscale: router rc {res['router_rc']}, "
                              f"replicas gone {res['replicas_gone']}")
@@ -9894,6 +9949,445 @@ def check_train_path(res, device_name: str) -> dict:
     return {key: res[key]["launches"] for key in ("vit", "gpt2")}
 
 
+# --- phase 26: the multi-process contexts -----------------------------------
+
+# Two ranks of this script, each a process, join one `torch.distributed`
+# world (`comm.MultiHostContext`, gloo: NCCL refuses two ranks on the one
+# card) with 4 positions each on cuda:0, process-major. ViT-Base (phase
+# 4's npz) in 4 stages of 3 blocks, M = 4 microbatches of 8: (a) dp 2 x 4
+# stages, one dp row a rank, 8-bit edges; (b) dp 1 x 4 stages, stages 0-1
+# on rank 0 and 2-3 on rank 1, 8-bit edges (kernel 1's words cross the
+# process); (c) 3 SGD steps on each layout; (d) GPT-2 (phase 6's npz) in
+# 2 stages, greedy, over a tp group of one position in each rank.
+MH_WORLD = 2
+MH_LOCAL = 4
+MH_PARTITION = [(1, 12), (13, 24), (25, 36), (37, 48)]
+MH_M, MH_B = 4, 8
+MH_STEPS = 3
+MH_LR = 0.1
+MH_GPT2 = dict(partition=[(1, 24), (25, 48)], batch=4, prompt=32, new=16,
+               max_len=64)
+MH_HOP_ROUNDS = 20
+MH_TIMEOUT_S = 180    # the ranks' legs took 16.5 s (H100 80GB HBM3, 700 W)
+
+
+def mh_inputs():
+    """Phase 26's images [M, B, 3, 224, 224] and labels [M, B] (numpy
+    streams, so every process draws the same)."""
+    from pipeedge_tpu_torch.models import registry
+    cfg = registry.get_model_config(MODEL)
+    rng = np.random.default_rng(26)
+    x = rng.normal(size=(MH_M, MH_B, cfg.num_channels, cfg.image_size,
+                         cfg.image_size)).astype(np.float32)
+    y = rng.integers(0, cfg.num_labels, size=(MH_M, MH_B))
+    ids = np.random.default_rng(27).integers(
+        0, registry.get_model_config(DECODE_MODEL).vocab_size,
+        size=(MH_GPT2["batch"], MH_GPT2["prompt"]))
+    return torch.from_numpy(x), torch.from_numpy(y), torch.from_numpy(ids)
+
+
+def mh_stage_params():
+    """ViT-Base's 4 stages on the CPU (phase 4's npz), and GPT-2's 2."""
+    from pipeedge_tpu_torch.models import ShardConfig, gpt2, registry, vit
+    out = {}
+    for model, module, partition, weights in (
+            (MODEL, vit, MH_PARTITION,
+             BUILD_DIR / f"{MODEL.replace('/', '_')}-random-seed0.npz"),
+            (DECODE_MODEL, gpt2, MH_GPT2["partition"],
+             BUILD_DIR / f"{DECODE_MODEL}-random-seed0.npz")):
+        cfg = registry.get_model_config(model)
+        total = registry.get_model_layers(model)
+        with np.load(weights) as npz:
+            w = {k: npz[k] for k in npz.files}
+        out[model] = [module.load_params(cfg, ShardConfig(
+            l, r, is_first=l == 1, is_last=r == total), w)
+            for l, r in partition]
+    return out
+
+
+def mh_cuda(stages):
+    """A fresh copy of stage parameters on the card (training updates the
+    positions' tensors in place)."""
+    from pipeedge_tpu_torch.parallel.train import tree_map
+    return [tree_map(lambda t: t.to("cuda", copy=True), p)
+            for p in stages]
+
+
+def mh_vit_pipe(stages, mesh, bits):
+    from pipeedge_tpu_torch.models import registry, vit
+    from pipeedge_tpu_torch.parallel import spmd
+    return spmd.build_spmd_pipeline(
+        vit.FAMILY, registry.get_model_config(MODEL), MH_PARTITION,
+        mh_cuda(stages), mesh,
+        quant_bit=[bits] * (len(MH_PARTITION) - 1) + [0])
+
+
+def mh_layouts(positions=None) -> dict:
+    """(a)'s dp 2 x 4 mesh and (b)'s stage split over `positions`
+    (`global_devices()`), or both over one process's 8 positions."""
+    from pipeedge_tpu_torch.parallel import spmd
+    n = len(MH_PARTITION)
+    if positions is None:
+        return {"a": spmd.make_pipeline_mesh(n, dp=2, device="cuda"),
+                "b": spmd.make_pipeline_mesh(n, device="cuda")}
+    return {"a": spmd.make_pipeline_mesh(n, dp=2, devices=positions),
+            "b": spmd.make_pipeline_mesh(n, devices=[
+                positions[0], positions[1], positions[MH_LOCAL],
+                positions[MH_LOCAL + 1]])}
+
+
+def mh_timed_run(pipe, x) -> tuple:
+    """A warm-up run, then the timed run with every count at 0 just
+    before it: (output on the CPU, items/s, launches)."""
+    from pipeedge_tpu_torch.ops import _build
+    pipe.run(x)
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = pipe.run(x)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    return (out.cpu(), MH_M * MH_B / dt, dict(_build.launch_counts))
+
+
+def mh_train(pipe, x, y) -> dict:
+    """The first step's loss and gradients (`value_and_grad`), then
+    MH_STEPS SGD steps with every count at 0 just before them."""
+    from pipeedge_tpu_torch.ops import _build
+    from pipeedge_tpu_torch.parallel import train
+    loss0, grads = train.value_and_grad(pipe, pipe.canonical, x, y)
+    parts = {part: [g.detach().cpu() for g in grads[i:j]]
+             for part, i, j in train._parts(pipe.canonical)}
+    step, state = train.make_train_step(
+        pipe, lambda leaves: torch.optim.SGD(leaves, lr=MH_LR), x)
+    params, losses = pipe.canonical, []
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    for _ in range(MH_STEPS):
+        params, state, loss = step(params, state, x, y)
+        losses.append(float(loss))
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    return dict(first_loss=float(loss0), first_grads=parts, losses=losses,
+                steps_per_s=MH_STEPS / dt,
+                launches={**_build.launch_counts,
+                          **_build.grad_launch_counts})
+
+
+def mh_decode(stages, mesh) -> dict:
+    """GPT-2 greedy over a tp `mesh`: tokens, tokens/s and launches."""
+    from pipeedge_tpu_torch.models import gpt2, registry
+    from pipeedge_tpu_torch.ops import _build
+    from pipeedge_tpu_torch.parallel.decode import DecodePipeline
+    pipe = DecodePipeline(gpt2.FAMILY, registry.get_model_config(
+        DECODE_MODEL), MH_GPT2["partition"], mh_cuda(stages),
+        max_len=MH_GPT2["max_len"], mesh=mesh)
+    ids = mh_inputs()[2].to("cuda")
+    pipe.generate(ids, 2)
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    tokens = pipe.generate(ids, MH_GPT2["new"])
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    return dict(tokens=tokens.cpu(),
+                tok_per_s=MH_GPT2["batch"] * MH_GPT2["new"] / dt,
+                launches=dict(_build.launch_counts))
+
+
+def mh_hop_ms(rank: int) -> dict:
+    """One hop between the ranks through the host (gloo, pinned staging),
+    ms: (b)'s 8-bit edge payload of a microbatch and its f32 activation
+    (the training edge), each a ping-pong of MH_HOP_ROUNDS round trips."""
+    from pipeedge_tpu_torch.comm.exchange import exchange
+    from pipeedge_tpu_torch.ops import fused_quant
+    from pipeedge_tpu_torch.models import registry
+    cfg = registry.get_model_config(MODEL)
+    act = torch.randn(MH_B, cfg.num_patches + 1, cfg.hidden_size,
+                      device="cuda")
+    out = {}
+    for name, payload in (("edge8", fused_quant.encode_outerdim(act, 8)),
+                          ("f32", act)):
+        peer = 1 - rank
+        exchange({1: [payload]} if rank == 0 else {}, [] if rank == 0
+                 else [0], "cuda", [0, 1])          # warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(MH_HOP_ROUNDS):
+            if rank == 0:
+                exchange({peer: [payload]}, [], "cuda", [0, 1])
+                exchange({}, [peer], "cuda", [0, 1])
+            else:
+                got = exchange({}, [peer], "cuda", [0, 1])[peer]
+                exchange({peer: got}, [], "cuda", [0, 1])
+        torch.cuda.synchronize()
+        out[name] = (time.perf_counter() - t0) * 1e3 / (2 * MH_HOP_ROUNDS)
+    return out
+
+
+def mh_rank(rank: int, coord: str, work: Path) -> int:
+    """One rank of phase 26 (`chip_smoke.py --multihost-rank R ...`): load
+    the weights, wait for the parent's go, then the legs; every result to
+    `work/rank<R>.pt`, each leg's launches on a `rank=R leg=L
+    kernel_launches=` line."""
+    from pipeedge_tpu_torch.comm import MultiHostContext, global_devices
+    from pipeedge_tpu_torch.ops import _build
+    from pipeedge_tpu_torch.parallel.mesh import ShardGroup
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.monotonic()
+    _build.library()
+    stages = mh_stage_params()
+    x, y, _ = mh_inputs()
+    x, y = x.to("cuda"), y.to("cuda")
+    ready_s = time.monotonic() - t0
+    go = work / "go"
+    while not go.exists():
+        time.sleep(0.05)
+    res = {"ready_s": ready_s}
+    with MultiHostContext(coord, MH_WORLD, rank, backend="gloo",
+                          device="cuda") as ctx:
+        log(f"multihost rank {rank}: torch.distributed backend "
+            f"{ctx.backend}, {MH_LOCAL} positions on {ctx.devices[0]}")
+        res["backend"] = ctx.backend
+        positions = global_devices([ctx.devices[0]] * MH_LOCAL)
+        layouts = mh_layouts(positions)
+        for leg in ("a", "b"):
+            out, ips, counts = mh_timed_run(
+                mh_vit_pipe(stages[MODEL], layouts[leg], 8), x)
+            res[leg] = dict(out=out, items_per_s=ips, launches=counts)
+        for leg in ("a", "b"):
+            res[f"c_{leg}"] = mh_train(
+                mh_vit_pipe(stages[MODEL], layouts[leg], 0), x, y)
+        res["d"] = mh_decode(stages[DECODE_MODEL], ShardGroup(
+            [positions[0], positions[MH_LOCAL]], "tp"))
+        res["hop_ms"] = mh_hop_ms(rank)
+        for leg in ("a", "b", "c_a", "c_b", "d"):
+            print(f"rank={rank} leg={leg} kernel_launches="
+                  + json.dumps(res[leg]["launches"]), flush=True)
+        torch.save(res, work / f"rank{rank}.pt")
+        torch.distributed.barrier()
+    log(f"multihost rank {rank}: done")
+    return 0
+
+
+def multihost_start() -> dict:
+    """Start phase 26's two ranks: they load their weights (beside phase
+    25, for the script's time) and wait for `multihost_path`'s go."""
+    import shutil
+    work = BUILD_DIR / "multihost"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    import socket
+    with socket.create_server(("127.0.0.1", 0)) as s:
+        coord = f"127.0.0.1:{s.getsockname()[1]}"
+    procs = []
+    for r in range(MH_WORLD):
+        log_file = open(work / f"rank{r}.log", "w")
+        procs.append(subprocess.Popen(
+            [sys.executable, str(ROOT / "chip_smoke.py"), "--multihost-rank",
+             str(r), "--multihost-coord", coord, "--multihost-dir",
+             str(work)], cwd=ROOT, stdout=log_file, stderr=subprocess.STDOUT,
+            env=dict(os.environ, PYTHONPATH=str(ROOT))))
+        log_file.close()
+    return {"work": work, "procs": procs, "t0": time.monotonic()}
+
+
+def multihost_stop(started: dict) -> None:
+    """Kill the ranks that still run (a failed phase must not leave them)."""
+    for p in started["procs"]:
+        if p.poll() is None:
+            p.kill()
+        p.wait()
+
+
+def mh_references() -> dict:
+    """Phase 26's legs in this process on one process's 8 positions: the
+    references the ranks are held to."""
+    from pipeedge_tpu_torch.parallel.mesh import ShardGroup, devices_for
+    stages = mh_stage_params()
+    x, y, _ = mh_inputs()
+    x, y = x.to("cuda"), y.to("cuda")
+    layouts = mh_layouts()
+    ref = {}
+    for leg in ("a", "b"):
+        out, ips, counts = mh_timed_run(
+            mh_vit_pipe(stages[MODEL], layouts[leg], 8), x)
+        ref[leg] = dict(out=out, items_per_s=ips, launches=counts)
+    for leg in ("a", "b"):
+        ref[f"c_{leg}"] = mh_train(
+            mh_vit_pipe(stages[MODEL], layouts[leg], 0), x, y)
+    ref["d"] = mh_decode(stages[DECODE_MODEL],
+                         ShardGroup(devices_for(2, "cuda"), "tp"))
+    return ref
+
+
+def mh_rates(root: Path, repeats: int = 3) -> dict:
+    """`mh_references`' rates with the port imported from the checkout at
+    `root` (this one or another version, to compare them), each leg
+    `repeats` times: (a) and (b) items/s, (c) steps/s, (d) tokens/s. The
+    caller puts `root` first on `sys.path` before the port's first
+    import."""
+    import pipeedge_tpu_torch
+    from pipeedge_tpu_torch.models import gpt2, registry, vit
+    from pipeedge_tpu_torch.ops import _build
+    _build.library()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    for model, module in ((MODEL, vit), (DECODE_MODEL, gpt2)):
+        path = BUILD_DIR / f"{model.replace('/', '_')}-random-seed0.npz"
+        if not path.exists():
+            np.savez(path, **module.random_npz_weights(
+                registry.get_model_config(model), seed=0))
+    rates = {}
+    for _ in range(repeats):
+        ref = mh_references()
+        for leg, key in (("a", "items_per_s"), ("b", "items_per_s"),
+                         ("c_a", "steps_per_s"), ("c_b", "steps_per_s"),
+                         ("d", "tok_per_s")):
+            rates.setdefault(leg, []).append(ref[leg][key])
+    return dict(package=str(Path(pipeedge_tpu_torch.__file__).parent),
+                **rates)
+
+
+def multihost_path(started: dict) -> dict:
+    """Phase 26: the in-process references on one process's 8 positions,
+    then the ranks' legs (module docstring); fails if a rank fails."""
+    work, procs = started["work"], started["procs"]
+    res = {"seconds": {}}
+    try:
+        t0 = time.monotonic()
+        res["ref"] = mh_references()
+        res["seconds"]["references"] = time.monotonic() - t0
+        res["ranks_up_s"] = time.monotonic() - started["t0"]
+        (work / "go").touch()
+        t1 = time.monotonic()
+        # a rank that fails leaves the other waiting in a collective: stop
+        # waiting at the first failure (or the limit) and kill both
+        while any(p.poll() is None for p in procs) \
+                and not any(p.poll() for p in procs) \
+                and time.monotonic() < t1 + MH_TIMEOUT_S:
+            time.sleep(0.1)
+        res["seconds"]["ranks"] = time.monotonic() - t1
+    finally:
+        multihost_stop(started)
+    outs = [(work / f"rank{r}.log").read_text() for r in range(MH_WORLD)]
+    if any(p.returncode for p in procs):   # -9: killed after the other
+        raise AssertionError("multihost: " + "\n".join(
+            f"rank {r} exited {p.returncode}:\n{outs[r][-3000:]}"
+            for r, p in enumerate(procs)))
+    res["logs"] = outs
+    res["ranks"] = [torch.load(work / f"rank{r}.pt", weights_only=False)
+                    for r in range(MH_WORLD)]
+    res["launch_lines"] = [[ln for ln in text.splitlines()
+                            if ln.startswith(f"rank={r} leg=")]
+                           for r, text in enumerate(outs)]
+    res["seconds"]["phase"] = time.monotonic() - t0
+    return res
+
+
+def mh_expected() -> dict:
+    """Each rank's launches per leg (module docstring of
+    `parallel/spmd.py`): (a) its dp row's 12 blocks x M, 3 8-bit edges x
+    M; (b) rank 0 stages 0-1 (6 blocks, 2 edges leaving, 1 arriving) and
+    rank 1 stages 2-3; (c) MH_STEPS steps of the same forward plus its
+    backward; (d) none (a float cache: no kernel 5; the prompt attends
+    through the cache step, off kernel 3)."""
+    per = 3   # blocks a stage
+    a = {"fused_attention": 4 * per * MH_M, "fused_encode": 3 * MH_M,
+         "fused_decode": 3 * MH_M}
+    b = [{"fused_attention": 2 * per * MH_M, "fused_encode": 2 * MH_M,
+          "fused_decode": MH_M},
+         {"fused_attention": 2 * per * MH_M, "fused_encode": MH_M,
+          "fused_decode": 2 * MH_M}]
+
+    def train(blocks):
+        n = blocks * MH_M * MH_STEPS
+        return {"fused_attention": n, "fused_attention_bwd": n}
+    return {r: {"a": a, "b": b[r], "c_a": train(4 * per),
+                "c_b": train(2 * per), "d": {}} for r in range(MH_WORLD)}
+
+
+def check_multihost_path(res, device_name: str) -> dict:
+    """Phase 26's gates; returns each rank's launches per leg."""
+    ranks, ref = res["ranks"], res["ref"]
+    problems = []
+    expected = mh_expected()
+    # each rank's launches as it reported them on its `kernel_launches=`
+    # lines
+    launches = {r: {line.split(" ", 2)[1][4:]: json.loads(
+        line.split("kernel_launches=", 1)[1]) for line in lines}
+        for r, lines in enumerate(res["launch_lines"])}
+    for r, got in enumerate(ranks):
+        if got["backend"] != "gloo":
+            problems.append(f"rank {r}: backend {got['backend']}")
+        for leg, want in expected[r].items():
+            if leg not in launches[r]:
+                problems.append(f"rank {r}: no kernel_launches line for "
+                                f"leg {leg}")
+                continue
+            counts = launches[r][leg]
+            # over both key sets: a kernel the leg needs that the rank did
+            # not report fails, as does one it launched that it needs not
+            wrong = {k: counts.get(k) for k in set(counts) | set(want)
+                     if k not in counts or counts[k] != want.get(k, 0)}
+            if wrong:
+                problems.append(f"rank {r} leg {leg}: launches {counts}, "
+                                f"expected {want}")
+        for leg in ("a", "b"):
+            if not torch.equal(got[leg]["out"], ref[leg]["out"]):
+                diff = float((got[leg]["out"] - ref[leg]["out"]).abs().max())
+                problems.append(f"rank {r} leg {leg}: output differs from "
+                                f"the in-process run by {diff}")
+        if not torch.equal(got["d"]["tokens"], ref["d"]["tokens"]):
+            problems.append(f"rank {r} leg d: tokens differ from the "
+                            "in-process --tp 2 run")
+    train_rows = {}
+    for leg in ("c_a", "c_b"):
+        printed = [[f"{v:.6f}" for v in got[leg]["losses"]] for got in ranks]
+        want = ref[leg]["losses"]
+        worst = 0.0
+        scale = max(float(g.abs().max()) for gs in
+                    ref[leg]["first_grads"].values() for g in gs)
+        for got in ranks:
+            for part, grads in got[leg]["first_grads"].items():
+                for g, w in zip(grads, ref[leg]["first_grads"][part]):
+                    limit = TRAIN_GRAD_TOL[0] * float(w.abs().max()) \
+                        + TRAIN_GRAD_TOL[1] * scale
+                    worst = max(worst, float((g - w).abs().max()) / limit)
+        train_rows[leg] = dict(
+            losses=printed[0], in_process=want,
+            steps_per_s=[got[leg]["steps_per_s"] for got in ranks],
+            in_process_steps_per_s=ref[leg]["steps_per_s"],
+            first_grad_worst_share=worst)
+        if printed[0] != printed[1]:
+            problems.append(f"{leg}: the ranks' losses differ: {printed}")
+        if not np.allclose(ranks[0][leg]["losses"], want, rtol=1e-5, atol=0):
+            problems.append(f"{leg}: losses {ranks[0][leg]['losses']} not "
+                            f"within rtol 1e-5 of the in-process {want}")
+        if worst > 1.0:
+            problems.append(f"{leg}: first-step gradients at {worst} of "
+                            "TRAIN_GRAD_TOL")
+    log("multihost " + json.dumps(dict(
+        items_per_s={leg: [got[leg]["items_per_s"] for got in ranks]
+                     for leg in ("a", "b")},
+        in_process_items_per_s={leg: ref[leg]["items_per_s"]
+                                for leg in ("a", "b")},
+        train=train_rows,
+        decode_tok_per_s=[got["d"]["tok_per_s"] for got in ranks],
+        in_process_decode_tok_per_s=ref["d"]["tok_per_s"],
+        hop_ms=[got["hop_ms"] for got in ranks],
+        ready_s=[got["ready_s"] for got in ranks],
+        ranks_up_s=res["ranks_up_s"], seconds=res["seconds"],
+        card=device_name)))
+    for lines in res["launch_lines"]:
+        for line in lines:
+            log("multihost " + line)
+    if problems:
+        raise AssertionError("phase 26: " + "; ".join(problems))
+    return launches
+
+
 def main() -> int:
     import argparse
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -9915,11 +10409,26 @@ def main() -> int:
                         help="only run phase 23(b)'s dp 2 x tp 2 run with "
                              "the port of the checkout at ROOT (default "
                              "this one), print its device memory, and exit")
+    parser.add_argument("--mh-rates", type=Path, nargs="?", const=ROOT,
+                        default=None, metavar="ROOT",
+                        help="only run phase 26's in-process legs three "
+                             "times with the port of the checkout at ROOT "
+                             "(default this one), print their rates, and "
+                             "exit")
+    parser.add_argument("--multihost-rank", type=int, default=None,
+                        help=argparse.SUPPRESS)
+    parser.add_argument("--multihost-coord", default=None,
+                        help=argparse.SUPPRESS)
+    parser.add_argument("--multihost-dir", type=Path, default=None,
+                        help=argparse.SUPPRESS)
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "False)", file=sys.stderr)
         return 2
+    if args.multihost_rank is not None:     # one of phase 26's ranks
+        return mh_rank(args.multihost_rank, args.multihost_coord,
+                       args.multihost_dir)
     if args.edge_cut_sweep:
         log(card_line())
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -9932,6 +10441,13 @@ def main() -> int:
         torch.backends.cuda.matmul.allow_tf32 = False
         sys.path.insert(0, str(args.spmd_memory.resolve()))
         log("spmd memory " + json.dumps(spmd_memory(args.spmd_memory)))
+        return 0
+    if args.mh_rates is not None:
+        log(card_line())
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        sys.path.insert(0, str(args.mh_rates.resolve()))
+        log("mh rates " + json.dumps(mh_rates(args.mh_rates)))
         return 0
     from pipeedge_tpu_torch.ops import _build
 
@@ -10130,10 +10646,27 @@ def main() -> int:
                                     device_name)
     phase_done("phase 24")
 
-    # phase 25: training on the card
-    train_res = train_path()
-    train_counts = check_train_path(train_res, device_name)
-    phase_done("phase 25")
+    # phase 25: training on the card; phase 26's ranks start beside it
+    mh_started = multihost_start()
+    try:
+        train_res = train_path()
+        train_counts = check_train_path(train_res, device_name)
+        phase_done("phase 25")
+
+        # phase 26: the multi-process contexts, two ranks of this script
+        mh_res = multihost_path(mh_started)
+    finally:
+        multihost_stop(mh_started)
+    mh_launches = check_multihost_path(mh_res, device_name)
+    phase_done("phase 26")
+
+    def multihost_launches_of(name):
+        """Phase 26's launches of one kernel in each rank's process, per
+        leg: (a) and (b) a timed run each, (c) MH_STEPS steps on each
+        layout, (d) the timed tp decode."""
+        return {leg: {f"rank{r}": per_leg[leg].get(name, 0)
+                      for r, per_leg in mh_launches.items()}
+                for leg in ("a", "b", "c_a", "c_b", "d")}
 
     def spmd_launches_of(name):
         """Phase 23's launches of one kernel per run of 8 microbatches."""
@@ -10269,6 +10802,7 @@ def main() -> int:
                 **tp_codec(name, bit),
                 **({"tp_ep": tp_ep_codec(name),
                     "spmd_launches": spmd_launches_of(name),
+                    "multihost_launches": multihost_launches_of(name),
                     # phase 24(c): the wave entry's warm-up and timed
                     # prefill waves, and one in-process prefill wave
                     "wave_launches": wave_launches[name]}
@@ -10365,6 +10899,8 @@ def main() -> int:
         # phase 25: 5 training steps of each run (twice under remat)
         train_launches={key: c["fused_attention"]
                         for key, c in train_counts.items()},
+        # phase 26: each rank's, per leg
+        multihost_launches=multihost_launches_of("fused_attention"),
         cases={f"{r['layout']} {r['shape']} {r['dtype']}"
                f"{' causal' if r['causal'] else ''}": {
                    key: r[key] for key in ("ms", "plain_ms", "library_ms",
@@ -10387,6 +10923,7 @@ def main() -> int:
         shape=bwd["shape"], dtype=bwd["dtype"], causal=True,
         train_launches={key: c["fused_attention_bwd"]
                         for key, c in train_counts.items()},
+        multihost_launches=multihost_launches_of("fused_attention_bwd"),
         cases={f"{r['shape']} {r['dtype']}"
                f"{' causal' if r['causal'] else ''}": {
                    key: r[key] for key in (

@@ -2405,6 +2405,11 @@ class DcnPipelineStage:
             t.start()
             self._threads.append(t)
 
+    @property
+    def recv_channel(self) -> int:
+        """The channel this stage's inputs arrive on."""
+        return self._recv_channel
+
     def stop(self) -> None:
         self._stop.set()
         # drain before inserting the sentinel so a producer blocked on a full

@@ -196,8 +196,9 @@ def qpsum(group, xs: Sequence[torch.Tensor], bit: int, *,
     n = group.size
     if n == 1:
         return list(xs)
-    orig_shape, orig_dtype = xs[0].shape, xs[0].dtype
-    m = xs[0].numel()
+    first = next(x for x in xs if x is not None)   # an own shard's
+    orig_shape, orig_dtype = first.shape, first.dtype
+    m = first.numel()
     chunk = block * (-(-m // (n * block)))
     total = n * chunk
     chunks = group.map(
@@ -207,7 +208,7 @@ def qpsum(group, xs: Sequence[torch.Tensor], bit: int, *,
     # ring reduce-scatter, widened accumulator: at step s shard i forwards
     # the partial sum of chunk (i - s) mod n and folds chunk (i - s - 1)
     # mod n of its own addend into what arrives
-    send = [chunks[i][i] for i in range(n)]
+    send = [None if c is None else c[i] for i, c in enumerate(chunks)]
     for s in range(n - 1):
         enc = group.map(lambda i, t: _block_encode(t, bit, block), send)
         send = group.map(
@@ -254,8 +255,9 @@ def qall_gather(group, xs: Sequence[torch.Tensor], bit: int, *,
     n = group.size
     if n == 1:
         return [xs[0] if tiled else xs[0].unsqueeze(axis)]
-    shape, orig_dtype = xs[0].shape, xs[0].dtype
-    m = xs[0].numel()
+    first = next(x for x in xs if x is not None)   # an own shard's
+    shape, orig_dtype = first.shape, first.dtype
+    m = first.numel()
     padded = block * (-(-m // block))
     # the local shard enters exact (not its quantized round trip)
     pieces = group.map(lambda i, x: {i: x.to(torch.float32)}, xs)

@@ -474,15 +474,19 @@ def tp_param_specs(params: Dict, cfg: TransformerConfig, n: int) -> Dict:
 def shard_stage_params(params: Dict, cfg: TransformerConfig,
                        group) -> Dict:
     """One decode stage's params over `group` by `tp_param_specs`: the
-    embeddings on shard 0 (the embedding runs there), each block as a
-    per-shard list, the final params as a per-shard list when the head is
-    vocab-split, else on shard 0."""
+    embeddings on the group's root (shard 0, or this process's first own
+    shard: the embedding runs there), each block as a per-shard list, the
+    final params as a per-shard list when the head is vocab-split, else
+    on the root. Only this process's own shards are split (None for
+    another process's)."""
     from .tensor import split_leaf
 
     n = group.size
     specs = tp_param_specs(params, cfg, n)
 
     def take(p, s, i):
+        if not group.owns(i):
+            return None
         if isinstance(p, dict):
             return {k: take(v, s[k], i) for k, v in p.items()}
         return split_leaf(p, s, n, i, group.devices[i])
@@ -490,14 +494,13 @@ def shard_stage_params(params: Dict, cfg: TransformerConfig,
     out = {}
     if "embeddings" in params:
         out["embeddings"] = params_to(params["embeddings"],
-                                      device=group.devices[0])
+                                      device=group.root)
     out["blocks"] = [[take(bp, specs["blocks"], i) for i in range(n)]
                      for bp in stage_blocks(params)]
     if "final" in params:
         out["final"] = ([take(params["final"], specs["final"], i)
                          for i in range(n)] if _tp_shards_head(cfg, n)
-                        else params_to(params["final"],
-                                       device=group.devices[0]))
+                        else params_to(params["final"], device=group.root))
     return out
 
 
@@ -507,7 +510,8 @@ def tp_vocab_head_finalize(group, pfs: Sequence[Dict],
     """The vocab-split LM head, shared by the tp decode stages: `norm_fn`
     (layer_norm for GPT-2, rms_norm for Llama) on each shard, the head
     matmul giving each shard's logit slice, and one gather in shard order
-    restoring the full [B, S, V] on shard 0."""
+    restoring the full [B, S, V] on shard 0 (on every process of a
+    group across processes)."""
     def local(i, pf, x):
         return dense(pf["head"], norm_fn(pf["ln"], x, cfg.layer_norm_eps))
 
@@ -523,11 +527,13 @@ def init_tp_cache(cfg: TransformerConfig, n_blocks: int, batch: int,
     buffers [L, B, T, H, Dh] and of the per-head scale/shift rows
     [L, B, T, H], so each shard quantizes and dequantizes its own heads.
     On a `ShardGrid` pass `tp`: cell (i, j) holds tp slice i (the cache
-    is split over tp and replicated over ep)."""
+    is split over tp and replicated over ep). Another process's shard
+    holds no cache here (None)."""
     n = tp or group.size
     local = cfg.kv_heads // n
     return [init_cache(cfg, n_blocks, batch, max_len, dtype, cache_bits,
-                       device=d, kv_heads=local) for d in group.devices]
+                       device=d, kv_heads=local) if o == group.me else None
+            for d, o in zip(group.devices, group.owners)]
 
 
 def _check_block_aligned(shard_config: ShardConfig) -> None:
@@ -546,7 +552,10 @@ def _make_sharded_run(family, cfg: TransformerConfig,
     caches, pos, cfg, prefill, read_len=)` over the per-cell params and
     caches, and the head runs on the first cell (`fin` over every cell
     when the head is split). `data` and the output live on the first
-    cell's device."""
+    cell's device. Across processes each process embeds on, reads and
+    finalizes its first own cell: after the last exact all-reduce every
+    cell holds the same values, so every process computes the same
+    output."""
     _check_block_aligned(shard_config)
     tok_embed = family.decode_embed or single_token_embed
     tok_span_embed = family.span_embed or span_embed
@@ -564,14 +573,17 @@ def _make_sharded_run(family, cfg: TransformerConfig,
                 data = tok_embed(params["embeddings"], data, pos)
         xs = cells.replicate(data)
         for b, bps in enumerate(params["blocks"]):
-            bcaches = [{k: c[b] for k, c in shard.items()} for shard in cache]
+            bcaches = [None if shard is None else
+                       {k: c[b] for k, c in shard.items()}
+                       for shard in cache]
             xs = block_fn(cells, bps, xs, bcaches, pos, cfg, prefill,
                           read_len=read_len)
+        first = next(x for x in xs if x is not None)   # the first own cell
         if not shard_config.is_last:
-            return xs[0], cache
+            return first, cache
         if fin is not None:
             return fin(cells, params["final"], xs, cfg), cache
-        return family.finalize(params["final"], xs[0], cfg), cache
+        return family.finalize(params["final"], first, cfg), cache
 
     prefill_fn = functools.partial(run, pos=0, prefill=True)
     decode_fn = functools.partial(run, prefill=False)
@@ -743,8 +755,9 @@ def shard_moe_stage_params(params: Dict, cfg: TransformerConfig,
         blocks.append([
             dict(params_to(att_shards[c // ep], device=dev),
                  moe=params_to(moe_shards[c % ep], device=dev))
+            if cells.owners[c] == cells.me else None
             for c, dev in enumerate(cells.devices)])
-    out = {k: params_to(v, device=cells.devices[0])
+    out = {k: params_to(v, device=cells.root)
            for k, v in params.items() if k in ("embeddings", "final")}
     out["blocks"] = blocks
     return out
@@ -1021,7 +1034,7 @@ class DecodePipeline:
         lead = next((m for m in (mesh, sp_mesh, ep_mesh, tp_ep_mesh)
                      if m is not None), None)
         if lead is not None:
-            self.device = lead.devices[0]
+            self.device = lead.root
             if device is not None and resolve_device(device).type \
                     != self.device.type:
                 raise ValueError(f"device {device} is not the kind of the "

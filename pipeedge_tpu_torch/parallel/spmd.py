@@ -42,6 +42,15 @@ in which each device runs its stage's blocks and the edges are
 - **dp.** Each dp cell takes its rows of every microbatch (batch
   dimension / dp) and runs them on its own positions; an MoE stage routes
   each cell's tokens on their own, as each JAX dp shard does.
+- **Across processes** (a mesh over `comm.global_devices()`, laid out
+  process-major as the JAX mesh over `jax.devices()`): every process
+  walks the same ticks and runs only the stage-steps of cells it owns a
+  position of; a hop into another process's cell is a send on one side
+  and a receive on the other (`PipelineMesh.hop`: an 8-bit edge moves
+  kernel 1's words), and under grad its gradient goes back along the edge
+  (`GradLinks`). The embedding runs on the first own shard of a stage-0
+  cell, the head on shard 0's owner, and `run` gives every process the
+  whole output: each sends the rows it finalized to the others.
 
 Kernel launches of a run of M microbatches (each launch counted by its
 wrapper): kernel 3 once per block per stage-step and per inner shard
@@ -86,7 +95,7 @@ from ..models.layers import TransformerConfig
 from ..models.shard import FamilySpec, params_to
 from ..ops import fused_quant
 from ..ops.quant import QuantizedTensor
-from .mesh import PipelineMesh, devices_for
+from .mesh import GradLinks, PipelineMesh, devices_for
 
 logger = logging.getLogger(__name__)
 
@@ -116,7 +125,11 @@ def make_pipeline_mesh(n_stages: int, dp: int = 1, tp: int = 1, sp: int = 1,
     """Build a `('dp', 'stage'[, 'tp'|'sp'])` mesh over the logical
     `devices` (default `devices_for(need, device)`: on one card every
     position is `cuda:0`), laid out `(dp, stage, inner)` as the JAX mesh.
-    tp and sp are mutually exclusive.
+    tp and sp are mutually exclusive. `devices` may be
+    `comm.global_devices()`, process-major, so that the mesh spans
+    processes; in a `torch.distributed` world of W processes the default
+    is each process's `need / W` positions (`devices_for`), process-major,
+    as the JAX default `jax.devices()` spans every process.
 
     `stage_ranks[i]` places stage i at `devices[stage_ranks[i]]` (the
     runtime's `-r`); requires dp=tp=sp=1 and distinct ranks."""
@@ -125,7 +138,7 @@ def make_pipeline_mesh(n_stages: int, dp: int = 1, tp: int = 1, sp: int = 1,
     inner, inner_name = (tp, "tp") if tp > 1 else (sp, "sp")
     need = n_stages * dp * inner
     if devices is None:
-        devices = devices_for(need, device)
+        devices = _default_devices(need, device)
     if stage_ranks is not None:
         if dp != 1 or tp != 1 or sp != 1:
             raise ValueError("stage_ranks requires dp=1, tp=1 and sp=1")
@@ -142,6 +155,20 @@ def make_pipeline_mesh(n_stages: int, dp: int = 1, tp: int = 1, sp: int = 1,
     if len(devices) < need:
         raise ValueError(f"need {need} devices, have {len(devices)}")
     return PipelineMesh(devices[:need], dp, n_stages, inner, inner_name)
+
+
+def _default_devices(need: int, device) -> list:
+    """`devices_for(need, device)` in one process; in a world of W
+    processes each one's `need / W` positions, process-major."""
+    import torch.distributed as dist
+    if not (dist.is_initialized() and dist.get_world_size() > 1):
+        return devices_for(need, device)
+    from ..comm import global_devices
+    world = dist.get_world_size()
+    if need % world:
+        raise ValueError(f"{need} mesh positions do not split over "
+                         f"{world} processes")
+    return global_devices(devices_for(need // world, device))
 
 
 def encode_edge(h: torch.Tensor, bit: int):
@@ -186,6 +213,7 @@ class SpmdPipeline:
         return next(iter(bits)) if len(bits) == 1 else 0
 
     def run(self, inputs: torch.Tensor) -> torch.Tensor:
+        """The output [M, B, ...], whole on every process of the mesh."""
         with torch.inference_mode():
             return self.forward(self.params, inputs)
 
@@ -193,30 +221,56 @@ class SpmdPipeline:
     def canonical(self) -> Dict:
         """`embed`, `final` and `blocks[s][j]`, one copy each: the first
         dp cell's tensors (shard 0's), or under tp its shards merged onto
-        shard 0's device, built anew at each read (module docstring)."""
-        params = self.params
-        blocks = [cells[0] for cells in params["blocks"]]
-        if self.mesh.inner > 1 and self.mesh.inner_axis == "tp":
-            from .tensor import merge_block_params
-            blocks = [[merge_block_params(self.cfg, shards)
-                       for shards in stage] for stage in blocks]
-        else:
-            blocks = [[shards[0] for shards in stage] for stage in blocks]
-        return {"embed": params["embed"][0], "final": params["final"][0],
-                "blocks": blocks}
+        shard 0's device, built anew at each read (module docstring).
+        Across processes each process reads the first dp cell it owns a
+        position of in each stage; a stage it owns none of has no blocks
+        here (`[]`), and `embed` and `final` are there only when it runs
+        the embedding or the head."""
+        params, mesh = self.params, self.mesh
+        tp = mesh.inner > 1 and mesh.inner_axis == "tp"
+        blocks = []
+        for s, cells in enumerate(params["blocks"]):
+            d = next((d for d in range(mesh.dp) if mesh.cell(d, s).local),
+                     None)
+            if d is None:
+                blocks.append([])
+                continue
+            group = mesh.cell(d, s)
+            if tp:
+                from .tensor import merge_block_params
+                blocks.append([merge_block_params(
+                    self.cfg, group._everyone(shards))
+                    for shards in cells[d]])
+            else:
+                blocks.append([shards[group.local[0]]
+                               for shards in cells[d]])
+        out = {"blocks": blocks}
+        for key in ("embed", "final"):
+            mine = [p for p in params[key] if p is not None]
+            if mine:
+                out[key] = mine[0]
+        return out
 
     def place(self, tree: Dict) -> Dict:
-        """Every position's parameters (the layout of `params`) from a
+        """Every own position's parameters (the layout of `params`) from a
         tree laid out as `canonical`, inside the autograd graph."""
         n = self.n_stages
         stages = [{"blocks": blocks} for blocks in tree["blocks"]]
-        stages[0]["embeddings"] = tree["embed"]
-        stages[n - 1]["final"] = tree["final"]
+        if "embed" in tree:
+            stages[0]["embeddings"] = tree["embed"]
+        if "final" in tree:
+            stages[n - 1]["final"] = tree["final"]
         return _place(self.cfg, stages, self.mesh)
 
-    def forward(self, params: Dict, inputs: torch.Tensor) -> torch.Tensor:
+    def forward(self, params: Dict, inputs: torch.Tensor,
+                links: Optional[GradLinks] = None) -> torch.Tensor:
         """The pipeline over explicit `params` (the layout of
-        `self.params`): every valid stage-step in tick order."""
+        `self.params`): every valid stage-step in tick order, each process
+        running the stage-steps of its own positions. Returns the whole
+        output on every process (the other processes' rows received, not
+        in this process's graph). Under grad across processes, `links`
+        collects the hops' ends (`mesh.GradLinks`), which the backward
+        needs (`parallel/train.py value_and_grad`)."""
         mesh, n = self.mesh, self.n_stages
         n_ubatch, batch = inputs.shape[0], inputs.shape[1]
         if batch % mesh.dp:
@@ -242,24 +296,66 @@ class SpmdPipeline:
                     continue
                 for d in range(mesh.dp):
                     group = mesh.cell(d, s)
-                    if s == 0:
-                        xs = self._embed(params["embed"][d], group,
-                                         inputs[m, d * rows:(d + 1) * rows])
-                    else:
-                        payloads, dtype = edges.pop((d, s))
-                        xs = group.map(lambda i, e: decode_edge(e, dtype),
-                                       payloads)
-                    for bp in params["blocks"][s][d]:
-                        xs = block_fn(bp, xs, group)
-                    if s == n - 1:
-                        outputs[m][d] = self._finalize(params["final"][d],
-                                                       xs, group)
-                    else:
-                        bit = self.stage_bits[s]
-                        enc = group.map(lambda i, h: encode_edge(h, bit), xs)
-                        edges[(d, s + 1)] = (mesh.hop(enc, d, s),
-                                             xs[0].dtype)
-        root = mesh.cell(0, n - 1).devices[0]
+                    enc = [None] * mesh.inner
+                    if group.local:
+                        if s == 0:
+                            xs = self._embed(
+                                params["embed"][d], group,
+                                inputs[m, d * rows:(d + 1) * rows])
+                        else:
+                            payloads, dtype = edges.pop((d, s))
+                            xs = group.map(
+                                lambda i, e: decode_edge(e, dtype), payloads)
+                        for bp in params["blocks"][s][d]:
+                            xs = block_fn(bp, xs, group)
+                        if s == n - 1:
+                            outputs[m][d] = self._finalize(
+                                params["final"][d], xs, group)
+                        else:
+                            bit = self.stage_bits[s]
+                            enc = group.map(
+                                lambda i, h: encode_edge(h, bit), xs)
+                            dtype = xs[group.local[0]].dtype
+                    if s < n - 1 and (group.local
+                                      or mesh.cell(d, s + 1).local):
+                        tag = 1 + ((m * mesh.dp + d) * n + s) * mesh.inner
+                        moved = mesh.hop(enc, d, s, tag=tag, links=links)
+                        if mesh.cell(d, s + 1).local:
+                            if not group.local:
+                                dtype = self._stage_dtype(params, s + 1, d)
+                            edges[(d, s + 1)] = (moved, dtype)
+        return self._collect(outputs)
+
+    def _stage_dtype(self, params: Dict, s: int, d: int) -> torch.dtype:
+        """The activation dtype of stage s on cell d, read off its first
+        floating parameter: what a quantized edge from another process
+        decodes to (a raw edge carries its own)."""
+        from .train import tree_leaves
+        shard = next(p for p in params["blocks"][s][d][0] if p is not None)
+        return next(x.dtype for x in tree_leaves(shard)
+                    if x.is_floating_point())
+
+    def _collect(self, outputs: List[List[Optional[torch.Tensor]]]
+                 ) -> torch.Tensor:
+        """[M, B, ...] from each (microbatch, dp cell)'s output, stacked
+        on the first dp cell's last-stage device, or on this process's
+        first position's when another process owns it: each process sends
+        the outputs it finalized to every other (detached)."""
+        from ..comm.exchange import exchange
+        mesh, n = self.mesh, self.n_stages
+        last = mesh.cell(0, n - 1)
+        root = last.devices[0] if last.owns(0) else mesh.local_device()
+        owner = [mesh.cell(d, n - 1).owners[0] for d in range(mesh.dp)]
+        mine = [(m, d) for m in range(len(outputs))
+                for d in range(mesh.dp) if owner[d] == mesh.me]
+        peers = [p for p in mesh.processes if p != mesh.me]
+        got = exchange({p: [outputs[m][d].detach() for m, d in mine]
+                        for p in peers}, peers, root, mesh.processes)
+        for p in peers:
+            theirs = [(m, d) for m in range(len(outputs))
+                      for d in range(mesh.dp) if owner[d] == p]
+            for (m, d), out in zip(theirs, got[p]):
+                outputs[m][d] = out
         return torch.stack([torch.cat([o.to(root) for o in row], dim=0)
                             for row in outputs])
 
@@ -289,23 +385,30 @@ class SpmdPipeline:
         return block
 
     def _embed(self, pe: Dict, group, raw: torch.Tensor) -> list:
-        """Stage 0's input on each inner shard: the embedding, whole on
+        """Stage 0's input on each own inner shard: the embedding (on
+        shard 0's device, or this process's first own shard's), whole on
         every tp shard, each sp shard's sequence chunk."""
-        with group.on(0):
-            full = self.family.embed(pe, raw.to(group.devices[0]), self.cfg)
+        first = group.local[0]
+        with group.on(first):
+            full = self.family.embed(pe, raw.to(group.devices[first]),
+                                     self.cfg)
         if self.mesh.inner > 1 and self.mesh.inner_axis == "sp":
             seq = full.shape[1]
             if seq % group.size:
                 raise ValueError(f"sequence length {seq} must divide by "
                                  f"the sp mesh axis ({group.size})")
-            return [c.contiguous().to(dev, non_blocking=True) for c, dev
-                    in zip(full.chunk(group.size, dim=1), group.devices)]
+            return [c.contiguous().to(dev, non_blocking=True)
+                    if group.owns(i) else None for i, (c, dev) in
+                    enumerate(zip(full.chunk(group.size, dim=1),
+                                  group.devices))]
         return group.replicate(full)
 
     def _finalize(self, pf: Dict, xs: list, group) -> torch.Tensor:
         """The last stage's head on shard 0: over the gathered sequence
         under sp (quantized under `--tp-quant-bits`), shard 0's copy
-        otherwise."""
+        otherwise. Across processes every owner of the cell takes part in
+        the gather, and only shard 0's owner runs the head (None
+        elsewhere)."""
         if self.mesh.inner > 1 and self.mesh.inner_axis == "sp":
             from .tensor import get_tp_quant_bits
             bits = get_tp_quant_bits()
@@ -317,6 +420,8 @@ class SpmdPipeline:
                 hidden = group.gather(xs, dim=1)
         else:
             hidden = xs[0]
+        if not group.owns(0):
+            return None
         with group.on(0):
             return self.family.finalize(pf, hidden, self.cfg)
 
@@ -386,30 +491,39 @@ def build_spmd_pipeline(family: FamilySpec, cfg: TransformerConfig,
 
 def _place(cfg: TransformerConfig, stage_params: Sequence[Dict],
            mesh: PipelineMesh) -> Dict:
-    """The parameters of every mesh position (`SpmdPipeline.params`)."""
+    """The parameters of every mesh position this process owns
+    (`SpmdPipeline.params`; None where another process runs the cell, the
+    embedding or the head)."""
     n = len(stage_params)
     tp_split = mesh.inner > 1 and mesh.inner_axis == "tp"
     if tp_split:
         from .tensor import shard_block_params
     out: Dict = {"embed": [], "final": [], "blocks": []}
     for d in range(mesh.dp):
+        first, last = mesh.cell(d, 0), mesh.cell(d, n - 1)
         out["embed"].append(params_to(stage_params[0]["embeddings"],
-                                      device=mesh.cell(d, 0).devices[0]))
+                                      device=first.root)
+                            if first.local else None)
         out["final"].append(params_to(stage_params[-1]["final"],
-                                      device=mesh.cell(d, n - 1).devices[0]))
+                                      device=last.devices[0])
+                            if last.owns(0) else None)
     for s, p in enumerate(stage_params):
         split: Dict[tuple, List[List[Dict]]] = {}
         per_cell = []
         for d in range(mesh.dp):
             group = mesh.cell(d, s)
-            key = tuple(group.devices)
+            if not group.local:
+                per_cell.append(None)
+                continue
+            key = (tuple(group.devices), tuple(group.owners))
             if key not in split:
                 if tp_split:
                     split[key] = [shard_block_params(cfg, bp, group)
                                   for bp in p["blocks"]]
                 else:
                     split[key] = [[params_to(bp, device=dev)
-                                   for dev in group.devices]
+                                   if group.owns(i) else None
+                                   for i, dev in enumerate(group.devices)]
                                   for bp in p["blocks"]]
             per_cell.append(split[key])
         out["blocks"].append(per_cell)

@@ -109,13 +109,15 @@ def split_leaf(x: torch.Tensor, ax, n: int, i: int, device) -> torch.Tensor:
 def _shard_by_specs(params: Dict, specs: Dict, group: ShardGroup
                     ) -> List[Dict]:
     """One block's params as per-shard dicts on the group's devices, per
-    the spec table the block bodies read (one source of truth)."""
+    the spec table the block bodies read (one source of truth); only this
+    process's own shards are split (None for another process's)."""
     def take(p, s, i):
         if isinstance(p, dict):
             return {k: take(v, s[k], i) for k, v in p.items()}
         return split_leaf(p, s, group.size, i, group.devices[i])
 
-    return [take(params, specs, i) for i in range(group.size)]
+    return [take(params, specs, i) if group.owns(i) else None
+            for i in range(group.size)]
 
 
 def shard_vit_block_params(params: Dict, group: ShardGroup) -> List[Dict]:

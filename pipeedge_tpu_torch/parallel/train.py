@@ -28,6 +28,20 @@ valid stage-step, the edges' device moves, the dp cells' rows) and a
   ran; the JAX scan also differentiates its fill and drain ticks, whose
   outputs are masked away. The gradients are the same.
 
+- **Across processes** (a mesh over `comm.global_devices()`): each
+  process runs the stage-steps of its own positions and owns the
+  canonical copy of the stages it runs. The forward gives every process
+  the whole output (the others' rows received, outside its graph), so
+  each computes the same loss, the global one, and its backward reaches
+  only its own rows and the hops it crossed (`mesh.GradLinks`: a hop's
+  gradient goes back along the edge). Each leaf's gradient is then
+  summed over the processes that hold it, gathered and added in dp
+  order, so every holder gets the same sum, and each process applies the
+  same update to its own copy: the copies stay identical. A checkpoint
+  is one file written by process 0, laid out as one process's would be
+  (the other processes send it the stages it lacks); every process reads
+  its own stages back from it.
+
 Scope, as in JAX: full-parameter training with softmax cross-entropy over
 the model's head (classifier logits [M, B, C] or LM logits [M, B, S, V]).
 """
@@ -39,6 +53,7 @@ from typing import Callable, Dict, List
 import torch
 
 from ..models.shard import params_to
+from .mesh import GradLinks
 from .spmd import SpmdPipeline
 
 __all__ = ["make_train_step", "softmax_xent", "value_and_grad",
@@ -93,10 +108,84 @@ def value_and_grad(pipe: SpmdPipeline, params: Dict, inputs: torch.Tensor,
     compute = params
     if mixed_precision:   # the bf16 working copies, inside the graph
         compute, inputs = params_to((params, inputs), dtype=torch.bfloat16)
-    loss = loss_fn(pipe.forward(pipe.place(compute), inputs), labels)
-    grads = torch.autograd.grad(loss, leaves, allow_unused=True,
-                                materialize_grads=True)
-    return loss.detach(), list(grads)
+    links = GradLinks()
+    loss = loss_fn(pipe.forward(pipe.place(compute), inputs, links=links),
+                   labels)
+    total = links.attach(loss)
+    if total.requires_grad:
+        grads = torch.autograd.grad(total, leaves + links.anchors,
+                                    allow_unused=True,
+                                    materialize_grads=True)[:len(leaves)]
+    else:   # nothing of this process's reaches the loss
+        grads = [torch.zeros_like(leaf) for leaf in leaves]
+    links.wait()
+    return loss.detach(), _sum_over_processes(pipe, params, list(grads))
+
+
+def _parts(tree) -> List[tuple]:
+    """(part, first, end) of each part of a canonical tree (`("blocks",
+    s)`, `("embed",)`, `("final",)`) over its float leaves, in
+    `tree_leaves` order (keys sorted: blocks, embed, final)."""
+    out, i = [], 0
+    for s, stage in enumerate(tree["blocks"]):
+        k = len(_floating(stage))
+        if k:
+            out.append((("blocks", s), i, i + k))
+        i += k
+    for key in ("embed", "final"):
+        if key in tree:
+            k = len(_floating(tree[key]))
+            out.append(((key,), i, i + k))
+            i += k
+    return out
+
+
+def _holders(mesh, part: tuple) -> List[int]:
+    """The processes that hold `part` of the canonical tree, in dp order
+    (the order of the first dp cell each runs it in)."""
+    n = mesh.n_stages
+    if part == ("final",):
+        order = [mesh.cell(d, n - 1).owners[0] for d in range(mesh.dp)]
+    else:
+        s = 0 if part == ("embed",) else part[1]
+        order = [o for d in range(mesh.dp) for o in mesh.cell(d, s).owners]
+    return list(dict.fromkeys(order))
+
+
+def _sum_over_processes(pipe: SpmdPipeline, params: Dict,
+                        grads: List[torch.Tensor]) -> List[torch.Tensor]:
+    """Each leaf's gradient summed over the processes that hold it, in dp
+    order: every holder gathers the others' and adds them in that order,
+    so all get the same sum (the single-process step sums the dp cells'
+    gradients into one leaf)."""
+    from ..comm.exchange import exchange
+    mesh = pipe.mesh
+    me = mesh.me
+    parts = _parts(params)
+    holders = {part: _holders(mesh, part) for part, _, _ in parts}
+    shared = {p: [part for part, _, _ in parts if p in holders[part]]
+              for p in mesh.processes if p != me}
+    shared = {p: v for p, v in shared.items() if v}
+    if not shared:
+        return grads
+    where = {part: (i, j) for part, i, j in parts}
+    got = exchange({p: [grads[where[part][0]:where[part][1]]
+                        for part in v] for p, v in shared.items()},
+                   sorted(shared), mesh.local_device(), mesh.processes)
+    theirs = {(p, part): g for p, v in shared.items()
+              for part, g in zip(v, got[p])}
+    out = list(grads)
+    for part, i, j in parts:
+        if len(holders[part]) < 2:
+            continue
+        for k in range(j - i):
+            total = None
+            for h in holders[part]:
+                g = grads[i + k] if h == me else theirs[(h, part)][k]
+                g = g.to(grads[i + k].device)
+                total = g if total is None else total + g
+            out[i + k] = total
+    return out
 
 
 def make_train_step(pipe: SpmdPipeline, optimizer, example_inputs,
@@ -162,16 +251,93 @@ def make_train_step(pipe: SpmdPipeline, optimizer, example_inputs,
     return train_step, opt_state
 
 
+def _spread() -> bool:
+    import torch.distributed as dist
+    return dist.is_initialized() and dist.get_world_size() > 1
+
+
+def _leaf_states(opt_state: Dict, first: int, end: int) -> list:
+    return [opt_state["state"].get(k) for k in range(first, end)]
+
+
+def _merge_on_first(params: Dict, opt_state: Dict):
+    """Process 0's view of a training state spread over processes: every
+    process sends process 0 its parts (and their leaves' optimizer
+    states); process 0 assembles the tree one process would hold, with
+    its optimizer state indexed over that tree's leaves."""
+    import torch.distributed as dist
+
+    from ..comm.exchange import exchange
+    me, world = dist.get_rank(), dist.get_world_size()
+    mine = {part: ((params["blocks"][part[1]] if part[0] == "blocks"
+                    else params[part[0]]),
+                   _leaf_states(opt_state, i, j))
+            for part, i, j in _parts(params)}
+    mine = tree_map(lambda x: x.detach().cpu()
+                    if isinstance(x, torch.Tensor) else x, mine)
+    if me != 0:
+        exchange({0: mine}, [], "cpu", range(world))
+        return None, None
+    got = exchange({}, list(range(1, world)), "cpu", range(world))
+    have = dict(mine)
+    for p in range(1, world):
+        for part, value in got[p].items():
+            have.setdefault(part, value)
+    full: Dict = {"blocks": [have[("blocks", s)][0]
+                             if ("blocks", s) in have else []
+                             for s in range(len(params["blocks"]))]}
+    for key in ("embed", "final"):
+        if (key,) in have:
+            full[key] = have[(key,)][0]
+    state = {}
+    for part, i, _ in _parts(full):
+        for k, leaf_state in enumerate(have[part][1]):
+            if leaf_state is not None:
+                state[i + k] = leaf_state
+    groups = [dict(g, params=list(range(len(_floating(full)))))
+              for g in opt_state["param_groups"]]
+    return full, {"state": state, "param_groups": groups}
+
+
 def save_train_state(path: str, params, opt_state, step: int) -> None:
     """Checkpoint a training run (params + optimizer state + step count)
     as one `torch.save` file in the directory `path` (the port's format:
-    the JAX package writes an Orbax tree), replaced atomically."""
+    the JAX package writes an Orbax tree), replaced atomically. In a
+    `torch.distributed` world the call is collective and process 0 writes
+    the whole state (module docstring)."""
+    if _spread():
+        params, opt_state = _merge_on_first(params, opt_state)
+        if params is None:
+            return
     os.makedirs(path, exist_ok=True)
     state = {"params": tree_map(lambda x: x.detach(), params),
              "opt_state": opt_state, "step": int(step)}
     tmp = os.path.join(path, STATE_FILE + ".tmp")
     torch.save(state, tmp)
     os.replace(tmp, os.path.join(path, STATE_FILE))
+
+
+def _own_parts(state: Dict, like: Dict) -> Dict:
+    """The saved state cut to the parts of `like` (a process's canonical
+    tree across processes: its stages only), the optimizer state indexed
+    over its leaves."""
+    saved = state["params"]
+    mine = {"blocks": [saved["blocks"][s] if stage else []
+                       for s, stage in enumerate(like["blocks"])]}
+    for key in ("embed", "final"):
+        if key in like and key in saved:
+            mine[key] = saved[key]
+    where = {part: i for part, i, _ in _parts(saved)}
+    opt = state["opt_state"]
+    kept = {}
+    for part, i, j in _parts(mine):
+        for k in range(j - i):
+            if where[part] + k in opt["state"]:
+                kept[i + k] = opt["state"][where[part] + k]
+    groups = [dict(g, params=list(range(len(_floating(mine)))))
+              for g in opt["param_groups"]]
+    return dict(state, params=mine,
+                opt_state={"state": kept, "param_groups": groups})
 
 
 def restore_train_state(path: str, like_params, like_opt_state):
@@ -182,6 +348,9 @@ def restore_train_state(path: str, like_params, like_opt_state):
     devices at the next step."""
     state = torch.load(os.path.join(path, STATE_FILE), map_location="cpu",
                        weights_only=True)
+    if isinstance(like_params, dict) and "blocks" in like_params \
+            and isinstance(state["params"], dict):
+        state = _own_parts(state, like_params)
 
     def restore(saved, like, where):
         if isinstance(like, dict) and isinstance(saved, dict) \

@@ -35,7 +35,6 @@ import argparse
 import json
 import os
 import signal
-import sys
 import threading
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Optional, Sequence
@@ -86,6 +85,7 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     from .kv.fleet import PrefillWorkerLoop
     from .ops import _build
     from .parallel.decode import build_decode_pipeline
+    from .utils import emit_line
 
     # span ring on from the start: /debug/spans federates this rank's
     # prefill spans into trace_report --fleet timelines. The listener and
@@ -128,13 +128,9 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     try:
         loop.run()
     finally:
-        # one write (as runtime.emit_line): a log record from another
-        # thread cannot land between the line's JSON and its newline
-        sys.stdout.write(
-            f"prefill worker rank {args.rank} exiting "
-            f"({loop.leases_served} lease(s) served) kernel_launches="
-            + json.dumps(_build.launch_counts, sort_keys=True) + "\n")
-        sys.stdout.flush()
+        emit_line(f"prefill worker rank {args.rank} exiting "
+                  f"({loop.leases_served} lease(s) served) kernel_launches="
+                  + json.dumps(_build.launch_counts, sort_keys=True))
         if http_server is not None:
             http_server.shutdown()
         ctx.shutdown()

@@ -167,7 +167,6 @@ import json
 import logging
 import os
 import queue
-import sys
 import threading
 import time
 from typing import List, Optional, Sequence, Tuple
@@ -188,6 +187,7 @@ from .telemetry import chrome_trace
 from .telemetry import flight
 from .telemetry import metrics as prom
 from .utils import data as data_utils
+from .utils import emit_line
 from .utils import quant as quantutil
 from .utils import tracing
 from .utils.threads import ThreadSafeCounter, make_lock
@@ -2243,15 +2243,6 @@ def _mbid_of(t) -> int:
     return int(np.asarray(t).reshape(-1)[0])
 
 
-def emit_line(line: str) -> None:
-    """Print one machine-read line in a single write: `print` writes the
-    text and its newline apart, and with stdout unbuffered another
-    thread's log record (stderr into the same file) can land between
-    them, after the line's JSON."""
-    sys.stdout.write(line + "\n")
-    sys.stdout.flush()
-
-
 def _launch_delta(before: dict) -> dict:
     return {k: v - before.get(k, 0) for k, v in _build.launch_counts.items()}
 
@@ -2982,7 +2973,7 @@ def _dcn_round(args, ctx, rnd, stage_layers, stage_quant, stage_ranks,
         telemetry.record("runtime", f"round{rnd}", t_round0,
                          time.monotonic_ns())
         if stage is not None:
-            stage.stop()
+            _end_stage(ctx, stage, rank, rnd)
             totals = stage.tp_collectives
             if totals is not None:
                 # the round's quantized-collective wire footprint (each
@@ -3002,6 +2993,29 @@ def _dcn_round(args, ctx, rnd, stage_layers, stage_quant, stage_ranks,
     emit_line(f"rank={rank} round={rnd} kernel_launches="
               + json.dumps(_launch_delta(launches0), sort_keys=True))
     return status
+
+
+def _end_stage(ctx, stage, rank: int, rnd: int) -> int:
+    """Stop round `rnd`'s stage and discard what is left on its input
+    channel. That is stale: the cut-off part of a round a death ended
+    (frames its upstream sent before learning of it). The next round
+    reads the other parity, but the one after reads this channel again,
+    and a reader parked on its full queue would hold back every later
+    frame of the connection (the data rank drops its own feed and results
+    the same way). A reader parked on the full queue puts its frame as
+    soon as the drop frees the slot, so the drop repeats while it finds
+    frames (bounded: 2 s). Returns how many it dropped."""
+    stage.stop()
+    dropped = left = ctx.drop_queued(stage.recv_channel)
+    deadline = time.monotonic() + 2.0
+    while dropped and time.monotonic() < deadline:
+        time.sleep(0.05)
+        dropped = ctx.drop_queued(stage.recv_channel)
+        left += dropped
+    if left:
+        logger.info("rank %d: dropped %d stale input frame(s) of round %d",
+                    rank, left, rnd)
+    return left
 
 
 def _drop_stale(ctx, channel: int, what: str, feeder=None) -> None:

@@ -169,6 +169,7 @@ from .serving import (AdmissionController, AdmissionShed, BrownoutLadder,
 from .telemetry import collector as fleet_obs
 from .telemetry import flight
 from .telemetry import metrics as prom
+from .utils import emit_line
 from .utils.threads import make_condition, make_lock
 
 # request outcomes the per-class counter tracks (the request-class x
@@ -1552,8 +1553,8 @@ def _inject_stall(pipe, spec, parser):
     for key, fn in list(st.items()):
         if callable(fn):
             st[key] = slow(fn)
-    print(f"chaos: injecting {ms_s}ms stall into every step of stage "
-          f"{idx}", flush=True)
+    emit_line(f"chaos: injecting {ms_s}ms stall into every step of stage "
+              f"{idx}")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -2095,14 +2096,14 @@ class WorkerSupervisor:
         # finished ones so a long-lived server keeps no record per respawn
         self._watchers = [w for w in self._watchers if w.is_alive()]
         self._watchers.append(t)
-        print(f"{self.LABEL} rank {rank} spawned "
-              f"(pid={proc.pid}, epoch={self._epoch[rank]})", flush=True)
+        emit_line(f"{self.LABEL} rank {rank} spawned "
+                  f"(pid={proc.pid}, epoch={self._epoch[rank]})")
 
     def _pump(self, rank, proc):
         # tee the worker's output through this process's stdout, prefixed:
         # the chaos harness keys on the workers' ready and exit lines
         for line in proc.stdout:
-            print(f"[{self.TAG} r{rank}] {line}", end="", flush=True)
+            emit_line(f"[{self.TAG} r{rank}] {line}")
             if self._is_ready(rank, line):
                 self._ready[rank].set()
 
@@ -2127,9 +2128,9 @@ class WorkerSupervisor:
                         self._backoff[rank] = self.RESPAWN_DELAY_S
                     self._respawn_after[rank] = now + self._backoff[rank]
                     dead_pending.add(rank)
-                    print(f"{self.LABEL} rank {rank} died "
-                          f"(rc={proc.returncode}; respawn backoff "
-                          f"{self._backoff[rank]:g}s)", flush=True)
+                    emit_line(f"{self.LABEL} rank {rank} died "
+                              f"(rc={proc.returncode}; respawn backoff "
+                              f"{self._backoff[rank]:g}s)")
                     if not self.respawn:
                         with self._lock:
                             self._procs.pop(rank, None)
@@ -2210,8 +2211,8 @@ class WorkerSupervisor:
             except subprocess.TimeoutExpired:
                 proc.kill()
                 proc.wait(timeout=5)
-        print(f"{self.LABEL} rank {rank} retired "
-              f"(epoch={self._epoch[rank]})", flush=True)
+        emit_line(f"{self.LABEL} rank {rank} retired "
+                  f"(epoch={self._epoch[rank]})")
         return True
 
     def pid_of(self, rank):
@@ -2618,18 +2619,17 @@ def _autoscaler(args, router, supervisor, collector):
             name = f"r{rank}"
             url = supervisor.url_of(rank)
             router.add_replica(name, url, rank=rank)
-            print(f"autoscale_spawn replica={name} rank={rank} "
-                  f"epoch={supervisor.snapshot()[str(rank)]['epoch']} "
-                  f"url={url}", flush=True)
+            emit_line(f"autoscale_spawn replica={name} rank={rank} "
+                      f"epoch={supervisor.snapshot()[str(rank)]['epoch']} "
+                      f"url={url}")
         else:
             victim = plan["victim"]
             out = router.remove_replica(victim)
             rank = out.get("rank")
             if rank is not None:
                 supervisor.retire_rank(rank)
-            print(f"autoscale_drain replica={victim} rank={rank} "
-                  f"migrated={out.get('migrated_prefixes', 0)}",
-                  flush=True)
+            emit_line(f"autoscale_drain replica={victim} rank={rank} "
+                      f"migrated={out.get('migrated_prefixes', 0)}")
 
     controller = autoscale_mod.CapacityController(
         apol, mode=args.autoscale, size_fn=_fleet_size,
@@ -2690,17 +2690,17 @@ def _run_router(args) -> None:
             collector.start()
         if autoscaler is not None:
             autoscaler.start()
-            print(f"autoscale mode={args.autoscale} "
-                  f"min={args.autoscale_min} max={args.autoscale_max} "
-                  f"confirm={args.autoscale_confirm} "
-                  f"cooldown={args.autoscale_cooldown:g}", flush=True)
+            emit_line(f"autoscale mode={args.autoscale} "
+                      f"min={args.autoscale_min} max={args.autoscale_max} "
+                      f"confirm={args.autoscale_confirm} "
+                      f"cooldown={args.autoscale_cooldown:g}")
         server = Server((args.host, args.port),
                         make_router_handler(router, args.model_name,
                                             collector=collector,
                                             autoscaler=autoscaler))
         # the bound port (`--port 0` takes a free one)
-        print(f"serving router ({len(replicas)} replicas) on "
-              f"{args.host}:{server.server_address[1]}", flush=True)
+        emit_line(f"serving router ({len(replicas)} replicas) on "
+                  f"{args.host}:{server.server_address[1]}")
         server.serve_forever()
     finally:
         if server is not None:
@@ -2749,9 +2749,8 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
         if ship_ctx is not None:
             ship_ctx.shutdown()
         raise
-    print(f"serving {args.model_name} ({len(pipe.stages)} stages, "
-          f"{args.executor} executor) on {args.host}:{args.port}",
-          flush=True)
+    emit_line(f"serving {args.model_name} ({len(pipe.stages)} stages, "
+              f"{args.executor} executor) on {args.host}:{args.port}")
     try:
         server.serve_forever()
     finally:
@@ -2761,12 +2760,10 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
             ship_ctx.shutdown()
         # the kernels this process launched (a replica behind a router
         # prints it through the router's output when it is retired), in
-        # one write: `print` writes the text and its newline apart, and a
-        # handler thread's error report (stderr, the same pipe under a
-        # supervisor) could land between them, after the line's JSON
-        sys.stdout.write("kernel_launches=" + json.dumps(
-            _build.launch_counts, sort_keys=True) + "\n")
-        sys.stdout.flush()
+        # one write: a handler thread's error report (stderr, the same
+        # pipe under a supervisor) could otherwise land after the JSON
+        emit_line("kernel_launches="
+                  + json.dumps(_build.launch_counts, sort_keys=True))
         if args.trace_spans and telemetry.recorder() is not None:
             from .telemetry import chrome_trace
             chrome_trace.dump_trace(telemetry.recorder().snapshot(),

@@ -1,34 +1,46 @@
 """Thread utilities: lock factories, readers-writer lock, waitable counter.
 
 Port copy of `pipeedge_tpu/utils/threads.py` (the reference's
-`utils/threads.py`: RWLock, ThreadSafeCounter). The JAX package's lock
-factories hand out tracked locks when its lock-order witness
-(`analysis/lockdep.py`) is on; that analyzer is not ported, so here
-`make_lock`, `make_rlock` and `make_condition` always return the plain
-stdlib primitives. They keep their `name` argument, so call sites read as
-in the JAX package.
+`utils/threads.py`: RWLock, ThreadSafeCounter).
+
+`make_lock`/`make_rlock`/`make_condition` are the port's lock
+constructors: plain stdlib primitives normally, and NAMED
+`analysis/lockdep.py` tracked locks when the lock-order witness is on
+(env PIPEEDGE_LOCKDEP=1, read when this module is first imported), so a
+witnessed run convicts lock-order inversions and blocking calls under a
+lock. The name is the graph node: instances of one lock site share it
+(``dcn.dead``), indexed sites embed the index (``dcn.conn[3]``).
 """
 from __future__ import annotations
 
 import threading
 from contextlib import contextmanager
 
+from ..analysis import lockdep
+
 
 def make_lock(name: str) -> "threading.Lock":
-    """A mutex for lock site `name`."""
-    del name
+    """A mutex for lock site `name`: tracked when the witness is on."""
+    if lockdep.enabled():
+        return lockdep.TrackedLock(lockdep.state(), name)
     return threading.Lock()
 
 
 def make_rlock(name: str) -> "threading.RLock":
-    """A re-entrant mutex for lock site `name`."""
-    del name
+    """A re-entrant mutex for lock site `name` (witness-aware)."""
+    if lockdep.enabled():
+        return lockdep.TrackedRLock(lockdep.state(), name)
     return threading.RLock()
 
 
 def make_condition(name: str) -> "threading.Condition":
-    """A condition variable for lock site `name`."""
-    del name
+    """A condition variable for lock site `name` (witness-aware): the
+    tracked variant rides a `TrackedRLock`, and `wait()` releases the
+    witness's held stack with the lock, so parking in a wait is not
+    holding a lock across a blocking call."""
+    if lockdep.enabled():
+        return threading.Condition(
+            lockdep.TrackedRLock(lockdep.state(), name))
     return threading.Condition()
 
 
